@@ -2,11 +2,12 @@
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface, at first use, under bito_tpu_torch/_build/ (listed in
-.gitignore).  The library's file name carries a hash of the sources and
-flags, so an edit to any source builds a new library.  It is loaded with
-ctypes: every pointer, and the stream, is passed as c_void_p and every
-int as c_int.  Each C entry point returns cudaGetLastError() after its
-launch, and the caller raises when that is not 0.
+.gitignore): one nvcc per source, all started together, then one link.
+The library's file name carries a hash of the sources and flags, so an
+edit to any source builds a new library.  It is loaded with ctypes: every
+pointer, and the stream, is passed as c_void_p and every int as c_int.
+Each C entry point returns cudaGetLastError() after its launch, and the
+caller raises when that is not 0.
 
 Nothing here runs at import: the CPU tests import every module of the
 port, and a machine without nvcc must still be able to import them.
@@ -23,12 +24,13 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("paired_ll.cu", "paired_grad.cu")
-_HEADERS = ("paired_common.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_SOURCES = ("paired_ll.cu", "paired_grad.cu", "chunked_ll.cu",
+            "chunked_grad.cu", "pernode_ll.cu", "pernode_grad.cu")
+_HEADERS = ("common.cuh",)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -39,6 +41,18 @@ _SIGNATURES = {
     # post_dst, tip_slot, post_src, post_e, P, dP, tips, pi, props, weights,
     # buf, ls, ll_rows, grad_rows, B, M, T, N1, C, S, stream
     "bito_paired_grad": [_P] * 14 + [_I] * 6 + [_P],
+    # post_dst, tip_slot, post_e, P, tips, pi, props, buf, ls, ll_rows,
+    # B, MW, W, T, N1, C, S, stream
+    "bito_chunked_ll": [_P] * 10 + [_I] * 7 + [_P],
+    # post_dst, tip_slot, post_e, P, dP, tips, pi, props, weights, buf, ls,
+    # ll_rows, grad_rows, B, MW, W, T, N1, C, S, stream
+    "bito_chunked_grad": [_P] * 13 + [_I] * 7 + [_P],
+    # post_ops, root, P, tips, pi, props, buf, ls, ll_rows,
+    # B, M, T, N1, C, S, stream
+    "bito_pernode_ll": [_P] * 9 + [_I] * 6 + [_P],
+    # post_ops, pre_ops, root, P, dP, tips, pi, props, weights, buf, up, ls,
+    # ll_rows, grad_rows, B, M, Mp, T, N1, C, S, stream
+    "bito_pernode_grad": [_P] * 14 + [_I] * 7 + [_P],
 }
 
 
@@ -54,7 +68,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
@@ -62,7 +76,21 @@ def _digest() -> str:
 
 
 def library_path() -> Path:
-    return _BUILD / f"libbito_paired_{_digest()}.so"
+    return _BUILD / f"libbito_kernels_{_digest()}.so"
+
+
+def _run(cmds):
+    """Run the commands side by side; raise with the first failure's
+    stderr.  Returns their combined stdout and stderr."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate() for proc in procs]  # waits for every one
+    for cmd, proc, (_, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                               f"{' '.join(cmd)}\n{err}")
+    return "".join(out + err for out, err in outs)
 
 
 def build() -> Path:
@@ -74,16 +102,18 @@ def build() -> Path:
         return so
     nvcc = _nvcc()
     so.parent.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / s) for s in _SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+    tmp = so.parent / f"{so.stem}.{os.getpid()}.tmp"
+    tmp.mkdir()
+    try:
+        objs = [tmp / f"{Path(s).stem}.o" for s in _SOURCES]
+        log = _run([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(_CSRC / s)]
+                    for s, o in zip(_SOURCES, objs)])
+        lib = tmp / so.name
+        log += _run([[nvcc, *LINK_FLAGS, "-o", str(lib), *map(str, objs)]])
+        so.with_suffix(".log").write_text(log)
+        os.replace(lib, so)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return so
 
 

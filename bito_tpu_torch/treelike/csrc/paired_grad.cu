@@ -32,7 +32,7 @@
 // live in device memory, and the outside pass reads three columns and
 // writes two per op (about 330 bytes per pattern per op against 640 FLOP),
 // so the kernel is bound by memory bandwidth and L2.
-#include "paired_common.cuh"
+#include "common.cuh"
 
 namespace {
 

@@ -28,7 +28,7 @@
 // bytes per pattern per op against 256 FLOP, so the kernel is bound by
 // memory bandwidth and L2, not by arithmetic.  Keeping the live slots
 // on chip is the next step.
-#include "paired_common.cuh"
+#include "common.cuh"
 
 namespace {
 

@@ -8,19 +8,28 @@ here one call evaluates the whole batch).  The public surface is the same:
 or per-tree rows (2-D, the reference's phylo_model_params_ matrix).
 
 Kernel selection, `engine.kernel`:
-  "auto" — the hand-written CUDA kernels (treelike/paired.py) on a CUDA
-           device in float32 with a shared model of 4 states and at most
-           paired.MAX_CATEGORIES rate categories, the conditions under
-           which bito_tpu takes its Pallas kernels; the scan tape otherwise.
-  "scan" — always the scan tape (treelike/pruning.py).
-  "cuda" — always the paired kernels' wrappers: on a CUDA device the
-           kernels, on the CPU their plain torch versions.  Raises for
-           per-tree parameter rows, which the kernels do not take.
+  "auto"    — the hand-written CUDA paired kernels (treelike/paired.py) on
+              a CUDA device in float32 with a shared model of 4 states and
+              at most paired.MAX_CATEGORIES rate categories, the conditions
+              under which bito_tpu takes its paired Pallas kernels; the
+              scan tape otherwise.
+  "scan"    — always the scan tape (treelike/pruning.py).
+  "cuda"    — always the paired kernels' wrappers: on a CUDA device the
+              kernels, on the CPU their plain torch versions.
+  "chunked" — always the chunked kernels' wrappers (treelike/chunked.py),
+              with dP from the eigen derivative (prep.prepare_inputs_grad)
+              as in bito_tpu's chunked route; 4-state models only.
+"cuda" and "chunked" raise for per-tree parameter rows, which the kernels
+do not take.  (bito_tpu's forced kernels take them and silently use tree
+0's model for the whole batch.)  The per-node kernels (treelike/pernode.py)
+have no route here, as bito_tpu's have none.
 
 The tape runs on the engine's device and dtype; the kernel operands are
-float32.  bito_tpu's TPU launch policy (tree interleave, tile and VMEM
-sizing, category padding) has no counterpart: the kernels take any batch,
-pattern count and category count up to paired.MAX_CATEGORIES as they are.
+float32 on a card and in the engine's dtype on the CPU.  bito_tpu's TPU
+launch policy (tree interleave, tile and VMEM sizing, category padding,
+the MXU-sized chunk width) has no counterpart: the kernels take any
+batch, pattern count and category count up to paired.MAX_CATEGORIES as
+they are.
 """
 from __future__ import annotations
 
@@ -34,10 +43,10 @@ from ..core.tree import Tree
 from ..device import resolve
 from ..models.phylo_model import PhyloModel
 from ..models.substitution import EigenDecomp
-from . import paired, prep, pruning
+from . import chunked, paired, prep, pruning
 from .encode import TreeBatchEncoding, encode_trees
 
-KERNELS = ("auto", "scan", "cuda")
+KERNELS = ("auto", "scan", "cuda", "chunked")
 
 
 class TreeLikelihoodEngine:
@@ -63,31 +72,44 @@ class TreeLikelihoodEngine:
         w = np.zeros(self.pattern_pad)
         w[:S0] = site_pattern.weights
         self.weights = torch.as_tensor(w, **kw)
-        # The kernels' operands: the same padded tips as [T, A, S], float32.
+        # The kernels' operands: the same padded tips as [T, A, S], float32
+        # on a card; on the CPU, where the wrappers run their plain
+        # versions, in the engine's dtype.
+        self._operand_dtype = (prep.KERNEL_DTYPE if self.device.type == "cuda"
+                               else self.dtype)
         self._kernel_tips = self.tip_partials.transpose(1, 2).to(
-            prep.KERNEL_DTYPE).contiguous()
-        self._kernel_weights = self.weights.to(prep.KERNEL_DTYPE)
+            self._operand_dtype).contiguous()
+        self._kernel_weights = self.weights.to(self._operand_dtype)
         self._encoding: Optional[TreeBatchEncoding] = None
         self._encoding_key = None
         self._tapes: Dict[str, tuple] = {}
         self.kernel = "auto"
 
     # -- kernel selection --------------------------------------------------
-    def _use_cuda(self, shared_model: bool) -> bool:
+    def _route(self, shared_model: bool) -> str:
+        """"scan", "paired" or "chunked": which tape serves this call."""
         if self.kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, "
                              f"got {self.kernel!r}")
-        if self.kernel == "cuda" and not shared_model:
-            raise ValueError("kernel='cuda' takes one model shared by the "
-                             "batch; per-tree parameter rows need the scan "
-                             "tape (kernel='auto' or 'scan')")
-        if self.kernel != "auto":
-            return self.kernel == "cuda"
-        return (self.device.type == "cuda"
+        if self.kernel in ("cuda", "chunked") and not shared_model:
+            raise ValueError(f"kernel={self.kernel!r} takes one model shared "
+                             "by the batch; per-tree parameter rows need the "
+                             "scan tape (kernel='auto' or 'scan')")
+        if self.kernel == "chunked":
+            if self.num_states != 4:
+                raise ValueError("kernel='chunked' takes 4-state models "
+                                 f"only, got {self.num_states} states")
+            return "chunked"
+        if self.kernel == "cuda":
+            return "paired"
+        if (self.kernel == "auto"
+                and self.device.type == "cuda"
                 and self.dtype == torch.float32
                 and shared_model
                 and self.num_states == 4
-                and self.model.category_count <= paired.MAX_CATEGORIES)
+                and self.model.category_count <= paired.MAX_CATEGORIES):
+            return "paired"
+        return "scan"
 
     def _shared_model(self, params) -> bool:
         """The kernels take one model's pi and proportions for the whole
@@ -117,19 +139,33 @@ class TreeLikelihoodEngine:
             )
         return self._tapes["scan"]
 
+    def _kernel_tapes(self, enc: TreeBatchEncoding, ints) -> tuple:
+        """The int tapes as int32 on the device, then the edge mask in the
+        operand dtype."""
+        dev = self.device
+        return tuple(torch.as_tensor(x, dtype=torch.int32, device=dev)
+                     for x in ints) + (
+            torch.as_tensor(enc.edge_mask, dtype=self._operand_dtype,
+                            device=dev),)
+
     def _paired_tapes(self, enc: TreeBatchEncoding):
-        """(post_dst, tip_slot, post_src, post_e, edge_mask) int32/float32
-        on the device, cached with the encoding."""
+        """(post_dst, tip_slot, post_src, post_e, edge_mask) on the device,
+        cached with the encoding."""
         if "paired" not in self._tapes:
             pe = paired.build_paired_encoding(enc)
-            dev = self.device
-            ints = (pe.post_dst, pe.tip_slot, pe.post_src, pe.post_e)
-            self._tapes["paired"] = tuple(
-                torch.as_tensor(x, dtype=torch.int32, device=dev)
-                for x in ints) + (
-                torch.as_tensor(enc.edge_mask, dtype=prep.KERNEL_DTYPE,
-                                device=dev),)
+            self._tapes["paired"] = self._kernel_tapes(
+                enc, (pe.post_dst, pe.tip_slot, pe.post_src, pe.post_e))
         return self._tapes["paired"]
+
+    def _chunked_tapes(self, enc: TreeBatchEncoding):
+        """(post_dst, tip_slot, post_e, node_row, edge_mask) of the chunked
+        schedule at width chunked.W on the device, cached with the
+        encoding."""
+        if "chunked" not in self._tapes:
+            ce = chunked.build_chunked_encoding(enc, chunked.W)
+            self._tapes["chunked"] = self._kernel_tapes(
+                enc, (ce.post_dst, ce.tip_slot, ce.post_e, ce.node_row))
+        return self._tapes["chunked"]
 
     def branch_length_matrix(self, trees: Sequence[Tree],
                              enc: TreeBatchEncoding) -> torch.Tensor:
@@ -175,20 +211,27 @@ class TreeLikelihoodEngine:
         enc = self.encode(trees)
         bl = self._branch_lengths(trees, enc, branch_lengths)
         eig, rates, props, clock = self._model_ingredients(params, len(trees))
-        if self._use_cuda(self._shared_model(params)):
+        route = self._route(self._shared_model(params))
+        if route == "scan":
+            post_ops, _pre, root, _mask = self._scan_tapes(enc)
+            return pruning.log_likelihoods_impl(
+                post_ops, root, self.tip_partials, self.weights, bl,
+                eig, rates, props, clock,
+                num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
+                category_count=self.model.category_count)
+        dt = self._operand_dtype
+        pi, prop = prep.kernel_model(eig, props, dt)
+        P = prep.prepare_inputs(eig, rates, clock, bl, dt)
+        tips, w = self._kernel_tips, self._kernel_weights
+        if route == "paired":
             post_dst, tip_slot, _src, post_e, _mask = self._paired_tapes(enc)
-            pi, prop = prep.kernel_model(eig, props)
-            P = prep.prepare_inputs(eig, rates, clock, bl)
             ll = paired.paired_log_likelihoods(
-                post_dst, tip_slot, post_e, P, self._kernel_tips, pi, prop,
-                self._kernel_weights)
-            return ll.to(self.dtype)
-        post_ops, _pre, root, _mask = self._scan_tapes(enc)
-        return pruning.log_likelihoods_impl(
-            post_ops, root, self.tip_partials, self.weights, bl,
-            eig, rates, props, clock,
-            num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
-            category_count=self.model.category_count)
+                post_dst, tip_slot, post_e, P, tips, pi, prop, w)
+        else:
+            post_dst, tip_slot, post_e, _row, _mask = self._chunked_tapes(enc)
+            ll = chunked.chunked_log_likelihoods(
+                post_dst, tip_slot, post_e, P, tips, pi, prop, w)
+        return ll.to(self.dtype)
 
     def ll_and_branch_gradients(self, trees: Sequence[Tree], params,
                                 branch_lengths=None):
@@ -204,28 +247,43 @@ class TreeLikelihoodEngine:
         path of a VBPI inner loop or a branch-length sweep."""
         enc = self.encode(trees)
         eig, rates, props, clock = self._model_ingredients(params, len(trees))
-        if self._use_cuda(self._shared_model(params)):
-            post_dst, tip_slot, post_src, post_e, mask = self._paired_tapes(enc)
-            pi, prop = prep.kernel_model(eig, props)
-            tips, w = self._kernel_tips, self._kernel_weights
+        route = self._route(self._shared_model(params))
+        if route == "scan":
+            post_ops, pre_ops, root, edge_mask = self._scan_tapes(enc)
 
             def fn(bl):
-                P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl)
-                ll, grads = paired.paired_ll_and_gradients(
-                    post_dst, tip_slot, post_src, post_e, mask, P, dP, tips,
-                    pi, prop, w)
-                return ll.to(self.dtype), grads.to(self.dtype)
+                return pruning.ll_and_branch_gradients_impl(
+                    post_ops, pre_ops, root, edge_mask, self.tip_partials,
+                    self.weights, bl, eig, rates, props, clock,
+                    num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
+                    category_count=self.model.category_count)
 
             return fn
 
-        post_ops, pre_ops, root, edge_mask = self._scan_tapes(enc)
+        dt = self._operand_dtype
+        pi, prop = prep.kernel_model(eig, props, dt)
+        tips, w = self._kernel_tips, self._kernel_weights
+        if route == "paired":
+            post_dst, tip_slot, post_src, post_e, mask = self._paired_tapes(enc)
+
+            def kernel(bl):
+                P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl, dt)
+                return paired.paired_ll_and_gradients(
+                    post_dst, tip_slot, post_src, post_e, mask, P, dP, tips,
+                    pi, prop, w)
+        else:
+            post_dst, tip_slot, post_e, node_row, mask = self._chunked_tapes(
+                enc)
+
+            def kernel(bl):
+                P, dP = prep.prepare_inputs_grad(eig, rates, clock, bl, dt)
+                return chunked.chunked_ll_and_gradients(
+                    post_dst, tip_slot, post_e, node_row, mask, P, dP, tips,
+                    pi, prop, w)
 
         def fn(bl):
-            return pruning.ll_and_branch_gradients_impl(
-                post_ops, pre_ops, root, edge_mask, self.tip_partials,
-                self.weights, bl, eig, rates, props, clock,
-                num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
-                category_count=self.model.category_count)
+            ll, grads = kernel(bl)
+            return ll.to(self.dtype), grads.to(self.dtype)
 
         return fn
 

@@ -1,27 +1,36 @@
 #!/usr/bin/env python3
-"""Drive bito_tpu_torch's main path once on one NVIDIA card.
+"""Drive bito_tpu_torch's kernel paths once on one NVIDIA card.
 
     python3 chip_smoke.py
 
 The workload is the flagship configuration at full width: a DS1-shaped
 problem (27 taxa, 1,949 columns drawn from 934 distinct ones, made from a
 seed), GTR+Gamma4 with bench.py's parameters, and a batch of 200 random
-unrooted trees with trifurcating roots.
+unrooted trees with trifurcating roots.  Three paths run six kernels:
+  - paired: the engine's default (kernel="auto"), paired_ll and
+    paired_grad;
+  - chunked: the same engine with kernel="chunked", chunked_ll and
+    chunked_grad;
+  - per-node: pernode_log_likelihoods and pernode_ll_and_gradients on the
+    engine's own tapes, driven as bito_tpu's scripts/bench_kernel_race.py
+    drives their originals (the engine has no route to them).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the
-     sources in the checkout (nvcc, at first use).
+     sources in the checkout (nvcc, at first use), with each kernel's
+     registers and spills.
   2. each kernel against its plain torch version in float64 on the same
      operands: LL relative error and gradient max-abs error over max |g|,
      both within 5e-5 (bench.py's on-device guard).
-  3. the main path through the engine's entry points (log_likelihoods,
-     ll_and_branch_gradients, 40 branch_eval_fn calls over scaled branch
-     lengths), with every launch count set to 0 first: both kernels must
-     have launched, and the results must be finite and agree with the
-     float64 engine (the scan tape) within the phase-2 bounds, whose
-     gradients are checked against central differences.
-  4. CUDA-event times of each kernel and its plain version, and the
-     engine's LL+gradient evals/s, each with the card's name and limit.
+  3. each path, with every launch count set to 0 just before it and read
+     just after: its kernels must have launched and no other path's; the
+     results (log_likelihoods, ll_and_branch_gradients, 40 calls over
+     scaled branch lengths, and ll_eval_fn on the chunked path) must be
+     finite and agree with the float64 engine (the scan tape) within the
+     phase-2 bounds; the float64 gradients are checked against central
+     differences.
+  4. CUDA-event times of each kernel and its plain version, and each
+     engine route's LL+gradient evals/s, with the card's name and limit.
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -39,7 +48,7 @@ from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
-from bito_tpu_torch.treelike import _kernels, paired, prep
+from bito_tpu_torch.treelike import _kernels, chunked, paired, pernode, prep
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
 SEED = 0
@@ -47,15 +56,31 @@ BATCH = 200
 SWEEP = 40
 BOUND = 5e-5  # bench.py's on-device parity guard
 PARAMS = _synthetic.GTR_GAMMA4_PARAMS  # bench.py's
-KERNELS = {
+KERNELS = {  # name -> its source, its TPU kernel, its wrapper and its path
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
-        wrapper=paired.paired_log_likelihoods),
+        wrapper=paired.paired_log_likelihoods, path="paired"),
     "paired_grad": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
-        wrapper=paired.paired_ll_and_gradients),
+        wrapper=paired.paired_ll_and_gradients, path="paired"),
+    "chunked_ll": dict(
+        source="bito_tpu_torch/treelike/csrc/chunked_ll.cu",
+        replaces="bito_tpu/treelike/pallas_chunked.py:384",
+        wrapper=chunked.chunked_log_likelihoods, path="chunked"),
+    "chunked_grad": dict(
+        source="bito_tpu_torch/treelike/csrc/chunked_grad.cu",
+        replaces="bito_tpu/treelike/pallas_chunked.py:404",
+        wrapper=chunked.chunked_ll_and_gradients, path="chunked"),
+    "pernode_ll": dict(
+        source="bito_tpu_torch/treelike/csrc/pernode_ll.cu",
+        replaces="bito_tpu/treelike/pallas_pruning.py:90",
+        wrapper=pernode.pernode_log_likelihoods, path="pernode"),
+    "pernode_grad": dict(
+        source="bito_tpu_torch/treelike/csrc/pernode_grad.cu",
+        replaces="bito_tpu/treelike/pallas_pruning.py:179",
+        wrapper=pernode.pernode_ll_and_gradients, path="pernode"),
 }
 
 
@@ -87,8 +112,8 @@ def ptxas_usage(log):
     each kernel named as `paired_grad_kernel<4>`."""
     usage, kernel, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*(paired_(?:ll|grad)_kernel)"
-                      r"ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*?((?:paired|chunked|pernode)"
+                      r"_(?:ll|grad)_kernel)ILi(\d+)E", line)
         if m:
             kernel = f"{m.group(1)}<{m.group(2)}>"
         elif "spill" in line:
@@ -121,6 +146,25 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def reset_launches():
+    for spec in KERNELS.values():
+        spec["wrapper"].launches = 0
+
+
+def read_launches(path):
+    """{kernel: launches} for the kernels of `path`, after checking that
+    each launched and that no kernel of another path did."""
+    counts = {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
+    print(f"# phase 3: {path} path launches {counts}")
+    for name, spec in KERNELS.items():
+        if spec["path"] == path:
+            check(counts[name] > 0, f"{name} launched in the {path} path")
+        else:
+            check(counts[name] == 0, f"{name} did not launch in the {path} "
+                  "path")
+    return {n: c for n, c in counts.items() if KERNELS[n]["path"] == path}
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs an NVIDIA card: "
@@ -132,6 +176,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device(PRODUCT_DEVICE)
+    t_start = time.perf_counter()
 
     # -- 1. card and build ---------------------------------------------------
     card = card_line()
@@ -153,70 +198,123 @@ def main():
     params = params_from_numpy(PARAMS, dev, PRODUCT_DTYPE)
     params64 = params_from_numpy(PARAMS, dev, torch.float64)
     enc = eng.encode(trees)
+    ce = chunked.build_chunked_encoding(enc, chunked.W)
     print(f"# workload: {sp.num_taxa} taxa, {sp.site_count} sites, "
           f"{sp.pattern_count} patterns (pad {eng.pattern_pad}), "
-          f"{len(trees)} trees, {enc.num_slots} nodes, GTR+Gamma4")
+          f"{len(trees)} trees, {enc.num_slots} nodes, GTR+Gamma4; "
+          f"chunked tape W={ce.W}, {ce.Mc} chunks")
 
     # -- 2. kernels against their plain versions ------------------------------
     bl = eng.branch_length_matrix(trees, enc)
     eig, rates, props, clock = eng._model_ingredients(params, BATCH)
-    dst, tip, src, e, mask = eng._paired_tapes(enc)
     pi, prop = prep.kernel_model(eig, props)
-    P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl)
     tips, w = eng._kernel_tips, eng._kernel_weights
-    ll_args = (dst, tip, e, P, tips, pi, prop, w)
-    grad_args = (dst, tip, src, e, mask, P, dP, tips, pi, prop, w)
-    ll_k = paired.paired_log_likelihoods(*ll_args)
-    ll_g, g_k = paired.paired_ll_and_gradients(*grad_args)
-    torch.cuda.synchronize()
-    d64 = [x.double() if x.is_floating_point() else x for x in grad_args]
-    ll_p, g_p = paired.paired_ll_and_gradients_ref(*d64)
-    errs = {
-        "paired_ll": (rel_err(ll_k, ll_p), (ll_k.double() - ll_p).abs().max().item()),
-        "paired_grad": (norm_err(g_k, g_p), (g_k.double() - g_p).abs().max().item()),
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    P, dPq = prep.prepare_inputs_grad_q(eig, rates, clock, bl)
+    _, dP = prep.prepare_inputs_grad(eig, rates, clock, bl)
+    cdst, ctip, cedge, crow, _ = eng._chunked_tapes(enc)
+    post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+                       for x in (enc.post_ops, enc.pre_ops, enc.root))
+    args = {  # kernel -> (plain version, wrapper arguments)
+        "paired_ll": (paired.paired_log_likelihoods_ref,
+                      (dst, tip, e, P, tips, pi, prop, w)),
+        "paired_grad": (paired.paired_ll_and_gradients_ref,
+                        (dst, tip, src, e, mask, P, dPq, tips, pi, prop, w)),
+        "chunked_ll": (chunked.chunked_log_likelihoods_ref,
+                       (cdst, ctip, cedge, P, tips, pi, prop, w)),
+        "chunked_grad": (chunked.chunked_ll_and_gradients_ref,
+                         (cdst, ctip, cedge, crow, mask, P, dP, tips, pi, prop,
+                          w)),
+        "pernode_ll": (pernode.pernode_log_likelihoods_ref,
+                       (post, root, P, tips, pi, prop, w)),
+        "pernode_grad": (pernode.pernode_ll_and_gradients_ref,
+                         (post, pre, root, mask, P, dP, tips, pi, prop, w)),
     }
-    ll_g_err = rel_err(ll_g, ll_p)
-    print(f"# phase 2: paired_ll LL rel err {errs['paired_ll'][0]:.3e}; "
-          f"paired_grad LL rel err {ll_g_err:.3e}, grad max-abs/max|g| "
-          f"{errs['paired_grad'][0]:.3e} (bound {BOUND:g}, plain version "
-          f"in float64 on the same operands)")
-    check(errs["paired_ll"][0] <= BOUND, "paired_ll LL parity")
-    check(ll_g_err <= BOUND, "paired_grad LL parity")
-    check(errs["paired_grad"][0] <= BOUND, "paired_grad gradient parity")
+    errs = {}  # kernel -> (relative or max-norm error, max abs error)
+    for ll_name in ("paired_ll", "chunked_ll", "pernode_ll"):
+        grad_name = ll_name.replace("_ll", "_grad")
+        ll_k = KERNELS[ll_name]["wrapper"](*args[ll_name][1])
+        ll_g, g_k = KERNELS[grad_name]["wrapper"](*args[grad_name][1])
+        torch.cuda.synchronize()
+        plain, grad_args = args[grad_name]
+        ll_p, g_p = plain(*[x.double() if x.is_floating_point() else x
+                            for x in grad_args])
+        errs[ll_name] = (rel_err(ll_k, ll_p),
+                         (ll_k.double() - ll_p).abs().max().item())
+        errs[grad_name] = (norm_err(g_k, g_p),
+                           (g_k.double() - g_p).abs().max().item())
+        ll_g_err = rel_err(ll_g, ll_p)
+        print(f"# phase 2: {ll_name} LL rel err {errs[ll_name][0]:.3e}; "
+              f"{grad_name} LL rel err {ll_g_err:.3e}, grad max-abs/max|g| "
+              f"{errs[grad_name][0]:.3e} (bound {BOUND:g}, plain version "
+              f"in float64 on the same operands)")
+        check(errs[ll_name][0] <= BOUND, f"{ll_name} LL parity")
+        check(ll_g_err <= BOUND, f"{grad_name} LL parity")
+        check(errs[grad_name][0] <= BOUND, f"{grad_name} gradient parity")
 
-    # -- 3. the main path through the engine's entry points -------------------
-    for spec in KERNELS.values():
-        spec["wrapper"].launches = 0
-    ll = eng.log_likelihoods(trees, params)
-    ll2, grads = eng.ll_and_branch_gradients(trees, params)
-    fn = eng.branch_eval_fn(trees, params)
-    sweep = [fn(bl * (1.0 + 0.001 * k)) for k in range(SWEEP)]
-    torch.cuda.synchronize()
-    launches = {name: spec["wrapper"].launches
-                for name, spec in KERNELS.items()}
-    print(f"# phase 3: launches in the main path {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} launched in the main path")
+    # -- 3. the paths ------------------------------------------------------------
     N = enc.num_slots
-    check(ll.shape == (BATCH,) and grads.shape == (BATCH, N),
-          "output shapes")
-    outs = [ll, ll2, grads] + [x for pair in sweep for x in pair]
-    check(all(bool(torch.isfinite(x).all()) for x in outs), "finite outputs")
-
+    scales = [1.0 + 0.001 * k for k in range(SWEEP)]
     ll_ref, g_ref = ref.ll_and_branch_gradients(trees, params64)
-    ll_errs = [rel_err(ll, ll_ref), rel_err(ll2, ll_ref)]
-    g_errs = [norm_err(grads, g_ref)]
     ref_fn = ref.branch_eval_fn(trees, params64)
     bl64 = bl.double()
-    for k, (ll_k2, g_k2) in enumerate(sweep):
-        ll_r, g_r = ref_fn(bl64 * (1.0 + 0.001 * k))
-        ll_errs.append(rel_err(ll_k2, ll_r))
-        g_errs.append(norm_err(g_k2, g_r))
-    print(f"# phase 3: against the float64 engine (scan tape), worst over "
-          f"{len(g_errs)} calls: LL rel err {max(ll_errs):.3e}, grad "
-          f"max-abs/max|g| {max(g_errs):.3e} (bound {BOUND:g})")
-    check(max(ll_errs + g_errs) <= BOUND,
-          "main path agrees with the float64 engine")
+    sweep_ref = [ref_fn(bl64 * f) for f in scales]
+
+    def against_reference(path, lls, pairs):
+        """Hold the path's (ll) and sweep (ll, grads) against the float64
+        engine: lls at the base branch lengths, pairs [(ll, grads)] with
+        pairs[0] at the base and pairs[1:] at scales[k]."""
+        check(pairs[0][0].shape == (BATCH,)
+              and pairs[0][1].shape == (BATCH, N), f"{path} output shapes")
+        outs = list(lls) + [x for pair in pairs for x in pair]
+        check(all(bool(torch.isfinite(x).all()) for x in outs),
+              f"{path} outputs are finite")
+        ll_errs = [rel_err(x, ll_ref) for x in lls]
+        g_errs = []
+        for (ll_k, g_k), (ll_r, g_r) in zip(pairs, [(ll_ref, g_ref)]
+                                             + sweep_ref):
+            ll_errs.append(rel_err(ll_k, ll_r))
+            g_errs.append(norm_err(g_k, g_r))
+        print(f"# phase 3: {path} path against the float64 engine (scan "
+              f"tape), worst over {len(g_errs)} calls: LL rel err "
+              f"{max(ll_errs):.3e}, grad max-abs/max|g| {max(g_errs):.3e} "
+              f"(bound {BOUND:g})")
+        check(max(ll_errs + g_errs) <= BOUND,
+              f"{path} path agrees with the float64 engine")
+
+    launches = {}
+    reset_launches()
+    ll = eng.log_likelihoods(trees, params)
+    pairs = [eng.ll_and_branch_gradients(trees, params)]
+    fn = eng.branch_eval_fn(trees, params)
+    pairs += [fn(bl * f) for f in scales]
+    torch.cuda.synchronize()
+    launches.update(read_launches("paired"))
+    against_reference("paired", [ll], pairs)
+
+    eng.kernel = "chunked"
+    reset_launches()
+    ll = eng.log_likelihoods(trees, params)
+    ll_fn = eng.ll_eval_fn(trees, params)(bl)
+    pairs = [eng.ll_and_branch_gradients(trees, params)]
+    fn = eng.branch_eval_fn(trees, params)
+    pairs += [fn(bl * f) for f in scales]
+    torch.cuda.synchronize()
+    launches.update(read_launches("chunked"))
+    against_reference("chunked", [ll, ll_fn], pairs)
+    eng.kernel = "auto"
+
+    reset_launches()
+    ll = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop, w)
+    pairs = []
+    for f in [1.0] + scales:
+        Pk, dPk = prep.prepare_inputs_grad(eig, rates, clock, bl * f)
+        pairs.append(pernode.pernode_ll_and_gradients(
+            post, pre, root, mask, Pk, dPk, tips, pi, prop, w))
+    torch.cuda.synchronize()
+    launches.update(read_launches("pernode"))
+    against_reference("pernode", [ll], pairs)
+
     # The float64 reference's own gradients against central differences.
     h = 1e-6
     for node in (0, 13, 40):
@@ -230,34 +328,35 @@ def main():
         check(fd_err <= 1e-6, "float64 gradient matches finite differences")
 
     # -- 4. times --------------------------------------------------------------
-    plain = {"paired_ll": lambda: paired.paired_log_likelihoods_ref(*ll_args),
-             "paired_grad": lambda: paired.paired_ll_and_gradients_ref(*grad_args)}
-    kernel = {"paired_ll": lambda: paired.paired_log_likelihoods(*ll_args),
-              "paired_grad": lambda: paired.paired_ll_and_gradients(*grad_args)}
     times = {}
     for name in KERNELS:
+        plain, a = args[name]
+        wrapper = KERNELS[name]["wrapper"]
         # plain, kernel, kernel, plain: both sides see the same drift.
-        p1 = cuda_ms(plain[name], 5)
-        k1 = cuda_ms(kernel[name], 50)
-        k2 = cuda_ms(kernel[name], 50)
-        p2 = cuda_ms(plain[name], 5)
+        p1 = cuda_ms(lambda: plain(*a), 5)
+        k1 = cuda_ms(lambda: wrapper(*a), 50)
+        k2 = cuda_ms(lambda: wrapper(*a), 50)
+        p2 = cuda_ms(lambda: plain(*a), 5)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         print(f"# phase 4: {name} kernel {times[name][0]:.4f} ms, plain "
               f"{times[name][1]:.4f} ms (float32, {BATCH} trees x "
               f"{eng.pattern_pad} patterns) on {card}")
 
-    def sweep_evals_per_s(engine, calls):
-        f = engine.branch_eval_fn(trees, params)
+    def sweep_evals_per_s(kernel, calls):
+        eng.kernel = kernel
+        f = eng.branch_eval_fn(trees, params)
         ms = cuda_ms(lambda: f(bl), calls)
         return BATCH / (ms / 1e3), ms
 
-    eps, ms = sweep_evals_per_s(eng, 40)
-    eng.kernel = "scan"
-    eps_scan, ms_scan = sweep_evals_per_s(eng, 5)
+    rates_line = ", ".join(
+        f"{label} {eps:.1f} ({ms:.4f} ms/call)" for label, (eps, ms) in [
+            ("paired kernels (auto)", sweep_evals_per_s("auto", 40)),
+            ("chunked kernels", sweep_evals_per_s("chunked", 40)),
+            ("scan tape", sweep_evals_per_s("scan", 5))])
     eng.kernel = "auto"
     print(f"# phase 4: end to end, DS1-shaped GTR+Gamma4 LL+gradient "
-          f"evals/s at B={BATCH}: kernels {eps:.1f} ({ms:.4f} ms/call), "
-          f"scan tape {eps_scan:.1f} ({ms_scan:.4f} ms/call), on {card}")
+          f"evals/s at B={BATCH}: {rates_line}, on {card}")
+    print(f"# chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     # -- 5. results -------------------------------------------------------------
     print(json.dumps({"kernels": [

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where the device time of one branch_eval_fn call goes, on one NVIDIA card.
 
-    python3 profile_main_path.py
+    python3 profile_main_path.py [auto|chunked]
 
 The workload is chip_smoke.py's flagship (DS1 shape, GTR+Gamma4, 200
-trees) through the engine's kernel path in float32.  After 5 warm-up calls
-it traces 20 back-to-back calls with torch.profiler and reads the
-device side from the exported Chrome trace alone: its kernel, memcpy and
-memset events.  (The profiler's per-operator rows also carry the time of
+trees) through the engine's kernel path in float32: the paired kernels
+(engine.kernel "auto", the default) or the chunked ones ("chunked").
+After 5 warm-up calls it traces 20 back-to-back calls with torch.profiler
+and reads the device side from the exported Chrome trace alone: its
+kernel, memcpy and memset events.  (The profiler's per-operator rows also carry the time of
 the kernels they launch, so a sum over key_averages() counts it twice.)
 It prints, per call:
   - busy ms: the union of the device events' intervals;
@@ -55,6 +56,9 @@ def union_us(intervals):
 
 
 def main():
+    kernel = sys.argv[1] if len(sys.argv) > 1 else "auto"
+    if kernel not in ("auto", "chunked"):
+        sys.exit(f"usage: profile_main_path.py [auto|chunked], got {kernel!r}")
     if not torch.cuda.is_available():
         sys.exit("profile_main_path.py needs an NVIDIA card: "
                  "torch.cuda.is_available() is False")
@@ -63,6 +67,7 @@ def main():
     dev = torch.device(PRODUCT_DEVICE)
     trees, sp, model = flagship()
     eng = TreeLikelihoodEngine(sp, model, device=dev, dtype=PRODUCT_DTYPE)
+    eng.kernel = kernel
     params = params_from_numpy(PARAMS, dev, PRODUCT_DTYPE)
     bl = eng.branch_length_matrix(trees, eng.encode(trees))
     fn = eng.branch_eval_fn(trees, params)
@@ -88,8 +93,9 @@ def main():
               - min(s for _, s, _ in events)) / 1e3 / n
     untraced = cuda_ms(lambda: fn(bl), n)
     print(card)
-    print(f"# traced {n} calls: busy {busy:.4f} ms/call, window "
-          f"{window:.4f} ms/call, idle share {1 - busy / window:.4f}; "
+    print(f"# traced {n} calls (kernel={kernel!r}): busy {busy:.4f} "
+          f"ms/call, window {window:.4f} ms/call, idle share "
+          f"{1 - busy / window:.4f}; "
           f"untraced {untraced:.4f} ms/call (CUDA events)")
     by_name = collections.defaultdict(float)
     for name, s, e in events:

@@ -1,4 +1,5 @@
-"""The CUDA kernels on the card, against their plain torch versions.
+"""The CUDA kernels on the card (paired, chunked and per-node), against
+their plain torch versions.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -19,7 +20,7 @@ from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
-from bito_tpu_torch.treelike import paired, prep
+from bito_tpu_torch.treelike import chunked, paired, pernode, prep
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
 pytestmark = pytest.mark.cuda
@@ -136,3 +137,119 @@ def test_wrappers_reject_operands_the_kernels_do_not_take(cuda):
         paired.paired_log_likelihoods(
             **dict(args, tips=args["tips"].transpose(0, 1).contiguous()
                    .transpose(0, 1)))
+
+
+def _case_operands(eng, trees, params, patterns):
+    """(enc, P, dP, tips, pi, prop, w) in float32 on the card, from
+    prep.prepare_inputs_grad (the chunked and per-node routes' dP), with
+    the pattern axis cut to `patterns`."""
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad(eig, rates, clock,
+                                     eng.branch_length_matrix(trees, enc))
+    S = patterns or eng.pattern_pad
+    tips = eng._kernel_tips[..., :S].contiguous()
+    w = eng._kernel_weights[:S].contiguous()
+    return enc, P, dP, tips, pi, prop, w
+
+
+def _f64(*xs):
+    return [x.to(torch.float64) for x in xs]
+
+
+@pytest.mark.parametrize("model,rooted,num_trees,patterns,W", [
+    ("gtr_gamma4", False, 5, None, chunked.W),
+    ("gtr_gamma4", True, 3, 150, chunked.W),
+    ("jc69", False, 4, 200, chunked.W),
+    ("hky_weibull3", True, 2, None, chunked.W),
+    ("gtr_gamma4", False, 3, 100, 4), ("gtr_gamma4", True, 3, None, 8)])
+def test_chunked_kernels_match_plain(cuda, model, rooted, num_trees,
+                                     patterns, W):
+    """Both chunked kernels against their plain versions in float64 on the
+    same float32 operands, on tapes built at the engine's width and at
+    multiples of it."""
+    eng, trees, params = _engine(model, 3, 11, num_trees, rooted, cuda,
+                                 torch.float32)
+    enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params,
+                                                   patterns)
+    ce = chunked.build_chunked_encoding(enc, W)
+    dst, tip, e, row = (torch.as_tensor(x, dtype=torch.int32, device=cuda)
+                        for x in (ce.post_dst, ce.tip_slot, ce.post_e,
+                                  ce.node_row))
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=cuda)
+    ll = chunked.chunked_log_likelihoods(dst, tip, e, P, tips, pi, prop, w)
+    ll2, g = chunked.chunked_ll_and_gradients(dst, tip, e, row, mask, P, dP,
+                                              tips, pi, prop, w)
+    torch.cuda.synchronize()
+    ll_ref, g_ref = chunked.chunked_ll_and_gradients_ref(
+        dst, tip, e, row, mask, *_f64(P, dP, tips, pi, prop, w))
+    assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
+    assert _norm(g, g_ref) < 5e-5
+
+
+@pytest.mark.parametrize("model,rooted,num_trees,patterns", [
+    ("gtr_gamma4", False, 5, None), ("gtr_gamma4", True, 3, 150),
+    ("jc69", False, 4, 200), ("hky_weibull3", True, 2, None)])
+def test_pernode_kernels_match_plain(cuda, model, rooted, num_trees,
+                                     patterns):
+    """Both per-node kernels against their plain versions in float64 on
+    the same float32 operands, on trifurcating and binary roots."""
+    eng, trees, params = _engine(model, 3, 11, num_trees, rooted, cuda,
+                                 torch.float32)
+    enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params,
+                                                   patterns)
+    post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=cuda)
+                       for x in (enc.post_ops, enc.pre_ops, enc.root))
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=cuda)
+    ll = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop, w)
+    ll2, g = pernode.pernode_ll_and_gradients(post, pre, root, mask, P, dP,
+                                              tips, pi, prop, w)
+    torch.cuda.synchronize()
+    ll_ref, g_ref = pernode.pernode_ll_and_gradients_ref(
+        post, pre, root, mask, *_f64(P, dP, tips, pi, prop, w))
+    assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
+    assert _norm(g, g_ref) < 5e-5
+
+
+def test_engine_chunked_takes_the_chunked_kernels(cuda):
+    """kernel="chunked" on the card launches both chunked kernels and no
+    paired one, and agrees with the float64 engine on the CPU."""
+    eng, trees, params = _engine("gtr_gamma4", 7, 9, 4, False, cuda,
+                                 torch.float32)
+    eng.kernel = "chunked"
+    ref, _, ref_params = _engine("gtr_gamma4", 7, 9, 4, False, "cpu",
+                                 torch.float64)
+    wrappers = (chunked.chunked_log_likelihoods,
+                chunked.chunked_ll_and_gradients,
+                paired.paired_log_likelihoods, paired.paired_ll_and_gradients)
+    before = [f.launches for f in wrappers]
+    ll = eng.log_likelihoods(trees, params)
+    ll2, g = eng.ll_and_branch_gradients(trees, params)
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 1, 0, 0]
+    ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
+    assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
+    assert _norm(g.cpu(), g_ref) < 5e-5
+
+
+def test_new_wrappers_reject_operands_the_kernels_do_not_take(cuda):
+    eng, trees, params = _engine("gtr_gamma4", 9, 8, 2, False, cuda,
+                                 torch.float32)
+    enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params, None)
+    dst, tip, e, _row, _mask = eng._chunked_tapes(enc)
+    args = dict(post_dst=dst, tip_slot=tip, post_e=e, P=P, tips=tips, pi=pi,
+                props=prop, weights=w)
+    with pytest.raises(TypeError):
+        chunked.chunked_log_likelihoods(**dict(args, P=P.double()))
+    with pytest.raises(ValueError):
+        chunked.chunked_log_likelihoods(**dict(args, post_dst=dst[:, :-1],
+                                               post_e=e[:, :-1]))
+    with pytest.raises(ValueError):
+        chunked.chunked_log_likelihoods(**dict(args, tips=tips.cpu()))
+    post, root = (torch.as_tensor(x, dtype=torch.int32, device=cuda)
+                  for x in (enc.post_ops, enc.root))
+    with pytest.raises(TypeError):
+        pernode.pernode_log_likelihoods(post.long(), root, P, tips, pi, prop,
+                                        w)
+    with pytest.raises(ValueError):
+        pernode.pernode_log_likelihoods(post, root[:1], P, tips, pi, prop, w)

@@ -40,7 +40,7 @@ def _engines(model, rooted, per_tree, batch, seed=21):
 def test_engine_matches_bito_tpu_scan(model, rooted, per_tree, batch):
     case, params, je, te = _engines(model, rooted, per_tree, batch)
     jp, tp = jax_params(params), torch_params(params)
-    assert not te._use_cuda(te._shared_model(tp))  # auto: scan on the CPU
+    assert te._route(te._shared_model(tp)) == "scan"  # auto on the CPU
 
     ll_ref = np.asarray(je.log_likelihoods(case.jax_trees, jp))
     ll = te.log_likelihoods(case.torch_trees, tp).numpy()
@@ -88,7 +88,7 @@ def test_gradient_matches_finite_difference(model):
     ("gtr_gamma4", False, 4), ("gtr_gamma4", True, 3), ("jc69", False, 4)])
 def test_kernel_path_on_cpu_runs_the_plain_versions(model, rooted, batch):
     """kernel="cuda" with CPU tensors takes the paired kernels' plain
-    versions (float32) and launches nothing."""
+    versions (in the engine's dtype) and launches nothing."""
     case, params, je, te = _engines(model, rooted, False, batch)
     te.kernel = "cuda"
     launches = (paired.paired_log_likelihoods.launches,
@@ -108,16 +108,16 @@ def test_kernel_path_on_cpu_runs_the_plain_versions(model, rooted, batch):
 def test_kernel_choice():
     case, params, _je, te = _engines("gtr_gamma4", False, False, 2)
     shared = te._shared_model(torch_params(params))
-    assert shared and not te._use_cuda(shared)  # CPU: the scan tape
+    assert shared and te._route(shared) == "scan"  # CPU: the scan tape
     per_tree = torch_params(per_tree_rows(params, 2, seed=0))
     assert not te._shared_model(per_tree)
     te.kernel = "cuda"
-    assert te._use_cuda(shared)
+    assert te._route(shared) == "paired"
     with pytest.raises(ValueError, match="per-tree"):
         te.log_likelihoods(case.torch_trees, per_tree)
     te.kernel = "pallas"
     with pytest.raises(ValueError):
-        te._use_cuda(shared)
+        te._route(shared)
     with pytest.raises(ValueError):
         torch_engine(case, "gtr_gamma4", dtype=torch.float16)
 

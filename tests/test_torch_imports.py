@@ -62,4 +62,4 @@ def test_kernel_library_path_names_the_source_hash():
 
     path = _kernels.library_path()
     assert path.parent == PACKAGE / "_build"
-    assert re.fullmatch(r"libbito_paired_[0-9a-f]{16}\.so", path.name)
+    assert re.fullmatch(r"libbito_kernels_[0-9a-f]{16}\.so", path.name)

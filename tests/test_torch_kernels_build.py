@@ -1,8 +1,11 @@
 """The kernel build (treelike/_kernels.py) without a CUDA toolkit: a
-stand-in nvcc script shows that a build runs once per source hash, keeps
-nvcc's messages beside the library, and raises with nvcc's stderr when
-the compile fails."""
+stand-in nvcc script shows that a build compiles every source of the six
+kernels, one nvcc each, and links them into one library named by the
+sources' hash; that it runs once per source hash, keeps nvcc's messages
+beside the library, and raises with nvcc's stderr when a compile fails."""
 import os
+import pathlib
+import re
 import stat
 
 import pytest
@@ -18,7 +21,7 @@ def _fake_nvcc(tmp_path, body):
 
 
 @pytest.fixture
-def sandbox(tmp_path, monkeypatch):
+def workdir(tmp_path, monkeypatch):
     """Copies of the sources and an empty build directory under tmp_path."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
@@ -29,46 +32,57 @@ def sandbox(tmp_path, monkeypatch):
     return tmp_path
 
 
-def test_build_once_per_source_hash(sandbox, monkeypatch):
-    calls = sandbox / "calls"
+def test_build_once_per_source_hash(workdir, monkeypatch):
+    calls = workdir / "calls"
     # Record the call, print a ptxas-like line, write the -o target.
-    nvcc = _fake_nvcc(sandbox, f"""
-echo run >> {calls}
+    nvcc = _fake_nvcc(workdir, f"""
+echo "$@" >> {calls}
 echo 'ptxas info    : Used 56 registers' >&2
 while [ "$1" != "-o" ]; do shift; done
 touch "$2"
 """)
     monkeypatch.setattr(_kernels, "_nvcc", lambda: nvcc)
     so = _kernels.build()
-    assert so.exists() and so.parent == sandbox / "_build"
+    assert so.exists() and so.parent == workdir / "_build"
+    assert re.fullmatch(r"libbito_kernels_[0-9a-f]{16}\.so", so.name)
     assert "Used 56 registers" in so.with_suffix(".log").read_text()
+    runs = calls.read_text().splitlines()
+    # One compile per source, then one link of all their objects.
+    assert sorted(pathlib.Path(r.split()[-1]).name for r in runs[:-1]) == (
+        sorted(_kernels._SOURCES))
+    assert all(" -c " in r and "sm_90a" in r for r in runs[:-1])
+    assert " -shared " in runs[-1] and runs[-1].count(".o") == len(
+        _kernels._SOURCES)
     assert _kernels.build() == so
-    assert calls.read_text().count("run") == 1  # the second call reused it
-    assert not [p for p in so.parent.iterdir() if ".tmp." in p.name]
+    assert len(calls.read_text().splitlines()) == len(runs)  # reused
+    assert sorted(p.name for p in so.parent.iterdir()) == sorted(
+        [so.name, so.with_suffix(".log").name])
 
-    # An edit to a source names a new library and builds again.
-    src = sandbox / "csrc" / _kernels._SOURCES[0]
-    src.write_text(src.read_text() + "\n// edited\n")
-    so2 = _kernels.build()
-    assert so2 != so and so2.exists()
-    assert calls.read_text().count("run") == 2
+    # An edit to any source names a new library and builds again.
+    for name in ("chunked_grad.cu", "common.cuh"):
+        src = workdir / "csrc" / name
+        src.write_text(src.read_text() + "\n// edited\n")
+        so2 = _kernels.build()
+        assert so2 != so and so2.exists()
+        so = so2
+    assert len(calls.read_text().splitlines()) == 3 * len(runs)
 
 
-def test_failed_build_raises_with_nvcc_stderr(sandbox, monkeypatch):
-    nvcc = _fake_nvcc(sandbox, "echo 'error: identifier \"x\" is undefined' >&2\n"
+def test_failed_build_raises_with_nvcc_stderr(workdir, monkeypatch):
+    nvcc = _fake_nvcc(workdir, "echo 'error: identifier \"x\" is undefined' >&2\n"
                                "exit 2\n")
     monkeypatch.setattr(_kernels, "_nvcc", lambda: nvcc)
     with pytest.raises(RuntimeError, match='identifier "x" is undefined'):
         _kernels.build()
     assert not _kernels.library_path().exists()
-    assert not [p for p in (sandbox / "_build").iterdir()]
+    assert not [p for p in (workdir / "_build").iterdir()]
 
 
-def test_missing_nvcc_raises(sandbox, monkeypatch):
-    monkeypatch.setenv("CUDA_HOME", str(sandbox / "no_cuda"))
-    monkeypatch.setenv("PATH", str(sandbox / "no_bin"))
+def test_missing_nvcc_raises(workdir, monkeypatch):
+    monkeypatch.setenv("CUDA_HOME", str(workdir / "no_cuda"))
+    monkeypatch.setenv("PATH", str(workdir / "no_bin"))
     if os.path.isfile("/usr/local/cuda/bin/nvcc"):
         pytest.skip("a CUDA toolkit is installed at /usr/local/cuda")
     with pytest.raises(FileNotFoundError, match="nvcc"):
         _kernels.build()
-    assert not (sandbox / "_build").exists()
+    assert not (workdir / "_build").exists()
