@@ -1,0 +1,25 @@
+"""python -m bito_tpu_torch.perflab [lab|pipe|static] [names ...]
+
+Runs what bito_tpu's three perf-lab scripts ran, on the card, with the
+scripts' own names:
+  lab     scripts/perf_lab.py: base unroll resk4 resk8 nodot loop_resk4
+  pipe    scripts/perf_pipe_lab.py: the nine experiments, or dma4d
+  static  scripts/perf_static_probe.py: the per-op slopes
+It raises without a card.
+"""
+import sys
+
+from . import perf_lab, perf_pipe_lab, perf_static_probe
+
+LABS = {"lab": perf_lab.main, "pipe": perf_pipe_lab.main,
+        "static": perf_static_probe.main}
+
+
+def main(argv) -> None:
+    if not argv or argv[0] not in LABS:
+        raise SystemExit(__doc__)
+    LABS[argv[0]](argv[1:])
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -1,4 +1,5 @@
-"""Build and bind the hand-written CUDA kernels of treelike/csrc.
+"""Build and bind the hand-written CUDA kernels of treelike/csrc and
+perflab/csrc.
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface, at first use, under bito_tpu_torch/_build/ (listed in
@@ -22,11 +23,16 @@ import shutil
 import subprocess
 from pathlib import Path
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-_BUILD = Path(__file__).resolve().parent.parent / "_build"
-_SOURCES = ("paired_ll.cu", "paired_grad.cu", "chunked_ll.cu",
-            "chunked_grad.cu", "pernode_ll.cu", "pernode_grad.cu")
-_HEADERS = ("common.cuh",)
+_ROOT = Path(__file__).resolve().parent.parent  # the package
+_BUILD = _ROOT / "_build"
+# Paths relative to the package.  perflab's sources include
+# ../../treelike/csrc/common.cuh.
+_SOURCES = tuple(f"treelike/csrc/{name}" for name in (
+    "paired_ll.cu", "paired_grad.cu", "chunked_ll.cu", "chunked_grad.cu",
+    "pernode_ll.cu", "pernode_grad.cu")) + tuple(
+    f"perflab/csrc/{name}" for name in (
+        "variant_grad.cu", "pipe_cell.cu", "stream_sum.cu", "static_chain.cu"))
+_HEADERS = ("treelike/csrc/common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -53,6 +59,15 @@ _SIGNATURES = {
     # post_ops, pre_ops, root, P, dP, tips, pi, props, weights, buf, up, ls,
     # ll_rows, grad_rows, B, M, Mp, T, N1, C, S, stream
     "bito_pernode_grad": [_P] * 14 + [_I] * 7 + [_P],
+    # the pernode_grad operands, then unroll, resk, nodot, stream
+    "bito_variant_grad": [_P] * 14 + [_I] * 10 + [_P],
+    # idx, big, scratch, out, cells, block_rows, scratch_rows, S, init,
+    # loops, stores, stream
+    "bito_pipe_cell": [_P] * 4 + [_I] * 7 + [_P],
+    # big, out, cells, nslices, rows, cols, slices, stream
+    "bito_stream_sum": [_P] * 2 + [_I] * 5 + [_P],
+    # tape, L, out, S, R, dynamic, stream
+    "bito_static_chain": [_P] * 3 + [_I] * 3 + [_P],
 }
 
 
@@ -71,7 +86,7 @@ def _digest() -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for name in _SOURCES + _HEADERS:
         h.update(name.encode())
-        h.update((_CSRC / name).read_bytes())
+        h.update((_ROOT / name).read_bytes())
     return h.hexdigest()[:16]
 
 
@@ -106,7 +121,7 @@ def build() -> Path:
     tmp.mkdir()
     try:
         objs = [tmp / f"{Path(s).stem}.o" for s in _SOURCES]
-        log = _run([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(_CSRC / s)]
+        log = _run([[nvcc, *COMPILE_FLAGS, "-o", str(o), str(_ROOT / s)]
                     for s, o in zip(_SOURCES, objs)])
         lib = tmp / so.name
         log += _run([[nvcc, *LINK_FLAGS, "-o", str(lib), *map(str, objs)]])

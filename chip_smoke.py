@@ -6,14 +6,21 @@
 The workload is the flagship configuration at full width: a DS1-shaped
 problem (27 taxa, 1,949 columns drawn from 934 distinct ones, made from a
 seed), GTR+Gamma4 with bench.py's parameters, and a batch of 200 random
-unrooted trees with trifurcating roots.  Three paths run six kernels:
+unrooted trees with trifurcating roots.  Four paths run ten kernels:
   - paired: the engine's default (kernel="auto"), paired_ll and
     paired_grad;
   - chunked: the same engine with kernel="chunked", chunked_ll and
     chunked_grad;
   - per-node: pernode_log_likelihoods and pernode_ll_and_gradients on the
     engine's own tapes, driven as bito_tpu's scripts/bench_kernel_race.py
-    drives their originals (the engine has no route to them).
+    drives their originals (the engine has no route to them);
+  - perflab: the perf lab's entry points (bito_tpu_torch/perflab, the
+    counterparts of bito_tpu's scripts/perf_lab.py, perf_pipe_lab.py and
+    perf_static_probe.py) at few repetitions: the per-node grad kernel's
+    variants on the same operands (variant_grad, and pernode_grad as
+    their base), the nine pipe experiments (pipe_cell), the 4-D and 3-D
+    stream sums (stream_sum, two entry points) and the static chain's
+    slopes (static_chain).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the
@@ -21,14 +28,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      registers and spills.
   2. each kernel against its plain torch version in float64 on the same
      operands: LL relative error and gradient max-abs error over max |g|,
-     both within 5e-5 (bench.py's on-device guard).
+     both within 5e-5 (bench.py's on-device guard).  The probes: every
+     variant of variant_grad the same way (nodot, which is not a
+     likelihood, by equal non-finite places and finite values within the
+     bounds); pipe_cell on the six experiments that fill their scratch,
+     at 100 cells, on the script's ones block and on a block of small
+     integers, and both stream sums, exactly; static_chain,
+     both variants, within 1e-5 of max |out| against its float32 plain
+     version.
   3. each path, with every launch count set to 0 just before it and read
      just after: its kernels must have launched and no other path's; the
      results (log_likelihoods, ll_and_branch_gradients, 40 calls over
      scaled branch lengths, and ll_eval_fn on the chunked path) must be
      finite and agree with the float64 engine (the scan tape) within the
      phase-2 bounds; the float64 gradients are checked against central
-     differences.
+     differences.  On the perflab path the variants must agree with base
+     (nodot aside), the filled pipe experiments with phase 2's plain
+     outputs, both stream sums with each other and the sum of the ones
+     block, and every slope must be finite; each slope is printed beside
+     its FMA floor.
   4. CUDA-event times of each kernel and its plain version, and each
      engine route's LL+gradient evals/s, with the card's name and limit.
   5. one JSON line of the kernels, then the device line, last.
@@ -36,11 +54,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 It has no CPU path: without a card it exits non-zero and prints no result.
 """
 import json
+import math
 import re
-import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from bito_tpu_torch import PRODUCT_DEVICE, PRODUCT_DTYPE, _synthetic
@@ -48,6 +67,8 @@ from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
+from bito_tpu_torch.perflab import (card_line, cuda_ms, perf_lab,
+                                    perf_pipe_lab, perf_static_probe)
 from bito_tpu_torch.treelike import _kernels, chunked, paired, pernode, prep
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
@@ -56,7 +77,12 @@ BATCH = 200
 SWEEP = 40
 BOUND = 5e-5  # bench.py's on-device parity guard
 PARAMS = _synthetic.GTR_GAMMA4_PARAMS  # bench.py's
-KERNELS = {  # name -> its source, its TPU kernel, its wrapper and its path
+LAB_REPS = 5  # CUDA-event repetitions of each perf-lab measurement here
+CELLS = perf_pipe_lab.CELLS  # the pipe lab's cells, 100
+PROBES = "bito_tpu_torch/perflab/csrc/"
+# name -> its source, its TPU kernel, its wrapper, its path and the other
+# paths that launch it
+KERNELS = {
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
@@ -80,7 +106,27 @@ KERNELS = {  # name -> its source, its TPU kernel, its wrapper and its path
     "pernode_grad": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_grad.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
-        wrapper=pernode.pernode_ll_and_gradients, path="pernode"),
+        wrapper=pernode.pernode_ll_and_gradients, path="pernode",
+        also=("perflab",)),
+    "variant_grad": dict(
+        source=PROBES + "variant_grad.cu", replaces="scripts/perf_lab.py:36",
+        wrapper=perf_lab.variant_ll_and_gradients, path="perflab"),
+    "pipe_cell": dict(
+        source=PROBES + "pipe_cell.cu",
+        replaces="scripts/perf_pipe_lab.py:29",
+        wrapper=perf_pipe_lab.pipe_cell, path="perflab"),
+    "stream_sum_4d": dict(
+        source=PROBES + "stream_sum.cu",
+        replaces="scripts/perf_pipe_lab.py:101",
+        wrapper=perf_pipe_lab.stream_sum_4d, path="perflab"),
+    "stream_sum_3d": dict(
+        source=PROBES + "stream_sum.cu",
+        replaces="scripts/perf_pipe_lab.py:109",
+        wrapper=perf_pipe_lab.stream_sum_3d, path="perflab"),
+    "static_chain": dict(
+        source=PROBES + "static_chain.cu",
+        replaces="scripts/perf_static_probe.py:50",
+        wrapper=perf_static_probe.static_chain, path="perflab"),
 }
 
 
@@ -98,24 +144,19 @@ def norm_err(x, ref):
             / ref.double().abs().max()).item()
 
 
-def card_line():
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    return out.splitlines()[0]
-
-
 def ptxas_usage(log):
     """[(kernel, spill line, register line)] from nvcc's -Xptxas -v output,
-    each kernel named as `paired_grad_kernel<4>`."""
+    each kernel named as `paired_grad_kernel<4>` or
+    `variant_grad_kernel<26,51,1,true>`."""
     usage, kernel, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?((?:paired|chunked|pernode)"
-                      r"_(?:ll|grad)_kernel)ILi(\d+)E", line)
+        m = re.search(r"Compiling entry function '\w*?([a-z][a-z_]*_kernel)"
+                      r"(I(?:L[ib]\d+E)+E)?", line)
         if m:
-            kernel = f"{m.group(1)}<{m.group(2)}>"
+            args = re.findall(r"L([ib])(\d+)E", m.group(2) or "")
+            kernel = m.group(1) + (
+                "<" + ",".join(v if t == "i" else ("false", "true")[int(v)]
+                               for t, v in args) + ">" if args else "")
         elif "spill" in line:
             spill = line.strip()
         elif "registers" in line and kernel:
@@ -132,20 +173,6 @@ def flagship():
     return coll.trees, sp, PhyloModel(PhyloModelSpecification("GTR", "gamma+4"))
 
 
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call over `reps` calls, after 3 warm-up calls."""
-    for _ in range(3):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def reset_launches():
     for spec in KERNELS.values():
         spec["wrapper"].launches = 0
@@ -153,16 +180,190 @@ def reset_launches():
 
 def read_launches(path):
     """{kernel: launches} for the kernels of `path`, after checking that
-    each launched and that no kernel of another path did."""
+    each kernel the path runs launched and that no other kernel did."""
     counts = {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
     print(f"# phase 3: {path} path launches {counts}")
     for name, spec in KERNELS.items():
-        if spec["path"] == path:
+        if spec["path"] == path or path in spec.get("also", ()):
             check(counts[name] > 0, f"{name} launched in the {path} path")
         else:
             check(counts[name] == 0, f"{name} did not launch in the {path} "
                   "path")
     return {n: c for n, c in counts.items() if KERNELS[n]["path"] == path}
+
+
+# What phase 4 times each probe at (the flagship's operands for
+# variant_grad).
+PIPE_TIMED = "paired-like"
+CHAIN_R = 20
+LAB_SHAPES = {
+    "variant_grad": f"unroll, float32, {BATCH} trees x 1024 patterns",
+    "pipe_cell": f"{PIPE_TIMED}, {CELLS} cells",
+    "stream_sum_4d": f"{CELLS} cells of 32 x 256 x 128 bf16",
+    "stream_sum_3d": f"{CELLS} cells of 8192 x 128 bf16",
+    "static_chain": f"dynamic, R={CHAIN_R}, 52 ops x 1024 columns",
+}
+
+
+def probe_parity(ops, dev, errs):
+    """Phase 2 for the perf lab's four kernels: each against its plain
+    version on the inputs of the perflab path.  Fills errs; returns phase
+    4's {kernel: (call of the plain version, call of the kernel)} and the
+    plain outputs of the filled pipe experiments."""
+    ops64 = {k: v.double() if v.is_floating_point() else v
+             for k, v in ops.items()}
+    worst = (0.0, 0.0)
+    for name, knobs in perf_lab.VARIANTS.items():
+        ll_k, g_k = perf_lab.variant_ll_and_gradients(**ops, **knobs)
+        torch.cuda.synchronize()
+        ll_p, g_p = perf_lab.variant_ll_and_gradients_ref(**ops64, **knobs)
+        if knobs["nodot"]:  # not a likelihood: -inf where tips disagree
+            fin = torch.isfinite(ll_p)
+            check(torch.equal(torch.isfinite(ll_k), fin)
+                  and torch.equal(ll_k[~fin].double(), ll_p[~fin]),
+                  "variant_grad nodot: the same non-finite log likelihoods")
+            ll_err = rel_err(ll_k[fin], ll_p[fin]) if fin.any() else 0.0
+            g_err = ((g_k.double() - g_p).abs().max()
+                     / max(g_p.abs().max().item(), 1.0)).item()
+        else:
+            ll_err, g_err = rel_err(ll_k, ll_p), norm_err(g_k, g_p)
+            worst = max(worst, (g_err, (g_k.double() - g_p).abs().max().item()))
+        print(f"# phase 2: variant_grad {name}: LL rel err {ll_err:.3e}, grad "
+              f"max-abs/max|g| {g_err:.3e} (bound {BOUND:g}, plain version in "
+              f"float64)")
+        check(ll_err <= BOUND and g_err <= BOUND, f"variant_grad {name} parity")
+    errs["variant_grad"] = worst
+
+    # The pipe cell on the script's ones block (phase 3 holds the perflab
+    # path to these outputs) and on a block of small integers, which tells
+    # apart each cell's rows.
+    plain_outs = {}
+    worst = 0.0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for name, (rows, scratch_rows, init, loops, stores) in (
+            perf_pipe_lab.EXPS.items()):
+        if not init:  # no defined output on either side
+            continue
+        idx, big = perf_pipe_lab.pipe_inputs(rows, scratch_rows, CELLS, dev)
+        ints = torch.randint(0, 8, tuple(big.shape), generator=gen,
+                             dtype=torch.uint8, device=dev).to(torch.bfloat16)
+        kw = dict(scratch_rows=scratch_rows, init=init, loops=loops,
+                  stores=stores)
+        for block, what in ((big, "ones"), (ints, "integers in [0, 8)")):
+            out = perf_pipe_lab.pipe_cell(idx, block, **kw)
+            torch.cuda.synchronize()
+            want = perf_pipe_lab.pipe_cell_ref(idx, block, **kw)
+            plain_outs.setdefault(name, want)
+            err = (out - want).abs().max().item()
+            worst = max(worst, err)
+            print(f"# phase 2: pipe_cell {name}, block of {what}: max abs err "
+                  f"{err:g} (exact)")
+            check(err == 0, f"pipe_cell {name} parity on a block of {what}")
+        del ints
+    errs["pipe_cell"] = (worst, worst)
+
+    _, nslices, rows, cols = perf_pipe_lab.DMA4D
+    block = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, 8, (CELLS, nslices, rows, cols)),
+        dtype=torch.bfloat16, device=dev)
+    want = perf_pipe_lab.stream_sum_ref(block)
+    for name, arr in (("stream_sum_4d", block),
+                      ("stream_sum_3d", block.reshape(
+                          CELLS, nslices * rows, cols))):
+        out = KERNELS[name]["wrapper"](arr)
+        torch.cuda.synchronize()
+        err = (out - want).abs().max().item()
+        errs[name] = (err, err)
+        print(f"# phase 2: {name}: max abs err {err:g} (exact, integers in "
+              f"[0, 8))")
+        check(err == 0, f"{name} parity")
+
+    tape, L = perf_static_probe.probe_inputs(dev)
+    worst = (0.0, 0.0)
+    for dynamic in (True, False):
+        out = perf_static_probe.static_chain(tape, L, dynamic=dynamic,
+                                             R=CHAIN_R)
+        torch.cuda.synchronize()
+        ref = perf_static_probe.static_chain_ref(tape, L, dynamic=dynamic,
+                                                 R=CHAIN_R)
+        err = norm_err(out, ref)
+        worst = max(worst, (err, (out - ref).abs().max().item()))
+        print(f"# phase 2: static_chain dynamic={dynamic} R={CHAIN_R}: "
+              f"max-abs/max|out| {err:.3e} (bound 1e-5, float32 plain)")
+        check(bool(torch.isfinite(out).all()) and err <= 1e-5,
+              f"static_chain dynamic={dynamic} parity")
+    errs["static_chain"] = worst
+
+    exp = perf_pipe_lab.EXPS[PIPE_TIMED]
+    idx, big = perf_pipe_lab.pipe_inputs(*exp[:2], CELLS, dev)
+    pipe_kw = dict(zip(("scratch_rows", "init", "loops", "stores"), exp[1:]))
+    big3 = block.reshape(CELLS, nslices * rows, cols)
+    unroll = perf_lab.VARIANTS["unroll"]
+    # The pipe cell and the chain check their indices once (phase 2) and
+    # are timed at their launches, without that check's host sync.
+    return {
+        "variant_grad": (
+            lambda: perf_lab.variant_ll_and_gradients_ref(**ops, **unroll),
+            lambda: perf_lab.variant_ll_and_gradients(**ops, **unroll)),
+        "pipe_cell": (
+            lambda: perf_pipe_lab.pipe_cell_ref(idx, big, **pipe_kw),
+            lambda: perf_pipe_lab._launch_pipe_cell(idx, big, *exp[1:])),
+        "stream_sum_4d": (lambda: perf_pipe_lab.stream_sum_ref(block),
+                          lambda: perf_pipe_lab.stream_sum_4d(block)),
+        "stream_sum_3d": (lambda: perf_pipe_lab.stream_sum_ref(big3),
+                          lambda: perf_pipe_lab.stream_sum_3d(big3)),
+        "static_chain": (
+            lambda: perf_static_probe.static_chain_ref(tape, L, dynamic=True,
+                                                       R=CHAIN_R),
+            lambda: perf_static_probe._launch_chain(tape, L, True, CHAIN_R)),
+    }, plain_outs
+
+
+def run_perflab(ops, dev):
+    """The perflab path: the perf lab's entry points, as `python -m
+    bito_tpu_torch.perflab lab|pipe|static` runs them, at LAB_REPS
+    repetitions.  Returns their results."""
+    print("# phase 3: perflab path (python -m bito_tpu_torch.perflab lab, "
+          f"pipe, pipe dma4d, static; {LAB_REPS} repetitions each)")
+    tape, L = perf_static_probe.probe_inputs(dev)
+    return dict(
+        lab=perf_lab.run_variants(perf_lab.NAMES, ops, reps=LAB_REPS),
+        pipe={name: perf_pipe_lab.run(name, *exp, reps=LAB_REPS, cells=CELLS)
+              for name, exp in perf_pipe_lab.EXPS.items()},
+        dma4d=perf_pipe_lab.run4d(*perf_pipe_lab.DMA4D, reps=LAB_REPS,
+                                  cells=CELLS),
+        static=perf_static_probe.slopes(tape, L, reps=LAB_REPS))
+
+
+def check_perflab(lab, plain_outs):
+    """Phase 3's checks of the perflab path's results."""
+    _, ll0, g0 = lab["lab"]["base"]
+    for name, (ms, ll, g) in lab["lab"].items():
+        check(ms > 0, f"perflab {name} was timed")
+        if name == "nodot":  # not a likelihood: no finiteness check
+            continue
+        check(bool(torch.isfinite(ll).all() and torch.isfinite(g).all()),
+              f"perflab {name} outputs are finite")
+        check(rel_err(ll, ll0) <= BOUND and norm_err(g, g0) <= BOUND,
+              f"perflab {name} agrees with base")
+    for name, (per_cell, out) in lab["pipe"].items():
+        check(per_cell > 0 and out.shape == (CELLS, 8,
+                                             perf_pipe_lab.S),
+              f"pipe {name} timed, output shape")
+        if name in plain_outs:
+            check(torch.equal(out, plain_outs[name]),
+                  f"pipe {name} equals its plain output")
+    (_, out4), (_, out3) = lab["dma4d"]["4d"], lab["dma4d"]["3d"]
+    groups = perf_pipe_lab.DMA4D[1] * perf_pipe_lab.DMA4D[2] // 8
+    check(torch.equal(out4, out3) and bool((out4 == groups).all()),
+          "dma4d: both layouts sum the ones block exactly")
+    for row in lab["static"]:
+        check(math.isfinite(row["us_per_op_slope"]), "static slope is finite")
+        print(f"# phase 3: static chain dynamic={row['dynamic']}: "
+              f"{row['us_per_op_slope']:.4f} us/op against an FMA floor of "
+              f"{row['fma_floor_us_per_op']:.4f} us/op"
+              + (" (BELOW the floor: not a measurement of an op)"
+                 if row["below_floor"] else ""))
 
 
 def main():
@@ -252,6 +453,10 @@ def main():
         check(ll_g_err <= BOUND, f"{grad_name} LL parity")
         check(errs[grad_name][0] <= BOUND, f"{grad_name} gradient parity")
 
+    lab_ops = dict(post_ops=post, pre_ops=pre, root=root, edge_mask=mask, P=P,
+                   dP=dP, tips=tips, pi=pi, props=prop, weights=w)
+    lab_calls, plain_outs = probe_parity(lab_ops, dev, errs)
+
     # -- 3. the paths ------------------------------------------------------------
     N = enc.num_slots
     scales = [1.0 + 0.001 * k for k in range(SWEEP)]
@@ -315,6 +520,12 @@ def main():
     launches.update(read_launches("pernode"))
     against_reference("pernode", [ll], pairs)
 
+    reset_launches()
+    lab = run_perflab(lab_ops, dev)
+    torch.cuda.synchronize()
+    launches.update(read_launches("perflab"))
+    check_perflab(lab, plain_outs)
+
     # The float64 reference's own gradients against central differences.
     h = 1e-6
     for node in (0, 13, 40):
@@ -329,18 +540,22 @@ def main():
 
     # -- 4. times --------------------------------------------------------------
     times = {}
+    calls = {name: (lambda p=plain, a=a: p(*a),
+                    lambda f=KERNELS[name]["wrapper"], a=a: f(*a))
+             for name, (plain, a) in args.items()}
+    calls.update(lab_calls)
     for name in KERNELS:
-        plain, a = args[name]
-        wrapper = KERNELS[name]["wrapper"]
+        plain, kernel = calls[name]
         # plain, kernel, kernel, plain: both sides see the same drift.
-        p1 = cuda_ms(lambda: plain(*a), 5)
-        k1 = cuda_ms(lambda: wrapper(*a), 50)
-        k2 = cuda_ms(lambda: wrapper(*a), 50)
-        p2 = cuda_ms(lambda: plain(*a), 5)
+        p1 = cuda_ms(plain, 5)
+        k1 = cuda_ms(kernel, 50)
+        k2 = cuda_ms(kernel, 50)
+        p2 = cuda_ms(plain, 5)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        shape = LAB_SHAPES.get(name, f"float32, {BATCH} trees x "
+                                     f"{eng.pattern_pad} patterns")
         print(f"# phase 4: {name} kernel {times[name][0]:.4f} ms, plain "
-              f"{times[name][1]:.4f} ms (float32, {BATCH} trees x "
-              f"{eng.pattern_pad} patterns) on {card}")
+              f"{times[name][1]:.4f} ms ({shape}) on {card}")
 
     def sweep_evals_per_s(kernel, calls):
         eng.kernel = kernel

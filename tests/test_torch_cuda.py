@@ -1,5 +1,5 @@
-"""The CUDA kernels on the card (paired, chunked and per-node), against
-their plain torch versions.
+"""The CUDA kernels on the card (paired, chunked and per-node, and the perf
+lab's four probes), against their plain torch versions.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -20,6 +20,7 @@ from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
+from bito_tpu_torch.perflab import perf_lab, perf_pipe_lab, perf_static_probe
 from bito_tpu_torch.treelike import chunked, paired, pernode, prep
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
@@ -253,3 +254,110 @@ def test_new_wrappers_reject_operands_the_kernels_do_not_take(cuda):
                                         w)
     with pytest.raises(ValueError):
         pernode.pernode_log_likelihoods(post, root[:1], P, tips, pi, prop, w)
+
+
+# -- the perf lab's probe kernels (bito_tpu_torch/perflab) -------------------
+
+@pytest.mark.parametrize("name", list(perf_lab.VARIANTS))
+def test_variant_kernel_matches_plain(cuda, name):
+    """The variant kernel on the flagship's tapes (27 taxa, M=26, Mp=51)
+    against its plain version in float64 on the same float32 operands.
+    nodot has -inf log likelihoods: equal non-finite places, finite values
+    within the bounds."""
+    knobs = perf_lab.VARIANTS[name]
+    ops = perf_lab.flagship_operands(cuda, batch=4)
+    before = perf_lab.variant_ll_and_gradients.launches
+    ll, g = perf_lab.variant_ll_and_gradients(**ops, **knobs)
+    torch.cuda.synchronize()
+    assert perf_lab.variant_ll_and_gradients.launches == before + 1
+    ll_ref, g_ref = perf_lab.variant_ll_and_gradients_ref(
+        **{k: v.double() if v.is_floating_point() else v
+           for k, v in ops.items()}, **knobs)
+    if knobs["nodot"]:
+        assert torch.equal(torch.isfinite(ll), torch.isfinite(ll_ref))
+        assert torch.equal(ll[~torch.isfinite(ll)].double(),
+                           ll_ref[~torch.isfinite(ll_ref)])
+        assert torch.isfinite(g).all() and torch.isfinite(g_ref).all()
+        assert (g.double() - g_ref).abs().max() <= 5e-5 * max(
+            g_ref.abs().max().item(), 1.0)
+    else:
+        assert _rel(ll, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5
+
+
+def test_variant_kernel_refuses_what_it_does_not_take(cuda):
+    eng, trees, params = _engine("gtr_gamma4", 9, 11, 2, False, cuda,
+                                 torch.float32)
+    enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params, None)
+    post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=cuda)
+                       for x in (enc.post_ops, enc.pre_ops, enc.root))
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=cuda)
+    args = (post, pre, root, mask, P, dP, tips, pi, prop, w)
+    with pytest.raises(ValueError, match="unroll"):
+        perf_lab.variant_ll_and_gradients(*args, **perf_lab.VARIANTS["unroll"])
+    with pytest.raises(ValueError, match="nodot"):
+        perf_lab.variant_ll_and_gradients(*args, unroll=False, resk=1,
+                                          nodot=True)
+    ll, g = perf_lab.variant_ll_and_gradients(
+        *args, **perf_lab.VARIANTS["loop_resk4"])  # the loop takes any tape
+    ll_ref, g_ref = pernode.pernode_ll_and_gradients_ref(
+        post, pre, root, mask, *_f64(P, dP, tips, pi, prop, w))
+    assert _rel(ll, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5
+    with pytest.raises(ValueError, match="categories"):
+        perf_lab.variant_ll_and_gradients(
+            post, pre, root, mask, P[:, :, :1].contiguous(),
+            dP[:, :, :1].contiguous(), tips, pi, prop[:1].contiguous(), w,
+            **perf_lab.VARIANTS["loop_resk4"])
+
+
+def _int_block(shape, seed, device):
+    """bf16 small integers in [0, 8): exact in bf16 and in float32 sums."""
+    block = np.random.default_rng(seed).integers(0, 8, shape)
+    return torch.as_tensor(block, dtype=torch.bfloat16, device=device)
+
+
+@pytest.mark.parametrize("name", [n for n, e in perf_pipe_lab.EXPS.items()
+                                  if e[2]])
+def test_pipe_cell_matches_plain(cuda, name):
+    """The experiments that fill their scratch, exactly, at 3 cells, on
+    the script's inputs and on a block of small integers."""
+    block_rows, scratch_rows, init, loops, stores = perf_pipe_lab.EXPS[name]
+    idx, big = perf_pipe_lab.pipe_inputs(block_rows, scratch_rows, 3, cuda)
+    kw = dict(scratch_rows=scratch_rows, init=init, loops=loops,
+              stores=stores)
+    before = perf_pipe_lab.pipe_cell.launches
+    for block in (big, _int_block(big.shape, 5, cuda)):
+        out = perf_pipe_lab.pipe_cell(idx, block, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out, perf_pipe_lab.pipe_cell_ref(idx, block, **kw))
+    assert perf_pipe_lab.pipe_cell.launches == before + 2
+
+
+def test_pipe_cell_refuses_offsets_past_the_scratch(cuda):
+    idx, big = perf_pipe_lab.pipe_inputs(8, 2080, 2, cuda)
+    with pytest.raises(ValueError, match="idx"):
+        perf_pipe_lab.pipe_cell(idx, big, scratch_rows=1024, init=True,
+                                loops=28, stores=4)
+
+
+def test_stream_sums_match_plain(cuda):
+    """Both walks give identical sums, equal to the plain version's, at 3
+    cells of the script's 32 x 256 x 128 block."""
+    _, nslices, rows, cols = perf_pipe_lab.DMA4D
+    big4 = _int_block((3, nslices, rows, cols), 9, cuda)
+    big3 = big4.reshape(3, nslices * rows, cols)
+    out4 = perf_pipe_lab.stream_sum_4d(big4)
+    out3 = perf_pipe_lab.stream_sum_3d(big3)
+    torch.cuda.synchronize()
+    assert torch.equal(out4, out3)
+    assert torch.equal(out4, perf_pipe_lab.stream_sum_ref(big4))
+
+
+@pytest.mark.parametrize("dynamic", [True, False], ids=["dynamic", "static"])
+@pytest.mark.parametrize("R", [1, 2, 20])
+def test_static_chain_matches_plain(cuda, dynamic, R):
+    tape, L = perf_static_probe.probe_inputs(cuda)
+    out = perf_static_probe.static_chain(tape, L, dynamic=dynamic, R=R)
+    torch.cuda.synchronize()
+    want = perf_static_probe.static_chain_ref(tape, L, dynamic=dynamic, R=R)
+    assert torch.isfinite(out).all()
+    assert (out - want).abs().max() <= 1e-5 * want.abs().max()

@@ -11,9 +11,11 @@ ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "bito_tpu_torch"
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
                  for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
+# Every module and package of the port (a package by its __init__.py).
 MODULES = sorted(
-    ".".join(p.relative_to(ROOT).with_suffix("").parts)
-    for p in PACKAGE.rglob("*.py") if p.name != "__init__.py")
+    ".".join(p.relative_to(ROOT).with_suffix("").parts[
+        :-1 if p.name == "__init__.py" else None])
+    for p in PACKAGE.rglob("*.py"))
 
 _PROBE = """
 import sys
@@ -32,9 +34,11 @@ print("ok", len({modules!r}))
 
 
 def test_imports_without_jax_or_bito_tpu():
-    """Every module of the port imports in a fresh interpreter where jax
-    cannot be imported, none of them loads bito_tpu, and no import loads
-    the kernel library."""
+    """Every module of the port, the perf lab's included, imports in a
+    fresh interpreter where jax cannot be imported, none of them loads
+    bito_tpu, and no import loads the kernel library."""
+    assert {"bito_tpu_torch.perflab", "bito_tpu_torch.perflab.__main__",
+            "bito_tpu_torch.perflab.perf_lab"} <= set(MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(modules=MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=120)

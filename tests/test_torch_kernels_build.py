@@ -1,8 +1,9 @@
 """The kernel build (treelike/_kernels.py) without a CUDA toolkit: a
 stand-in nvcc script shows that a build compiles every source of the six
-kernels, one nvcc each, and links them into one library named by the
-sources' hash; that it runs once per source hash, keeps nvcc's messages
-beside the library, and raises with nvcc's stderr when a compile fails."""
+tree-likelihood kernels and the four perf-lab probes, one nvcc each, and
+links them into one library named by the sources' hash; that it runs once
+per source hash, keeps nvcc's messages beside the library, and raises with
+nvcc's stderr when a compile fails."""
 import os
 import pathlib
 import re
@@ -22,12 +23,13 @@ def _fake_nvcc(tmp_path, body):
 
 @pytest.fixture
 def workdir(tmp_path, monkeypatch):
-    """Copies of the sources and an empty build directory under tmp_path."""
-    csrc = tmp_path / "csrc"
-    csrc.mkdir()
+    """Copies of the sources, in their package layout, and an empty build
+    directory under tmp_path."""
+    root = tmp_path / "pkg"
     for name in _kernels._SOURCES + _kernels._HEADERS:
-        (csrc / name).write_bytes((_kernels._CSRC / name).read_bytes())
-    monkeypatch.setattr(_kernels, "_CSRC", csrc)
+        (root / name).parent.mkdir(parents=True, exist_ok=True)
+        (root / name).write_bytes((_kernels._ROOT / name).read_bytes())
+    monkeypatch.setattr(_kernels, "_ROOT", root)
     monkeypatch.setattr(_kernels, "_BUILD", tmp_path / "_build")
     return tmp_path
 
@@ -48,8 +50,10 @@ touch "$2"
     assert "Used 56 registers" in so.with_suffix(".log").read_text()
     runs = calls.read_text().splitlines()
     # One compile per source, then one link of all their objects.
-    assert sorted(pathlib.Path(r.split()[-1]).name for r in runs[:-1]) == (
-        sorted(_kernels._SOURCES))
+    assert sorted(r.split()[-1] for r in runs[:-1]) == sorted(
+        str(workdir / "pkg" / s) for s in _kernels._SOURCES)
+    assert {pathlib.PurePath(s).parts[0] for s in _kernels._SOURCES} == {
+        "treelike", "perflab"}
     assert all(" -c " in r and "sm_90a" in r for r in runs[:-1])
     assert " -shared " in runs[-1] and runs[-1].count(".o") == len(
         _kernels._SOURCES)
@@ -59,13 +63,14 @@ touch "$2"
         [so.name, so.with_suffix(".log").name])
 
     # An edit to any source names a new library and builds again.
-    for name in ("chunked_grad.cu", "common.cuh"):
-        src = workdir / "csrc" / name
+    for name in ("treelike/csrc/chunked_grad.cu", "treelike/csrc/common.cuh",
+                 "perflab/csrc/static_chain.cu"):
+        src = workdir / "pkg" / name
         src.write_text(src.read_text() + "\n// edited\n")
         so2 = _kernels.build()
         assert so2 != so and so2.exists()
         so = so2
-    assert len(calls.read_text().splitlines()) == 3 * len(runs)
+    assert len(calls.read_text().splitlines()) == 4 * len(runs)
 
 
 def test_failed_build_raises_with_nvcc_stderr(workdir, monkeypatch):

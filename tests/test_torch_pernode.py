@@ -17,28 +17,13 @@ import pytest
 import torch
 
 from bito_tpu.treelike import pallas_pruning
-from bito_tpu_torch.treelike import pernode, prep
+from bito_tpu_torch.treelike import pernode
 
 from torch_port_cases import (GTR, MODELS, jax_engine, jax_params, make_case,
-                              max_norm, max_rel, torch_engine, torch_params)
+                              max_norm, max_rel, pernode_operands,
+                              torch_engine, torch_params)
 
 B = 4
-
-
-def _port_operands(te, case, params, dtype=torch.float32):
-    """The per-node kernels' operands from the port's engine."""
-    enc = te.encode(case.torch_trees)
-    bl = te.branch_length_matrix(case.torch_trees, enc)
-    eig, rates, props, clock = te._model_ingredients(torch_params(params), B)
-    pi, prop = prep.kernel_model(eig, props, dtype)
-    P, dP = prep.prepare_inputs_grad(eig, rates, clock, bl, dtype)
-    post_ops, pre_ops, root = (torch.as_tensor(x, dtype=torch.int32) for x in (
-        enc.post_ops, enc.pre_ops, enc.root))
-    ops = dict(post_ops=post_ops, root=root, P=P,
-               tips=te._kernel_tips.to(dtype), pi=pi, props=prop,
-               weights=te._kernel_weights.to(dtype))
-    return ops, dict(pre_ops=pre_ops, dP=dP,
-                     edge_mask=torch.as_tensor(enc.edge_mask, dtype=dtype))
 
 
 @pytest.fixture(scope="module", params=[False, True], ids=["trifurcating",
@@ -73,7 +58,7 @@ def pallas_case(request):
     return dict(
         pallas=(np.asarray(ll_pl), np.asarray(g_pl), np.asarray(llo_pl)),
         scan=(np.asarray(ll_ref), np.asarray(g_ref)),
-        operands=_port_operands(te, case, GTR))
+        operands=pernode_operands(te, case, GTR))
 
 
 def test_ll_plain_matches_pallas_interpret(pallas_case):
@@ -107,7 +92,7 @@ def test_plain_in_float64_matches_scan(model, rooted):
     case = make_case(seed=41, num_taxa=8, num_trees=B, rooted=rooted)
     te = torch_engine(case, model)
     params = MODELS[model][1]
-    ops, extra = _port_operands(te, case, params, dtype=torch.float64)
+    ops, extra = pernode_operands(te, case, params, dtype=torch.float64)
     ll_ref, g_ref = (x.numpy() for x in te.ll_and_branch_gradients(
         case.torch_trees, torch_params(params)))
     ll, g = pernode.pernode_ll_and_gradients_ref(**ops, **extra)
@@ -119,7 +104,7 @@ def test_plain_in_float64_matches_scan(model, rooted):
 
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
     case = make_case(seed=51, num_taxa=8, num_trees=B, rooted=True)
-    ops, extra = _port_operands(torch_engine(case, "gtr_gamma4"), case, GTR)
+    ops, extra = pernode_operands(torch_engine(case, "gtr_gamma4"), case, GTR)
     before = (pernode.pernode_log_likelihoods.launches,
               pernode.pernode_ll_and_gradients.launches)
     torch.testing.assert_close(pernode.pernode_log_likelihoods(**ops),
@@ -135,7 +120,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
 
 def test_operand_shapes_are_checked():
     case = make_case(seed=51, num_taxa=8, num_trees=B)
-    ops, _ = _port_operands(torch_engine(case, "gtr_gamma4"), case, GTR)
+    ops, _ = pernode_operands(torch_engine(case, "gtr_gamma4"), case, GTR)
     pernode._check_shapes(**ops)
     with pytest.raises(ValueError, match="root"):
         pernode._check_shapes(**dict(ops, root=ops["root"][:-1]))

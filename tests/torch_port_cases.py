@@ -10,6 +10,7 @@ from dataclasses import dataclass
 
 import jax.numpy as jnp
 import numpy as np
+import torch
 
 from bito_tpu.core.newick import parse_newick_text as jax_parse
 from bito_tpu.core.site_pattern import SitePattern as JaxSitePattern
@@ -21,6 +22,7 @@ from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
+from bito_tpu_torch.treelike import prep
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
 GTR = _synthetic.GTR_GAMMA4_PARAMS
@@ -90,6 +92,25 @@ def jax_params(params: dict) -> dict:
 
 def torch_params(params: dict, dtype=TEST_DTYPE, device=TEST_DEVICE) -> dict:
     return params_from_numpy(params, device, dtype)
+
+
+def pernode_operands(te: TreeLikelihoodEngine, case: Case, params: dict,
+                     dtype=torch.float32):
+    """The per-node kernels' operands from the port's engine: (the LL
+    kernel's keyword arguments, the grad kernel's extra ones)."""
+    enc = te.encode(case.torch_trees)
+    bl = te.branch_length_matrix(case.torch_trees, enc)
+    eig, rates, props, clock = te._model_ingredients(torch_params(params),
+                                                     len(case.torch_trees))
+    pi, prop = prep.kernel_model(eig, props, dtype)
+    P, dP = prep.prepare_inputs_grad(eig, rates, clock, bl, dtype)
+    post_ops, pre_ops, root = (torch.as_tensor(x, dtype=torch.int32) for x in (
+        enc.post_ops, enc.pre_ops, enc.root))
+    ops = dict(post_ops=post_ops, root=root, P=P,
+               tips=te._kernel_tips.to(dtype), pi=pi, props=prop,
+               weights=te._kernel_weights.to(dtype))
+    return ops, dict(pre_ops=pre_ops, dP=dP,
+                     edge_mask=torch.as_tensor(enc.edge_mask, dtype=dtype))
 
 
 def max_rel(a, b) -> float:
