@@ -61,6 +61,28 @@ def random_trees_newick(seed: int, num_taxa: int, num_trees: int,
                      for _ in range(num_trees)) + "\n"
 
 
+def cherry_comb_newick(seed: int, num_cherries: int, num_trees: int) -> str:
+    """`num_trees` copies of one rooted topology over 2 * num_cherries + 1
+    taxa, ((t0,t1),((t2,t3),( ... ,t{2k}))), with random branch lengths.
+    Its postorder keeps every cherry's partial until the spine below it
+    is done: about a third of the taxa's partials are live at once."""
+    rng = np.random.default_rng(seed)
+    names = taxon_names(2 * num_cherries + 1)
+    lo, hi = BRANCH_LENGTHS
+
+    def tree() -> str:
+        def edge(sub: str) -> str:
+            return f"{sub}:{rng.uniform(lo, hi):.6f}"
+
+        sub = names[-1]
+        for i in range(num_cherries - 1, -1, -1):
+            cherry = f"({edge(names[2 * i])},{edge(names[2 * i + 1])})"
+            sub = f"({edge(cherry)},{edge(sub)})"
+        return sub + ";"
+
+    return "\n".join(tree() for _ in range(num_trees)) + "\n"
+
+
 def random_alignment(seed: int, names: List[str], num_sites: int,
                      num_distinct: int | None = None,
                      gap_rate: float = 0.03,

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from . import card_line, cuda_ms, require_card
+from ..device import PRODUCT_DEVICE
 from ..treelike import _kernels
 
 CELLS = 100
@@ -57,7 +58,7 @@ DMA4D = ("dma-32x256x128", 32, 256, 128)   # the script's "dma4d"
 
 
 def pipe_inputs(block_rows: int, scratch_rows: int, cells: int = CELLS,
-                device="cpu"):
+                device=PRODUCT_DEVICE):
     """(idx [cells, 1, 64] int32, block [cells, block_rows, S] bf16 ones),
     as the script builds them (perf_pipe_lab.py:47-51)."""
     idx = np.random.default_rng(0).integers(0, scratch_rows // ROWS - 1,

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import card_line, cuda_ms, max_sm_clock_mhz, require_card
+from ..device import PRODUCT_DEVICE
 from ..treelike import _kernels
 
 CA = 16
@@ -44,7 +45,7 @@ LANES_PER_SM = 128              # FP32 FMA lanes of a Hopper SM
 R_LO, R_HI = 20, 120
 
 
-def probe_inputs(device="cpu"):
+def probe_inputs(device=PRODUCT_DEVICE):
     """(tape [2, M] int32, L [1, 32, 96] f32), as the script builds them
     (perf_static_probe.py:82-87)."""
     tape = np.zeros((2, M), np.int32)

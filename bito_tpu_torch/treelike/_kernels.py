@@ -28,11 +28,12 @@ _BUILD = _ROOT / "_build"
 # Paths relative to the package.  perflab's sources include
 # ../../treelike/csrc/common.cuh.
 _SOURCES = tuple(f"treelike/csrc/{name}" for name in (
-    "paired_ll.cu", "paired_grad.cu", "chunked_ll.cu", "chunked_grad.cu",
+    "paired_ll.cu", "paired_grad.cu", "paired_ll_onchip.cu",
+    "paired_grad_onchip.cu", "chunked_ll.cu", "chunked_grad.cu",
     "pernode_ll.cu", "pernode_grad.cu")) + tuple(
     f"perflab/csrc/{name}" for name in (
         "variant_grad.cu", "pipe_cell.cu", "stream_sum.cu", "static_chain.cu"))
-_HEADERS = ("treelike/csrc/common.cuh",)
+_HEADERS = ("treelike/csrc/common.cuh", "treelike/csrc/onchip.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -47,6 +48,12 @@ _SIGNATURES = {
     # post_dst, tip_slot, post_src, post_e, P, dP, tips, pi, props, weights,
     # buf, ls, ll_rows, grad_rows, B, M, T, N1, C, S, stream
     "bito_paired_grad": [_P] * 14 + [_I] * 6 + [_P],
+    # post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows,
+    # B, M, T, N1, C, S, rows, cols, ring, stream
+    "bito_paired_ll_onchip": [_P] * 9 + [_I] * 9 + [_P],
+    # post_dst, child, post_src, post_e, P, dP, tips, pi, props, weights,
+    # ll_rows, grad_rows, B, M, T, N1, C, S, rows, cols, ring, stream
+    "bito_paired_grad_onchip": [_P] * 12 + [_I] * 9 + [_P],
     # post_dst, tip_slot, post_e, P, tips, pi, props, buf, ls, ll_rows,
     # B, MW, W, T, N1, C, S, stream
     "bito_chunked_ll": [_P] * 10 + [_I] * 7 + [_P],

@@ -30,8 +30,11 @@
 //
 // What bounds it on the H100: as paired_ll.cu, the paired-slot partials
 // live in device memory, and the outside pass reads three columns and
-// writes two per op (about 330 bytes per pattern per op against 640 FLOP),
-// so the kernel is bound by memory bandwidth and L2.
+// writes two per op; at 255 registers (C=4, with a spill) two blocks of
+// 128 threads fit an SM, so it is bound by the latency of device memory.
+// paired_grad_onchip.cu keeps every partial in shared memory and is the
+// body the wrappers launch (treelike/paired.py); this one takes the trees
+// whose rows do not fit there.
 #include "common.cuh"
 
 namespace {

@@ -1,0 +1,278 @@
+// Per-pattern tree log likelihoods and branch-length gradient rows over the
+// paired-slot tape, with every partial on chip.
+//
+// Replaces bito_tpu/treelike/pallas_paired.py::_grad_kernel (the Pallas TPU
+// kernel behind paired_ll_and_gradients), as paired_grad.cu does, and
+// computes the same numbers: the postorder and root log likelihood of
+// paired_ll_onchip.cu, then the outside pass in reverse tape order.  Op m
+// takes its outside value (pi at the root op), forms both children's
+// outside vectors o0 = up * ev1 and o1 = up * ev0, rescales them, and
+// writes for each child the weighted gradient row
+//     w * sum_ca prop*o*(dP p) / sum_ca prop*o*(P p)
+// to row post_src[m, j], then the child's up value P^T o where the child's
+// own op reads it.  Summing the rows over patterns is left to the caller:
+// no float atomics, the same result on every run.
+//
+// The rows: op m's output lives in shared-memory row m of its pattern
+// (indexed by the op that produced it, through the child tape of
+// treelike/paired.py child_tape), and the outside pass writes op m's
+// outside value over it in place, once the consumer of m has read the
+// partial: the paired layout's own trick, indexed by producer op.  A
+// thread owns its lane's slice of every row, so the read and the overwrite
+// are ordered by its own program order.  Tips are read in place from
+// tips[t, :, s] (L2-resident), prefetched into registers one op ahead; no
+// up value is stored for a tip, which no op reads.
+//
+// What bounds paired_grad.cu on the H100, and what this body does about
+// it (csrc/onchip.cuh has the layout):
+//   - its partials live in device memory and the outside pass reads three
+//     64-byte columns and writes two per op; at 255 registers and a spill,
+//     2 blocks of 128 threads fit an SM, and each warp waits on device
+//     memory.  Here every row is in shared memory: M rows of C*16 bytes a
+//     pattern.
+//   - a rate category is a lane (G lanes a pattern), so a thread holds 4
+//     states of a few vectors; __shfl_xor_sync takes the rescale max, the
+//     gradient's sums over categories and the root LL.
+//   - an op rescales by a power of two, 4 exact multiplies a lane and no
+//     divide; the outside pass needs no log scale (each gradient row is a
+//     ratio), the postorder only a running integer sum of exponents.
+//   - P and dP: staged in shared memory once per block (ring = false) or
+//     double-buffered one op ahead (ring = true), by cp.async; paired.py's
+//     onchip_plan picks.
+// What bounds it now, on the H100: instruction issue at an occupancy set
+// by shared memory (one block of 15 warps an SM at the flagship, 100
+// registers, no spill).  Beside the f32 FMAs, a warp issues the tape's and
+// the tips' loads and their address arithmetic, the matrix rows' shared-
+// memory loads and the shuffles; it runs at about a tenth of the FMA
+// bound (PERF.md, chip runs).  Larger trees hold more rows a pattern and
+// fewer warps an SM; below three warps paired_grad.cu is the faster, and
+// paired.py's onchip_plan hands the tree to it (about 150 taxa at C=4).
+#include "onchip.cuh"
+
+namespace {
+
+using onchip::A;
+
+template <int C, bool kRing>
+__global__ void __launch_bounds__(onchip::kMaxThreads)
+paired_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, M]
+                          const int* __restrict__ child,      // [B, M, 2]
+                          const int* __restrict__ post_src,   // [B, M, 2]
+                          const int* __restrict__ post_e,     // [B, M, 2]
+                          const float* __restrict__ P,   // [B, N1, C, 4, 4]
+                          const float* __restrict__ dP,  // [B, N1, C, 4, 4]
+                          const float* __restrict__ tips,     // [T, 4, S]
+                          const float* __restrict__ pi,       // [4]
+                          const float* __restrict__ props,    // [C]
+                          const float* __restrict__ weights,  // [S]
+                          float* __restrict__ ll_rows,        // [B, S]
+                          float* __restrict__ grad_rows,      // [B, N1, S]
+                          int M, int T, int N1, int S, int rows) {
+  using namespace onchip;
+  constexpr int G = Lanes<C>::G;
+  extern __shared__ float4 smem[];
+  const int threads = blockDim.x;
+  const int tid = threadIdx.x;
+  const int g = tid % G;
+  const int b = blockIdx.y;
+  const int s_raw = blockIdx.x * (threads / G) + tid / G;
+  // A thread past the last pattern computes a copy of it and stores
+  // nothing: every lane of the warp takes part in the shuffles.
+  const int s = min(s_raw, S - 1);
+  const float* const tips_s = tips + s;
+  const bool writer = g == 0 && s_raw < S;
+  float4* const my = smem + tid;  // row r at my[r * threads]
+  float4* const mats = smem + static_cast<size_t>(rows) * threads;
+  const int nslots = kRing ? 8 : 2 * N1;
+  int* const t_dst = reinterpret_cast<int*>(mats + nslots * G * A);
+  int* const t_child = t_dst + M;
+  int* const t_e = t_child + 2 * M;
+  int* const t_src = t_e + 2 * M;
+  const size_t tree_mats = static_cast<size_t>(b) * N1 * C * A * A;
+  const float* const P_b = P + tree_mats;
+  const float* const dP_b = dP + tree_mats;
+
+  for (int i = tid; i < M; i += threads)
+    t_dst[i] = post_dst[static_cast<size_t>(b) * M + i];
+  for (int i = tid; i < 2 * M; i += threads) {
+    const size_t k = static_cast<size_t>(b) * 2 * M + i;
+    t_child[i] = child[k];
+    t_e[i] = post_e[k];
+    t_src[i] = post_src[k];
+  }
+  zero_idle<C>(mats, nslots);
+  if (!kRing) stage_all<C>(mats, P_b, dP_b, N1);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int root = 2 * M, trash = 2 * M + 1;
+  const float4 pi4 = make_float4(__ldg(pi), __ldg(pi + 1), __ldg(pi + 2),
+                                 __ldg(pi + 3));
+  const float prop = g < C ? __ldg(props + g) : 0.f;
+
+  // -- postorder: op m's output to row m ------------------------------------
+  int lsc = 0;  // the running log scale, in powers of two
+  if (kRing) {
+    stage_op<C>(mats, 0, t_e[0], t_e[1], P_b, nullptr);
+    cp_async_commit();
+  }
+  // Op m's tape and leaves are read one op ahead, before op m - 1's
+  // stores, so their latency overlaps its work.
+  Op op = op_at(t_dst, t_child, t_e, 0);
+  float4 l0 = leaf_value(op.c0, T, S, tips_s);
+  float4 l1 = leaf_value(op.c1, T, S, tips_s);
+  for (int m = 0; m < M; ++m) {
+    const int mn = min(m + 1, M - 1);
+    const Op nx = op_at(t_dst, t_child, t_e, mn);
+    const float4 n0 = leaf_value(nx.c0, T, S, tips_s);
+    const float4 n1 = leaf_value(nx.c1, T, S, tips_s);
+    const float4* M0;
+    const float4* M1;
+    if (kRing) {
+      if (m + 1 < M) stage_op<C>(mats, 4 * (mn & 1), nx.e0, nx.e1, P_b,
+                                 nullptr);
+      cp_async_commit();
+      cp_async_wait<1>();  // op m's matrices have landed
+      __syncthreads();
+      M0 = lane_rows<G>(mats, 4 * (m & 1), g);
+      M1 = lane_rows<G>(mats, 4 * (m & 1) + 1, g);
+    } else {
+      M0 = lane_rows<G>(mats, op.e0, g);
+      M1 = lane_rows<G>(mats, op.e1, g);
+    }
+    if (op.dst != trash) {
+      const float4 p0 = op.c0 >= 0 ? my[op.c0 * threads] : l0;
+      const float4 p1 = op.c1 >= 0 ? my[op.c1 * threads] : l1;
+      float4 prod = mul(evolve<G>(M0, p0), evolve<G>(M1, p1));
+      const int ex = scale_exponent(group_max<G>(max4(prod)));
+      prod = scale(prod, pow2_neg(ex));
+      lsc += ex;
+      if (op.dst == root) {
+        const float site = group_sum<G>(prop * dot(pi4, prod));
+        if (writer)
+          ll_rows[static_cast<size_t>(b) * S + s_raw] = logf(site) + lsc * kLn2;
+      } else {
+        my[m * threads] = prod;
+      }
+    }
+    if (kRing) __syncthreads();  // op m's buffer is refilled for op m + 2
+    op = nx;
+    l0 = n0;
+    l1 = n1;
+  }
+
+  // -- outside pass, in reverse: op m's outside value in row m --------------
+  const float w = __ldg(weights + s);
+  float* const grad_b = grad_rows + static_cast<size_t>(b) * N1 * S + s_raw;
+  if (kRing) {
+    stage_op<C>(mats, 0, t_e[2 * M - 2], t_e[2 * M - 1], P_b, dP_b);
+    cp_async_commit();
+  }
+  op = op_at(t_dst, t_child, t_e, M - 1);
+  l0 = leaf_value(op.c0, T, S, tips_s);
+  l1 = leaf_value(op.c1, T, S, tips_s);
+  for (int m = M - 1, k = 0; m >= 0; --m, ++k) {
+    const int mn = max(m - 1, 0);
+    const Op nx = op_at(t_dst, t_child, t_e, mn);
+    const float4 n0 = leaf_value(nx.c0, T, S, tips_s);
+    const float4 n1 = leaf_value(nx.c1, T, S, tips_s);
+    const int src0 = t_src[2 * m], src1 = t_src[2 * m + 1];
+    const float4 *M0, *M1, *dM0, *dM1;
+    if (kRing) {
+      if (m > 0) stage_op<C>(mats, 4 * ((k + 1) & 1), nx.e0, nx.e1, P_b,
+                             dP_b);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      M0 = lane_rows<G>(mats, 4 * (k & 1), g);
+      M1 = lane_rows<G>(mats, 4 * (k & 1) + 1, g);
+      dM0 = lane_rows<G>(mats, 4 * (k & 1) + 2, g);
+      dM1 = lane_rows<G>(mats, 4 * (k & 1) + 3, g);
+    } else {
+      M0 = lane_rows<G>(mats, op.e0, g);
+      M1 = lane_rows<G>(mats, op.e1, g);
+      dM0 = lane_rows<G>(mats, N1 + op.e0, g);
+      dM1 = lane_rows<G>(mats, N1 + op.e1, g);
+    }
+    if (op.dst != trash) {
+      const float4 up = op.dst == root ? pi4 : my[m * threads];
+      const float4 p0 = op.c0 >= 0 ? my[op.c0 * threads] : l0;
+      const float4 p1 = op.c1 >= 0 ? my[op.c1 * threads] : l1;
+      const float4 ev0 = evolve<G>(M0, p0), ev1 = evolve<G>(M1, p1);
+      float4 o0 = mul(up, ev1), o1 = mul(up, ev0);
+      const float inv = pow2_neg(
+          scale_exponent(group_max<G>(fmaxf(max4(o0), max4(o1)))));
+      o0 = scale(o0, inv);
+      o1 = scale(o1, inv);
+      const float n0s = group_sum<G>(prop * dot(o0, evolve<G>(dM0, p0)));
+      const float n1s = group_sum<G>(prop * dot(o1, evolve<G>(dM1, p1)));
+      float d0 = group_sum<G>(prop * dot(o0, ev0));
+      float d1 = group_sum<G>(prop * dot(o1, ev1));
+      if (writer) {
+        d0 = d0 > 0.f ? d0 : 1.f;
+        d1 = d1 > 0.f ? d1 : 1.f;
+        grad_b[static_cast<size_t>(src0) * S] = w * __fdividef(n0s, d0);
+        grad_b[static_cast<size_t>(src1) * S] = w * __fdividef(n1s, d1);
+      }
+      // Each child op's outside value, over its partial, which this op was
+      // the last to read.
+      if (op.c0 >= 0) my[op.c0 * threads] = evolve_t<G>(M0, o0);
+      if (op.c1 >= 0) my[op.c1 * threads] = evolve_t<G>(M1, o1);
+    }
+    if (kRing) __syncthreads();
+    op = nx;
+    l0 = n0;
+    l1 = n1;
+  }
+}
+
+template <int C, bool kRing>
+cudaError_t launch(const int* post_dst, const int* child, const int* post_src,
+                   const int* post_e, const float* P, const float* dP,
+                   const float* tips, const float* pi, const float* props,
+                   const float* weights, float* ll_rows, float* grad_rows,
+                   int B, int M, int T, int N1, int S, int rows, int cols,
+                   cudaStream_t st) {
+  constexpr int G = onchip::Lanes<C>::G;
+  const int threads = cols * G;
+  if (cols < 1 || threads > onchip::kMaxThreads || threads % 32)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      onchip::smem_bytes(rows, threads, G, N1, 4, kRing, 7 * M);
+  if (smem > onchip::kSmemMax) return cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      paired_grad_onchip_kernel<C, kRing>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, onchip::kSmemMax);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((S + cols - 1) / cols, B);
+  paired_grad_onchip_kernel<C, kRing><<<grid, threads, smem, st>>>(
+      post_dst, child, post_src, post_e, P, dP, tips, pi, props, weights,
+      ll_rows, grad_rows, M, T, N1, S, rows);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// `rows` is one more than the last op that stores a row (paired.py
+// grad_rows_needed); `cols` patterns per block (a whole number of warps);
+// `ring` the staging.  Gradient rows that no op writes (the root's, the
+// trash row) are left as they are.  Returns cudaGetLastError() after the
+// launch (0 on success).
+extern "C" int bito_paired_grad_onchip(
+    const int* post_dst, const int* child, const int* post_src,
+    const int* post_e, const float* P, const float* dP, const float* tips,
+    const float* pi, const float* props, const float* weights,
+    float* ll_rows, float* grad_rows, int B, int M, int T, int N1, int C,
+    int S, int rows, int cols, int ring, void* stream) {
+  if (B <= 0 || B > 65535 || S <= 0 || M <= 0 || rows < 1 || rows > M)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define ONCHIP_LAUNCH_GRAD(CV, RV)                                           \
+  return static_cast<int>(launch<CV, RV>(                                    \
+      post_dst, child, post_src, post_e, P, dP, tips, pi, props, weights,    \
+      ll_rows, grad_rows, B, M, T, N1, S, rows, cols, st))
+  ONCHIP_DISPATCH(C, ring != 0, ONCHIP_LAUNCH_GRAD)
+#undef ONCHIP_LAUNCH_GRAD
+  return cudaErrorInvalidValue;
+}

@@ -22,12 +22,11 @@
 //
 // What bounds it on the H100: the paired-slot partials live in device
 // memory ([B, 2M+3, C*4, S] float32, 0.77 GB at 200 trees x 27 taxa x
-// 1024 patterns under Gamma4), because one pattern's column of 59 slots x
-// 16 floats is 3.8 KB, and shared memory would hold too few columns per SM
-// to keep it busy.  Each op reads two columns and writes one: about 200
-// bytes per pattern per op against 256 FLOP, so the kernel is bound by
-// memory bandwidth and L2, not by arithmetic.  Keeping the live slots
-// on chip is the next step.
+// 1024 patterns under Gamma4), and each op reads two columns and writes
+// one, so a thread waits on device memory op after op.  It takes any tree.
+// paired_ll_onchip.cu keeps the live partials in shared memory and is the
+// body the wrappers launch (treelike/paired.py); this one takes the trees
+// whose rows do not fit there.
 #include "common.cuh"
 
 namespace {

@@ -7,12 +7,17 @@ here one call evaluates the whole batch).  The public surface is the same:
 `ll_eval_fn`, with parameter dicts whose values are either shared (1-D)
 or per-tree rows (2-D, the reference's phylo_model_params_ matrix).
 
+The engine runs on the card in float32 unless the caller asks for another
+device or dtype (bito_tpu_torch.device: PRODUCT_DEVICE, PRODUCT_DTYPE).
+
 Kernel selection, `engine.kernel`:
   "auto"    — the hand-written CUDA paired kernels (treelike/paired.py) on
               a CUDA device in float32 with a shared model of 4 states and
               at most paired.MAX_CATEGORIES rate categories, the conditions
               under which bito_tpu takes its paired Pallas kernels; the
-              scan tape otherwise.
+              scan tape otherwise.  The paired wrappers launch the on-chip
+              bodies, or the global ones for a tree on which those would
+              be the slower (paired.onchip_plan).
   "scan"    — always the scan tape (treelike/pruning.py).
   "cuda"    — always the paired kernels' wrappers: on a CUDA device the
               kernels, on the CPU their plain torch versions.
@@ -40,7 +45,7 @@ import torch
 
 from ..core.site_pattern import SitePattern
 from ..core.tree import Tree
-from ..device import resolve
+from ..device import PRODUCT_DEVICE, PRODUCT_DTYPE, resolve
 from ..models.phylo_model import PhyloModel
 from ..models.substitution import EigenDecomp
 from . import chunked, paired, prep, pruning
@@ -56,7 +61,7 @@ class TreeLikelihoodEngine:
     parameters are plain tensors on the engine's device."""
 
     def __init__(self, site_pattern: SitePattern, model: PhyloModel, *,
-                 device, dtype):
+                 device=PRODUCT_DEVICE, dtype=PRODUCT_DTYPE):
         self.device, self.dtype = resolve(device, dtype)
         self.site_pattern = site_pattern
         self.model = model
@@ -155,7 +160,18 @@ class TreeLikelihoodEngine:
             pe = paired.build_paired_encoding(enc)
             self._tapes["paired"] = self._kernel_tapes(
                 enc, (pe.post_dst, pe.tip_slot, pe.post_src, pe.post_e))
+            # The on-chip bodies' tape, from the same host arrays; the CPU
+            # runs the plain versions, which need none.
+            self._tapes["onchip"] = paired.onchip_tape(
+                pe.post_dst, pe.tip_slot, self.device) if (
+                    self.device.type == "cuda") else None
         return self._tapes["paired"]
+
+    def _onchip_tape(self, enc: TreeBatchEncoding):
+        """The paired kernels' on-chip tape (child codes and LL rows),
+        cached with the encoding; None on the CPU."""
+        self._paired_tapes(enc)
+        return self._tapes["onchip"]
 
     def _chunked_tapes(self, enc: TreeBatchEncoding):
         """(post_dst, tip_slot, post_e, node_row, edge_mask) of the chunked
@@ -226,7 +242,8 @@ class TreeLikelihoodEngine:
         if route == "paired":
             post_dst, tip_slot, _src, post_e, _mask = self._paired_tapes(enc)
             ll = paired.paired_log_likelihoods(
-                post_dst, tip_slot, post_e, P, tips, pi, prop, w)
+                post_dst, tip_slot, post_e, P, tips, pi, prop, w,
+                onchip=self._onchip_tape(enc))
         else:
             post_dst, tip_slot, post_e, _row, _mask = self._chunked_tapes(enc)
             ll = chunked.chunked_log_likelihoods(
@@ -265,12 +282,13 @@ class TreeLikelihoodEngine:
         tips, w = self._kernel_tips, self._kernel_weights
         if route == "paired":
             post_dst, tip_slot, post_src, post_e, mask = self._paired_tapes(enc)
+            onchip = self._onchip_tape(enc)
 
             def kernel(bl):
                 P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl, dt)
                 return paired.paired_ll_and_gradients(
                     post_dst, tip_slot, post_src, post_e, mask, P, dP, tips,
-                    pi, prop, w)
+                    pi, prop, w, onchip=onchip)
         else:
             post_dst, tip_slot, post_e, node_row, mask = self._chunked_tapes(
                 enc)

@@ -7,15 +7,31 @@ pass can write each op's up pair over those slots in place.
 `build_paired_encoding` is a numpy copy of bito_tpu's, pinned equal to it
 by tests/test_torch_encode.py.
 
-Each kernel has three functions here:
-  - the plain torch version (`*_ref`), which computes the same numbers and
-    is what the CPU runs and what the kernel is checked against;
-  - the public wrapper (`paired_log_likelihoods`, `paired_ll_and_gradients`):
-    a CPU tensor goes to the plain version; a CUDA tensor goes to the
-    hand-written kernel (csrc/paired_ll.cu, csrc/paired_grad.cu), and the
-    call raises if the kernel cannot take the inputs or fails to launch;
-  - a launch count, `wrapper.launches`, that the wrapper raises by one
-    where it launches the kernel and nowhere else.
+Each kernel has two bodies on the card:
+  - the on-chip body (csrc/paired_ll_onchip.cu, csrc/paired_grad_onchip.cu):
+    a block takes one tree and a tile of patterns, keeps every partial of
+    the tile in shared memory, one row per op (indexed by the op that
+    produced it, through the compact child tape of `onchip_tape`), and
+    gives each rate category of a pattern its own lane;
+  - the global body (csrc/paired_ll.cu, csrc/paired_grad.cu): one thread
+    per (tree, pattern), the paired slots in device memory.  It takes any
+    tree; the wrappers launch it where a block of the on-chip body would
+    hold too few warps of patterns to be the faster (`onchip_plan`
+    returns None), decided from the tape before the launch.
+
+Beside them, in this module:
+  - the plain torch version of each kernel (`*_ref`), which computes the
+    same numbers and is what the CPU runs and what the kernels are checked
+    against;
+  - the public wrappers (`paired_log_likelihoods`,
+    `paired_ll_and_gradients`): a CPU tensor goes to the plain version; a
+    CUDA tensor goes to a body, and the call raises if the body cannot take
+    the inputs or fails to launch;
+  - each body's launcher (`paired_ll_onchip`, `paired_ll_global`,
+    `paired_grad_onchip`, `paired_grad_global`), which returns the
+    per-pattern rows (`finish_rows` sums them) and counts its launches in
+    `.launches`, raised by one where it launches its kernel and nowhere
+    else.
 
 Operands (built by treelike/prep.py):
   post_dst [B, M], tip_slot [B, T], post_src / post_e [B, M, 2] int32 tapes;
@@ -107,6 +123,172 @@ def build_paired_encoding(enc) -> PairedEncoding:
 
 
 # ---------------------------------------------------------------------------
+# The on-chip bodies' tapes and sizing
+# ---------------------------------------------------------------------------
+
+# Child code of a pair slot that no tip and no op writes (a DUMMY child):
+# the all-ones partial, read through the identity edge.
+ONES = np.iinfo(np.int32).min
+
+
+def child_tape(post_dst: np.ndarray, tip_slot: np.ndarray) -> np.ndarray:
+    """child [B, M, 2] int32: who writes pair slot 2m+j, which op m reads as
+    its child j.  Op m' >= 0 for an op's output, -1 - t for tip t, ONES
+    where nothing writes the slot (padded ops and DUMMY children)."""
+    B, M = post_dst.shape
+    T = tip_slot.shape[1]
+    owner = np.full((B, 2 * M + 3), ONES, dtype=np.int32)
+    rows = np.arange(B)[:, None]
+    # Padded ops write the trash slot and the root op writes ROOT, both
+    # past the pair slots 0 .. 2M-1 that ops read.
+    owner[rows, post_dst] = np.arange(M, dtype=np.int32)[None, :]
+    owner[rows, tip_slot] = -1 - np.arange(T, dtype=np.int32)[None, :]
+    return np.ascontiguousarray(owner[:, :2 * M].reshape(B, M, 2))
+
+
+def live_rows(post_dst: np.ndarray, child: np.ndarray) -> tuple[np.ndarray,
+                                                                 int]:
+    """Rows of the LL kernel by liveness: (row [B, M] int32, rows).  Op m's
+    output takes the lowest row free at op m, after its children's rows
+    are freed (a thread loads both children before it stores), and keeps
+    it until its consumer reads it.  The root op and padded ops store
+    nothing (row 0).  `rows` is the peak over the batch."""
+    B, M = post_dst.shape
+    trash, root = 2 * M + 1, 2 * M
+    row = np.zeros((B, M), dtype=np.int32)
+    free = np.ones((B, M), dtype=bool)  # the rows free in each tree
+    trees = np.arange(B)
+    for m in range(M):  # every tree at once, op by op
+        runs = post_dst[:, m] != trash
+        for j in (0, 1):
+            c = child[:, m, j]
+            read = runs & (c >= 0)
+            free[trees[read], row[trees[read], c[read]]] = True
+        store = runs & (post_dst[:, m] != root)
+        lowest = np.argmax(free[store], axis=1)
+        row[store, m] = lowest
+        free[trees[store], lowest] = False
+    stored = (post_dst != trash) & (post_dst != root)
+    return row, int(row[stored].max()) + 1 if stored.any() else 1
+
+
+def grad_rows_needed(post_dst: np.ndarray) -> int:
+    """Rows of the grad kernel: op m's output and then its outside value
+    live in row m, for every op but the root op and padded ones."""
+    B, M = post_dst.shape
+    stored = (post_dst != 2 * M + 1) & (post_dst != 2 * M)
+    ops = np.nonzero(stored.any(axis=0))[0]
+    return int(ops[-1]) + 1 if ops.size else 1
+
+
+@dataclass(frozen=True)
+class OnchipTape:
+    """What the on-chip bodies read beside the paired tapes, on the
+    device of the tapes."""
+
+    child: torch.Tensor     # [B, M, 2] int32, child_tape
+    live_row: torch.Tensor  # [B, M] int32, the LL kernel's row of each op
+    ll_rows: int            # rows per pattern of the LL kernel
+    grad_rows: int          # rows per pattern of the grad kernel
+
+
+def onchip_tape(post_dst: np.ndarray, tip_slot: np.ndarray,
+                device) -> OnchipTape:
+    """The on-chip bodies' tape, derived on the host from a
+    PairedEncoding's `post_dst` and `tip_slot` and put on `device`.  The
+    engine builds it with the paired tapes, once per topology set."""
+    child = child_tape(post_dst, tip_slot)
+    row, ll_rows = live_rows(post_dst, child)
+    return OnchipTape(
+        child=torch.as_tensor(child, device=device),
+        live_row=torch.as_tensor(row, device=device),
+        ll_rows=ll_rows, grad_rows=grad_rows_needed(post_dst))
+
+
+SMEM_BYTES = 232_448  # shared memory one block can take on an H100 (227 KB)
+MAX_THREADS = 512     # threads per block, csrc/onchip.cuh kMaxThreads
+WARP = 32
+
+
+def lanes(C: int) -> int:
+    """Lanes per pattern: the power of two at or above C."""
+    return 1 << (C - 1).bit_length()
+
+
+def smem_bytes(kernel: str, rows: int, M: int, N1: int, C: int, cols: int,
+               ring: bool) -> int:
+    """Dynamic shared memory of one block, laid out as the kernels lay it
+    out (csrc/onchip.cuh, `onchip::smem_bytes`): rows of 16-byte lane
+    slices, then the matrices, then the tape."""
+    G = lanes(C)
+    mats_per_op = 2 if kernel == "ll" else 4  # P (and dP) of both children
+    if ring:  # two buffers of one op's matrices
+        mats = 2 * mats_per_op
+    else:     # the tree's P (and dP) for every edge
+        mats = N1 * mats_per_op // 2
+    tape_ints = 6 * M if kernel == "ll" else 7 * M
+    return (rows * cols * G * 16 + mats * G * 4 * 16
+            + _rup(tape_ints * 4, 16))
+
+
+@dataclass(frozen=True)
+class OnchipPlan:
+    lanes: int     # G lanes per pattern, one per rate category
+    cols: int      # patterns per block
+    ring: bool     # matrices double-buffered per op, else staged all at once
+    smem: int      # bytes of dynamic shared memory per block
+
+
+# The choice between the stagings and the global body, set from times on
+# an H100 (chip_smoke.py phase 4, 64-400 taxa, PERF.md): the staged body
+# is the fastest where a block holds FULL_WARPS warps of patterns; below
+# that the one with more warps wins; under MIN_WARPS warps the global body
+# is faster.  A block takes one SM's shared memory, so its warps are the
+# SM's.
+FULL_WARPS = 8
+MIN_WARPS = 3
+
+
+def _warps(kernel, rows, M, N1, C, ring) -> int:
+    """Whole warps of patterns a block of that staging holds."""
+    fixed = smem_bytes(kernel, 0, M, N1, C, 0, ring)
+    if fixed >= SMEM_BYTES:
+        return 0
+    per_warp = smem_bytes(kernel, rows, M, N1, C, WARP // lanes(C),
+                          ring) - fixed
+    return min((SMEM_BYTES - fixed) // per_warp, MAX_THREADS // WARP)
+
+
+def onchip_plan(kernel: str, rows: int, M: int, N1: int, C: int,
+                ring: bool | None = None) -> OnchipPlan | None:
+    """How an on-chip body launches, or None where the global body takes
+    the tape.  A block takes as many whole warps of patterns as fit in
+    SMEM_BYTES, up to MAX_THREADS threads.  `ring` None chooses as the
+    card's times say: all matrices staged where that leaves FULL_WARPS
+    warps, else the staging with more warps (staged on a tie), and None
+    below MIN_WARPS.  True or False asks for one staging at any number of
+    warps, to measure it."""
+    if kernel not in ("ll", "grad"):
+        raise ValueError(f"kernel must be 'll' or 'grad', got {kernel!r}")
+    if not 1 <= C <= MAX_CATEGORIES:
+        raise ValueError(f"the kernels take 1..{MAX_CATEGORIES} rate "
+                         f"categories, got {C}")
+    if ring is None:
+        staged = _warps(kernel, rows, M, N1, C, False)
+        ringed = _warps(kernel, rows, M, N1, C, True)
+        ring = staged < FULL_WARPS and ringed > staged
+        warps, least = (ringed if ring else staged), MIN_WARPS
+    else:
+        warps, least = _warps(kernel, rows, M, N1, C, ring), 1
+    if warps < least:
+        return None
+    G = lanes(C)
+    cols = warps * (WARP // G)
+    return OnchipPlan(G, cols, ring,
+                      smem_bytes(kernel, rows, M, N1, C, cols, ring))
+
+
+# ---------------------------------------------------------------------------
 # Plain torch versions
 # ---------------------------------------------------------------------------
 
@@ -188,7 +370,7 @@ def paired_ll_and_gradients_ref(post_dst, tip_slot, post_src, post_e,
 
 
 # ---------------------------------------------------------------------------
-# Public wrappers
+# Public wrappers and the bodies' launchers
 # ---------------------------------------------------------------------------
 
 def _check_cuda_operands(ints, floats, C, A):
@@ -227,9 +409,48 @@ def _check_shapes(post_dst, tip_slot, post_e, P, tips, pi, props, weights):
     return B, M, T, N1, C, A, S
 
 
+def _check_onchip(onchip: OnchipTape, post_dst, tips, mats):
+    B, M = post_dst.shape
+    if tuple(onchip.child.shape) != (B, M, 2) or tuple(
+            onchip.live_row.shape) != (B, M):
+        raise ValueError("the on-chip tape does not match post_dst")
+    if tips.numel() >= 2**31:  # the kernels index tips with 32-bit offsets
+        raise ValueError(f"tips has {tips.numel()} entries, the on-chip "
+                         "bodies take fewer than 2**31")
+    _check_cuda_operands(dict(child=onchip.child, live_row=onchip.live_row),
+                         {}, 1, 4)
+    for name, t in mats.items():  # cp.async copies 16-byte rows
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _onchip_plan(kernel, onchip, M, N1, C):
+    """The plan of a launch of `kernel` ("ll" or "grad"): None where the
+    global body takes the tape."""
+    if onchip is None:
+        raise ValueError("the paired kernels need the tape's OnchipTape on "
+                         "the card: pass onchip=paired.onchip_tape(...)")
+    rows = onchip.ll_rows if kernel == "ll" else onchip.grad_rows
+    return onchip_plan(kernel, rows, M, N1, C)
+
+
+def finish_rows(ll_rows, grad_rows, edge_mask, weights):
+    """(ll [B], grads [B, N]) from a body's per-pattern rows: the weighted
+    sums over patterns.  Gradient rows of nodes without a branch (the
+    root's, the trash row) are masked out, whatever they hold."""
+    sums = grad_rows.sum(dim=-1)[:, : edge_mask.shape[1]]
+    return ll_rows @ weights, torch.where(
+        edge_mask != 0, sums * edge_mask, torch.zeros((), device=sums.device))
+
+
 def paired_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
-                           weights) -> torch.Tensor:
-    """Per-tree log likelihoods [B] over the paired-slot tape."""
+                           weights, *,
+                           onchip: OnchipTape | None = None) -> torch.Tensor:
+    """Per-tree log likelihoods [B] over the paired-slot tape.
+
+    On the card it launches the on-chip body where onchip_plan gives a
+    plan, else the global body; `onchip`, the tape's OnchipTape, is required
+    there.  The CPU runs the plain version, which needs none."""
     if P.device.type == "cpu":
         return paired_log_likelihoods_ref(post_dst, tip_slot, post_e, P,
                                           tips, pi, props, weights)
@@ -238,29 +459,21 @@ def paired_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     _check_cuda_operands(
         dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
         dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A)
-    NS = 2 * M + 3
-    kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C * A, S), **kw)
-    ls = torch.empty((B, NS, S), **kw)
-    ll_rows = torch.empty((B, S), **kw)
-    lib = _kernels.library()
-    with torch.cuda.device(P.device):
-        rc = lib.bito_paired_ll(
-            post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
-            P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
-            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            B, M, T, N1, C, S, torch.cuda.current_stream().cuda_stream)
-    _kernels.check(rc, "bito_paired_ll")
-    paired_log_likelihoods.launches += 1
+    plan = _onchip_plan("ll", onchip, M, N1, C)
+    if plan is None:
+        ll_rows = paired_ll_global(post_dst, tip_slot, post_e, P, tips, pi,
+                                   props)
+    else:
+        ll_rows = paired_ll_onchip(post_dst, onchip, post_e, P, tips, pi,
+                                   props, plan)
     return ll_rows @ weights
 
 
-paired_log_likelihoods.launches = 0
-
-
 def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
-                            P, dP, tips, pi, props, weights):
-    """Per-tree (log likelihood [B], branch gradients [B, N])."""
+                            P, dP, tips, pi, props, weights, *,
+                            onchip: OnchipTape | None = None):
+    """Per-tree (log likelihood [B], branch gradients [B, N]), by the body
+    and with the `onchip` tape as in paired_log_likelihoods."""
     if P.device.type == "cpu":
         return paired_ll_and_gradients_ref(post_dst, tip_slot, post_src,
                                            post_e, edge_mask, P, dP, tips,
@@ -278,26 +491,121 @@ def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
         C, A)
+    plan = _onchip_plan("grad", onchip, M, N1, C)
+    if plan is None:
+        rows = paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP,
+                                  tips, pi, props, weights)
+    else:
+        rows = paired_grad_onchip(post_dst, onchip, post_src, post_e, P, dP,
+                                  tips, pi, props, weights, plan)
+    return finish_rows(*rows, edge_mask, weights)
+
+
+def _stream():
+    return torch.cuda.current_stream().cuda_stream
+
+
+def paired_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
+                     plan: OnchipPlan) -> torch.Tensor:
+    """Launch csrc/paired_ll_onchip.cu as `plan` says (operands checked by
+    the wrapper): per-pattern LL rows [B, S]."""
+    _check_onchip(onchip, post_dst, tips, dict(P=P))
+    B, M = post_dst.shape
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
+    with torch.cuda.device(P.device):
+        rc = _kernels.library().bito_paired_ll_onchip(
+            post_dst.data_ptr(), onchip.child.data_ptr(),
+            onchip.live_row.data_ptr(), post_e.data_ptr(), P.data_ptr(),
+            tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
+            ll_rows.data_ptr(), B, M, T, N1, C, S, onchip.ll_rows,
+            plan.cols, int(plan.ring), _stream())
+    _kernels.check(rc, "bito_paired_ll_onchip")
+    paired_ll_onchip.launches += 1
+    return ll_rows
+
+
+paired_ll_onchip.launches = 0
+
+
+def paired_grad_onchip(post_dst, onchip, post_src, post_e, P, dP, tips, pi,
+                       props, weights, plan: OnchipPlan):
+    """Launch csrc/paired_grad_onchip.cu as `plan` says (operands checked
+    by the wrapper): (LL rows [B, S], weighted gradient rows [B, N1, S];
+    rows that no op writes are not written)."""
+    _check_onchip(onchip, post_dst, tips, dict(P=P, dP=dP))
+    B, M = post_dst.shape
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    kw = dict(device=P.device, dtype=torch.float32)
+    ll_rows = torch.empty((B, S), **kw)
+    grad_rows = torch.empty((B, N1, S), **kw)
+    with torch.cuda.device(P.device):
+        rc = _kernels.library().bito_paired_grad_onchip(
+            post_dst.data_ptr(), onchip.child.data_ptr(),
+            post_src.data_ptr(), post_e.data_ptr(), P.data_ptr(),
+            dP.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
+            weights.data_ptr(), ll_rows.data_ptr(), grad_rows.data_ptr(),
+            B, M, T, N1, C, S, onchip.grad_rows, plan.cols, int(plan.ring),
+            _stream())
+    _kernels.check(rc, "bito_paired_grad_onchip")
+    paired_grad_onchip.launches += 1
+    return ll_rows, grad_rows
+
+
+paired_grad_onchip.launches = 0
+
+
+def paired_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props):
+    """Launch csrc/paired_ll.cu (operands checked by the wrapper):
+    per-pattern LL rows [B, S]."""
+    B, M = post_dst.shape
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
     NS = 2 * M + 3
     kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C * A, S), **kw)
+    buf = torch.empty((B, NS, C * 4, S), **kw)
+    ls = torch.empty((B, NS, S), **kw)
+    ll_rows = torch.empty((B, S), **kw)
+    with torch.cuda.device(P.device):
+        rc = _kernels.library().bito_paired_ll(
+            post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
+            P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
+            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
+            B, M, T, N1, C, S, _stream())
+    _kernels.check(rc, "bito_paired_ll")
+    paired_ll_global.launches += 1
+    return ll_rows
+
+
+paired_ll_global.launches = 0
+
+
+def paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
+                       props, weights):
+    """Launch csrc/paired_grad.cu (operands checked by the wrapper): (LL
+    rows [B, S], weighted gradient rows [B, N1, S], zero where no op
+    writes)."""
+    B, M = post_dst.shape
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    NS = 2 * M + 3
+    kw = dict(device=P.device, dtype=torch.float32)
+    buf = torch.empty((B, NS, C * 4, S), **kw)
     ls = torch.empty((B, NS, S), **kw)
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, N1, S), **kw)
-    lib = _kernels.library()
     with torch.cuda.device(P.device):
-        rc = lib.bito_paired_grad(
+        rc = _kernels.library().bito_paired_grad(
             post_dst.data_ptr(), tip_slot.data_ptr(), post_src.data_ptr(),
             post_e.data_ptr(), P.data_ptr(), dP.data_ptr(), tips.data_ptr(),
             pi.data_ptr(), props.data_ptr(), weights.data_ptr(),
             buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            grad_rows.data_ptr(), B, M, T, N1, C, S,
-            torch.cuda.current_stream().cuda_stream)
+            grad_rows.data_ptr(), B, M, T, N1, C, S, _stream())
     _kernels.check(rc, "bito_paired_grad")
-    paired_ll_and_gradients.launches += 1
-    ll = ll_rows @ weights
-    grads = grad_rows.sum(dim=-1)[:, : N1 - 1] * edge_mask
-    return ll, grads
+    paired_grad_global.launches += 1
+    return ll_rows, grad_rows
 
 
-paired_ll_and_gradients.launches = 0
+paired_grad_global.launches = 0

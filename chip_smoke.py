@@ -6,10 +6,14 @@
 The workload is the flagship configuration at full width: a DS1-shaped
 problem (27 taxa, 1,949 columns drawn from 934 distinct ones, made from a
 seed), GTR+Gamma4 with bench.py's parameters, and a batch of 200 random
-unrooted trees with trifurcating roots.  Four paths run ten kernels:
-  - paired: the engine's default (kernel="auto"), paired_ll and
-    paired_grad;
-  - chunked: the same engine with kernel="chunked", chunked_ll and
+unrooted trees with trifurcating roots.  Five paths run ten kernels, the
+two paired ones in two bodies each:
+  - paired: the engine's default (kernel="auto"), the on-chip bodies of
+    paired_ll and paired_grad (csrc/paired_*_onchip.cu);
+  - large: the same entry points on two trees of 921 taxa (128 patterns)
+    past the on-chip bodies' limits, where the wrappers hand over
+    to the global bodies (csrc/paired_ll.cu, csrc/paired_grad.cu);
+  - chunked: the engine with kernel="chunked", chunked_ll and
     chunked_grad;
   - per-node: pernode_log_likelihoods and pernode_ll_and_gradients on the
     engine's own tapes, driven as bito_tpu's scripts/bench_kernel_race.py
@@ -27,28 +31,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      sources in the checkout (nvcc, at first use), with each kernel's
      registers and spills.
   2. each kernel against its plain torch version in float64 on the same
-     operands: LL relative error and gradient max-abs error over max |g|,
-     both within 5e-5 (bench.py's on-device guard).  The probes: every
-     variant of variant_grad the same way (nodot, which is not a
-     likelihood, by equal non-finite places and finite values within the
-     bounds); pipe_cell on the six experiments that fill their scratch,
-     at 100 cells, on the script's ones block and on a block of small
-     integers, and both stream sums, exactly; static_chain,
-     both variants, within 1e-5 of max |out| against its float32 plain
-     version.
+     operands (both paired bodies on the flagship's): LL relative error
+     and gradient max-abs error over max |g|, both within 5e-5 (bench.py's
+     on-device guard).  The probes: every variant of variant_grad the same
+     way (nodot, which is not a likelihood, by equal non-finite places and
+     finite values within the bounds); pipe_cell on the six experiments
+     that fill their scratch, at 100 cells, on the script's ones block and
+     on a block of small integers, and both stream sums, exactly;
+     static_chain, both variants, within 1e-5 of max |out| against its
+     float32 plain version.
   3. each path, with every launch count set to 0 just before it and read
      just after: its kernels must have launched and no other path's; the
-     results (log_likelihoods, ll_and_branch_gradients, 40 calls over
-     scaled branch lengths, and ll_eval_fn on the chunked path) must be
-     finite and agree with the float64 engine (the scan tape) within the
-     phase-2 bounds; the float64 gradients are checked against central
+     results (log_likelihoods, ll_and_branch_gradients, calls over scaled
+     branch lengths, and ll_eval_fn on the chunked path) must be finite
+     and agree with the float64 engine (the scan tape) within the phase-2
+     bounds; the float64 gradients are checked against central
      differences.  On the perflab path the variants must agree with base
      (nodot aside), the filled pipe experiments with phase 2's plain
      outputs, both stream sums with each other and the sum of the ones
      block, and every slope must be finite; each slope is printed beside
      its FMA floor.
-  4. CUDA-event times of each kernel and its plain version, and each
-     engine route's LL+gradient evals/s, with the card's name and limit.
+  4. CUDA-event times of each kernel, its plain version and, where one
+     PyTorch call computes the same function, that call; the least time
+     the card could take for the same work; every paired body that takes
+     the shape (the on-chip bodies in both stagings, the global bodies) on
+     the flagship and on trees of BODY_TAXA taxa, each held once against
+     its float64 plain version within the phase-2 bound before it is
+     timed, beside the body the wrappers choose; each engine route's
+     LL+gradient evals/s; the host time of a new topology set at B=200 and
+     B=1000; all with the card's name and limit.
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -80,17 +91,31 @@ PARAMS = _synthetic.GTR_GAMMA4_PARAMS  # bench.py's
 LAB_REPS = 5  # CUDA-event repetitions of each perf-lab measurement here
 CELLS = perf_pipe_lab.CELLS  # the pipe lab's cells, 100
 PROBES = "bito_tpu_torch/perflab/csrc/"
-# name -> its source, its TPU kernel, its wrapper, its path and the other
-# paths that launch it
+LARGE_CHERRIES = 460  # the large path's trees: 921 taxa
+LARGE_PATTERNS = 128
+BODY_TAXA = (64, 96, 128, 192, 256, 320, 400)  # phase 4's further shapes
+TOPOLOGY_BATCH = 1000  # phase 4's larger new topology set
+PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+# name -> its source, its TPU kernel, the launcher that counts its
+# launches, its path and the other paths that launch it
 KERNELS = {
+    "paired_ll_onchip": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_paired.py:423",
+        wrapper=paired.paired_ll_onchip, path="paired"),
+    "paired_grad_onchip": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_paired.py:446",
+        wrapper=paired.paired_grad_onchip, path="paired"),
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
-        wrapper=paired.paired_log_likelihoods, path="paired"),
+        wrapper=paired.paired_ll_global, path="large"),
     "paired_grad": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
-        wrapper=paired.paired_ll_and_gradients, path="paired"),
+        wrapper=paired.paired_grad_global, path="large"),
     "chunked_ll": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_ll.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
@@ -173,6 +198,169 @@ def flagship():
     return coll.trees, sp, PhyloModel(PhyloModelSpecification("GTR", "gamma+4"))
 
 
+def large_trees():
+    """The large path's workload: two trees of 2 * LARGE_CHERRIES + 1 taxa
+    whose postorder keeps a third of them live, over LARGE_PATTERNS
+    columns: (trees, SitePattern, PhyloModel)."""
+    coll = parse_newick_text(_synthetic.cherry_comb_newick(
+        SEED, LARGE_CHERRIES, 2))
+    aln = _synthetic.random_alignment(SEED + 1, coll.taxon_names,
+                                      LARGE_PATTERNS)
+    return (coll.trees, SitePattern(aln, coll.taxon_names),
+            PhyloModel(PhyloModelSpecification("GTR", "gamma+4")))
+
+
+def body_shape(taxa):
+    """One of phase 4's further shapes: BATCH random unrooted trees of
+    `taxa` taxa over 1,024 distinct columns, GTR+Gamma4."""
+    names = _synthetic.taxon_names(taxa)
+    coll = parse_newick_text(_synthetic.random_trees_newick(
+        SEED + 2, taxa, BATCH))
+    aln = _synthetic.random_alignment(SEED + 3, names, 1024)
+    return (coll.trees, SitePattern(aln, coll.taxon_names),
+            PhyloModel(PhyloModelSpecification("GTR", "gamma+4")))
+
+
+def paired_bodies(label, eng, trees, params, card):
+    """Phase 4's paired bodies side by side on one shape: every body that
+    takes the shape (an on-chip staging where one warp of patterns fits,
+    the global body always) is held once against the float64 plain version on
+    the same operands, within BOUND, then timed twice in turns.  Prints
+    one line; returns {body: ms}."""
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(
+        eig, rates, clock, eng.branch_length_matrix(trees, enc))
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    on = eng._onchip_tape(enc)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    M, N1 = dst.shape[1], P.shape[1]
+
+    calls, plans = {}, {}
+    for ring in (False, True):
+        staging = "ring" if ring else "staged"
+        plan = paired.onchip_plan("ll", on.ll_rows, M, N1, 4, ring)
+        if plan is not None:
+            plans[f"ll onchip {staging}"] = plan
+            calls[f"ll onchip {staging}"] = lambda plan=plan: (
+                paired.paired_ll_onchip(dst, on, e, P, tips, pi, prop, plan)
+                @ w)
+        plan = paired.onchip_plan("grad", on.grad_rows, M, N1, 4, ring)
+        if plan is not None:
+            plans[f"grad onchip {staging}"] = plan
+            calls[f"grad onchip {staging}"] = lambda plan=plan: (
+                paired.finish_rows(*paired.paired_grad_onchip(
+                    dst, on, src, e, P, dP, tips, pi, prop, w, plan), mask,
+                    w))
+    calls["ll global"] = lambda: paired.paired_ll_global(
+        dst, tip, e, P, tips, pi, prop) @ w
+    calls["grad global"] = lambda: paired.finish_rows(
+        *paired.paired_grad_global(dst, tip, src, e, P, dP, tips, pi, prop,
+                                   w), mask, w)
+
+    # The float64 plain version, a slice of trees at a time to bound its
+    # scratch ([trees, 2M+3, C, 4, S] in float64).
+    step = max(1, BATCH * 64 // max(M, 64) // 4)
+    f64 = [x.double() for x in (tips, pi, prop, w)]
+    refs = [paired.paired_ll_and_gradients_ref(
+        dst[i:i + step], tip[i:i + step], src[i:i + step], e[i:i + step],
+        mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
+        *f64) for i in range(0, len(trees), step)]
+    ll_ref = torch.cat([r[0] for r in refs])
+    g_ref = torch.cat([r[1] for r in refs])
+    del refs
+    errs = []
+    for key, call in calls.items():
+        out = call()
+        torch.cuda.synchronize()
+        if key.startswith("ll"):
+            err = rel_err(out, ll_ref)
+        else:
+            err = max(rel_err(out[0], ll_ref), norm_err(out[1], g_ref))
+        errs.append(f"{key} {err:.3e}")
+        check(bool(torch.isfinite(out if key.startswith("ll")
+                                  else out[1]).all()) and err <= BOUND,
+              f"paired body {key} parity, {label}")
+    print(f"# phase 4: paired bodies, {label}, against the float64 plain "
+          f"version (LL rel err, grad max-abs/max|g|; bound {BOUND:g}): "
+          + ", ".join(errs))
+
+    # Each body twice, in turns: forward, then backward.
+    reps = max(5, 50 * 64 // max(M, 64))
+    ms = {}
+    for key in list(calls) + list(reversed(calls)):
+        ms.setdefault(key, []).append(cuda_ms(calls[key], reps))
+    ms = {key: sum(v) / len(v) for key, v in ms.items()}
+
+    def label_of(key):
+        plan = plans.get(key)
+        return key if plan is None else (
+            f"{key} ({plan.cols} patterns a block, {plan.smem} B)")
+
+    def auto(kind, rows):
+        plan = paired.onchip_plan(kind, rows, M, N1, 4)
+        return ("global" if plan is None
+                else "onchip " + ("ring" if plan.ring else "staged"))
+
+    print(f"# phase 4: paired bodies, {label} ({len(trees)} trees x "
+          f"{eng.pattern_pad} patterns, {enc.num_taxa} taxa, M={M}; ms, "
+          f"mean of two turns of {reps}): " + "; ".join(
+              f"{label_of(key)} {t:.4f}" for key, t in ms.items())
+          + f"; the wrappers take ll {auto('ll', on.ll_rows)}, grad "
+          f"{auto('grad', on.grad_rows)}; on {card}")
+    return ms
+
+
+def topology_set_ms(sp, model, trees, reps):
+    """Host milliseconds the engine spends on a set of topologies it has
+    not seen, before its first launch: (encoding, the paired tapes with
+    the on-chip tape on the card, the on-chip tape alone), medians over
+    `reps` fresh engines."""
+    runs = []
+    for _ in range(reps):
+        e = TreeLikelihoodEngine(sp, model)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = e.encode(trees)
+        t1 = time.perf_counter()
+        e._paired_tapes(enc)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pe = paired.build_paired_encoding(enc)
+        t3 = time.perf_counter()
+        paired.onchip_tape(pe.post_dst, pe.tip_slot, e.device)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        runs.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t4 - t3) * 1e3))
+    return [float(np.median(c)) for c in zip(*runs)]
+
+
+def tree_flops(enc, sp, model, batch):
+    """(LL, LL+gradient) FLOPs of one call over `batch` trees, counted as
+    bench.py:135-150 counts them: the algorithm's work over the true
+    patterns, independent of the kernel."""
+    S, C = sp.pattern_count, model.category_count
+    CA = 4 * C
+    E = int(np.asarray(enc.edge_mask).sum(axis=1).mean())
+    n_internal = max(enc.num_slots - sp.num_taxa, 1)
+    evolve = 2 * 16 * C * S
+    fl_ll = E * evolve + n_internal * CA * S + 2 * CA * S
+    fl_grad = fl_ll + E * (2 * evolve + 3 * CA * S)
+    return fl_ll * batch, fl_grad * batch
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(flops, moved):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    at PEAK_FLOPS and PEAK_BYTES."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def reset_launches():
     for spec in KERNELS.values():
         spec["wrapper"].launches = 0
@@ -208,8 +396,10 @@ LAB_SHAPES = {
 def probe_parity(ops, dev, errs):
     """Phase 2 for the perf lab's four kernels: each against its plain
     version on the inputs of the perflab path.  Fills errs; returns phase
-    4's {kernel: (call of the plain version, call of the kernel)} and the
-    plain outputs of the filled pipe experiments."""
+    4's {kernel: (call of the plain version, call of the kernel)}, the
+    plain outputs of the filled pipe experiments, and {kernel: (FLOPs,
+    bytes, call of the PyTorch function or None)} of the timed probes but
+    variant_grad."""
     ops64 = {k: v.double() if v.is_floating_point() else v
              for k, v in ops.items()}
     worst = (0.0, 0.0)
@@ -299,6 +489,25 @@ def probe_parity(ops, dev, errs):
     pipe_kw = dict(zip(("scratch_rows", "init", "loops", "stores"), exp[1:]))
     big3 = block.reshape(CELLS, nslices * rows, cols)
     unroll = perf_lab.VARIANTS["unroll"]
+    # What each probe must move and compute (phase 4's bound), and the one
+    # PyTorch call that computes a stream sum: the grouped sum in float32.
+    out_pipe = CELLS * 8 * perf_pipe_lab.S * 4
+    out_sums = CELLS * 8 * cols * 4
+    chain_flops = (2 * perf_static_probe.FMAS_PER_OP * perf_static_probe.S
+                   * perf_static_probe.M * CHAIN_R)
+    work = {
+        "pipe_cell": (0, nbytes(idx, big) + out_pipe, None),
+        "stream_sum_4d": (CELLS * nslices * rows * cols, nbytes(block)
+                          + out_sums, lambda: torch.sum(
+                              block.reshape(CELLS, -1, 8, cols), dim=1,
+                              dtype=torch.float32)),
+        "stream_sum_3d": (CELLS * nslices * rows * cols, nbytes(big3)
+                          + out_sums, lambda: torch.sum(
+                              big3.reshape(CELLS, -1, 8, cols), dim=1,
+                              dtype=torch.float32)),
+        "static_chain": (chain_flops,
+                         nbytes(tape, L) + 8 * perf_static_probe.S * 4, None),
+    }
     # The pipe cell and the chain check their indices once (phase 2) and
     # are timed at their launches, without that check's host sync.
     return {
@@ -316,7 +525,7 @@ def probe_parity(ops, dev, errs):
             lambda: perf_static_probe.static_chain_ref(tape, L, dynamic=True,
                                                        R=CHAIN_R),
             lambda: perf_static_probe._launch_chain(tape, L, True, CHAIN_R)),
-    }, plain_outs
+    }, plain_outs, work
 
 
 def run_perflab(ops, dev):
@@ -411,33 +620,57 @@ def main():
     pi, prop = prep.kernel_model(eig, props)
     tips, w = eng._kernel_tips, eng._kernel_weights
     dst, tip, src, e, mask = eng._paired_tapes(enc)
+    onchip = eng._onchip_tape(enc)
     P, dPq = prep.prepare_inputs_grad_q(eig, rates, clock, bl)
     _, dP = prep.prepare_inputs_grad(eig, rates, clock, bl)
     cdst, ctip, cedge, crow, _ = eng._chunked_tapes(enc)
     post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=dev)
                        for x in (enc.post_ops, enc.pre_ops, enc.root))
-    args = {  # kernel -> (plain version, wrapper arguments)
-        "paired_ll": (paired.paired_log_likelihoods_ref,
-                      (dst, tip, e, P, tips, pi, prop, w)),
-        "paired_grad": (paired.paired_ll_and_gradients_ref,
-                        (dst, tip, src, e, mask, P, dPq, tips, pi, prop, w)),
-        "chunked_ll": (chunked.chunked_log_likelihoods_ref,
-                       (cdst, ctip, cedge, P, tips, pi, prop, w)),
-        "chunked_grad": (chunked.chunked_ll_and_gradients_ref,
-                         (cdst, ctip, cedge, crow, mask, P, dP, tips, pi, prop,
-                          w)),
-        "pernode_ll": (pernode.pernode_log_likelihoods_ref,
-                       (post, root, P, tips, pi, prop, w)),
-        "pernode_grad": (pernode.pernode_ll_and_gradients_ref,
-                         (post, pre, root, mask, P, dP, tips, pi, prop, w)),
+    ll_ops = (dst, tip, e, P, tips, pi, prop, w)
+    grad_ops = (dst, tip, src, e, mask, P, dPq, tips, pi, prop, w)
+    check(all(paired.onchip_plan(k, r, dst.shape[1], P.shape[1], 4)
+              for k, r in (("ll", onchip.ll_rows),
+                           ("grad", onchip.grad_rows))),
+          "the flagship fits the on-chip bodies")
+    args = {  # kernel -> (plain version, its arguments, call of the kernel)
+        "paired_ll_onchip": (  # the wrappers' body here
+            paired.paired_log_likelihoods_ref, ll_ops,
+            lambda: paired.paired_log_likelihoods(*ll_ops, onchip=onchip)),
+        "paired_grad_onchip": (
+            paired.paired_ll_and_gradients_ref, grad_ops,
+            lambda: paired.paired_ll_and_gradients(*grad_ops, onchip=onchip)),
+        "paired_ll": (  # the global body, through the same final sums
+            paired.paired_log_likelihoods_ref, ll_ops,
+            lambda: paired.paired_ll_global(dst, tip, e, P, tips, pi,
+                                            prop) @ w),
+        "paired_grad": (
+            paired.paired_ll_and_gradients_ref, grad_ops,
+            lambda: paired.finish_rows(*paired.paired_grad_global(
+                dst, tip, src, e, P, dPq, tips, pi, prop, w), mask, w)),
     }
+    for name, plain, a, wrapper in (
+            ("chunked_ll", chunked.chunked_log_likelihoods_ref,
+             (cdst, ctip, cedge, P, tips, pi, prop, w),
+             chunked.chunked_log_likelihoods),
+            ("chunked_grad", chunked.chunked_ll_and_gradients_ref,
+             (cdst, ctip, cedge, crow, mask, P, dP, tips, pi, prop, w),
+             chunked.chunked_ll_and_gradients),
+            ("pernode_ll", pernode.pernode_log_likelihoods_ref,
+             (post, root, P, tips, pi, prop, w),
+             pernode.pernode_log_likelihoods),
+            ("pernode_grad", pernode.pernode_ll_and_gradients_ref,
+             (post, pre, root, mask, P, dP, tips, pi, prop, w),
+             pernode.pernode_ll_and_gradients)):
+        args[name] = (plain, a, lambda f=wrapper, a=a: f(*a))
     errs = {}  # kernel -> (relative or max-norm error, max abs error)
-    for ll_name in ("paired_ll", "chunked_ll", "pernode_ll"):
-        grad_name = ll_name.replace("_ll", "_grad")
-        ll_k = KERNELS[ll_name]["wrapper"](*args[ll_name][1])
-        ll_g, g_k = KERNELS[grad_name]["wrapper"](*args[grad_name][1])
+    for ll_name, grad_name in (("paired_ll_onchip", "paired_grad_onchip"),
+                               ("paired_ll", "paired_grad"),
+                               ("chunked_ll", "chunked_grad"),
+                               ("pernode_ll", "pernode_grad")):
+        ll_k = args[ll_name][2]()
+        ll_g, g_k = args[grad_name][2]()
         torch.cuda.synchronize()
-        plain, grad_args = args[grad_name]
+        plain, grad_args, _ = args[grad_name]
         ll_p, g_p = plain(*[x.double() if x.is_floating_point() else x
                             for x in grad_args])
         errs[ll_name] = (rel_err(ll_k, ll_p),
@@ -455,29 +688,28 @@ def main():
 
     lab_ops = dict(post_ops=post, pre_ops=pre, root=root, edge_mask=mask, P=P,
                    dP=dP, tips=tips, pi=pi, props=prop, weights=w)
-    lab_calls, plain_outs = probe_parity(lab_ops, dev, errs)
+    lab_calls, plain_outs, probe_work = probe_parity(lab_ops, dev, errs)
 
     # -- 3. the paths ------------------------------------------------------------
-    N = enc.num_slots
     scales = [1.0 + 0.001 * k for k in range(SWEEP)]
     ll_ref, g_ref = ref.ll_and_branch_gradients(trees, params64)
     ref_fn = ref.branch_eval_fn(trees, params64)
     bl64 = bl.double()
-    sweep_ref = [ref_fn(bl64 * f) for f in scales]
+    refs = [(ll_ref, g_ref)] + [ref_fn(bl64 * f) for f in scales]
 
-    def against_reference(path, lls, pairs):
+    def against_reference(path, lls, pairs, refs=refs):
         """Hold the path's (ll) and sweep (ll, grads) against the float64
-        engine: lls at the base branch lengths, pairs [(ll, grads)] with
-        pairs[0] at the base and pairs[1:] at scales[k]."""
-        check(pairs[0][0].shape == (BATCH,)
-              and pairs[0][1].shape == (BATCH, N), f"{path} output shapes")
+        engine's `refs`: lls at the base branch lengths, pairs [(ll,
+        grads)] beside refs, at the base and then at scaled lengths."""
+        ll_r0, g_r0 = refs[0]
+        check(pairs[0][0].shape == ll_r0.shape
+              and pairs[0][1].shape == g_r0.shape, f"{path} output shapes")
         outs = list(lls) + [x for pair in pairs for x in pair]
         check(all(bool(torch.isfinite(x).all()) for x in outs),
               f"{path} outputs are finite")
-        ll_errs = [rel_err(x, ll_ref) for x in lls]
+        ll_errs = [rel_err(x, ll_r0) for x in lls]
         g_errs = []
-        for (ll_k, g_k), (ll_r, g_r) in zip(pairs, [(ll_ref, g_ref)]
-                                             + sweep_ref):
+        for (ll_k, g_k), (ll_r, g_r) in zip(pairs, refs):
             ll_errs.append(rel_err(ll_k, ll_r))
             g_errs.append(norm_err(g_k, g_r))
         print(f"# phase 3: {path} path against the float64 engine (scan "
@@ -496,6 +728,34 @@ def main():
     torch.cuda.synchronize()
     launches.update(read_launches("paired"))
     against_reference("paired", [ll], pairs)
+
+    # The large path: the same entry points, past the on-chip bodies.
+    ltrees, lsp, lmodel = large_trees()
+    large = TreeLikelihoodEngine(lsp, lmodel, device=dev, dtype=PRODUCT_DTYPE)
+    large64 = TreeLikelihoodEngine(lsp, lmodel, device=dev,
+                                   dtype=torch.float64)
+    lenc = large.encode(ltrees)
+    lon = large._onchip_tape(lenc)
+    lM, lN1 = large._paired_tapes(lenc)[0].shape[1], lenc.num_slots + 1
+    print(f"# phase 3: large path: {lsp.num_taxa} taxa, {len(ltrees)} trees, "
+          f"{large.pattern_pad} patterns; {lon.ll_rows} live rows (LL) and "
+          f"{lon.grad_rows} rows (grad) a pattern; on-chip plans "
+          f"{paired.onchip_plan('ll', lon.ll_rows, lM, lN1, 4)} (LL), "
+          f"{paired.onchip_plan('grad', lon.grad_rows, lM, lN1, 4)} (grad)")
+    lbl = large.branch_length_matrix(ltrees, lenc)
+    lscales = scales[:3]
+    lfn64 = large64.branch_eval_fn(ltrees, params64)
+    lrefs = [large64.ll_and_branch_gradients(ltrees, params64)] + [
+        lfn64(lbl.double() * f) for f in lscales]
+    reset_launches()
+    ll = large.log_likelihoods(ltrees, params)
+    pairs = [large.ll_and_branch_gradients(ltrees, params)]
+    fn = large.branch_eval_fn(ltrees, params)
+    pairs += [fn(lbl * f) for f in lscales]
+    torch.cuda.synchronize()
+    launches.update(read_launches("large"))
+    against_reference("large", [ll], pairs, lrefs)
+    del large, large64, lrefs, pairs
 
     eng.kernel = "chunked"
     reset_launches()
@@ -539,23 +799,57 @@ def main():
         check(fd_err <= 1e-6, "float64 gradient matches finite differences")
 
     # -- 4. times --------------------------------------------------------------
-    times = {}
-    calls = {name: (lambda p=plain, a=a: p(*a),
-                    lambda f=KERNELS[name]["wrapper"], a=a: f(*a))
-             for name, (plain, a) in args.items()}
+    fl_ll, fl_grad = tree_flops(enc, sp, model, BATCH)
+    tape_bytes = {"paired_ll_onchip": nbytes(dst, onchip.child,
+                                             onchip.live_row, e),
+                  "paired_grad_onchip": nbytes(dst, onchip.child, src, e),
+                  "paired_ll": nbytes(dst, tip, e),
+                  "paired_grad": nbytes(dst, tip, src, e),
+                  "chunked_ll": nbytes(cdst, ctip, cedge),
+                  "chunked_grad": nbytes(cdst, ctip, cedge, crow),
+                  "pernode_ll": nbytes(post, root),
+                  "pernode_grad": nbytes(post, pre, root),
+                  "variant_grad": nbytes(post, pre, root)}
+    ll_out, grad_out = BATCH * 4, BATCH * (1 + enc.num_slots) * 4
+    work = dict(probe_work)  # kernel -> (FLOPs, bytes, library call)
+    for name, moved in tape_bytes.items():
+        grad = name.endswith("_grad") or name.endswith("_grad_onchip")
+        floats = (nbytes(P, tips, pi, prop, w) + (nbytes(dP, mask) if grad
+                                                  else 0))
+        work[name] = ((fl_grad if grad else fl_ll),
+                      moved + floats + (grad_out if grad else ll_out), None)
+    times = {}  # kernel -> (ms, plain ms, library ms or None)
+    calls = {name: (lambda p=plain, a=a: p(*a), kernel)
+             for name, (plain, a, kernel) in args.items()}
     calls.update(lab_calls)
     for name in KERNELS:
         plain, kernel = calls[name]
-        # plain, kernel, kernel, plain: both sides see the same drift.
+        library = work[name][2]
+        # plain, kernel, library, kernel, library, plain: all see the same
+        # drift.
         p1 = cuda_ms(plain, 5)
         k1 = cuda_ms(kernel, 50)
+        l1 = cuda_ms(library, 50) if library else None
         k2 = cuda_ms(kernel, 50)
+        l2 = cuda_ms(library, 50) if library else None
         p2 = cuda_ms(plain, 5)
-        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        times[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
+                       (l1 + l2) / 2 if library else None)
+        b_ms, b_by = bound(*work[name][:2])
         shape = LAB_SHAPES.get(name, f"float32, {BATCH} trees x "
                                      f"{eng.pattern_pad} patterns")
         print(f"# phase 4: {name} kernel {times[name][0]:.4f} ms, plain "
-              f"{times[name][1]:.4f} ms ({shape}) on {card}")
+              f"{times[name][1]:.4f} ms"
+              + (f", torch.sum {times[name][2]:.4f} ms" if library else "")
+              + f", bound {b_ms:.4f} ms by {b_by} ({shape}) on {card}")
+
+    # The paired bodies side by side, on the flagship and on further
+    # shapes up to the on-chip bodies' limit.
+    paired_bodies("flagship", eng, trees, params, card)
+    for taxa in BODY_TAXA:
+        t2, sp2, model2 = body_shape(taxa)
+        paired_bodies(f"{taxa} taxa", TreeLikelihoodEngine(
+            sp2, model2, device=dev, dtype=PRODUCT_DTYPE), t2, params, card)
 
     def sweep_evals_per_s(kernel, calls):
         eng.kernel = kernel
@@ -563,23 +857,42 @@ def main():
         ms = cuda_ms(lambda: f(bl), calls)
         return BATCH / (ms / 1e3), ms
 
+    auto_rate = sweep_evals_per_s("auto", 40)
     rates_line = ", ".join(
         f"{label} {eps:.1f} ({ms:.4f} ms/call)" for label, (eps, ms) in [
-            ("paired kernels (auto)", sweep_evals_per_s("auto", 40)),
+            ("paired kernels (auto)", auto_rate),
             ("chunked kernels", sweep_evals_per_s("chunked", 40)),
             ("scan tape", sweep_evals_per_s("scan", 5))])
     eng.kernel = "auto"
     print(f"# phase 4: end to end, DS1-shaped GTR+Gamma4 LL+gradient "
           f"evals/s at B={BATCH}: {rates_line}, on {card}")
+    # What a new topology set costs the host, against one call.
+    text, aln = _synthetic.ds1_shaped(SEED + 4, TOPOLOGY_BATCH)
+    coll = parse_newick_text(text)
+    sets = [("B=%d" % BATCH, sp, trees, 5),
+            ("B=%d" % TOPOLOGY_BATCH, SitePattern(aln, coll.taxon_names),
+             coll.trees, 3)]
+    print("# phase 4: a new topology set, host ms before the first launch "
+          "(median over fresh engines): " + "; ".join(
+              "{}: encoding {:.3f}, paired tapes {:.3f} (the on-chip tape "
+              "{:.3f} of it)".format(label, *topology_set_ms(s2, model, t2,
+                                                              reps))
+              for label, s2, t2, reps in sets)
+          + f"; one auto LL+gradient call at B={BATCH} takes "
+          f"{auto_rate[1]:.4f} ms on {card}")
     print(f"# chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
 
     # -- 5. results -------------------------------------------------------------
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": spec["source"],
-         "replaces": spec["replaces"], "launches": launches[name],
-         "max_abs_err": errs[name][1], "ms": times[name][0],
-         "plain_ms": times[name][1]}
-        for name, spec in KERNELS.items()]}))
+    kernels = []
+    for name, spec in KERNELS.items():
+        b_ms, b_by = bound(*work[name][:2])
+        kernels.append(
+            {"name": name, "route": "cuda", "source": spec["source"],
+             "replaces": spec["replaces"], "launches": launches[name],
+             "max_abs_err": errs[name][1], "ms": times[name][0],
+             "plain_ms": times[name][1], "bound_ms": b_ms, "bound_by": b_by,
+             "library_ms": times[name][2]})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

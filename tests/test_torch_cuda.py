@@ -11,6 +11,8 @@ jax, so run it there with
 Bounds, as bench.py's on-device guard: float32 kernel against the float64
 plain version within 5e-5 relative on log likelihoods and 5e-5 of the
 largest gradient."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -30,6 +32,7 @@ GTR = _synthetic.GTR_GAMMA4_PARAMS
 MODELS = {
     "gtr_gamma4": (("GTR", "gamma+4"), GTR),
     "jc69": (("JC69", "constant"), {}),
+    "gtr_gamma8": (("GTR", "gamma+8"), GTR),
     "hky_weibull3": (("HKY", "weibull+3"), {
         "substitution_model_rates": np.array([2.5]),
         "substitution_model_frequencies": np.array([0.2, 0.3, 0.3, 0.2]),
@@ -67,53 +70,126 @@ def _norm(a, b):
             / b.double().abs().max()).item()
 
 
+PAIRED = (paired.paired_ll_onchip, paired.paired_ll_global,
+          paired.paired_grad_onchip, paired.paired_grad_global)
+
+
+def _launched(before):
+    """What each paired body launched since `before`, in PAIRED's order."""
+    return [f.launches - n for f, n in zip(PAIRED, before)]
+
+
 @pytest.mark.parametrize("model,rooted,num_trees,patterns", [
     ("gtr_gamma4", False, 5, None), ("gtr_gamma4", True, 3, 150),
-    ("jc69", False, 4, 200), ("hky_weibull3", True, 2, None)])
+    ("jc69", False, 4, 200), ("hky_weibull3", True, 2, None),
+    ("gtr_gamma8", False, 3, None), ("gtr_gamma8", True, 2, 77)])
 def test_kernels_match_plain(cuda, model, rooted, num_trees, patterns):
-    """Both kernels against their plain versions in float64 on the same
-    float32 operands; `patterns` cuts the pattern axis to a width that is
-    not a multiple of the block."""
+    """Both bodies of both kernels (the on-chip ones with either staging)
+    against their plain versions in float64 on the same float32 operands;
+    `patterns` cuts the pattern axis to a width that is not a multiple of
+    a block's patterns."""
     eng, trees, params = _engine(model, 3, 11, num_trees, rooted, cuda,
                                  torch.float32)
     enc = eng.encode(trees)
     eig, rates, props, clock = eng._model_ingredients(params, num_trees)
     dst, tip, src, e, mask = eng._paired_tapes(enc)
+    onchip = eng._onchip_tape(enc)
     pi, prop = prep.kernel_model(eig, props)
     P, dP = prep.prepare_inputs_grad_q(eig, rates, clock,
                                        eng.branch_length_matrix(trees, enc))
     S = patterns or eng.pattern_pad
     tips = eng._kernel_tips[..., :S].contiguous()
     w = eng._kernel_weights[:S].contiguous()
-    ll = paired.paired_log_likelihoods(dst, tip, e, P, tips, pi, prop, w)
-    ll2, g = paired.paired_ll_and_gradients(dst, tip, src, e, mask, P, dP,
-                                            tips, pi, prop, w)
-    torch.cuda.synchronize()
     d = torch.float64
     ll_ref, g_ref = paired.paired_ll_and_gradients_ref(
         dst, tip, src, e, mask, P.to(d), dP.to(d), tips.to(d), pi.to(d),
         prop.to(d), w.to(d))
+    M, N1, C = dst.shape[1], P.shape[1], P.shape[2]
+    bodies = {"global": (
+        lambda: paired.paired_ll_global(dst, tip, e, P, tips, pi, prop),
+        lambda: paired.paired_grad_global(dst, tip, src, e, P, dP, tips, pi,
+                                          prop, w))}
+    for ring in (False, True):
+        ll_plan = paired.onchip_plan("ll", onchip.ll_rows, M, N1, C, ring)
+        grad_plan = paired.onchip_plan("grad", onchip.grad_rows, M, N1, C,
+                                       ring)
+        bodies[f"onchip ring={ring}"] = (
+            lambda p=ll_plan: paired.paired_ll_onchip(dst, onchip, e, P, tips,
+                                                      pi, prop, p),
+            lambda p=grad_plan: paired.paired_grad_onchip(
+                dst, onchip, src, e, P, dP, tips, pi, prop, w, p))
+    for body, (ll_body, grad_body) in bodies.items():
+        before = [f.launches for f in PAIRED]
+        ll = ll_body() @ w
+        ll2, g = paired.finish_rows(*grad_body(), mask, w)
+        torch.cuda.synchronize()
+        assert _launched(before) == ([0, 1, 0, 1] if body == "global"
+                                     else [1, 0, 1, 0])
+        assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5, body
+        assert _norm(g, g_ref) < 5e-5, body
+    # The wrappers take the on-chip bodies here.
+    before = [f.launches for f in PAIRED]
+    ll = paired.paired_log_likelihoods(dst, tip, e, P, tips, pi, prop, w,
+                                       onchip=onchip)
+    ll2, g = paired.paired_ll_and_gradients(dst, tip, src, e, mask, P, dP,
+                                            tips, pi, prop, w, onchip=onchip)
+    assert _launched(before) == [1, 0, 1, 0]
     assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
     assert _norm(g, g_ref) < 5e-5
 
 
 def test_engine_takes_the_kernels(cuda):
-    """auto on the card takes both kernels for a shared model in float32,
-    and agrees with the float64 engine on the CPU (the scan tape)."""
+    """auto on the card takes the on-chip bodies of both kernels for a
+    shared model in float32, and agrees with the float64 engine on the
+    CPU (the scan tape)."""
     eng, trees, params = _engine("gtr_gamma4", 7, 9, 4, False, cuda,
                                  torch.float32)
     ref, _, ref_params = _engine("gtr_gamma4", 7, 9, 4, False, "cpu",
                                  torch.float64)
-    before = (paired.paired_log_likelihoods.launches,
-              paired.paired_ll_and_gradients.launches)
+    before = [f.launches for f in PAIRED]
     ll = eng.log_likelihoods(trees, params)
     ll2, g = eng.ll_and_branch_gradients(trees, params)
-    assert (paired.paired_log_likelihoods.launches,
-            paired.paired_ll_and_gradients.launches) == (before[0] + 1,
-                                                         before[1] + 1)
+    assert _launched(before) == [1, 0, 1, 0]
     ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
     assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
     assert _norm(g.cpu(), g_ref) < 5e-5
+
+
+def _large_tree_engine(device, dtype):
+    """Two trees of 921 taxa past the on-chip bodies' limits (460 live
+    rows for the LL kernel, 919 rows for the grad kernel), 128 patterns."""
+    coll = parse_newick_text(_synthetic.cherry_comb_newick(5, 460, 2))
+    aln = _synthetic.random_alignment(6, coll.taxon_names, 128)
+    eng = TreeLikelihoodEngine(
+        SitePattern(aln, coll.taxon_names),
+        PhyloModel(PhyloModelSpecification("GTR", "gamma+4")),
+        device=device, dtype=dtype)
+    return eng, coll.trees, params_from_numpy(GTR, device, dtype)
+
+
+def test_tree_past_the_limit_takes_the_global_bodies(cuda):
+    eng, trees, params = _large_tree_engine(cuda, torch.float32)
+    assert eng.pattern_pad == 128
+    before = [f.launches for f in PAIRED]
+    ll = eng.log_likelihoods(trees, params)
+    ll2, g = eng.ll_and_branch_gradients(trees, params)
+    torch.cuda.synchronize()
+    assert _launched(before) == [0, 1, 0, 1]
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, 2)
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(eig, rates, clock,
+                                       eng.branch_length_matrix(trees, enc))
+    ll_ref, g_ref = paired.paired_ll_and_gradients_ref(
+        dst, tip, src, e, mask, *_f64(P, dP, eng._kernel_tips, pi, prop,
+                                      eng._kernel_weights))
+    assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
+    assert _norm(g, g_ref) < 5e-5
+    onchip = eng._onchip_tape(enc)
+    M, N1 = dst.shape[1], P.shape[1]
+    assert paired.onchip_plan("ll", onchip.ll_rows, M, N1, 4) is None
+    assert paired.onchip_plan("grad", onchip.grad_rows, M, N1, 4) is None
 
 
 def test_wrappers_reject_operands_the_kernels_do_not_take(cuda):
@@ -138,6 +214,29 @@ def test_wrappers_reject_operands_the_kernels_do_not_take(cuda):
         paired.paired_log_likelihoods(
             **dict(args, tips=args["tips"].transpose(0, 1).contiguous()
                    .transpose(0, 1)))
+    # The on-chip bodies: no tape, a tape of another batch, child codes in
+    # int64, matrices off the 16-byte alignment of cp.async, and a plan
+    # whose patterns are not whole warps.
+    with pytest.raises(ValueError, match="OnchipTape"):
+        paired.paired_log_likelihoods(**args)
+    onchip = eng._onchip_tape(enc)
+    other = paired.onchip_tape(dst[:1].cpu().numpy(), tip[:1].cpu().numpy(),
+                               cuda)
+    with pytest.raises(ValueError, match="on-chip tape"):
+        paired.paired_log_likelihoods(**args, onchip=other)
+    with pytest.raises(TypeError):
+        paired.paired_log_likelihoods(**args, onchip=paired.OnchipTape(
+            onchip.child.long(), onchip.live_row, onchip.ll_rows,
+            onchip.grad_rows))
+    shifted = torch.empty(P.numel() + 1, device=cuda)[1:].view(P.shape)
+    shifted.copy_(P)
+    with pytest.raises(ValueError, match="aligned"):
+        paired.paired_log_likelihoods(**dict(args, P=shifted), onchip=onchip)
+    plan = paired.onchip_plan("ll", onchip.ll_rows, dst.shape[1], P.shape[1],
+                              4)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        paired.paired_ll_onchip(dst, onchip, e, P, eng._kernel_tips, pi, prop,
+                                dataclasses.replace(plan, cols=plan.cols - 1))
 
 
 def _case_operands(eng, trees, params, patterns):
@@ -222,12 +321,12 @@ def test_engine_chunked_takes_the_chunked_kernels(cuda):
     ref, _, ref_params = _engine("gtr_gamma4", 7, 9, 4, False, "cpu",
                                  torch.float64)
     wrappers = (chunked.chunked_log_likelihoods,
-                chunked.chunked_ll_and_gradients,
-                paired.paired_log_likelihoods, paired.paired_ll_and_gradients)
+                chunked.chunked_ll_and_gradients) + PAIRED
     before = [f.launches for f in wrappers]
     ll = eng.log_likelihoods(trees, params)
     ll2, g = eng.ll_and_branch_gradients(trees, params)
-    assert [f.launches - n for f, n in zip(wrappers, before)] == [1, 1, 0, 0]
+    assert [f.launches - n for f, n in zip(wrappers, before)] == [
+        1, 1, 0, 0, 0, 0]
     ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
     assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
     assert _norm(g.cpu(), g_ref) < 5e-5

@@ -10,11 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from bito_tpu_torch.treelike import paired
-
 from torch_port_cases import (MODELS, jax_engine, jax_params, make_case,
-                              max_norm, max_rel, per_tree_rows,
-                              torch_engine, torch_params)
+                              max_norm, max_rel, paired_launches,
+                              per_tree_rows, torch_engine, torch_params)
 
 # (model, rooted, per-tree parameter rows, batch size)
 CASES = [
@@ -91,8 +89,7 @@ def test_kernel_path_on_cpu_runs_the_plain_versions(model, rooted, batch):
     versions (in the engine's dtype) and launches nothing."""
     case, params, je, te = _engines(model, rooted, False, batch)
     te.kernel = "cuda"
-    launches = (paired.paired_log_likelihoods.launches,
-                paired.paired_ll_and_gradients.launches)
+    launches = paired_launches()
     jp, tp = jax_params(params), torch_params(params)
     ll_ref, g_ref = (np.asarray(x) for x in
                      je.ll_and_branch_gradients(case.jax_trees, jp))
@@ -101,8 +98,7 @@ def test_kernel_path_on_cpu_runs_the_plain_versions(model, rooted, batch):
     assert max_norm(g, g_ref) < 5e-5
     ll = te.log_likelihoods(case.torch_trees, tp).numpy()
     assert max_rel(ll, ll_ref) < 1e-5
-    assert (paired.paired_log_likelihoods.launches,
-            paired.paired_ll_and_gradients.launches) == launches
+    assert paired_launches() == launches
 
 
 def test_kernel_choice():

@@ -1,6 +1,6 @@
 """The kernel build (treelike/_kernels.py) without a CUDA toolkit: a
-stand-in nvcc script shows that a build compiles every source of the six
-tree-likelihood kernels and the four perf-lab probes, one nvcc each, and
+stand-in nvcc script shows that a build compiles every source of the
+eight tree-likelihood kernels and the four perf-lab probes, one nvcc each, and
 links them into one library named by the sources' hash; that it runs once
 per source hash, keeps nvcc's messages beside the library, and raises with
 nvcc's stderr when a compile fails."""

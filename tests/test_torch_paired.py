@@ -17,7 +17,8 @@ from bito_tpu_torch.models.substitution import rate_matrix_of
 from bito_tpu_torch.treelike import paired, prep, pruning
 
 from torch_port_cases import (GTR, MODELS, jax_engine, jax_params, make_case,
-                              max_norm, max_rel, torch_engine, torch_params)
+                              max_norm, max_rel, paired_launches,
+                              torch_engine, torch_params)
 
 B = 4
 
@@ -123,8 +124,7 @@ def test_plain_in_float64_matches_scan(model, rooted):
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
     case = make_case(seed=51, num_taxa=8, num_trees=B)
     ops, extra = _port_operands(torch_engine(case, "gtr_gamma4"), case, GTR)
-    before = (paired.paired_log_likelihoods.launches,
-              paired.paired_ll_and_gradients.launches)
+    before = paired_launches()
     torch.testing.assert_close(paired.paired_log_likelihoods(**ops),
                                paired.paired_log_likelihoods_ref(**ops),
                                rtol=0, atol=0)
@@ -132,8 +132,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     want = paired.paired_ll_and_gradients_ref(**ops, **extra)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert (paired.paired_log_likelihoods.launches,
-            paired.paired_ll_and_gradients.launches) == before
+    assert paired_launches() == before
 
 
 def test_operand_shapes_are_checked():

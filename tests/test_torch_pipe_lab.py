@@ -51,7 +51,7 @@ def test_pipe_cell_plain_matches_pallas_interpret(script, name):
     built.clear()
     module.run(name, *lab.EXPS[name])
     kernel = built[0]
-    idx, big = lab.pipe_inputs(block_rows, scratch_rows, CELLS)
+    idx, big = lab.pipe_inputs(block_rows, scratch_rows, CELLS, "cpu")
     rand = _random_block(big.shape, 7)
     kw = dict(scratch_rows=scratch_rows, init=init, loops=loops,
               stores=stores)
@@ -69,7 +69,7 @@ def test_pipe_cell_plain_matches_pallas_interpret(script, name):
 @pytest.mark.parametrize("name", [n for n in lab.EXPS if n not in FILLED])
 def test_pipe_cell_without_fill_has_the_output_shape(name):
     block_rows, scratch_rows, init, loops, stores = lab.EXPS[name]
-    idx, big = lab.pipe_inputs(block_rows, scratch_rows, CELLS)
+    idx, big = lab.pipe_inputs(block_rows, scratch_rows, CELLS, "cpu")
     out = lab.pipe_cell(idx, big, scratch_rows=scratch_rows, init=init,
                         loops=loops, stores=stores)
     assert out.shape == (CELLS, 8, lab.S) and out.dtype == torch.float32
@@ -99,7 +99,7 @@ def test_stream_sums_match_pallas_interpret(script):
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
     before = (lab.pipe_cell.launches, lab.stream_sum_4d.launches,
               lab.stream_sum_3d.launches)
-    idx, big = lab.pipe_inputs(8, 1024, CELLS)
+    idx, big = lab.pipe_inputs(8, 1024, CELLS, "cpu")
     kw = dict(scratch_rows=1024, init=True, loops=52, stores=2)
     torch.testing.assert_close(lab.pipe_cell(idx, big, **kw),
                                lab.pipe_cell_ref(idx, big, **kw),

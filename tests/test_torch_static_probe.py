@@ -33,7 +33,7 @@ def test_shapes_as_the_script():
 def test_plain_matches_pallas_interpret(script, dynamic, R):
     fn, L = script.build(dynamic, R)
     want = np.asarray(fn(L))
-    tape, L_t = probe.probe_inputs()
+    tape, L_t = probe.probe_inputs("cpu")
     np.testing.assert_array_equal(L_t.numpy(), np.asarray(L))
     got = probe.static_chain_ref(tape, L_t, dynamic=dynamic, R=R)
     assert got.shape == (8, probe.S) and got.dtype == torch.float32
@@ -44,7 +44,7 @@ def test_plain_matches_pallas_interpret(script, dynamic, R):
 
 
 def test_dynamic_and_static_agree_and_count_no_cpu_launch():
-    tape, L = probe.probe_inputs()
+    tape, L = probe.probe_inputs("cpu")
     before = probe.static_chain.launches
     torch.testing.assert_close(probe.static_chain(tape, L, dynamic=True, R=3),
                                probe.static_chain(tape, L, dynamic=False, R=3),

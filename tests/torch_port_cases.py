@@ -22,7 +22,7 @@ from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
-from bito_tpu_torch.treelike import prep
+from bito_tpu_torch.treelike import paired, prep
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
 GTR = _synthetic.GTR_GAMMA4_PARAMS
@@ -111,6 +111,14 @@ def pernode_operands(te: TreeLikelihoodEngine, case: Case, params: dict,
                weights=te._kernel_weights.to(dtype))
     return ops, dict(pre_ops=pre_ops, dP=dP,
                      edge_mask=torch.as_tensor(enc.edge_mask, dtype=dtype))
+
+
+def paired_launches() -> tuple:
+    """The launch counts of the four paired bodies (on-chip and global, LL
+    and grad)."""
+    return tuple(f.launches for f in (
+        paired.paired_ll_onchip, paired.paired_ll_global,
+        paired.paired_grad_onchip, paired.paired_grad_global))
 
 
 def max_rel(a, b) -> float:
