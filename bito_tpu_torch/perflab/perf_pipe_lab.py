@@ -18,6 +18,10 @@ CELLS = 100 cells, S = 1,024 columns and REPS = 40 calls.  Two kernels:
   - csrc/stream_sum.cu (the script's `run4d`): each cell sums its bf16
     block, [32, 256, 128] (stream_sum_4d) or the same bytes as [8192, 128]
     (stream_sum_3d), in groups of 8 rows into out [CELLS, 8, 128] f32.
+    One body serves both walks; a thread adds its share of the groups in
+    order and a block adds the shares in a fixed order, so the sums are
+    the same on every run, and exact wherever float32 holds every partial
+    sum (the script's ones block, chip_smoke's small integers).
 
 Times are CUDA-event means over REPS back-to-back launches, in us per
 cell.  The script scaled the block before every call to keep XLA from
@@ -148,9 +152,11 @@ def _stream_sum(big, nslices, rows, slices, wrapper):
         raise TypeError(f"big must be bf16, got {big.dtype}")
     if big.device.type != "cuda" or not big.is_contiguous():
         raise ValueError("big must be a contiguous CUDA tensor")
-    if rows % 8 or cols % 2:
-        raise ValueError(f"the kernel takes rows a multiple of 8 and an even "
-                         f"column count, got {tuple(big.shape)}")
+    if rows % 8:
+        raise ValueError(f"the kernel takes rows a multiple of 8, got "
+                         f"{tuple(big.shape)}")
+    if big.data_ptr() % 16:  # the kernel reads 16-byte chunks
+        raise ValueError("big is not 16-byte aligned")
     out = torch.empty((cells, 8, cols), dtype=torch.float32, device=big.device)
     with torch.cuda.device(big.device):
         rc = _kernels.library().bito_stream_sum(

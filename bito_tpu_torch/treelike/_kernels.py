@@ -30,7 +30,7 @@ _BUILD = _ROOT / "_build"
 _SOURCES = tuple(f"treelike/csrc/{name}" for name in (
     "paired_ll.cu", "paired_grad.cu", "paired_ll_onchip.cu",
     "paired_grad_onchip.cu", "chunked_ll.cu", "chunked_grad.cu",
-    "pernode_ll.cu", "pernode_grad.cu")) + tuple(
+    "chunked_grad_onchip.cu", "pernode_ll.cu", "pernode_grad.cu")) + tuple(
     f"perflab/csrc/{name}" for name in (
         "variant_grad.cu", "pipe_cell.cu", "stream_sum.cu", "static_chain.cu"))
 _HEADERS = ("treelike/csrc/common.cuh", "treelike/csrc/onchip.cuh")
@@ -60,6 +60,9 @@ _SIGNATURES = {
     # post_dst, tip_slot, post_e, P, dP, tips, pi, props, weights, buf, ls,
     # ll_rows, grad_rows, B, MW, W, T, N1, C, S, stream
     "bito_chunked_grad": [_P] * 13 + [_I] * 7 + [_P],
+    # post_dst, child, post_e, P, dP, tips, pi, props, weights, ll_rows,
+    # grad_rows, B, MW, W, T, N1, C, S, rows, cols, stream
+    "bito_chunked_grad_onchip": [_P] * 11 + [_I] * 9 + [_P],
     # post_ops, root, P, tips, pi, props, buf, ls, ll_rows,
     # B, M, T, N1, C, S, stream
     "bito_pernode_ll": [_P] * 9 + [_I] * 6 + [_P],

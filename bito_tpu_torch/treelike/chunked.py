@@ -11,16 +11,29 @@ is a numpy copy of bito_tpu's, pinned equal to it by
 tests/test_torch_chunked.py; it raises ValueError where the original
 asserts.
 
-Each kernel has three functions here, as in paired.py:
-  - the plain torch version (`*_ref`), which runs one chunk's W ops as one
-    batched step, is what the CPU runs and what the kernel is checked
-    against;
-  - the public wrapper (`chunked_log_likelihoods`,
+The LL kernel has one body (csrc/chunked_ll.cu); the grad kernel has two
+on the card, as the paired kernels do (paired.py):
+  - the on-chip body (csrc/chunked_grad_onchip.cu): a block takes one tree
+    and a tile of patterns, keeps every partial of the tile in shared
+    memory, one row per grid op (through the child tape of `onchip_tape`),
+    and gives a pattern W op lanes x one lane per rate category;
+  - the global body (csrc/chunked_grad.cu): W threads per (tree, pattern),
+    the pair slots in device memory.  It takes any tree; the wrapper
+    launches it where a block of the on-chip body would hold too few warps
+    of patterns to be the faster (`onchip_plan` returns None), decided
+    from the tape before the launch.
+
+Beside them, in this module:
+  - the plain torch version of each kernel (`*_ref`), which runs one
+    chunk's W ops as one batched step, is what the CPU runs and what the
+    kernels are checked against;
+  - the public wrappers (`chunked_log_likelihoods`,
     `chunked_ll_and_gradients`): a CPU tensor goes to the plain version; a
-    CUDA tensor goes to the hand-written kernel (csrc/chunked_ll.cu,
-    csrc/chunked_grad.cu), and the call raises if the kernel cannot take
-    the inputs or fails to launch;
-  - a launch count, `wrapper.launches`.
+    CUDA tensor goes to a kernel, and the call raises if the kernel cannot
+    take the inputs or fails to launch;
+  - a launch count, `.launches`, on the LL wrapper and on each grad body's
+    launcher (`chunked_grad_onchip`, `chunked_grad_global`), raised by one
+    where it launches its kernel and nowhere else.
 
 Operands: post_dst [B, MW], tip_slot [B, T], post_e [B, MW, 2] and
 node_row [B, N] int32 tapes (MW = Mc*W); P, dP [B, N+1, C, 4, 4]; tips
@@ -38,7 +51,8 @@ at CA=16); on the card W is a number of op lanes per block.  W=2: the
 chunk count is bound by tree depth, and at the DS1 shape (27 taxa) W=2, 4
 and 8 all give Mc=14 chunks for 26 ops, while the scratch grows with
 2*Mc*W + 2 slots (58, 114, 226).  W=2 keeps the shortest chain at the
-least scratch, and leaves 64 patterns per 128-thread block.
+least scratch: 64 patterns per 128-thread block of the global bodies, and
+W*G threads a pattern (8 at G=4) in the on-chip body's warps.
 """
 from __future__ import annotations
 
@@ -47,7 +61,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from . import _kernels
+from . import _kernels, paired
 from .paired import _check_cuda_operands, _check_shapes, _rescale, _root_rows
 
 W = 2  # ops per chunk (the kernels' op lanes); see the module docstring
@@ -201,6 +215,77 @@ def build_chunked_encoding(enc, W: int) -> ChunkedEncoding:
 
 
 # ---------------------------------------------------------------------------
+# The on-chip grad body's tape and sizing
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OnchipTape:
+    """What the on-chip grad body reads beside the chunked tapes, on the
+    device of the tapes."""
+
+    child: torch.Tensor  # [B, MW, 2] int32: paired.child_tape of the tape
+    rows: int            # rows per pattern: paired.grad_rows_needed
+
+
+def onchip_tape(post_dst: np.ndarray, tip_slot: np.ndarray,
+                device) -> OnchipTape:
+    """The on-chip body's tape, derived on the host from a
+    ChunkedEncoding's `post_dst` and `tip_slot` and put on `device`.  The
+    paired layout's child tape and rows apply as they are: grid op g reads
+    pair slots (2g, 2g+1), the root is slot 2MW and the trash slot 2MW+1.
+    The engine builds it with the chunked tapes, once per topology set."""
+    return OnchipTape(
+        child=torch.as_tensor(paired.child_tape(post_dst, tip_slot),
+                              device=device),
+        rows=paired.grad_rows_needed(post_dst))
+
+
+# The on-chip body is the faster where a block holds at least MIN_WARPS
+# warps of patterns, below that the global body (chunked_grad.cu); set from
+# times on an H100 (chip_smoke.py phase 4, 64-400 taxa, PERF.md): at Gamma4
+# 1.36x faster at 3 warps (128 taxa), 0.89x at 2 (144 taxa).  A block takes
+# one SM's shared memory, so its warps are the SM's.
+MIN_WARPS = 3
+
+
+def smem_bytes(rows: int, MW: int, N1: int, C: int, cols: int) -> int:
+    """Dynamic shared memory of one block of the on-chip body, laid out as
+    the kernel lays it out (csrc/chunked_grad_onchip.cu, through
+    `onchip::smem_bytes`): `rows` rows of a 16-byte lane slice per pattern
+    and category lane, the tree's P and dP, then the tape (5 ints a grid
+    position)."""
+    G = paired.lanes(C)
+    return rows * cols * G * 16 + 2 * N1 * G * 4 * 16 + paired._rup(
+        5 * MW * 4, 16)
+
+
+def onchip_plan(rows: int, MW: int, N1: int, C: int,
+                least: int = MIN_WARPS) -> paired.OnchipPlan | None:
+    """How the on-chip body launches, or None where the global body takes
+    the tape: a block of as many whole warps of patterns as fit in
+    paired.SMEM_BYTES, up to paired.MAX_THREADS threads, and at least
+    `least` warps (1 asks for the body wherever it fits, to measure it).
+    A pattern takes W op lanes x G category lanes of one warp."""
+    if not 1 <= C <= paired.MAX_CATEGORIES:
+        raise ValueError(f"the kernels take 1..{paired.MAX_CATEGORIES} rate "
+                         f"categories, got {C}")
+    G = paired.lanes(C)
+    if paired.WARP % (W * G):
+        return None
+    per_warp = paired.WARP // (W * G)  # patterns a warp
+    fixed = smem_bytes(0, MW, N1, C, 0)
+    warps = 0 if fixed >= paired.SMEM_BYTES else min(
+        (paired.SMEM_BYTES - fixed)
+        // (smem_bytes(rows, MW, N1, C, per_warp) - fixed),
+        paired.MAX_THREADS // paired.WARP)
+    if warps < least:
+        return None
+    cols = warps * per_warp
+    return paired.OnchipPlan(G, cols, False,
+                             smem_bytes(rows, MW, N1, C, cols))
+
+
+# ---------------------------------------------------------------------------
 # Plain torch versions
 # ---------------------------------------------------------------------------
 
@@ -329,8 +414,13 @@ chunked_log_likelihoods.launches = 0
 
 
 def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
-                             edge_mask, P, dP, tips, pi, props, weights):
-    """Per-tree (log likelihood [B], branch gradients [B, N])."""
+                             edge_mask, P, dP, tips, pi, props, weights, *,
+                             onchip: OnchipTape | None = None):
+    """Per-tree (log likelihood [B], branch gradients [B, N]).
+
+    On the card it launches the on-chip body where `onchip_plan` gives a
+    plan, else the global body; `onchip`, the tape's OnchipTape, is
+    required there.  The CPU runs the plain version, which needs none."""
     if P.device.type == "cpu":
         return chunked_ll_and_gradients_ref(
             post_dst, tip_slot, post_e, node_row, edge_mask, P, dP, tips, pi,
@@ -349,25 +439,86 @@ def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
         C, A)
+    if onchip is None:
+        raise ValueError("the chunked grad kernel needs the tape's "
+                         "OnchipTape on the card: pass "
+                         "onchip=chunked.onchip_tape(...)")
+    plan = onchip_plan(onchip.rows, MW, N1, C)
+    if plan is None:
+        rows = chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips,
+                                   pi, props, weights)
+    else:
+        rows = chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi,
+                                   props, weights, plan)
+    return finish_rows(*rows, node_row, edge_mask, weights)
+
+
+def finish_rows(ll_rows, grad_rows, node_row, edge_mask, weights):
+    """(ll [B], grads [B, N]) from a body's per-pattern rows: the weighted
+    sums over patterns, grid rows mapped to nodes through node_row."""
+    return (ll_rows @ weights,
+            grad_rows.sum(dim=-1).gather(1, node_row.long()) * edge_mask)
+
+
+def chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi, props,
+                        weights, plan: paired.OnchipPlan):
+    """Launch csrc/chunked_grad_onchip.cu as `plan` says (operands checked
+    by the wrapper): (LL rows [B, S], weighted gradient rows [B, 2MW+1, S];
+    the rows of padded positions are not written)."""
+    B, MW = post_dst.shape
+    if tuple(onchip.child.shape) != (B, MW, 2):
+        raise ValueError("the on-chip tape does not match post_dst")
+    if tips.numel() >= 2**31:  # the kernel indexes tips with 32-bit offsets
+        raise ValueError(f"tips has {tips.numel()} entries, the on-chip "
+                         "body takes fewer than 2**31")
+    _check_cuda_operands(dict(child=onchip.child), {}, 1, 4)
+    for name, t in (("P", P), ("dP", dP)):  # cp.async copies 16-byte rows
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    kw = dict(device=P.device, dtype=torch.float32)
+    ll_rows = torch.empty((B, S), **kw)
+    grad_rows = torch.empty((B, 2 * MW + 1, S), **kw)
+    with torch.cuda.device(P.device):
+        rc = _kernels.library().bito_chunked_grad_onchip(
+            post_dst.data_ptr(), onchip.child.data_ptr(), post_e.data_ptr(),
+            P.data_ptr(), dP.data_ptr(), tips.data_ptr(), pi.data_ptr(),
+            props.data_ptr(), weights.data_ptr(), ll_rows.data_ptr(),
+            grad_rows.data_ptr(), B, MW, W, T, N1, C, S, onchip.rows,
+            plan.cols, paired._stream())
+    _kernels.check(rc, "bito_chunked_grad_onchip")
+    chunked_grad_onchip.launches += 1
+    return ll_rows, grad_rows
+
+
+chunked_grad_onchip.launches = 0
+
+
+def chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips, pi, props,
+                        weights):
+    """Launch csrc/chunked_grad.cu, the global body (operands checked by the
+    wrapper): (LL rows [B, S], weighted gradient rows [B, 2MW+1, S], zero
+    where no op writes)."""
+    B, MW = post_dst.shape
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
     NS = 2 * MW + 2
     kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C * A, S), **kw)
+    buf = torch.empty((B, NS, C * 4, S), **kw)
     ls = torch.empty((B, NS, S), **kw)
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, 2 * MW + 1, S), **kw)
-    lib = _kernels.library()
     with torch.cuda.device(P.device):
-        rc = lib.bito_chunked_grad(
+        rc = _kernels.library().bito_chunked_grad(
             post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
             P.data_ptr(), dP.data_ptr(), tips.data_ptr(), pi.data_ptr(),
             props.data_ptr(), weights.data_ptr(), buf.data_ptr(),
             ls.data_ptr(), ll_rows.data_ptr(), grad_rows.data_ptr(),
-            B, MW, W, T, N1, C, S, torch.cuda.current_stream().cuda_stream)
+            B, MW, W, T, N1, C, S, paired._stream())
     _kernels.check(rc, "bito_chunked_grad")
-    chunked_ll_and_gradients.launches += 1
-    ll = ll_rows @ weights
-    grads = grad_rows.sum(dim=-1).gather(1, node_row.long()) * edge_mask
-    return ll, grads
+    chunked_grad_global.launches += 1
+    return ll_rows, grad_rows
 
 
-chunked_ll_and_gradients.launches = 0
+chunked_grad_global.launches = 0

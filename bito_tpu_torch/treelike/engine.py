@@ -23,7 +23,10 @@ Kernel selection, `engine.kernel`:
               kernels, on the CPU their plain torch versions.
   "chunked" — always the chunked kernels' wrappers (treelike/chunked.py),
               with dP from the eigen derivative (prep.prepare_inputs_grad)
-              as in bito_tpu's chunked route; 4-state models only.
+              as in bito_tpu's chunked route; 4-state models only.  The
+              grad wrapper launches the on-chip body, or the global one
+              for a tree on which that would be the slower
+              (chunked.onchip_plan).
 "cuda" and "chunked" raise for per-tree parameter rows, which the kernels
 do not take.  (bito_tpu's forced kernels take them and silently use tree
 0's model for the whole batch.)  The per-node kernels (treelike/pernode.py)
@@ -181,7 +184,18 @@ class TreeLikelihoodEngine:
             ce = chunked.build_chunked_encoding(enc, chunked.W)
             self._tapes["chunked"] = self._kernel_tapes(
                 enc, (ce.post_dst, ce.tip_slot, ce.post_e, ce.node_row))
+            # The on-chip grad body's tape, from the same host arrays; the
+            # CPU runs the plain versions, which need none.
+            self._tapes["chunked_onchip"] = chunked.onchip_tape(
+                ce.post_dst, ce.tip_slot, self.device) if (
+                    self.device.type == "cuda") else None
         return self._tapes["chunked"]
+
+    def _chunked_onchip_tape(self, enc: TreeBatchEncoding):
+        """The chunked grad kernel's on-chip tape (child codes and rows),
+        cached with the encoding; None on the CPU."""
+        self._chunked_tapes(enc)
+        return self._tapes["chunked_onchip"]
 
     def branch_length_matrix(self, trees: Sequence[Tree],
                              enc: TreeBatchEncoding) -> torch.Tensor:
@@ -292,12 +306,13 @@ class TreeLikelihoodEngine:
         else:
             post_dst, tip_slot, post_e, node_row, mask = self._chunked_tapes(
                 enc)
+            onchip = self._chunked_onchip_tape(enc)
 
             def kernel(bl):
                 P, dP = prep.prepare_inputs_grad(eig, rates, clock, bl, dt)
                 return chunked.chunked_ll_and_gradients(
                     post_dst, tip_slot, post_e, node_row, mask, P, dP, tips,
-                    pi, prop, w)
+                    pi, prop, w, onchip=onchip)
 
         def fn(bl):
             ll, grads = kernel(bl)

@@ -6,15 +6,18 @@
 The workload is the flagship configuration at full width: a DS1-shaped
 problem (27 taxa, 1,949 columns drawn from 934 distinct ones, made from a
 seed), GTR+Gamma4 with bench.py's parameters, and a batch of 200 random
-unrooted trees with trifurcating roots.  Five paths run ten kernels, the
-two paired ones in two bodies each:
+unrooted trees with trifurcating roots.  Six paths run ten kernels, the
+two paired ones and the chunked grad kernel in two bodies each:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
   - large: the same entry points on two trees of 921 taxa (128 patterns)
     past the on-chip bodies' limits, where the wrappers hand over
     to the global bodies (csrc/paired_ll.cu, csrc/paired_grad.cu);
-  - chunked: the engine with kernel="chunked", chunked_ll and
-    chunked_grad;
+  - chunked: the engine with kernel="chunked", chunked_ll and the on-chip
+    body of chunked_grad (csrc/chunked_grad_onchip.cu);
+  - large-chunked: the engine with kernel="chunked" on the large path's
+    trees, past the on-chip body's limit: chunked_ll and the global body
+    of chunked_grad (csrc/chunked_grad.cu);
   - per-node: pernode_log_likelihoods and pernode_ll_and_gradients on the
     engine's own tapes, driven as bito_tpu's scripts/bench_kernel_race.py
     drives their originals (the engine has no route to them);
@@ -37,7 +40,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      way (nodot, which is not a likelihood, by equal non-finite places and
      finite values within the bounds); pipe_cell on the six experiments
      that fill their scratch, at 100 cells, on the script's ones block and
-     on a block of small integers, and both stream sums, exactly;
+     on a block of small integers, and both stream sums, exactly on the
+     integer block and, on a random bf16 block, within n u sum|x| of the
+     float64 sums (n the groups a sum adds, u = 2^-24: the worst case of
+     n float32 additions in any order);
      static_chain, both variants, within 1e-5 of max |out| against its
      float32 plain version.
   3. each path, with every launch count set to 0 just before it and read
@@ -54,10 +60,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
   4. CUDA-event times of each kernel, its plain version and, where one
      PyTorch call computes the same function, that call; the least time
      the card could take for the same work; every paired body that takes
-     the shape (the on-chip bodies in both stagings, the global bodies) on
-     the flagship and on trees of BODY_TAXA taxa, each held once against
-     its float64 plain version within the phase-2 bound before it is
-     timed, beside the body the wrappers choose; each engine route's
+     the shape (the on-chip bodies in both stagings, the global bodies),
+     and both chunked grad bodies where they take it, on the flagship and
+     on trees of BODY_TAXA taxa, each held once against its float64 plain
+     version within the phase-2 bound before it is timed, beside the body
+     the wrappers choose; each engine route's
      LL+gradient evals/s; the host time of a new topology set at B=200 and
      B=1000; all with the card's name and limit.
   5. one JSON line of the kernels, then the device line, last.
@@ -93,7 +100,8 @@ CELLS = perf_pipe_lab.CELLS  # the pipe lab's cells, 100
 PROBES = "bito_tpu_torch/perflab/csrc/"
 LARGE_CHERRIES = 460  # the large path's trees: 921 taxa
 LARGE_PATTERNS = 128
-BODY_TAXA = (64, 96, 128, 192, 256, 320, 400)  # phase 4's further shapes
+# phase 4's further shapes
+BODY_TAXA = (64, 96, 128, 144, 160, 192, 256, 320, 400)
 TOPOLOGY_BATCH = 1000  # phase 4's larger new topology set
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -119,11 +127,16 @@ KERNELS = {
     "chunked_ll": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_ll.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
-        wrapper=chunked.chunked_log_likelihoods, path="chunked"),
+        wrapper=chunked.chunked_log_likelihoods, path="chunked",
+        also=("large-chunked",)),
+    "chunked_grad_onchip": dict(
+        source="bito_tpu_torch/treelike/csrc/chunked_grad_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_chunked.py:404",
+        wrapper=chunked.chunked_grad_onchip, path="chunked"),
     "chunked_grad": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_grad.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
-        wrapper=chunked.chunked_ll_and_gradients, path="chunked"),
+        wrapper=chunked.chunked_grad_global, path="large-chunked"),
     "pernode_ll": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_ll.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
@@ -267,31 +280,8 @@ def paired_bodies(label, eng, trees, params, card):
         dst[i:i + step], tip[i:i + step], src[i:i + step], e[i:i + step],
         mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
         *f64) for i in range(0, len(trees), step)]
-    ll_ref = torch.cat([r[0] for r in refs])
-    g_ref = torch.cat([r[1] for r in refs])
-    del refs
-    errs = []
-    for key, call in calls.items():
-        out = call()
-        torch.cuda.synchronize()
-        if key.startswith("ll"):
-            err = rel_err(out, ll_ref)
-        else:
-            err = max(rel_err(out[0], ll_ref), norm_err(out[1], g_ref))
-        errs.append(f"{key} {err:.3e}")
-        check(bool(torch.isfinite(out if key.startswith("ll")
-                                  else out[1]).all()) and err <= BOUND,
-              f"paired body {key} parity, {label}")
-    print(f"# phase 4: paired bodies, {label}, against the float64 plain "
-          f"version (LL rel err, grad max-abs/max|g|; bound {BOUND:g}): "
-          + ", ".join(errs))
-
-    # Each body twice, in turns: forward, then backward.
     reps = max(5, 50 * 64 // max(M, 64))
-    ms = {}
-    for key in list(calls) + list(reversed(calls)):
-        ms.setdefault(key, []).append(cuda_ms(calls[key], reps))
-    ms = {key: sum(v) / len(v) for key, v in ms.items()}
+    ms = held_then_timed(f"paired bodies, {label}", calls, refs, reps)
 
     def label_of(key):
         plan = plans.get(key)
@@ -309,6 +299,81 @@ def paired_bodies(label, eng, trees, params, card):
               f"{label_of(key)} {t:.4f}" for key, t in ms.items())
           + f"; the wrappers take ll {auto('ll', on.ll_rows)}, grad "
           f"{auto('grad', on.grad_rows)}; on {card}")
+    return ms
+
+
+def held_then_timed(what, calls, refs, reps):
+    """Hold each body's call once against the float64 plain version's
+    (ll, grads) slices `refs` within BOUND ("ll ..." calls return ll,
+    others (ll, grads)), then time each twice in turns, forward then
+    backward.  Prints the errors; returns {body: mean ms}."""
+    ll_ref = torch.cat([r[0] for r in refs])
+    g_ref = torch.cat([r[1] for r in refs])
+    errs = []
+    for key, call in calls.items():
+        out = call()
+        torch.cuda.synchronize()
+        if key.startswith("ll"):
+            err = rel_err(out, ll_ref)
+        else:
+            err = max(rel_err(out[0], ll_ref), norm_err(out[1], g_ref))
+        errs.append(f"{key} {err:.3e}")
+        check(bool(torch.isfinite(out if key.startswith("ll")
+                                  else out[1]).all()) and err <= BOUND,
+              f"{what}: {key} parity")
+    print(f"# phase 4: {what}, against the float64 plain version (LL rel "
+          f"err, grad max-abs/max|g|; bound {BOUND:g}): " + ", ".join(errs))
+    ms = {}
+    for key in list(calls) + list(reversed(calls)):
+        ms.setdefault(key, []).append(cuda_ms(calls[key], reps))
+    return {key: sum(v) / len(v) for key, v in ms.items()}
+
+
+def chunked_bodies(label, eng, trees, params, card):
+    """Phase 4's two chunked grad bodies side by side on one shape: the
+    on-chip body wherever one warp of patterns fits, the global body
+    always, each held once against the float64 plain version on the same
+    operands within BOUND, then timed twice in turns.  Prints one line;
+    returns {body: ms}."""
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad(eig, rates, clock,
+                                     eng.branch_length_matrix(trees, enc))
+    dst, tip, e, row, mask = eng._chunked_tapes(enc)
+    on = eng._chunked_onchip_tape(enc)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    MW, N1 = dst.shape[1], P.shape[1]
+    calls = {}
+    plan = chunked.onchip_plan(on.rows, MW, N1, 4, least=1)
+    if plan is not None:
+        calls["grad onchip"] = lambda: chunked.finish_rows(
+            *chunked.chunked_grad_onchip(dst, on, e, P, dP, tips, pi, prop,
+                                         w, plan), row, mask, w)
+    calls["grad global"] = lambda: chunked.finish_rows(
+        *chunked.chunked_grad_global(dst, tip, e, P, dP, tips, pi, prop, w),
+        row, mask, w)
+    # The float64 plain version, a slice of trees at a time to bound its
+    # scratch ([trees, 2MW+2, C, 4, S] in float64).
+    step = max(1, BATCH * 64 // max(MW, 64) // 4)
+    f64 = [x.double() for x in (tips, pi, prop, w)]
+    refs = [chunked.chunked_ll_and_gradients_ref(
+        dst[i:i + step], tip[i:i + step], e[i:i + step], row[i:i + step],
+        mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
+        *f64) for i in range(0, len(trees), step)]
+    reps = max(5, 50 * 64 // max(MW, 64))
+    ms = held_then_timed(f"chunked grad bodies, {label}", calls, refs, reps)
+    chosen = ("global" if chunked.onchip_plan(on.rows, MW, N1, 4) is None
+              else "onchip")
+    warps = "" if plan is None else (
+        f" ({plan.cols} patterns, {plan.cols * chunked.W * 4 // 32} warps "
+        f"a block, {plan.smem} B)")
+    print(f"# phase 4: chunked grad bodies, {label} ({len(trees)} trees x "
+          f"{eng.pattern_pad} patterns, {enc.num_taxa} taxa, MW={MW}, "
+          f"{on.rows} rows; ms, mean of two turns of {reps}): "
+          + "; ".join(f"{key}{warps if key == 'grad onchip' else ''} "
+                      f"{t:.4f}" for key, t in ms.items())
+          + f"; the wrapper takes {chosen}; on {card}")
     return ms
 
 
@@ -457,16 +522,34 @@ def probe_parity(ops, dev, errs):
         0, 8, (CELLS, nslices, rows, cols)),
         dtype=torch.bfloat16, device=dev)
     want = perf_pipe_lab.stream_sum_ref(block)
-    for name, arr in (("stream_sum_4d", block),
-                      ("stream_sum_3d", block.reshape(
-                          CELLS, nslices * rows, cols))):
-        out = KERNELS[name]["wrapper"](arr)
+    # A random bf16 block against its float64 sums, within n u sum|x|:
+    # the worst case of n float32 additions in any order (u = 2^-24, n the
+    # groups a sum adds).
+    rnd = torch.randn((CELLS, nslices, rows, cols), generator=gen,
+                      device=dev).to(torch.bfloat16)
+    groups = nslices * rows // 8
+    want64 = rnd.double().reshape(CELLS, -1, 8, cols).sum(dim=1)
+    tol = groups * 2.0**-24 * rnd.double().abs().reshape(
+        CELLS, -1, 8, cols).sum(dim=1)
+    for name, walk in (("stream_sum_4d", lambda x: x),
+                       ("stream_sum_3d", lambda x: x.reshape(
+                           CELLS, nslices * rows, cols))):
+        out = KERNELS[name]["wrapper"](walk(block))
         torch.cuda.synchronize()
         err = (out - want).abs().max().item()
-        errs[name] = (err, err)
         print(f"# phase 2: {name}: max abs err {err:g} (exact, integers in "
               f"[0, 8))")
         check(err == 0, f"{name} parity")
+        out = KERNELS[name]["wrapper"](walk(rnd))
+        torch.cuda.synchronize()
+        diff = (out.double() - want64).abs()
+        errs[name] = (diff.max().item(), diff.max().item())
+        print(f"# phase 2: {name}: random bf16 block, max abs err "
+              f"{diff.max().item():.3e} against the float64 sums, at most "
+              f"{(diff / tol).max().item():.3e} of the bound n u sum|x| "
+              f"(n={groups})")
+        check(bool((diff <= tol).all()), f"{name} parity on a random block")
+    del rnd, want64, tol
 
     tape, L = perf_static_probe.probe_inputs(dev)
     worst = (0.0, 0.0)
@@ -624,13 +707,15 @@ def main():
     P, dPq = prep.prepare_inputs_grad_q(eig, rates, clock, bl)
     _, dP = prep.prepare_inputs_grad(eig, rates, clock, bl)
     cdst, ctip, cedge, crow, _ = eng._chunked_tapes(enc)
+    con = eng._chunked_onchip_tape(enc)
     post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=dev)
                        for x in (enc.post_ops, enc.pre_ops, enc.root))
     ll_ops = (dst, tip, e, P, tips, pi, prop, w)
     grad_ops = (dst, tip, src, e, mask, P, dPq, tips, pi, prop, w)
     check(all(paired.onchip_plan(k, r, dst.shape[1], P.shape[1], 4)
               for k, r in (("ll", onchip.ll_rows),
-                           ("grad", onchip.grad_rows))),
+                           ("grad", onchip.grad_rows)))
+          and chunked.onchip_plan(con.rows, cdst.shape[1], P.shape[1], 4),
           "the flagship fits the on-chip bodies")
     args = {  # kernel -> (plain version, its arguments, call of the kernel)
         "paired_ll_onchip": (  # the wrappers' body here
@@ -648,13 +733,18 @@ def main():
             lambda: paired.finish_rows(*paired.paired_grad_global(
                 dst, tip, src, e, P, dPq, tips, pi, prop, w), mask, w)),
     }
+    cgrad_ops = (cdst, ctip, cedge, crow, mask, P, dP, tips, pi, prop, w)
+    args["chunked_grad_onchip"] = (  # the wrapper's body here
+        chunked.chunked_ll_and_gradients_ref, cgrad_ops,
+        lambda: chunked.chunked_ll_and_gradients(*cgrad_ops, onchip=con))
+    args["chunked_grad"] = (  # the global body, through the same final sums
+        chunked.chunked_ll_and_gradients_ref, cgrad_ops,
+        lambda: chunked.finish_rows(*chunked.chunked_grad_global(
+            cdst, ctip, cedge, P, dP, tips, pi, prop, w), crow, mask, w))
     for name, plain, a, wrapper in (
             ("chunked_ll", chunked.chunked_log_likelihoods_ref,
              (cdst, ctip, cedge, P, tips, pi, prop, w),
              chunked.chunked_log_likelihoods),
-            ("chunked_grad", chunked.chunked_ll_and_gradients_ref,
-             (cdst, ctip, cedge, crow, mask, P, dP, tips, pi, prop, w),
-             chunked.chunked_ll_and_gradients),
             ("pernode_ll", pernode.pernode_log_likelihoods_ref,
              (post, root, P, tips, pi, prop, w),
              pernode.pernode_log_likelihoods),
@@ -665,6 +755,7 @@ def main():
     errs = {}  # kernel -> (relative or max-norm error, max abs error)
     for ll_name, grad_name in (("paired_ll_onchip", "paired_grad_onchip"),
                                ("paired_ll", "paired_grad"),
+                               ("chunked_ll", "chunked_grad_onchip"),
                                ("chunked_ll", "chunked_grad"),
                                ("pernode_ll", "pernode_grad")):
         ll_k = args[ll_name][2]()
@@ -755,6 +846,22 @@ def main():
     torch.cuda.synchronize()
     launches.update(read_launches("large"))
     against_reference("large", [ll], pairs, lrefs)
+
+    # The chunked route on the same trees, past the on-chip grad body.
+    large.kernel = "chunked"
+    lce = large._chunked_tapes(lenc)[0]
+    lcon = large._chunked_onchip_tape(lenc)
+    print(f"# phase 3: large-chunked path: MW={lce.shape[1]}, {lcon.rows} "
+          f"rows a pattern; on-chip plan "
+          f"{chunked.onchip_plan(lcon.rows, lce.shape[1], lN1, 4)}")
+    reset_launches()
+    ll = large.log_likelihoods(ltrees, params)
+    pairs = [large.ll_and_branch_gradients(ltrees, params)]
+    fn = large.branch_eval_fn(ltrees, params)
+    pairs += [fn(lbl * f) for f in lscales]
+    torch.cuda.synchronize()
+    launches.update(read_launches("large-chunked"))
+    against_reference("large-chunked", [ll], pairs, lrefs)
     del large, large64, lrefs, pairs
 
     eng.kernel = "chunked"
@@ -807,6 +914,8 @@ def main():
                   "paired_grad": nbytes(dst, tip, src, e),
                   "chunked_ll": nbytes(cdst, ctip, cedge),
                   "chunked_grad": nbytes(cdst, ctip, cedge, crow),
+                  "chunked_grad_onchip": nbytes(cdst, con.child, cedge,
+                                                crow),
                   "pernode_ll": nbytes(post, root),
                   "pernode_grad": nbytes(post, pre, root),
                   "variant_grad": nbytes(post, pre, root)}
@@ -846,10 +955,14 @@ def main():
     # The paired bodies side by side, on the flagship and on further
     # shapes up to the on-chip bodies' limit.
     paired_bodies("flagship", eng, trees, params, card)
+    chunked_bodies("flagship", eng, trees, params, card)
     for taxa in BODY_TAXA:
         t2, sp2, model2 = body_shape(taxa)
-        paired_bodies(f"{taxa} taxa", TreeLikelihoodEngine(
-            sp2, model2, device=dev, dtype=PRODUCT_DTYPE), t2, params, card)
+        eng2 = TreeLikelihoodEngine(sp2, model2, device=dev,
+                                    dtype=PRODUCT_DTYPE)
+        paired_bodies(f"{taxa} taxa", eng2, t2, params, card)
+        chunked_bodies(f"{taxa} taxa", eng2, t2, params, card)
+        del eng2
 
     def sweep_evals_per_s(kernel, calls):
         eng.kernel = kernel

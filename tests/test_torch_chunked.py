@@ -183,6 +183,13 @@ def test_eigen_derivative_matches_q_times_p(model):
         torch.float32)
 
 
+def _chunked_launches():
+    """The launch counts of the LL kernel and both grad bodies."""
+    return (chunked.chunked_log_likelihoods.launches,
+            chunked.chunked_grad_onchip.launches,
+            chunked.chunked_grad_global.launches)
+
+
 # (model, rooted, batch)
 ENGINE_CASES = [("gtr_gamma4", False, 4), ("gtr_gamma4", True, 3),
                 ("jc69", False, 3), ("hky_weibull4", True, 4)]
@@ -199,8 +206,7 @@ def test_engine_chunked_matches_bito_tpu_scan(model, rooted, batch):
     te.kernel = "chunked"
     jp, tp = jax_params(params), torch_params(params)
     assert te._route(te._shared_model(tp)) == "chunked"
-    launches = (chunked.chunked_log_likelihoods.launches,
-                chunked.chunked_ll_and_gradients.launches)
+    launches = _chunked_launches()
 
     ll_ref = np.asarray(je.log_likelihoods(case.jax_trees, jp))
     assert max_rel(te.log_likelihoods(case.torch_trees, tp).numpy(),
@@ -223,8 +229,7 @@ def test_engine_chunked_matches_bito_tpu_scan(model, rooted, batch):
     ll = te.ll_eval_fn(case.torch_trees, tp)(tbl).numpy()
     assert max_rel(ll, np.asarray(
         je.ll_eval_fn(case.jax_trees, jp)(jbl))) < 1e-10
-    assert (chunked.chunked_log_likelihoods.launches,
-            chunked.chunked_ll_and_gradients.launches) == launches
+    assert _chunked_launches() == launches
 
 
 def test_engine_chunked_refuses_what_the_kernels_do_not_take():
@@ -257,8 +262,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     case = make_case(seed=51, num_taxa=8, num_trees=B)
     ops, extra = _port_operands(torch_engine(case, "gtr_gamma4"), case, GTR,
                                 chunked.W)
-    before = (chunked.chunked_log_likelihoods.launches,
-              chunked.chunked_ll_and_gradients.launches)
+    before = _chunked_launches()
     torch.testing.assert_close(chunked.chunked_log_likelihoods(**ops),
                                chunked.chunked_log_likelihoods_ref(**ops),
                                rtol=0, atol=0)
@@ -266,8 +270,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     want = chunked.chunked_ll_and_gradients_ref(**ops, **extra)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert (chunked.chunked_log_likelihoods.launches,
-            chunked.chunked_ll_and_gradients.launches) == before
+    assert _chunked_launches() == before
 
 
 def test_operand_checks():

@@ -1,5 +1,7 @@
 """The CUDA kernels on the card (paired, chunked and per-node, and the perf
-lab's four probes), against their plain torch versions.
+lab's four probes), against their plain torch versions; each body of the
+paired kernels and of the chunked grad kernel, and which one the wrappers
+take.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -34,6 +36,11 @@ MODELS = {
     "jc69": (("JC69", "constant"), {}),
     "gtr_gamma8": (("GTR", "gamma+8"), GTR),
     "hky_weibull3": (("HKY", "weibull+3"), {
+        "substitution_model_rates": np.array([2.5]),
+        "substitution_model_frequencies": np.array([0.2, 0.3, 0.3, 0.2]),
+        "site_model_parameters": np.array([1.3]),
+    }),
+    "hky_weibull4": (("HKY", "weibull+4"), {
         "substitution_model_rates": np.array([2.5]),
         "substitution_model_frequencies": np.array([0.2, 0.3, 0.3, 0.2]),
         "site_model_parameters": np.array([1.3]),
@@ -258,17 +265,31 @@ def _f64(*xs):
     return [x.to(torch.float64) for x in xs]
 
 
+CHUNKED = (chunked.chunked_log_likelihoods, chunked.chunked_grad_onchip,
+           chunked.chunked_grad_global)
+
+
+def _chunked_launched(before):
+    """What the chunked LL kernel and each grad body launched since
+    `before`, in CHUNKED's order."""
+    return [f.launches - n for f, n in zip(CHUNKED, before)]
+
+
 @pytest.mark.parametrize("model,rooted,num_trees,patterns,W", [
     ("gtr_gamma4", False, 5, None, chunked.W),
     ("gtr_gamma4", True, 3, 150, chunked.W),
     ("jc69", False, 4, 200, chunked.W),
     ("hky_weibull3", True, 2, None, chunked.W),
+    ("hky_weibull4", True, 3, 77, chunked.W),
+    ("gtr_gamma8", False, 3, None, chunked.W),
+    ("gtr_gamma8", True, 2, 77, chunked.W),
     ("gtr_gamma4", False, 3, 100, 4), ("gtr_gamma4", True, 3, None, 8)])
 def test_chunked_kernels_match_plain(cuda, model, rooted, num_trees,
                                      patterns, W):
-    """Both chunked kernels against their plain versions in float64 on the
-    same float32 operands, on tapes built at the engine's width and at
-    multiples of it."""
+    """The chunked LL kernel and both grad bodies against their plain
+    versions in float64 on the same float32 operands, on tapes built at
+    the engine's width and at multiples of it; `patterns` cuts the pattern
+    axis to a width that is not a multiple of a block's patterns."""
     eng, trees, params = _engine(model, 3, 11, num_trees, rooted, cuda,
                                  torch.float32)
     enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params,
@@ -277,15 +298,33 @@ def test_chunked_kernels_match_plain(cuda, model, rooted, num_trees,
     dst, tip, e, row = (torch.as_tensor(x, dtype=torch.int32, device=cuda)
                         for x in (ce.post_dst, ce.tip_slot, ce.post_e,
                                   ce.node_row))
+    onchip = chunked.onchip_tape(ce.post_dst, ce.tip_slot, cuda)
     mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=cuda)
-    ll = chunked.chunked_log_likelihoods(dst, tip, e, P, tips, pi, prop, w)
-    ll2, g = chunked.chunked_ll_and_gradients(dst, tip, e, row, mask, P, dP,
-                                              tips, pi, prop, w)
-    torch.cuda.synchronize()
     ll_ref, g_ref = chunked.chunked_ll_and_gradients_ref(
         dst, tip, e, row, mask, *_f64(P, dP, tips, pi, prop, w))
+    C = P.shape[2]
+    plan = chunked.onchip_plan(onchip.rows, ce.MW, P.shape[1], C)
+    assert plan is not None and plan.lanes == paired.lanes(C)
+    before = [f.launches for f in CHUNKED]
+    ll = chunked.chunked_log_likelihoods(dst, tip, e, P, tips, pi, prop, w)
+    ll2, g = chunked.chunked_ll_and_gradients(dst, tip, e, row, mask, P, dP,
+                                              tips, pi, prop, w,
+                                              onchip=onchip)
+    torch.cuda.synchronize()
+    assert _chunked_launched(before) == [1, 1, 0]  # the on-chip body here
     assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
     assert _norm(g, g_ref) < 5e-5
+    for body, launched in (
+            (lambda: chunked.chunked_grad_onchip(dst, onchip, e, P, dP, tips,
+                                                 pi, prop, w, plan),
+             [0, 1, 0]),
+            (lambda: chunked.chunked_grad_global(dst, tip, e, P, dP, tips,
+                                                 pi, prop, w), [0, 0, 1])):
+        before = [f.launches for f in CHUNKED]
+        ll2, g = chunked.finish_rows(*body(), row, mask, w)
+        torch.cuda.synchronize()
+        assert _chunked_launched(before) == launched
+        assert _rel(ll2, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5
 
 
 @pytest.mark.parametrize("model,rooted,num_trees,patterns", [
@@ -312,24 +351,62 @@ def test_pernode_kernels_match_plain(cuda, model, rooted, num_trees,
     assert _norm(g, g_ref) < 5e-5
 
 
+def _flagship_engine(num_trees, device, dtype):
+    """chip_smoke.py's flagship shape (DS1: 27 taxa, 934 patterns padded
+    to 1,024), GTR+Gamma4, on fewer trees."""
+    text, aln = _synthetic.ds1_shaped(0, num_trees)
+    coll = parse_newick_text(text)
+    eng = TreeLikelihoodEngine(
+        SitePattern(aln, coll.taxon_names),
+        PhyloModel(PhyloModelSpecification("GTR", "gamma+4")),
+        device=device, dtype=dtype)
+    return eng, coll.trees, params_from_numpy(GTR, device, dtype)
+
+
 def test_engine_chunked_takes_the_chunked_kernels(cuda):
-    """kernel="chunked" on the card launches both chunked kernels and no
-    paired one, and agrees with the float64 engine on the CPU."""
-    eng, trees, params = _engine("gtr_gamma4", 7, 9, 4, False, cuda,
-                                 torch.float32)
+    """kernel="chunked" on the card launches the chunked LL kernel and the
+    on-chip grad body, and no paired body, on the flagship's shape and on
+    a small one, and agrees with the float64 engine on the CPU."""
+    for make in (lambda d, t: _engine("gtr_gamma4", 7, 9, 4, False, d, t),
+                 lambda d, t: _flagship_engine(6, d, t)):
+        eng, trees, params = make(cuda, torch.float32)
+        eng.kernel = "chunked"
+        ref, _, ref_params = make("cpu", torch.float64)
+        before = [f.launches for f in CHUNKED + PAIRED]
+        ll = eng.log_likelihoods(trees, params)
+        ll2, g = eng.ll_and_branch_gradients(trees, params)
+        assert [f.launches - n for f, n in zip(CHUNKED + PAIRED, before)] == [
+            1, 1, 0, 0, 0, 0, 0]
+        ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
+        assert _rel(ll.cpu(), ll_ref) < 5e-5
+        assert _rel(ll2.cpu(), ll_ref) < 5e-5
+        assert _norm(g.cpu(), g_ref) < 5e-5
+
+
+def test_tree_past_the_limit_takes_the_global_chunked_body(cuda):
+    """The chunked route on the 921-taxon trees: no warp of the on-chip
+    grad body fits, and the wrapper launches the global body, which agrees
+    with the float64 plain version."""
+    eng, trees, params = _large_tree_engine(cuda, torch.float32)
     eng.kernel = "chunked"
-    ref, _, ref_params = _engine("gtr_gamma4", 7, 9, 4, False, "cpu",
-                                 torch.float64)
-    wrappers = (chunked.chunked_log_likelihoods,
-                chunked.chunked_ll_and_gradients) + PAIRED
-    before = [f.launches for f in wrappers]
-    ll = eng.log_likelihoods(trees, params)
-    ll2, g = eng.ll_and_branch_gradients(trees, params)
-    assert [f.launches - n for f, n in zip(wrappers, before)] == [
-        1, 1, 0, 0, 0, 0]
-    ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
-    assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
-    assert _norm(g.cpu(), g_ref) < 5e-5
+    enc = eng.encode(trees)
+    dst, tip, e, row, mask = eng._chunked_tapes(enc)
+    onchip = eng._chunked_onchip_tape(enc)
+    N1 = enc.num_slots + 1
+    assert chunked.onchip_plan(onchip.rows, dst.shape[1], N1, 4, least=1) is (
+        None)
+    before = [f.launches for f in CHUNKED]
+    ll, g = eng.ll_and_branch_gradients(trees, params)
+    torch.cuda.synchronize()
+    assert _chunked_launched(before) == [0, 0, 1]
+    eig, rates, props, clock = eng._model_ingredients(params, 2)
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad(eig, rates, clock,
+                                     eng.branch_length_matrix(trees, enc))
+    ll_ref, g_ref = chunked.chunked_ll_and_gradients_ref(
+        dst, tip, e, row, mask, *_f64(P, dP, eng._kernel_tips, pi, prop,
+                                      eng._kernel_weights))
+    assert _rel(ll, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5
 
 
 def test_new_wrappers_reject_operands_the_kernels_do_not_take(cuda):
@@ -346,6 +423,15 @@ def test_new_wrappers_reject_operands_the_kernels_do_not_take(cuda):
                                                post_e=e[:, :-1]))
     with pytest.raises(ValueError):
         chunked.chunked_log_likelihoods(**dict(args, tips=tips.cpu()))
+    # The grad wrapper needs the on-chip tape, of this batch.
+    dst, tip, e, row, mask = eng._chunked_tapes(enc)
+    grad_args = (dst, tip, e, row, mask, P, dP, tips, pi, prop, w)
+    with pytest.raises(ValueError, match="OnchipTape"):
+        chunked.chunked_ll_and_gradients(*grad_args)
+    other = chunked.onchip_tape(dst[:1].cpu().numpy(), tip[:1].cpu().numpy(),
+                                cuda)
+    with pytest.raises(ValueError, match="on-chip tape"):
+        chunked.chunked_ll_and_gradients(*grad_args, onchip=other)
     post, root = (torch.as_tensor(x, dtype=torch.int32, device=cuda)
                   for x in (enc.post_ops, enc.root))
     with pytest.raises(TypeError):
@@ -438,17 +524,49 @@ def test_pipe_cell_refuses_offsets_past_the_scratch(cuda):
                                 loops=28, stores=4)
 
 
-def test_stream_sums_match_plain(cuda):
-    """Both walks give identical sums, equal to the plain version's, at 3
-    cells of the script's 32 x 256 x 128 block."""
-    _, nslices, rows, cols = perf_pipe_lab.DMA4D
-    big4 = _int_block((3, nslices, rows, cols), 9, cuda)
-    big3 = big4.reshape(3, nslices * rows, cols)
-    out4 = perf_pipe_lab.stream_sum_4d(big4)
-    out3 = perf_pipe_lab.stream_sum_3d(big3)
-    torch.cuda.synchronize()
-    assert torch.equal(out4, out3)
-    assert torch.equal(out4, perf_pipe_lab.stream_sum_ref(big4))
+@pytest.mark.parametrize("nslices,rows,cols", [
+    perf_pipe_lab.DMA4D[1:], (4, 24, 100), (3, 8, 7)])
+def test_stream_sums_match_plain(cuda, nslices, rows, cols):
+    """At 3 cells of the script's 32 x 256 x 128 block and of ragged ones
+    (columns not a multiple of a block's 32 chunks, fewer slices than its
+    8 lanes, rows / 8 not a multiple of 8): on small integers both walks
+    equal the plain version exactly; on a random bf16 block each is within
+    n u sum|x| of the float64 sums (n the groups a sum adds, u = 2^-24:
+    the worst case of n float32 additions in any order)."""
+    shape = (3, nslices, rows, cols)
+    groups = nslices * rows // 8
+    blocks = (_int_block(shape, 9, cuda), torch.as_tensor(
+        np.random.default_rng(10).normal(size=shape), dtype=torch.bfloat16,
+        device=cuda))
+    for exact, big4 in zip((True, False), blocks):
+        big3 = big4.reshape(3, nslices * rows, cols)
+        before = (perf_pipe_lab.stream_sum_4d.launches,
+                  perf_pipe_lab.stream_sum_3d.launches)
+        out4 = perf_pipe_lab.stream_sum_4d(big4)
+        out3 = perf_pipe_lab.stream_sum_3d(big3)
+        torch.cuda.synchronize()
+        assert (perf_pipe_lab.stream_sum_4d.launches,
+                perf_pipe_lab.stream_sum_3d.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+        assert out4.shape == out3.shape == (3, 8, cols)
+        if exact:
+            assert torch.equal(out4, perf_pipe_lab.stream_sum_ref(big4))
+            assert torch.equal(out3, out4)
+            continue
+        flat = big4.double().reshape(3, -1, 8, cols)
+        want, tol = flat.sum(dim=1), groups * 2.0**-24 * flat.abs().sum(dim=1)
+        for out in (out4, out3):
+            assert ((out.double() - want).abs() <= tol).all()
+
+
+def test_stream_sums_refuse_what_they_do_not_take(cuda):
+    big = torch.ones((2, 4, 12, 16), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        perf_pipe_lab.stream_sum_4d(big)
+    shifted = torch.ones(2 * 4 * 16 * 16 + 1, dtype=torch.bfloat16,
+                         device=cuda)[1:].view(2, 4, 16, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        perf_pipe_lab.stream_sum_4d(shifted)
 
 
 @pytest.mark.parametrize("dynamic", [True, False], ids=["dynamic", "static"])
