@@ -2,19 +2,24 @@
 cost.
 
 Counterpart of scripts/perf_lab.py.  Its TPU kernel, make_variant_kernel,
-is a copy of pallas_pruning._grad_kernel with three knobs; here it is
-csrc/variant_grad.cu, with the knobs as template parameters:
-  - unroll: the op loops run with trip counts fixed at compile time (the
-    flagship's M = 26 and Mp = 51 only; any other tape raises);
-  - resk: with unroll, only every resk-th op rescales, in both passes
-    (1, 4 or 8);
+is a copy of pallas_pruning._grad_kernel with three knobs; here the knobs
+are template parameters of the per-node grad kernel's own on-chip body
+(treelike/csrc/pernode_onchip.cuh), launched through csrc/variant_grad.cu:
+  - unroll: the walks run with trip counts fixed at compile time (the
+    flagship's M = 26 post ops and 25 parent groups, from Mp = 51 pre ops;
+    any other tape raises);
+  - resk: with unroll, only every resk-th post op and parent group
+    rescales (1, 4 or 8);
   - nodot: the transition products are skipped, so that P = dP = I in
     effect (unrolled, with resk 1, as the script's `nodot`).
-The kernel is instantiated for the script's variants only (VARIANTS and
-the loop of `base`); any other combination raises.
+The loop (`base` and `loop_resk4`) is the shipping body.  The kernel is
+instantiated for the script's variants only (VARIANTS and the loop of
+`base`); any other combination raises.
 The operands are pernode's (treelike/pernode.py): post_ops, pre_ops, root
 int32; P, dP [B, N+1, 4, 4, 4]; tips [T, 4, S]; pi [4]; props [4]; weights
-[S]; edge_mask [B, N].  The kernel takes GTR+Gamma4's four categories only.
+[S]; edge_mask [B, N]; and optionally the on-chip tape
+(pernode.onchip_tape), which the wrapper derives where it is not given.
+The kernel takes GTR+Gamma4's four categories only.
 
 The plain version: without nodot the knobs change only where the partials
 are rescaled, so the results are pernode_ll_and_gradients_ref's up to
@@ -48,6 +53,7 @@ from ..treelike.paired import _check_cuda_operands
 CATEGORIES = 4       # the kernel's instantiations (csrc/variant_grad.cu)
 UNROLL_M = 26        # the flagship's postorder ops: 27 taxa, trifurcating root
 UNROLL_MP = 51       # and its preorder ops, one per edge
+UNROLL_GROUPS = 25   # and its parent groups, one per internal node
 RESKS = (1, 4, 8)
 BATCH = 200
 # The script's command-line names (perf_lab.py:261-265).  loop_resk4 is the
@@ -88,9 +94,10 @@ def variant_ll_and_gradients_ref(post_ops, pre_ops, root, edge_mask, P, dP,
 
 def variant_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
                              pi, props, weights, *, unroll: bool, resk: int,
-                             nodot: bool):
+                             nodot: bool, onchip=None):
     """Per-tree (log likelihood [B], branch gradients [B, N]) through the
-    variant kernel."""
+    variant kernel; `onchip` the tape's pernode.OnchipTape, derived here
+    where it is not given."""
     _check_knobs(unroll, resk, nodot)
     if P.device.type == "cpu":
         return variant_ll_and_gradients_ref(
@@ -115,26 +122,34 @@ def variant_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
         C, A)
+    if onchip is None:
+        onchip = pernode.onchip_tape(
+            *(x.cpu().numpy() for x in (post_ops, pre_ops, root)), T, N1 - 1,
+            P.device)
+    NG = onchip.groups.shape[1]
+    if unroll and NG != UNROLL_GROUPS:
+        raise ValueError(f"unroll is compiled for {UNROLL_GROUPS} parent "
+                         f"groups only, got {NG}")
+    plan = pernode.onchip_plan(onchip.rows, onchip.ints, N1, C, least=1)
+    if plan is None:
+        raise ValueError("no warp of patterns of the variant kernel fits in "
+                         "shared memory beside the tree's matrices")
+    pernode.check_onchip(onchip, B, tips, P, dP)
     kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, N1, C * A, S), **kw)
-    up = torch.empty((B, N1, C * A, S), **kw)
-    ls = torch.empty((B, N1, S), **kw)
     ll_rows = torch.empty((B, S), **kw)
-    grad_rows = torch.zeros((B, N1, S), **kw)
-    lib = _kernels.library()
+    grad_rows = torch.empty((B, N1, S), **kw)
     with torch.cuda.device(P.device):
-        rc = lib.bito_variant_grad(
-            post_ops.data_ptr(), pre_ops.data_ptr(), root.data_ptr(),
-            P.data_ptr(), dP.data_ptr(), tips.data_ptr(), pi.data_ptr(),
-            props.data_ptr(), weights.data_ptr(), buf.data_ptr(),
-            up.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            grad_rows.data_ptr(), B, M, Mp, T, N1, C, S, int(unroll), resk,
-            int(nodot), torch.cuda.current_stream().cuda_stream)
+        rc = _kernels.library().bito_variant_grad(
+            onchip.post.data_ptr(), onchip.groups.data_ptr(),
+            onchip.zero.data_ptr(), root.data_ptr(), P.data_ptr(),
+            dP.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
+            weights.data_ptr(), ll_rows.data_ptr(), grad_rows.data_ptr(),
+            B, M, Mp, NG, onchip.zero.shape[1], T, N1, C, S, onchip.rows,
+            plan.cols, int(unroll), resk, int(nodot),
+            torch.cuda.current_stream().cuda_stream)
     _kernels.check(rc, "bito_variant_grad")
     variant_ll_and_gradients.launches += 1
-    ll = ll_rows @ weights
-    grads = grad_rows.sum(dim=-1)[:, : N1 - 1] * edge_mask
-    return ll, grads
+    return pernode.finish_rows(ll_rows, grad_rows, edge_mask, weights)
 
 
 variant_ll_and_gradients.launches = 0
@@ -167,11 +182,24 @@ def flagship_operands(device, batch: int = BATCH, seed: int = 0) -> dict:
                 weights=eng._kernel_weights)
 
 
-def variant_fn(name: str, ops: dict):
-    """A call of variant `name` (one of NAMES) on `ops`."""
+def variant_fn(name: str, ops: dict, onchip=None):
+    """A call of variant `name` (one of NAMES) on `ops`, with the on-chip
+    tape `onchip` where given."""
     if name == "base":
-        return lambda: pernode.pernode_ll_and_gradients(**ops)
-    return lambda: variant_ll_and_gradients(**ops, **VARIANTS[name])
+        return lambda: pernode.pernode_ll_and_gradients(**ops, onchip=onchip)
+    return lambda: variant_ll_and_gradients(**ops, **VARIANTS[name],
+                                            onchip=onchip)
+
+
+def onchip_of(ops: dict):
+    """The on-chip tape of pernode operands on the card (None on the
+    CPU), derived once for every call of the variants."""
+    P = ops["P"]
+    if P.device.type == "cpu":
+        return None
+    return pernode.onchip_tape(
+        *(ops[k].cpu().numpy() for k in ("post_ops", "pre_ops", "root")),
+        ops["tips"].shape[0], P.shape[1] - 1, P.device)
 
 
 def run_variants(names, ops: dict, reps: int = 20) -> dict:
@@ -179,9 +207,10 @@ def run_variants(names, ops: dict, reps: int = 20) -> dict:
     with its parity against `base` where base ran first, as the script
     prints them.  Returns {name: (ms, ll, grads)}."""
     B = ops["post_ops"].shape[0]
+    onchip = onchip_of(ops)
     out = {}
     for name in names:
-        fn = variant_fn(name, ops)
+        fn = variant_fn(name, ops, onchip)
         ll, g = fn()
         ms = cuda_ms(fn, reps)
         print(f"{name:28s} {ms:8.4f} ms  {B / ms * 1e3:9.1f} evals/s  "

@@ -30,10 +30,12 @@ _BUILD = _ROOT / "_build"
 _SOURCES = tuple(f"treelike/csrc/{name}" for name in (
     "paired_ll.cu", "paired_grad.cu", "paired_ll_onchip.cu",
     "paired_grad_onchip.cu", "chunked_ll.cu", "chunked_grad.cu",
-    "chunked_grad_onchip.cu", "pernode_ll.cu", "pernode_grad.cu")) + tuple(
+    "chunked_grad_onchip.cu", "pernode_ll.cu", "pernode_grad.cu",
+    "pernode_grad_onchip.cu")) + tuple(
     f"perflab/csrc/{name}" for name in (
         "variant_grad.cu", "pipe_cell.cu", "stream_sum.cu", "static_chain.cu"))
-_HEADERS = ("treelike/csrc/common.cuh", "treelike/csrc/onchip.cuh")
+_HEADERS = ("treelike/csrc/common.cuh", "treelike/csrc/onchip.cuh",
+            "treelike/csrc/pernode_onchip.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -69,8 +71,13 @@ _SIGNATURES = {
     # post_ops, pre_ops, root, P, dP, tips, pi, props, weights, buf, up, ls,
     # ll_rows, grad_rows, B, M, Mp, T, N1, C, S, stream
     "bito_pernode_grad": [_P] * 14 + [_I] * 7 + [_P],
-    # the pernode_grad operands, then unroll, resk, nodot, stream
-    "bito_variant_grad": [_P] * 14 + [_I] * 10 + [_P],
+    # post, groups, zero, root, P, dP, tips, pi, props, weights, ll_rows,
+    # grad_rows, B, M, NG, Z, T, N1, C, S, rows, cols, stream
+    "bito_pernode_grad_onchip": [_P] * 12 + [_I] * 10 + [_P],
+    # post, groups, zero, root, P, dP, tips, pi, props, weights, ll_rows,
+    # grad_rows, B, M, Mp, NG, Z, T, N1, C, S, rows, cols, unroll, resk,
+    # nodot, stream
+    "bito_variant_grad": [_P] * 12 + [_I] * 14 + [_P],
     # idx, big, scratch, out, cells, block_rows, scratch_rows, S, init,
     # loops, stores, stream
     "bito_pipe_cell": [_P] * 4 + [_I] * 7 + [_P],

@@ -13,9 +13,11 @@ device or dtype (bito_tpu_torch.device: PRODUCT_DEVICE, PRODUCT_DTYPE).
 Kernel selection, `engine.kernel`:
   "auto"    — the hand-written CUDA paired kernels (treelike/paired.py) on
               a CUDA device in float32 with a shared model of 4 states and
-              at most paired.MAX_CATEGORIES rate categories, the conditions
-              under which bito_tpu takes its paired Pallas kernels; the
-              scan tape otherwise.  The paired wrappers launch the on-chip
+              at most paired.MAX_CATEGORIES rate categories; the scan tape
+              otherwise.  The limit of 1-8 categories is the port's own:
+              the kernels are compiled for those counts, where bito_tpu
+              pads categories (zero proportions) so that its paired Pallas
+              kernel takes any count.  The paired wrappers launch the on-chip
               bodies, or the global ones for a tree on which those would
               be the slower (paired.onchip_plan).
   "scan"    — always the scan tape (treelike/pruning.py).

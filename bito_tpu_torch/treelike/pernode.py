@@ -13,23 +13,33 @@ The engine does not route to them, as bito_tpu's engine does not: they are
 public functions, driven the way scripts/bench_kernel_race.py drives their
 originals (prep.prepare_inputs_grad operands on the engine's tapes).
 
-Each kernel has three functions here, as in paired.py:
+Each kernel has, as in paired.py:
   - the plain torch version (`*_ref`): the scan tape's own postorder,
     root and fused preorder (pruning.py) on the kernels' compact operands;
   - the public wrapper: a CPU tensor goes to the plain version; a CUDA
-    tensor goes to the hand-written kernel (csrc/pernode_ll.cu,
-    csrc/pernode_grad.cu), and the call raises if the kernel cannot take
-    the inputs or fails to launch;
-  - a launch count, `wrapper.launches`.
+    tensor goes to a hand-written kernel, and the call raises if the
+    kernel cannot take the inputs or fails to launch;
+  - a launch count on each launcher, `launcher.launches`.
+
+The LL kernel has one body (csrc/pernode_ll.cu).  The grad kernel has two:
+the on-chip body (csrc/pernode_grad_onchip.cu over csrc/pernode_onchip.cuh:
+a node's partial and then its up value in one shared-memory row, a parent's
+children evolved together, `pernode_grad_onchip`) and the global body of
+trees past its limit (csrc/pernode_grad.cu, partials in device memory,
+`pernode_grad_global`).  `onchip_plan` chooses before the launch, from the
+tape that `onchip_tape` derives on the host.
 
 Operands: post_ops, pre_ops, root int32; P, dP [B, N+1, C, 4, 4]; tips
 [T, 4, S]; pi [4]; props [C]; weights [S]; edge_mask [B, N].
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
-from . import _kernels, pruning
+from . import _kernels, paired, pruning
 from .paired import _check_cuda_operands
 
 
@@ -124,8 +134,14 @@ pernode_log_likelihoods.launches = 0
 
 
 def pernode_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
-                             pi, props, weights):
-    """Per-tree (log likelihood [B], branch gradients [B, N])."""
+                             pi, props, weights, *,
+                             onchip: OnchipTape | None = None):
+    """Per-tree (log likelihood [B], branch gradients [B, N]).
+
+    On the card it launches the on-chip body where `onchip_plan` gives a
+    plan, else the global body.  `onchip` is the tape's OnchipTape; where
+    it is not given the wrapper derives it (a copy of the tapes to the
+    host).  The CPU runs the plain version, which needs none."""
     if P.device.type == "cpu":
         return pernode_ll_and_gradients_ref(post_ops, pre_ops, root,
                                             edge_mask, P, dP, tips, pi, props,
@@ -143,26 +159,276 @@ def pernode_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
         C, A)
+    if onchip is None:
+        onchip = onchip_tape(*(x.cpu().numpy() for x in (post_ops, pre_ops,
+                                                         root)),
+                             T, N1 - 1, P.device)
+    if tuple(onchip.post.shape[:2]) != (B, M):
+        raise ValueError("the on-chip tape does not match post_ops")
+    plan = onchip_plan(onchip.rows, onchip.ints, N1, C)
+    if plan is None:
+        rows = pernode_grad_global(post_ops, pre_ops, root, P, dP, tips, pi,
+                                   props, weights)
+    else:
+        rows = pernode_grad_onchip(onchip, root, P, dP, tips, pi, props,
+                                   weights, plan)
+    return finish_rows(*rows, edge_mask, weights)
+
+
+def finish_rows(ll_rows, grad_rows, edge_mask, weights):
+    """(ll [B], grads [B, N]) from a body's per-pattern rows: the weighted
+    sums over patterns, masked by edge."""
+    N = edge_mask.shape[1]
+    return ll_rows @ weights, grad_rows.sum(dim=-1)[:, :N] * edge_mask
+
+
+# ---------------------------------------------------------------------------
+# The on-chip body's tape and sizing
+# ---------------------------------------------------------------------------
+
+ONES = paired.ONES  # a child code read as all ones: the dummy
+PAD = -2            # a padded post op's row, a padded group's parent
+ROOT_UP = -1        # the root group's parent: its up value is pi
+
+
+@dataclass(frozen=True)
+class OnchipTape:
+    """What the on-chip body reads instead of post_ops and pre_ops, on the
+    device of the tapes (csrc/pernode_onchip.cuh has the layout)."""
+
+    post: torch.Tensor    # [B, M, 5] int32: (dest row, c0, c1, e0, e1)
+    groups: torch.Tensor  # [B, NG, 4] int32: (parent row, 3 child codes)
+    zero: torch.Tensor    # [B, Z] int32: nodes whose rows no group writes
+    rows: int             # shared-memory rows a pattern: internal nodes
+
+    @property
+    def ints(self) -> int:
+        """The ints of one tree's tape, which the body stages."""
+        return sum(t[0].numel() for t in (self.post, self.groups, self.zero))
+
+
+def _codes(nodes: np.ndarray, T: int, N: int) -> np.ndarray:
+    """Child codes of node ids: row v - T for internal node v, -1 - t for
+    tip t, ONES for the dummy N."""
+    return np.where(nodes < T, -1 - nodes,
+                    np.where(nodes == N, ONES, nodes - T)).astype(np.int32)
+
+
+def _post_tape(post_ops: np.ndarray, T: int, N: int) -> np.ndarray:
+    """[B, M, 5] int32 (dest row, c0, c1, e0, e1) from the scan tape's
+    post_ops (dest, src1, edge1, src2, edge2): a padded op (dest N) has row
+    PAD; sources are child codes."""
+    dst, s1, e1, s2, e2 = np.moveaxis(np.asarray(post_ops), -1, 0)
+    pad = dst == N
+    if (~pad & ((dst < T) | (dst > N))).any() or any(
+            ((x < 0) | (x > N)).any() for x in (s1, e1, s2, e2)):
+        raise ValueError("post_ops writes a tip or reads past the dummy: not "
+                         "a per-node postorder tape")
+    row = np.where(pad, PAD, dst - T)
+    return np.stack([row, _codes(s1, T, N), _codes(s2, T, N), e1, e2],
+                    axis=-1).astype(np.int32)
+
+
+def _tree_groups(pre: np.ndarray, root: int, written: set, T: int, N: int):
+    """One tree's groups [(parent row, [child codes])] and the nodes whose
+    gradient rows they write.  Raises where the preorder is not the scan
+    tape's: a parent's ops apart, a parent whose up value no earlier group
+    wrote, a child twice, more than 3 children, or siblings other than the
+    group's other children (the dummy through the identity edge aside)."""
+    runs = []
+    for c, v, s1, e1, s2, e2 in pre.tolist():
+        if c == N:
+            continue  # padded op
+        if runs and runs[-1][0] == v:
+            runs[-1][1].append((c, s1, e1, s2, e2))
+        else:
+            runs.append((v, [(c, s1, e1, s2, e2)]))
+    out, parents, children = [], set(), set()
+    for v, ops in runs:
+        kids = [op[0] for op in ops]
+        if not all(0 <= c < N for c in kids):
+            raise ValueError(f"parent {v}: children {kids} are not nodes")
+        if v in parents or (v != root and v not in children) or v not in (
+                written):
+            raise ValueError(f"parent {v}: its children are not one group "
+                             "after its own parent's")
+        if len(kids) > 3 or len(set(kids)) < len(kids) or children & set(
+                kids):
+            raise ValueError(f"parent {v}: children {kids} are not a group")
+        parents.add(v)
+        children.update(kids)
+        out.append((ROOT_UP if v == root else v - T,
+                    [int(x) for x in _codes(np.asarray(kids), T, N)]))
+    for v, ops in runs:
+        kids = [op[0] for op in ops]
+        for c, s1, e1, s2, e2 in ops:
+            sibs = sorted(s for s, e in ((s1, e1), (s2, e2))
+                          if not (s == N and e == N))
+            if sibs != sorted(k for k in kids if k != c) or any(
+                    s != e for s, e in ((s1, e1), (s2, e2)) if s != N):
+                raise ValueError(f"node {c}: siblings {sibs} are not the "
+                                 f"other children of {v}")
+            if c >= T and c not in written:
+                raise ValueError(f"node {c} has no partial")
+    return out, children
+
+
+def _group_tape(post_ops: np.ndarray, pre_ops: np.ndarray, root: np.ndarray,
+               T: int, N: int) -> tuple[np.ndarray, np.ndarray]:
+    """(groups [B, NG, 4], zero [B, Z]) int32 from the scan tape's pre_ops
+    (dest, parent, sib1, edge1, sib2, edge2): each group is one parent's
+    consecutive ops, its parent row (ROOT_UP for the root) and its
+    children's codes, padded with ONES; padded groups have parent PAD.
+    `zero` lists the nodes 0..N whose gradient rows no group writes, padded
+    with -1."""
+    B = pre_ops.shape[0]
+    trees, zeros = [], []
+    for b in range(B):
+        written = {int(d) for d in post_ops[b, :, 0] if d != N}
+        groups, children = _tree_groups(pre_ops[b], int(root[b]), written, T,
+                                        N)
+        trees.append(groups)
+        zeros.append(sorted(set(range(N + 1)) - children))
+    NG = max(1, max(len(t) for t in trees))
+    Z = max(len(z) for z in zeros)
+    groups = np.full((B, NG, 4), ONES, dtype=np.int32)
+    groups[:, :, 0] = PAD
+    zero = np.full((B, Z), -1, dtype=np.int32)
+    for b, (tree, z) in enumerate(zip(trees, zeros)):
+        for k, (par, kids) in enumerate(tree):
+            groups[b, k, 0] = par
+            groups[b, k, 1:1 + len(kids)] = kids
+        zero[b, :len(z)] = z
+    return groups, zero
+
+
+def onchip_tape(post_ops: np.ndarray, pre_ops: np.ndarray, root: np.ndarray,
+                num_taxa: int, num_slots: int, device) -> OnchipTape:
+    """The on-chip body's tape, derived on the host from the scan tape's
+    post_ops, pre_ops and root (numpy) for `num_taxa` tips and the dummy
+    node `num_slots`, and put on `device`."""
+    T, N = num_taxa, num_slots
+    post = _post_tape(post_ops, T, N)
+    groups, zero = _group_tape(post_ops, pre_ops, root, T, N)
+    stored = post[..., 0][post[..., 0] != PAD]
+    rows = int(stored.max()) + 1 if stored.size else 1
+    return OnchipTape(*(torch.as_tensor(x, device=device)
+                        for x in (post, groups, zero)), rows=rows)
+
+
+# The on-chip body is the faster where a block holds at least MIN_WARPS
+# warps of patterns, below that the global body (pernode_grad.cu); set from
+# times on an H100 (chip_smoke.py phase 4, 27-400 taxa, GTR+Gamma4,
+# PERF.md): 1.12x faster at 4 warps (76 taxa), 0.88x at 3 (84 taxa).  A
+# block takes one SM's shared memory, so its warps are the SM's.
+MIN_WARPS = 4
+
+
+def smem_bytes(rows: int, tape_ints: int, N1: int, C: int, cols: int) -> int:
+    """Dynamic shared memory of one block, laid out as the kernel lays it
+    out (csrc/pernode_onchip.cuh smem_bytes): `rows` rows of a 16-byte lane
+    slice per pattern and category lane, the tree's P and dP, then the
+    tape."""
+    G = paired.lanes(C)
+    return rows * cols * G * 16 + 2 * N1 * G * 4 * 16 + paired._rup(
+        tape_ints * 4, 16)
+
+
+def onchip_plan(rows: int, tape_ints: int, N1: int, C: int,
+                least: int = MIN_WARPS) -> paired.OnchipPlan | None:
+    """How the on-chip body launches, or None where the global body takes
+    the tape: a block of as many whole warps of patterns as fit in
+    paired.SMEM_BYTES, up to paired.MAX_THREADS threads, and at least
+    `least` warps (1 asks for the body wherever it fits, to measure it)."""
+    if not 1 <= C <= paired.MAX_CATEGORIES:
+        raise ValueError(f"the kernels take 1..{paired.MAX_CATEGORIES} rate "
+                         f"categories, got {C}")
+    G = paired.lanes(C)
+    per_warp = paired.WARP // G  # patterns a warp
+    fixed = smem_bytes(rows, tape_ints, N1, C, 0)
+    warps = 0 if fixed >= paired.SMEM_BYTES else min(
+        (paired.SMEM_BYTES - fixed)
+        // (smem_bytes(rows, tape_ints, N1, C, per_warp) - fixed),
+        paired.MAX_THREADS // paired.WARP)
+    if warps < least:
+        return None
+    cols = warps * per_warp
+    return paired.OnchipPlan(G, cols, False,
+                             smem_bytes(rows, tape_ints, N1, C, cols))
+
+
+# ---------------------------------------------------------------------------
+# The grad kernel's two launchers
+# ---------------------------------------------------------------------------
+
+def check_onchip(onchip: OnchipTape, B: int, tips, P, dP) -> None:
+    """Raise where the on-chip body cannot take the tape or the operands."""
+    if onchip.post.shape[0] != B or onchip.groups.shape[0] != B or (
+            onchip.zero.shape[0] != B):
+        raise ValueError("the on-chip tape does not match post_ops")
+    if tips.numel() >= 2**31:  # the kernel indexes tips with 32-bit offsets
+        raise ValueError(f"tips has {tips.numel()} entries, the on-chip "
+                         "body takes fewer than 2**31")
+    _check_cuda_operands(dict(post=onchip.post, groups=onchip.groups,
+                              zero=onchip.zero), {}, 1, 4)
+    for name, t in (("P", P), ("dP", dP)):  # cp.async copies 16-byte rows
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def pernode_grad_onchip(onchip: OnchipTape, root, P, dP, tips, pi, props,
+                        weights, plan: paired.OnchipPlan):
+    """Launch csrc/pernode_grad_onchip.cu as `plan` says (operands checked
+    by the wrapper): (LL rows [B, S], weighted gradient rows [B, N1, S],
+    every row written)."""
+    B, M = P.shape[0], onchip.post.shape[1]
+    check_onchip(onchip, B, tips, P, dP)
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
     kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, N1, C * A, S), **kw)
-    up = torch.empty((B, N1, C * A, S), **kw)
+    ll_rows = torch.empty((B, S), **kw)
+    grad_rows = torch.empty((B, N1, S), **kw)
+    with torch.cuda.device(P.device):
+        rc = _kernels.library().bito_pernode_grad_onchip(
+            onchip.post.data_ptr(), onchip.groups.data_ptr(),
+            onchip.zero.data_ptr(), root.data_ptr(), P.data_ptr(),
+            dP.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
+            weights.data_ptr(), ll_rows.data_ptr(), grad_rows.data_ptr(),
+            B, M, onchip.groups.shape[1], onchip.zero.shape[1], T, N1, C, S,
+            onchip.rows, plan.cols, paired._stream())
+    _kernels.check(rc, "bito_pernode_grad_onchip")
+    pernode_grad_onchip.launches += 1
+    return ll_rows, grad_rows
+
+
+pernode_grad_onchip.launches = 0
+
+
+def pernode_grad_global(post_ops, pre_ops, root, P, dP, tips, pi, props,
+                        weights):
+    """Launch csrc/pernode_grad.cu, the global body (operands checked by
+    the wrapper): (LL rows [B, S], weighted gradient rows [B, N1, S], zero
+    where no op writes)."""
+    B, M = post_ops.shape[:2]
+    Mp = pre_ops.shape[1]
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    kw = dict(device=P.device, dtype=torch.float32)
+    buf = torch.empty((B, N1, C * 4, S), **kw)
+    up = torch.empty((B, N1, C * 4, S), **kw)
     ls = torch.empty((B, N1, S), **kw)
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, N1, S), **kw)
-    lib = _kernels.library()
     with torch.cuda.device(P.device):
-        rc = lib.bito_pernode_grad(
+        rc = _kernels.library().bito_pernode_grad(
             post_ops.data_ptr(), pre_ops.data_ptr(), root.data_ptr(),
             P.data_ptr(), dP.data_ptr(), tips.data_ptr(), pi.data_ptr(),
             props.data_ptr(), weights.data_ptr(), buf.data_ptr(),
             up.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            grad_rows.data_ptr(), B, M, Mp, T, N1, C, S,
-            torch.cuda.current_stream().cuda_stream)
+            grad_rows.data_ptr(), B, M, Mp, T, N1, C, S, paired._stream())
     _kernels.check(rc, "bito_pernode_grad")
-    pernode_ll_and_gradients.launches += 1
-    ll = ll_rows @ weights
-    grads = grad_rows.sum(dim=-1)[:, : N1 - 1] * edge_mask
-    return ll, grads
+    pernode_grad_global.launches += 1
+    return ll_rows, grad_rows
 
 
-pernode_ll_and_gradients.launches = 0
+pernode_grad_global.launches = 0

@@ -6,8 +6,9 @@
 The workload is the flagship configuration at full width: a DS1-shaped
 problem (27 taxa, 1,949 columns drawn from 934 distinct ones, made from a
 seed), GTR+Gamma4 with bench.py's parameters, and a batch of 200 random
-unrooted trees with trifurcating roots.  Six paths run ten kernels, the
-two paired ones and the chunked grad kernel in two bodies each:
+unrooted trees with trifurcating roots.  Seven paths run ten kernels, the
+two paired ones and the chunked and per-node grad kernels in two bodies
+each:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
   - large: the same entry points on two trees of 921 taxa (128 patterns)
@@ -20,12 +21,17 @@ two paired ones and the chunked grad kernel in two bodies each:
     of chunked_grad (csrc/chunked_grad.cu);
   - per-node: pernode_log_likelihoods and pernode_ll_and_gradients on the
     engine's own tapes, driven as bito_tpu's scripts/bench_kernel_race.py
-    drives their originals (the engine has no route to them);
+    drives their originals (the engine has no route to them): pernode_ll
+    and the on-chip body of pernode_grad (csrc/pernode_grad_onchip.cu);
+  - large-pernode: the same functions on the large path's trees, past the
+    on-chip body's limit: pernode_ll and the global body of pernode_grad
+    (csrc/pernode_grad.cu);
   - perflab: the perf lab's entry points (bito_tpu_torch/perflab, the
     counterparts of bito_tpu's scripts/perf_lab.py, perf_pipe_lab.py and
     perf_static_probe.py) at few repetitions: the per-node grad kernel's
     variants on the same operands (variant_grad, and pernode_grad as
-    their base), the nine pipe experiments (pipe_cell), the 4-D and 3-D
+    their base, the on-chip body), the nine pipe experiments (pipe_cell),
+    the 4-D and 3-D
     stream sums (stream_sum, two entry points) and the static chain's
     slopes (static_chain).
 
@@ -34,7 +40,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      sources in the checkout (nvcc, at first use), with each kernel's
      registers and spills.
   2. each kernel against its plain torch version in float64 on the same
-     operands (both paired bodies on the flagship's): LL relative error
+     operands (both bodies of the paired, chunked grad and per-node grad
+     kernels on the flagship's): LL relative error
      and gradient max-abs error over max |g|, both within 5e-5 (bench.py's
      on-device guard).  The probes: every variant of variant_grad the same
      way (nodot, which is not a likelihood, by equal non-finite places and
@@ -61,10 +68,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      PyTorch call computes the same function, that call; the least time
      the card could take for the same work; every paired body that takes
      the shape (the on-chip bodies in both stagings, the global bodies),
-     and both chunked grad bodies where they take it, on the flagship and
-     on trees of BODY_TAXA taxa, each held once against its float64 plain
-     version within the phase-2 bound before it is timed, beside the body
-     the wrappers choose; each engine route's
+     and both chunked and per-node grad bodies where they take it, on the
+     flagship and on trees of BODY_TAXA taxa (the per-node ones also of
+     PERNODE_TAXA taxa), each held once against its float64 plain version
+     within the phase-2 bound before it is timed, beside the body the
+     wrappers choose; each engine route's
      LL+gradient evals/s; the host time of a new topology set at B=200 and
      B=1000; all with the card's name and limit.
   5. one JSON line of the kernels, then the device line, last.
@@ -102,6 +110,7 @@ LARGE_CHERRIES = 460  # the large path's trees: 921 taxa
 LARGE_PATTERNS = 128
 # phase 4's further shapes
 BODY_TAXA = (64, 96, 128, 144, 160, 192, 256, 320, 400)
+PERNODE_TAXA = (76, 84)  # and the per-node bodies' hand-over between them
 TOPOLOGY_BATCH = 1000  # phase 4's larger new topology set
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
@@ -140,12 +149,17 @@ KERNELS = {
     "pernode_ll": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_ll.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
-        wrapper=pernode.pernode_log_likelihoods, path="pernode"),
+        wrapper=pernode.pernode_log_likelihoods, path="pernode",
+        also=("large-pernode",)),
+    "pernode_grad_onchip": dict(
+        source="bito_tpu_torch/treelike/csrc/pernode_grad_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_pruning.py:179",
+        wrapper=pernode.pernode_grad_onchip, path="pernode",
+        also=("perflab",)),
     "pernode_grad": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_grad.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
-        wrapper=pernode.pernode_ll_and_gradients, path="pernode",
-        also=("perflab",)),
+        wrapper=pernode.pernode_grad_global, path="large-pernode"),
     "variant_grad": dict(
         source=PROBES + "variant_grad.cu", replaces="scripts/perf_lab.py:36",
         wrapper=perf_lab.variant_ll_and_gradients, path="perflab"),
@@ -280,7 +294,7 @@ def paired_bodies(label, eng, trees, params, card):
         dst[i:i + step], tip[i:i + step], src[i:i + step], e[i:i + step],
         mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
         *f64) for i in range(0, len(trees), step)]
-    reps = max(5, 50 * 64 // max(M, 64))
+    reps = body_reps(M)
     ms = held_then_timed(f"paired bodies, {label}", calls, refs, reps)
 
     def label_of(key):
@@ -300,6 +314,12 @@ def paired_bodies(label, eng, trees, params, card):
           + f"; the wrappers take ll {auto('ll', on.ll_rows)}, grad "
           f"{auto('grad', on.grad_rows)}; on {card}")
     return ms
+
+
+def body_reps(M):
+    """Phase 4's repetitions of a body on a tape of M ops: 50 at the
+    flagship, fewer as the calls grow (4 at 400 taxa)."""
+    return max(4, 1600 // max(M, 32))
 
 
 def held_then_timed(what, calls, refs, reps):
@@ -361,7 +381,7 @@ def chunked_bodies(label, eng, trees, params, card):
         dst[i:i + step], tip[i:i + step], e[i:i + step], row[i:i + step],
         mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
         *f64) for i in range(0, len(trees), step)]
-    reps = max(5, 50 * 64 // max(MW, 64))
+    reps = body_reps(MW)
     ms = held_then_timed(f"chunked grad bodies, {label}", calls, refs, reps)
     chosen = ("global" if chunked.onchip_plan(on.rows, MW, N1, 4) is None
               else "onchip")
@@ -373,6 +393,58 @@ def chunked_bodies(label, eng, trees, params, card):
           f"{on.rows} rows; ms, mean of two turns of {reps}): "
           + "; ".join(f"{key}{warps if key == 'grad onchip' else ''} "
                       f"{t:.4f}" for key, t in ms.items())
+          + f"; the wrapper takes {chosen}; on {card}")
+    return ms
+
+
+def pernode_bodies(label, eng, trees, params, card):
+    """Phase 4's two per-node grad bodies side by side on one shape: the
+    on-chip body wherever one warp of patterns fits, the global body
+    always, each held once against the float64 plain version on the same
+    operands within BOUND, then timed twice in turns.  Prints one line;
+    returns {body: ms}."""
+    dev = eng.device
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad(eig, rates, clock,
+                                     eng.branch_length_matrix(trees, enc))
+    post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+                       for x in (enc.post_ops, enc.pre_ops, enc.root))
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=dev)
+    on = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
+                             enc.num_taxa, enc.num_slots, dev)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    N1 = P.shape[1]
+    calls = {}
+    plan = pernode.onchip_plan(on.rows, on.ints, N1, 4, least=1)
+    if plan is not None:
+        calls["grad onchip"] = lambda: pernode.finish_rows(
+            *pernode.pernode_grad_onchip(on, root, P, dP, tips, pi, prop, w,
+                                         plan), mask, w)
+    calls["grad global"] = lambda: pernode.finish_rows(
+        *pernode.pernode_grad_global(post, pre, root, P, dP, tips, pi, prop,
+                                     w), mask, w)
+    # The float64 plain version, a slice of trees at a time to bound its
+    # scratch (partials and up values [trees, N1, C, 4, S] in float64).
+    step = max(1, int(6e9) // (N1 * 16 * tips.shape[-1] * 8))
+    f64 = [x.double() for x in (tips, pi, prop, w)]
+    refs = [pernode.pernode_ll_and_gradients_ref(
+        post[i:i + step], pre[i:i + step], root[i:i + step],
+        mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
+        *f64) for i in range(0, len(trees), step)]
+    M = post.shape[1]
+    reps = body_reps(M)
+    ms = held_then_timed(f"per-node grad bodies, {label}", calls, refs, reps)
+    chosen = ("global" if pernode.onchip_plan(on.rows, on.ints, N1, 4) is None
+              else "onchip")
+    warps = "" if plan is None else (
+        f" ({plan.cols * 4 // 32} warps a block, {plan.smem} B)")
+    print(f"# phase 4: per-node grad bodies, {label} ({len(trees)} trees x "
+          f"{eng.pattern_pad} patterns, {enc.num_taxa} taxa, M={M}, "
+          f"{on.rows} rows; ms, mean of two turns of {reps}): " + "; ".join(
+              f"{key}{warps if key == 'grad onchip' else ''} {t:.4f}"
+              for key, t in ms.items())
           + f"; the wrapper takes {chosen}; on {card}")
     return ms
 
@@ -467,9 +539,11 @@ def probe_parity(ops, dev, errs):
     variant_grad."""
     ops64 = {k: v.double() if v.is_floating_point() else v
              for k, v in ops.items()}
+    lab_on = perf_lab.onchip_of(ops)
     worst = (0.0, 0.0)
     for name, knobs in perf_lab.VARIANTS.items():
-        ll_k, g_k = perf_lab.variant_ll_and_gradients(**ops, **knobs)
+        ll_k, g_k = perf_lab.variant_ll_and_gradients(**ops, **knobs,
+                                                      onchip=lab_on)
         torch.cuda.synchronize()
         ll_p, g_p = perf_lab.variant_ll_and_gradients_ref(**ops64, **knobs)
         if knobs["nodot"]:  # not a likelihood: -inf where tips disagree
@@ -596,7 +670,8 @@ def probe_parity(ops, dev, errs):
     return {
         "variant_grad": (
             lambda: perf_lab.variant_ll_and_gradients_ref(**ops, **unroll),
-            lambda: perf_lab.variant_ll_and_gradients(**ops, **unroll)),
+            lambda: perf_lab.variant_ll_and_gradients(**ops, **unroll,
+                                                      onchip=lab_on)),
         "pipe_cell": (
             lambda: perf_pipe_lab.pipe_cell_ref(idx, big, **pipe_kw),
             lambda: perf_pipe_lab._launch_pipe_cell(idx, big, *exp[1:])),
@@ -698,6 +773,7 @@ def main():
           f"chunked tape W={ce.W}, {ce.Mc} chunks")
 
     # -- 2. kernels against their plain versions ------------------------------
+    ends = [time.perf_counter()]  # each phase's end, for its duration
     bl = eng.branch_length_matrix(trees, enc)
     eig, rates, props, clock = eng._model_ingredients(params, BATCH)
     pi, prop = prep.kernel_model(eig, props)
@@ -710,12 +786,15 @@ def main():
     con = eng._chunked_onchip_tape(enc)
     post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=dev)
                        for x in (enc.post_ops, enc.pre_ops, enc.root))
+    pon = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
+                              enc.num_taxa, enc.num_slots, dev)
     ll_ops = (dst, tip, e, P, tips, pi, prop, w)
     grad_ops = (dst, tip, src, e, mask, P, dPq, tips, pi, prop, w)
     check(all(paired.onchip_plan(k, r, dst.shape[1], P.shape[1], 4)
               for k, r in (("ll", onchip.ll_rows),
                            ("grad", onchip.grad_rows)))
-          and chunked.onchip_plan(con.rows, cdst.shape[1], P.shape[1], 4),
+          and chunked.onchip_plan(con.rows, cdst.shape[1], P.shape[1], 4)
+          and pernode.onchip_plan(pon.rows, pon.ints, P.shape[1], 4),
           "the flagship fits the on-chip bodies")
     args = {  # kernel -> (plain version, its arguments, call of the kernel)
         "paired_ll_onchip": (  # the wrappers' body here
@@ -747,16 +826,22 @@ def main():
              chunked.chunked_log_likelihoods),
             ("pernode_ll", pernode.pernode_log_likelihoods_ref,
              (post, root, P, tips, pi, prop, w),
-             pernode.pernode_log_likelihoods),
-            ("pernode_grad", pernode.pernode_ll_and_gradients_ref,
-             (post, pre, root, mask, P, dP, tips, pi, prop, w),
-             pernode.pernode_ll_and_gradients)):
+             pernode.pernode_log_likelihoods)):
         args[name] = (plain, a, lambda f=wrapper, a=a: f(*a))
+    pgrad_ops = (post, pre, root, mask, P, dP, tips, pi, prop, w)
+    args["pernode_grad_onchip"] = (  # the wrapper's body here
+        pernode.pernode_ll_and_gradients_ref, pgrad_ops,
+        lambda: pernode.pernode_ll_and_gradients(*pgrad_ops, onchip=pon))
+    args["pernode_grad"] = (  # the global body, through the same final sums
+        pernode.pernode_ll_and_gradients_ref, pgrad_ops,
+        lambda: pernode.finish_rows(*pernode.pernode_grad_global(
+            post, pre, root, P, dP, tips, pi, prop, w), mask, w))
     errs = {}  # kernel -> (relative or max-norm error, max abs error)
     for ll_name, grad_name in (("paired_ll_onchip", "paired_grad_onchip"),
                                ("paired_ll", "paired_grad"),
                                ("chunked_ll", "chunked_grad_onchip"),
                                ("chunked_ll", "chunked_grad"),
+                               ("pernode_ll", "pernode_grad_onchip"),
                                ("pernode_ll", "pernode_grad")):
         ll_k = args[ll_name][2]()
         ll_g, g_k = args[grad_name][2]()
@@ -781,6 +866,7 @@ def main():
                    dP=dP, tips=tips, pi=pi, props=prop, weights=w)
     lab_calls, plain_outs, probe_work = probe_parity(lab_ops, dev, errs)
 
+    ends.append(time.perf_counter())
     # -- 3. the paths ------------------------------------------------------------
     scales = [1.0 + 0.001 * k for k in range(SWEEP)]
     ll_ref, g_ref = ref.ll_and_branch_gradients(trees, params64)
@@ -862,6 +948,33 @@ def main():
     torch.cuda.synchronize()
     launches.update(read_launches("large-chunked"))
     against_reference("large-chunked", [ll], pairs, lrefs)
+
+    # The per-node functions on the same trees, past the on-chip grad body.
+    leig, lrates, lprops, lclock = large._model_ingredients(params,
+                                                            len(ltrees))
+    lpi, lprop = prep.kernel_model(leig, lprops)
+    lpost, lpre, lroot = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+                          for x in (lenc.post_ops, lenc.pre_ops, lenc.root))
+    lmask = torch.as_tensor(lenc.edge_mask, dtype=torch.float32, device=dev)
+    lpon = pernode.onchip_tape(lenc.post_ops, lenc.pre_ops, lenc.root,
+                               lenc.num_taxa, lenc.num_slots, dev)
+    print(f"# phase 3: large-pernode path: {lpon.rows} rows a pattern; "
+          f"on-chip plan "
+          f"{pernode.onchip_plan(lpon.rows, lpon.ints, lN1, 4, least=1)}")
+    ltips, lw = large._kernel_tips, large._kernel_weights
+    reset_launches()
+    lP, _ = prep.prepare_inputs_grad(leig, lrates, lclock, lbl)
+    ll = pernode.pernode_log_likelihoods(lpost, lroot, lP, ltips, lpi, lprop,
+                                         lw)
+    pairs = []
+    for f in [1.0] + lscales:
+        Pk, dPk = prep.prepare_inputs_grad(leig, lrates, lclock, lbl * f)
+        pairs.append(pernode.pernode_ll_and_gradients(
+            lpost, lpre, lroot, lmask, Pk, dPk, ltips, lpi, lprop, lw,
+            onchip=lpon))
+    torch.cuda.synchronize()
+    launches.update(read_launches("large-pernode"))
+    against_reference("large-pernode", [ll], pairs, lrefs)
     del large, large64, lrefs, pairs
 
     eng.kernel = "chunked"
@@ -882,7 +995,7 @@ def main():
     for f in [1.0] + scales:
         Pk, dPk = prep.prepare_inputs_grad(eig, rates, clock, bl * f)
         pairs.append(pernode.pernode_ll_and_gradients(
-            post, pre, root, mask, Pk, dPk, tips, pi, prop, w))
+            post, pre, root, mask, Pk, dPk, tips, pi, prop, w, onchip=pon))
     torch.cuda.synchronize()
     launches.update(read_launches("pernode"))
     against_reference("pernode", [ll], pairs)
@@ -905,6 +1018,7 @@ def main():
               f"{node}: max-abs/max|g| {fd_err:.3e}")
         check(fd_err <= 1e-6, "float64 gradient matches finite differences")
 
+    ends.append(time.perf_counter())
     # -- 4. times --------------------------------------------------------------
     fl_ll, fl_grad = tree_flops(enc, sp, model, BATCH)
     tape_bytes = {"paired_ll_onchip": nbytes(dst, onchip.child,
@@ -917,6 +1031,8 @@ def main():
                   "chunked_grad_onchip": nbytes(cdst, con.child, cedge,
                                                 crow),
                   "pernode_ll": nbytes(post, root),
+                  "pernode_grad_onchip": nbytes(pon.post, pon.groups,
+                                                pon.zero, root),
                   "pernode_grad": nbytes(post, pre, root),
                   "variant_grad": nbytes(post, pre, root)}
     ll_out, grad_out = BATCH * 4, BATCH * (1 + enc.num_slots) * 4
@@ -956,13 +1072,20 @@ def main():
     # shapes up to the on-chip bodies' limit.
     paired_bodies("flagship", eng, trees, params, card)
     chunked_bodies("flagship", eng, trees, params, card)
+    pernode_bodies("flagship", eng, trees, params, card)
     for taxa in BODY_TAXA:
         t2, sp2, model2 = body_shape(taxa)
         eng2 = TreeLikelihoodEngine(sp2, model2, device=dev,
                                     dtype=PRODUCT_DTYPE)
         paired_bodies(f"{taxa} taxa", eng2, t2, params, card)
         chunked_bodies(f"{taxa} taxa", eng2, t2, params, card)
+        pernode_bodies(f"{taxa} taxa", eng2, t2, params, card)
         del eng2
+        torch.cuda.empty_cache()
+    for taxa in PERNODE_TAXA:
+        t2, sp2, model2 = body_shape(taxa)
+        pernode_bodies(f"{taxa} taxa", TreeLikelihoodEngine(
+            sp2, model2, device=dev, dtype=PRODUCT_DTYPE), t2, params, card)
 
     def sweep_evals_per_s(kernel, calls):
         eng.kernel = kernel
@@ -993,7 +1116,10 @@ def main():
               for label, s2, t2, reps in sets)
           + f"; one auto LL+gradient call at B={BATCH} takes "
           f"{auto_rate[1]:.4f} ms on {card}")
-    print(f"# chip_smoke.py ran in {time.perf_counter() - t_start:.1f} s")
+    ends.append(time.perf_counter())
+    print(f"# chip_smoke.py ran in {ends[-1] - t_start:.1f} s (phases 1-4: "
+          + ", ".join(f"{b - a:.1f}" for a, b in zip([t_start] + ends, ends))
+          + " s)")
 
     # -- 5. results -------------------------------------------------------------
     kernels = []

@@ -1,7 +1,7 @@
 """The CUDA kernels on the card (paired, chunked and per-node, and the perf
 lab's four probes), against their plain torch versions; each body of the
-paired kernels and of the chunked grad kernel, and which one the wrappers
-take.
+paired kernels and of the chunked and per-node grad kernels, and which one
+the wrappers take.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -35,6 +35,7 @@ MODELS = {
     "gtr_gamma4": (("GTR", "gamma+4"), GTR),
     "jc69": (("JC69", "constant"), {}),
     "gtr_gamma8": (("GTR", "gamma+8"), GTR),
+    **{f"gtr_gamma{C}": (("GTR", f"gamma+{C}"), GTR) for C in (2, 5, 6, 7)},
     "hky_weibull3": (("HKY", "weibull+3"), {
         "substitution_model_rates": np.array([2.5]),
         "substitution_model_frequencies": np.array([0.2, 0.3, 0.3, 0.2]),
@@ -349,6 +350,132 @@ def test_pernode_kernels_match_plain(cuda, model, rooted, num_trees,
         post, pre, root, mask, *_f64(P, dP, tips, pi, prop, w))
     assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
     assert _norm(g, g_ref) < 5e-5
+
+
+PERNODE = (pernode.pernode_log_likelihoods, pernode.pernode_grad_onchip,
+           pernode.pernode_grad_global)
+
+
+def _pernode_launched(before):
+    """What the per-node LL kernel and each grad body launched since
+    `before`, in PERNODE's order."""
+    return [f.launches - n for f, n in zip(PERNODE, before)]
+
+
+def _pernode_tapes(enc, device):
+    return (torch.as_tensor(x, dtype=torch.int32, device=device)
+            for x in (enc.post_ops, enc.pre_ops, enc.root))
+
+
+@pytest.mark.parametrize("C,rooted,num_trees,patterns", [
+    (1, False, 4, 200), (2, True, 3, None), (3, False, 2, 77),
+    (4, True, 3, 150), (5, False, 2, None), (6, True, 2, 77),
+    (7, False, 2, None), (8, True, 3, 100), (8, False, 2, None)])
+def test_pernode_grad_bodies_match_plain(cuda, C, rooted, num_trees,
+                                         patterns):
+    """Both bodies of the per-node grad kernel against the float64 plain
+    version on the same float32
+    operands, at every category count the kernels take (JC69 at C=1, HKY
+    with Weibull categories at C=3, GTR with Gamma categories otherwise),
+    on trifurcating and binary roots; `patterns` cuts the pattern axis to a
+    width that is not a multiple of a block's patterns.  The wrapper takes
+    the on-chip body, with or without the tape given."""
+    model = {1: "jc69", 3: "hky_weibull3"}.get(C, f"gtr_gamma{C}")
+    eng, trees, params = _engine(model, 3, 11, num_trees, rooted, cuda,
+                                 torch.float32)
+    enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params,
+                                                   patterns)
+    assert P.shape[2] == C
+    post, pre, root = _pernode_tapes(enc, cuda)
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=cuda)
+    ll_ref, g_ref = pernode.pernode_ll_and_gradients_ref(
+        post, pre, root, mask, *_f64(P, dP, tips, pi, prop, w))
+    onchip = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
+                                 enc.num_taxa, enc.num_slots, cuda)
+    N1 = P.shape[1]
+    bodies = {"global": (lambda: pernode.pernode_grad_global(
+        post, pre, root, P, dP, tips, pi, prop, w), [0, 0, 1])}
+    plan = pernode.onchip_plan(onchip.rows, onchip.ints, N1, C)
+    assert plan.lanes == paired.lanes(C)
+    bodies["onchip"] = (lambda: pernode.pernode_grad_onchip(
+        onchip, root, P, dP, tips, pi, prop, w, plan), [0, 1, 0])
+    for body, (call, launched) in bodies.items():
+        before = [f.launches for f in PERNODE]
+        ll, g = pernode.finish_rows(*call(), mask, w)
+        torch.cuda.synchronize()
+        assert _pernode_launched(before) == launched, body
+        assert _rel(ll, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5, body
+    for tape in (onchip, None):
+        before = [f.launches for f in PERNODE]
+        ll, g = pernode.pernode_ll_and_gradients(post, pre, root, mask, P,
+                                                 dP, tips, pi, prop, w,
+                                                 onchip=tape)
+        assert _pernode_launched(before) == [0, 1, 0]
+        assert _rel(ll, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5
+
+
+def test_flagship_takes_the_onchip_pernode_body(cuda):
+    """The flagship's shape (27 taxa, 1,024 patterns, GTR+Gamma4) takes
+    the on-chip body; the 921-taxon trees fit no warp of it and take the
+    global body.  Both agree with the float64 plain version."""
+    for make, plan_is_none, launched in (
+            (lambda: _flagship_engine(6, cuda, torch.float32), False,
+             [0, 1, 0]),
+            (lambda: _large_tree_engine(cuda, torch.float32), True,
+             [0, 0, 1])):
+        eng, trees, params = make()
+        enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params,
+                                                       None)
+        post, pre, root = _pernode_tapes(enc, cuda)
+        mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32,
+                               device=cuda)
+        onchip = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
+                                     enc.num_taxa, enc.num_slots, cuda)
+        plan = pernode.onchip_plan(onchip.rows, onchip.ints, P.shape[1], 4,
+                                   least=1)
+        assert (plan is None) == plan_is_none
+        before = [f.launches for f in PERNODE]
+        ll, g = pernode.pernode_ll_and_gradients(post, pre, root, mask, P,
+                                                 dP, tips, pi, prop, w,
+                                                 onchip=onchip)
+        torch.cuda.synchronize()
+        assert _pernode_launched(before) == launched
+        ll_ref, g_ref = pernode.pernode_ll_and_gradients_ref(
+            post, pre, root, mask, *_f64(P, dP, tips, pi, prop, w))
+        assert _rel(ll, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5
+
+
+def test_pernode_grad_raises_without_falling_back(cuda):
+    """A launch the on-chip body refuses raises, and operands the kernels
+    do not take raise before any launch: the card never runs the plain
+    version quietly."""
+    eng, trees, params = _engine("gtr_gamma4", 9, 8, 2, False, cuda,
+                                 torch.float32)
+    enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params, None)
+    post, pre, root = _pernode_tapes(enc, cuda)
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=cuda)
+    onchip = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
+                                 enc.num_taxa, enc.num_slots, cuda)
+    plan = pernode.onchip_plan(onchip.rows, onchip.ints, P.shape[1], 4)
+    before = [f.launches for f in PERNODE]
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pernode.pernode_grad_onchip(onchip, root, P, dP, tips, pi, prop, w,
+                                    dataclasses.replace(plan,
+                                                        cols=plan.cols - 1))
+    args = (post, pre, root, mask, P, dP, tips, pi, prop, w)
+    with pytest.raises(TypeError):
+        pernode.pernode_ll_and_gradients(*args[:4], P.double(), dP.double(),
+                                         *args[6:])
+    with pytest.raises(ValueError, match="on-chip tape"):
+        pernode.pernode_ll_and_gradients(*args, onchip=pernode.onchip_tape(
+            enc.post_ops[:1], enc.pre_ops[:1], enc.root[:1], enc.num_taxa,
+            enc.num_slots, cuda))
+    shifted = torch.empty(P.numel() + 1, device=cuda)[1:].view(P.shape)
+    shifted.copy_(P)
+    with pytest.raises(ValueError, match="aligned"):
+        pernode.pernode_ll_and_gradients(*args[:4], shifted, *args[5:],
+                                         onchip=onchip)
+    assert _pernode_launched(before) == [0, 0, 0]
 
 
 def _flagship_engine(num_trees, device, dtype):

@@ -1,6 +1,6 @@
 """The kernel build (treelike/_kernels.py) without a CUDA toolkit: a
 stand-in nvcc script shows that a build compiles every source of the
-eight tree-likelihood kernels and the four perf-lab probes, one nvcc each, and
+tree-likelihood kernels and the four perf-lab probes, one nvcc each, and
 links them into one library named by the sources' hash; that it runs once
 per source hash, keeps nvcc's messages beside the library, and raises with
 nvcc's stderr when a compile fails."""
@@ -64,13 +64,26 @@ touch "$2"
 
     # An edit to any source names a new library and builds again.
     for name in ("treelike/csrc/chunked_grad.cu", "treelike/csrc/common.cuh",
-                 "perflab/csrc/static_chain.cu"):
+                 "perflab/csrc/static_chain.cu",
+                 "treelike/csrc/pernode_onchip.cuh"):
         src = workdir / "pkg" / name
         src.write_text(src.read_text() + "\n// edited\n")
         so2 = _kernels.build()
         assert so2 != so and so2.exists()
         so = so2
-    assert len(calls.read_text().splitlines()) == 4 * len(runs)
+    assert len(calls.read_text().splitlines()) == 5 * len(runs)
+
+
+def test_every_included_header_is_hashed():
+    """Each header a source includes is one of _HEADERS, so that an edit to
+    it names a new library (the per-node on-chip body is a header that two
+    sources instantiate)."""
+    for name in _kernels._SOURCES + _kernels._HEADERS:
+        path = _kernels._ROOT / name
+        for inc in re.findall(r'#include "([^"]+)"', path.read_text()):
+            rel = (path.parent / inc).resolve().relative_to(_kernels._ROOT)
+            assert str(rel) in _kernels._HEADERS, (name, inc)
+    assert "treelike/csrc/pernode_grad_onchip.cu" in _kernels._SOURCES
 
 
 def test_failed_build_raises_with_nvcc_stderr(workdir, monkeypatch):

@@ -29,6 +29,7 @@ import torch
 
 from bito_tpu.treelike import pallas_pruning
 from bito_tpu_torch.perflab import perf_lab
+from bito_tpu_torch.treelike import pernode
 
 from pallas_scripts import (ROOT, bito_tpu_outside_checkout, load_script,
                             perf_lab_variant)
@@ -178,9 +179,29 @@ def test_scripts_take_bito_tpu_from_this_checkout(monkeypatch, tmp_path):
 
 def test_flagship_tapes_are_the_unrolled_lengths():
     """The CUDA kernel unrolls for the flagship's tape lengths only; the
-    flagship's tapes have them."""
+    flagship's tapes have them, and its on-chip tape as many parent
+    groups as the unrolled preorder walks."""
     ops = perf_lab.flagship_operands("cpu", batch=3)
     assert ops["post_ops"].shape == (3, perf_lab.UNROLL_M, 5)
     assert ops["pre_ops"].shape == (3, perf_lab.UNROLL_MP, 6)
     assert ops["P"].shape[2] == perf_lab.CATEGORIES
     assert ops["tips"].shape[-1] == 1024
+    assert perf_lab.onchip_of(ops) is None  # the CPU needs no tape
+    tape = pernode.onchip_tape(
+        *(ops[k].numpy() for k in ("post_ops", "pre_ops", "root")), 27,
+        ops["P"].shape[1] - 1, "cpu")
+    assert tape.groups.shape == (3, perf_lab.UNROLL_GROUPS, 4)
+    assert tape.post.shape[1] == perf_lab.UNROLL_M
+    assert (tape.groups[..., 0] != pernode.PAD).all()
+
+
+def test_variant_kernel_is_the_per_node_body():
+    """csrc/variant_grad.cu defines no kernel of its own: it includes the
+    per-node grad kernel's on-chip body and instantiates it with the
+    knobs, and its loop is the shipping launcher."""
+    src = (pathlib.Path(perf_lab.__file__).parent / "csrc"
+           / "variant_grad.cu").read_text()
+    assert "__global__" not in src
+    assert '#include "../../treelike/csrc/pernode_onchip.cuh"' in src
+    assert "pernode_onchip::launch<kC, kUnrollM, kUnrollGroups" in src
+    assert "return bito_pernode_grad_onchip(" in src

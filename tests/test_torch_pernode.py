@@ -105,8 +105,9 @@ def test_plain_in_float64_matches_scan(model, rooted):
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
     case = make_case(seed=51, num_taxa=8, num_trees=B, rooted=True)
     ops, extra = pernode_operands(torch_engine(case, "gtr_gamma4"), case, GTR)
-    before = (pernode.pernode_log_likelihoods.launches,
-              pernode.pernode_ll_and_gradients.launches)
+    launchers = (pernode.pernode_log_likelihoods,
+                 pernode.pernode_grad_onchip, pernode.pernode_grad_global)
+    before = [f.launches for f in launchers]
     torch.testing.assert_close(pernode.pernode_log_likelihoods(**ops),
                                pernode.pernode_log_likelihoods_ref(**ops),
                                rtol=0, atol=0)
@@ -114,8 +115,7 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors():
     want = pernode.pernode_ll_and_gradients_ref(**ops, **extra)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert (pernode.pernode_log_likelihoods.launches,
-            pernode.pernode_ll_and_gradients.launches) == before
+    assert [f.launches for f in launchers] == before
 
 
 def test_operand_shapes_are_checked():
