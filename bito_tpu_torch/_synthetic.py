@@ -83,6 +83,27 @@ def cherry_comb_newick(seed: int, num_cherries: int, num_trees: int) -> str:
     return "\n".join(tree() for _ in range(num_trees)) + "\n"
 
 
+def balanced_newick(seed: int, num_taxa: int, num_trees: int) -> str:
+    """`num_trees` copies of one rooted topology over `num_taxa` taxa, the
+    taxa halved at every node (the first half gets the odd one), with
+    random branch lengths.  The chunked schedule (treelike/chunked.py)
+    runs it a level at a time, deepest first, so about half of the taxa's
+    partials are live at once in its grid order."""
+    rng = np.random.default_rng(seed)
+    names = taxon_names(num_taxa)
+    lo, hi = BRANCH_LENGTHS
+
+    def sub(lo_i: int, hi_i: int) -> str:
+        if hi_i - lo_i == 1:
+            return names[lo_i]
+        mid = (lo_i + hi_i + 1) // 2
+        return "({},{})".format(
+            *(f"{sub(a, b)}:{rng.uniform(lo, hi):.6f}"
+              for a, b in ((lo_i, mid), (mid, hi_i))))
+
+    return "\n".join(sub(0, num_taxa) + ";" for _ in range(num_trees)) + "\n"
+
+
 def random_alignment(seed: int, names: List[str], num_sites: int,
                      num_distinct: int | None = None,
                      gap_rate: float = 0.03,

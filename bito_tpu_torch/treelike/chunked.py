@@ -11,17 +11,23 @@ is a numpy copy of bito_tpu's, pinned equal to it by
 tests/test_torch_chunked.py; it raises ValueError where the original
 asserts.
 
-The LL kernel has one body (csrc/chunked_ll.cu); the grad kernel has two
-on the card, as the paired kernels do (paired.py):
-  - the on-chip body (csrc/chunked_grad_onchip.cu): a block takes one tree
-    and a tile of patterns, keeps every partial of the tile in shared
-    memory, one row per grid op (through the child tape of `onchip_tape`),
-    and gives a pattern W op lanes x one lane per rate category;
-  - the global body (csrc/chunked_grad.cu): W threads per (tree, pattern),
-    the pair slots in device memory.  It takes any tree; the wrapper
-    launches it where a block of the on-chip body would hold too few warps
-    of patterns to be the faster (`onchip_plan` returns None), decided
-    from the tape before the launch.
+Each kernel has two bodies on the card, as the paired kernels do
+(paired.py):
+  - the on-chip body: a block takes one tree and a tile of patterns and
+    keeps the tile's partials in shared memory, through the child tape of
+    `onchip_tape`.  The grad kernel's (csrc/chunked_grad_onchip.cu) keeps
+    one row per grid op and gives a pattern W op lanes x one lane per rate
+    category.  The LL kernel's is the paired LL body
+    (csrc/paired_ll_onchip.cu) walking the chunked tape one grid op at a
+    time, with rows by liveness: the chunked schedule is a postorder, and
+    on the card the chunk's lanes buy nothing over a lane per category
+    (the on-chip bodies are bound by instruction issue, not by the chain
+    of dependent ops);
+  - the global body (csrc/chunked_ll.cu, csrc/chunked_grad.cu): W threads
+    per (tree, pattern), the pair slots in device memory.  It takes any
+    tree; the wrappers launch it where a block of the on-chip body would
+    hold too few warps of patterns to be the faster (`ll_plan` or
+    `onchip_plan` returns None), decided from the tape before the launch.
 
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which runs one
@@ -29,11 +35,12 @@ Beside them, in this module:
     kernels are checked against;
   - the public wrappers (`chunked_log_likelihoods`,
     `chunked_ll_and_gradients`): a CPU tensor goes to the plain version; a
-    CUDA tensor goes to a kernel, and the call raises if the kernel cannot
+    CUDA tensor goes to a body, and the call raises if the body cannot
     take the inputs or fails to launch;
-  - a launch count, `.launches`, on the LL wrapper and on each grad body's
-    launcher (`chunked_grad_onchip`, `chunked_grad_global`), raised by one
-    where it launches its kernel and nowhere else.
+  - each body's launcher (`chunked_ll_onchip`, `chunked_ll_global`,
+    `chunked_grad_onchip`, `chunked_grad_global`) with its launch count,
+    `.launches`, raised by one where it launches its kernel and nowhere
+    else.
 
 Operands: post_dst [B, MW], tip_slot [B, T], post_e [B, MW, 2] and
 node_row [B, N] int32 tapes (MW = Mc*W); P, dP [B, N+1, C, 4, 4]; tips
@@ -215,29 +222,42 @@ def build_chunked_encoding(enc, W: int) -> ChunkedEncoding:
 
 
 # ---------------------------------------------------------------------------
-# The on-chip grad body's tape and sizing
+# The on-chip bodies' tape and sizing
 # ---------------------------------------------------------------------------
 
-@dataclass(frozen=True)
-class OnchipTape:
-    """What the on-chip grad body reads beside the chunked tapes, on the
-    device of the tapes."""
-
-    child: torch.Tensor  # [B, MW, 2] int32: paired.child_tape of the tape
-    rows: int            # rows per pattern: paired.grad_rows_needed
-
-
 def onchip_tape(post_dst: np.ndarray, tip_slot: np.ndarray,
-                device) -> OnchipTape:
-    """The on-chip body's tape, derived on the host from a
+                device) -> paired.OnchipTape:
+    """The on-chip bodies' tape, derived on the host from a
     ChunkedEncoding's `post_dst` and `tip_slot` and put on `device`.  The
     paired layout's child tape and rows apply as they are: grid op g reads
     pair slots (2g, 2g+1), the root is slot 2MW and the trash slot 2MW+1.
-    The engine builds it with the chunked tapes, once per topology set."""
-    return OnchipTape(
-        child=torch.as_tensor(paired.child_tape(post_dst, tip_slot),
-                              device=device),
-        rows=paired.grad_rows_needed(post_dst))
+    The LL rows (`ll_rows`, `live_row`) are assigned by liveness in grid
+    order, for the LL body, which walks the grid one op at a time; they
+    would be wrong for a body that ran a chunk's W ops side by side (one
+    op could store over a row that another of its chunk still reads).  The
+    grad body keeps one row per grid op (`grad_rows`).  The engine builds
+    the tape with the chunked tapes, once per topology set."""
+    return paired.onchip_tape(post_dst, tip_slot, device)
+
+
+# The LL body's staging on the chunked tape, set from times on an H100
+# (chip_smoke.py phase 4, 27-400 taxa, GTR+Gamma4, PERF.md): the tree's
+# matrices staged where a block keeps LL_FULL_WARPS warps, else the ring
+# where it holds more.  The chunked schedule keeps more outputs live than
+# the paired order, so the ring's warps fall with the staged ones: at 160
+# and 192 taxa the staged body at 7 and 6 warps was 8% and 7% faster than
+# the ring at 12 and 10 (paired.FULL_WARPS, 8, took the ring there); at
+# 256 taxa the staged body's 3 warps lost to the ring's 8 by 1.5x.  The
+# global body (chunked_ll.cu) below paired.MIN_WARPS, as on the paired
+# tape: the on-chip body was the faster at every size measured.
+LL_FULL_WARPS = 6
+
+
+def ll_plan(rows: int, MW: int, N1: int, C: int) -> paired.OnchipPlan | None:
+    """How the on-chip LL body launches on a chunked tape of `rows` live
+    rows, or None where the global body takes it."""
+    return paired.onchip_plan("ll", rows, MW, N1, C,
+                              full_warps=LL_FULL_WARPS)
 
 
 # The on-chip body is the faster where a block holds at least MIN_WARPS
@@ -383,8 +403,15 @@ def _check_chunked(post_dst, tip_slot, post_e, P, tips, pi, props, weights):
 
 
 def chunked_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
-                            weights) -> torch.Tensor:
-    """Per-tree log likelihoods [B] over the chunked tape."""
+                            weights, *,
+                            onchip: paired.OnchipTape | None = None
+                            ) -> torch.Tensor:
+    """Per-tree log likelihoods [B] over the chunked tape.
+
+    On the card it launches the on-chip body where `ll_plan` gives a
+    plan, else the global body.  `onchip` is the tape's `onchip_tape`;
+    where it is not given the wrapper derives it (a copy of the tapes to
+    the host).  The CPU runs the plain version, which needs none."""
     if P.device.type == "cpu":
         return chunked_log_likelihoods_ref(post_dst, tip_slot, post_e, P,
                                            tips, pi, props, weights)
@@ -393,33 +420,67 @@ def chunked_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     _check_cuda_operands(
         dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
         dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A)
-    NS = 2 * MW + 2
-    kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C * A, S), **kw)
-    ls = torch.empty((B, NS, S), **kw)
-    ll_rows = torch.empty((B, S), **kw)
-    lib = _kernels.library()
-    with torch.cuda.device(P.device):
-        rc = lib.bito_chunked_ll(
-            post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
-            P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
-            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            B, MW, W, T, N1, C, S, torch.cuda.current_stream().cuda_stream)
-    _kernels.check(rc, "bito_chunked_ll")
-    chunked_log_likelihoods.launches += 1
+    if onchip is None:
+        onchip = onchip_tape(post_dst.cpu().numpy(), tip_slot.cpu().numpy(),
+                             P.device)
+    if tuple(onchip.live_row.shape) != (B, MW):
+        raise ValueError("the on-chip tape does not match post_dst")
+    plan = ll_plan(onchip.ll_rows, MW, N1, C)
+    if plan is None:
+        ll_rows = chunked_ll_global(post_dst, tip_slot, post_e, P, tips, pi,
+                                    props)
+    else:
+        ll_rows = chunked_ll_onchip(post_dst, onchip, post_e, P, tips, pi,
+                                    props, plan)
     return ll_rows @ weights
 
 
-chunked_log_likelihoods.launches = 0
+def chunked_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
+                      plan: paired.OnchipPlan) -> torch.Tensor:
+    """Launch csrc/paired_ll_onchip.cu on the chunked tape, one grid op at
+    a time, as `plan` says (operands checked by the wrapper): per-pattern
+    LL rows [B, S]."""
+    ll_rows = paired.launch_ll_onchip(post_dst, onchip, post_e, P, tips, pi,
+                                      props, plan)
+    chunked_ll_onchip.launches += 1
+    return ll_rows
+
+
+chunked_ll_onchip.launches = 0
+
+
+def chunked_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props):
+    """Launch csrc/chunked_ll.cu, the global body (operands checked by the
+    wrapper): per-pattern LL rows [B, S]."""
+    B, MW = post_dst.shape
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    NS = 2 * MW + 2
+    kw = dict(device=P.device, dtype=torch.float32)
+    buf = torch.empty((B, NS, C * 4, S), **kw)
+    ls = torch.empty((B, NS, S), **kw)
+    ll_rows = torch.empty((B, S), **kw)
+    with torch.cuda.device(P.device):
+        rc = _kernels.library().bito_chunked_ll(
+            post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
+            P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
+            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
+            B, MW, W, T, N1, C, S, paired._stream())
+    _kernels.check(rc, "bito_chunked_ll")
+    chunked_ll_global.launches += 1
+    return ll_rows
+
+
+chunked_ll_global.launches = 0
 
 
 def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
                              edge_mask, P, dP, tips, pi, props, weights, *,
-                             onchip: OnchipTape | None = None):
+                             onchip: paired.OnchipTape | None = None):
     """Per-tree (log likelihood [B], branch gradients [B, N]).
 
     On the card it launches the on-chip body where `onchip_plan` gives a
-    plan, else the global body; `onchip`, the tape's OnchipTape, is
+    plan, else the global body; `onchip`, the tape's `onchip_tape`, is
     required there.  The CPU runs the plain version, which needs none."""
     if P.device.type == "cpu":
         return chunked_ll_and_gradients_ref(
@@ -443,7 +504,7 @@ def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
         raise ValueError("the chunked grad kernel needs the tape's "
                          "OnchipTape on the card: pass "
                          "onchip=chunked.onchip_tape(...)")
-    plan = onchip_plan(onchip.rows, MW, N1, C)
+    plan = onchip_plan(onchip.grad_rows, MW, N1, C)
     if plan is None:
         rows = chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips,
                                    pi, props, weights)
@@ -485,7 +546,7 @@ def chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi, props,
             post_dst.data_ptr(), onchip.child.data_ptr(), post_e.data_ptr(),
             P.data_ptr(), dP.data_ptr(), tips.data_ptr(), pi.data_ptr(),
             props.data_ptr(), weights.data_ptr(), ll_rows.data_ptr(),
-            grad_rows.data_ptr(), B, MW, W, T, N1, C, S, onchip.rows,
+            grad_rows.data_ptr(), B, MW, W, T, N1, C, S, onchip.grad_rows,
             plan.cols, paired._stream())
     _kernels.check(rc, "bito_chunked_grad_onchip")
     chunked_grad_onchip.launches += 1

@@ -1,10 +1,14 @@
-// Per-pattern tree log likelihoods over the chunked level-synchronous tape.
+// Per-pattern tree log likelihoods over the chunked level-synchronous tape:
+// the global body, for trees past the on-chip body's limit.
 //
 // Replaces bito_tpu/treelike/pallas_chunked.py::_ll_kernel (the Pallas TPU
-// kernel behind chunked_log_likelihoods).  It computes what that kernel
-// computes: the postorder over the chunked tape (build_chunked_encoding),
-// where each chunk holds up to W ops that read no slot another op of the
-// chunk writes; each op evolves its pair of children by their
+// kernel behind chunked_log_likelihoods) on trees whose live partials do
+// not fit a block's shared memory; paired_ll_onchip.cu takes the others
+// (treelike/chunked.py chunked_log_likelihoods chooses before the launch,
+// by chunked.ll_plan).  It computes what that kernel computes: the
+// postorder over the chunked tape (build_chunked_encoding), where each
+// chunk holds up to W ops that read no slot another op of the chunk
+// writes; each op evolves its pair of children by their
 // per-category P, multiplies and rescales, with exact per-site log scales;
 // then log sum_ca pi*prop*root + log scale at the root slot, per
 // (tree, pattern).  The pattern weights are applied outside.

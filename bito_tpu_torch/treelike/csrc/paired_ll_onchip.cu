@@ -1,12 +1,30 @@
-// Per-pattern tree log likelihoods over the paired-slot tape, with every
-// partial on chip.
+// Per-pattern tree log likelihoods over a tape of the paired-slot layout,
+// with every partial on chip.
 //
-// Replaces bito_tpu/treelike/pallas_paired.py::_ll_kernel (the Pallas TPU
-// kernel behind paired_log_likelihoods), as paired_ll.cu does, and computes
-// the same numbers: the postorder, each op evolving both children by their
-// per-category P and multiplying, rescaled by the largest entry with exact
-// log scales, then at the root log sum_ca pi*prop*partial + log scale, per
-// (tree, pattern).  The pattern weights are applied outside.
+// Replaces three TPU kernels, each of which runs a postorder of ops that
+// evolve both children by their per-category P and multiply, rescaled by
+// the largest entry with exact log scales, then at the root log
+// sum_ca pi*prop*partial + log scale, per (tree, pattern); the pattern
+// weights are applied outside.  It computes their numbers on their tapes,
+// each given as the paired layout (post_dst, child codes, edges):
+//   - bito_tpu/treelike/pallas_paired.py::_ll_kernel, on the paired tape
+//     (treelike/paired.py), as paired_ll.cu does for large trees;
+//   - bito_tpu/treelike/pallas_chunked.py::_ll_kernel, on the chunked
+//     tape (treelike/chunked.py onchip_tape), walked one grid op at a
+//     time, as chunked_ll.cu does for large trees.  The chunked schedule
+//     is a postorder, so the walk computes what the chunks do.  On the
+//     TPU a chunk's W ops filled one MXU contraction; here the body is
+//     bound by instruction issue, not by the chain of dependent ops, so
+//     running a chunk's ops side by side would buy no time, and it would
+//     cost the rows by liveness (an op could store over a row that
+//     another op of its chunk still reads);
+//   - bito_tpu/treelike/pallas_pruning.py::_kernel, on the per-node tape
+//     (treelike/pernode.py ll_tape: each source the op that last wrote
+//     it, so the trifurcating root's accumulator reads the earlier op),
+//     as pernode_ll.cu does for large trees.
+// post_dst is read only as the root (2M) and the skipped (2M + 1) codes:
+// an op's other code names the slot its consumer reads, which this body
+// never reads, since a row by liveness stands for it.
 //
 // What bounds paired_ll.cu on the H100, and what this body does about it:
 //   - its partials live in device memory ([B, 2M+3, C*4, S] float32), and

@@ -1,11 +1,15 @@
-// Per-pattern tree log likelihoods over the scan tape's per-node ops.
+// Per-pattern tree log likelihoods over the scan tape's per-node ops: the
+// global body, for trees past the on-chip body's limit.
 //
 // Replaces bito_tpu/treelike/pallas_pruning.py::_kernel (the Pallas TPU
-// kernel behind pallas_log_likelihoods).  It computes what that kernel
-// computes: the postorder over the scan tape's own post_ops [B, M, 5]
-// (encode.py), with one slot per node, so that node dest's partial is
-// (P[e1] p[s1]) * (P[e2] p[s2]) with exact per-site log scales, then
-// log sum_ca pi*prop*root + log scale at node root[b], per
+// kernel behind pallas_log_likelihoods) on trees whose live partials do
+// not fit a block's shared memory; paired_ll_onchip.cu takes the others
+// over the tape of treelike/pernode.py ll_tape (pernode_log_likelihoods
+// chooses before the launch, by paired.onchip_plan).  It computes what
+// that kernel computes: the postorder over the scan tape's own post_ops
+// [B, M, 5] (encode.py), with one slot per node, so that node dest's
+// partial is (P[e1] p[s1]) * (P[e2] p[s2]) with exact per-site log
+// scales, then log sum_ca pi*prop*root + log scale at node root[b], per
 // (tree, pattern).  The pattern weights are applied outside.  The root
 // comes as root [B]; bito_tpu appended it to the tape as an extra row for
 // the TPU's scalar memory.

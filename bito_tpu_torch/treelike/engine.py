@@ -26,9 +26,9 @@ Kernel selection, `engine.kernel`:
   "chunked" — always the chunked kernels' wrappers (treelike/chunked.py),
               with dP from the eigen derivative (prep.prepare_inputs_grad)
               as in bito_tpu's chunked route; 4-state models only.  The
-              grad wrapper launches the on-chip body, or the global one
-              for a tree on which that would be the slower
-              (chunked.onchip_plan).
+              wrappers launch the on-chip bodies, or the global ones for
+              a tree on which those would be the slower
+              (chunked.ll_plan for LL, chunked.onchip_plan for grad).
 "cuda" and "chunked" raise for per-tree parameter rows, which the kernels
 do not take.  (bito_tpu's forced kernels take them and silently use tree
 0's model for the whole batch.)  The per-node kernels (treelike/pernode.py)
@@ -186,16 +186,16 @@ class TreeLikelihoodEngine:
             ce = chunked.build_chunked_encoding(enc, chunked.W)
             self._tapes["chunked"] = self._kernel_tapes(
                 enc, (ce.post_dst, ce.tip_slot, ce.post_e, ce.node_row))
-            # The on-chip grad body's tape, from the same host arrays; the
-            # CPU runs the plain versions, which need none.
+            # The on-chip bodies' tape, from the same host arrays; the CPU
+            # runs the plain versions, which need none.
             self._tapes["chunked_onchip"] = chunked.onchip_tape(
                 ce.post_dst, ce.tip_slot, self.device) if (
                     self.device.type == "cuda") else None
         return self._tapes["chunked"]
 
     def _chunked_onchip_tape(self, enc: TreeBatchEncoding):
-        """The chunked grad kernel's on-chip tape (child codes and rows),
-        cached with the encoding; None on the CPU."""
+        """The chunked kernels' on-chip tape (child codes, LL rows by
+        liveness, grad rows), cached with the encoding; None on the CPU."""
         self._chunked_tapes(enc)
         return self._tapes["chunked_onchip"]
 
@@ -263,7 +263,8 @@ class TreeLikelihoodEngine:
         else:
             post_dst, tip_slot, post_e, _row, _mask = self._chunked_tapes(enc)
             ll = chunked.chunked_log_likelihoods(
-                post_dst, tip_slot, post_e, P, tips, pi, prop, w)
+                post_dst, tip_slot, post_e, P, tips, pi, prop, w,
+                onchip=self._chunked_onchip_tape(enc))
         return ll.to(self.dtype)
 
     def ll_and_branch_gradients(self, trees: Sequence[Tree], params,

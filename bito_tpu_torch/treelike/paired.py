@@ -18,6 +18,9 @@ Each kernel has two bodies on the card:
     tree; the wrappers launch it where a block of the on-chip body would
     hold too few warps of patterns to be the faster (`onchip_plan`
     returns None), decided from the tape before the launch.
+The on-chip LL body also serves the chunked and per-node LL kernels
+(chunked.py, pernode.py): their tapes are walked as paired tapes, one op
+at a time, through `launch_ll_onchip`.
 
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which computes the
@@ -152,7 +155,10 @@ def live_rows(post_dst: np.ndarray, child: np.ndarray) -> tuple[np.ndarray,
     output takes the lowest row free at op m, after its children's rows
     are freed (a thread loads both children before it stores), and keeps
     it until its consumer reads it.  The root op and padded ops store
-    nothing (row 0).  `rows` is the peak over the batch."""
+    nothing (row 0).  `rows` is the peak over the batch.  The rows hold
+    for a body that runs the ops one at a time, in tape order; a body that
+    ran several ops side by side could store over a row that another of
+    them still reads."""
     B, M = post_dst.shape
     trash, root = 2 * M + 1, 2 * M
     row = np.zeros((B, M), dtype=np.int32)
@@ -260,14 +266,16 @@ def _warps(kernel, rows, M, N1, C, ring) -> int:
 
 
 def onchip_plan(kernel: str, rows: int, M: int, N1: int, C: int,
-                ring: bool | None = None) -> OnchipPlan | None:
+                ring: bool | None = None,
+                full_warps: int = FULL_WARPS) -> OnchipPlan | None:
     """How an on-chip body launches, or None where the global body takes
     the tape.  A block takes as many whole warps of patterns as fit in
     SMEM_BYTES, up to MAX_THREADS threads.  `ring` None chooses as the
-    card's times say: all matrices staged where that leaves FULL_WARPS
-    warps, else the staging with more warps (staged on a tie), and None
-    below MIN_WARPS.  True or False asks for one staging at any number of
-    warps, to measure it."""
+    card's times say: all matrices staged where that leaves `full_warps`
+    warps (FULL_WARPS on the paired tape; a tape whose times say
+    otherwise passes its own), else the staging with more warps (staged
+    on a tie), and None below MIN_WARPS.  True or False asks for one
+    staging at any number of warps, to measure it."""
     if kernel not in ("ll", "grad"):
         raise ValueError(f"kernel must be 'll' or 'grad', got {kernel!r}")
     if not 1 <= C <= MAX_CATEGORIES:
@@ -276,7 +284,7 @@ def onchip_plan(kernel: str, rows: int, M: int, N1: int, C: int,
     if ring is None:
         staged = _warps(kernel, rows, M, N1, C, False)
         ringed = _warps(kernel, rows, M, N1, C, True)
-        ring = staged < FULL_WARPS and ringed > staged
+        ring = staged < full_warps and ringed > staged
         warps, least = (ringed if ring else staged), MIN_WARPS
     else:
         warps, least = _warps(kernel, rows, M, N1, C, ring), 1
@@ -505,10 +513,13 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def paired_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
+def launch_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
                      plan: OnchipPlan) -> torch.Tensor:
-    """Launch csrc/paired_ll_onchip.cu as `plan` says (operands checked by
-    the wrapper): per-pattern LL rows [B, S]."""
+    """Launch csrc/paired_ll_onchip.cu as `plan` says on any tape of the
+    paired layout walked one op at a time (operands checked by the
+    caller): per-pattern LL rows [B, S].  `onchip` gives the child codes,
+    the rows by liveness and their count (`child`, `live_row`, `ll_rows`).
+    It counts no launch: each launcher that calls it counts its own."""
     _check_onchip(onchip, post_dst, tips, dict(P=P))
     B, M = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
@@ -522,6 +533,15 @@ def paired_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
             ll_rows.data_ptr(), B, M, T, N1, C, S, onchip.ll_rows,
             plan.cols, int(plan.ring), _stream())
     _kernels.check(rc, "bito_paired_ll_onchip")
+    return ll_rows
+
+
+def paired_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
+                     plan: OnchipPlan) -> torch.Tensor:
+    """Launch csrc/paired_ll_onchip.cu on the paired tape as `plan` says
+    (operands checked by the wrapper): per-pattern LL rows [B, S]."""
+    ll_rows = launch_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
+                               plan)
     paired_ll_onchip.launches += 1
     return ll_rows
 

@@ -21,12 +21,18 @@ Each kernel has, as in paired.py:
     kernel cannot take the inputs or fails to launch;
   - a launch count on each launcher, `launcher.launches`.
 
-The LL kernel has one body (csrc/pernode_ll.cu).  The grad kernel has two:
-the on-chip body (csrc/pernode_grad_onchip.cu over csrc/pernode_onchip.cuh:
-a node's partial and then its up value in one shared-memory row, a parent's
-children evolved together, `pernode_grad_onchip`) and the global body of
-trees past its limit (csrc/pernode_grad.cu, partials in device memory,
-`pernode_grad_global`).  `onchip_plan` chooses before the launch, from the
+Each kernel has two bodies on the card.  The LL kernel's on-chip body is
+the paired LL body (csrc/paired_ll_onchip.cu, `pernode_ll_onchip`) over
+the tape that `ll_tape` derives on the host: the per-node ops as a paired
+tape, each source a child code (the op that last wrote it, a tip, or ones)
+and each output a row by liveness.  Its global body, for trees past the
+on-chip limit, is csrc/pernode_ll.cu (`pernode_ll_global`);
+`paired.onchip_plan("ll", ...)` chooses before the launch.  The grad
+kernel's on-chip body is csrc/pernode_grad_onchip.cu over
+csrc/pernode_onchip.cuh (a node's partial and then its up value in one
+shared-memory row, a parent's children evolved together,
+`pernode_grad_onchip`), its global body csrc/pernode_grad.cu (partials in
+device memory, `pernode_grad_global`); `onchip_plan` chooses, from the
 tape that `onchip_tape` derives on the host.
 
 Operands: post_ops, pre_ops, root int32; P, dP [B, N+1, C, 4, 4]; tips
@@ -103,9 +109,15 @@ def _check_shapes(post_ops, root, P, tips, pi, props, weights):
     return B, M, T, N1, C, A, S
 
 
-def pernode_log_likelihoods(post_ops, root, P, tips, pi, props,
-                            weights) -> torch.Tensor:
-    """Per-tree log likelihoods [B] over the per-node tape."""
+def pernode_log_likelihoods(post_ops, root, P, tips, pi, props, weights, *,
+                            onchip: LLTape | None = None) -> torch.Tensor:
+    """Per-tree log likelihoods [B] over the per-node tape.
+
+    On the card it launches the on-chip body where
+    `paired.onchip_plan("ll", ...)` gives a plan, else the global body.
+    `onchip` is the tape's `ll_tape`; where it is not given the wrapper
+    derives it (a copy of the tapes to the host).  The CPU runs the plain
+    version, which needs none."""
     if P.device.type == "cpu":
         return pernode_log_likelihoods_ref(post_ops, root, P, tips, pi, props,
                                            weights)
@@ -114,23 +126,17 @@ def pernode_log_likelihoods(post_ops, root, P, tips, pi, props,
     _check_cuda_operands(
         dict(post_ops=post_ops, root=root),
         dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A)
-    kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, N1, C * A, S), **kw)
-    ls = torch.empty((B, N1, S), **kw)
-    ll_rows = torch.empty((B, S), **kw)
-    lib = _kernels.library()
-    with torch.cuda.device(P.device):
-        rc = lib.bito_pernode_ll(
-            post_ops.data_ptr(), root.data_ptr(), P.data_ptr(),
-            tips.data_ptr(), pi.data_ptr(), props.data_ptr(), buf.data_ptr(),
-            ls.data_ptr(), ll_rows.data_ptr(), B, M, T, N1, C, S,
-            torch.cuda.current_stream().cuda_stream)
-    _kernels.check(rc, "bito_pernode_ll")
-    pernode_log_likelihoods.launches += 1
+    if onchip is None:
+        onchip = ll_tape(post_ops.cpu().numpy(), root.cpu().numpy(), T,
+                         N1 - 1, P.device)
+    if tuple(onchip.post_dst.shape) != (B, M):
+        raise ValueError("the on-chip tape does not match post_ops")
+    plan = paired.onchip_plan("ll", onchip.ll_rows, M, N1, C)
+    if plan is None:
+        ll_rows = pernode_ll_global(post_ops, root, P, tips, pi, props)
+    else:
+        ll_rows = pernode_ll_onchip(onchip, P, tips, pi, props, plan)
     return ll_rows @ weights
-
-
-pernode_log_likelihoods.launches = 0
 
 
 def pernode_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
@@ -183,7 +189,130 @@ def finish_rows(ll_rows, grad_rows, edge_mask, weights):
 
 
 # ---------------------------------------------------------------------------
-# The on-chip body's tape and sizing
+# The LL kernel: its on-chip tape and its two launchers
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LLTape:
+    """The per-node tape as the paired LL body reads it (paired.py's
+    layout, M ops walked one at a time), on the device of the tapes."""
+
+    post_dst: torch.Tensor  # [B, M] int32: 2M root op, 2M+1 skipped, else
+    #                         2m'+j, the child slot of the op m' that reads it
+    post_e: torch.Tensor    # [B, M, 2] int32: the two edges (N: identity)
+    child: torch.Tensor     # [B, M, 2] int32: child codes (paired.ONES, a
+    #                         tip -1 - t, or the op that last wrote the node)
+    live_row: torch.Tensor  # [B, M] int32: paired.live_rows
+    ll_rows: int            # rows a pattern: their peak over the batch
+
+
+def ll_tape(post_ops: np.ndarray, root: np.ndarray, num_taxa: int,
+            num_slots: int, device) -> LLTape:
+    """The LL body's tape, derived on the host from the scan tape's
+    post_ops and root (numpy) for `num_taxa` tips and the dummy node
+    `num_slots`, and put on `device`.
+
+    A source is read as the op that last wrote it before the reading op.
+    So the trifurcating root's accumulator [u, u, N, x, x] reads the
+    earlier op that wrote u, never itself, and its output may take the row
+    that read frees (a thread loads both children before it stores).  The
+    root op is the last op that writes root[b]; an earlier op that writes
+    it stores to a row like any other.  Ops whose outputs do not reach the
+    root op (padded ones, dest N, among them) are skipped, as the root's
+    partial does not depend on them.  Raises where an op reads an internal
+    node that no earlier op wrote (bito_tpu's kernel would read ones
+    there), an output is read twice, or the root is a tip or never
+    written."""
+    post_ops, root = np.asarray(post_ops), np.asarray(root)
+    T, N = num_taxa, num_slots
+    _post_tape(post_ops, T, N)  # raises where it is not a per-node tape
+    B, M, _ = post_ops.shape
+    post_dst = np.full((B, M), 2 * M + 1, dtype=np.int32)
+    child = np.full((B, M, 2), paired.ONES, dtype=np.int32)
+    for b in range(B):
+        r = int(root[b])
+        if r < T:
+            raise ValueError(f"tree {b}: the root {r} is a tip")
+        codes, last = {}, {}
+        for m, (u, s1, _e1, s2, _e2) in enumerate(post_ops[b].tolist()):
+            if u == N:
+                continue  # padded
+            for j, s in enumerate((s1, s2)):
+                if s < T:
+                    codes[m, j] = -1 - s
+                elif s in last:
+                    codes[m, j] = last[s]
+                elif s != N:
+                    raise ValueError(f"tree {b}: op {m} reads node {s}, "
+                                     "which no earlier op wrote")
+            last[u] = m
+        if r not in last:
+            raise ValueError(f"tree {b}: no op writes the root {r}")
+        # Walk back from the root op: every op it reaches stores to the
+        # child slot of the op that reads it.
+        todo = [last[r]]
+        post_dst[b, last[r]] = 2 * M
+        while todo:
+            m = todo.pop()
+            for j in (0, 1):
+                c = codes.get((m, j), paired.ONES)
+                child[b, m, j] = c
+                if c >= 0:
+                    if post_dst[b, c] != 2 * M + 1:
+                        raise ValueError(f"tree {b}: the output of op {c} "
+                                         "is read twice")
+                    post_dst[b, c] = 2 * m + j
+                    todo.append(c)
+    row, rows = paired.live_rows(post_dst, child)
+    post_e = post_ops[..., [2, 4]].astype(np.int32)
+    return LLTape(*(torch.as_tensor(np.ascontiguousarray(x), device=device)
+                    for x in (post_dst, post_e, child, row)), ll_rows=rows)
+
+
+def pernode_ll_onchip(tape: LLTape, P, tips, pi, props,
+                      plan: paired.OnchipPlan) -> torch.Tensor:
+    """Launch csrc/paired_ll_onchip.cu on the per-node tape as `plan` says
+    (operands checked by the wrapper): per-pattern LL rows [B, S]."""
+    B, M = tape.post_dst.shape
+    if B != P.shape[0] or tuple(tape.post_e.shape) != (B, M, 2):
+        raise ValueError("the on-chip tape does not match P")
+    _check_cuda_operands(dict(post_dst=tape.post_dst, post_e=tape.post_e),
+                         {}, 1, 4)
+    ll_rows = paired.launch_ll_onchip(tape.post_dst, tape, tape.post_e, P,
+                                      tips, pi, props, plan)
+    pernode_ll_onchip.launches += 1
+    return ll_rows
+
+
+pernode_ll_onchip.launches = 0
+
+
+def pernode_ll_global(post_ops, root, P, tips, pi, props) -> torch.Tensor:
+    """Launch csrc/pernode_ll.cu, the global body (operands checked by the
+    wrapper): per-pattern LL rows [B, S]."""
+    B, M = post_ops.shape[:2]
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    kw = dict(device=P.device, dtype=torch.float32)
+    buf = torch.empty((B, N1, C * 4, S), **kw)
+    ls = torch.empty((B, N1, S), **kw)
+    ll_rows = torch.empty((B, S), **kw)
+    with torch.cuda.device(P.device):
+        rc = _kernels.library().bito_pernode_ll(
+            post_ops.data_ptr(), root.data_ptr(), P.data_ptr(),
+            tips.data_ptr(), pi.data_ptr(), props.data_ptr(), buf.data_ptr(),
+            ls.data_ptr(), ll_rows.data_ptr(), B, M, T, N1, C, S,
+            paired._stream())
+    _kernels.check(rc, "bito_pernode_ll")
+    pernode_ll_global.launches += 1
+    return ll_rows
+
+
+pernode_ll_global.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The grad kernel's on-chip tape and sizing
 # ---------------------------------------------------------------------------
 
 ONES = paired.ONES  # a child code read as all ones: the dummy

@@ -6,26 +6,28 @@
 The workload is the flagship configuration at full width: a DS1-shaped
 problem (27 taxa, 1,949 columns drawn from 934 distinct ones, made from a
 seed), GTR+Gamma4 with bench.py's parameters, and a batch of 200 random
-unrooted trees with trifurcating roots.  Seven paths run ten kernels, the
-two paired ones and the chunked and per-node grad kernels in two bodies
-each:
+unrooted trees with trifurcating roots.  Seven paths run the ten kernels,
+the six tree kernels in two bodies each:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
-  - large: the same entry points on two trees of 921 taxa (128 patterns)
-    past the on-chip bodies' limits, where the wrappers hand over
-    to the global bodies (csrc/paired_ll.cu, csrc/paired_grad.cu);
-  - chunked: the engine with kernel="chunked", chunked_ll and the on-chip
-    body of chunked_grad (csrc/chunked_grad_onchip.cu);
+  - large: the same entry points on two trees of 921 taxa (128 patterns:
+    a cherry comb and a balanced tree) past the on-chip bodies' limits,
+    where the wrappers hand over to the global bodies (csrc/paired_ll.cu,
+    csrc/paired_grad.cu);
+  - chunked: the engine with kernel="chunked", the on-chip bodies of
+    chunked_ll (csrc/paired_ll_onchip.cu on the chunked tape) and of
+    chunked_grad (csrc/chunked_grad_onchip.cu);
   - large-chunked: the engine with kernel="chunked" on the large path's
-    trees, past the on-chip body's limit: chunked_ll and the global body
-    of chunked_grad (csrc/chunked_grad.cu);
+    trees, past the on-chip bodies' limits: the global bodies of
+    chunked_ll (csrc/chunked_ll.cu) and chunked_grad (csrc/chunked_grad.cu);
   - per-node: pernode_log_likelihoods and pernode_ll_and_gradients on the
     engine's own tapes, driven as bito_tpu's scripts/bench_kernel_race.py
-    drives their originals (the engine has no route to them): pernode_ll
-    and the on-chip body of pernode_grad (csrc/pernode_grad_onchip.cu);
+    drives their originals (the engine has no route to them): the on-chip
+    bodies of pernode_ll (csrc/paired_ll_onchip.cu on the per-node tape)
+    and of pernode_grad (csrc/pernode_grad_onchip.cu);
   - large-pernode: the same functions on the large path's trees, past the
-    on-chip body's limit: pernode_ll and the global body of pernode_grad
-    (csrc/pernode_grad.cu);
+    on-chip bodies' limits: the global bodies of pernode_ll
+    (csrc/pernode_ll.cu) and pernode_grad (csrc/pernode_grad.cu);
   - perflab: the perf lab's entry points (bito_tpu_torch/perflab, the
     counterparts of bito_tpu's scripts/perf_lab.py, perf_pipe_lab.py and
     perf_static_probe.py) at few repetitions: the per-node grad kernel's
@@ -40,8 +42,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      sources in the checkout (nvcc, at first use), with each kernel's
      registers and spills.
   2. each kernel against its plain torch version in float64 on the same
-     operands (both bodies of the paired, chunked grad and per-node grad
-     kernels on the flagship's): LL relative error
+     operands (both bodies of each tree kernel on the flagship's): LL
+     relative error
      and gradient max-abs error over max |g|, both within 5e-5 (bench.py's
      on-device guard).  The probes: every variant of variant_grad the same
      way (nodot, which is not a likelihood, by equal non-finite places and
@@ -66,13 +68,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      its FMA floor.
   4. CUDA-event times of each kernel, its plain version and, where one
      PyTorch call computes the same function, that call; the least time
-     the card could take for the same work; every paired body that takes
-     the shape (the on-chip bodies in both stagings, the global bodies),
-     and both chunked and per-node grad bodies where they take it, on the
-     flagship and on trees of BODY_TAXA taxa (the per-node ones also of
-     PERNODE_TAXA taxa), each held once against its float64 plain version
-     within the phase-2 bound before it is timed, beside the body the
-     wrappers choose; each engine route's
+     the card could take for the same work; every body of the tree
+     kernels that takes the shape (the on-chip LL bodies in both stagings
+     on all three tapes, the paired grad body in both, the global bodies),
+     on the flagship and on trees of BODY_TAXA taxa (the per-node ones
+     also of PERNODE_TAXA taxa), each held once against its float64 plain
+     version within the phase-2 bound before it is timed, beside the body
+     the wrappers choose; each engine route's
      LL+gradient evals/s; the host time of a new topology set at B=200 and
      B=1000; all with the card's name and limit.
   5. one JSON line of the kernels, then the device line, last.
@@ -133,11 +135,14 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/paired_grad.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
         wrapper=paired.paired_grad_global, path="large"),
+    "chunked_ll_onchip": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_chunked.py:384",
+        wrapper=chunked.chunked_ll_onchip, path="chunked"),
     "chunked_ll": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_ll.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
-        wrapper=chunked.chunked_log_likelihoods, path="chunked",
-        also=("large-chunked",)),
+        wrapper=chunked.chunked_ll_global, path="large-chunked"),
     "chunked_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
@@ -146,11 +151,14 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/chunked_grad.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
         wrapper=chunked.chunked_grad_global, path="large-chunked"),
+    "pernode_ll_onchip": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_pruning.py:90",
+        wrapper=pernode.pernode_ll_onchip, path="pernode"),
     "pernode_ll": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_ll.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
-        wrapper=pernode.pernode_log_likelihoods, path="pernode",
-        also=("large-pernode",)),
+        wrapper=pernode.pernode_ll_global, path="large-pernode"),
     "pernode_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
@@ -227,10 +235,12 @@ def flagship():
 
 def large_trees():
     """The large path's workload: two trees of 2 * LARGE_CHERRIES + 1 taxa
-    whose postorder keeps a third of them live, over LARGE_PATTERNS
-    columns: (trees, SitePattern, PhyloModel)."""
-    coll = parse_newick_text(_synthetic.cherry_comb_newick(
-        SEED, LARGE_CHERRIES, 2))
+    over LARGE_PATTERNS columns, a cherry comb (whose postorder keeps a
+    third of its partials live) and a balanced tree (whose chunked
+    schedule keeps half of them live): (trees, SitePattern, PhyloModel)."""
+    coll = parse_newick_text(
+        _synthetic.cherry_comb_newick(SEED, LARGE_CHERRIES, 1)
+        + _synthetic.balanced_newick(SEED, 2 * LARGE_CHERRIES + 1, 1))
     aln = _synthetic.random_alignment(SEED + 1, coll.taxon_names,
                                       LARGE_PATTERNS)
     return (coll.trees, SitePattern(aln, coll.taxon_names),
@@ -264,31 +274,28 @@ def paired_bodies(label, eng, trees, params, card):
     tips, w = eng._kernel_tips, eng._kernel_weights
     M, N1 = dst.shape[1], P.shape[1]
 
-    calls, plans = {}, {}
+    calls, labels = ll_bodies(
+        on.ll_rows, M, N1,
+        lambda plan: paired.paired_ll_onchip(dst, on, e, P, tips, pi, prop,
+                                             plan) @ w,
+        lambda: paired.paired_ll_global(dst, tip, e, P, tips, pi, prop) @ w)
     for ring in (False, True):
-        staging = "ring" if ring else "staged"
-        plan = paired.onchip_plan("ll", on.ll_rows, M, N1, 4, ring)
-        if plan is not None:
-            plans[f"ll onchip {staging}"] = plan
-            calls[f"ll onchip {staging}"] = lambda plan=plan: (
-                paired.paired_ll_onchip(dst, on, e, P, tips, pi, prop, plan)
-                @ w)
         plan = paired.onchip_plan("grad", on.grad_rows, M, N1, 4, ring)
         if plan is not None:
-            plans[f"grad onchip {staging}"] = plan
-            calls[f"grad onchip {staging}"] = lambda plan=plan: (
-                paired.finish_rows(*paired.paired_grad_onchip(
-                    dst, on, src, e, P, dP, tips, pi, prop, w, plan), mask,
-                    w))
-    calls["ll global"] = lambda: paired.paired_ll_global(
-        dst, tip, e, P, tips, pi, prop) @ w
+            key = "grad onchip " + ("ring" if ring else "staged")
+            labels[key] = (f"{key} ({plan.cols} patterns a block, "
+                           f"{plan.smem} B)")
+            calls[key] = lambda plan=plan: paired.finish_rows(
+                *paired.paired_grad_onchip(dst, on, src, e, P, dP, tips, pi,
+                                           prop, w, plan), mask, w)
     calls["grad global"] = lambda: paired.finish_rows(
         *paired.paired_grad_global(dst, tip, src, e, P, dP, tips, pi, prop,
                                    w), mask, w)
 
     # The float64 plain version, a slice of trees at a time to bound its
-    # scratch ([trees, 2M+3, C, 4, S] in float64).
-    step = max(1, BATCH * 64 // max(M, 64) // 4)
+    # scratch ([trees, 2M+3, C, 4, S] in float64, up to 2.5 GB); its time
+    # is the host's launches, one set a slice.
+    step = max(1, BATCH * 192 // max(M, 64) // 4)
     f64 = [x.double() for x in (tips, pi, prop, w)]
     refs = [paired.paired_ll_and_gradients_ref(
         dst[i:i + step], tip[i:i + step], src[i:i + step], e[i:i + step],
@@ -296,23 +303,14 @@ def paired_bodies(label, eng, trees, params, card):
         *f64) for i in range(0, len(trees), step)]
     reps = body_reps(M)
     ms = held_then_timed(f"paired bodies, {label}", calls, refs, reps)
-
-    def label_of(key):
-        plan = plans.get(key)
-        return key if plan is None else (
-            f"{key} ({plan.cols} patterns a block, {plan.smem} B)")
-
-    def auto(kind, rows):
-        plan = paired.onchip_plan(kind, rows, M, N1, 4)
-        return ("global" if plan is None
-                else "onchip " + ("ring" if plan.ring else "staged"))
-
     print(f"# phase 4: paired bodies, {label} ({len(trees)} trees x "
           f"{eng.pattern_pad} patterns, {enc.num_taxa} taxa, M={M}; ms, "
           f"mean of two turns of {reps}): " + "; ".join(
-              f"{label_of(key)} {t:.4f}" for key, t in ms.items())
-          + f"; the wrappers take ll {auto('ll', on.ll_rows)}, grad "
-          f"{auto('grad', on.grad_rows)}; on {card}")
+              f"{labels.get(key, key)} {t:.4f}" for key, t in ms.items())
+          + "; the wrappers take ll "
+          f"{body_of(paired.onchip_plan('ll', on.ll_rows, M, N1, 4))}, grad "
+          f"{body_of(paired.onchip_plan('grad', on.grad_rows, M, N1, 4))}; "
+          f"on {card}")
     return ms
 
 
@@ -349,12 +347,36 @@ def held_then_timed(what, calls, refs, reps):
     return {key: sum(v) / len(v) for key, v in ms.items()}
 
 
+def ll_bodies(rows, M, N1, onchip, global_body):
+    """Phase 4's LL calls on one tape of the paired layout (the paired,
+    chunked or per-node tape): the on-chip body (onchip(plan)) in each
+    staging where one warp of patterns fits, the global body always; and
+    the line's labels, the on-chip ones with their warps a block and
+    bytes."""
+    calls, labels = {}, {}
+    for ring in (False, True):
+        plan = paired.onchip_plan("ll", rows, M, N1, 4, ring)
+        if plan is not None:
+            key = "ll onchip " + ("ring" if ring else "staged")
+            calls[key] = lambda plan=plan: onchip(plan)
+            labels[key] = (f"{key} ({plan.cols * plan.lanes // 32} warps, "
+                           f"{plan.smem} B)")
+    calls["ll global"] = global_body
+    return calls, labels
+
+
+def body_of(plan):
+    """The body a wrapper takes by `plan`, as the phase 4 lines name it."""
+    return "global" if plan is None else (
+        "onchip " + ("ring" if plan.ring else "staged"))
+
+
 def chunked_bodies(label, eng, trees, params, card):
-    """Phase 4's two chunked grad bodies side by side on one shape: the
-    on-chip body wherever one warp of patterns fits, the global body
-    always, each held once against the float64 plain version on the same
-    operands within BOUND, then timed twice in turns.  Prints one line;
-    returns {body: ms}."""
+    """Phase 4's chunked bodies side by side on one shape: the on-chip LL
+    body in each staging and the on-chip grad body wherever one warp of
+    patterns fits, the global bodies always, each held once against the
+    float64 plain version on the same operands within BOUND, then timed
+    twice in turns.  Prints one line; returns {body: ms}."""
     enc = eng.encode(trees)
     eig, rates, props, clock = eng._model_ingredients(params, len(trees))
     pi, prop = prep.kernel_model(eig, props)
@@ -364,8 +386,12 @@ def chunked_bodies(label, eng, trees, params, card):
     on = eng._chunked_onchip_tape(enc)
     tips, w = eng._kernel_tips, eng._kernel_weights
     MW, N1 = dst.shape[1], P.shape[1]
-    calls = {}
-    plan = chunked.onchip_plan(on.rows, MW, N1, 4, least=1)
+    calls, labels = ll_bodies(
+        on.ll_rows, MW, N1,
+        lambda plan: chunked.chunked_ll_onchip(dst, on, e, P, tips, pi, prop,
+                                               plan) @ w,
+        lambda: chunked.chunked_ll_global(dst, tip, e, P, tips, pi, prop) @ w)
+    plan = chunked.onchip_plan(on.grad_rows, MW, N1, 4, least=1)
     if plan is not None:
         calls["grad onchip"] = lambda: chunked.finish_rows(
             *chunked.chunked_grad_onchip(dst, on, e, P, dP, tips, pi, prop,
@@ -374,35 +400,38 @@ def chunked_bodies(label, eng, trees, params, card):
         *chunked.chunked_grad_global(dst, tip, e, P, dP, tips, pi, prop, w),
         row, mask, w)
     # The float64 plain version, a slice of trees at a time to bound its
-    # scratch ([trees, 2MW+2, C, 4, S] in float64).
-    step = max(1, BATCH * 64 // max(MW, 64) // 4)
+    # scratch ([trees, 2MW+2, C, 4, S] in float64, up to 2.5 GB).
+    step = max(1, BATCH * 192 // max(MW, 64) // 4)
     f64 = [x.double() for x in (tips, pi, prop, w)]
     refs = [chunked.chunked_ll_and_gradients_ref(
         dst[i:i + step], tip[i:i + step], e[i:i + step], row[i:i + step],
         mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
         *f64) for i in range(0, len(trees), step)]
     reps = body_reps(MW)
-    ms = held_then_timed(f"chunked grad bodies, {label}", calls, refs, reps)
-    chosen = ("global" if chunked.onchip_plan(on.rows, MW, N1, 4) is None
+    ms = held_then_timed(f"chunked bodies, {label}", calls, refs, reps)
+    chosen = ("global" if chunked.onchip_plan(on.grad_rows, MW, N1, 4) is None
               else "onchip")
-    warps = "" if plan is None else (
-        f" ({plan.cols} patterns, {plan.cols * chunked.W * 4 // 32} warps "
-        f"a block, {plan.smem} B)")
-    print(f"# phase 4: chunked grad bodies, {label} ({len(trees)} trees x "
+    if plan is not None:
+        labels["grad onchip"] = (
+            f"grad onchip ({plan.cols} patterns, "
+            f"{plan.cols * chunked.W * 4 // 32} warps, {plan.smem} B)")
+    print(f"# phase 4: chunked bodies, {label} ({len(trees)} trees x "
           f"{eng.pattern_pad} patterns, {enc.num_taxa} taxa, MW={MW}, "
-          f"{on.rows} rows; ms, mean of two turns of {reps}): "
-          + "; ".join(f"{key}{warps if key == 'grad onchip' else ''} "
-                      f"{t:.4f}" for key, t in ms.items())
-          + f"; the wrapper takes {chosen}; on {card}")
+          f"{on.ll_rows} LL rows, {on.grad_rows} grad rows; ms, mean of two "
+          f"turns of {reps}): " + "; ".join(
+              f"{labels.get(key, key)} {t:.4f}" for key, t in ms.items())
+          + f"; the wrappers take ll "
+          f"{body_of(chunked.ll_plan(on.ll_rows, MW, N1, 4))}, grad "
+          f"{chosen}; on {card}")
     return ms
 
 
 def pernode_bodies(label, eng, trees, params, card):
-    """Phase 4's two per-node grad bodies side by side on one shape: the
-    on-chip body wherever one warp of patterns fits, the global body
-    always, each held once against the float64 plain version on the same
-    operands within BOUND, then timed twice in turns.  Prints one line;
-    returns {body: ms}."""
+    """Phase 4's per-node bodies side by side on one shape: the on-chip
+    LL body in each staging and the on-chip grad body wherever one warp of
+    patterns fits, the global bodies always, each held once against the
+    float64 plain version on the same operands within BOUND, then timed
+    twice in turns.  Prints one line; returns {body: ms}."""
     dev = eng.device
     enc = eng.encode(trees)
     eig, rates, props, clock = eng._model_ingredients(params, len(trees))
@@ -414,9 +443,15 @@ def pernode_bodies(label, eng, trees, params, card):
     mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=dev)
     on = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
                              enc.num_taxa, enc.num_slots, dev)
+    lt = pernode.ll_tape(enc.post_ops, enc.root, enc.num_taxa,
+                         enc.num_slots, dev)
     tips, w = eng._kernel_tips, eng._kernel_weights
-    N1 = P.shape[1]
-    calls = {}
+    N1, M = P.shape[1], post.shape[1]
+    calls, labels = ll_bodies(
+        lt.ll_rows, M, N1,
+        lambda plan: pernode.pernode_ll_onchip(lt, P, tips, pi, prop,
+                                               plan) @ w,
+        lambda: pernode.pernode_ll_global(post, root, P, tips, pi, prop) @ w)
     plan = pernode.onchip_plan(on.rows, on.ints, N1, 4, least=1)
     if plan is not None:
         calls["grad onchip"] = lambda: pernode.finish_rows(
@@ -427,25 +462,27 @@ def pernode_bodies(label, eng, trees, params, card):
                                      w), mask, w)
     # The float64 plain version, a slice of trees at a time to bound its
     # scratch (partials and up values [trees, N1, C, 4, S] in float64).
-    step = max(1, int(6e9) // (N1 * 16 * tips.shape[-1] * 8))
+    step = max(1, int(12e9) // (N1 * 16 * tips.shape[-1] * 8))
     f64 = [x.double() for x in (tips, pi, prop, w)]
     refs = [pernode.pernode_ll_and_gradients_ref(
         post[i:i + step], pre[i:i + step], root[i:i + step],
         mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
         *f64) for i in range(0, len(trees), step)]
-    M = post.shape[1]
     reps = body_reps(M)
-    ms = held_then_timed(f"per-node grad bodies, {label}", calls, refs, reps)
+    ms = held_then_timed(f"per-node bodies, {label}", calls, refs, reps)
     chosen = ("global" if pernode.onchip_plan(on.rows, on.ints, N1, 4) is None
               else "onchip")
-    warps = "" if plan is None else (
-        f" ({plan.cols * 4 // 32} warps a block, {plan.smem} B)")
-    print(f"# phase 4: per-node grad bodies, {label} ({len(trees)} trees x "
+    if plan is not None:
+        labels["grad onchip"] = (f"grad onchip ({plan.cols * 4 // 32} warps, "
+                                 f"{plan.smem} B)")
+    print(f"# phase 4: per-node bodies, {label} ({len(trees)} trees x "
           f"{eng.pattern_pad} patterns, {enc.num_taxa} taxa, M={M}, "
-          f"{on.rows} rows; ms, mean of two turns of {reps}): " + "; ".join(
-              f"{key}{warps if key == 'grad onchip' else ''} {t:.4f}"
-              for key, t in ms.items())
-          + f"; the wrapper takes {chosen}; on {card}")
+          f"{lt.ll_rows} LL rows, {on.rows} grad rows; ms, mean of two turns "
+          f"of {reps}): " + "; ".join(
+              f"{labels.get(key, key)} {t:.4f}" for key, t in ms.items())
+          + f"; the wrappers take ll "
+          f"{body_of(paired.onchip_plan('ll', lt.ll_rows, M, N1, 4))}, grad "
+          f"{chosen}; on {card}")
     return ms
 
 
@@ -788,12 +825,16 @@ def main():
                        for x in (enc.post_ops, enc.pre_ops, enc.root))
     pon = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
                               enc.num_taxa, enc.num_slots, dev)
+    pll = pernode.ll_tape(enc.post_ops, enc.root, enc.num_taxa,
+                          enc.num_slots, dev)
     ll_ops = (dst, tip, e, P, tips, pi, prop, w)
     grad_ops = (dst, tip, src, e, mask, P, dPq, tips, pi, prop, w)
-    check(all(paired.onchip_plan(k, r, dst.shape[1], P.shape[1], 4)
-              for k, r in (("ll", onchip.ll_rows),
-                           ("grad", onchip.grad_rows)))
-          and chunked.onchip_plan(con.rows, cdst.shape[1], P.shape[1], 4)
+    check(all(paired.onchip_plan(k, r, M, P.shape[1], 4)
+              for k, r, M in (("ll", onchip.ll_rows, dst.shape[1]),
+                              ("grad", onchip.grad_rows, dst.shape[1]),
+                              ("ll", pll.ll_rows, post.shape[1])))
+          and chunked.ll_plan(con.ll_rows, cdst.shape[1], P.shape[1], 4)
+          and chunked.onchip_plan(con.grad_rows, cdst.shape[1], P.shape[1], 4)
           and pernode.onchip_plan(pon.rows, pon.ints, P.shape[1], 4),
           "the flagship fits the on-chip bodies")
     args = {  # kernel -> (plain version, its arguments, call of the kernel)
@@ -820,14 +861,21 @@ def main():
         chunked.chunked_ll_and_gradients_ref, cgrad_ops,
         lambda: chunked.finish_rows(*chunked.chunked_grad_global(
             cdst, ctip, cedge, P, dP, tips, pi, prop, w), crow, mask, w))
-    for name, plain, a, wrapper in (
-            ("chunked_ll", chunked.chunked_log_likelihoods_ref,
-             (cdst, ctip, cedge, P, tips, pi, prop, w),
-             chunked.chunked_log_likelihoods),
-            ("pernode_ll", pernode.pernode_log_likelihoods_ref,
-             (post, root, P, tips, pi, prop, w),
-             pernode.pernode_log_likelihoods)):
-        args[name] = (plain, a, lambda f=wrapper, a=a: f(*a))
+    cll_ops = (cdst, ctip, cedge, P, tips, pi, prop, w)
+    args["chunked_ll_onchip"] = (  # the wrapper's body here
+        chunked.chunked_log_likelihoods_ref, cll_ops,
+        lambda: chunked.chunked_log_likelihoods(*cll_ops, onchip=con))
+    args["chunked_ll"] = (  # the global body, through the same final sum
+        chunked.chunked_log_likelihoods_ref, cll_ops,
+        lambda: chunked.chunked_ll_global(cdst, ctip, cedge, P, tips, pi,
+                                          prop) @ w)
+    pll_ops = (post, root, P, tips, pi, prop, w)
+    args["pernode_ll_onchip"] = (  # the wrapper's body here
+        pernode.pernode_log_likelihoods_ref, pll_ops,
+        lambda: pernode.pernode_log_likelihoods(*pll_ops, onchip=pll))
+    args["pernode_ll"] = (  # the global body, through the same final sum
+        pernode.pernode_log_likelihoods_ref, pll_ops,
+        lambda: pernode.pernode_ll_global(post, root, P, tips, pi, prop) @ w)
     pgrad_ops = (post, pre, root, mask, P, dP, tips, pi, prop, w)
     args["pernode_grad_onchip"] = (  # the wrapper's body here
         pernode.pernode_ll_and_gradients_ref, pgrad_ops,
@@ -839,9 +887,9 @@ def main():
     errs = {}  # kernel -> (relative or max-norm error, max abs error)
     for ll_name, grad_name in (("paired_ll_onchip", "paired_grad_onchip"),
                                ("paired_ll", "paired_grad"),
-                               ("chunked_ll", "chunked_grad_onchip"),
+                               ("chunked_ll_onchip", "chunked_grad_onchip"),
                                ("chunked_ll", "chunked_grad"),
-                               ("pernode_ll", "pernode_grad_onchip"),
+                               ("pernode_ll_onchip", "pernode_grad_onchip"),
                                ("pernode_ll", "pernode_grad")):
         ll_k = args[ll_name][2]()
         ll_g, g_k = args[grad_name][2]()
@@ -937,9 +985,12 @@ def main():
     large.kernel = "chunked"
     lce = large._chunked_tapes(lenc)[0]
     lcon = large._chunked_onchip_tape(lenc)
-    print(f"# phase 3: large-chunked path: MW={lce.shape[1]}, {lcon.rows} "
-          f"rows a pattern; on-chip plan "
-          f"{chunked.onchip_plan(lcon.rows, lce.shape[1], lN1, 4)}")
+    print(f"# phase 3: large-chunked path: MW={lce.shape[1]}, "
+          f"{lcon.ll_rows} live rows (LL) and {lcon.grad_rows} rows (grad) "
+          f"a pattern; on-chip plans "
+          f"{chunked.ll_plan(lcon.ll_rows, lce.shape[1], lN1, 4)} "
+          f"(LL), {chunked.onchip_plan(lcon.grad_rows, lce.shape[1], lN1, 4)}"
+          " (grad)")
     reset_launches()
     ll = large.log_likelihoods(ltrees, params)
     pairs = [large.ll_and_branch_gradients(ltrees, params)]
@@ -958,14 +1009,18 @@ def main():
     lmask = torch.as_tensor(lenc.edge_mask, dtype=torch.float32, device=dev)
     lpon = pernode.onchip_tape(lenc.post_ops, lenc.pre_ops, lenc.root,
                                lenc.num_taxa, lenc.num_slots, dev)
-    print(f"# phase 3: large-pernode path: {lpon.rows} rows a pattern; "
-          f"on-chip plan "
-          f"{pernode.onchip_plan(lpon.rows, lpon.ints, lN1, 4, least=1)}")
+    lpll = pernode.ll_tape(lenc.post_ops, lenc.root, lenc.num_taxa,
+                           lenc.num_slots, dev)
+    print(f"# phase 3: large-pernode path: {lpll.ll_rows} live rows (LL) "
+          f"and {lpon.rows} rows (grad) a pattern; on-chip plans "
+          f"{paired.onchip_plan('ll', lpll.ll_rows, lpost.shape[1], lN1, 4)} "
+          f"(LL), {pernode.onchip_plan(lpon.rows, lpon.ints, lN1, 4, least=1)}"
+          " (grad)")
     ltips, lw = large._kernel_tips, large._kernel_weights
     reset_launches()
     lP, _ = prep.prepare_inputs_grad(leig, lrates, lclock, lbl)
     ll = pernode.pernode_log_likelihoods(lpost, lroot, lP, ltips, lpi, lprop,
-                                         lw)
+                                         lw, onchip=lpll)
     pairs = []
     for f in [1.0] + lscales:
         Pk, dPk = prep.prepare_inputs_grad(leig, lrates, lclock, lbl * f)
@@ -990,7 +1045,8 @@ def main():
     eng.kernel = "auto"
 
     reset_launches()
-    ll = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop, w)
+    ll = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop, w,
+                                         onchip=pll)
     pairs = []
     for f in [1.0] + scales:
         Pk, dPk = prep.prepare_inputs_grad(eig, rates, clock, bl * f)
@@ -1026,10 +1082,14 @@ def main():
                   "paired_grad_onchip": nbytes(dst, onchip.child, src, e),
                   "paired_ll": nbytes(dst, tip, e),
                   "paired_grad": nbytes(dst, tip, src, e),
+                  "chunked_ll_onchip": nbytes(cdst, con.child, con.live_row,
+                                              cedge),
                   "chunked_ll": nbytes(cdst, ctip, cedge),
                   "chunked_grad": nbytes(cdst, ctip, cedge, crow),
                   "chunked_grad_onchip": nbytes(cdst, con.child, cedge,
                                                 crow),
+                  "pernode_ll_onchip": nbytes(pll.post_dst, pll.child,
+                                              pll.live_row, pll.post_e),
                   "pernode_ll": nbytes(post, root),
                   "pernode_grad_onchip": nbytes(pon.post, pon.groups,
                                                 pon.zero, root),

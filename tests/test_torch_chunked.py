@@ -184,8 +184,9 @@ def test_eigen_derivative_matches_q_times_p(model):
 
 
 def _chunked_launches():
-    """The launch counts of the LL kernel and both grad bodies."""
-    return (chunked.chunked_log_likelihoods.launches,
+    """The launch counts of both bodies of both kernels."""
+    return (chunked.chunked_ll_onchip.launches,
+            chunked.chunked_ll_global.launches,
             chunked.chunked_grad_onchip.launches,
             chunked.chunked_grad_global.launches)
 

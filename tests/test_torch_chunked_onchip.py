@@ -133,7 +133,7 @@ def test_rows_cover_every_stored_output(seed, num_taxa, rooted, W):
     ce = chunked.build_chunked_encoding(enc, W)
     tape = chunked.onchip_tape(ce.post_dst, ce.tip_slot, "cpu")
     stored = (ce.post_dst != ce.trash_slot) & (ce.post_dst != ce.root_slot)
-    assert tape.rows == int(np.nonzero(stored)[1].max()) + 1 <= ce.MW
+    assert tape.grad_rows == int(np.nonzero(stored)[1].max()) + 1 <= ce.MW
     assert tape.child.dtype == torch.int32
     np.testing.assert_array_equal(
         tape.child.numpy(), paired.child_tape(ce.post_dst, ce.tip_slot))
@@ -304,7 +304,7 @@ def emulate_grad(dst, child, e, rows_needed, P, dP, tips, pi, props,
 
 def _emulate(ops, extra, tape):
     ll_rows, grad_rows = emulate_grad(
-        ops["post_dst"], tape.child, ops["post_e"], tape.rows, ops["P"],
+        ops["post_dst"], tape.child, ops["post_e"], tape.grad_rows, ops["P"],
         extra["dP"], ops["tips"], ops["pi"], ops["props"], ops["weights"])
     return chunked.finish_rows(ll_rows, grad_rows, extra["node_row"],
                                extra["edge_mask"], ops["weights"])

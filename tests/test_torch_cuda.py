@@ -1,7 +1,6 @@
 """The CUDA kernels on the card (paired, chunked and per-node, and the perf
 lab's four probes), against their plain torch versions; each body of the
-paired kernels and of the chunked and per-node grad kernels, and which one
-the wrappers take.
+paired, chunked and per-node kernels, and which one the wrappers take.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -164,9 +163,12 @@ def test_engine_takes_the_kernels(cuda):
 
 
 def _large_tree_engine(device, dtype):
-    """Two trees of 921 taxa past the on-chip bodies' limits (460 live
-    rows for the LL kernel, 919 rows for the grad kernel), 128 patterns."""
-    coll = parse_newick_text(_synthetic.cherry_comb_newick(5, 460, 2))
+    """Two trees of 921 taxa past the on-chip bodies' limits, 128
+    patterns: a cherry comb (460 live rows for the LL body on the paired
+    and per-node tapes) and a balanced tree (409 on the chunked tape); 919
+    rows for the grad bodies."""
+    coll = parse_newick_text(_synthetic.cherry_comb_newick(5, 460, 1)
+                             + _synthetic.balanced_newick(5, 921, 1))
     aln = _synthetic.random_alignment(6, coll.taxon_names, 128)
     eng = TreeLikelihoodEngine(
         SitePattern(aln, coll.taxon_names),
@@ -266,13 +268,13 @@ def _f64(*xs):
     return [x.to(torch.float64) for x in xs]
 
 
-CHUNKED = (chunked.chunked_log_likelihoods, chunked.chunked_grad_onchip,
-           chunked.chunked_grad_global)
+CHUNKED = (chunked.chunked_ll_onchip, chunked.chunked_ll_global,
+           chunked.chunked_grad_onchip, chunked.chunked_grad_global)
 
 
 def _chunked_launched(before):
-    """What the chunked LL kernel and each grad body launched since
-    `before`, in CHUNKED's order."""
+    """What each body of the chunked kernels launched since `before`, in
+    CHUNKED's order."""
     return [f.launches - n for f, n in zip(CHUNKED, before)]
 
 
@@ -287,10 +289,11 @@ def _chunked_launched(before):
     ("gtr_gamma4", False, 3, 100, 4), ("gtr_gamma4", True, 3, None, 8)])
 def test_chunked_kernels_match_plain(cuda, model, rooted, num_trees,
                                      patterns, W):
-    """The chunked LL kernel and both grad bodies against their plain
-    versions in float64 on the same float32 operands, on tapes built at
-    the engine's width and at multiples of it; `patterns` cuts the pattern
-    axis to a width that is not a multiple of a block's patterns."""
+    """The wrappers of the chunked kernels and both grad bodies against
+    their plain versions in float64 on the same float32 operands, on
+    tapes built at the engine's width and at multiples of it; `patterns`
+    cuts the pattern axis to a width that is not a multiple of a block's
+    patterns.  (Both LL bodies: test_ll_bodies_match_plain.)"""
     eng, trees, params = _engine(model, 3, 11, num_trees, rooted, cuda,
                                  torch.float32)
     enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params,
@@ -304,23 +307,24 @@ def test_chunked_kernels_match_plain(cuda, model, rooted, num_trees,
     ll_ref, g_ref = chunked.chunked_ll_and_gradients_ref(
         dst, tip, e, row, mask, *_f64(P, dP, tips, pi, prop, w))
     C = P.shape[2]
-    plan = chunked.onchip_plan(onchip.rows, ce.MW, P.shape[1], C)
+    plan = chunked.onchip_plan(onchip.grad_rows, ce.MW, P.shape[1], C)
     assert plan is not None and plan.lanes == paired.lanes(C)
     before = [f.launches for f in CHUNKED]
-    ll = chunked.chunked_log_likelihoods(dst, tip, e, P, tips, pi, prop, w)
+    ll = chunked.chunked_log_likelihoods(dst, tip, e, P, tips, pi, prop, w,
+                                         onchip=onchip)
     ll2, g = chunked.chunked_ll_and_gradients(dst, tip, e, row, mask, P, dP,
                                               tips, pi, prop, w,
                                               onchip=onchip)
     torch.cuda.synchronize()
-    assert _chunked_launched(before) == [1, 1, 0]  # the on-chip body here
+    assert _chunked_launched(before) == [1, 0, 1, 0]  # the on-chip bodies
     assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
     assert _norm(g, g_ref) < 5e-5
     for body, launched in (
             (lambda: chunked.chunked_grad_onchip(dst, onchip, e, P, dP, tips,
                                                  pi, prop, w, plan),
-             [0, 1, 0]),
+             [0, 0, 1, 0]),
             (lambda: chunked.chunked_grad_global(dst, tip, e, P, dP, tips,
-                                                 pi, prop, w), [0, 0, 1])):
+                                                 pi, prop, w), [0, 0, 0, 1])):
         before = [f.launches for f in CHUNKED]
         ll2, g = chunked.finish_rows(*body(), row, mask, w)
         torch.cuda.synchronize()
@@ -333,8 +337,9 @@ def test_chunked_kernels_match_plain(cuda, model, rooted, num_trees,
     ("jc69", False, 4, 200), ("hky_weibull3", True, 2, None)])
 def test_pernode_kernels_match_plain(cuda, model, rooted, num_trees,
                                      patterns):
-    """Both per-node kernels against their plain versions in float64 on
-    the same float32 operands, on trifurcating and binary roots."""
+    """Both per-node wrappers against their plain versions in float64 on
+    the same float32 operands, on trifurcating and binary roots; without
+    their tapes they derive them and take the on-chip bodies."""
     eng, trees, params = _engine(model, 3, 11, num_trees, rooted, cuda,
                                  torch.float32)
     enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params,
@@ -342,23 +347,25 @@ def test_pernode_kernels_match_plain(cuda, model, rooted, num_trees,
     post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=cuda)
                        for x in (enc.post_ops, enc.pre_ops, enc.root))
     mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=cuda)
+    before = [f.launches for f in PERNODE]
     ll = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop, w)
     ll2, g = pernode.pernode_ll_and_gradients(post, pre, root, mask, P, dP,
                                               tips, pi, prop, w)
     torch.cuda.synchronize()
+    assert _pernode_launched(before) == [1, 0, 1, 0]
     ll_ref, g_ref = pernode.pernode_ll_and_gradients_ref(
         post, pre, root, mask, *_f64(P, dP, tips, pi, prop, w))
     assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
     assert _norm(g, g_ref) < 5e-5
 
 
-PERNODE = (pernode.pernode_log_likelihoods, pernode.pernode_grad_onchip,
-           pernode.pernode_grad_global)
+PERNODE = (pernode.pernode_ll_onchip, pernode.pernode_ll_global,
+           pernode.pernode_grad_onchip, pernode.pernode_grad_global)
 
 
 def _pernode_launched(before):
-    """What the per-node LL kernel and each grad body launched since
-    `before`, in PERNODE's order."""
+    """What each body of the per-node kernels launched since `before`, in
+    PERNODE's order."""
     return [f.launches - n for f, n in zip(PERNODE, before)]
 
 
@@ -394,11 +401,11 @@ def test_pernode_grad_bodies_match_plain(cuda, C, rooted, num_trees,
                                  enc.num_taxa, enc.num_slots, cuda)
     N1 = P.shape[1]
     bodies = {"global": (lambda: pernode.pernode_grad_global(
-        post, pre, root, P, dP, tips, pi, prop, w), [0, 0, 1])}
+        post, pre, root, P, dP, tips, pi, prop, w), [0, 0, 0, 1])}
     plan = pernode.onchip_plan(onchip.rows, onchip.ints, N1, C)
     assert plan.lanes == paired.lanes(C)
     bodies["onchip"] = (lambda: pernode.pernode_grad_onchip(
-        onchip, root, P, dP, tips, pi, prop, w, plan), [0, 1, 0])
+        onchip, root, P, dP, tips, pi, prop, w, plan), [0, 0, 1, 0])
     for body, (call, launched) in bodies.items():
         before = [f.launches for f in PERNODE]
         ll, g = pernode.finish_rows(*call(), mask, w)
@@ -410,7 +417,7 @@ def test_pernode_grad_bodies_match_plain(cuda, C, rooted, num_trees,
         ll, g = pernode.pernode_ll_and_gradients(post, pre, root, mask, P,
                                                  dP, tips, pi, prop, w,
                                                  onchip=tape)
-        assert _pernode_launched(before) == [0, 1, 0]
+        assert _pernode_launched(before) == [0, 0, 1, 0]
         assert _rel(ll, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5
 
 
@@ -420,9 +427,9 @@ def test_flagship_takes_the_onchip_pernode_body(cuda):
     global body.  Both agree with the float64 plain version."""
     for make, plan_is_none, launched in (
             (lambda: _flagship_engine(6, cuda, torch.float32), False,
-             [0, 1, 0]),
+             [0, 0, 1, 0]),
             (lambda: _large_tree_engine(cuda, torch.float32), True,
-             [0, 0, 1])):
+             [0, 0, 0, 1])):
         eng, trees, params = make()
         enc, P, dP, tips, pi, prop, w = _case_operands(eng, trees, params,
                                                        None)
@@ -475,7 +482,7 @@ def test_pernode_grad_raises_without_falling_back(cuda):
     with pytest.raises(ValueError, match="aligned"):
         pernode.pernode_ll_and_gradients(*args[:4], shifted, *args[5:],
                                          onchip=onchip)
-    assert _pernode_launched(before) == [0, 0, 0]
+    assert _pernode_launched(before) == [0, 0, 0, 0]
 
 
 def _flagship_engine(num_trees, device, dtype):
@@ -491,9 +498,9 @@ def _flagship_engine(num_trees, device, dtype):
 
 
 def test_engine_chunked_takes_the_chunked_kernels(cuda):
-    """kernel="chunked" on the card launches the chunked LL kernel and the
-    on-chip grad body, and no paired body, on the flagship's shape and on
-    a small one, and agrees with the float64 engine on the CPU."""
+    """kernel="chunked" on the card launches the on-chip bodies of both
+    chunked kernels, and no paired body, on the flagship's shape and on a
+    small one, and agrees with the float64 engine on the CPU."""
     for make in (lambda d, t: _engine("gtr_gamma4", 7, 9, 4, False, d, t),
                  lambda d, t: _flagship_engine(6, d, t)):
         eng, trees, params = make(cuda, torch.float32)
@@ -503,7 +510,7 @@ def test_engine_chunked_takes_the_chunked_kernels(cuda):
         ll = eng.log_likelihoods(trees, params)
         ll2, g = eng.ll_and_branch_gradients(trees, params)
         assert [f.launches - n for f, n in zip(CHUNKED + PAIRED, before)] == [
-            1, 1, 0, 0, 0, 0, 0]
+            1, 0, 1, 0, 0, 0, 0, 0]
         ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
         assert _rel(ll.cpu(), ll_ref) < 5e-5
         assert _rel(ll2.cpu(), ll_ref) < 5e-5
@@ -511,21 +518,24 @@ def test_engine_chunked_takes_the_chunked_kernels(cuda):
 
 
 def test_tree_past_the_limit_takes_the_global_chunked_body(cuda):
-    """The chunked route on the 921-taxon trees: no warp of the on-chip
-    grad body fits, and the wrapper launches the global body, which agrees
-    with the float64 plain version."""
+    """The chunked route on the 921-taxon trees: no warp of either on-chip
+    body fits, and the wrappers launch the global bodies, which agree with
+    the float64 plain version."""
     eng, trees, params = _large_tree_engine(cuda, torch.float32)
     eng.kernel = "chunked"
     enc = eng.encode(trees)
     dst, tip, e, row, mask = eng._chunked_tapes(enc)
     onchip = eng._chunked_onchip_tape(enc)
     N1 = enc.num_slots + 1
-    assert chunked.onchip_plan(onchip.rows, dst.shape[1], N1, 4, least=1) is (
-        None)
+    assert chunked.onchip_plan(onchip.grad_rows, dst.shape[1], N1, 4,
+                               least=1) is None
+    assert paired.onchip_plan("ll", onchip.ll_rows, dst.shape[1], N1, 4,
+                              True) is None
     before = [f.launches for f in CHUNKED]
+    ll0 = eng.log_likelihoods(trees, params)
     ll, g = eng.ll_and_branch_gradients(trees, params)
     torch.cuda.synchronize()
-    assert _chunked_launched(before) == [0, 0, 1]
+    assert _chunked_launched(before) == [0, 1, 0, 1]
     eig, rates, props, clock = eng._model_ingredients(params, 2)
     pi, prop = prep.kernel_model(eig, props)
     P, dP = prep.prepare_inputs_grad(eig, rates, clock,
@@ -534,6 +544,164 @@ def test_tree_past_the_limit_takes_the_global_chunked_body(cuda):
         dst, tip, e, row, mask, *_f64(P, dP, eng._kernel_tips, pi, prop,
                                       eng._kernel_weights))
     assert _rel(ll, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5
+    assert _rel(ll0, ll_ref) < 5e-5
+
+
+LL_BODIES = {"chunked": (chunked.chunked_ll_onchip, chunked.chunked_ll_global),
+             "pernode": (pernode.pernode_ll_onchip, pernode.pernode_ll_global)}
+
+
+def _ll_launched(before):
+    """What the on-chip and global LL bodies of the chunked and per-node
+    kernels launched since `before`, in that order."""
+    return [f.launches - n for f, n in zip(
+        LL_BODIES["chunked"] + LL_BODIES["pernode"], before)]
+
+
+def _ll_launches():
+    return [f.launches for f in LL_BODIES["chunked"] + LL_BODIES["pernode"]]
+
+
+def _ll_tapes(enc, device):
+    """The chunked tapes at chunked.W with their on-chip tape, and the
+    per-node tapes with their LL tape, on `device`."""
+    ce = chunked.build_chunked_encoding(enc, chunked.W)
+    dst, tip, e = (torch.as_tensor(x, dtype=torch.int32, device=device)
+                   for x in (ce.post_dst, ce.tip_slot, ce.post_e))
+    post, _pre, root = _pernode_tapes(enc, device)
+    return ((dst, tip, e, chunked.onchip_tape(ce.post_dst, ce.tip_slot,
+                                              device)),
+            (post, root, pernode.ll_tape(enc.post_ops, enc.root,
+                                         enc.num_taxa, enc.num_slots,
+                                         device)))
+
+
+@pytest.mark.parametrize("C,rooted,num_trees,patterns", [
+    (1, False, 4, 200), (2, True, 3, None), (3, False, 2, 77),
+    (4, True, 3, 150), (4, False, 5, None), (5, False, 2, None),
+    (6, True, 2, 77), (7, False, 2, None), (8, True, 3, 100),
+    (8, False, 2, None)])
+def test_ll_bodies_match_plain(cuda, C, rooted, num_trees, patterns):
+    """Both bodies of the chunked and per-node LL kernels (the on-chip one,
+    csrc/paired_ll_onchip.cu on each tape, in either staging; the global
+    one) against the float64 plain versions on the same float32 operands,
+    at every category count the kernels take, on trifurcating and binary
+    roots; `patterns` cuts the pattern axis to a width that is not a
+    multiple of a block's patterns.  The wrappers take the on-chip body
+    here, with or without the tape given."""
+    model = {1: "jc69", 3: "hky_weibull3"}.get(C, f"gtr_gamma{C}")
+    eng, trees, params = _engine(model, 3, 11, num_trees, rooted, cuda,
+                                 torch.float32)
+    enc, P, _dP, tips, pi, prop, w = _case_operands(eng, trees, params,
+                                                    patterns)
+    assert P.shape[2] == C
+    N1 = P.shape[1]
+    (dst, tip, e, con), (post, root, pon) = _ll_tapes(enc, cuda)
+    f64 = _f64(P, tips, pi, prop, w)
+    refs = {"chunked": chunked.chunked_log_likelihoods_ref(dst, tip, e, *f64),
+            "pernode": pernode.pernode_log_likelihoods_ref(post, root, *f64)}
+    bodies = {}
+    for ring in (False, True):
+        cplan = paired.onchip_plan("ll", con.ll_rows, dst.shape[1], N1, C,
+                                   ring)
+        pplan = paired.onchip_plan("ll", pon.ll_rows, post.shape[1], N1, C,
+                                   ring)
+        assert cplan.lanes == pplan.lanes == paired.lanes(C)
+        bodies[f"chunked onchip ring={ring}"] = (
+            lambda p=cplan: chunked.chunked_ll_onchip(dst, con, e, P, tips,
+                                                      pi, prop, p),
+            [1, 0, 0, 0])
+        bodies[f"pernode onchip ring={ring}"] = (
+            lambda p=pplan: pernode.pernode_ll_onchip(pon, P, tips, pi, prop,
+                                                      p), [0, 0, 1, 0])
+    bodies["chunked global"] = (lambda: chunked.chunked_ll_global(
+        dst, tip, e, P, tips, pi, prop), [0, 1, 0, 0])
+    bodies["pernode global"] = (lambda: pernode.pernode_ll_global(
+        post, root, P, tips, pi, prop), [0, 0, 0, 1])
+    for body, (call, launched) in bodies.items():
+        before = _ll_launches()
+        ll = call() @ w
+        torch.cuda.synchronize()
+        assert _ll_launched(before) == launched, body
+        assert _rel(ll, refs[body.split()[0]]) < 5e-5, body
+    for ctape, ptape in ((con, pon), (None, None)):
+        before = _ll_launches()
+        llc = chunked.chunked_log_likelihoods(dst, tip, e, P, tips, pi, prop,
+                                              w, onchip=ctape)
+        llp = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop,
+                                              w, onchip=ptape)
+        torch.cuda.synchronize()
+        assert _ll_launched(before) == [1, 0, 1, 0]
+        assert _rel(llc, refs["chunked"]) < 5e-5
+        assert _rel(llp, refs["pernode"]) < 5e-5
+
+
+def test_ll_wrappers_take_their_bodies_by_the_plan(cuda):
+    """The flagship's shape takes the on-chip LL body on both tapes (the
+    chunked one through the engine); the 921-taxon batch fits no warp of
+    it on either tape and takes the global bodies.  Both agree with the
+    float64 plain versions."""
+    for make, launched in (
+            (lambda: _flagship_engine(6, cuda, torch.float32), [1, 0, 1, 0]),
+            (lambda: _large_tree_engine(cuda, torch.float32), [0, 1, 0, 1])):
+        eng, trees, params = make()
+        eng.kernel = "chunked"
+        enc, P, _dP, tips, pi, prop, w = _case_operands(eng, trees, params,
+                                                        None)
+        dst, tip, e, _row, _mask = eng._chunked_tapes(enc)
+        post, _pre, root = _pernode_tapes(enc, cuda)
+        pon = pernode.ll_tape(enc.post_ops, enc.root, enc.num_taxa,
+                              enc.num_slots, cuda)
+        before = _ll_launches()
+        llc = eng.log_likelihoods(trees, params)
+        llp = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop,
+                                              w, onchip=pon)
+        torch.cuda.synchronize()
+        assert _ll_launched(before) == launched
+        f64 = _f64(P, tips, pi, prop, w)
+        assert _rel(llc, chunked.chunked_log_likelihoods_ref(
+            dst, tip, e, *f64)) < 5e-5
+        assert _rel(llp, pernode.pernode_log_likelihoods_ref(
+            post, root, *f64)) < 5e-5
+
+
+def test_ll_bodies_raise_without_falling_back(cuda):
+    """A launch the on-chip body refuses raises, and tapes or operands the
+    bodies do not take raise before any launch: the card never runs the
+    plain version quietly."""
+    eng, trees, params = _engine("gtr_gamma4", 9, 8, 2, False, cuda,
+                                 torch.float32)
+    enc, P, _dP, tips, pi, prop, w = _case_operands(eng, trees, params, None)
+    (dst, tip, e, con), (post, root, pon) = _ll_tapes(enc, cuda)
+    N1 = P.shape[1]
+    cplan = paired.onchip_plan("ll", con.ll_rows, dst.shape[1], N1, 4)
+    pplan = paired.onchip_plan("ll", pon.ll_rows, post.shape[1], N1, 4)
+    before = _ll_launches()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        chunked.chunked_ll_onchip(dst, con, e, P, tips, pi, prop,
+                                  dataclasses.replace(cplan,
+                                                      cols=cplan.cols - 1))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pernode.pernode_ll_onchip(pon, P, tips, pi, prop, dataclasses.replace(
+            pplan, cols=pplan.cols - 1))
+    shifted = torch.empty(P.numel() + 1, device=cuda)[1:].view(P.shape)
+    shifted.copy_(P)
+    with pytest.raises(ValueError, match="aligned"):
+        chunked.chunked_log_likelihoods(dst, tip, e, shifted, tips, pi, prop,
+                                        w, onchip=con)
+    with pytest.raises(ValueError, match="aligned"):
+        pernode.pernode_log_likelihoods(post, root, shifted, tips, pi, prop,
+                                        w, onchip=pon)
+    with pytest.raises(TypeError):
+        pernode.pernode_log_likelihoods(
+            post, root, P, tips, pi, prop, w,
+            onchip=dataclasses.replace(pon, child=pon.child.long()))
+    with pytest.raises(ValueError, match="on-chip tape"):
+        pernode.pernode_log_likelihoods(
+            post, root, P, tips, pi, prop, w, onchip=pernode.ll_tape(
+                enc.post_ops[:1], enc.root[:1], enc.num_taxa, enc.num_slots,
+                cuda))
+    assert _ll_launched(before) == [0, 0, 0, 0]
 
 
 def test_new_wrappers_reject_operands_the_kernels_do_not_take(cuda):
@@ -550,7 +718,11 @@ def test_new_wrappers_reject_operands_the_kernels_do_not_take(cuda):
                                                post_e=e[:, :-1]))
     with pytest.raises(ValueError):
         chunked.chunked_log_likelihoods(**dict(args, tips=tips.cpu()))
-    # The grad wrapper needs the on-chip tape, of this batch.
+    # The grad wrapper needs the on-chip tape, of this batch; so does the
+    # LL wrapper, where it is given.
+    with pytest.raises(ValueError, match="on-chip tape"):
+        chunked.chunked_log_likelihoods(**args, onchip=chunked.onchip_tape(
+            dst[:1].cpu().numpy(), tip[:1].cpu().numpy(), cuda))
     dst, tip, e, row, mask = eng._chunked_tapes(enc)
     grad_args = (dst, tip, e, row, mask, P, dP, tips, pi, prop, w)
     with pytest.raises(ValueError, match="OnchipTape"):

@@ -5,10 +5,11 @@ csrc/paired_grad_onchip.cu) on the CPU: what runs here of them.
     own ops, and the LL kernel's rows by liveness, over random rooted and
     unrooted trees of 4-60 taxa (padded ops, trifurcating roots) and a
     hand-built tape with a DUMMY child;
-  - a float64 torch emulation of the kernels' schedule, kept here: rows by
-    producer op, tips read in place, the rescale by a power of two with a
-    running integer log scale, and each op's outside value written over
-    its row.  It is
+  - a float64 torch emulation of the kernels' schedule (the LL body's in
+    tests/torch_port_cases.py, which the chunked and per-node LL tapes
+    share; the grad body's here): rows by producer op, tips read in place,
+    the rescale by a power of two with a running integer log scale, and
+    each op's outside value written over its row.  It is
     held against the plain versions within 1e-10 and against bito_tpu's
     Pallas kernels in interpret mode within 1e-5 (LL, relative) and 5e-5
     (gradients, of the largest), bench.py's guard;
@@ -16,7 +17,6 @@ csrc/paired_grad_onchip.cu) on the CPU: what runs here of them.
     size at which they hand over to the global bodies, for C = 1..8.
 """
 import dataclasses
-import math
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,8 +29,10 @@ from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.treelike import paired, prep
 from bito_tpu_torch.treelike.encode import TreeBatchEncoding, encode_trees
 
-from torch_port_cases import (GTR, MODELS, jax_engine, jax_params, make_case,
-                              max_norm, max_rel, torch_engine, torch_params)
+from torch_port_cases import (GTR, MODELS, check_live_rows, emulate_ll,
+                              emulate_postorder, jax_engine, jax_params,
+                              leaf_value, make_case, max_norm, max_rel,
+                              rescale_pow2, torch_engine, torch_params)
 
 F64 = torch.float64
 
@@ -108,21 +110,8 @@ def test_live_rows_keep_every_output_until_it_is_read(seed, num_taxa,
     pe = paired.build_paired_encoding(enc)
     child = paired.child_tape(pe.post_dst, pe.tip_slot)
     row, peak = paired.live_rows(pe.post_dst, child)
-    M, trash, root = pe.M, 2 * pe.M + 1, 2 * pe.M
-    assert 1 <= peak <= paired.grad_rows_needed(pe.post_dst) <= M
-    for b in range(child.shape[0]):
-        holder = {}  # row -> op whose output it holds
-        for m in range(M):
-            dst = pe.post_dst[b, m]
-            if dst == trash:
-                continue
-            for c in child[b, m]:
-                if c >= 0:
-                    assert holder.pop(int(row[b, c])) == c  # still there
-            if dst != root:
-                assert row[b, m] < peak and int(row[b, m]) not in holder
-                holder[int(row[b, m])] = m
-        assert not holder  # every stored output was read
+    assert 1 <= peak <= paired.grad_rows_needed(pe.post_dst) <= pe.M
+    check_live_rows(pe.post_dst, child, row, peak)
 
 
 def _greedy_rows(post_dst, child):
@@ -165,58 +154,6 @@ def test_live_rows_match_a_greedy_tree_by_tree(seed, num_taxa, rooted):
 # The float64 emulation of the kernels' schedule
 # ---------------------------------------------------------------------------
 
-def _leaf(code, tips, C):
-    """A child that is not an op's output: tip t in place, or all ones."""
-    T, A, S = tips.shape
-    if code < 0 and -1 - code < T:
-        return tips[-1 - code][None].expand(C, A, S)
-    return torch.ones((C, A, S), dtype=tips.dtype)
-
-
-def _rescale(x):
-    """x scaled by 2^-e per pattern, e the exponent that puts its largest
-    entry in [0.5, 1) (0 where that entry is not positive), and e."""
-    mx = x.amax(dim=(0, 1))
-    e = torch.where(mx > 0, torch.frexp(mx).exponent, 0)
-    return x * torch.pow(2.0, -e.to(x.dtype)), e
-
-
-def _postorder(b, dst, child, e, row, rows, P, tips, pi, props):
-    """One tree's postorder as the kernels run it: op m's output to
-    rows[row(m)], a running log scale; returns the LL rows [S]."""
-    M = dst.shape[1]
-    C, A, S = P.shape[2], P.shape[3], tips.shape[-1]
-    lsc = torch.zeros(S, dtype=torch.int64)  # the log scale in powers of 2
-    ll = None
-    for m in range(M):
-        if dst[b, m] == 2 * M + 1:
-            continue
-        p = [rows[row(int(c))] if c >= 0 else _leaf(int(c), tips, C)
-             for c in child[b, m]]
-        ev = [torch.einsum("cak,cks->cas", P[b, int(e[b, m, j])], p[j])
-              for j in (0, 1)]
-        prod, ex = _rescale(ev[0] * ev[1])
-        lsc = lsc + ex
-        if dst[b, m] == 2 * M:
-            site = torch.einsum("c,a,cas->s", props, pi, prod)
-            ll = torch.log(site) + lsc.to(P.dtype) * math.log(2.0)
-        else:
-            rows[row(m)] = prod
-    return ll
-
-
-def emulate_ll(dst, child, live_row, e, P, tips, pi, props, weights):
-    B, M = dst.shape
-    C, A, S = P.shape[2], P.shape[3], tips.shape[-1]
-    peak = int(live_row.max()) + 1
-    ll = torch.stack([
-        _postorder(b, dst, child, e, lambda m, b=b: int(live_row[b, m]),
-                   torch.zeros((peak, C, A, S), dtype=P.dtype), P, tips, pi,
-                   props)
-        for b in range(B)])
-    return ll @ weights
-
-
 def emulate_grad(dst, child, src, e, edge_mask, P, dP, tips, pi, props,
                  weights):
     B, M = dst.shape
@@ -226,19 +163,20 @@ def emulate_grad(dst, child, src, e, edge_mask, P, dP, tips, pi, props,
     grad_rows = torch.zeros((B, N1, S), dtype=P.dtype)
     for b in range(B):
         rows = torch.zeros((M, C, A, S), dtype=P.dtype)
-        ll_rows[b] = _postorder(b, dst, child, e, lambda m: m, rows, P, tips,
-                                pi, props)
+        ll_rows[b] = emulate_postorder(b, dst, child, e, lambda m: m, rows,
+                                       P, tips, pi, props)
         for m in range(M - 1, -1, -1):
             if dst[b, m] == 2 * M + 1:
                 continue
             up = (pi[None, :, None].expand(C, A, S) if dst[b, m] == 2 * M
                   else rows[m])
             cs = [int(c) for c in child[b, m]]
-            p = [rows[c] if c >= 0 else _leaf(c, tips, C) for c in cs]
+            p = [rows[c] if c >= 0 else leaf_value(c, tips, C) for c in cs]
             Pj = [P[b, int(e[b, m, j])] for j in (0, 1)]
             dPj = [dP[b, int(e[b, m, j])] for j in (0, 1)]
             ev = [torch.einsum("cak,cks->cas", Pj[j], p[j]) for j in (0, 1)]
-            o, _ = _rescale(torch.stack([up * ev[1], up * ev[0]]).flatten(0, 1))
+            o, _ = rescale_pow2(
+                torch.stack([up * ev[1], up * ev[0]]).flatten(0, 1))
             o = o.unflatten(0, (2, C))
             for j in (0, 1):
                 dv = torch.einsum("cak,cks->cas", dPj[j], p[j])

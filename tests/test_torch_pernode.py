@@ -105,7 +105,7 @@ def test_plain_in_float64_matches_scan(model, rooted):
 def test_wrappers_take_the_plain_version_for_cpu_tensors():
     case = make_case(seed=51, num_taxa=8, num_trees=B, rooted=True)
     ops, extra = pernode_operands(torch_engine(case, "gtr_gamma4"), case, GTR)
-    launchers = (pernode.pernode_log_likelihoods,
+    launchers = (pernode.pernode_ll_onchip, pernode.pernode_ll_global,
                  pernode.pernode_grad_onchip, pernode.pernode_grad_global)
     before = [f.launches for f in launchers]
     torch.testing.assert_close(pernode.pernode_log_likelihoods(**ops),

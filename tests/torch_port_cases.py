@@ -6,6 +6,7 @@ builds its own engine from them.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import jax.numpy as jnp
@@ -119,6 +120,88 @@ def paired_launches() -> tuple:
     return tuple(f.launches for f in (
         paired.paired_ll_onchip, paired.paired_ll_global,
         paired.paired_grad_onchip, paired.paired_grad_global))
+
+
+# ---------------------------------------------------------------------------
+# The float64 emulation of the on-chip LL body (csrc/paired_ll_onchip.cu),
+# which walks the paired, chunked and per-node tapes alike
+# ---------------------------------------------------------------------------
+
+def leaf_value(code, tips, C):
+    """A child that is not an op's output: tip t in place, or all ones."""
+    T, A, S = tips.shape
+    if code < 0 and -1 - code < T:
+        return tips[-1 - code][None].expand(C, A, S)
+    return torch.ones((C, A, S), dtype=tips.dtype)
+
+
+def rescale_pow2(x):
+    """x scaled by 2^-e per pattern (the last axis), e the exponent that
+    puts its largest entry in [0.5, 1) (0 where that entry is not
+    positive), and e."""
+    mx = x.amax(dim=tuple(range(x.dim() - 1)))
+    e = torch.where(mx > 0, torch.frexp(mx).exponent, 0)
+    return x * torch.pow(2.0, -e.to(x.dtype)), e
+
+
+def emulate_postorder(b, dst, child, e, row, rows, P, tips, pi, props):
+    """Tree b's postorder as the on-chip bodies run it, one op at a time:
+    op m's output to rows[row(m)], a running log scale; returns the LL
+    rows [S]."""
+    M = dst.shape[1]
+    C, A, S = P.shape[2], P.shape[3], tips.shape[-1]
+    lsc = torch.zeros(S, dtype=torch.int64)  # the log scale in powers of 2
+    ll = None
+    for m in range(M):
+        if dst[b, m] == 2 * M + 1:
+            continue
+        p = [rows[row(int(c))] if c >= 0 else leaf_value(int(c), tips, C)
+             for c in child[b, m]]
+        ev = [torch.einsum("cak,cks->cas", P[b, int(e[b, m, j])], p[j])
+              for j in (0, 1)]
+        prod, ex = rescale_pow2(ev[0] * ev[1])
+        lsc = lsc + ex
+        if dst[b, m] == 2 * M:
+            site = torch.einsum("c,a,cas->s", props, pi, prod)
+            ll = torch.log(site) + lsc.to(P.dtype) * math.log(2.0)
+        else:
+            rows[row(m)] = prod
+    return ll
+
+
+def emulate_ll(dst, child, live_row, e, P, tips, pi, props, weights):
+    """Per-tree log likelihoods [B] as the on-chip LL body computes them
+    over a tape of the paired layout (post_dst `dst`, child codes, rows by
+    liveness, edges), in the operands' dtype."""
+    B, M = dst.shape
+    C, A, S = P.shape[2], P.shape[3], tips.shape[-1]
+    peak = int(live_row.max()) + 1
+    ll = torch.stack([
+        emulate_postorder(b, dst, child, e,
+                          lambda m, b=b: int(live_row[b, m]),
+                          torch.zeros((peak, C, A, S), dtype=P.dtype), P,
+                          tips, pi, props)
+        for b in range(B)])
+    return ll @ weights
+
+
+def check_live_rows(dst, child, row, peak):
+    """Rows by liveness (paired.live_rows) on a tape of the paired layout:
+    every stored output keeps its row until the op that reads it, and is
+    read; no two live outputs share a row; every row is below `peak`."""
+    B, M = dst.shape
+    for b in range(B):
+        holder = {}  # row -> op whose output it holds
+        for m in range(M):
+            if dst[b, m] == 2 * M + 1:
+                continue
+            for c in child[b, m]:
+                if c >= 0:
+                    assert holder.pop(int(row[b, c])) == c  # still there
+            if dst[b, m] != 2 * M:
+                assert row[b, m] < peak and int(row[b, m]) not in holder
+                holder[int(row[b, m])] = m
+        assert not holder  # every stored output was read
 
 
 def max_rel(a, b) -> float:
