@@ -16,7 +16,10 @@ kernels by treelike/_kernels.py):
 
 Each kernel's wrapper sends a CPU tensor to its plain torch version and a
 CUDA tensor to the kernel, and counts its launches.  The timing entry
-points need a card and raise without one.
+points need a card and raise without one.  cuda_ms times calls between
+CUDA events; graph_ms times launches captured in a CUDA graph, for the
+kernels whose wrappers' host work would outlast them (the pipe cell and
+the chain).
 """
 from __future__ import annotations
 
@@ -55,7 +58,8 @@ def max_sm_clock_mhz() -> float:
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     """Mean milliseconds per call of `fn` over `reps` calls, from CUDA
-    events, after `warmup` calls."""
+    events, after `warmup` calls.  Where a call's host work outlasts its
+    kernels, this is the host's time: use graph_ms for short kernels."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -66,3 +70,42 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+GRAPH_TIMING = "CUDA graph of the launches, CUDA events around its replays"
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches` where its kernel runs now: a launch
+    captured in a CUDA graph runs only when the graph is replayed, and
+    graph_ms counts it there."""
+    if not torch.cuda.is_current_stream_capturing():
+        wrapper.launches += 1
+
+
+def graph_ms(launch, reps: int, counter=None, replays: int = 3) -> float:
+    """Mean device milliseconds of one `launch()`: `reps` launches captured
+    in one CUDA graph, replayed once to warm up, then `replays` times
+    between two CUDA events, so no host work lies between the kernels.
+    `launch` must neither allocate nor synchronise: it runs once before
+    the capture and `reps` times inside it, on the capture stream (which
+    torch.cuda.current_stream() returns there).  `counter`, the wrapper
+    whose kernel `launch` launches, gains the reps * (1 + replays)
+    launches the replays run (its launcher counts none while captured)."""
+    launch()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    if counter is not None:
+        counter.launches += reps * (1 + replays)
+    return start.elapsed_time(end) / (replays * reps)

@@ -3,9 +3,15 @@
 Runs what bito_tpu's three perf-lab scripts ran, on the card, with the
 scripts' own names:
   lab     scripts/perf_lab.py: base unroll resk4 resk8 nodot loop_resk4
-  pipe    scripts/perf_pipe_lab.py: the nine experiments, or dma4d
-  static  scripts/perf_static_probe.py: the per-op slopes
-It raises without a card.
+  pipe    scripts/perf_pipe_lab.py: the nine experiments, or dma4d, or
+          tiles (each experiment at every tile of the card's plan)
+  static  scripts/perf_static_probe.py: the per-op slopes at every layout
+          of the chain (1, 2, 4 warps a column), or sass (the SASS
+          instructions of one chained op)
+It raises without a card.  The pipe cell and the chain are timed from the
+device (perflab.graph_ms).  `python3 compare_first_design.py CHECKOUT`, at
+the root of the repository, times both beside their first design, built
+from another checkout's sources.
 """
 import sys
 

@@ -9,12 +9,15 @@ CELLS = 100 cells, S = 1,024 columns and REPS = 40 calls.  Two kernels:
     ones, run `loops` iterations that read 16 scratch rows and store them,
     plus 1, to `stores` places whose offsets come from idx [CELLS, 1, 64]
     at run time, and write scratch[0:8] + block[0:8] to out [CELLS, 8, S].
-    On the card a scratch of 2,080-4,160 rows (8.5-17 MB) does not fit in
-    shared memory: each cell has its own in device memory, 0.85-1.7 GB at
-    100 cells, allocated with torch.empty.  An experiment that does not
-    fill its scratch (init False) reads whatever that memory held, on the
-    TPU an earlier cell's VMEM: its output is undefined on both sides, and
-    its time is the point.
+    As the TPU kept the scratch in VMEM, the card keeps it in shared
+    memory: a block takes one cell x a tile of T columns (pipe_plan
+    chooses T so that its scratch [scratch_rows, T] f32 and block slice
+    [block_rows, T] bf16 fit in 227 KB), thread (i, col) owns the rows = i
+    (mod 16) of its column, and TMA streams the slice into shared memory
+    while the block fills and loops.  An experiment that
+    does not fill its scratch (init False) reads whatever that shared
+    memory held, on the TPU an earlier cell's VMEM: its output is
+    undefined on both sides, and its time is the point.
   - csrc/stream_sum.cu (the script's `run4d`): each cell sums its bf16
     block, [32, 256, 128] (stream_sum_4d) or the same bytes as [8192, 128]
     (stream_sum_3d), in groups of 8 rows into out [CELLS, 8, 128] f32.
@@ -23,21 +26,28 @@ CELLS = 100 cells, S = 1,024 columns and REPS = 40 calls.  Two kernels:
     the same on every run, and exact wherever float32 holds every partial
     sum (the script's ones block, chip_smoke's small integers).
 
-Times are CUDA-event means over REPS back-to-back launches, in us per
-cell.  The script scaled the block before every call to keep XLA from
-folding the calls; eager torch calls need no such guard, so only the
-kernel is timed.
+The pipe cell's times are read from the device (graph_ms): operands and
+output are allocated once, REPS launches are captured in a CUDA graph and
+its replays are timed with CUDA events, so no host work lies between the
+kernels (the script timed a jitted scan of REPS calls on the TPU, scaling
+the block before each to keep XLA from folding them).  Each experiment
+prints its us per cell beside both terms of its bound (pipe_bound_ms):
+the device-memory bytes it must move and the scratch's shared-memory
+bytes.  The stream sums are CUDA-event means over REPS calls of their
+wrappers.
 
-    python -m bito_tpu_torch.perflab pipe [expname ... | dma4d]
+    python -m bito_tpu_torch.perflab pipe [expname ... | dma4d | tiles]
 """
 from __future__ import annotations
 
+import dataclasses
 import sys
 
 import numpy as np
 import torch
 
-from . import card_line, cuda_ms, require_card
+from . import (GRAPH_TIMING, card_line, count_launch, cuda_ms, graph_ms,
+               max_sm_clock_mhz, require_card)
 from ..device import PRODUCT_DEVICE
 from ..treelike import _kernels
 
@@ -90,7 +100,80 @@ def pipe_cell_ref(idx, big, *, scratch_rows: int, init: bool, loops: int,
     return scratch[:, :8] + big[:, :8].float()
 
 
-def _check_pipe(idx, big, scratch_rows: int, loops: int) -> None:
+TILES = (64, 32, 16, 8)   # columns a block, 16 threads each (pipe_cell.cu)
+MAX_SMEM = 232448          # 227 KB of shared memory a block
+SM_SMEM = 233472           # 228 KB an SM, 1 KB of it reserved a block
+# The kernel's static arrays (the offsets and the mbarrier, 264 bytes,
+# padded to the dynamic array's 128-byte alignment: 384, as
+# cudaFuncGetAttributes reads them on sm_90a) and the dynamic bytes that
+# align the block slice for TMA: the launch takes dynamic + 128 bytes
+# where that is at most MAX_SMEM less the static ones.
+SMEM_STATIC = 384
+SMEM_EXTRA = SMEM_STATIC + 128
+# the most scratch rows a block of 8 rows and 8 columns takes
+EDGE_SCRATCH_ROWS = (MAX_SMEM - SMEM_EXTRA - 8 * 8 * 2) // (8 * 4)
+MAX_STAGE = 256            # rows of one TMA box
+STREAM_ROWS = 256          # past this, a block slice keeps 16+ columns
+MAX_STORES = 4             # the kernel's bodies: 0-4 stores an iteration
+
+
+@dataclasses.dataclass(frozen=True)
+class PipePlan:
+    tile: int          # T, the columns of a block (16 T threads)
+    stage_rows: int    # rows of one TMA box of the block slice
+    smem: int          # shared bytes of a block (pipe_smem)
+
+
+def pipe_smem(block_rows: int, scratch_rows: int, tile: int) -> int:
+    """A block's shared bytes: its block slice [block_rows, T] bf16, its
+    scratch [scratch_rows, T] f32, its static offsets and mbarrier and the
+    bytes that align the slice for TMA (csrc/pipe_cell.cu's launch limit
+    counts the same)."""
+    return tile * (2 * block_rows + 4 * scratch_rows) + SMEM_EXTRA
+
+
+def blocks_per_sm(smem: int) -> int:
+    return SM_SMEM // (smem + 1024)
+
+
+def pipe_plan(block_rows: int, scratch_rows: int,
+              tile: int | None = None) -> PipePlan:
+    """The block's tile and TMA stage for one experiment, or `tile` where
+    it fits.  The rule, from H100 times of every experiment at every tile
+    (chip_smoke.py phase 4): a block slice of more than STREAM_ROWS rows
+    takes the widest tile of 16 columns or more that fits (its stream is
+    its cost, and 8 columns use half of each 32-byte sector); any other
+    takes 16 columns where two blocks fit an SM, else 8 (a few small
+    blocks an SM hide each other's latency better than one wide one).
+    Raises where even 8 columns do not fit: the scratch has no place in
+    device memory on this design."""
+    if block_rows < 8 or block_rows % 8:
+        raise ValueError(f"the kernel takes block rows a multiple of 8, got "
+                         f"{block_rows}")
+    fits = [t for t in TILES
+            if pipe_smem(block_rows, scratch_rows, t) <= MAX_SMEM]
+    if not fits:
+        raise ValueError(
+            f"a scratch of {scratch_rows} rows and a block of {block_rows} "
+            f"rows need {pipe_smem(block_rows, scratch_rows, 8)} bytes of "
+            f"shared memory at 8 columns, past the {MAX_SMEM} a block has")
+    if tile is None:
+        wide = [t for t in fits if t >= 16]
+        if block_rows > STREAM_ROWS and wide:
+            tile = wide[0]
+        elif blocks_per_sm(pipe_smem(block_rows, scratch_rows, 16)) >= 2:
+            tile = 16
+        else:
+            tile = 8
+    elif tile not in fits:
+        raise ValueError(f"tile {tile} does not fit {block_rows} block rows "
+                         f"and {scratch_rows} scratch rows; these do: {fits}")
+    stage = next(r for r in range(min(MAX_STAGE, block_rows), 0, -8)
+                 if block_rows % r == 0)
+    return PipePlan(tile, stage, pipe_smem(block_rows, scratch_rows, tile))
+
+
+def _check_pipe(idx, big, scratch_rows: int, loops: int, stores: int) -> None:
     if big.dim() != 3 or big.dtype != torch.bfloat16:
         raise TypeError(f"big must be bf16 [cells, rows, S], got "
                         f"{big.dtype} {tuple(big.shape)}")
@@ -104,6 +187,11 @@ def _check_pipe(idx, big, scratch_rows: int, loops: int) -> None:
     if cols % 128 or block_rows < 8:
         raise ValueError(f"the kernel takes S a multiple of 128 and at least "
                          f"8 block rows, got {tuple(big.shape)}")
+    if big.data_ptr() % 16:  # the tensor map's base
+        raise ValueError("big is not 16-byte aligned")
+    if not 0 <= stores <= MAX_STORES:
+        raise ValueError(f"the kernel takes 0 to {MAX_STORES} stores, got "
+                         f"{stores}")
     if scratch_rows < max(8, ROWS * min(loops, OFFSETS)):
         raise ValueError(f"{loops} loops read past {scratch_rows} scratch rows")
     lo, hi = int(idx.min()), int(idx.max())
@@ -112,32 +200,68 @@ def _check_pipe(idx, big, scratch_rows: int, loops: int) -> None:
                          "scratch rows")
 
 
-def _launch_pipe_cell(idx, big, scratch_rows, init, loops, stores):
+def launch_pipe_cell(idx, big, out, plan: PipePlan, *, scratch_rows: int,
+                     init: bool, loops: int, stores: int) -> None:
+    """One launch into `out` [cells, 8, S] f32 of operands that the wrapper
+    checked, on `plan`; no allocation and no host sync, so a CUDA graph can
+    capture it."""
     cells, block_rows, cols = big.shape
-    kw = dict(dtype=torch.float32, device=big.device)
-    scratch = torch.empty((cells, scratch_rows, cols), **kw)
-    out = torch.empty((cells, 8, cols), **kw)
     with torch.cuda.device(big.device):
         rc = _kernels.library().bito_pipe_cell(
-            idx.data_ptr(), big.data_ptr(), scratch.data_ptr(),
-            out.data_ptr(), cells, block_rows, scratch_rows, cols, int(init),
-            loops, stores, torch.cuda.current_stream().cuda_stream)
+            idx.data_ptr(), big.data_ptr(), out.data_ptr(), cells,
+            block_rows, scratch_rows, cols, int(init), loops, stores,
+            plan.tile, plan.stage_rows,
+            torch.cuda.current_stream().cuda_stream)
     _kernels.check(rc, "bito_pipe_cell")
-    pipe_cell.launches += 1
-    return out
+    count_launch(pipe_cell)
 
 
 def pipe_cell(idx, big, *, scratch_rows: int, init: bool, loops: int,
               stores: int) -> torch.Tensor:
-    """One launch of the pipe cell over every cell: out [cells, 8, S]."""
+    """One launch of the pipe cell over every cell: out [cells, 8, S].  On
+    the card the only allocation is `out`: the scratch lives in shared
+    memory (pipe_plan raises where it does not fit)."""
     if big.device.type == "cpu":
         return pipe_cell_ref(idx, big, scratch_rows=scratch_rows, init=init,
                              loops=loops, stores=stores)
-    _check_pipe(idx, big, scratch_rows, loops)
-    return _launch_pipe_cell(idx, big, scratch_rows, init, loops, stores)
+    _check_pipe(idx, big, scratch_rows, loops, stores)
+    plan = pipe_plan(big.shape[1], scratch_rows)
+    out = torch.empty((big.shape[0], 8, big.shape[2]), dtype=torch.float32,
+                      device=big.device)
+    launch_pipe_cell(idx, big, out, plan, scratch_rows=scratch_rows,
+                     init=init, loops=loops, stores=stores)
+    return out
 
 
 pipe_cell.launches = 0
+
+
+def stream_bytes(block_rows: int, cells: int = CELLS) -> int:
+    """Device-memory bytes a launch must move: idx and the block read once,
+    the output written once."""
+    return cells * (OFFSETS * 4 + block_rows * S * 2 + 8 * S * 4)
+
+
+def scratch_bytes(scratch_rows: int, init: bool, loops: int, stores: int,
+                  cells: int = CELLS) -> int:
+    """Shared-memory bytes of the scratch's work, 4 a value: the fill's
+    writes, and the loop's 16 rows read and 16 written per store where it
+    stores (with no store the loop feeds nothing)."""
+    rows = (scratch_rows if init else 0) + (
+        loops * ROWS * (1 + stores) if stores else 0)
+    return cells * rows * S * 4
+
+
+def pipe_bound_ms(block_rows, scratch_rows, init, loops, stores, *,
+                  cells: int = CELLS, sms: int, clock_mhz: float,
+                  hbm_bytes_per_s: float = 3.35e12):
+    """(device-memory ms, shared-memory ms) of one launch: the least time
+    of each term, shared memory at 128 bytes a clock an SM; the bound is
+    the larger."""
+    smem_bytes_per_s = 128.0 * sms * clock_mhz * 1e6
+    return (stream_bytes(block_rows, cells) / hbm_bytes_per_s * 1e3,
+            scratch_bytes(scratch_rows, init, loops, stores, cells)
+            / smem_bytes_per_s * 1e3)
 
 
 def stream_sum_ref(big) -> torch.Tensor:
@@ -194,18 +318,45 @@ stream_sum_3d.launches = 0
 
 
 def run(name, block_rows, scratch_rows, init, loops, stores, *,
-        reps: int = REPS, cells: int = CELLS):
-    """Time one experiment on the card and print its us per cell.  Returns
-    (us per cell, out of the first call)."""
+        reps: int = REPS, cells: int = CELLS, tile: int | None = None):
+    """Time one experiment on the card (graph_ms: operands and output
+    allocated once, the launches captured in a CUDA graph) and print its
+    us per cell beside both terms of its bound.  Returns (us per cell, out
+    of the first call)."""
     device = require_card()
     idx, big = pipe_inputs(block_rows, scratch_rows, cells, device)
     kw = dict(scratch_rows=scratch_rows, init=init, loops=loops,
               stores=stores)
     out = pipe_cell(idx, big, **kw)  # checks the operands once
-    ms = cuda_ms(lambda: _launch_pipe_cell(idx, big, **kw), reps)
+    plan = pipe_plan(block_rows, scratch_rows, tile)
+    timed_out = torch.empty_like(out)
+    ms = graph_ms(lambda: launch_pipe_cell(idx, big, timed_out, plan, **kw),
+                  reps, pipe_cell)
     per_cell = ms * 1e3 / cells
-    print(f"{name:34s} {per_cell:8.2f} us/cell", flush=True)
+    hbm, smem = pipe_bound_ms(
+        block_rows, scratch_rows, init, loops, stores, cells=cells,
+        sms=torch.cuda.get_device_properties(device).multi_processor_count,
+        clock_mhz=max_sm_clock_mhz())
+    print(f"{name:34s} {per_cell:8.4f} us/cell (T={plan.tile}, "
+          f"{plan.smem} B); bound {max(hbm, smem) * 1e3 / cells:.4f} "
+          f"(device memory {hbm * 1e3 / cells:.4f}, shared memory "
+          f"{smem * 1e3 / cells:.4f})", flush=True)
     return per_cell, out
+
+
+def tile_sweep(names=None, *, reps: int = REPS, cells: int = CELLS) -> dict:
+    """Each experiment at every tile that fits: {name: {tile: us per
+    cell}}, the card times pipe_plan's rule was set from."""
+    result = {}
+    for name in names or EXPS:
+        exp = EXPS[name]
+        result[name] = {}
+        for tile in TILES:
+            if pipe_smem(*exp[:2], tile) <= MAX_SMEM:
+                result[name][tile] = run(f"{name} T={tile}", *exp,
+                                         reps=reps, cells=cells,
+                                         tile=tile)[0]
+    return result
 
 
 def run4d(name, nslices, rows, cols, *, reps: int = REPS,
@@ -229,12 +380,14 @@ def run4d(name, nslices, rows, cols, *, reps: int = REPS,
 def main(argv=None) -> dict:
     names = list(argv or EXPS)
     for name in names:
-        if name != "dma4d" and name not in EXPS:
+        if name not in ("dma4d", "tiles") and name not in EXPS:
             raise ValueError(f"unknown experiment {name!r}; one of "
-                             f"{[*EXPS, 'dma4d']}")
+                             f"{[*EXPS, 'dma4d', 'tiles']}")
     require_card()
     print(card_line(), flush=True)
-    return {name: run4d(*DMA4D) if name == "dma4d" else run(name, *EXPS[name])
+    print(f"# timing: {GRAPH_TIMING}", flush=True)
+    return {name: run4d(*DMA4D) if name == "dma4d"
+            else tile_sweep() if name == "tiles" else run(name, *EXPS[name])
             for name in names}
 
 

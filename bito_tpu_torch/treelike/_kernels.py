@@ -78,13 +78,13 @@ _SIGNATURES = {
     # grad_rows, B, M, Mp, NG, Z, T, N1, C, S, rows, cols, unroll, resk,
     # nodot, stream
     "bito_variant_grad": [_P] * 12 + [_I] * 14 + [_P],
-    # idx, big, scratch, out, cells, block_rows, scratch_rows, S, init,
-    # loops, stores, stream
-    "bito_pipe_cell": [_P] * 4 + [_I] * 7 + [_P],
+    # idx, big, out, cells, block_rows, scratch_rows, S, init, loops,
+    # stores, T, stage_rows, stream
+    "bito_pipe_cell": [_P] * 3 + [_I] * 9 + [_P],
     # big, out, cells, nslices, rows, cols, slices, stream
     "bito_stream_sum": [_P] * 2 + [_I] * 5 + [_P],
-    # tape, L, out, S, R, dynamic, stream
-    "bito_static_chain": [_P] * 3 + [_I] * 3 + [_P],
+    # tape, L, out, S, R, dynamic, overlap, warps, stream
+    "bito_static_chain": [_P] * 3 + [_I] * 5 + [_P],
 }
 
 

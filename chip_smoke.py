@@ -53,8 +53,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      integer block and, on a random bf16 block, within n u sum|x| of the
      float64 sums (n the groups a sum adds, u = 2^-24: the worst case of
      n float32 additions in any order);
-     static_chain, both variants, within 1e-5 of max |out| against its
-     float32 plain version.
+     static_chain, both variants at every layout (1, 2 and 4 warps a
+     column), within 1e-5 of max |out| against its float32 plain version.
   3. each path, with every launch count set to 0 just before it and read
      just after: its kernels must have launched and no other path's; the
      results (log_likelihoods, ll_and_branch_gradients, calls over scaled
@@ -64,11 +64,19 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      differences.  On the perflab path the variants must agree with base
      (nodot aside), the filled pipe experiments with phase 2's plain
      outputs, both stream sums with each other and the sum of the ones
-     block, and every slope must be finite; each slope is printed beside
-     its FMA floor.
+     block, and every slope (both variants at every layout) must be
+     finite and not under its FMA floor; each is printed beside that floor, and each pipe experiment's us per cell beside both
+     terms of its bound (perf_pipe_lab.pipe_bound_ms).
   4. CUDA-event times of each kernel, its plain version and, where one
-     PyTorch call computes the same function, that call; the least time
-     the card could take for the same work; every body of the tree
+     PyTorch call computes the same function, that call; pipe_cell and
+     static_chain, whose wrappers' host work outlasts their kernels, are
+     timed from the device instead (perflab.graph_ms: the launches into
+     an output allocated once, captured in a CUDA graph, its replays
+     between CUDA events); the least time the card could take for the
+     same work (for pipe_cell the larger of its device-memory bytes and
+     its scratch's shared-memory bytes at 128 B a clock an SM); every
+     pipe experiment at every tile that fits (the rule of
+     perf_pipe_lab.pipe_plan); every body of the tree
      kernels that takes the shape (the on-chip LL bodies in both stagings
      on all three tapes, the paired grad body in both, the global bodies),
      on the flagship and on trees of BODY_TAXA taxa (the per-node ones
@@ -86,6 +94,7 @@ import math
 import re
 import sys
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -95,7 +104,8 @@ from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
-from bito_tpu_torch.perflab import (card_line, cuda_ms, perf_lab,
+from bito_tpu_torch.perflab import (GRAPH_TIMING, card_line, cuda_ms,
+                                    graph_ms, max_sm_clock_mhz, perf_lab,
                                     perf_pipe_lab, perf_static_probe)
 from bito_tpu_torch.treelike import _kernels, chunked, paired, pernode, prep
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
@@ -535,6 +545,13 @@ def bound(flops, moved):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def kernel_bound(flops, moved, library=None, shared_ms=0.0):
+    """bound() of a phase-4 work entry, or its shared-memory term (ms of
+    the bytes it must move through shared memory, pipe_cell's scratch)
+    where that is larger."""
+    return max(bound(flops, moved), (shared_ms, "bytes"))
+
+
 def reset_launches():
     for spec in KERNELS.values():
         spec["wrapper"].launches = 0
@@ -558,6 +575,7 @@ def read_launches(path):
 # variant_grad).
 PIPE_TIMED = "paired-like"
 CHAIN_R = 20
+GRAPH_TIMED = ("pipe_cell", "static_chain")  # phase 4 times them by graph_ms
 LAB_SHAPES = {
     "variant_grad": f"unroll, float32, {BATCH} trees x 1024 patterns",
     "pipe_cell": f"{PIPE_TIMED}, {CELLS} cells",
@@ -565,6 +583,13 @@ LAB_SHAPES = {
     "stream_sum_3d": f"{CELLS} cells of 8192 x 128 bf16",
     "static_chain": f"dynamic, R={CHAIN_R}, 52 ops x 1024 columns",
 }
+
+
+def pipe_plan_line(exp):
+    plan = perf_pipe_lab.pipe_plan(*exp[:2])
+    return (f"T={plan.tile} columns a block, {16 * plan.tile} threads, "
+            f"{plan.smem} B of shared memory, TMA boxes of {plan.stage_rows} "
+            "rows")
 
 
 def probe_parity(ops, dev, errs):
@@ -665,22 +690,39 @@ def probe_parity(ops, dev, errs):
     tape, L = perf_static_probe.probe_inputs(dev)
     worst = (0.0, 0.0)
     for dynamic in (True, False):
-        out = perf_static_probe.static_chain(tape, L, dynamic=dynamic,
-                                             R=CHAIN_R)
-        torch.cuda.synchronize()
         ref = perf_static_probe.static_chain_ref(tape, L, dynamic=dynamic,
                                                  R=CHAIN_R)
-        err = norm_err(out, ref)
-        worst = max(worst, (err, (out - ref).abs().max().item()))
-        print(f"# phase 2: static_chain dynamic={dynamic} R={CHAIN_R}: "
-              f"max-abs/max|out| {err:.3e} (bound 1e-5, float32 plain)")
-        check(bool(torch.isfinite(out).all()) and err <= 1e-5,
-              f"static_chain dynamic={dynamic} parity")
+        for warps in perf_static_probe.LAYOUTS:
+            out = perf_static_probe.static_chain(tape, L, dynamic=dynamic,
+                                                 R=CHAIN_R, warps=warps)
+            torch.cuda.synchronize()
+            err = norm_err(out, ref)
+            worst = max(worst, (err, (out - ref).abs().max().item()))
+            print(f"# phase 2: static_chain dynamic={dynamic} R={CHAIN_R}, "
+                  f"{warps} warps a column: max-abs/max|out| {err:.3e} "
+                  "(bound 1e-5, float32 plain)")
+            check(bool(torch.isfinite(out).all()) and err <= 1e-5,
+                  f"static_chain dynamic={dynamic} warps={warps} parity")
     errs["static_chain"] = worst
 
     exp = perf_pipe_lab.EXPS[PIPE_TIMED]
     idx, big = perf_pipe_lab.pipe_inputs(*exp[:2], CELLS, dev)
+    # (device-memory ms, shared-memory ms): the scratch's fill and stores
+    # at 128 B a clock an SM
+    pipe_terms = perf_pipe_lab.pipe_bound_ms(
+        *exp, cells=CELLS,
+        sms=torch.cuda.get_device_properties(dev).multi_processor_count,
+        clock_mhz=max_sm_clock_mhz())
+    print(f"# phase 2: pipe_cell {PIPE_TIMED} plan: {pipe_plan_line(exp)}; "
+          f"bound terms: device memory {pipe_terms[0]:.4f} ms, shared "
+          f"memory {pipe_terms[1]:.4f} ms")
     pipe_kw = dict(zip(("scratch_rows", "init", "loops", "stores"), exp[1:]))
+    pipe_plan = perf_pipe_lab.pipe_plan(*exp[:2])
+    pipe_out = torch.empty((CELLS, 8, perf_pipe_lab.S), dtype=torch.float32,
+                           device=dev)
+    overlap = perf_static_probe.check_chain(tape, L)
+    chain_out = torch.empty((8, perf_static_probe.S), dtype=torch.float32,
+                            device=dev)
     big3 = block.reshape(CELLS, nslices * rows, cols)
     unroll = perf_lab.VARIANTS["unroll"]
     # What each probe must move and compute (phase 4's bound), and the one
@@ -690,7 +732,7 @@ def probe_parity(ops, dev, errs):
     chain_flops = (2 * perf_static_probe.FMAS_PER_OP * perf_static_probe.S
                    * perf_static_probe.M * CHAIN_R)
     work = {
-        "pipe_cell": (0, nbytes(idx, big) + out_pipe, None),
+        "pipe_cell": (0, nbytes(idx, big) + out_pipe, None, pipe_terms[1]),
         "stream_sum_4d": (CELLS * nslices * rows * cols, nbytes(block)
                           + out_sums, lambda: torch.sum(
                               block.reshape(CELLS, -1, 8, cols), dim=1,
@@ -702,8 +744,8 @@ def probe_parity(ops, dev, errs):
         "static_chain": (chain_flops,
                          nbytes(tape, L) + 8 * perf_static_probe.S * 4, None),
     }
-    # The pipe cell and the chain check their indices once (phase 2) and
-    # are timed at their launches, without that check's host sync.
+    # The pipe cell and the chain check their operands once (above) and
+    # are timed at their launches into outputs allocated once (graph_ms).
     return {
         "variant_grad": (
             lambda: perf_lab.variant_ll_and_gradients_ref(**ops, **unroll),
@@ -711,7 +753,8 @@ def probe_parity(ops, dev, errs):
                                                       onchip=lab_on)),
         "pipe_cell": (
             lambda: perf_pipe_lab.pipe_cell_ref(idx, big, **pipe_kw),
-            lambda: perf_pipe_lab._launch_pipe_cell(idx, big, *exp[1:])),
+            lambda: perf_pipe_lab.launch_pipe_cell(idx, big, pipe_out,
+                                                   pipe_plan, **pipe_kw)),
         "stream_sum_4d": (lambda: perf_pipe_lab.stream_sum_ref(block),
                           lambda: perf_pipe_lab.stream_sum_4d(block)),
         "stream_sum_3d": (lambda: perf_pipe_lab.stream_sum_ref(big3),
@@ -719,7 +762,8 @@ def probe_parity(ops, dev, errs):
         "static_chain": (
             lambda: perf_static_probe.static_chain_ref(tape, L, dynamic=True,
                                                        R=CHAIN_R),
-            lambda: perf_static_probe._launch_chain(tape, L, True, CHAIN_R)),
+            lambda: perf_static_probe.launch_chain(tape, L, chain_out, True,
+                                                   CHAIN_R, overlap)),
     }, plain_outs, work
 
 
@@ -762,12 +806,19 @@ def check_perflab(lab, plain_outs):
     check(torch.equal(out4, out3) and bool((out4 == groups).all()),
           "dma4d: both layouts sum the ones block exactly")
     for row in lab["static"]:
-        check(math.isfinite(row["us_per_op_slope"]), "static slope is finite")
-        print(f"# phase 3: static chain dynamic={row['dynamic']}: "
+        print(f"# phase 3: static chain dynamic={row['dynamic']}, "
+              f"{row['warps']} warps a column: R={perf_static_probe.R_LO} "
+              f"{row[f'R{perf_static_probe.R_LO}_ms']:.4f} ms, "
+              f"R={perf_static_probe.R_HI} "
+              f"{row[f'R{perf_static_probe.R_HI}_ms']:.4f} ms, slope "
               f"{row['us_per_op_slope']:.4f} us/op against an FMA floor of "
-              f"{row['fma_floor_us_per_op']:.4f} us/op"
-              + (" (BELOW the floor: not a measurement of an op)"
-                 if row["below_floor"] else ""))
+              f"{row['fma_floor_us_per_op']:.4f} us/op, "
+              f"{row['busiest_sm_warps']} warps on the busiest SM ("
+              f"{row['timing']})")
+        # under the floor, the chain was collapsed: not a time of an op
+        check(math.isfinite(row["us_per_op_slope"])
+              and not row["below_floor"], "static slope is finite and not "
+              "below its FMA floor")
 
 
 def main():
@@ -1110,23 +1161,39 @@ def main():
     for name in KERNELS:
         plain, kernel = calls[name]
         library = work[name][2]
+        # The probes' launches are short and their wrappers' host work is
+        # not: they are timed from the device (graph_ms).
+        timer = (partial(graph_ms, counter=KERNELS[name]["wrapper"])
+                 if name in GRAPH_TIMED else cuda_ms)
         # plain, kernel, library, kernel, library, plain: all see the same
         # drift.
         p1 = cuda_ms(plain, 5)
-        k1 = cuda_ms(kernel, 50)
+        k1 = timer(kernel, 50)
         l1 = cuda_ms(library, 50) if library else None
-        k2 = cuda_ms(kernel, 50)
+        k2 = timer(kernel, 50)
         l2 = cuda_ms(library, 50) if library else None
         p2 = cuda_ms(plain, 5)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
                        (l1 + l2) / 2 if library else None)
-        b_ms, b_by = bound(*work[name][:2])
+        b_ms, b_by = kernel_bound(*work[name])
         shape = LAB_SHAPES.get(name, f"float32, {BATCH} trees x "
                                      f"{eng.pattern_pad} patterns")
-        print(f"# phase 4: {name} kernel {times[name][0]:.4f} ms, plain "
-              f"{times[name][1]:.4f} ms"
+        terms = (f" (terms: device memory {bound(*work[name][:2])[0]:.4f}, "
+                 f"shared memory {work[name][3]:.4f})"
+                 if len(work[name]) > 3 else "")
+        print(f"# phase 4: {name} kernel {times[name][0]:.4f} ms ("
+              + (GRAPH_TIMING if name in GRAPH_TIMED else "CUDA events around "
+                 "the calls") + f"), plain {times[name][1]:.4f} ms"
               + (f", torch.sum {times[name][2]:.4f} ms" if library else "")
-              + f", bound {b_ms:.4f} ms by {b_by} ({shape}) on {card}")
+              + f", bound {b_ms:.4f} ms by {b_by}{terms} ({shape}) on {card}")
+        if name in GRAPH_TIMED:  # a device time under its bound is wrong
+            check(times[name][0] >= b_ms, f"{name} within its bound")
+
+    # The pipe plan's rule: every experiment at every tile that fits.
+    print(f"# phase 4: pipe_cell at every tile that fits ({GRAPH_TIMING}, "
+          f"{LAB_REPS} launches; us/cell, {CELLS} cells), on {card}")
+    print("# phase 4: pipe tiles " + json.dumps(
+        perf_pipe_lab.tile_sweep(reps=LAB_REPS)))
 
     # The paired bodies side by side, on the flagship and on further
     # shapes up to the on-chip bodies' limit.
@@ -1184,7 +1251,7 @@ def main():
     # -- 5. results -------------------------------------------------------------
     kernels = []
     for name, spec in KERNELS.items():
-        b_ms, b_by = bound(*work[name][:2])
+        b_ms, b_by = kernel_bound(*work[name])
         kernels.append(
             {"name": name, "route": "cuda", "source": spec["source"],
              "replaces": spec["replaces"], "launches": launches[name],

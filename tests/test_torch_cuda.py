@@ -799,28 +799,78 @@ def _int_block(shape, seed, device):
     return torch.as_tensor(block, dtype=torch.bfloat16, device=device)
 
 
-@pytest.mark.parametrize("name", [n for n, e in perf_pipe_lab.EXPS.items()
-                                  if e[2]])
+@pytest.mark.parametrize("name", list(perf_pipe_lab.EXPS))
 def test_pipe_cell_matches_plain(cuda, name):
-    """The experiments that fill their scratch, exactly, at 3 cells, on
-    the script's inputs and on a block of small integers."""
+    """Every experiment at 3 cells, through the wrapper and at every tile
+    that fits: those that fill their scratch exactly, on the script's
+    inputs and on a block of small integers; the others (no defined
+    output) by shape and launch count."""
     block_rows, scratch_rows, init, loops, stores = perf_pipe_lab.EXPS[name]
     idx, big = perf_pipe_lab.pipe_inputs(block_rows, scratch_rows, 3, cuda)
     kw = dict(scratch_rows=scratch_rows, init=init, loops=loops,
               stores=stores)
+    tiles = [t for t in perf_pipe_lab.TILES if perf_pipe_lab.pipe_smem(
+        block_rows, scratch_rows, t) <= perf_pipe_lab.MAX_SMEM]
     before = perf_pipe_lab.pipe_cell.launches
     for block in (big, _int_block(big.shape, 5, cuda)):
-        out = perf_pipe_lab.pipe_cell(idx, block, **kw)
+        want = perf_pipe_lab.pipe_cell_ref(idx, block, **kw)
+        outs = [perf_pipe_lab.pipe_cell(idx, block, **kw)]
+        for tile in tiles:
+            outs.append(torch.empty_like(outs[0]))
+            perf_pipe_lab.launch_pipe_cell(
+                idx, block, outs[-1],
+                perf_pipe_lab.pipe_plan(block_rows, scratch_rows, tile), **kw)
         torch.cuda.synchronize()
-        assert torch.equal(out, perf_pipe_lab.pipe_cell_ref(idx, block, **kw))
-    assert perf_pipe_lab.pipe_cell.launches == before + 2
+        for out in outs:
+            assert out.shape == (3, 8, perf_pipe_lab.S)
+            if init:
+                assert torch.equal(out, want)
+    assert perf_pipe_lab.pipe_cell.launches == before + 2 * (1 + len(tiles))
 
 
-def test_pipe_cell_refuses_offsets_past_the_scratch(cuda):
+def test_pipe_cell_refuses_what_it_does_not_take(cuda):
     idx, big = perf_pipe_lab.pipe_inputs(8, 2080, 2, cuda)
     with pytest.raises(ValueError, match="idx"):
         perf_pipe_lab.pipe_cell(idx, big, scratch_rows=1024, init=True,
                                 loops=28, stores=4)
+    with pytest.raises(ValueError, match="stores"):
+        perf_pipe_lab.pipe_cell(idx, big, scratch_rows=2080, init=True,
+                                loops=28, stores=5)
+    # 8,192 scratch rows need 262 KB of shared memory at 8 columns
+    idx, big = perf_pipe_lab.pipe_inputs(8, 8192, 2, cuda)
+    before = perf_pipe_lab.pipe_cell.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        perf_pipe_lab.pipe_cell(idx, big, scratch_rows=8192, init=True,
+                                loops=0, stores=0)
+    assert perf_pipe_lab.pipe_cell.launches == before
+
+
+def test_probe_wrappers_allocate_only_their_output(cuda, monkeypatch):
+    """Neither wrapper allocates a device scratch, and a CUDA tensor never
+    reaches the plain version: the peak allocation during a call is its
+    output, and the plain versions raise if called."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached the plain version")
+    monkeypatch.setattr(perf_pipe_lab, "pipe_cell_ref", refuse)
+    monkeypatch.setattr(perf_static_probe, "static_chain_ref", refuse)
+    idx, big = perf_pipe_lab.pipe_inputs(256, 1024, 100, cuda)
+    tape, L = perf_static_probe.probe_inputs(cuda)
+    calls = [(lambda: perf_pipe_lab.pipe_cell(
+        idx, big, scratch_rows=1024, init=True, loops=52, stores=2),
+        perf_pipe_lab.pipe_cell),
+        (lambda: perf_static_probe.static_chain(tape, L, dynamic=True, R=2),
+         perf_static_probe.static_chain)]
+    for call, wrapper in calls:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = wrapper.launches
+        out = call()
+        torch.cuda.synchronize()
+        out_bytes = out.numel() * out.element_size()
+        # the caching allocator rounds a block up to 512 bytes
+        assert torch.cuda.max_memory_allocated() - base <= out_bytes + 512
+        assert wrapper.launches == before + 1
 
 
 @pytest.mark.parametrize("nslices,rows,cols", [
@@ -868,12 +918,59 @@ def test_stream_sums_refuse_what_they_do_not_take(cuda):
         perf_pipe_lab.stream_sum_4d(shifted)
 
 
+@pytest.mark.parametrize("warps", [1, 2, 4])
 @pytest.mark.parametrize("dynamic", [True, False], ids=["dynamic", "static"])
 @pytest.mark.parametrize("R", [1, 2, 20])
-def test_static_chain_matches_plain(cuda, dynamic, R):
+def test_static_chain_matches_plain(cuda, dynamic, R, warps):
+    """At every layout, within 1e-5 of max |out| of the float32 plain
+    version (another sum order), and on a tape whose ops write over their
+    own source rows, where the kernel takes a barrier before each store:
+    op m reads the rows of 52 + m and 53 + m and writes those of 53 + m,
+    which the next op reads, and the last writes the output's rows
+    (2 M = 104)."""
     tape, L = perf_static_probe.probe_inputs(cuda)
-    out = perf_static_probe.static_chain(tape, L, dynamic=dynamic, R=R)
+    overlapping = tape.clone()
+    overlapping[0] = torch.arange(52, 104, dtype=torch.int32)
+    overlapping[1] = overlapping[0] + 1
+    for tp, dyn in ((tape, dynamic), (overlapping, True)):
+        out = perf_static_probe.static_chain(tp, L, dynamic=dyn, R=R,
+                                             warps=warps)
+        torch.cuda.synchronize()
+        want = perf_static_probe.static_chain_ref(tp, L, dynamic=dyn, R=R)
+        assert torch.isfinite(out).all()
+        assert (out - want).abs().max() <= 1e-5 * want.abs().max()
+
+
+def test_static_chain_refuses_another_layout(cuda):
+    tape, L = perf_static_probe.probe_inputs(cuda)
+    before = perf_static_probe.static_chain.launches
+    with pytest.raises(ValueError, match="warps"):
+        perf_static_probe.static_chain(tape, L, dynamic=True, R=1, warps=3)
+    assert perf_static_probe.static_chain.launches == before
+
+
+def test_graph_ms_counts_the_launches_the_card_runs(cuda):
+    """A launch captured in a CUDA graph counts where a replay runs it:
+    one launch before the capture, none at the capture, then reps for
+    each of the 1 + replays replays."""
+    tape, L = perf_static_probe.probe_inputs(cuda)
+    before = perf_static_probe.static_chain.launches
+    ms = perf_static_probe.timed(tape, L, True, 1, reps=4)
+    assert ms > 0
+    assert perf_static_probe.static_chain.launches == before + 1 + 4 * 4
+    before = perf_pipe_lab.pipe_cell.launches
+    perf_pipe_lab.run("tiny", 8, 128, False, 0, 0, reps=3, cells=2)
+    assert perf_pipe_lab.pipe_cell.launches == before + 2 + 3 * 4
+
+
+def test_pipe_cell_at_the_plans_edge(cuda):
+    """The largest scratch pipe_plan takes (8 block rows, 8 columns, the
+    227 KB of a block less the kernel's static bytes) launches and holds
+    exactly: the host's limit is the launch's."""
+    rows = perf_pipe_lab.EDGE_SCRATCH_ROWS
+    idx, big = perf_pipe_lab.pipe_inputs(8, rows, 2, cuda)
+    kw = dict(scratch_rows=rows, init=True, loops=0, stores=0)
+    assert perf_pipe_lab.pipe_plan(8, rows).smem == perf_pipe_lab.MAX_SMEM
+    out = perf_pipe_lab.pipe_cell(idx, big, **kw)
     torch.cuda.synchronize()
-    want = perf_static_probe.static_chain_ref(tape, L, dynamic=dynamic, R=R)
-    assert torch.isfinite(out).all()
-    assert (out - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(out, perf_pipe_lab.pipe_cell_ref(idx, big, **kw))

@@ -9,8 +9,11 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "bito_tpu_torch"
+# The port's sources, and its scripts at the root of the repository.
+SCRIPTS = ("chip_smoke.py", "compare_first_design.py", "profile_main_path.py")
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
-                 for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
+                 for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh")
+                 ) + list(SCRIPTS)
 # Every module and package of the port (a package by its __init__.py).
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts[
@@ -53,7 +56,7 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("source", SOURCES)
 def test_source_has_no_jax_bito_tpu_or_compile(source):
-    """No source of the port imports jax or bito_tpu or calls
+    """No source or script of the port imports jax or bito_tpu or calls
     torch.compile."""
     text = (ROOT / source).read_text()
     assert not _FORBIDDEN.search(text), _FORBIDDEN.search(text).group(0)

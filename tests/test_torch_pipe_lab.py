@@ -118,3 +118,135 @@ def test_stream_sum_wrappers_check_the_layout():
     with pytest.raises(ValueError, match="big3"):
         lab.stream_sum_3d(torch.ones((CELLS, 2, 16, 128),
                                      dtype=torch.bfloat16))
+
+
+# The card's design (csrc/pipe_cell.cu): a block = one cell x a tile of T
+# columns, the scratch and the block slice in shared memory.
+
+EXPECTED_TILES = {  # pipe_plan's rule (its docstring)
+    "tiny-block_tiny-scratch": 16, "big-block_tiny-scratch": 64,
+    "tiny-block_big-scratch": 8, "tiny-block_big-scratch_init": 8,
+    "big-block_big-scratch_init": 16, "tiny_big_init_loop28": 8,
+    "tiny_big_init_loop28_st4": 8, "paired-like": 16,
+    "double-scratch-4160": 8}
+
+
+@pytest.mark.parametrize("name", list(lab.EXPS))
+def test_pipe_plan_fits_every_experiment(name):
+    block_rows, scratch_rows = lab.EXPS[name][:2]
+    plan = lab.pipe_plan(block_rows, scratch_rows)
+    assert plan.tile == EXPECTED_TILES[name]
+    assert plan.smem == (plan.tile * (2 * block_rows + 4 * scratch_rows)
+                         + 384 + 128) <= 232448
+    assert lab.S % plan.tile == 0 and 16 * plan.tile <= 1024
+    assert plan.stage_rows % 8 == 0 and plan.stage_rows <= 256
+    assert block_rows % plan.stage_rows == 0
+    fits = [t for t in lab.TILES
+            if lab.pipe_smem(block_rows, scratch_rows, t) <= 232448]
+    for tile in fits:  # every tile that fits can be asked for
+        assert lab.pipe_plan(block_rows, scratch_rows, tile).tile == tile
+
+
+def test_pipe_plan_refuses_what_does_not_fit():
+    # 8,192 scratch rows: 262,664 bytes at 8 columns
+    with pytest.raises(ValueError, match="shared memory"):
+        lab.pipe_plan(8, 8192)
+    assert lab.pipe_plan(8, 7000).tile == 8   # 224,520 bytes
+    with pytest.raises(ValueError, match="tile 32"):
+        lab.pipe_plan(8, 2080, 32)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lab.pipe_plan(12, 128)
+
+
+def test_pipe_plan_edge_is_the_kernels_launch_limit():
+    """The largest scratch that pipe_plan takes at 8 block rows fills the
+    227 KB of a block as csrc/pipe_cell.cu's launch counts it: its dynamic
+    bytes plus 128 of alignment within 232,448 less the kernel's 384
+    static bytes.  One row more is refused on the host, so no plan reaches
+    the launch's own refusal."""
+    rows = lab.EDGE_SCRATCH_ROWS
+    plan = lab.pipe_plan(8, rows)
+    dynamic = 8 * (2 * 8 + 4 * rows)
+    assert (rows, plan.tile, plan.smem) == (7244, 8, dynamic + 512)
+    assert dynamic + 128 <= 232448 - 384 < dynamic + 128 + 8 * 4
+    with pytest.raises(ValueError, match="shared memory"):
+        lab.pipe_plan(8, rows + 1)
+
+
+def _emulate_threads(idx, big, scratch_rows, init, loops, stores, seed):
+    """csrc/pipe_cell.cu's schedule on the host, all columns at once: the
+    fill (any order; a barrier follows it), then the loop of the 16
+    threads of a column (i = 0..15) in a random interleaving of their
+    steps, each step touching only rows = i (mod 16), which the emulation
+    asserts.  Returns out [cells, 8, S]."""
+    cells, _, cols = big.shape
+    rng = np.random.default_rng(seed)
+    out = np.empty((cells, 8, cols), np.float32)
+    for cell in range(cells):
+        scratch = np.full((scratch_rows, cols), np.nan, np.float32)
+        if init:
+            scratch[rng.permutation(scratch_rows)] = 1.0
+        offs = idx[cell, 0].numpy()
+
+        def program(i):
+            for c in range(loops):
+                yield ("read", lab.ROWS * (c % lab.OFFSETS) + i)
+                for k in range(stores):
+                    yield ("store", lab.ROWS * int(offs[(c + k) % lab.OFFSETS])
+                           + i)
+
+        threads = {i: program(i) for i in range(lab.ROWS)}
+        held = {}
+        while threads:
+            i = int(rng.choice(list(threads)))
+            step = next(threads[i], None)
+            if step is None:
+                del threads[i]
+                continue
+            kind, row = step
+            assert row % lab.ROWS == i   # a thread's own rows only
+            if kind == "read":
+                held[i] = scratch[row] + np.float32(1.0)
+            else:
+                scratch[row] = held[i]
+        out[cell] = scratch[:8] + big[cell, :8].float().numpy()
+    return out
+
+
+@pytest.mark.parametrize("name", FILLED)
+def test_thread_ownership_emulation_matches_plain(name):
+    """No barrier in the loop: any interleaving of the 16 row owners of a
+    column gives the plain version's output exactly, at 2 cells, on the
+    ones block and on small integers."""
+    block_rows, scratch_rows, init, loops, stores = lab.EXPS[name]
+    idx, big = lab.pipe_inputs(block_rows, scratch_rows, CELLS, "cpu")
+    kw = dict(scratch_rows=scratch_rows, init=init, loops=loops,
+              stores=stores)
+    for seed, block in enumerate((big, torch.as_tensor(_random_block(
+            big.shape, 3)).to(torch.bfloat16))):
+        want = lab.pipe_cell_ref(idx, block, **kw).numpy()
+        got = _emulate_threads(idx, block, scratch_rows, init, loops, stores,
+                               seed)
+        np.testing.assert_array_equal(got, want)
+
+
+def test_scratch_bytes_and_bound_terms():
+    """paired-like: 0.419 GB of fill and 1.022 GB of loop through shared
+    memory, 1.44 GB at 128 B a clock on 132 SMs at 1,980 MHz (33.45 TB/s)
+    is 0.0431 ms, against 55.7 MB of device memory, 0.0166 ms at
+    3.35 TB/s.  With stores = 0 the loop feeds nothing and counts
+    nothing; without init or loop the scratch counts nothing."""
+    fill = 100 * 1024 * 1024 * 4
+    loop = 100 * 52 * 16 * 3 * 1024 * 4
+    assert (fill, loop) == (419_430_400, 1_022_361_600)
+    assert lab.scratch_bytes(1024, True, 52, 2) == fill + loop
+    assert lab.scratch_bytes(2080, True, 28, 0) == 100 * 2080 * 1024 * 4
+    assert lab.scratch_bytes(2080, False, 0, 0) == 0
+    assert lab.stream_bytes(256) == 100 * (256 + 256 * 1024 * 2 + 8 * 4096)
+    hbm, smem = lab.pipe_bound_ms(*lab.EXPS["paired-like"], sms=132,
+                                  clock_mhz=1980.0)
+    assert hbm == pytest.approx(0.0166, abs=5e-5)
+    assert smem == pytest.approx(0.0431, abs=5e-5)
+    hbm, smem = lab.pipe_bound_ms(*lab.EXPS["tiny-block_tiny-scratch"],
+                                  sms=132, clock_mhz=1980.0)
+    assert smem == 0 and hbm > 0
