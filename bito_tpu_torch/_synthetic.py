@@ -134,3 +134,42 @@ def ds1_shaped(seed: int, num_trees: int) -> Tuple[str, Dict[str, str]]:
     return (random_trees_newick(seed, DS1_TAXA, num_trees),
             random_alignment(seed + 1, names, DS1_SITES,
                              DS1_DISTINCT_COLUMNS))
+
+
+def mcmc_nexus(seed: int, num_taxa: int, num_trees: int) -> str:
+    """A Nexus tree file in the shape of an MCMC run's output: a translate
+    table from keys 1..n to taxa t0..t{n-1}, then `num_trees` unrooted
+    trees over the keys.  The trees are random_trees_newick's for the same
+    seed, with each taxon written as its key."""
+    rng = np.random.default_rng(seed)
+    names = taxon_names(num_taxa)
+    keys = [str(i + 1) for i in range(num_taxa)]
+    lines = ["#NEXUS", "", "begin trees;", "  translate"]
+    lines += [f"    {k} {name}" + ("," if i + 1 < num_taxa else ";")
+              for i, (k, name) in enumerate(zip(keys, names))]
+    lines += [f"  tree STATE_{i} = " + _random_newick(rng, keys, rooted=False)
+              for i in range(num_trees)]
+    return "\n".join(lines + ["end;", ""])
+
+
+def fasta_text(alignment: Dict[str, str]) -> str:
+    """The alignment as FASTA text, one line a sequence."""
+    return "".join(f">{name}\n{seq}\n" for name, seq in alignment.items())
+
+
+def write_vbpi_inputs(directory, seed: int, num_taxa: int, num_trees: int,
+                      num_sites: int, num_distinct: int | None = None
+                      ) -> Tuple[str, str]:
+    """Write a VBPI run's two inputs into `directory`: mcmc.t
+    (mcmc_nexus) and alignment.fasta (random_alignment over the same taxa,
+    seeded with seed + 1).  Returns their paths."""
+    import os
+
+    nexus = os.path.join(directory, "mcmc.t")
+    fasta = os.path.join(directory, "alignment.fasta")
+    with open(nexus, "w") as f:
+        f.write(mcmc_nexus(seed, num_taxa, num_trees))
+    with open(fasta, "w") as f:
+        f.write(fasta_text(random_alignment(
+            seed + 1, taxon_names(num_taxa), num_sites, num_distinct)))
+    return nexus, fasta

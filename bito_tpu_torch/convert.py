@@ -4,7 +4,8 @@ bito_tpu's engines take a parameter dict keyed by the model's block names
 (models/phylo_model.py), with values that are shared rows [k] or per-tree
 rows [B, k].  The port uses the same keys; this turns the numpy form of
 such a dict into the port's tensors, so both packages compute from the
-same numbers.
+same numbers.  A VBPI trainer's state carries over the same way, as numpy
+(load_burrito_state), without importing bito_tpu: the caller reads it.
 """
 from __future__ import annotations
 
@@ -22,3 +23,49 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device,
     device, dtype = resolve(device, dtype)
     return {key: torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
             for key, value in params.items()}
+
+
+# The VBPI trainer's state, as numpy: what a Burrito needs to take the next
+# step where another left off.
+BURRITO_STATE = ("sbn_parameters", "q_params", "scalar_rng_state",
+                 "topology_rng_state", "adam_count", "adam_mu", "adam_nu",
+                 "step_size", "sbn_step_size", "step_number",
+                 "phylo_model_params")
+
+
+def load_burrito_state(burrito, state: Mapping) -> None:
+    """Load a Burrito's state, read as numpy from another (a bito_tpu
+    Burrito's, say), into the port's `burrito`, which must have been built
+    from the same trees and alignment:
+      sbn_parameters      the SBN's log parameters [support size];
+      q_params            the scalar model's parameters [variables, k];
+      scalar_rng_state    its numpy rng's bit_generator.state;
+      topology_rng_state  the instance's rng's (the topology sampler's);
+      adam_count, adam_mu, adam_nu
+                          Adam's step count and {group: moments};
+      step_size, sbn_step_size, step_number
+                          the optimizer's step sizes and step count;
+      phylo_model_params  the instance's per-tree model rows [trees, p].
+    The arrays are written in place, so the views the trainer shares (the
+    SBN model's parameters, a PSP model's q_params) keep seeing them."""
+    missing = set(BURRITO_STATE) - set(state)
+    if missing:
+        raise KeyError(f"state lacks {sorted(missing)}")
+    inst, opt = burrito.inst, burrito.opt
+    scalar = burrito.branch_model.scalar_model
+    for have, key in ((inst.sbn_parameters, "sbn_parameters"),
+                      (scalar.q_params, "q_params")):
+        value = np.asarray(state[key], dtype=np.float64)
+        if value.shape != have.shape:
+            raise ValueError(f"{key}: shape {value.shape}, the trainer has "
+                             f"{have.shape}")
+        np.copyto(have, value)
+    scalar.rng.bit_generator.state = state["scalar_rng_state"]
+    inst.rng.bit_generator.state = state["topology_rng_state"]
+    opt.set_adam_state(state["adam_count"], state["adam_mu"],
+                       state["adam_nu"])
+    opt.step_size = np.array(state["step_size"], dtype=np.float64)
+    opt.sbn_step_size = float(state["sbn_step_size"])
+    opt.step_number = int(state["step_number"])
+    inst.phylo_model_params = np.array(state["phylo_model_params"],
+                                       dtype=np.float64)

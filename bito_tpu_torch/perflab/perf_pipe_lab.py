@@ -33,8 +33,8 @@ kernels (the script timed a jitted scan of REPS calls on the TPU, scaling
 the block before each to keep XLA from folding them).  Each experiment
 prints its us per cell beside both terms of its bound (pipe_bound_ms):
 the device-memory bytes it must move and the scratch's shared-memory
-bytes.  The stream sums are CUDA-event means over REPS calls of their
-wrappers.
+bytes.  The stream sums are timed the same way, beside torch.sum over
+the same groups (torch_stream_sum), also from a CUDA graph.
 
     python -m bito_tpu_torch.perflab pipe [expname ... | dma4d | tiles]
 """
@@ -46,7 +46,7 @@ import sys
 import numpy as np
 import torch
 
-from . import (GRAPH_TIMING, card_line, count_launch, cuda_ms, graph_ms,
+from . import (GRAPH_TIMING, card_line, count_launch, graph_ms,
                max_sm_clock_mhz, require_card)
 from ..device import PRODUCT_DEVICE
 from ..treelike import _kernels
@@ -270,25 +270,52 @@ def stream_sum_ref(big) -> torch.Tensor:
     return big.float().reshape(cells, -1, 8, cols).sum(dim=1)
 
 
-def _stream_sum(big, nslices, rows, slices, wrapper):
+def _stream_walk(big):
+    """(nslices, rows, slices, wrapper) of a stream sum's operand: a 4-D
+    block is walked slice by slice (stream_sum_4d), a 3-D one flat
+    (stream_sum_3d)."""
+    if big.dim() == 4:
+        return big.shape[1], big.shape[2], True, stream_sum_4d
+    return 1, big.shape[1], False, stream_sum_3d
+
+
+def launch_stream_sum(big, out) -> None:
+    """Launch the stream sum of `big` (4-D or 3-D, as _stream_walk walks
+    it) into `out` [cells, 8, cols] f32 on the current stream, allocating
+    nothing and syncing nothing (graph_ms captures it); checks only what
+    the launch needs."""
     cells, cols = big.shape[0], big.shape[-1]
-    if big.dtype != torch.bfloat16:
-        raise TypeError(f"big must be bf16, got {big.dtype}")
-    if big.device.type != "cuda" or not big.is_contiguous():
-        raise ValueError("big must be a contiguous CUDA tensor")
-    if rows % 8:
-        raise ValueError(f"the kernel takes rows a multiple of 8, got "
-                         f"{tuple(big.shape)}")
-    if big.data_ptr() % 16:  # the kernel reads 16-byte chunks
-        raise ValueError("big is not 16-byte aligned")
-    out = torch.empty((cells, 8, cols), dtype=torch.float32, device=big.device)
+    nslices, rows, slices, wrapper = _stream_walk(big)
     with torch.cuda.device(big.device):
         rc = _kernels.library().bito_stream_sum(
             big.data_ptr(), out.data_ptr(), cells, nslices, rows, cols,
             int(slices), torch.cuda.current_stream().cuda_stream)
     _kernels.check(rc, "bito_stream_sum")
-    wrapper.launches += 1
+    count_launch(wrapper)
+
+
+def _stream_sum(big):
+    cells, cols = big.shape[0], big.shape[-1]
+    if big.dtype != torch.bfloat16:
+        raise TypeError(f"big must be bf16, got {big.dtype}")
+    if big.device.type != "cuda" or not big.is_contiguous():
+        raise ValueError("big must be a contiguous CUDA tensor")
+    if _stream_walk(big)[1] % 8:
+        raise ValueError(f"the kernel takes rows a multiple of 8, got "
+                         f"{tuple(big.shape)}")
+    if big.data_ptr() % 16:  # the kernel reads 16-byte chunks
+        raise ValueError("big is not 16-byte aligned")
+    out = torch.empty((cells, 8, cols), dtype=torch.float32, device=big.device)
+    launch_stream_sum(big, out)
     return out
+
+
+def torch_stream_sum(big, out) -> torch.Tensor:
+    """The one PyTorch call that computes a stream sum, into `out`: the
+    grouped sum in float32 (torch.sum), the library comparison."""
+    cells, cols = big.shape[0], big.shape[-1]
+    return torch.sum(big.reshape(cells, -1, 8, cols), dim=1,
+                     dtype=torch.float32, out=out)
 
 
 def stream_sum_4d(big4) -> torch.Tensor:
@@ -299,7 +326,7 @@ def stream_sum_4d(big4) -> torch.Tensor:
                          f"{tuple(big4.shape)}")
     if big4.device.type == "cpu":
         return stream_sum_ref(big4)
-    return _stream_sum(big4, big4.shape[1], big4.shape[2], True, stream_sum_4d)
+    return _stream_sum(big4)
 
 
 def stream_sum_3d(big3) -> torch.Tensor:
@@ -310,7 +337,7 @@ def stream_sum_3d(big3) -> torch.Tensor:
                          f"{tuple(big3.shape)}")
     if big3.device.type == "cpu":
         return stream_sum_ref(big3)
-    return _stream_sum(big3, 1, big3.shape[1], False, stream_sum_3d)
+    return _stream_sum(big3)
 
 
 stream_sum_4d.launches = 0
@@ -361,8 +388,11 @@ def tile_sweep(names=None, *, reps: int = REPS, cells: int = CELLS) -> dict:
 
 def run4d(name, nslices, rows, cols, *, reps: int = REPS,
           cells: int = CELLS):
-    """Time both layouts of the same bytes and print their us per cell.
-    Returns {"4d": (us per cell, out), "3d": (...)}."""
+    """Time both layouts of the same bytes from the device (graph_ms:
+    operand and output allocated once, the launches captured in a CUDA
+    graph), beside torch.sum over the same groups timed the same way, and
+    print their us per cell.  Returns {"4d": (us per cell, out, torch.sum
+    us per cell), "3d": (...)}."""
     device = require_card()
     big4 = torch.ones((cells, nslices, rows, cols), dtype=torch.bfloat16,
                       device=device)
@@ -370,10 +400,15 @@ def run4d(name, nslices, rows, cols, *, reps: int = REPS,
     for tag, fn, arr in (("4d", stream_sum_4d, big4),
                          ("3d", stream_sum_3d,
                           big4.reshape(cells, nslices * rows, cols))):
-        out = fn(arr)
-        per_cell = cuda_ms(lambda: fn(arr), reps) * 1e3 / cells
-        print(f"{name}-{tag:31s} {per_cell:8.2f} us/cell", flush=True)
-        result[tag] = (per_cell, out)
+        out = fn(arr)  # checks the operand once
+        timed_out, lib_out = torch.empty_like(out), torch.empty_like(out)
+        per_cell = graph_ms(lambda: launch_stream_sum(arr, timed_out), reps,
+                            fn) * 1e3 / cells
+        lib_cell = graph_ms(lambda: torch_stream_sum(arr, lib_out),
+                            reps) * 1e3 / cells
+        print(f"{name}-{tag:31s} {per_cell:8.4f} us/cell (torch.sum "
+              f"{lib_cell:.4f})", flush=True)
+        result[tag] = (per_cell, out, lib_cell)
     return result
 
 

@@ -7,7 +7,8 @@ The workload is the flagship configuration at full width: a DS1-shaped
 problem (27 taxa, 1,949 columns drawn from 934 distinct ones, made from a
 seed), GTR+Gamma4 with bench.py's parameters, and a batch of 200 random
 unrooted trees with trifurcating roots.  Seven paths run the ten kernels,
-the six tree kernels in two bodies each:
+the six tree kernels in two bodies each, and an eighth, the VBPI trainer,
+runs the paired kernels as its steps call them:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
   - large: the same entry points on two trees of 921 taxa (128 patterns:
@@ -35,7 +36,18 @@ the six tree kernels in two bodies each:
     their base, the on-chip body), the nine pipe experiments (pipe_cell),
     the 4-D and 3-D
     stream sums (stream_sum, two entry points) and the static chain's
-    slopes (static_chain).
+    slopes (static_chain);
+  - vbpi: the VBPI trainer (vi.burrito.Burrito over the unrooted instance,
+    api/instances.py) at bito_tpu's config4 shape: an MCMC sample of
+    VBPI_TREES random trees in a Nexus file with a translate table and a
+    DS1-shaped FASTA (27 taxa, 1,949 columns, 934 distinct), JC69 with
+    constant rates and a strict clock, the split branch model, the
+    lognormal scalar model, the simple optimizer, VBPI_PARTICLES
+    particles.  The instance hands its engine one shared model row, so
+    every step's likelihoods and gradients take the paired on-chip bodies
+    at one rate category (paired_ll_onchip, paired_grad_onchip), on a new
+    topology set every step; the SBN's EM and topology gradients run in
+    float64 on the card (sbn/device.py).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the
@@ -67,10 +79,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      block, and every slope (both variants at every layout) must be
      finite and not under its FMA floor; each is printed beside that floor, and each pipe experiment's us per cell beside both
      terms of its bound (perf_pipe_lab.pipe_bound_ms).
+     On the vbpi path: the EM on the card in float64 against the numpy
+     backend within 1e-10; one warm-up step, then VBPI_STEPS steps timed
+     by phase (Burrito.gradient_step's phases, the card synchronised at
+     every boundary) and estimate_elbo, with the launch counts read after
+     them (only the two paired on-chip kernels, and no call of the scan
+     tape); then the last sample's LL and gradients from the card in
+     float32 against the float64 engine, and the paired kernels against
+     their float64 plain versions, on those trees, within 5e-5; the
+     topology gradients on the card against the numpy backend within
+     1e-10; a finite ELBO.
   4. CUDA-event times of each kernel, its plain version and, where one
-     PyTorch call computes the same function, that call; pipe_cell and
-     static_chain, whose wrappers' host work outlasts their kernels, are
-     timed from the device instead (perflab.graph_ms: the launches into
+     PyTorch call computes the same function, that call; pipe_cell, the
+     stream sums and static_chain, whose wrappers' host work outlasts
+     their kernels, are timed from the device instead, with torch.sum
+     beside the stream sums (perflab.graph_ms: the launches into
      an output allocated once, captured in a CUDA graph, its replays
      between CUDA events); the least time the card could take for the
      same work (for pipe_cell the larger of its device-memory bytes and
@@ -89,10 +112,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 It has no CPU path: without a card it exits non-zero and prints no result.
 """
+import contextlib
 import json
 import math
 import re
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -107,8 +132,11 @@ from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecificatio
 from bito_tpu_torch.perflab import (GRAPH_TIMING, card_line, cuda_ms,
                                     graph_ms, max_sm_clock_mhz, perf_lab,
                                     perf_pipe_lab, perf_static_probe)
-from bito_tpu_torch.treelike import _kernels, chunked, paired, pernode, prep
+from bito_tpu_torch.api.instances import unrooted_instance
+from bito_tpu_torch.treelike import (_kernels, chunked, paired, pernode, prep,
+                                     pruning)
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
+from bito_tpu_torch.vi.burrito import Burrito
 
 SEED = 0
 BATCH = 200
@@ -124,6 +152,12 @@ LARGE_PATTERNS = 128
 BODY_TAXA = (64, 96, 128, 144, 160, 192, 256, 320, 400)
 PERNODE_TAXA = (76, 84)  # and the per-node bodies' hand-over between them
 TOPOLOGY_BATCH = 1000  # phase 4's larger new topology set
+# the vbpi path: bito_tpu's bench_configs.py config4 (vip/benchmark.py)
+VBPI_TREES = 10  # the MCMC sample (config4 reads DS1.subsampled_10.t)
+VBPI_PARTICLES = 20
+VBPI_STEPS = 5
+VBPI_SPEC = ("JC69", "constant", "strict")
+VBPI_EM = (0.0, 30, 0.0)  # alpha, iterations, score epsilon
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # name -> its source, its TPU kernel, the launcher that counts its
@@ -132,11 +166,11 @@ KERNELS = {
     "paired_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
-        wrapper=paired.paired_ll_onchip, path="paired"),
+        wrapper=paired.paired_ll_onchip, path="paired", also=("vbpi",)),
     "paired_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
-        wrapper=paired.paired_grad_onchip, path="paired"),
+        wrapper=paired.paired_grad_onchip, path="paired", also=("vbpi",)),
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
@@ -575,7 +609,8 @@ def read_launches(path):
 # variant_grad).
 PIPE_TIMED = "paired-like"
 CHAIN_R = 20
-GRAPH_TIMED = ("pipe_cell", "static_chain")  # phase 4 times them by graph_ms
+# phase 4 times them, and their library call, by graph_ms
+GRAPH_TIMED = ("pipe_cell", "stream_sum_4d", "stream_sum_3d", "static_chain")
 LAB_SHAPES = {
     "variant_grad": f"unroll, float32, {BATCH} trees x 1024 patterns",
     "pipe_cell": f"{PIPE_TIMED}, {CELLS} cells",
@@ -731,21 +766,22 @@ def probe_parity(ops, dev, errs):
     out_sums = CELLS * 8 * cols * 4
     chain_flops = (2 * perf_static_probe.FMAS_PER_OP * perf_static_probe.S
                    * perf_static_probe.M * CHAIN_R)
+    sum_outs = [torch.empty((CELLS, 8, cols), dtype=torch.float32,
+                            device=dev) for _ in range(4)]
     work = {
         "pipe_cell": (0, nbytes(idx, big) + out_pipe, None, pipe_terms[1]),
         "stream_sum_4d": (CELLS * nslices * rows * cols, nbytes(block)
-                          + out_sums, lambda: torch.sum(
-                              block.reshape(CELLS, -1, 8, cols), dim=1,
-                              dtype=torch.float32)),
+                          + out_sums, lambda: perf_pipe_lab.torch_stream_sum(
+                              block, sum_outs[0])),
         "stream_sum_3d": (CELLS * nslices * rows * cols, nbytes(big3)
-                          + out_sums, lambda: torch.sum(
-                              big3.reshape(CELLS, -1, 8, cols), dim=1,
-                              dtype=torch.float32)),
+                          + out_sums, lambda: perf_pipe_lab.torch_stream_sum(
+                              big3, sum_outs[1])),
         "static_chain": (chain_flops,
                          nbytes(tape, L) + 8 * perf_static_probe.S * 4, None),
     }
-    # The pipe cell and the chain check their operands once (above) and
-    # are timed at their launches into outputs allocated once (graph_ms).
+    # The pipe cell, the stream sums and the chain check their operands
+    # once (above) and are timed at their launches into outputs allocated
+    # once (graph_ms), torch.sum too.
     return {
         "variant_grad": (
             lambda: perf_lab.variant_ll_and_gradients_ref(**ops, **unroll),
@@ -756,9 +792,11 @@ def probe_parity(ops, dev, errs):
             lambda: perf_pipe_lab.launch_pipe_cell(idx, big, pipe_out,
                                                    pipe_plan, **pipe_kw)),
         "stream_sum_4d": (lambda: perf_pipe_lab.stream_sum_ref(block),
-                          lambda: perf_pipe_lab.stream_sum_4d(block)),
+                          lambda: perf_pipe_lab.launch_stream_sum(
+                              block, sum_outs[2])),
         "stream_sum_3d": (lambda: perf_pipe_lab.stream_sum_ref(big3),
-                          lambda: perf_pipe_lab.stream_sum_3d(big3)),
+                          lambda: perf_pipe_lab.launch_stream_sum(
+                              big3, sum_outs[3])),
         "static_chain": (
             lambda: perf_static_probe.static_chain_ref(tape, L, dynamic=True,
                                                        R=CHAIN_R),
@@ -801,7 +839,7 @@ def check_perflab(lab, plain_outs):
         if name in plain_outs:
             check(torch.equal(out, plain_outs[name]),
                   f"pipe {name} equals its plain output")
-    (_, out4), (_, out3) = lab["dma4d"]["4d"], lab["dma4d"]["3d"]
+    (_, out4, _), (_, out3, _) = lab["dma4d"]["4d"], lab["dma4d"]["3d"]
     groups = perf_pipe_lab.DMA4D[1] * perf_pipe_lab.DMA4D[2] // 8
     check(torch.equal(out4, out3) and bool((out4 == groups).all()),
           "dma4d: both layouts sum the ones block exactly")
@@ -819,6 +857,215 @@ def check_perflab(lab, plain_outs):
         check(math.isfinite(row["us_per_op_slope"])
               and not row["below_floor"], "static slope is finite and not "
               "below its FMA floor")
+
+
+class SyncedPhases:
+    """A timer for Burrito.gradient_step: seconds per phase, the card
+    synchronised where each phase starts and ends, so a phase's time holds
+    its own device work and no other's."""
+
+    def __init__(self):
+        self.totals = {}
+
+    @contextlib.contextmanager
+    def phase(self, name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            torch.cuda.synchronize()
+            self.totals[name] = (self.totals.get(name, 0.0)
+                                 + time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def counting_scan_calls():
+    """Count the calls of the scan tape's two entry points (the engine's
+    route without a kernel) while the block runs: {"calls": n}."""
+    count = {"calls": 0}
+    names = ("log_likelihoods_impl", "ll_and_branch_gradients_impl")
+    saved = {name: getattr(pruning, name) for name in names}
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            count["calls"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for name, fn in saved.items():
+        setattr(pruning, name, counted(fn))
+    try:
+        yield count
+    finally:
+        for name, fn in saved.items():
+            setattr(pruning, name, fn)
+
+
+def vbpi_em(nexus, dev):
+    """The vbpi path's EM: on the card in float64, then the numpy backend
+    on the same instance; held within 1e-10.  The device loop adds in
+    linear space after a shift (as bito_tpu's does), so a PCSP whose mass
+    is under exp(-745) of the largest is -inf there beside the numpy
+    loop's log value: the same probability, 0."""
+    inst = unrooted_instance("em", device=dev)
+    inst.read_nexus_file(nexus)
+    inst.process_loaded_trees()
+    em_ms = []  # the first run loads the torch kernels it uses
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        score = inst.train_expectation_maximization(*VBPI_EM)
+        em_ms.append((time.perf_counter() - t0) * 1e3)
+    on_card = inst.sbn_parameters
+    want = inst.train_expectation_maximization(*VBPI_EM, backend="numpy")
+    tiny = inst.sbn_parameters < -745.0
+    err = max(np.abs(score - want).max() / np.abs(want).max(),
+              np.abs(on_card[~tiny] - inst.sbn_parameters[~tiny]).max())
+    print(f"# phase 3: vbpi EM on the card in float64 (alpha, iterations, "
+          f"score epsilon = {VBPI_EM}; support {inst.sbn_support.size()}, "
+          f"{len(score)} iterations; {em_ms[0]:.1f} ms the first run, "
+          f"{em_ms[1]:.1f} ms the second): score {score[-1]:.6f},"
+          f" max abs err against the numpy backend {err:.3e} (bound 1e-10), "
+          f"{int(tiny.sum())} parameters under exp(-745)")
+    check(len(score) == len(want) and np.isneginf(on_card[tiny]).all()
+          and np.isfinite(on_card[~tiny]).all() and err <= 1e-10,
+          "vbpi: the EM on the card matches the numpy backend")
+
+
+def vbpi_path(dev, card):
+    """The vbpi path: config4's VBPI run on the card (phase 3), checked as
+    the module docstring says.  Returns its launch counts."""
+    with tempfile.TemporaryDirectory() as tmp:
+        nexus, fasta = _synthetic.write_vbpi_inputs(
+            tmp, SEED, _synthetic.DS1_TAXA, VBPI_TREES, _synthetic.DS1_SITES,
+            _synthetic.DS1_DISTINCT_COLUMNS)
+        vbpi_em(nexus, dev)
+        burrito = Burrito(
+            mcmc_nexus_path=nexus, burn_in_fraction=0.0, fasta_path=fasta,
+            phylo_model_specification=PhyloModelSpecification(*VBPI_SPEC),
+            branch_model_name="split", scalar_model_name="lognormal",
+            optimizer_name="simple", particle_count=VBPI_PARTICLES,
+            seed=SEED, device=dev, dtype=PRODUCT_DTYPE)
+    inst, eng = burrito.inst, burrito.inst.engine
+    check(eng._route(eng._shared_model(inst._params_dict())) == "paired",
+          "vbpi: the instance's shared model row takes the paired kernels")
+
+    reset_launches()
+    with counting_scan_calls() as scan:
+        burrito.gradient_step()  # warm-up
+        timer = SyncedPhases()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(VBPI_STEPS):
+            burrito.gradient_step(timer=timer)
+        step_ms = (time.perf_counter() - t0) * 1e3 / VBPI_STEPS
+        elbo = burrito.estimate_elbo(VBPI_PARTICLES)
+        torch.cuda.synchronize()
+    counts = {name: KERNELS[name]["wrapper"].launches
+              for name in ("paired_ll_onchip", "paired_grad_onchip")}
+    read_launches("vbpi")
+    print(f"# phase 3: vbpi path: {scan['calls']} calls of the scan tape")
+    check(scan["calls"] == 0, "vbpi: no call of the scan tape")
+    phases = {name: s * 1e3 / VBPI_STEPS for name, s in timer.totals.items()}
+    print(f"# phase 3: vbpi step ({_synthetic.DS1_TAXA} taxa, "
+          f"{eng.site_pattern.pattern_count} patterns, {VBPI_PARTICLES} "
+          f"particles, {'/'.join(VBPI_SPEC)}, split/lognormal/simple; mean of "
+          f"{VBPI_STEPS} steps after one, the card synchronised at every "
+          f"phase boundary): {step_ms:.2f} ms/step (phases' sum "
+          f"{sum(phases.values()):.2f}); " + ", ".join(
+              f"{name} {ms:.3f}" for name, ms in phases.items())
+          + f" ms; on {card}")
+    print(f"# phase 3: vbpi ELBO estimate ({VBPI_PARTICLES} particles): "
+          f"{elbo:.6f}")
+    check(math.isfinite(elbo), "vbpi: the ELBO is finite")
+
+    # The last sample's trees: the card's LL and gradients in float32
+    # against the float64 engine, and the kernels against their plain
+    # versions.
+    trees = inst.tree_collection.trees
+    params = inst._params_dict()
+    pgs = inst.phylo_gradients()
+    ll = torch.tensor([g.log_likelihood() for g in pgs], dtype=torch.float64)
+    grads = torch.as_tensor(np.stack([g.gradient["branch_lengths"]
+                                      for g in pgs]), dtype=torch.float64)
+    ref = TreeLikelihoodEngine(eng.site_pattern, eng.model, device=dev,
+                               dtype=torch.float64)
+    ll_ref, g_ref = ref.ll_and_branch_gradients(
+        trees, {k: v.double() for k, v in params.items()})
+    ll_err = rel_err(ll, ll_ref.cpu())
+    g_err = norm_err(grads, g_ref[:, :grads.shape[1]].cpu())
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(eig, rates, clock,
+                                       eng.branch_length_matrix(trees, enc))
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    on = eng._onchip_tape(enc)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    M, N1, C = dst.shape[1], P.shape[1], P.shape[2]
+    check(C == 1 and paired.onchip_plan("ll", on.ll_rows, M, N1, C)
+          and paired.onchip_plan("grad", on.grad_rows, M, N1, C),
+          "vbpi: one rate category, and the trees fit the on-chip bodies")
+    ll_ops = (dst, tip, e, P, tips, pi, prop, w)
+    grad_ops = (dst, tip, src, e, mask, P, dP, tips, pi, prop, w)
+    calls = {"paired_ll_onchip": lambda: paired.paired_log_likelihoods(
+                 *ll_ops, onchip=on),
+             "paired_grad_onchip": lambda: paired.paired_ll_and_gradients(
+                 *grad_ops, onchip=on)}
+    ll_k = calls["paired_ll_onchip"]()
+    ll_g, g_k = calls["paired_grad_onchip"]()
+    ll_p, g_p = paired.paired_ll_and_gradients_ref(
+        *[x.double() if x.is_floating_point() else x for x in grad_ops])
+    k_err = max(rel_err(ll_k, ll_p), rel_err(ll_g, ll_p), norm_err(g_k, g_p))
+    print(f"# phase 3: vbpi last sample ({len(trees)} trees, C={C}): the "
+          f"card in float32 against the float64 engine: LL rel err "
+          f"{ll_err:.3e}, grad max-abs/max|g| {g_err:.3e}; the paired "
+          f"kernels against their float64 plain versions {k_err:.3e} (bound "
+          f"{BOUND:g})")
+    check(max(ll_err, g_err, k_err) <= BOUND,
+          "vbpi: the card's LL and gradients agree with float64")
+
+    # The SBN's topology gradients on the card (float64) against numpy.
+    theta = np.array([t.branch_lengths[:-1] for t in trees])
+    log_f = burrito.px_log_f(ll.numpy(), theta,
+                             burrito.branch_model.px_branch_representation())
+    got = inst.topology_gradients(log_f, burrito.use_vimco)
+    want = inst.topology_gradients(log_f, burrito.use_vimco, backend="numpy")
+    t_err = np.abs(got - want).max() / np.abs(want).max()
+    print(f"# phase 3: vbpi topology gradients (VIMCO) on the card in "
+          f"float64 against the numpy backend: max-abs/max|g| {t_err:.3e} "
+          "(bound 1e-10)")
+    check(bool(np.isfinite(got).all()) and t_err <= 1e-10,
+          "vbpi: topology gradients on the card match numpy")
+
+    # What the step's kernels and its new topology set cost.
+    fl_ll, fl_grad = tree_flops(enc, eng.site_pattern, eng.model, len(trees))
+    moved = nbytes(P, tips, pi, prop, w, dst, on.child, e)
+    lines = []
+    for name, flops, extra in (("paired_ll_onchip", fl_ll,
+                                nbytes(on.live_row)),
+                               ("paired_grad_onchip", fl_grad,
+                                nbytes(src, dP, mask))):
+        b_ms, b_by = bound(flops, moved + extra)
+        lines.append(f"{name} {cuda_ms(calls[name], 50):.4f} ms (bound "
+                     f"{b_ms:.4f} by {b_by}, {counts[name]} launches on the "
+                     "path)")
+    tape_ms = topology_set_ms(eng.site_pattern, eng.model, trees, 5)
+    reps_ms = []  # the SBN's indexer representations of the sample (host)
+    for _ in range(3):
+        inst._indexer_reps_cache = None
+        t0 = time.perf_counter()
+        inst.make_indexer_representations()
+        reps_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"# phase 3: vbpi shape ({len(trees)} trees x {eng.pattern_pad} "
+          f"patterns, C={C}; CUDA events around 50 calls): " + ", ".join(lines)
+          + "; a new topology set, host ms before the first launch: "
+          "encoding {:.3f}, paired tapes {:.3f} (the on-chip tape {:.3f} of "
+          "it); the sample's SBN indexer representations {:.3f} ms (host, "
+          "median of 3); on {}".format(*tape_ms, float(np.median(reps_ms)),
+                                       card))
+    return counts
 
 
 def main():
@@ -1113,6 +1360,8 @@ def main():
     launches.update(read_launches("perflab"))
     check_perflab(lab, plain_outs)
 
+    vbpi_path(dev, card)
+
     # The float64 reference's own gradients against central differences.
     h = 1e-6
     for node in (0, 13, 40):
@@ -1162,16 +1411,19 @@ def main():
         plain, kernel = calls[name]
         library = work[name][2]
         # The probes' launches are short and their wrappers' host work is
-        # not: they are timed from the device (graph_ms).
+        # not: they, and their library call, are timed from the device
+        # (graph_ms).
+        graphed = name in GRAPH_TIMED
         timer = (partial(graph_ms, counter=KERNELS[name]["wrapper"])
-                 if name in GRAPH_TIMED else cuda_ms)
+                 if graphed else cuda_ms)
+        lib_timer = graph_ms if graphed else cuda_ms
         # plain, kernel, library, kernel, library, plain: all see the same
         # drift.
         p1 = cuda_ms(plain, 5)
         k1 = timer(kernel, 50)
-        l1 = cuda_ms(library, 50) if library else None
+        l1 = lib_timer(library, 50) if library else None
         k2 = timer(kernel, 50)
-        l2 = cuda_ms(library, 50) if library else None
+        l2 = lib_timer(library, 50) if library else None
         p2 = cuda_ms(plain, 5)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
                        (l1 + l2) / 2 if library else None)

@@ -1,6 +1,8 @@
 """The CUDA kernels on the card (paired, chunked and per-node, and the perf
 lab's four probes), against their plain torch versions; each body of the
-paired, chunked and per-node kernels, and which one the wrappers take.
+paired, chunked and per-node kernels, and which one the wrappers take;
+and the VBPI slice on the card (the unrooted instance against float64,
+a trainer step's kernels, the SBN's device programs against numpy).
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -19,13 +21,15 @@ import pytest
 import torch
 
 from bito_tpu_torch import _synthetic
+from bito_tpu_torch.api.instances import unrooted_instance
 from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
 from bito_tpu_torch.perflab import perf_lab, perf_pipe_lab, perf_static_probe
-from bito_tpu_torch.treelike import chunked, paired, pernode, prep
+from bito_tpu_torch.treelike import chunked, paired, pernode, prep, pruning
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
+from bito_tpu_torch.vi.burrito import Burrito
 
 pytestmark = pytest.mark.cuda
 
@@ -974,3 +978,141 @@ def test_pipe_cell_at_the_plans_edge(cuda):
     out = perf_pipe_lab.pipe_cell(idx, big, **kw)
     torch.cuda.synchronize()
     assert torch.equal(out, perf_pipe_lab.pipe_cell_ref(idx, big, **kw))
+
+
+def test_stream_sums_and_torch_sum_timed_from_the_device(cuda):
+    """run4d times both walks and torch.sum from CUDA graphs: the launches
+    count where the card runs them (the checked call, one before the
+    capture, then reps for each of the 1 + replays replays), and both
+    times are positive."""
+    before = (perf_pipe_lab.stream_sum_4d.launches,
+              perf_pipe_lab.stream_sum_3d.launches)
+    result = perf_pipe_lab.run4d("dma", 2, 16, 128, reps=3, cells=4)
+    assert (perf_pipe_lab.stream_sum_4d.launches,
+            perf_pipe_lab.stream_sum_3d.launches) == (before[0] + 2 + 3 * 4,
+                                                      before[1] + 2 + 3 * 4)
+    for tag in ("4d", "3d"):
+        us, out, lib_us = result[tag]
+        assert us > 0 and lib_us > 0
+        assert torch.equal(out, torch.full((4, 8, 128), 4.0, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# The VBPI slice: the unrooted instance, the device SBN programs and the
+# trainer on the card
+# ---------------------------------------------------------------------------
+
+VBPI_SPECS = {1: ("JC69", "constant", "strict"), 4: ("GTR", "gamma+4", "none")}
+
+
+def _vbpi_files(tmp_path, taxa=27, sites=400):
+    return _synthetic.write_vbpi_inputs(tmp_path, 5, taxa, 10, sites)
+
+
+def _instances(files, spec, cuda, particles=12):
+    """The unrooted instance on the card (float32) and on the CPU
+    (float64), fed the same files, with the same sampled trees and branch
+    lengths."""
+    nexus, fasta = files
+    out = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        inst = unrooted_instance("vbpi", device=device, dtype=dtype)
+        inst.read_nexus_file(nexus)
+        inst.process_loaded_trees()
+        inst.read_fasta_file(fasta)
+        inst.train_simple_average()
+        inst.rng = np.random.default_rng(3)
+        inst.sample_trees(particles)
+        inst.prepare_for_phylo_likelihood(PhyloModelSpecification(*spec))
+        for key, value in (GTR if spec[0] == "GTR" else {}).items():
+            inst.get_phylo_model_param_block_map()[key][:] = value
+        rng = np.random.default_rng(4)
+        for tree in inst.tree_collection.trees:
+            tree.branch_lengths[:] = rng.uniform(0.01, 0.3,
+                                                 tree.branch_lengths.shape)
+        out.append(inst)
+    return out
+
+
+@pytest.mark.parametrize("C", [1, 4])
+def test_instance_on_the_card_matches_float64(cuda, tmp_path, C):
+    """LL and branch gradients of the instance on the card (the paired
+    on-chip bodies, at one rate category and at four) against the
+    instance on the CPU in float64, within 5e-5."""
+    card, cpu = _instances(_vbpi_files(tmp_path), VBPI_SPECS[C], cuda)
+    assert [t.topology.key() for t in card.tree_collection.trees] == [
+        t.topology.key() for t in cpu.tree_collection.trees]
+    before = (paired.paired_ll_onchip.launches,
+              paired.paired_grad_onchip.launches)
+    ll = card.log_likelihoods()
+    pgs = card.phylo_gradients()
+    assert (paired.paired_ll_onchip.launches,
+            paired.paired_grad_onchip.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    ll_ref = cpu.log_likelihoods()
+    ref = cpu.phylo_gradients()
+    assert ll.dtype == np.float32
+    assert _rel(torch.as_tensor(ll), torch.as_tensor(ll_ref)) <= 5e-5
+    assert _rel(torch.tensor([g.log_likelihood() for g in pgs]),
+                torch.as_tensor(ll_ref)) <= 5e-5
+    g = torch.as_tensor(np.stack([x.gradient["branch_lengths"] for x in pgs]))
+    g_ref = torch.as_tensor(np.stack([x.gradient["branch_lengths"]
+                                      for x in ref]))
+    assert _norm(g, g_ref) <= 5e-5
+
+
+def test_vbpi_step_takes_only_the_paired_onchip_kernels(cuda, tmp_path,
+                                                        monkeypatch):
+    """A Burrito step and an ELBO estimate on the card launch the two
+    paired on-chip bodies and no other kernel, and never call the scan
+    tape."""
+    nexus, fasta = _vbpi_files(tmp_path)
+    burrito = Burrito(
+        mcmc_nexus_path=nexus, burn_in_fraction=0.0, fasta_path=fasta,
+        phylo_model_specification=PhyloModelSpecification(*VBPI_SPECS[1]),
+        branch_model_name="split", scalar_model_name="lognormal",
+        optimizer_name="simple", particle_count=8, device=cuda)
+
+    def scan(*args, **kwargs):
+        raise AssertionError("the scan tape was called")
+
+    monkeypatch.setattr(pruning, "log_likelihoods_impl", scan)
+    monkeypatch.setattr(pruning, "ll_and_branch_gradients_impl", scan)
+    wrappers = PAIRED + (
+        chunked.chunked_ll_onchip, chunked.chunked_ll_global,
+        chunked.chunked_grad_onchip, chunked.chunked_grad_global,
+        pernode.pernode_ll_onchip, pernode.pernode_ll_global,
+        pernode.pernode_grad_onchip, pernode.pernode_grad_global)
+    before = [w.launches for w in wrappers]
+    burrito.gradient_step()
+    elbo = burrito.estimate_elbo(8)
+    torch.cuda.synchronize()
+    after = {w.__name__: n - b for w, n, b in zip(
+        wrappers, [w.launches for w in wrappers], before)}
+    assert after.pop("paired_ll_onchip") == 1
+    assert after.pop("paired_grad_onchip") == 1
+    assert not any(after.values()), after
+    assert np.isfinite(elbo)
+
+
+def test_device_sbn_programs_on_the_card_match_numpy(cuda, tmp_path):
+    """The EM and the topology gradients in float64 on the card against
+    the numpy backend, within 1e-10."""
+    nexus, _ = _vbpi_files(tmp_path)
+    inst = unrooted_instance("em", device=cuda)
+    inst.read_nexus_file(nexus)
+    inst.process_loaded_trees()
+    score = inst.train_expectation_maximization(0.2, 20, 1e-8)
+    on_card = inst.sbn_parameters
+    want = inst.train_expectation_maximization(0.2, 20, 1e-8,
+                                               backend="numpy")
+    assert len(score) == len(want)
+    np.testing.assert_allclose(score, want, rtol=1e-10)
+    np.testing.assert_allclose(on_card, inst.sbn_parameters, rtol=0,
+                               atol=1e-10)
+    inst.sample_trees(16)
+    log_f = np.random.default_rng(1).normal(-1000.0, 20.0, 16)
+    for vimco in (True, False):
+        got = inst.topology_gradients(log_f, vimco)
+        ref = inst.topology_gradients(log_f, vimco, backend="numpy")
+        assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max()

@@ -1,7 +1,6 @@
 """The port's copies of bito_tpu's host modules give identical results:
 parsed trees, site patterns, op tapes and paired-slot tapes, compared
 exactly."""
-import ast
 import pathlib
 
 import numpy as np
@@ -12,7 +11,7 @@ from bito_tpu.treelike.pallas_paired import build_paired_encoding as jax_paired
 from bito_tpu_torch.treelike.encode import encode_trees
 from bito_tpu_torch.treelike.paired import build_paired_encoding
 
-from torch_port_cases import make_case
+from torch_port_cases import make_case, without_docstrings
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -23,23 +22,12 @@ CASES = [
 ]
 
 
-def _without_docstrings(path: pathlib.Path) -> str:
-    tree = ast.parse(path.read_text())
-    for node in ast.walk(tree):
-        body = getattr(node, "body", None)
-        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
-                and isinstance(body[0].value, ast.Constant)
-                and isinstance(body[0].value.value, str)):
-            node.body = body[1:]
-    return ast.dump(tree)
-
-
 @pytest.mark.parametrize("module", ["core/bitset.py", "core/tree.py",
                                     "treelike/encode.py"])
 def test_copied_module_code_is_identical(module):
     """Apart from docstrings, the copied modules are bito_tpu's code."""
-    assert (_without_docstrings(ROOT / "bito_tpu_torch" / module)
-            == _without_docstrings(ROOT / "bito_tpu" / module))
+    assert (without_docstrings(ROOT / "bito_tpu_torch" / module)
+            == without_docstrings(ROOT / "bito_tpu" / module))
 
 
 @pytest.mark.parametrize("kw", CASES)

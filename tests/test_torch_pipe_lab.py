@@ -250,3 +250,15 @@ def test_scratch_bytes_and_bound_terms():
     hbm, smem = lab.pipe_bound_ms(*lab.EXPS["tiny-block_tiny-scratch"],
                                   sms=132, clock_mhz=1980.0)
     assert smem == 0 and hbm > 0
+
+
+def test_torch_stream_sum_is_the_plain_version():
+    """The library call timed beside the stream sums computes the same
+    grouped sums, into the output it is given."""
+    big4 = torch.as_tensor(_random_block((CELLS, 2, 16, 24), 3)).to(
+        torch.bfloat16)
+    for big in (big4, big4.reshape(CELLS, 32, 24)):
+        out = torch.empty((CELLS, 8, 24))
+        assert lab.torch_stream_sum(big, out) is out
+        torch.testing.assert_close(out, lab.stream_sum_ref(big), rtol=0,
+                                   atol=0)

@@ -6,7 +6,9 @@ builds its own engine from them.
 """
 from __future__ import annotations
 
+import ast
 import math
+import pathlib
 from dataclasses import dataclass
 
 import jax.numpy as jnp
@@ -215,3 +217,32 @@ def max_norm(a, b) -> float:
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
 
+
+
+# ---------------------------------------------------------------------------
+# Copied modules and the SBN / VBPI inputs
+# ---------------------------------------------------------------------------
+
+def without_docstrings(path) -> str:
+    """The module's AST dump with every docstring removed: two copies of a
+    module compare equal where only their docstrings differ."""
+    tree = ast.parse(pathlib.Path(path).read_text())
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
+                and isinstance(body[0].value, ast.Constant)
+                and isinstance(body[0].value.value, str)):
+            node.body = body[1:]
+    return ast.dump(tree)
+
+
+def topology_counts(seed: int, num_taxa: int, distinct: int):
+    """(Newick text of `distinct` random unrooted trees, each written a
+    random 1-4 times, in a shuffled order): a sample with repeated
+    topologies, as an MCMC run gives."""
+    rng = np.random.default_rng(seed)
+    lines = _synthetic.random_trees_newick(seed, num_taxa,
+                                           distinct).splitlines()
+    repeated = [line for line in lines for _ in range(rng.integers(1, 5))]
+    rng.shuffle(repeated)
+    return "\n".join(repeated) + "\n"
