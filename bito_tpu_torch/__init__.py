@@ -2,8 +2,9 @@
 
 Batched phylogenetic tree likelihoods and branch-length gradients on one
 NVIDIA Hopper card.  Subpackages mirror bito_tpu's (core, models,
-treelike), so each module has an obvious counterpart; the JAX package
-stays the reference and the tests pin this package to it.
+treelike, sbn, vi, api, dag, _native), so each module has an obvious
+counterpart; the JAX package stays the reference and the tests pin this
+package to it.
 
 This package imports torch and numpy only, never jax and never bito_tpu.
 """

@@ -61,6 +61,55 @@ def random_trees_newick(seed: int, num_taxa: int, num_trees: int,
                      for _ in range(num_trees)) + "\n"
 
 
+# Dated taxa: dates in years with three decimals, node heights above their
+# older child by an interval uniform in HEIGHT_STEPS years.
+DATE_SPAN = 20.0
+HEIGHT_STEPS = (0.5, 10.0)
+
+
+def dated_taxon_names(seed: int, num_taxa: int,
+                      date_span: float = DATE_SPAN) -> Dict[str, float]:
+    """{name: date}: taxa t{i}_{date}, each date 2000 + uniform(0,
+    date_span) years written with three decimals, so that a parser of
+    the `_<date>` suffix reads the date back exactly; date_span 0 dates
+    every taxon 2000.000."""
+    rng = np.random.default_rng(seed)
+    dates = np.round(2000.0 + rng.uniform(0.0, date_span, num_taxa), 3)
+    return {f"t{i}_{d:.3f}": float(f"{d:.3f}") for i, d in enumerate(dates)}
+
+
+def dated_trees_newick(seed: int, num_taxa: int, num_trees: int,
+                       date_span: float = DATE_SPAN
+                       ) -> Tuple[str, Dict[str, float]]:
+    """(Newick text of `num_trees` random time-calibrated rooted trees, the
+    taxa's dates).  A tip's height is the latest date less its own; random
+    pairs of subtrees join at a height HEIGHT_STEPS above the older one,
+    down to a binary root; each branch length is the height difference,
+    written with 17 significant digits, so that heights rebuilt from the
+    branch lengths agree below 1e-6 (rooted.BRANCH_LENGTH_TOLERANCE)."""
+    rng = np.random.default_rng(seed)
+    dates = dated_taxon_names(seed + 1, num_taxa, date_span)
+    latest = max(dates.values())
+    lo, hi = HEIGHT_STEPS
+
+    def tree() -> str:
+        subtrees = [(name, latest - date) for name, date in dates.items()]
+        while len(subtrees) > 1:
+            i, j = sorted(rng.choice(len(subtrees), size=2, replace=False))
+            (right, h_r), (left, h_l) = subtrees.pop(j), subtrees.pop(i)
+            h = max(h_l, h_r) + rng.uniform(lo, hi)
+            subtrees.append((f"({left}:{h - h_l:.17g},{right}:{h - h_r:.17g})",
+                             h))
+        return subtrees[0][0] + ";"
+
+    return "\n".join(tree() for _ in range(num_trees)) + "\n", dates
+
+
+def dates_csv(dates: Dict[str, float]) -> str:
+    """The dates as CSV text, one `name,date` row a taxon."""
+    return "".join(f"{name},{date!r}\n" for name, date in dates.items())
+
+
 def cherry_comb_newick(seed: int, num_cherries: int, num_trees: int) -> str:
     """`num_trees` copies of one rooted topology over 2 * num_cherries + 1
     taxa, ((t0,t1),((t2,t3),( ... ,t{2k}))), with random branch lengths.

@@ -5,7 +5,9 @@ bito_tpu's engines take a parameter dict keyed by the model's block names
 rows [B, k].  The port uses the same keys; this turns the numpy form of
 such a dict into the port's tensors, so both packages compute from the
 same numbers.  A VBPI trainer's state carries over the same way, as numpy
-(load_burrito_state), without importing bito_tpu: the caller reads it.
+(load_burrito_state), without importing bito_tpu: the caller reads it.  So
+does a rooted instance's (rooted_state reads it from either package's
+instance, load_rooted_state writes it into the port's).
 """
 from __future__ import annotations
 
@@ -69,3 +71,51 @@ def load_burrito_state(burrito, state: Mapping) -> None:
     opt.step_number = int(state["step_number"])
     inst.phylo_model_params = np.array(state["phylo_model_params"],
                                        dtype=np.float64)
+
+
+# A rooted instance's state, as numpy: each tree's time-tree fields
+# (treelike/rooted.py's RootedTreeState) and branch lengths, and the
+# instance's model parameter rows.
+ROOTED_TREE_STATE = ("node_heights", "node_bounds", "height_ratios", "rates")
+
+
+def rooted_state(inst) -> Dict[str, object]:
+    """Read a rooted instance's state as numpy, from bito_tpu's instance or
+    the port's (both have tree_states, tree_collection and
+    phylo_model_params): {field: [one array a tree]} for
+    ROOTED_TREE_STATE and "branch_lengths", and "phylo_model_params"."""
+    state = {key: [np.array(getattr(s, key), dtype=np.float64)
+                   for s in inst.tree_states]
+             for key in ROOTED_TREE_STATE}
+    state["branch_lengths"] = [np.array(t.branch_lengths, dtype=np.float64)
+                               for t in inst.tree_collection.trees]
+    state["phylo_model_params"] = np.array(inst.phylo_model_params,
+                                           dtype=np.float64)
+    return state
+
+
+def load_rooted_state(inst, state: Mapping) -> None:
+    """Write `state` (rooted_state's form) into the port's rooted instance
+    `inst`, whose trees and dates were read from the same files and whose
+    model was prepared with the same specification.  The arrays are
+    written in place; the model rows reach the engine through
+    params_from_numpy, as every call's do."""
+    states, trees = inst.tree_states, inst.tree_collection.trees
+    for key in ROOTED_TREE_STATE + ("branch_lengths",):
+        values = state[key]
+        if len(values) != len(trees):
+            raise ValueError(f"{key}: {len(values)} trees, the instance has "
+                             f"{len(trees)}")
+        for i, value in enumerate(values):
+            have = (trees[i].branch_lengths if key == "branch_lengths"
+                    else getattr(states[i], key))
+            value = np.asarray(value, dtype=np.float64)
+            if value.shape != have.shape:
+                raise ValueError(f"{key} of tree {i}: shape {value.shape}, "
+                                 f"the instance has {have.shape}")
+            np.copyto(have, value)
+    params = np.asarray(state["phylo_model_params"], dtype=np.float64)
+    if params.shape[1:] != inst.phylo_model_params.shape[1:]:
+        raise ValueError(f"phylo_model_params: shape {params.shape}, the "
+                         f"instance has {inst.phylo_model_params.shape}")
+    inst.phylo_model_params = params.copy()

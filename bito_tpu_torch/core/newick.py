@@ -1,9 +1,14 @@
 """Newick / Nexus tree parsing and FASTA reading.
 
-Host-side copy of bito_tpu.core.newick (pure Python; the port imports no
-module of bito_tpu, whose package import pulls in jax).  Only the
-recursive-descent parser is carried over: the ctypes parser of
-bito_tpu._native is not ported yet.
+Host-side copy of bito_tpu.core.newick (the port imports no module of
+bito_tpu, whose package import pulls in jax), with both of its parsers:
+parse_newick_file and parse_nexus_file parse in the port's native library
+(bito_tpu_torch._native, bitocore's parser) unless the caller passes
+`sort_taxa=True` (which the native parser does not take), and then in the
+recursive-descent parser below, which parse_newick_text and
+parse_nexus_text always use.  bito_tpu falls back to the Python parser
+when its library is missing; the port does not: a native library that
+fails to build raises.
 
 Rebuild of the reference's flex/bison tree parser (src/parser.yy,
 src/scanner.ll) and Alignment::ReadFasta (src/alignment.cpp).  A recursive-descent parser replaces
@@ -23,6 +28,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import _native
 from .tree import Topology, Tree, TreeCollection
 
 
@@ -179,10 +185,27 @@ def _count_internal(node: _ParsedNode) -> int:
     )
 
 
-def parse_newick_file(path: str, sort_taxa: bool = False) -> TreeCollection:
+def _native_collection(text: str, is_nexus: bool) -> TreeCollection:
+    """Parse with the native bitocore parser."""
+    taxa, raw_trees = _native.parse_trees(text, is_nexus)
+    trees = [
+        Tree(Topology(parents, len(taxa)), lengths)
+        for parents, lengths in raw_trees
+    ]
+    return TreeCollection(trees, taxa)
+
+
+def read_text(path: str) -> str:
+    """A tree file's text (gzip is transparent)."""
     with _open_text(path) as f:
-        text = f.read()
-    return parse_newick_text(text, sort_taxa=sort_taxa)
+        return f.read()
+
+
+def parse_newick_file(path: str, sort_taxa: bool = False) -> TreeCollection:
+    text = read_text(path)
+    if sort_taxa:
+        return parse_newick_text(text, sort_taxa=True)
+    return _native_collection(text, is_nexus=False)
 
 
 def parse_newick_text(
@@ -217,8 +240,14 @@ def parse_newick_text(
 def parse_nexus_file(path: str, sort_taxa: bool = False) -> TreeCollection:
     """Parse a Nexus tree file with a translate table, as the reference's
     ParseNexusFile does."""
-    with _open_text(path) as f:
-        text = f.read()
+    text = read_text(path)
+    if sort_taxa:
+        return parse_nexus_text(text, sort_taxa=True)
+    return _native_collection(text, is_nexus=True)
+
+
+def parse_nexus_text(text: str, sort_taxa: bool = False) -> TreeCollection:
+    """parse_nexus_file's pure-Python parser, on the file's text."""
     lines = text.split("\n")
     if not lines or not lines[0].strip().upper().startswith("#NEXUS"):
         raise ValueError("Not a nexus file")

@@ -31,7 +31,8 @@ def gamma_median_category_rates(shape: torch.Tensor, category_count: int) -> tor
     return rates / rates.mean(dim=-1, keepdim=True)
 
 
-def _gamma_quantile(p: torch.Tensor, a: torch.Tensor, iters: int = 30) -> torch.Tensor:
+def _newton_gamma_quantile(p: torch.Tensor, a: torch.Tensor,
+                           iters: int = 30) -> torch.Tensor:
     """Inverse regularised lower incomplete gamma: Wilson-Hilferty start,
     then `iters` Newton steps on gammainc (as bito_tpu's, step for step)."""
     z = torch.special.ndtri(p)
@@ -44,6 +45,58 @@ def _gamma_quantile(p: torch.Tensor, a: torch.Tensor, iters: int = 30) -> torch.
         x_new = x - f / torch.exp(logpdf)
         x = torch.where(x_new > 0, x_new, x / 2.0)
     return x
+
+
+def _series_terms(x: torch.Tensor) -> int:
+    """Terms of the series in _dgammainc_da that leave a tail under the
+    float64 epsilon: its terms fall off past n = x like a Poisson(x) tail."""
+    top = float(x.max()) if x.numel() else 0.0
+    return int(top + 12.0 * top ** 0.5 + 60.0)
+
+
+def _dgammainc_da(a: torch.Tensor, x: torch.Tensor, terms: int) -> torch.Tensor:
+    """d P(a, x) / d a of the regularised lower incomplete gamma, from its
+    series P(a, x) = sum_n exp((a + n) log x - x - lgamma(a + n + 1)):
+    sum_n (log x - digamma(a + n + 1)) exp(...), in the inputs' dtype."""
+    n = torch.arange(terms, dtype=x.dtype, device=x.device)
+    a_n = a[..., None] + n + 1.0
+    log_x = torch.log(x)[..., None]
+    t = torch.exp((a_n - 1.0) * log_x - x[..., None] - torch.lgamma(a_n))
+    return (t * (log_x - torch.special.digamma(a_n))).sum(dim=-1)
+
+
+class _GammaQuantile(torch.autograd.Function):
+    """x = P^-1(a, p) by _newton_gamma_quantile, differentiated implicitly
+    in reverse mode: P(a, x) = p gives dx/dp = 1 / pdf(x) and dx/da =
+    -(dP/da) / pdf(x), pdf the Gamma(a, 1) density.  torch's gammainc has
+    no derivative in a; bito_tpu's jax.jacfwd differentiates its 30 Newton
+    steps, whose derivative converges to this one with them."""
+
+    @staticmethod
+    def forward(p, a):
+        return _newton_gamma_quantile(p, a)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        p, a = inputs
+        x = output
+        a_b = a.expand_as(x)
+        inv_pdf = torch.exp(x - (a_b - 1.0) * torch.log(x) + torch.lgamma(a_b))
+        dx_da = -_dgammainc_da(a_b, x, _series_terms(x)) * inv_pdf
+        ctx.save_for_backward(inv_pdf, dx_da)
+        ctx.shapes = (p.shape, a.shape)
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        inv_pdf, dx_da = ctx.saved_tensors
+        p_shape, a_shape = ctx.shapes
+        return ((x_bar * inv_pdf).sum_to_size(p_shape),
+                (x_bar * dx_da).sum_to_size(a_shape))
+
+
+def _gamma_quantile(p: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """The Gamma(a, 1) quantile of p, differentiable in p and a."""
+    return _GammaQuantile.apply(p, a)
 
 
 class SiteModelSpec:

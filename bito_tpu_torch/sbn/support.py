@@ -1,9 +1,16 @@
 """SBN support: the indexed set of allowed rootsplits + PCSPs.
 
-Copy of bito_tpu.sbn.support without its `_native` branches: the port
-has no ctypes indexer, so representations and counters always come from
-the pure-Python code of sbn/maps.py, which gives the same output
-(tests/test_torch_sbn.py pins the two by output).
+Port of bito_tpu.sbn.support with its native branches: an unrooted
+support counts its rootsplits and PCSPs, and builds its indexer
+representations, in the port's native library (bito_tpu_torch._native),
+as bito_tpu's does in its own.  Unlike bito_tpu, the port never falls back
+to the pure-Python code of sbn/maps.py on its own: a native library that
+fails to build raises.  The Python code runs where the caller calls it:
+support_of_bits over sbn.maps.unrooted_counters' bitsets, and
+sbn.maps.unrooted_representation (an instance made with native=False
+does).  Both give the same output (tests/test_torch_native.py and
+tests/test_torch_sbn.py pin them).  A rooted support takes the Python
+code, as in bito_tpu.
 
 Rebuild of the reference SBNSupport / BuildIndexerBundle
 (reference: src/sbn_support.hpp:4-60, src/sbn_maps.cpp:88-118).  Layout
@@ -23,6 +30,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from .. import _native
 from ..core.bitset import PCSP, Subsplit
 from ..core.tree import Topology
 from . import maps
@@ -77,7 +85,17 @@ class SBNSupport:
         sentinel = len(self.indexer)
         if self.rooted:
             return maps.rooted_representation(self.indexer, topo, sentinel)
-        return maps.unrooted_representation(self.indexer, topo, sentinel)
+        return self.native_indexer().unrooted_representations(
+            [np.asarray(topo.parents, dtype=np.int32)], sentinel)[0]
+
+    def native_indexer(self):
+        """The native indexer of this support, made at first use (the VBPI
+        step builds every sampled tree's representations with it)."""
+        cached = getattr(self, "_native_indexer", None)
+        if cached is None:
+            cached = _native.PCSPIndexer(self.indexer, self.num_taxa)
+            self._native_indexer = cached
+        return cached
 
     def pretty_indexer(self) -> List[str]:
         return list(self.pretty)
@@ -85,14 +103,32 @@ class SBNSupport:
 
 def build_support(topology_counter: Dict[Topology, int],
                   taxon_names: Sequence[str], rooted: bool) -> SBNSupport:
+    """The support of `topology_counter`: an unrooted one counted in the
+    native library, a rooted one in sbn/maps.py."""
+    n_taxa = len(taxon_names)
     if rooted:
-        rs_counter, pcsp_counter, rs_bits, pcsp_bits = maps.rooted_counters(
-            topology_counter
-        )
-    else:
-        rs_counter, pcsp_counter, rs_bits, pcsp_bits = maps.unrooted_counters(
-            topology_counter
-        )
+        _, _, rs_bits, pcsp_bits = maps.rooted_counters(topology_counter)
+        return support_of_bits(rs_bits, pcsp_bits, taxon_names, rooted)
+    rs_ints, pcsp_ints = _native.unrooted_counters(
+        [t.parents for t in topology_counter],
+        list(topology_counter.values()), n_taxa,
+    )
+    rs_bits = {}
+    for c0, c1 in rs_ints:
+        ss = Subsplit(c0, c1, n_taxa)
+        rs_bits[ss.to_string()] = ss
+    pcsp_bits = {}
+    for sister, focal, child in pcsp_ints:
+        p = PCSP(sister, focal, child, n_taxa)
+        pcsp_bits[p.to_string()] = p
+    return support_of_bits(rs_bits, pcsp_bits, taxon_names, rooted)
+
+
+def support_of_bits(rs_bits: Dict[str, Subsplit], pcsp_bits: Dict[str, PCSP],
+                    taxon_names: Sequence[str], rooted: bool) -> SBNSupport:
+    """The indexed support of the rootsplits and PCSPs that a counter found
+    (the bitset maps of sbn.maps.unrooted_counters and rooted_counters,
+    keyed by their strings)."""
     n = len(taxon_names)
     indexer: Dict[str, int] = {}
     index_to_child: List[Subsplit] = []

@@ -35,7 +35,9 @@ do not take.  (bito_tpu's forced kernels take them and silently use tree
 have no route here, as bito_tpu's have none.
 
 The tape runs on the engine's device and dtype; the kernel operands are
-float32 on a card and in the engine's dtype on the CPU.  bito_tpu's TPU
+float32 on a card and in the engine's dtype on the CPU.  The model
+ingredients and the transition matrices are computed in float64 and cast
+to those (_model_ingredients).  bito_tpu's TPU
 launch policy (tree interleave, tile and VMEM sizing, category padding,
 the MXU-sized chunk width) has no counterpart: the kernels take any
 batch, pattern count and category count up to paired.MAX_CATEGORIES as
@@ -209,8 +211,15 @@ class TreeLikelihoodEngine:
     def _model_ingredients(self, params, batch: int):
         """Per-tree model ingredients (eig fields [B, ...], rates/props
         [B, C], clock [B]).  `params` values may be shared (1-D) or carry a
-        leading per-tree axis."""
-        kw = dict(device=self.device, dtype=self.dtype)
+        leading per-tree axis.
+
+        They are float64 whatever the engine's dtype, and the transition
+        matrices built from them are cast to it only after (prep, pruning):
+        at a short branch or a slow rate category, P's off-diagonal entries
+        of size t come from O(1) terms of U exp(Lambda t) U^-1 that cancel,
+        which in float32 would leave them a relative error of about
+        2^-24 / t (a strict clock's 0.0005-substitution branch: 1e-4)."""
+        kw = dict(device=self.device, dtype=torch.float64)
         vals = {k: torch.as_tensor(params[k], **kw) for k in self.model.blocks}
         if not all(v.dim() == 1 for v in vals.values()):
             # Per-tree rows: broadcast shared blocks, then one batched

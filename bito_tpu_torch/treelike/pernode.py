@@ -15,7 +15,7 @@ originals (prep.prepare_inputs_grad operands on the engine's tapes).
 
 Each kernel has, as in paired.py:
   - the plain torch version (`*_ref`): the scan tape's own postorder,
-    root and fused preorder (pruning.py) on the kernels' compact operands;
+    root and preorder adjoints (pruning.py) on the kernels' compact operands;
   - the public wrapper: a CPU tensor goes to the plain version; a CUDA
     tensor goes to a hand-written kernel, and the call raises if the
     kernel cannot take the inputs or fails to launch;
@@ -83,8 +83,9 @@ def pernode_ll_and_gradients_ref(post_ops, pre_ops, root, edge_mask, P, dP,
     pi_b, props_b = _batch_model(pi, props, P.shape[0], P.dtype)
     root = root.long()
     ll = pruning.root_log_likelihood(buf, ls, root, pi_b, props_b) @ w
-    grads = pruning.preorder_gradients_fused(pre_ops.long(), P, dP, buf, root,
-                                             pi_b, props_b, w)
+    adj, _, _ = pruning.edge_adjoints(pre_ops.long(), P, buf, root, pi_b,
+                                      props_b, w)
+    grads = (adj * dP).sum((-3, -2, -1))
     N = edge_mask.shape[1]
     return ll, grads[:, :N] * edge_mask.to(P.dtype)
 

@@ -17,6 +17,8 @@ As in bito_tpu:
     kernels as scripts/bench_kernel_race.py drives them);
   - the kernel operands are float32.  `dtype` gives the plain versions
     their operands in float64 (the engine on the CPU, and the tests).
+    P and dP are computed in the model ingredients' dtype (float64 from
+    the engine) and cast to `dtype` last.
 """
 from __future__ import annotations
 
@@ -48,13 +50,14 @@ def prepare_inputs_grad_q(eig: EigenDecomp, category_rates, clock_rate,
                           branch_lengths, dtype=KERNEL_DTYPE):
     """(P, dP), both [B, N+1, C, A, A] float32, with dP from the
     dP = rate*clock * Q P identity and zero at the identity edge N."""
-    P = prepare_inputs(eig, category_rates, clock_rate, branch_lengths, dtype)
+    P = pruning.transition_matrices_ext(eig, branch_lengths, category_rates,
+                                        clock_rate)
     Q = rate_matrix_of(eig)                                  # [B, A, A]
     QC = ((category_rates * clock_rate[:, None])[:, :, None, None]
-          * Q[:, None]).to(dtype)                            # [B, C, A, A]
+          * Q[:, None])                                      # [B, C, A, A]
     dP = QC[:, None] @ P                                     # [B, N+1, C, A, A]
     dP[:, -1] = 0.0
-    return P, dP.contiguous()
+    return P.to(dtype).contiguous(), dP.to(dtype).contiguous()
 
 
 def prepare_inputs_grad(eig: EigenDecomp, category_rates, clock_rate,

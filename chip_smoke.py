@@ -7,8 +7,9 @@ The workload is the flagship configuration at full width: a DS1-shaped
 problem (27 taxa, 1,949 columns drawn from 934 distinct ones, made from a
 seed), GTR+Gamma4 with bench.py's parameters, and a batch of 200 random
 unrooted trees with trifurcating roots.  Seven paths run the ten kernels,
-the six tree kernels in two bodies each, and an eighth, the VBPI trainer,
-runs the paired kernels as its steps call them:
+the six tree kernels in two bodies each; an eighth, the VBPI trainer, and
+a ninth, the rooted time-tree instance, run the paired kernels as their
+users' calls reach them:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
   - large: the same entry points on two trees of 921 taxa (128 patterns:
@@ -47,7 +48,27 @@ runs the paired kernels as its steps call them:
     every step's likelihoods and gradients take the paired on-chip bodies
     at one rate category (paired_ll_onchip, paired_grad_onchip), on a new
     topology set every step; the SBN's EM and topology gradients run in
-    float64 on the card (sbn/device.py).
+    float64 on the card (sbn/device.py).  The instance parses the Nexus
+    file, counts the support and builds every sample's indexer
+    representations in the native library (bito_tpu_torch/_native,
+    bitocore.cpp, built with g++ at first use);
+  - rooted: the rooted instance (rooted_instance, api/instances.py) at
+    the shape of the rooted oracle (tests/test_rooted.py): ROOTED_TAXA
+    dated taxa, a batch of BATCH random time trees with bifurcating roots
+    (names t<i>_<date>, joins 0.5-10 years apart, branch lengths height
+    differences; _synthetic.dated_trees_newick) over a DS1-shaped
+    alignment (1,949 columns, 934 distinct), GTR+Weibull4 with the
+    oracle's parameters (ROOTED_PARAMS: Weibull shape 0.1), a strict
+    clock at rate ROOTED_RATE on every branch, so substitution lengths
+    from 0.0005.  It parses the
+    trees with the native parser, reads the dates from the names,
+    prepares the model, asks for the log likelihoods with and without the
+    log-det Jacobian and for every gradient key of phylo_gradients, then
+    trains the SBN by simple average and asks for the unconditional
+    subsplit probabilities.  The likelihoods and branch gradients take
+    the paired on-chip bodies (one shared model row); the model-parameter
+    gradients take one reverse-mode pass over the scan tape (its postorder,
+    then an adjoint preorder).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the
@@ -67,6 +88,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      n float32 additions in any order);
      static_chain, both variants at every layout (1, 2 and 4 warps a
      column), within 1e-5 of max |out| against its float32 plain version.
+     The rooted path's trees (bifurcating roots) through both paired
+     on-chip kernels against their float64 plain versions within 5e-5.
   3. each path, with every launch count set to 0 just before it and read
      just after: its kernels must have launched and no other path's; the
      results (log_likelihoods, ll_and_branch_gradients, calls over scaled
@@ -88,7 +111,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      float32 against the float64 engine, and the paired kernels against
      their float64 plain versions, on those trees, within 5e-5; the
      topology gradients on the card against the numpy backend within
-     1e-10; a finite ELBO.
+     1e-10; a finite ELBO; the native indexer built every representation
+     of the steps (no call of the pure-Python one), and the last sample's
+     native representations equal the pure-Python ones.
+     On the rooted path: only the two paired on-chip kernels launched, and
+     the scan tape ran only for the model gradients' reverse pass; finite
+     outputs of every key; the log likelihoods (with and without the
+     Jacobian) and every gradient key within 5e-5 of the same instance in
+     float64 on the card (the scan tape); the unconditional subsplit
+     probabilities in [0, 1]; the host time of each call and both
+     kernels' times on the path's operands beside their bounds.
   4. CUDA-event times of each kernel, its plain version and, where one
      PyTorch call computes the same function, that call; pipe_cell, the
      stream sums and static_chain, whose wrappers' host work outlasts
@@ -124,7 +156,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from bito_tpu_torch import PRODUCT_DEVICE, PRODUCT_DTYPE, _synthetic
+from bito_tpu_torch import PRODUCT_DEVICE, PRODUCT_DTYPE, _native, _synthetic
 from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
@@ -132,7 +164,8 @@ from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecificatio
 from bito_tpu_torch.perflab import (GRAPH_TIMING, card_line, cuda_ms,
                                     graph_ms, max_sm_clock_mhz, perf_lab,
                                     perf_pipe_lab, perf_static_probe)
-from bito_tpu_torch.api.instances import unrooted_instance
+from bito_tpu_torch.api.instances import rooted_instance, unrooted_instance
+from bito_tpu_torch.sbn import maps as sbn_maps
 from bito_tpu_torch.treelike import (_kernels, chunked, paired, pernode, prep,
                                      pruning)
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
@@ -158,6 +191,17 @@ VBPI_PARTICLES = 20
 VBPI_STEPS = 5
 VBPI_SPEC = ("JC69", "constant", "strict")
 VBPI_EM = (0.0, 30, 0.0)  # alpha, iterations, score epsilon
+# the rooted path: the rooted oracle's shape (tests/test_rooted.py)
+ROOTED_TAXA = 69  # fluA's count
+ROOTED_SPEC = ("GTR", "weibull+4", "strict")
+ROOTED_RATE = 0.001  # every branch's strict-clock rate
+# test_rooted.py's GTR frequencies and rates, and its Weibull shape
+ROOTED_PARAMS = {"substitution_model_frequencies": [0.1, 0.2, 0.3, 0.4],
+                 "substitution_model_rates": [0.05, 0.1, 0.15, 0.20, 0.25,
+                                              0.25],
+                 "site_model_parameters": [0.1]}
+ROOTED_KEYS = ("branch_lengths", "ratios_root_height", "clock_model",
+               "clock_model_rates", "substitution_model", "site_model")
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # name -> its source, its TPU kernel, the launcher that counts its
@@ -166,11 +210,13 @@ KERNELS = {
     "paired_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
-        wrapper=paired.paired_ll_onchip, path="paired", also=("vbpi",)),
+        wrapper=paired.paired_ll_onchip, path="paired",
+        also=("vbpi", "rooted")),
     "paired_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
-        wrapper=paired.paired_grad_onchip, path="paired", also=("vbpi",)),
+        wrapper=paired.paired_grad_onchip, path="paired",
+        also=("vbpi", "rooted")),
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
@@ -881,10 +927,12 @@ class SyncedPhases:
 
 @contextlib.contextmanager
 def counting_scan_calls():
-    """Count the calls of the scan tape's two entry points (the engine's
-    route without a kernel) while the block runs: {"calls": n}."""
+    """Count the calls of the scan tape's entry points (the engine's route
+    without a kernel, and the rooted instance's model gradients) while the
+    block runs: {"calls": n}."""
     count = {"calls": 0}
-    names = ("log_likelihoods_impl", "ll_and_branch_gradients_impl")
+    names = ("log_likelihoods_impl", "ll_and_branch_gradients_impl",
+             "log_likelihoods_differentiable")
     saved = {name: getattr(pruning, name) for name in names}
 
     def counted(fn):
@@ -900,6 +948,30 @@ def counting_scan_calls():
     finally:
         for name, fn in saved.items():
             setattr(pruning, name, fn)
+
+
+@contextlib.contextmanager
+def counting_representations():
+    """Count the calls that build unrooted indexer representations while
+    the block runs: {"native": calls of the native indexer (each a whole
+    tree set), "python": calls of sbn/maps.py's (each one tree)}."""
+    count = {"native": 0, "python": 0}
+    saved = (_native.PCSPIndexer.unrooted_representations,
+             sbn_maps.unrooted_representation)
+
+    def counted(kind, fn):
+        def call(*args, **kwargs):
+            count[kind] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    _native.PCSPIndexer.unrooted_representations = counted("native", saved[0])
+    sbn_maps.unrooted_representation = counted("python", saved[1])
+    try:
+        yield count
+    finally:
+        (_native.PCSPIndexer.unrooted_representations,
+         sbn_maps.unrooted_representation) = saved
 
 
 def vbpi_em(nexus, dev):
@@ -952,7 +1024,7 @@ def vbpi_path(dev, card):
           "vbpi: the instance's shared model row takes the paired kernels")
 
     reset_launches()
-    with counting_scan_calls() as scan:
+    with counting_scan_calls() as scan, counting_representations() as reps:
         burrito.gradient_step()  # warm-up
         timer = SyncedPhases()
         torch.cuda.synchronize()
@@ -965,8 +1037,12 @@ def vbpi_path(dev, card):
     counts = {name: KERNELS[name]["wrapper"].launches
               for name in ("paired_ll_onchip", "paired_grad_onchip")}
     read_launches("vbpi")
-    print(f"# phase 3: vbpi path: {scan['calls']} calls of the scan tape")
+    print(f"# phase 3: vbpi path: {scan['calls']} calls of the scan tape; "
+          f"indexer representations: {reps['native']} native calls (a "
+          f"tree set each), {reps['python']} pure-Python calls")
     check(scan["calls"] == 0, "vbpi: no call of the scan tape")
+    check(reps["native"] > 0 and reps["python"] == 0,
+          "vbpi: the native indexer builds the representations")
     phases = {name: s * 1e3 / VBPI_STEPS for name, s in timer.totals.items()}
     print(f"# phase 3: vbpi step ({_synthetic.DS1_TAXA} taxa, "
           f"{eng.site_pattern.pattern_count} patterns, {VBPI_PARTICLES} "
@@ -1052,19 +1128,200 @@ def vbpi_path(dev, card):
                      f"{b_ms:.4f} by {b_by}, {counts[name]} launches on the "
                      "path)")
     tape_ms = topology_set_ms(eng.site_pattern, eng.model, trees, 5)
-    reps_ms = []  # the SBN's indexer representations of the sample (host)
+    # The sample's SBN indexer representations (host): the native call the
+    # step makes, then sbn/maps.py's on the same trees, which must agree.
+    reps_ms, python_ms = [], []
+    support = inst.sbn_support
     for _ in range(3):
         inst._indexer_reps_cache = None
         t0 = time.perf_counter()
-        inst.make_indexer_representations()
-        reps_ms.append((time.perf_counter() - t0) * 1e3)
+        native_reps = inst.make_indexer_representations()
+        t1 = time.perf_counter()
+        python_reps = [sbn_maps.unrooted_representation(
+            support.indexer, t.topology, support.size()) for t in trees]
+        reps_ms.append((t1 - t0) * 1e3)
+        python_ms.append((time.perf_counter() - t1) * 1e3)
+    check(native_reps == python_reps, "vbpi: the last sample's native "
+          "representations equal the pure-Python ones")
     print(f"# phase 3: vbpi shape ({len(trees)} trees x {eng.pattern_pad} "
           f"patterns, C={C}; CUDA events around 50 calls): " + ", ".join(lines)
           + "; a new topology set, host ms before the first launch: "
           "encoding {:.3f}, paired tapes {:.3f} (the on-chip tape {:.3f} of "
-          "it); the sample's SBN indexer representations {:.3f} ms (host, "
-          "median of 3); on {}".format(*tape_ms, float(np.median(reps_ms)),
-                                       card))
+          "it); the sample's SBN indexer representations {:.3f} ms native "
+          "(one call), {:.3f} ms pure Python, equal (host, medians of 3); on "
+          "{}".format(*tape_ms, float(np.median(reps_ms)),
+                      float(np.median(python_ms)), card))
+    return counts
+
+
+def rooted_files(tmp, taxa=ROOTED_TAXA, trees=BATCH):
+    """The rooted path's inputs in `tmp`: `trees` dated time trees over
+    `taxa` taxa (names t<i>_<date>, branch lengths height differences) and
+    a DS1-shaped alignment over them (1,949 columns, 934 distinct), from
+    SEED.  Returns (newick path, fasta path)."""
+    text, dates = _synthetic.dated_trees_newick(SEED, taxa, trees)
+    nwk, fasta = f"{tmp}/rooted.nwk", f"{tmp}/rooted.fasta"
+    with open(nwk, "w") as f:
+        f.write(text)
+    with open(fasta, "w") as f:
+        f.write(_synthetic.fasta_text(_synthetic.random_alignment(
+            SEED + 1, list(dates), _synthetic.DS1_SITES,
+            _synthetic.DS1_DISTINCT_COLUMNS)))
+    return nwk, fasta
+
+
+class HostTimes:
+    """Host milliseconds of each call, the card synchronised around it."""
+
+    def __init__(self):
+        self.ms = {}
+
+    def __call__(self, name, fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        self.ms[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+
+def rooted_instance_of(files, dev, dtype, times=None):
+    """The rooted path's instance (rooted_instance, the user's entry point):
+    the trees through the native parser, the dates from the names, the
+    alignment, ROOTED_SPEC with the oracle's GTR rates, frequencies and
+    Weibull shape (ROOTED_PARAMS), every tree's clock rates ROOTED_RATE.  `times` (a
+    HostTimes) times each call."""
+    call = times or (lambda name, fn, *a, **k: fn(*a, **k))
+    nwk, fasta = files
+    inst = rooted_instance("rooted", device=dev, dtype=dtype)
+    call("read_newick_file", inst.read_newick_file, nwk)
+    call("parse_dates_from_taxon_names", inst.parse_dates_from_taxon_names,
+         True)
+    inst.read_fasta_file(fasta)
+    call("prepare_for_phylo_likelihood", inst.prepare_for_phylo_likelihood,
+         PhyloModelSpecification(*ROOTED_SPEC))
+    block = inst.get_phylo_model_param_block_map()
+    for key, value in ROOTED_PARAMS.items():
+        block[key][:] = value
+    for state in inst.tree_states:
+        state.rates[:] = ROOTED_RATE
+    return inst
+
+
+def rooted_parity(files, dev):
+    """Phase 2 on the rooted trees: both paired kernels, through their
+    wrappers, on the rooted instance's operands (bifurcating roots,
+    substitution lengths rate x time, Weibull4) against their plain
+    versions in float64.  Returns {kernel: (its call on these operands,
+    its bound)} for phase 3's times."""
+    inst = rooted_instance_of(files, dev, PRODUCT_DTYPE)
+    eng, trees = inst.engine, inst.tree_collection.trees
+    params = inst._params_dict()
+    bl = inst._subst_branch_lengths()
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl)
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    on = eng._onchip_tape(enc)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    M, N1, C = dst.shape[1], P.shape[1], P.shape[2]
+    check(paired.onchip_plan("ll", on.ll_rows, M, N1, C)
+          and paired.onchip_plan("grad", on.grad_rows, M, N1, C),
+          "rooted: the trees fit the on-chip bodies")
+    ll_ops = (dst, tip, e, P, tips, pi, prop, w)
+    grad_ops = (dst, tip, src, e, mask, P, dP, tips, pi, prop, w)
+    ll_k = paired.paired_log_likelihoods(*ll_ops, onchip=on)
+    ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops, onchip=on)
+    ll_p, g_p = paired.paired_ll_and_gradients_ref(
+        *[x.double() if x.is_floating_point() else x for x in grad_ops])
+    errs = (rel_err(ll_k, ll_p), rel_err(ll_g, ll_p), norm_err(g_k, g_p))
+    print(f"# phase 2: rooted trees ({enc.num_taxa} taxa, bifurcating "
+          f"roots, {len(trees)} trees x {eng.pattern_pad} patterns, C={C}): "
+          f"paired_ll_onchip LL rel err {errs[0]:.3e}; paired_grad_onchip "
+          f"LL rel err {errs[1]:.3e}, grad max-abs/max|g| {errs[2]:.3e} "
+          f"(bound {BOUND:g}, plain version in float64 on the same operands)")
+    check(max(errs) <= BOUND, "rooted: the paired kernels agree with their "
+          "plain versions")
+    fl_ll, fl_grad = tree_flops(enc, eng.site_pattern, eng.model, len(trees))
+    moved = nbytes(P, tips, pi, prop, w, dst, on.child, e)
+    calls = {"paired_ll_onchip": (
+                 lambda: paired.paired_log_likelihoods(*ll_ops, onchip=on),
+                 bound(fl_ll, moved + nbytes(on.live_row) + len(trees) * 4)),
+             "paired_grad_onchip": (
+                 lambda: paired.paired_ll_and_gradients(*grad_ops, onchip=on),
+                 bound(fl_grad, moved + nbytes(src, dP, mask)
+                       + len(trees) * (1 + enc.num_slots) * 4))}
+    return calls
+
+
+def rooted_path(files, dev, card, kernel_calls):
+    """The rooted path (phase 3): rooted_instance on the card in float32,
+    driven as a user drives it, then held against the same instance in
+    float64 on the card (the scan tape), as the module docstring says."""
+    times = HostTimes()
+    reset_launches()
+    with counting_scan_calls() as scan:
+        inst = rooted_instance_of(files, dev, PRODUCT_DTYPE, times)
+        ll = times("log_likelihoods", inst.log_likelihoods)
+        ll0 = times("log_likelihoods (no Jacobian)", inst.log_likelihoods,
+                    include_log_det_jacobian=False)
+        pgs = times("phylo_gradients", inst.phylo_gradients)
+        times("process_loaded_trees", inst.process_loaded_trees)
+        times("train_simple_average", inst.train_simple_average)
+        usp = times("unconditional_subsplit_probabilities",
+                    inst.unconditional_subsplit_probabilities)
+        torch.cuda.synchronize()
+    counts = {name: KERNELS[name]["wrapper"].launches
+              for name in ("paired_ll_onchip", "paired_grad_onchip")}
+    read_launches("rooted")
+    trees, eng = inst.tree_collection.trees, inst.engine
+    print(f"# phase 3: rooted path ({eng.site_pattern.num_taxa} dated taxa, "
+          f"{len(trees)} time trees, {eng.site_pattern.site_count} columns, "
+          f"{eng.site_pattern.pattern_count} patterns, "
+          f"{'+'.join(ROOTED_SPEC)} at shape "
+          f"{ROOTED_PARAMS['site_model_parameters'][0]}, clock rate "
+          f"{ROOTED_RATE}): "
+          f"{scan['calls']} calls of the scan tape (the model gradients' "
+          "postorder and adjoint preorder)")
+    check(eng._route(eng._shared_model(inst._params_dict())) == "paired",
+          "rooted: the instance's shared model row takes the paired kernels")
+    check(scan["calls"] == 1, "rooted: only the model gradients (one "
+          "reverse pass for both blocks) take the scan tape")
+    # The same instance in float64 on the card: the engine's scan tape.
+    ref = rooted_instance_of(files, dev, torch.float64)
+    ll_ref = ref.log_likelihoods()
+    ll0_ref = ref.log_likelihoods(include_log_det_jacobian=False)
+    pgs_ref = ref.phylo_gradients()
+    outs = [ll, ll0] + [g for pg in pgs for g in pg.gradient.values()]
+    check(all(np.isfinite(x).all() for x in outs)
+          and ll.shape == (len(trees),)
+          and all(set(pg.gradient) == set(ROOTED_KEYS) for pg in pgs),
+          "rooted: finite outputs of the expected shapes and keys")
+    errs = {"LL": max(rel_err(torch.as_tensor(ll), torch.as_tensor(ll_ref)),
+                      rel_err(torch.as_tensor(ll0),
+                              torch.as_tensor(ll0_ref)))}
+    for key in ROOTED_KEYS:
+        errs[key] = norm_err(
+            torch.as_tensor(np.stack([pg.gradient[key] for pg in pgs])),
+            torch.as_tensor(np.stack([pg.gradient[key] for pg in pgs_ref])))
+    print("# phase 3: rooted path against the instance in float64 on the "
+          "card (LL rel err, gradients max-abs/max|g|): " + ", ".join(
+              f"{key} {err:.3e}" for key, err in errs.items())
+          + f" (bound {BOUND:g})")
+    check(max(errs.values()) <= BOUND,
+          "rooted: the card's LL and every gradient agree with float64")
+    check(len(usp) > 0 and all(0.0 <= p <= 1.0 + 1e-12 for p in usp.values()),
+          "rooted: unconditional subsplit probabilities in [0, 1]")
+    lines = []
+    for name, (call, (b_ms, b_by)) in kernel_calls.items():
+        lines.append(f"{name} {cuda_ms(call, 20):.4f} ms (bound {b_ms:.4f} "
+                     f"by {b_by}, {counts[name]} launches on the path)")
+    print(f"# phase 3: rooted shape ({len(trees)} trees x {eng.pattern_pad} "
+          f"patterns, C={eng.model.category_count}; CUDA events around 20 "
+          "calls): " + ", ".join(lines) + "; host ms of each call: "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in times.ms.items())
+          + f"; {len(usp)} subsplits; on {card}")
     return counts
 
 
@@ -1211,6 +1468,9 @@ def main():
     lab_ops = dict(post_ops=post, pre_ops=pre, root=root, edge_mask=mask, P=P,
                    dP=dP, tips=tips, pi=pi, props=prop, weights=w)
     lab_calls, plain_outs, probe_work = probe_parity(lab_ops, dev, errs)
+    rooted_dir = tempfile.TemporaryDirectory()
+    rooted_inputs = rooted_files(rooted_dir.name)
+    rooted_calls = rooted_parity(rooted_inputs, dev)
 
     ends.append(time.perf_counter())
     # -- 3. the paths ------------------------------------------------------------
@@ -1361,6 +1621,8 @@ def main():
     check_perflab(lab, plain_outs)
 
     vbpi_path(dev, card)
+    rooted_path(rooted_inputs, dev, card, rooted_calls)
+    rooted_dir.cleanup()
 
     # The float64 reference's own gradients against central differences.
     h = 1e-6

@@ -1,8 +1,10 @@
 """The CUDA kernels on the card (paired, chunked and per-node, and the perf
 lab's four probes), against their plain torch versions; each body of the
 paired, chunked and per-node kernels, and which one the wrappers take;
-and the VBPI slice on the card (the unrooted instance against float64,
-a trainer step's kernels, the SBN's device programs against numpy).
+the VBPI slice on the card (the unrooted instance against float64, a
+trainer step's kernels, the SBN's device programs against numpy, the
+native representations against the pure-Python ones); and the rooted
+instance on the card against float64.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -21,7 +23,7 @@ import pytest
 import torch
 
 from bito_tpu_torch import _synthetic
-from bito_tpu_torch.api.instances import unrooted_instance
+from bito_tpu_torch.api.instances import rooted_instance, unrooted_instance
 from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
@@ -1116,3 +1118,91 @@ def test_device_sbn_programs_on_the_card_match_numpy(cuda, tmp_path):
         got = inst.topology_gradients(log_f, vimco)
         ref = inst.topology_gradients(log_f, vimco, backend="numpy")
         assert np.abs(got - ref).max() <= 1e-10 * np.abs(ref).max()
+
+
+def test_vbpi_instance_takes_the_native_representations(cuda, tmp_path):
+    """The VBPI instance on the card builds a sampled tree set's indexer
+    representations natively, equal to the pure-Python ones."""
+    nexus, _ = _vbpi_files(tmp_path)
+    reps = {}
+    for native in (True, False):
+        inst = unrooted_instance("vbpi", device=cuda, native=native)
+        inst.read_nexus_file(nexus)
+        inst.process_loaded_trees()
+        inst.train_simple_average()
+        inst.rng = np.random.default_rng(3)
+        inst.sample_trees(20)
+        reps[native] = inst.make_indexer_representations()
+    assert reps[True] == [np.asarray(r).tolist() for r in reps[False]]
+
+
+# ---------------------------------------------------------------------------
+# The rooted time-tree instance on the card
+# ---------------------------------------------------------------------------
+
+ROOTED_SPECS = [("JC69", "constant"), ("GTR", "weibull+4"),
+                ("HKY", "gamma+4")]
+# The rooted oracle's parameters (test_rooted.py), by substitution model.
+_ORACLE = {"substitution_model_frequencies": [0.1, 0.2, 0.3, 0.4],
+           "site_model_parameters": [0.1]}
+ROOTED_PARAMS = {
+    "JC69": {},
+    "GTR": dict(_ORACLE, substitution_model_rates=[0.05, 0.1, 0.15, 0.20,
+                                                   0.25, 0.25]),
+    "HKY": dict(_ORACLE, substitution_model_rates=[3.0]),
+}
+
+
+def _rooted_instances(tmp_path, spec, cuda, taxa=40, trees=12, sites=600):
+    """The rooted instance on the card (float32) and on the CPU (float64),
+    on the same dated trees and alignment (joins 0.5-10 years apart), in
+    the rooted oracle's regime (test_rooted.py): its frequencies, GTR
+    rates and HKY kappa, shape 0.1, a strict clock at rate 0.001."""
+    text, dates = _synthetic.dated_trees_newick(6, taxa, trees)
+    nwk, fasta = tmp_path / "trees.nwk", tmp_path / "aln.fasta"
+    nwk.write_text(text)
+    fasta.write_text(_synthetic.fasta_text(_synthetic.random_alignment(
+        7, list(dates), sites)))
+    out = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        inst = rooted_instance("rooted", device=device, dtype=dtype)
+        inst.read_newick_file(str(nwk))
+        inst.parse_dates_from_taxon_names(True)
+        inst.read_fasta_file(str(fasta))
+        inst.prepare_for_phylo_likelihood(
+            PhyloModelSpecification(*spec, clock="strict"))
+        block = inst.get_phylo_model_param_block_map()
+        for key, value in ROOTED_PARAMS[spec[0]].items():
+            if key in block:
+                block[key][:] = value
+        for state in inst.tree_states:
+            state.rates[:] = 0.001
+        out.append(inst)
+    return out
+
+
+@pytest.mark.parametrize("spec", ROOTED_SPECS)
+def test_rooted_instance_on_the_card_matches_float64(cuda, tmp_path, spec):
+    """The rooted instance's LL (with and without the Jacobian) and every
+    gradient key on the card against the instance on the CPU in float64,
+    within 5e-5; its likelihoods and branch gradients take the paired
+    on-chip bodies on the bifurcating root."""
+    card, cpu = _rooted_instances(tmp_path, spec, cuda)
+    before = [w.launches for w in PAIRED]
+    ll = card.log_likelihoods()
+    ll0 = card.log_likelihoods(include_log_det_jacobian=False)
+    pgs = card.phylo_gradients()
+    torch.cuda.synchronize()
+    launched = {w.__name__: w.launches - b for w, b in zip(PAIRED, before)}
+    assert launched == {"paired_ll_onchip": 2, "paired_ll_global": 0,
+                        "paired_grad_onchip": 1, "paired_grad_global": 0}
+    assert _rel(torch.as_tensor(ll), torch.as_tensor(cpu.log_likelihoods())
+                ) <= 5e-5
+    assert _rel(torch.as_tensor(ll0), torch.as_tensor(cpu.log_likelihoods(
+        include_log_det_jacobian=False))) <= 5e-5
+    ref = cpu.phylo_gradients()
+    assert set(pgs[0].gradient) == set(ref[0].gradient)
+    for key in ref[0].gradient:
+        g = torch.as_tensor(np.stack([x.gradient[key] for x in pgs]))
+        g_ref = torch.as_tensor(np.stack([x.gradient[key] for x in ref]))
+        assert _norm(g, g_ref) <= 5e-5, key

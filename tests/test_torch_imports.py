@@ -1,5 +1,6 @@
 """bito_tpu_torch stands alone: it imports without jax and without
-bito_tpu, and builds nothing at import."""
+bito_tpu, and builds nothing at import (neither the CUDA kernels nor the
+native library)."""
 import pathlib
 import re
 import subprocess
@@ -12,7 +13,7 @@ PACKAGE = ROOT / "bito_tpu_torch"
 # The port's sources, and its scripts at the root of the repository.
 SCRIPTS = ("chip_smoke.py", "compare_first_design.py", "profile_main_path.py")
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
-                 for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh")
+                 for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cpp")
                  ) + list(SCRIPTS)
 # Every module and package of the port (a package by its __init__.py).
 MODULES = sorted(
@@ -32,16 +33,22 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 from bito_tpu_torch.treelike import _kernels
 assert _kernels.library.cache_info().currsize == 0  # nothing loaded yet
+from bito_tpu_torch import _native
+assert _native.get_lib.cache_info().currsize == 0  # nor the native library
 print("ok", len({modules!r}))
 """
 
 
 def test_imports_without_jax_or_bito_tpu():
-    """Every module of the port, the perf lab's included, imports in a
-    fresh interpreter where jax cannot be imported, none of them loads
-    bito_tpu, and no import loads the kernel library."""
+    """Every module of the port, the perf lab's, the native library's and
+    the rooted instance's included, imports in a fresh interpreter where
+    jax cannot be imported, none of them loads bito_tpu, and no import
+    loads the kernel library or the native one."""
     assert {"bito_tpu_torch.perflab", "bito_tpu_torch.perflab.__main__",
-            "bito_tpu_torch.perflab.perf_lab"} <= set(MODULES)
+            "bito_tpu_torch.perflab.perf_lab", "bito_tpu_torch._native",
+            "bito_tpu_torch.dag.subsplit_dag", "bito_tpu_torch.dag.graft",
+            "bito_tpu_torch.treelike.rooted",
+            "bito_tpu_torch.models.transforms"} <= set(MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(modules=MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
@@ -56,8 +63,8 @@ _FORBIDDEN = re.compile(
 
 @pytest.mark.parametrize("source", SOURCES)
 def test_source_has_no_jax_bito_tpu_or_compile(source):
-    """No source or script of the port imports jax or bito_tpu or calls
-    torch.compile."""
+    """No source or script of the port (bitocore.cpp included) imports jax
+    or bito_tpu or calls torch.compile."""
     text = (ROOT / source).read_text()
     assert not _FORBIDDEN.search(text), _FORBIDDEN.search(text).group(0)
 

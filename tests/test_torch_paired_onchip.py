@@ -29,10 +29,9 @@ from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.treelike import paired, prep
 from bito_tpu_torch.treelike.encode import TreeBatchEncoding, encode_trees
 
-from torch_port_cases import (GTR, MODELS, check_live_rows, emulate_ll,
-                              emulate_postorder, jax_engine, jax_params,
-                              leaf_value, make_case, max_norm, max_rel,
-                              rescale_pow2, torch_engine, torch_params)
+from torch_port_cases import (GTR, MODELS, check_live_rows, emulate_grad,
+                              emulate_ll, jax_engine, jax_params, make_case,
+                              max_norm, max_rel, torch_engine, torch_params)
 
 F64 = torch.float64
 
@@ -153,43 +152,6 @@ def test_live_rows_match_a_greedy_tree_by_tree(seed, num_taxa, rooted):
 # ---------------------------------------------------------------------------
 # The float64 emulation of the kernels' schedule
 # ---------------------------------------------------------------------------
-
-def emulate_grad(dst, child, src, e, edge_mask, P, dP, tips, pi, props,
-                 weights):
-    B, M = dst.shape
-    N1, C, A = P.shape[1], P.shape[2], P.shape[3]
-    S = tips.shape[-1]
-    ll_rows = torch.empty((B, S), dtype=P.dtype)
-    grad_rows = torch.zeros((B, N1, S), dtype=P.dtype)
-    for b in range(B):
-        rows = torch.zeros((M, C, A, S), dtype=P.dtype)
-        ll_rows[b] = emulate_postorder(b, dst, child, e, lambda m: m, rows,
-                                       P, tips, pi, props)
-        for m in range(M - 1, -1, -1):
-            if dst[b, m] == 2 * M + 1:
-                continue
-            up = (pi[None, :, None].expand(C, A, S) if dst[b, m] == 2 * M
-                  else rows[m])
-            cs = [int(c) for c in child[b, m]]
-            p = [rows[c] if c >= 0 else leaf_value(c, tips, C) for c in cs]
-            Pj = [P[b, int(e[b, m, j])] for j in (0, 1)]
-            dPj = [dP[b, int(e[b, m, j])] for j in (0, 1)]
-            ev = [torch.einsum("cak,cks->cas", Pj[j], p[j]) for j in (0, 1)]
-            o, _ = rescale_pow2(
-                torch.stack([up * ev[1], up * ev[0]]).flatten(0, 1))
-            o = o.unflatten(0, (2, C))
-            for j in (0, 1):
-                dv = torch.einsum("cak,cks->cas", dPj[j], p[j])
-                num = torch.einsum("c,cas->s", props, o[j] * dv)
-                den = torch.einsum("c,cas->s", props, o[j] * ev[j])
-                den = torch.where(den > 0, den, torch.ones_like(den))
-                grad_rows[b, int(src[b, m, j])] = weights * num / den
-                if cs[j] >= 0:  # the child op's outside value, in place
-                    rows[cs[j]] = torch.einsum("cak,cas->cks", Pj[j], o[j])
-    N = edge_mask.shape[1]
-    return (ll_rows @ weights,
-            grad_rows.sum(dim=-1)[:, :N] * edge_mask.to(P.dtype))
-
 
 def _operands(te, trees, params, dtype=F64):
     """The paired tapes, the on-chip tape and the kernels' operands of the

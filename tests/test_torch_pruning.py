@@ -101,3 +101,32 @@ def test_impls(model, rooted, per_tree):
         post, pre, root, mask, te.tip_partials, te.weights, tbl, *ting, **kw)
     assert max_rel(_n(ll), _n(ll_ref)) < 1e-10
     assert max_norm(_n(g), _n(g_ref)) < 1e-10
+
+
+@pytest.mark.parametrize("model,rooted", CASES)
+def test_differentiable_log_likelihoods_match_autograd(model, rooted):
+    """log_likelihoods_differentiable: log_likelihoods_impl's values, and
+    its adjoint backward (one preorder) equal to autograd through the
+    tape, for the rate matrix's ingredients, pi, the proportions, the
+    category rates and the branch lengths, per tree."""
+    _, te, _, tenc, _, tbl, _, ting = _setup(model, rooted)
+    post, pre, root, _ = te._scan_tapes(tenc)
+    kw = dict(num_slots=tenc.num_slots, pattern_pad=te.pattern_pad)
+    eig, rates, props, clock = ting
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (eig.U, eig.values, eig.U_inv, eig.pi, rates, props,
+                        tbl)]
+    U, values, U_inv, pi, rates, props, bl = leaves
+    eig = type(eig)(U, values, U_inv, pi)
+    weights = torch.randn(4, dtype=tbl.dtype)  # a cotangent per tree
+    got = tpr.log_likelihoods_differentiable(
+        post, pre, root, te.tip_partials, te.weights, bl, eig, rates, props,
+        clock, **kw)
+    want = tpr.log_likelihoods_impl(
+        post, root, te.tip_partials, te.weights, bl, eig, rates, props,
+        clock, category_count=te.model.category_count, **kw)
+    assert max_rel(got.detach().numpy(), want.detach().numpy()) < 1e-12
+    g_got = torch.autograd.grad(got @ weights, leaves)
+    g_want = torch.autograd.grad(want @ weights, leaves)
+    for a, b in zip(g_got, g_want, strict=True):
+        assert max_norm(a.numpy(), b.numpy()) < 1e-10

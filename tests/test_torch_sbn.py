@@ -1,8 +1,9 @@
 """The port's SBN host modules against bito_tpu's: the copied modules by
-their code, sbn/support.py (which drops bito_tpu's native indexer) by its
-output, and the sampler and the numpy training by their results from one
-seed.  bito_tpu takes its native indexer and counters where they are
-built; the port has only the pure-Python ones, so the layouts and
+their code, sbn/support.py by its output, and the sampler and the numpy
+training by their results from one seed.  Both packages take their native
+indexer and counters for an unrooted support; the port's pure-Python ones
+(sbn/maps.py's counters and representations, which an instance made with
+native=False takes) are held to the same output, so the layouts and
 representations are compared exactly."""
 import pathlib
 
@@ -16,10 +17,10 @@ from bito_tpu.sbn.sampler import TopologySampler as JaxSampler
 from bito_tpu.sbn.support import build_support as jax_build_support
 from bito_tpu_torch import _synthetic
 from bito_tpu_torch.core.newick import parse_newick_text
-from bito_tpu_torch.sbn import probability
+from bito_tpu_torch.sbn import maps, probability
 from bito_tpu_torch.sbn.psp import PSPIndexer
 from bito_tpu_torch.sbn.sampler import TopologySampler
-from bito_tpu_torch.sbn.support import build_support
+from bito_tpu_torch.sbn.support import build_support, support_of_bits
 
 from torch_port_cases import topology_counts, without_docstrings
 
@@ -58,13 +59,21 @@ def _counter(coll, rooted):
     return {topo[k]: c for k, c in counts.items()}
 
 
-def _both(seed, taxa, distinct, rooted):
+def _both(seed, taxa, distinct, rooted, native=True):
     """(bito_tpu's (support, counter), the port's (support, counter)) from
-    the same text."""
+    the same text; the port's unrooted support counted natively or by
+    sbn/maps.py."""
     text = _text(seed, taxa, distinct, rooted)
+
+    def python_support(counter, names, rooted):
+        return support_of_bits(*maps.unrooted_counters(counter)[2:], names,
+                               rooted)
+
     out = []
     for parse, build in ((jax_parse, jax_build_support),
-                         (parse_newick_text, build_support)):
+                         (parse_newick_text,
+                          build_support if native or rooted
+                          else python_support)):
         coll = parse(text)
         counter = _counter(coll, rooted)
         out.append((build(counter, coll.taxon_names, rooted=rooted), counter))
@@ -86,19 +95,23 @@ def test_support_layout_identical(case):
     assert (js.taxon_names, js.rooted) == (ts.taxon_names, ts.rooted)
 
 
+@pytest.mark.parametrize("native", [True, False])
 @pytest.mark.parametrize("case", CASES)
-def test_representations_identical(case):
+def test_representations_identical(case, native):
     """The indexer representations of the support's topologies and of
-    topologies outside it (whose PCSPs take the sentinel index)."""
+    topologies outside it (whose PCSPs take the sentinel index), from the
+    port's native indexer and from its pure-Python one."""
     seed, taxa, distinct, rooted = case
-    (js, jcount), (ts, tcount) = _both(*case)
+    (js, jcount), (ts, tcount) = _both(*case, native=native)
     outside = _text(seed + 100, taxa, 4, rooted)
     jtopos = list(jcount) + list(_counter(jax_parse(outside), rooted))
     ttopos = list(tcount) + list(_counter(parse_newick_text(outside), rooted))
     for jt, tt in zip(jtopos, ttopos, strict=True):
         assert jt.key() == tt.key()
         jr = js.indexer_representation_of(jt)
-        tr = ts.indexer_representation_of(tt)
+        tr = (ts.indexer_representation_of(tt) if native or rooted
+              else maps.unrooted_representation(ts.indexer, tt,
+                                                len(ts.indexer)))
         assert np.array(jr).tolist() == np.array(tr).tolist()
 
 

@@ -187,6 +187,47 @@ def emulate_ll(dst, child, live_row, e, P, tips, pi, props, weights):
     return ll @ weights
 
 
+def emulate_grad(dst, child, src, e, edge_mask, P, dP, tips, pi, props,
+                 weights):
+    """(log likelihoods [B], gradients [B, N]) as the on-chip grad body
+    (csrc/paired_grad_onchip.cu) computes them over a paired tape: the
+    postorder into row m per op, then the outside values over them in
+    reverse, in the operands' dtype."""
+    B, M = dst.shape
+    N1, C, A = P.shape[1], P.shape[2], P.shape[3]
+    S = tips.shape[-1]
+    ll_rows = torch.empty((B, S), dtype=P.dtype)
+    grad_rows = torch.zeros((B, N1, S), dtype=P.dtype)
+    for b in range(B):
+        rows = torch.zeros((M, C, A, S), dtype=P.dtype)
+        ll_rows[b] = emulate_postorder(b, dst, child, e, lambda m: m, rows,
+                                       P, tips, pi, props)
+        for m in range(M - 1, -1, -1):
+            if dst[b, m] == 2 * M + 1:
+                continue
+            up = (pi[None, :, None].expand(C, A, S) if dst[b, m] == 2 * M
+                  else rows[m])
+            cs = [int(c) for c in child[b, m]]
+            p = [rows[c] if c >= 0 else leaf_value(c, tips, C) for c in cs]
+            Pj = [P[b, int(e[b, m, j])] for j in (0, 1)]
+            dPj = [dP[b, int(e[b, m, j])] for j in (0, 1)]
+            ev = [torch.einsum("cak,cks->cas", Pj[j], p[j]) for j in (0, 1)]
+            o, _ = rescale_pow2(
+                torch.stack([up * ev[1], up * ev[0]]).flatten(0, 1))
+            o = o.unflatten(0, (2, C))
+            for j in (0, 1):
+                dv = torch.einsum("cak,cks->cas", dPj[j], p[j])
+                num = torch.einsum("c,cas->s", props, o[j] * dv)
+                den = torch.einsum("c,cas->s", props, o[j] * ev[j])
+                den = torch.where(den > 0, den, torch.ones_like(den))
+                grad_rows[b, int(src[b, m, j])] = weights * num / den
+                if cs[j] >= 0:  # the child op's outside value, in place
+                    rows[cs[j]] = torch.einsum("cak,cas->cks", Pj[j], o[j])
+    N = edge_mask.shape[1]
+    return (ll_rows @ weights,
+            grad_rows.sum(dim=-1)[:, :N] * edge_mask.to(P.dtype))
+
+
 def check_live_rows(dst, child, row, peak):
     """Rows by liveness (paired.live_rows) on a tape of the paired layout:
     every stored output keeps its row until the op that reads it, and is
