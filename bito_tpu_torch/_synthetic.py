@@ -61,6 +61,83 @@ def random_trees_newick(seed: int, num_taxa: int, num_trees: int,
                      for _ in range(num_trees)) + "\n"
 
 
+# A credible-set-like sample of rooted trees: one random rooted tree and,
+# for each further tree, that tree after a few random rooted NNIs, so that
+# the trees share most of their subsplits, as a posterior's credible set
+# does.  CREDIBLE_TREES x CREDIBLE_NNIS over DS1's 27 taxa gives a subsplit
+# DAG of the order of bito_tpu's config3 (DS1's credible set: 140 edges).
+CREDIBLE_TREES = 12
+CREDIBLE_NNIS = 2
+
+
+def _rooted_nni(rng: np.random.Generator, tree):
+    """One random rooted NNI of a nested-tuple tree: at an internal node c
+    whose parent is internal, swap one of c's children with c's sibling."""
+    paths = []  # paths to internal nodes that are not the root
+
+    def walk(node, path):
+        if isinstance(node, tuple):
+            if path:
+                paths.append(path)
+            for i, child in enumerate(node):
+                walk(child, path + (i,))
+
+    walk(tree, ())
+    path = paths[rng.integers(len(paths))]
+    parent_path, side = path[:-1], path[-1]
+
+    def get(node, p):
+        for i in p:
+            node = node[i]
+        return node
+
+    def put(node, p, value):
+        if not p:
+            return value
+        items = list(node)
+        items[p[0]] = put(node[p[0]], p[1:], value)
+        return tuple(items)
+
+    parent = get(tree, parent_path)
+    child, sibling = parent[side], parent[1 - side]
+    k = int(rng.integers(2))
+    new_child = tuple(sibling if i == k else c for i, c in enumerate(child))
+    new_parent = tuple(new_child if i == side else child[k]
+                       for i in range(2))
+    return put(tree, parent_path, new_parent)
+
+
+def credible_set_newick(seed: int, num_taxa: int,
+                        num_trees: int = CREDIBLE_TREES,
+                        nnis: int = CREDIBLE_NNIS) -> str:
+    """Newick text of `num_trees` rooted trees with branch lengths over
+    taxa t0..t{n-1}: a random rooted tree, then that tree after `nnis`
+    random rooted NNIs, a new draw each line; branch lengths uniform in
+    BRANCH_LENGTHS, drawn anew for each tree."""
+    rng = np.random.default_rng(seed)
+    subtrees = list(taxon_names(num_taxa))
+    while len(subtrees) > 1:
+        i, j = sorted(rng.choice(len(subtrees), size=2, replace=False))
+        right, left = subtrees.pop(j), subtrees.pop(i)
+        subtrees.append((left, right))
+    base = subtrees[0]
+    lo, hi = BRANCH_LENGTHS
+
+    def newick(node) -> str:
+        if isinstance(node, str):
+            return node
+        return "(" + ",".join(f"{newick(c)}:{rng.uniform(lo, hi):.6f}"
+                              for c in node) + ")"
+
+    lines = []
+    for t in range(num_trees):
+        tree = base
+        for _ in range(nnis if t else 0):
+            tree = _rooted_nni(rng, tree)
+        lines.append(newick(tree) + ";")
+    return "\n".join(lines) + "\n"
+
+
 # Dated taxa: dates in years with three decimals, node heights above their
 # older child by an interval uniform in HEIGHT_STEPS years.
 DATE_SPAN = 20.0

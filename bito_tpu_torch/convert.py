@@ -7,7 +7,9 @@ such a dict into the port's tensors, so both packages compute from the
 same numbers.  A VBPI trainer's state carries over the same way, as numpy
 (load_burrito_state), without importing bito_tpu: the caller reads it.  So
 does a rooted instance's (rooted_state reads it from either package's
-instance, load_rooted_state writes it into the port's).
+instance, load_rooted_state writes it into the port's), and a GP
+engine's (gp_state reads it from either package's engine,
+gp_state_from_numpy writes it into the port's).
 """
 from __future__ import annotations
 
@@ -119,3 +121,37 @@ def load_rooted_state(inst, state: Mapping) -> None:
         raise ValueError(f"phylo_model_params: shape {params.shape}, the "
                          f"instance has {inst.phylo_model_params.shape}")
     inst.phylo_model_params = params.copy()
+
+
+# A GP engine's state, as numpy: the branch lengths and SBN parameters q
+# of its DAG's edges, in edge-id order.
+GP_STATE = ("branch_lengths", "q")
+
+
+def _as_numpy(value) -> np.ndarray:
+    """A host array of `value`: a torch tensor (on any device), or
+    anything numpy takes (a bito_tpu engine's arrays)."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu().numpy()
+    return np.array(value, dtype=np.float64)
+
+
+def gp_state(engine) -> Dict[str, np.ndarray]:
+    """Read a GP engine's state as numpy, from bito_tpu's engine or the
+    port's (both have branch_lengths and q over the DAG's edges)."""
+    return {key: _as_numpy(getattr(engine, key)) for key in GP_STATE}
+
+
+def gp_state_from_numpy(engine, branch_lengths, q) -> None:
+    """Carry a GP engine's branch lengths and SBN parameters, as numpy (a
+    bito_tpu engine's, say: gp_state), into the port's `engine`, whose DAG
+    was built from the same trees: the same edges in the same order.  The
+    values take the engine's device and dtype; its PLVs and likelihoods
+    are left to the next populate."""
+    E = engine.schedule.edge_count
+    for key, value in (("branch_lengths", branch_lengths), ("q", q)):
+        value = _as_numpy(value)
+        if value.shape != (E,):
+            raise ValueError(f"{key}: shape {value.shape}, the engine's DAG "
+                             f"has {E} edges")
+        setattr(engine, key, value)

@@ -15,8 +15,8 @@ topological order satisfying the same invariants -- so DAG builds are
 reproducible across runs.
 
 The port's rooted instance uses it for unconditional subsplit
-probabilities; the rest of bito_tpu's dag/ (the schedules of the GP
-wavefronts) is not ported yet.
+probabilities, and the GP engine (gp/engine.py) for its wavefront
+schedules (dag/schedule.py).
 """
 from __future__ import annotations
 

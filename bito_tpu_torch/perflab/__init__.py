@@ -1,6 +1,6 @@
 """The perf lab: probes of the kernels' per-op costs on the card.
 
-Counterpart of bito_tpu's three perf-lab scripts, each a module here with
+Counterpart of bito_tpu's four perf-lab scripts, each a module here with
 its hand-written CUDA kernels (csrc/, built with the tree-likelihood
 kernels by treelike/_kernels.py):
   - perf_lab: the per-node grad kernel with the knobs unroll, resk and
@@ -10,9 +10,12 @@ kernels by treelike/_kernels.py):
     (scripts/perf_pipe_lab.py), csrc/pipe_cell.cu and csrc/stream_sum.cu;
   - perf_static_probe: one op of a dependent chain with offsets from a
     tape against offsets fixed at compile time
-    (scripts/perf_static_probe.py), csrc/static_chain.cu.
+    (scripts/perf_static_probe.py), csrc/static_chain.cu;
+  - perf_chunk_lab: the chunked LL kernel's on-chip body with the knobs
+    of scripts/perf_chunk_lab.py, csrc/chunk_variant.cu (which
+    instantiates treelike/csrc/paired_ll_onchip.cuh).
 
-    python -m bito_tpu_torch.perflab [lab|pipe|static] [names ...]
+    python -m bito_tpu_torch.perflab [lab|pipe|static|chunk] [names ...]
 
 Each kernel's wrapper sends a CPU tensor to its plain torch version and a
 CUDA tensor to the kernel, and counts its launches.  The timing entry

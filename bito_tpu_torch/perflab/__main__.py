@@ -1,4 +1,4 @@
-"""python -m bito_tpu_torch.perflab [lab|pipe|static] [names ...]
+"""python -m bito_tpu_torch.perflab [lab|pipe|static|chunk] [names ...]
 
 Runs what bito_tpu's three perf-lab scripts ran, on the card, with the
 scripts' own names:
@@ -8,6 +8,9 @@ scripts' own names:
   static  scripts/perf_static_probe.py: the per-op slopes at every layout
           of the chain (1, 2, 4 warps a column), or sass (the SASS
           instructions of one chained op)
+  chunk   scripts/perf_chunk_lab.py: v0 w2 w4 w8 norescale notips fixstore
+          nodot unroll preponly fixedop (the chunked LL kernel's on-chip
+          body with the script's knobs, evals/s at B = 200 x 40 calls)
 It raises without a card.  The pipe cell and the chain are timed from the
 device (perflab.graph_ms).  `python3 compare_first_design.py CHECKOUT`, at
 the root of the repository, times both beside their first design, built
@@ -15,10 +18,10 @@ from another checkout's sources.
 """
 import sys
 
-from . import perf_lab, perf_pipe_lab, perf_static_probe
+from . import perf_chunk_lab, perf_lab, perf_pipe_lab, perf_static_probe
 
 LABS = {"lab": perf_lab.main, "pipe": perf_pipe_lab.main,
-        "static": perf_static_probe.main}
+        "static": perf_static_probe.main, "chunk": perf_chunk_lab.main}
 
 
 def main(argv) -> None:

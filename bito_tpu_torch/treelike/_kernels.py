@@ -33,9 +33,11 @@ _SOURCES = tuple(f"treelike/csrc/{name}" for name in (
     "chunked_grad_onchip.cu", "pernode_ll.cu", "pernode_grad.cu",
     "pernode_grad_onchip.cu")) + tuple(
     f"perflab/csrc/{name}" for name in (
-        "variant_grad.cu", "pipe_cell.cu", "stream_sum.cu", "static_chain.cu"))
+        "variant_grad.cu", "pipe_cell.cu", "stream_sum.cu", "static_chain.cu",
+        "chunk_variant.cu"))
 _HEADERS = ("treelike/csrc/common.cuh", "treelike/csrc/onchip.cuh",
-            "treelike/csrc/pernode_onchip.cuh")
+            "treelike/csrc/pernode_onchip.cuh",
+            "treelike/csrc/paired_ll_onchip.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -78,6 +80,9 @@ _SIGNATURES = {
     # grad_rows, B, M, Mp, NG, Z, T, N1, C, S, rows, cols, unroll, resk,
     # nodot, stream
     "bito_variant_grad": [_P] * 12 + [_I] * 14 + [_P],
+    # post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows,
+    # B, M, T, N1, C, S, rows, cols, ring, variant, stream
+    "bito_chunk_variant": [_P] * 9 + [_I] * 10 + [_P],
     # idx, big, out, cells, block_rows, scratch_rows, S, init, loops,
     # stores, T, stage_rows, stream
     "bito_pipe_cell": [_P] * 3 + [_I] * 9 + [_P],

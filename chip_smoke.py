@@ -6,10 +6,11 @@
 The workload is the flagship configuration at full width: a DS1-shaped
 problem (27 taxa, 1,949 columns drawn from 934 distinct ones, made from a
 seed), GTR+Gamma4 with bench.py's parameters, and a batch of 200 random
-unrooted trees with trifurcating roots.  Seven paths run the ten kernels,
-the six tree kernels in two bodies each; an eighth, the VBPI trainer, and
-a ninth, the rooted time-tree instance, run the paired kernels as their
-users' calls reach them:
+unrooted trees with trifurcating roots.  Eight paths run the eleven
+kernels, the six tree kernels in two bodies each; a ninth, the VBPI
+trainer, and a tenth, the rooted time-tree instance, run the paired
+kernels as their users' calls reach them; an eleventh, the GP engine,
+runs no hand-written kernel:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
   - large: the same entry points on two trees of 921 taxa (128 patterns:
@@ -68,7 +69,19 @@ users' calls reach them:
     subsplit probabilities.  The likelihoods and branch gradients take
     the paired on-chip bodies (one shared model row); the model-parameter
     gradients take one reverse-mode pass over the scan tape (its postorder,
-    then an adjoint preorder).
+    then an adjoint preorder);
+  - chunklab: the chunk lab (perflab/perf_chunk_lab.py, the counterpart of
+    scripts/perf_chunk_lab.py) on the flagship: every name of the script
+    at one sweep of 40 calls, all through chunk_variant
+    (perflab/csrc/chunk_variant.cu: the on-chip LL body of
+    treelike/csrc/paired_ll_onchip.cuh with the script's knobs);
+  - gp: gp_instance (api/gp.py) on bito_tpu's config3 flow at DS1's shape:
+    a synthetic credible set of 12 rooted trees over 27 taxa (each the
+    first after 2 random NNIs; DS1's credible set is not in the
+    repository) with the DS1-shaped alignment: make_dag, make_gp_engine,
+    populate_plvs, compute_likelihoods, the per-PCSP LLs, one
+    optimize_branch_lengths_once, estimate_branch_lengths(GP_TOL,
+    GP_MAX_ITER), estimate_sbn_parameters, calculate_hybrid_marginals.
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the
@@ -90,6 +103,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      column), within 1e-5 of max |out| against its float32 plain version.
      The rooted path's trees (bifurcating roots) through both paired
      on-chip kernels against their float64 plain versions within 5e-5.
+     chunk_variant's variants (v0, w4, w8, norescale, notips, fixstore,
+     nodot, unroll) against their float64 plain versions on the
+     flagship's chunked operands: the LL within 5e-5 relative (notips,
+     whose LL is 0 up to rounding, within 5e-5 a site; nodot, not a
+     likelihood, by equal non-finite rows and finite ones, per-site log
+     values, within 5e-5).
   3. each path, with every launch count set to 0 just before it and read
      just after: its kernels must have launched and no other path's; the
      results (log_likelihoods, ll_and_branch_gradients, calls over scaled
@@ -121,6 +140,17 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      float64 on the card (the scan tape); the unconditional subsplit
      probabilities in [0, 1]; the host time of each call and both
      kernels' times on the path's operands beside their bounds.
+     On the chunklab path: only chunk_variant launched; v0's rows equal
+     chunked_ll_onchip's on the same operands; w2, w4, w8, norescale,
+     fixstore and unroll within 5e-5 of v0.  On the gp path: no
+     hand-written kernel launched; the DAG's node and edge counts; finite
+     PLVs and LLs; the log marginal and every per-PCSP LL at the start,
+     the log marginal after estimate_branch_lengths and after
+     estimate_sbn_parameters, and the hybrid marginals within 5e-5
+     relative of the same flow in float64 on the card; the SBN parameters
+     within Q_BOUND absolute of float64's, a limit that a control (the
+     same softmax on float64's LLs rounded to Q_CONTROL_BITS significand
+     bits) must exceed.
   4. CUDA-event times of each kernel, its plain version and, where one
      PyTorch call computes the same function, that call; pipe_cell, the
      stream sums and static_chain, whose wrappers' host work outlasts
@@ -139,7 +169,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      version within the phase-2 bound before it is timed, beside the body
      the wrappers choose; each engine route's
      LL+gradient evals/s; the host time of a new topology set at B=200 and
-     B=1000; all with the card's name and limit.
+     B=1000; chunk_variant's variants each alone beside its bound, and the
+     chunk lab's names as evals/s (the chunklab path's sweeps) with
+     preponly's share of a call; the gp path's populate + per-PCSP pass
+     (best of 3, the card synchronised) and its optimize sweep (the gp
+     path's call) with the device kernels and torch operations each runs;
+     all with the card's name and limit.
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -155,15 +190,19 @@ from functools import partial
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from bito_tpu_torch import PRODUCT_DEVICE, PRODUCT_DTYPE, _native, _synthetic
-from bito_tpu_torch.convert import params_from_numpy
+from bito_tpu_torch.convert import gp_state, gp_state_from_numpy, params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
 from bito_tpu_torch.perflab import (GRAPH_TIMING, card_line, cuda_ms,
-                                    graph_ms, max_sm_clock_mhz, perf_lab,
-                                    perf_pipe_lab, perf_static_probe)
+                                    graph_ms, max_sm_clock_mhz,
+                                    perf_chunk_lab, perf_lab, perf_pipe_lab,
+                                    perf_static_probe)
+from bito_tpu_torch.api.gp import gp_instance
+from bito_tpu_torch.gp.engine import _sbn_segment_softmax
 from bito_tpu_torch.api.instances import rooted_instance, unrooted_instance
 from bito_tpu_torch.sbn import maps as sbn_maps
 from bito_tpu_torch.treelike import (_kernels, chunked, paired, pernode, prep,
@@ -202,6 +241,16 @@ ROOTED_PARAMS = {"substitution_model_frequencies": [0.1, 0.2, 0.3, 0.4],
                  "site_model_parameters": [0.1]}
 ROOTED_KEYS = ("branch_lengths", "ratios_root_height", "clock_model",
                "clock_model_rates", "substitution_model", "site_model")
+# the gp path: bito_tpu's bench_configs.py config3 (GP on DS1's credible
+# set, 140 edges) at DS1's shape, on a synthetic credible set
+# bito_tpu's GP-scored NNI engine's estimate after an acceptance
+# (nni/engine.py:560)
+GP_TOL, GP_MAX_ITER = 1e-3, 5
+GP_REPS = 3  # phase 4: best of 3 populate passes
+# the SBN parameters' absolute limit against float64, and the control that
+# must exceed it: the softmax on float64's LLs rounded to this many
+# significand bits (float32 keeps 24)
+Q_BOUND, Q_CONTROL_BITS = 1e-2, 18
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # name -> its source, its TPU kernel, the launcher that counts its
@@ -277,6 +326,10 @@ KERNELS = {
         source=PROBES + "static_chain.cu",
         replaces="scripts/perf_static_probe.py:50",
         wrapper=perf_static_probe.static_chain, path="perflab"),
+    "chunk_variant": dict(
+        source=PROBES + "chunk_variant.cu",
+        replaces="scripts/perf_chunk_lab.py:60",
+        wrapper=perf_chunk_lab.chunk_variant, path="chunklab"),
 }
 
 
@@ -656,13 +709,16 @@ def read_launches(path):
 PIPE_TIMED = "paired-like"
 CHAIN_R = 20
 # phase 4 times them, and their library call, by graph_ms
-GRAPH_TIMED = ("pipe_cell", "stream_sum_4d", "stream_sum_3d", "static_chain")
+GRAPH_TIMED = ("pipe_cell", "stream_sum_4d", "stream_sum_3d", "static_chain",
+               "chunk_variant")
 LAB_SHAPES = {
     "variant_grad": f"unroll, float32, {BATCH} trees x 1024 patterns",
     "pipe_cell": f"{PIPE_TIMED}, {CELLS} cells",
     "stream_sum_4d": f"{CELLS} cells of 32 x 256 x 128 bf16",
     "stream_sum_3d": f"{CELLS} cells of 8192 x 128 bf16",
     "static_chain": f"dynamic, R={CHAIN_R}, 52 ops x 1024 columns",
+    "chunk_variant": f"v0 (the shipping body), float32, {BATCH} trees x "
+                     "1024 patterns",
 }
 
 
@@ -1325,6 +1381,388 @@ def rooted_path(files, dev, card, kernel_calls):
     return counts
 
 
+# -- the chunk lab (row 11) ---------------------------------------------------
+CHUNK_CHECKED = ("v0", "w4", "w8", "norescale", "notips", "fixstore", "nodot",
+                 "unroll")
+
+
+def chunk_tapes(enc, W, dev, flagship_tapes):
+    """(post_dst, tip_slot, post_e, on-chip tape) of the chunked schedule at
+    width W: the engine's own at chunked.W (`flagship_tapes`), else built."""
+    if W == chunked.W:
+        return flagship_tapes
+    ce = chunked.build_chunked_encoding(enc, W)
+    dst, tip, e = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+                   for x in (ce.post_dst, ce.tip_slot, ce.post_e))
+    return dst, tip, e, chunked.onchip_tape(ce.post_dst, ce.tip_slot, dev)
+
+
+def chunk_lab_parity(enc, ops, flagship_tapes, dev, errs):
+    """Phase 2 for chunk_variant: each of the chunk lab's kernel variants
+    against its float64 plain version (perf_chunk_lab.chunk_variant_ref)
+    on the flagship's chunked operands: the LL within BOUND relative
+    (notips: within BOUND per site of the plain version's near-zero LL;
+    nodot, not a likelihood: the same non-finite rows, the finite ones,
+    per-site log values near 0 here (the padded all-ones columns), within
+    BOUND).  Prints every variant's error before it checks them.  Fills
+    errs["chunk_variant"] with the worst LL error of the likelihood
+    variants."""
+    P, tips, pi, prop, w = ops
+    w64 = w.double()
+    worst, worst_abs, lines, results = 0.0, 0.0, [], []
+    for name in CHUNK_CHECKED:
+        variant, W = perf_chunk_lab.parse_name(name)
+        dst, tip, e, on = chunk_tapes(enc, W, dev, flagship_tapes)
+        rows = perf_chunk_lab.chunk_variant(dst, tip, e, P, tips, pi, prop,
+                                            variant=variant, onchip=on)
+        torch.cuda.synchronize()
+        plain = perf_chunk_lab.chunk_variant_ref(dst, tip, e, P, tips, pi,
+                                                 prop, variant=variant)
+        ll, ll_p = rows.double() @ w64, plain @ w64
+        if name == "nodot":
+            fin = torch.isfinite(plain)
+            same = torch.equal(torch.isfinite(rows), fin)
+            err = ((rows.double() - plain)[fin].abs().max().item()
+                   if same and fin.any() else (0.0 if same else math.inf))
+            what = (f"rows max-abs err {err:.3e} ({int(fin.sum())} finite, "
+                    f"max |row| {plain[fin].abs().max().item():.3e})")
+        elif name == "notips":
+            err = ((ll - ll_p).abs().max() / w64.sum()).item()
+            what = (f"LL {ll.abs().max().item():.3e} (plain "
+                    f"{ll_p.abs().max().item():.3e}), error per site "
+                    f"{err:.3e}")
+        else:
+            err = rel_err(ll, ll_p)
+            worst = max(worst, err)
+            worst_abs = max(worst_abs, (ll - ll_p).abs().max().item())
+            what = f"LL rel err {err:.3e}"
+        lines.append(f"{name} {what}")
+        results.append((name, err))
+    errs["chunk_variant"] = (worst, worst_abs)
+    print("# phase 2: chunk_variant against its float64 plain version on "
+          f"the flagship's chunked operands (bound {BOUND:g}): "
+          + "; ".join(lines))
+    for name, err in results:
+        check(err <= BOUND, f"chunk_variant {name} agrees with its plain "
+              "version")
+
+
+def run_chunklab(dev):
+    """The chunklab path: the chunk lab's entry point, as `python -m
+    bito_tpu_torch.perflab chunk` runs it, over every name at its five
+    sweeps of perf_chunk_lab.ITERS calls, whose best phase 4 reports.
+    Returns (the lab's Flagship, its results)."""
+    print(f"# phase 3: chunklab path (python -m bito_tpu_torch.perflab "
+          f"chunk: {' '.join(perf_chunk_lab.NAMES)}; five sweeps each)")
+    flag = perf_chunk_lab.Flagship(dev)
+    return flag, perf_chunk_lab.run(perf_chunk_lab.NAMES, flag, repeats=5)
+
+
+def check_chunklab(flag, out):
+    """Phase 3's checks of the chunklab path: every name timed; the
+    likelihood variants finite; v0 equal to chunked_ll_onchip's rows on the
+    same operands; w4, w8, norescale, fixstore and unroll within BOUND of
+    v0."""
+    check(all(ms > 0 for ms, _ in out.values()), "chunklab: every name timed")
+    ll0 = out["v0"][1]
+    for name in ("w2", "w4", "w8", "norescale", "fixstore", "unroll"):
+        ll = out[name][1]
+        check(bool(torch.isfinite(ll).all()) and rel_err(ll, ll0) <= BOUND,
+              f"chunklab {name} agrees with v0")
+    dst, tip, e, on = flag.tapes(chunked.W)
+    P = flag.P()
+    plan = chunked.ll_plan(on.ll_rows, dst.shape[1], P.shape[1], 4)
+    ship = chunked.chunked_ll_onchip(dst, on, e, P, flag.tips, flag.pi,
+                                     flag.props, plan)
+    v0 = perf_chunk_lab.chunk_variant(dst, tip, e, P, flag.tips, flag.pi,
+                                      flag.props, variant="v0", onchip=on)
+    check(torch.equal(ship, v0), "chunklab: v0 equals chunked_ll_onchip's "
+          "rows on the same operands")
+    print("# phase 3: chunklab: v0's rows equal chunked_ll_onchip's; w4, w8 "
+          "at most {:.3e} from v0 (LL rel err)".format(max(
+              rel_err(out[n][1], ll0) for n in ("w4", "w8"))))
+
+
+def chunk_lab_times(flag, res, enc_flops, card):
+    """Phase 4 for row 11: each kernel variant alone (perflab.graph_ms, the
+    launches into an output allocated once) beside its bound (the LL's
+    FLOPs of bench.py at PEAK_FLOPS, nodot's without the evolves, against
+    the bytes at PEAK_BYTES), then the chunklab path's results `res` (the
+    best of five sweeps, as evals/s), and preponly's share of a flagship
+    LL call."""
+    fl_ll, fl_evolve = enc_flops
+    dst, _tip, e, on = flag.tapes(chunked.W)
+    P = flag.P()
+    out = torch.empty((dst.shape[0], flag.tips.shape[-1]), device=P.device,
+                      dtype=torch.float32)
+    moved = nbytes(dst, on.child, on.live_row, e, P, flag.tips, flag.pi,
+                   flag.props, out)
+    lines = []
+    for variant in perf_chunk_lab.VARIANT_CODES:
+        rows = perf_chunk_lab.variant_rows(variant, dst, on)
+        plan = perf_chunk_lab.variant_plan(variant, rows, dst.shape[1],
+                                           P.shape[1], 4)
+        ms = graph_ms(lambda: perf_chunk_lab.launch_chunk_variant(
+            dst, on, e, P, flag.tips, flag.pi, flag.props, plan, out,
+            variant=variant, rows=rows), 50,
+            counter=perf_chunk_lab.chunk_variant)
+        b_ms, b_by = bound(fl_ll - (fl_evolve if variant == "nodot" else 0),
+                           moved)
+        lines.append(f"{variant} {ms:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+                     f"{plan.cols * plan.lanes // 32} warps, {rows} rows)")
+        check(ms >= b_ms, f"chunk_variant {variant} within its bound")
+    print(f"# phase 4: chunk_variant, each variant alone ({GRAPH_TIMING}, "
+          f"50 launches; {BATCH} trees x {flag.tips.shape[-1]} patterns): "
+          + ", ".join(lines) + f" on {card}")
+    per_call = {name: ms / perf_chunk_lab.ITERS for name, (ms, _) in
+                res.items()}
+    print("# phase 4: chunk lab, ms per call (best of 5 sweeps of "
+          f"{perf_chunk_lab.ITERS} calls; evals/s = {BATCH} / ms): "
+          + ", ".join(f"{n} {ms:.4f} ({BATCH / ms * 1e3:.1f} evals/s)"
+                      for n, ms in per_call.items())
+          + f"; preponly (P from float64 model ingredients, cast) is "
+          f"{per_call['preponly'] / per_call['v0']:.3f} of v0's call, the "
+          f"kernel alone (fixedop) {per_call['fixedop'] / per_call['v0']:.3f};"
+          f" on {card}")
+    return per_call
+
+
+# -- the gp path ----------------------------------------------------------------
+def gp_files(tmp):
+    """The gp path's inputs, written to `tmp`: a synthetic credible set
+    (_synthetic.credible_set_newick: 12 rooted trees over DS1's 27 taxa,
+    each the first after 2 random NNIs, with branch lengths) and a
+    DS1-shaped alignment (1,949 columns, 934 distinct).  Returns (newick,
+    fasta)."""
+    names = _synthetic.taxon_names(_synthetic.DS1_TAXA)
+    nwk, fasta = f"{tmp}/credible.nwk", f"{tmp}/ds1_shaped.fasta"
+    with open(nwk, "w") as f:
+        f.write(_synthetic.credible_set_newick(SEED, _synthetic.DS1_TAXA))
+    with open(fasta, "w") as f:
+        f.write(_synthetic.fasta_text(_synthetic.random_alignment(
+            SEED + 1, names, _synthetic.DS1_SITES,
+            _synthetic.DS1_DISTINCT_COLUMNS)))
+    return nwk, fasta
+
+
+def gp_flow(files, dev, dtype, times=None, carry=None):
+    """config3's flow through gp_instance (the user's entry point), timed
+    by `times` (a HostTimes) where given: read, make_dag, make_gp_engine,
+    populate_plvs, compute_likelihoods, the per-PCSP LLs; one
+    optimize_branch_lengths_once; estimate_branch_lengths(GP_TOL,
+    GP_MAX_ITER); estimate_sbn_parameters; calculate_hybrid_marginals.
+    With `carry`, another run's states (after the sweep, after the
+    estimate, after the SBN estimate), in convert.gp_state's form, the
+    engine takes the first in place of its own sweep, the second before
+    the SBN estimate and the third before the hybrid marginals, so that
+    each step starts from the other run's numbers.  Returns (instance,
+    {what: value}), with "states" this run's three and "sbn_in" the q and
+    hybrid marginals that the SBN estimate's softmax takes."""
+    call = times or (lambda name, fn, *a, **k: fn(*a, **k))
+    nwk, fasta = files
+    inst = gp_instance(device=dev, dtype=dtype)
+    call("read_fasta_file", inst.read_fasta_file, fasta)
+    call("read_newick_file", inst.read_newick_file, nwk)
+    call("make_dag", inst.make_dag)
+    call("make_gp_engine", inst.make_gp_engine)
+    call("populate_plvs", inst.populate_plvs)
+    call("compute_likelihoods", inst.compute_likelihoods)
+    out = dict(marginal=inst.get_log_marginal_likelihood(),
+               pcsp=call("get_per_gpcsp_log_likelihoods",
+                         inst.get_per_gpcsp_log_likelihoods))
+    if carry is None:
+        call("optimize_branch_lengths_once",
+             inst.optimize_branch_lengths_once)
+    else:
+        gp_state_from_numpy(inst.get_gp_engine(), **carry[0])
+    states = [gp_state(inst.get_gp_engine())]
+    out["estimate"] = call("estimate_branch_lengths",
+                           inst.estimate_branch_lengths, GP_TOL, GP_MAX_ITER)
+    out["plv_finite"] = bool(torch.isfinite(inst.get_gp_engine().plv).all())
+    states.append(gp_state(inst.get_gp_engine()))
+    if carry is not None:
+        gp_state_from_numpy(inst.get_gp_engine(), **carry[1])
+    # the per-PCSP LLs that the SBN estimate's softmax takes
+    inst.populate_plvs()
+    inst.compute_likelihoods()
+    out["sbn_ll"] = inst.get_per_gpcsp_log_likelihoods()
+    out["sbn_in"] = (inst.get_sbn_parameters(),
+                     inst.get_hybrid_marginals().copy())
+    call("estimate_sbn_parameters", inst.estimate_sbn_parameters)
+    out["sbn_marginal"] = inst.get_log_marginal_likelihood()
+    out["q"] = inst.get_sbn_parameters()
+    states.append(gp_state(inst.get_gp_engine()))
+    out["states"] = states
+    if carry is not None:
+        gp_state_from_numpy(inst.get_gp_engine(), **carry[2])
+    call("calculate_hybrid_marginals", inst.calculate_hybrid_marginals)
+    out["hybrid"] = inst.get_hybrid_marginals().copy()
+    return inst, out
+
+
+def gp_path(files, dev, card):
+    """The gp path (phase 3): config3's flow on the card in float32, no
+    hand-written kernel launched, held against the same flow in float64
+    on the card: the log marginal and every per-PCSP LL at the start's
+    branch lengths within BOUND relative; from the float32 run's lengths
+    after its sweep (carried into the float64 engine), the log marginal
+    after estimate_branch_lengths within BOUND relative (the objective,
+    not the argmin: Brent in float32 stops at about sqrt(eps)); then, from
+    the float32 run's branch lengths after the estimate, the
+    log marginal after estimate_sbn_parameters within BOUND relative, and
+    the SBN parameters within Q_BOUND absolute (at DS1's magnitudes, LLs
+    near -7e4, float32 holds the per-PCSP LLs that the softmax takes to
+    about 1e-2, and q moves with them); the control, the same softmax on
+    float64's LLs rounded to Q_CONTROL_BITS significand bits, must exceed
+    Q_BOUND; and from the float32 run's SBN parameters, every finite
+    hybrid marginal within BOUND relative.  Returns (the float32 instance,
+    its HostTimes)."""
+    times = HostTimes()
+    reset_launches()
+    inst, out = gp_flow(files, dev, PRODUCT_DTYPE, times)
+    torch.cuda.synchronize()
+    read_launches("gp")
+    dag, eng = inst.get_dag(), inst.get_gp_engine()
+    print(f"# phase 3: gp path (config3's flow at DS1's shape: "
+          f"{dag.taxon_count} taxa, {eng.site_pattern.site_count} columns, "
+          f"{eng.S} patterns, a synthetic credible set of "
+          f"{inst.tree_count()} trees): DAG of "
+          f"{dag.node_count_without_dag_root()} nodes and {dag.edge_count()} "
+          f"edges, {len(eng.schedule.rootward)} rootward and "
+          f"{len(eng.schedule.leafward)} leafward levels, "
+          f"{int(dag.topology_count())} topologies; no hand-written kernel "
+          "launched")
+    ref_inst, ref = gp_flow(files, dev, torch.float64, carry=out["states"])
+    hyb, hyb_ref = out["hybrid"], ref["hybrid"]
+    fin = np.isfinite(hyb_ref)
+    errs = dict(
+        marginal=abs(out["marginal"] - ref["marginal"]) / abs(ref["marginal"]),
+        pcsp=float(np.max(np.abs(out["pcsp"] - ref["pcsp"])
+                          / np.abs(ref["pcsp"]))),
+        estimate=abs(out["estimate"] - ref["estimate"]) / abs(ref["estimate"]),
+        sbn=abs(out["sbn_marginal"] - ref["sbn_marginal"])
+        / abs(ref["sbn_marginal"]),
+        sbn_ll=float(np.max(np.abs(out["sbn_ll"] - ref["sbn_ll"])
+                            / np.abs(ref["sbn_ll"]))),
+        hybrid=float(np.max(np.abs(hyb[fin] - hyb_ref[fin])
+                            / np.abs(hyb_ref[fin]))) if fin.any() else 0.0)
+    print("# phase 3: gp path against the same flow in float64 on the card "
+          "(relative errors): " + ", ".join(f"{k} {v:.3e}"
+                                            for k, v in errs.items())
+          + f" (bound {BOUND:g}); log marginal {out['marginal']:.4f} at the "
+          f"start, {out['estimate']:.4f} after estimate_branch_lengths("
+          f"{GP_TOL:g}, {GP_MAX_ITER}) (float64 {ref['estimate']:.4f}); "
+          f"{int(fin.sum())} finite hybrid marginals; host ms of each call: "
+          + ", ".join(f"{n} {ms:.1f}" for n, ms in times.ms.items())
+          + f"; on {card}")
+    check(out["plv_finite"] and np.isfinite(out["pcsp"]).all()
+          and np.isfinite([out["marginal"], out["estimate"]]).all(),
+          "gp: finite PLVs, per-PCSP LLs and marginals")
+    check(out["pcsp"].shape == (dag.edge_count(),), "gp: one LL a PCSP")
+    check(out["estimate"] > out["marginal"], "gp: the estimate raised the "
+          "log marginal")
+    check(np.array_equal(np.isfinite(hyb), fin) and fin.any(),
+          "gp: the same finite hybrid marginals")
+    check(max(errs.values()) <= BOUND, "gp: float32 on the card agrees "
+          "with float64")
+    q_err = float(np.max(np.abs(out["q"] - ref["q"])))
+    controls = {bits: float(np.max(np.abs(sbn_q_of_rounded(
+        ref_inst.get_gp_engine(), ref["sbn_ll"], *ref["sbn_in"], bits)
+        - ref["q"]))) for bits in sorted({53, 22, 20, 18, Q_CONTROL_BITS},
+                                   reverse=True)}
+    print(f"# phase 3: gp SBN parameters: max |q - q64| {q_err:.3e} "
+          f"(bound {Q_BOUND:g}); the per-PCSP LLs' largest absolute error "
+          f"{float(np.max(np.abs(out['sbn_ll'] - ref['sbn_ll']))):.3e}; "
+          "controls, max |q - q64| of the softmax on float64's LLs rounded "
+          "to n significand bits: " + ", ".join(
+              f"n={b} {e:.3e}" for b, e in controls.items()))
+    # at 53 bits the control recomputes float64's q, up to the card's
+    # unordered float64 sums (about 1e-11 in an LL near -7e4)
+    check(controls[53] <= 1e-9, "gp: the control's softmax is the SBN "
+          "estimate's")
+    check(controls[Q_CONTROL_BITS] > Q_BOUND, "gp: the q check's control "
+          "fails it")
+    check(q_err <= Q_BOUND, "gp: the SBN estimate agrees with float64")
+    return inst, times
+
+
+def sbn_q_of_rounded(eng, ll, q, hybrid, bits):
+    """The SBN estimate's softmax (engine.update_sbn_probabilities' call
+    of _sbn_segment_softmax) on `eng`'s segments, from SBN parameters `q`
+    and hybrid marginals `hybrid`, on the per-PCSP LLs `ll` rounded to
+    `bits` significand bits: the q check's control."""
+    m, e = np.frexp(ll)
+    ll = np.ldexp(np.round(m * 2.0 ** bits) / 2.0 ** bits, e)
+    seg_ids, nseg, singleton, covered = eng._sbn_segment_arrays()
+    return eng._host(_sbn_segment_softmax(
+        eng._tensor(q), eng._tensor(ll), eng._tensor(hybrid), seg_ids, nseg,
+        singleton, covered))
+
+
+class CudaOps(TorchDispatchMode):
+    """Counts the torch operations whose (first) output is a CUDA tensor
+    (views excluded): about one kernel each, at a fraction of a profiler's
+    cost on a program of 1e5 kernels."""
+
+    def __init__(self):
+        super().__init__()
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        first = out[0] if isinstance(out, (tuple, list)) and out else out
+        if (not func.is_view and isinstance(first, torch.Tensor)
+                and first.is_cuda):
+            self.count += 1
+        return out
+
+
+def gp_times(inst, times, card):
+    """Phase 4 for the gp path: config3's metrics on the gp path's float32
+    instance, the card synchronised: ms per populate + per-PCSP pass
+    (populate_plvs, compute_likelihoods, get_per_gpcsp_log_likelihoods;
+    best of GP_REPS) and ms per optimize sweep (the gp path's
+    optimize_branch_lengths_once, from its HostTimes `times`); the device
+    kernels of a populate pass (torch.profiler) and the torch operations
+    on the card of a pass and of a sweep (CudaOps, one further sweep)."""
+    eng = inst.get_gp_engine()
+
+    def populate_pass():
+        eng.populate_plvs()
+        eng.compute_likelihoods()
+        eng.per_gpcsp_log_likelihoods()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    populate_pass()
+    pop_ms = min(timed(populate_pass) for _ in range(GP_REPS))
+    opt_ms = times.ms["optimize_branch_lengths_once"]
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        populate_pass()
+        torch.cuda.synchronize()
+    kernels = sum(1 for ev in prof.events()
+                  if ev.device_type == torch.autograd.DeviceType.CUDA)
+    ops = {}
+    for name, fn in (("populate", populate_pass),
+                     ("sweep", eng.optimize_branch_lengths_once)):
+        with CudaOps() as counter:
+            fn()
+        ops[name] = counter.count
+    print(f"# phase 4: gp (config3's metrics, the card synchronised): "
+          f"populate + per-PCSP pass {pop_ms:.3f} ms (best of {GP_REPS}; "
+          f"{kernels} device kernels by torch.profiler, {ops['populate']} "
+          f"torch operations on the card), optimize sweep {opt_ms:.3f} ms "
+          f"(the gp path's call; {ops['sweep']} torch operations on the "
+          f"card), {inst.get_dag().edge_count()} edges; on {card}")
+    return pop_ms, opt_ms
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs an NVIDIA card: "
@@ -1468,6 +1906,8 @@ def main():
     lab_ops = dict(post_ops=post, pre_ops=pre, root=root, edge_mask=mask, P=P,
                    dP=dP, tips=tips, pi=pi, props=prop, weights=w)
     lab_calls, plain_outs, probe_work = probe_parity(lab_ops, dev, errs)
+    chunk_lab_parity(enc, (P, tips, pi, prop, w), (cdst, ctip, cedge, con),
+                     dev, errs)
     rooted_dir = tempfile.TemporaryDirectory()
     rooted_inputs = rooted_files(rooted_dir.name)
     rooted_calls = rooted_parity(rooted_inputs, dev)
@@ -1620,9 +2060,17 @@ def main():
     launches.update(read_launches("perflab"))
     check_perflab(lab, plain_outs)
 
+    reset_launches()
+    chunk_flag, chunk_out = run_chunklab(dev)
+    torch.cuda.synchronize()
+    launches.update(read_launches("chunklab"))
+    check_chunklab(chunk_flag, chunk_out)
+
     vbpi_path(dev, card)
     rooted_path(rooted_inputs, dev, card, rooted_calls)
     rooted_dir.cleanup()
+    with tempfile.TemporaryDirectory() as gp_dir:
+        gp_run = gp_path(gp_files(gp_dir), dev, card)
 
     # The float64 reference's own gradients against central differences.
     h = 1e-6
@@ -1665,10 +2113,24 @@ def main():
                                                   else 0))
         work[name] = ((fl_grad if grad else fl_ll),
                       moved + floats + (grad_out if grad else ll_out), None)
+    # chunk_variant at v0 (the shipping body): its rows [B, S] out, timed
+    # alone into an output allocated once
+    chunk_rows = torch.empty((BATCH, tips.shape[-1]), device=dev,
+                             dtype=torch.float32)
+    work["chunk_variant"] = (fl_ll, nbytes(cdst, con.child, con.live_row,
+                                           cedge, P, tips, pi, prop,
+                                           chunk_rows), None)
+    chunk_plan = chunked.ll_plan(con.ll_rows, cdst.shape[1], P.shape[1], 4)
     times = {}  # kernel -> (ms, plain ms, library ms or None)
     calls = {name: (lambda p=plain, a=a: p(*a), kernel)
              for name, (plain, a, kernel) in args.items()}
     calls.update(lab_calls)
+    calls["chunk_variant"] = (
+        lambda: perf_chunk_lab.chunk_variant_ref(
+            cdst, ctip, cedge, P, tips, pi, prop, variant="v0"),
+        lambda: perf_chunk_lab.launch_chunk_variant(
+            cdst, con, cedge, P, tips, pi, prop, chunk_plan, chunk_rows,
+            variant="v0", rows=con.ll_rows))
     for name in KERNELS:
         plain, kernel = calls[name]
         library = work[name][2]
@@ -1702,6 +2164,11 @@ def main():
               + f", bound {b_ms:.4f} ms by {b_by}{terms} ({shape}) on {card}")
         if name in GRAPH_TIMED:  # a device time under its bound is wrong
             check(times[name][0] >= b_ms, f"{name} within its bound")
+
+    E = int(np.asarray(enc.edge_mask).sum(axis=1).mean())
+    chunk_lab_times(chunk_flag, chunk_out,
+                    (fl_ll, E * 2 * 16 * 4 * sp.pattern_count * BATCH), card)
+    del chunk_flag, chunk_out
 
     # The pipe plan's rule: every experiment at every tile that fits.
     print(f"# phase 4: pipe_cell at every tile that fits ({GRAPH_TIMING}, "
@@ -1757,6 +2224,11 @@ def main():
               for label, s2, t2, reps in sets)
           + f"; one auto LL+gradient call at B={BATCH} takes "
           f"{auto_rate[1]:.4f} ms on {card}")
+    # Last, since its torch.profiler pass leaves the profiler set up.
+    t0 = time.perf_counter()
+    gp_times(*gp_run, card)
+    del gp_run
+    print(f"# phase 4: the gp times took {time.perf_counter() - t0:.1f} s")
     ends.append(time.perf_counter())
     print(f"# chip_smoke.py ran in {ends[-1] - t_start:.1f} s (phases 1-4: "
           + ", ".join(f"{b - a:.1f}" for a, b in zip([t_start] + ends, ends))

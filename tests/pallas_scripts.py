@@ -29,7 +29,8 @@ SCRIPTS = ROOT / "scripts"
 # come from this checkout, whatever that path holds.
 SCRIPT_IMPORTS = ("bito_tpu", "bito_tpu.core.newick",
                   "bito_tpu.core.site_pattern", "bito_tpu.models.phylo_model",
-                  "bito_tpu.treelike.engine", "bito_tpu.treelike.pallas_pruning")
+                  "bito_tpu.treelike.engine", "bito_tpu.treelike.pallas_pruning",
+                  "bito_tpu.treelike.pallas_chunked")
 
 
 def bito_tpu_outside_checkout() -> list:

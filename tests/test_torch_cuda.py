@@ -3,8 +3,10 @@ lab's four probes), against their plain torch versions; each body of the
 paired, chunked and per-node kernels, and which one the wrappers take;
 the VBPI slice on the card (the unrooted instance against float64, a
 trainer step's kernels, the SBN's device programs against numpy, the
-native representations against the pure-Python ones); and the rooted
-instance on the card against float64.
+native representations against the pure-Python ones); the rooted
+instance on the card against float64; the chunk lab's kernel variants
+against their plain versions, with the shipping chunked LL body equal to
+its v0; and the GP engine on the card in float32 against float64.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -1206,3 +1208,162 @@ def test_rooted_instance_on_the_card_matches_float64(cuda, tmp_path, spec):
         g = torch.as_tensor(np.stack([x.gradient[key] for x in pgs]))
         g_ref = torch.as_tensor(np.stack([x.gradient[key] for x in ref]))
         assert _norm(g, g_ref) <= 5e-5, key
+
+
+# -- the chunk lab (perflab/perf_chunk_lab.py, csrc/chunk_variant.cu) -------
+
+@pytest.fixture(scope="module")
+def chunk_flagship():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    from bito_tpu_torch.perflab import perf_chunk_lab
+
+    return perf_chunk_lab.Flagship(torch.device("cuda"), batch=40)
+
+
+@pytest.mark.parametrize("name", ["v0", "w4", "w8", "norescale", "notips",
+                                  "fixstore", "nodot", "unroll"])
+def test_chunk_variant_matches_plain(cuda, chunk_flagship, name):
+    """Each variant of the chunk lab's kernel against its float64 plain
+    version on the flagship's shape (40 trees): the LL within 5e-5
+    relative; notips' LL (0 up to rounding) within 5e-5 a site; nodot's
+    rows non-finite at the same places and within 5e-5 elsewhere."""
+    from bito_tpu_torch.perflab import perf_chunk_lab
+
+    f = chunk_flagship
+    variant, W = perf_chunk_lab.parse_name(name)
+    dst, tip, e, on = f.tapes(W)
+    P = f.P()
+    before = perf_chunk_lab.chunk_variant.launches
+    rows = perf_chunk_lab.chunk_variant(dst, tip, e, P, f.tips, f.pi,
+                                        f.props, variant=variant, onchip=on)
+    torch.cuda.synchronize()
+    assert perf_chunk_lab.chunk_variant.launches == before + 1
+    plain = perf_chunk_lab.chunk_variant_ref(dst, tip, e, P, f.tips, f.pi,
+                                             f.props, variant=variant)
+    w = f.weights.double()
+    ll, ll_p = rows.double() @ w, plain @ w
+    if name == "nodot":
+        fin = torch.isfinite(plain)
+        assert torch.equal(torch.isfinite(rows), fin)
+        if fin.any():  # per-site log values (near 0: all-ones columns)
+            assert (rows.double() - plain)[fin].abs().max() <= 5e-5
+    elif name == "notips":
+        assert (ll - ll_p).abs().max() <= 5e-5 * w.sum()
+    else:
+        assert _rel(ll, ll_p) <= 5e-5
+
+
+def test_shipping_chunked_ll_is_the_chunk_labs_v0(cuda, chunk_flagship):
+    """The shipping chunked LL body (csrc/paired_ll_onchip.cu, whose body
+    moved into paired_ll_onchip.cuh) gives v0's rows to the bit, and the
+    plain chunked LL within 5e-5."""
+    from bito_tpu_torch.perflab import perf_chunk_lab
+
+    f = chunk_flagship
+    dst, tip, e, on = f.tapes(chunked.W)
+    P = f.P()
+    plan = chunked.ll_plan(on.ll_rows, dst.shape[1], P.shape[1], 4)
+    ship = chunked.chunked_ll_onchip(dst, on, e, P, f.tips, f.pi, f.props,
+                                     plan)
+    v0 = perf_chunk_lab.chunk_variant(dst, tip, e, P, f.tips, f.pi, f.props,
+                                      variant="v0", onchip=on)
+    assert torch.equal(ship, v0)
+    ref = chunked.chunked_log_likelihoods_ref(
+        dst, tip, e, P.double(), f.tips.double(), f.pi.double(),
+        f.props.double(), f.weights.double())
+    assert _rel(ship.double() @ f.weights.double(), ref) <= 5e-5
+
+
+def test_chunk_variant_refuses_what_it_does_not_take(cuda, chunk_flagship):
+    from bito_tpu_torch.perflab import perf_chunk_lab
+
+    f = chunk_flagship
+    dst, tip, e, on = f.tapes(4)
+    with pytest.raises(ValueError, match="unroll is compiled"):
+        perf_chunk_lab.chunk_variant(dst, tip, e, f.P(), f.tips, f.pi,
+                                     f.props, variant="unroll", onchip=on)
+    with pytest.raises(ValueError, match="unknown variant"):
+        perf_chunk_lab.chunk_variant(dst, tip, e, f.P(), f.tips, f.pi,
+                                     f.props, variant="blockstore",
+                                     onchip=on)
+
+
+# -- the GP engine (gp/, api/gp.py) ---------------------------------------------
+
+def test_gp_engine_on_the_card_matches_float64(cuda, tmp_path):
+    """gp_instance on the card in float32 against the same instance on the
+    card in float64, on a small synthetic credible set (9 taxa): the log
+    marginal and every per-PCSP LL at the same branch lengths within 5e-5
+    relative, and after estimate_branch_lengths the log marginal (the
+    objective, not the argmin); no hand-written kernel launches."""
+    from bito_tpu_torch.api.gp import gp_instance
+    from bito_tpu_torch.perflab import perf_chunk_lab
+
+    nwk, fasta = tmp_path / "trees.nwk", tmp_path / "aln.fasta"
+    nwk.write_text(_synthetic.credible_set_newick(5, 9, 5, 2))
+    fasta.write_text(_synthetic.fasta_text(_synthetic.random_alignment(
+        6, _synthetic.taxon_names(9), 300)))
+    wrappers = PAIRED + (chunked.chunked_ll_onchip, chunked.chunked_ll_global,
+                         perf_chunk_lab.chunk_variant)
+    before = [w.launches for w in wrappers]
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        inst = gp_instance(device=cuda, dtype=dtype)
+        inst.read_fasta_file(str(fasta))
+        inst.read_newick_file(str(nwk))
+        inst.make_gp_engine()
+        inst.take_first_branch_length()
+        inst.populate_plvs()
+        inst.compute_likelihoods()
+        assert inst.get_gp_engine().plv.device.type == "cuda"
+        assert inst.get_gp_engine().plv.dtype == dtype
+        start = (inst.get_log_marginal_likelihood(),
+                 inst.get_per_gpcsp_log_likelihoods())
+        est = inst.estimate_branch_lengths(1e-3, 5)
+        out.append((start, est, inst))
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == before
+    (m32, pcsp32), est32, i32 = out[0]
+    (m64, pcsp64), est64, _ = out[1]
+    assert abs(m32 - m64) <= 5e-5 * abs(m64)
+    np.testing.assert_allclose(pcsp32, pcsp64, rtol=5e-5)
+    assert abs(est32 - est64) <= 5e-5 * abs(est64) and est64 > m64
+    assert torch.isfinite(i32.get_gp_engine().plv).all()
+
+
+def test_gp_engine_refuses_tf32_in_float32(cuda, tmp_path):
+    """A float32 GP engine on the card raises while TF32 matmuls are on,
+    at construction and at every program after it; float64 is unaffected
+    (TF32 never applies to it)."""
+    from bito_tpu_torch.api.gp import gp_instance
+
+    nwk, fasta = tmp_path / "trees.nwk", tmp_path / "aln.fasta"
+    nwk.write_text(_synthetic.credible_set_newick(5, 6, 3, 1))
+    fasta.write_text(_synthetic.fasta_text(_synthetic.random_alignment(
+        6, _synthetic.taxon_names(6), 50)))
+
+    def instance(dtype):
+        inst = gp_instance(device=cuda, dtype=dtype)
+        inst.read_fasta_file(str(fasta))
+        inst.read_newick_file(str(nwk))
+        return inst
+
+    i32, i64 = instance(torch.float32), instance(torch.float64)
+    i32.make_gp_engine()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            instance(torch.float32).make_gp_engine()
+        for call in (i32.populate_plvs, i32.compute_likelihoods,
+                     i32.optimize_branch_lengths_once,
+                     lambda: i32.estimate_branch_lengths(1e-3, 2),
+                     i32.calculate_hybrid_marginals):
+            with pytest.raises(RuntimeError, match="allow_tf32"):
+                call()
+        i64.make_gp_engine()
+        i64.populate_plvs()
+        i64.compute_likelihoods()
+        assert np.isfinite(i64.get_log_marginal_likelihood())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -40,15 +40,21 @@ print("ok", len({modules!r}))
 
 
 def test_imports_without_jax_or_bito_tpu():
-    """Every module of the port, the perf lab's, the native library's and
-    the rooted instance's included, imports in a fresh interpreter where
+    """Every module of the port, the perf lab's, the native library's, the
+    rooted instance's and the GP engine's included (and the package with
+    its whole top-level API), imports in a fresh interpreter where
     jax cannot be imported, none of them loads bito_tpu, and no import
     loads the kernel library or the native one."""
     assert {"bito_tpu_torch.perflab", "bito_tpu_torch.perflab.__main__",
             "bito_tpu_torch.perflab.perf_lab", "bito_tpu_torch._native",
             "bito_tpu_torch.dag.subsplit_dag", "bito_tpu_torch.dag.graft",
             "bito_tpu_torch.treelike.rooted",
-            "bito_tpu_torch.models.transforms"} <= set(MODULES)
+            "bito_tpu_torch.models.transforms",
+            "bito_tpu_torch.perflab.perf_chunk_lab", "bito_tpu_torch.gp",
+            "bito_tpu_torch.gp.engine", "bito_tpu_torch.gp.optimize",
+            "bito_tpu_torch.api.gp", "bito_tpu_torch.dag.schedule",
+            "bito_tpu_torch.dag.sampler", "bito_tpu_torch.dag.tidy",
+            "bito_tpu_torch.dag.reference_order"} <= set(MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(modules=MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
