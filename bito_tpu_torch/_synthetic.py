@@ -1,5 +1,5 @@
-"""Seeded synthetic inputs: random trees as Newick text and random
-nucleotide alignments.
+"""Seeded synthetic inputs: random trees as Newick text, random
+nucleotide alignments and alignments simulated along a tree.
 
 Used by the tests and by chip_smoke.py, and by no library code.  Every
 function takes a seed for numpy's default_rng, so the JAX package and the
@@ -299,3 +299,140 @@ def write_vbpi_inputs(directory, seed: int, num_taxa: int, num_trees: int,
         f.write(fasta_text(random_alignment(
             seed + 1, taxon_names(num_taxa), num_sites, num_distinct)))
     return nexus, fasta
+
+
+def _parse_nested(newick: str):
+    """One Newick tree (names, branch lengths, no inner labels) as nested
+    tuples: a leaf is its name, an inner node a tuple of (child, length)
+    pairs."""
+    text, pos = newick.strip(), 0
+
+    def node():
+        nonlocal pos
+        if text[pos] != "(":
+            start = pos
+            while text[pos] not in ",):;":
+                pos += 1
+            return text[start:pos]
+        pos += 1
+        kids = [edge()]
+        while text[pos] == ",":
+            pos += 1
+            kids.append(edge())
+        pos += 1  # ')'
+        return tuple(kids)
+
+    def edge():
+        nonlocal pos
+        sub, length = node(), 0.0
+        if text[pos] == ":":
+            pos += 1
+            start = pos
+            while text[pos] not in ",);":
+                pos += 1
+            length = float(text[start:pos])
+        return sub, length
+
+    return node()
+
+
+def simulated_alignment(seed: int, newick: str, num_sites: int,
+                        num_distinct: int | None = None,
+                        gap_rate: float = 0.03,
+                        ambiguous_rate: float = 0.01) -> Dict[str, str]:
+    """Nucleotide sequences simulated under JC69 along the first tree of
+    `newick` (with branch lengths), with gaps ('-') and unknowns ('N').
+
+    `num_distinct` columns (all of `num_sites` by default) are simulated:
+    a uniform state at the root, and along an edge of length t each site
+    keeps its state with probability exp(-4t/3) and otherwise takes a
+    uniform one.  Gaps and unknowns then replace cells at random, and the
+    alignment's columns are drawn from the simulated ones, each used at
+    least once, as in random_alignment.  Unlike random_alignment's, the
+    columns carry the tree's signal, so likelihoods tell topologies apart."""
+    rng = np.random.default_rng(seed)
+    D = num_distinct or num_sites
+    if D > num_sites:
+        raise ValueError("num_distinct exceeds num_sites")
+    states: Dict[str, np.ndarray] = {}
+
+    def walk(node, at):
+        if isinstance(node, str):
+            states[node] = at
+            return
+        for child, t in node:
+            keep = rng.random(D) < np.exp(-4.0 * t / 3.0)
+            walk(child, np.where(keep, at, rng.integers(0, 4, D)))
+
+    walk(_parse_nested(newick.strip().splitlines()[0]),
+         rng.integers(0, 4, D))
+    names = list(states)
+    chars = np.array(list("ACGT"))[np.stack([states[n] for n in names])]
+    u = rng.random((len(names), D))
+    chars[u < gap_rate] = "-"
+    chars[(u >= gap_rate) & (u < gap_rate + ambiguous_rate)] = "N"
+    cols = np.concatenate([np.arange(D), rng.integers(0, D, num_sites - D)])
+    rng.shuffle(cols)
+    mat = chars[:, cols]
+    return {name: "".join(mat[i]) for i, name in enumerate(names)}
+
+
+# The NNI search's inputs: the truth is the seed tree after TRUTH_NNIS
+# random rooted NNIs, so that the search has somewhere to go.
+TRUTH_NNIS = 3
+
+
+def write_nni_inputs(directory, seed: int, num_taxa: int, num_sites: int,
+                     num_distinct: int | None = None,
+                     truth_nnis: int = TRUTH_NNIS) -> Dict[str, str]:
+    """Write an NNI search's inputs into `directory` and return their
+    paths by name:
+      seed.nwk         the seed: credible_set_newick(seed, num_taxa)'s
+                       first tree, a random rooted tree;
+      credible.nwk     that credible set (CREDIBLE_TREES trees, the seed
+                       and its CREDIBLE_NNIS-NNI neighbours);
+      pp.csv           one posterior weight a credible tree, uniform;
+      pcsp_pp.csv      each PCSP's summed weight over the credible trees
+                       (index, parent, child, pcsp_pp; subsplits written
+                       clade|clade);
+      alignment.fasta  simulated_alignment(seed + 1, ...) along the truth,
+                       the seed after `truth_nnis` random rooted NNIs."""
+    import csv
+    import os
+
+    from .core.bitset import Subsplit
+    from .core.newick import parse_newick_text
+
+    credible = credible_set_newick(seed, num_taxa)
+    first = credible.splitlines()[0]
+    truth = credible_set_newick(seed, num_taxa, 2, truth_nnis).splitlines()[1]
+    paths = {name: os.path.join(directory, name) for name in (
+        "seed.nwk", "credible.nwk", "pp.csv", "pcsp_pp.csv",
+        "alignment.fasta")}
+    trees = parse_newick_text(credible).trees
+    weight = 1.0 / len(trees)
+    pcsp_pp: Dict[Tuple[str, str], float] = {}
+    for tree in trees:
+        topo = tree.topology
+        n, cl, ch = topo.num_taxa, topo.clades(), topo.children()
+        ss = {v: Subsplit.leaf(v, n) for v in range(n)}
+        for v in range(n, topo.num_nodes):
+            ss[v] = Subsplit.of_pair(cl[ch[v][0]], cl[ch[v][1]], n)
+        for v in range(topo.num_nodes - 1):
+            key = (ss[int(topo.parents[v])].pretty(), ss[v].pretty())
+            pcsp_pp[key] = pcsp_pp.get(key, 0.0) + weight
+    with open(paths["seed.nwk"], "w") as f:
+        f.write(first + "\n")
+    with open(paths["credible.nwk"], "w") as f:
+        f.write(credible)
+    with open(paths["pp.csv"], "w") as f:
+        f.write("".join(f"{weight!r}\n" for _ in trees))
+    with open(paths["pcsp_pp.csv"], "w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["index", "parent", "child", "pcsp_pp"])
+        for i, ((parent, child), pp) in enumerate(sorted(pcsp_pp.items())):
+            w.writerow([i, parent, child, repr(pp)])
+    with open(paths["alignment.fasta"], "w") as f:
+        f.write(fasta_text(simulated_alignment(
+            seed + 1, truth, num_sites, num_distinct)))
+    return paths

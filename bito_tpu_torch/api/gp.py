@@ -7,10 +7,12 @@ device memory.  The instance's engines run on `device` in `dtype` (the
 card in float32 by default; the tests pass the CPU in float64), and tree
 files are parsed by the native library.
 
-bito_tpu's methods that wait for engines the port has not come to yet are
-not defined here: make_tp_engine and the TP engine's setters,
-make_nni_engine, and the parsimony engine's (make_parsimony_tree_engine,
-compute_tree_parsimony, compute_parsimony).
+The TP, NNI and parsimony engines (make_tp_engine, make_nni_engine,
+make_parsimony_tree_engine) take the instance's device and dtype.  The
+NNI engine of the default scoring, tp_likelihood, is the faithful search
+(nni/golden.py's FaithfulNNIEngine): its per-edge PVs are host numpy, as
+in bito_tpu, and its batched candidate scorer runs in float64 on the
+instance's device whatever the instance's dtype.
 """
 from __future__ import annotations
 
@@ -44,6 +46,9 @@ class GPInstance:
         self.dag: Optional[SubsplitDAG] = None
         self.engine: Optional[GPEngine] = None
         self.likelihood_tree_engine = None
+        self.tp_engine = None
+        self.nni_engine = None
+        self.parsimony_tree_engine = None
 
     # -- io ---------------------------------------------------------------
     def read_newick_file(self, path: str, sort_taxa: bool = False):
@@ -119,6 +124,75 @@ class GPInstance:
         return engine.log_likelihoods(trees, {}).detach().cpu().numpy()
 
     compute_likelihood = compute_tree_likelihood
+
+    # -- TP, NNI and parsimony engines ---------------------------------------
+    def make_tp_engine(self):
+        from ..tp.engine import TPEngine
+
+        if self.dag is None:
+            self.make_dag()
+        self.tp_engine = TPEngine(self.get_dag(), self._site_pattern(),
+                                  device=self.device, dtype=self.dtype)
+        return self.tp_engine
+
+    def get_tp_engine(self):
+        assert self.tp_engine is not None, "Call make_tp_engine first"
+        return self.tp_engine
+
+    def tp_engine_set_choice_map_by_taking_first(self):
+        self.get_tp_engine().initialize_choice_map(self.tree_collection.trees)
+
+    def tp_engine_set_branch_lengths_by_taking_first(self):
+        self.get_tp_engine().set_branch_lengths_by_taking_first(
+            self.tree_collection.trees)
+
+    def make_nni_engine(self, scoring: str = "tp_likelihood"):
+        """The NNI engine of `scoring`: "tp_likelihood" (the faithful
+        search with incremental DAG growth and PV carry-over, reference
+        NNIEvalEngineViaTP + GPEngine grow/reindex,
+        src/gp_engine.cpp:64-209), "tp_parsimony" (the whole-tree engine
+        scored by Sankoff) or "gp_likelihood" (scored by the GP engine on
+        grafted DAGs)."""
+        from ..nni.engine import GPScoredNNIEngine, NNIEngine
+        from ..nni.golden import FaithfulNNIEngine
+
+        if self.dag is None:
+            self.make_dag()
+        sp, trees = self._site_pattern(), self.tree_collection.trees
+        kw = dict(device=self.device, dtype=self.dtype)
+        if scoring == "gp_likelihood":
+            self.nni_engine = GPScoredNNIEngine(self.get_dag(), sp, trees,
+                                                **kw)
+        elif scoring == "tp_likelihood":
+            self.nni_engine = FaithfulNNIEngine(self.get_dag(), sp, trees)
+            self.nni_engine.engine.device = self.device
+        else:
+            self.nni_engine = NNIEngine(self.get_dag(), sp, trees,
+                                        scoring=scoring, **kw)
+        return self.nni_engine
+
+    def get_nni_engine(self):
+        assert self.nni_engine is not None, "Call make_nni_engine first"
+        return self.nni_engine
+
+    def make_parsimony_tree_engine(self):
+        from ..parsimony.sankoff import SankoffHandler
+
+        self.parsimony_tree_engine = SankoffHandler(
+            self._site_pattern(), device=self.device, dtype=self.dtype)
+        return self.parsimony_tree_engine
+
+    def get_parsimony_tree_engine(self):
+        if self.parsimony_tree_engine is None:
+            self.make_parsimony_tree_engine()
+        return self.parsimony_tree_engine
+
+    def compute_tree_parsimony(self, tree=None) -> np.ndarray:
+        """Sankoff scores of the loaded trees (or a given tree)."""
+        trees = [tree] if tree is not None else self.tree_collection.trees
+        return self.get_parsimony_tree_engine().run_sankoff(trees)
+
+    compute_parsimony = compute_tree_parsimony
 
     # -- workflows --------------------------------------------------------
     def populate_plvs(self):

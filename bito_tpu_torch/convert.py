@@ -10,6 +10,13 @@ does a rooted instance's (rooted_state reads it from either package's
 instance, load_rooted_state writes it into the port's), and a GP
 engine's (gp_state reads it from either package's engine,
 gp_state_from_numpy writes it into the port's).
+
+The TP and NNI engines keep their state on the host, as bito_tpu's do:
+the TP engine's branch lengths and choice map, the faithful eval
+engine's per-edge PVs, the NNI sets and supporting trees are numpy
+arrays and Python objects, the same in both packages.  The one tensor
+state among them is the GP-scored NNI engine's GP engine
+(`engine.gp`), which gp_state and gp_state_from_numpy carry.
 """
 from __future__ import annotations
 

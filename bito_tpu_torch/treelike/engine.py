@@ -3,9 +3,10 @@
 Port of bito_tpu.treelike.engine.TreeLikelihoodEngine (reference:
 src/engine.cpp:27-119 dispatches per-tree work to a pool of FatBeagles;
 here one call evaluates the whole batch).  The public surface is the same:
-`log_likelihoods`, `ll_and_branch_gradients`, `branch_eval_fn` and
-`ll_eval_fn`, with parameter dicts whose values are either shared (1-D)
-or per-tree rows (2-D, the reference's phylo_model_params_ matrix).
+`log_likelihoods`, `ll_and_branch_gradients`, `branch_eval_fn`,
+`ll_eval_fn` and `optimize_selected_branches`, with parameter dicts whose
+values are either shared (1-D) or per-tree rows (2-D, the reference's
+phylo_model_params_ matrix).
 
 The engine runs on the card in float32 unless the caller asks for another
 device or dtype (bito_tpu_torch.device: PRODUCT_DEVICE, PRODUCT_DTYPE).
@@ -248,7 +249,13 @@ class TreeLikelihoodEngine:
 
     # -- public API ------------------------------------------------------
     def log_likelihoods(self, trees: Sequence[Tree], params,
-                        branch_lengths=None) -> torch.Tensor:
+                        branch_lengths=None, bucket: bool = False
+                        ) -> torch.Tensor:
+        """Per-tree log likelihoods [B].  `bucket` is bito_tpu's opt-in
+        padding of the batch to a size bucket, which exists for XLA's
+        compile cache; torch compiles no program a batch size, so the port
+        takes the keyword and pads nothing (the rows are the same either
+        way)."""
         enc = self.encode(trees)
         bl = self._branch_lengths(trees, enc, branch_lengths)
         eig, rates, props, clock = self._model_ingredients(params, len(trees))
@@ -341,3 +348,39 @@ class TreeLikelihoodEngine:
             return self.log_likelihoods(trees, params, branch_lengths=bl)
 
         return fn
+
+    def optimize_selected_branches(
+        self, trees: Sequence[Tree], params, selected_nodes:
+        Sequence[Sequence[int]], iterations: int = 2, max_selected: int = 8,
+        bucket: bool = False,
+    ) -> np.ndarray:
+        """Exact conditional Brent optimization of selected branches per
+        tree (batched); returns the branch-length matrix [B, N] as a host
+        array.  The classical-engine counterpart of the reference TPEngine's
+        proposed-NNI new-edge optimization (src/tp_engine.cpp:1423-1427).
+        Each tree's first `max_selected` nodes are optimized.  It runs on
+        the scan tape (pruning.optimize_selected_branches_impl), as in
+        bito_tpu, whatever `kernel` says.  `bucket` pads nothing, as in
+        log_likelihoods: each lane's line search is its own, so a padded
+        batch would give the same rows."""
+        enc = self.encode(trees)
+        bl = self.branch_length_matrix(trees, enc)
+        eig, rates, props, clock = self._model_ingredients(params, len(trees))
+        K = min(max_selected,
+                max((len(s) for s in selected_nodes), default=1)) or 1
+        sel = np.full((len(trees), K), enc.num_slots, dtype=np.int64)
+        mask = np.zeros((len(trees), K), dtype=bool)
+        for i, nodes in enumerate(selected_nodes):
+            nodes = list(nodes)[:K]
+            sel[i, : len(nodes)] = nodes
+            mask[i, : len(nodes)] = True
+        post_ops, pre_ops, root, _mask = self._scan_tapes(enc)
+        out = pruning.optimize_selected_branches_impl(
+            post_ops, pre_ops, root, self.tip_partials, self.weights, bl,
+            eig, rates, props, clock,
+            torch.as_tensor(sel, device=self.device),
+            torch.as_tensor(mask, device=self.device),
+            num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
+            category_count=self.model.category_count,
+            iterations=iterations)
+        return out.cpu().numpy()

@@ -167,6 +167,73 @@ def ll_and_branch_gradients_impl(
     return ll, (adj * dP).sum((-3, -2, -1))[:, :N] * edge_mask
 
 
+def _preorder(pre_ops, P, partials, root, pi):
+    """The preorder tape (reference beagleUpdatePrePartials,
+    src/fat_beagle.cpp:113-169): for each op, yields (dest [B], o [B, C, A,
+    S], P_dest [B, C, A, A]), with o the outside vector at the parent end of
+    the edge above `dest`, rescaled per op (max over categories and states
+    per pattern).  The up values (P^T o) are kept here; preorder_pass and
+    edge_adjoints read the ops' outside vectors as they come."""
+    B, N1, C, A, S = partials.shape
+    b = torch.arange(B, device=partials.device)
+    upper = torch.zeros_like(partials)
+    upper[b, root] = pi[:, None, :, None].expand(B, C, A, S)
+    for m in range(pre_ops.shape[1]):
+        dest, parent, s1, e1, s2, e2 = pre_ops[:, m].unbind(-1)
+        o = (upper[b, parent] * _evolve(P[b, e1], partials[b, s1])
+             * _evolve(P[b, e2], partials[b, s2]))
+        mx = o.amax(dim=(1, 2))
+        mx = torch.where(mx > 0, mx, torch.ones_like(mx))
+        o = o / mx[:, None, None]
+        P_dest = P[b, dest]
+        upper[b, dest] = _evolve_t(P_dest, o)
+        yield dest, o, P_dest
+
+
+def preorder_pass(
+    pre_ops: torch.Tensor,   # [B, Mp, 6] int64
+    P: torch.Tensor,         # [B, N+1, C, A, A]
+    partials: torch.Tensor,  # [B, N+1, C, A, S] (postorder results)
+    root: torch.Tensor,      # [B]
+    pi: torch.Tensor,        # [B, A]
+) -> torch.Tensor:
+    """Per-node outside vectors o_u [B, N+1, C, A, S] (the root's row and
+    the dummy row 0) such that for every edge (above node) u
+        site_lik ~ sum_c prop_c * (o_u^c . (P_c(t_u) @ p_u^c))
+    with the same per-site scale factor for every u, so derivative ratios
+    are scale-free."""
+    outside = torch.zeros_like(partials)
+    b = torch.arange(partials.shape[0], device=partials.device)
+    for dest, o, _ in _preorder(pre_ops, P, partials, root, pi):
+        outside[b, dest] = o
+    return outside
+
+
+def branch_length_gradients(
+    outside: torch.Tensor,     # [B, N+1, C, A, S]
+    partials: torch.Tensor,    # [B, N+1, C, A, S]
+    P: torch.Tensor,           # [B, N+1, C, A, A]
+    dP: torch.Tensor,          # [B, N+1, C, A, A]
+    category_proportions: torch.Tensor,  # [B, C]
+    weights: torch.Tensor,     # [S] pattern weights (0 on padding)
+    edge_mask: torch.Tensor,   # [B, N]
+) -> torch.Tensor:
+    """d log L / d branch length per (tree, node) from the outside
+    vectors (the batched beagleCalculateEdgeDerivatives, reference
+    src/fat_beagle.cpp:141-169): num / den with
+      num[b,u,s] = sum_c prop_c o[b,u,c,:,s] . (dP[b,u,c] @ p[b,u,c,:,s]),
+      den[b,u,s] = the same with P (the site likelihood up to the shared
+                   scale)."""
+    N = edge_mask.shape[1]
+    o, p = outside[:, :N], partials[:, :N]
+    evolved = P[:, :N] @ p
+    devolved = dP[:, :N] @ p
+    den = torch.einsum("tc,tncas->tns", category_proportions, o * evolved)
+    num = torch.einsum("tc,tncas->tns", category_proportions, o * devolved)
+    ratio = num / torch.where(den > 0, den, torch.ones_like(den))
+    return torch.einsum("s,tns->tn", weights, ratio) * edge_mask
+
+
 def edge_adjoints(
     pre_ops: torch.Tensor,   # [B, Mp, 6] int64
     P: torch.Tensor,         # [B, N+1, C, A, A]
@@ -181,30 +248,18 @@ def edge_adjoints(
     node u,
       d logL / d P_u[c, a, k] = sum_s w_s prop_c o_u[c, a, s] p_u[c, k, s]
                                 / den_s,
-    with o_u the outside vector at the edge's parent end (rescaled per
-    op, max over categories and states per pattern) and den_s the site
-    likelihood up to the same per-site scale, so the rescaling of o and p
-    cancels.  Rows of P that no edge uses get 0."""
-    B, N1, C, A, S = partials.shape
-    b = torch.arange(B, device=partials.device)
-    upper = torch.zeros_like(partials)
-    upper[b, root] = pi[:, None, :, None].expand(B, C, A, S)
+    with o_u the outside vector at the edge's parent end (_preorder) and
+    den_s the site likelihood up to the same per-site scale, so the
+    rescaling of o and p cancels.  Rows of P that no edge uses get 0."""
+    b = torch.arange(partials.shape[0], device=partials.device)
     adj = torch.zeros_like(P)
-    for m in range(pre_ops.shape[1]):
-        dest, parent, s1, e1, s2, e2 = pre_ops[:, m].unbind(-1)
-        o = (upper[b, parent] * _evolve(P[b, e1], partials[b, s1])
-             * _evolve(P[b, e2], partials[b, s2]))
-        mx = o.amax(dim=(1, 2))
-        mx = torch.where(mx > 0, mx, torch.ones_like(mx))
-        o = o / mx[:, None, None]
-        P_dest = P[b, dest]
+    for dest, o, P_dest in _preorder(pre_ops, P, partials, root, pi):
         p_dest = partials[b, dest]
         den = torch.einsum("bc,bcas->bs", category_proportions,
                            o * _evolve(P_dest, p_dest))
         scale = weights / torch.where(den > 0, den, torch.ones_like(den))
         adj[b, dest] = torch.einsum("bc,bcas,bcks,bs->bcak",
                                     category_proportions, o, p_dest, scale)
-        upper[b, dest] = _evolve_t(P_dest, o)
     at_root = partials[b, root]
     scale = weights / torch.einsum("bc,ba,bcas->bs", category_proportions,
                                    pi, at_root)
@@ -254,3 +309,75 @@ def log_likelihoods_differentiable(
     return _ScanLogLikelihoods.apply(
         P, eig.pi.to(dt), category_proportions.to(dt), post_ops, pre_ops,
         root, tip_partials, weights, num_slots, pattern_pad)
+
+
+MIN_LOG_BL = -13.9   # reference src/dag_branch_handler.hpp:272
+MAX_LOG_BL = 1.1     # reference src/dag_branch_handler.hpp:275
+
+
+def optimize_selected_branches_impl(
+    post_ops, pre_ops, root, tip_partials, weights, branch_lengths,
+    eig: EigenDecomp, category_rates, category_proportions, clock_rate,
+    sel_nodes,     # [B, K] int64 node ids to optimize (pad with num_slots)
+    sel_mask,      # [B, K] bool
+    *, num_slots: int, pattern_pad: int, category_count: int,
+    iterations: int = 2,
+) -> torch.Tensor:
+    """Batched exact conditional branch-length optimization of selected
+    edges (the classical-engine counterpart of the reference's
+    proposed-NNI new-edge optimization: TPEngine with optimize_new_edges,
+    src/tp_engine.cpp:1423-1427 + Optimization::BrentMinimize).
+
+    Given fixed other branches, LL as a function of one edge's length t
+    factorizes through that node's outside vector o and partial p:
+        LL(t) = sum_s w_s log( sum_c prop_c  o . (P_c(t) @ p) ) + const,
+    so a vectorized Brent per (tree, selected node) lane is exact.  The
+    selected edges update Jacobi-style; `iterations` rounds of
+    (postorder + preorder, joint Brent) form the coordinate ascent.  Runs
+    on the scan tape in the tips' dtype (the model ingredients and each
+    P are float64, cast to it), as bito_tpu runs it on its scan tape.
+    Returns the branch lengths [B, N]."""
+    from ..gp import optimize as gp_optimize
+
+    dt = tip_partials.dtype
+    B, K = sel_nodes.shape
+    b = torch.arange(B, device=sel_nodes.device)[:, None]
+    pi = eig.pi.to(dt)
+    # One column past the nodes, where the padded lanes (sel_nodes =
+    # num_slots) read and write: bito_tpu's gather clamps them and its
+    # scatter drops them, and no real lane reads that column.
+    bl = torch.cat([branch_lengths,
+                    branch_lengths.new_zeros((B, 1))], dim=1)
+    for _ in range(iterations):
+        P = transition_matrices_ext(eig, bl[:, :-1], category_rates,
+                                    clock_rate).to(dt)
+        buf, logs = init_partials(tip_partials, B, num_slots,
+                                  category_count, pattern_pad)
+        buf, logs = postorder_pass(post_ops, P, buf, logs)
+        outside = preorder_pass(pre_ops, P, buf, root, pi)
+        o = outside[b, sel_nodes]           # [B, K, C, A, S]
+        p = buf[b, sel_nodes]
+
+        def neg_ll(y):                      # y: [B, K] log branch length
+            tau = ((torch.exp(y) * clock_rate[:, None])[:, :, None]
+                   * category_rates[:, None, :])               # [B, K, C]
+            e = torch.exp(eig.values[:, None, None, :]
+                          * tau[..., None])                    # [B, K, C, A]
+            Pk = torch.einsum("bia,bkca,baj->bkcij", eig.U, e,
+                              eig.U_inv).to(dt)
+            val = torch.einsum("bc,bkcas->bks", category_proportions.to(dt),
+                               o * (Pk @ p))
+            tiny = torch.full_like(val, 1e-300)
+            return -(torch.log(torch.where(val > 0, val, tiny)) @ weights)
+
+        lo = torch.full((B, K), MIN_LOG_BL, dtype=dt, device=bl.device)
+        hi = torch.full((B, K), MAX_LOG_BL, dtype=dt, device=bl.device)
+        old = bl[b, sel_nodes]
+        guess = torch.log(old.clamp(min=1e-300)).clamp(MIN_LOG_BL,
+                                                       MAX_LOG_BL)
+        y_opt = gp_optimize.brent_minimize_batched(neg_ll, guess, lo, hi)
+        # Reset-if-worse guard (reference dag_branch_handler.cpp:143-150).
+        y_opt = torch.where(neg_ll(y_opt) > neg_ll(guess), guess, y_opt)
+        bl = bl.clone()
+        bl[b, sel_nodes] = torch.where(sel_mask, torch.exp(y_opt), old)
+    return bl[:, :-1]

@@ -10,7 +10,8 @@ unrooted trees with trifurcating roots.  Eight paths run the eleven
 kernels, the six tree kernels in two bodies each; a ninth, the VBPI
 trainer, and a tenth, the rooted time-tree instance, run the paired
 kernels as their users' calls reach them; an eleventh, the GP engine,
-runs no hand-written kernel:
+runs no hand-written kernel; a twelfth, the NNI search, runs the paired
+LL kernel where its TP-likelihood scoring reaches it:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
   - large: the same entry points on two trees of 921 taxa (128 patterns:
@@ -81,7 +82,26 @@ runs no hand-written kernel:
     repository) with the DS1-shaped alignment: make_dag, make_gp_engine,
     populate_plvs, compute_likelihoods, the per-PCSP LLs, one
     optimize_branch_lengths_once, estimate_branch_lengths(GP_TOL,
-    GP_MAX_ITER), estimate_sbn_parameters, calculate_hybrid_marginals.
+    GP_MAX_ITER), estimate_sbn_parameters, calculate_hybrid_marginals;
+  - nni: bito_tpu's config5 searches through gp_instance (read a FASTA and
+    a seed Newick, make_dag, make_tp_engine and its two take-first setters
+    or make_gp_engine and take_first_branch_length, make_nni_engine,
+    run_init, run_main_loop / run_post_loop), top-1, on inputs from
+    _synthetic.write_nni_inputs (DS1 and six_taxon are not in the
+    repository: a random rooted seed tree, its synthetic credible set with
+    uniform weights, and an alignment simulated under JC69 along the seed
+    after TRUTH_NNIS random NNIs): the faithful TP-likelihood search (the
+    product path) at DS1's shape, 27 taxa and 1,949 columns (934
+    distinct), NNI_ITERS iterations at opt_max NNI_OPT_MAX, its per-edge
+    PVs host numpy and its batched candidate scorer in float64 on the
+    card, with nni/search.py's posterior tracking; the TP engine's
+    top_tree_log_likelihoods (the paired on-chip LL body at C = 1); the
+    whole-tree NNIEngine at DS1's shape for NNI_WHOLE_ITERS iterations,
+    with TP-likelihood scoring (optimize_selected_branches on the scan
+    tape, then the paired on-chip LL body) and with parsimony (Sankoff's
+    torch operations); and the GP-scored search on NNI_GP_TAXA taxa and
+    NNI_GP_SITES columns, run to completion (at most NNI_GP_ITERS
+    iterations).
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the
@@ -150,7 +170,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      relative of the same flow in float64 on the card; the SBN parameters
      within Q_BOUND absolute of float64's, a limit that a control (the
      same softmax on float64's LLs rounded to Q_CONTROL_BITS significand
-     bits) must exceed.
+     bits) must exceed.  On the nni path: paired_ll_onchip launched from
+     top_tree_log_likelihoods and from the whole-tree engine's scoring
+     and no other kernel (the faithful, parsimony and GP-scored searches
+     launch none); the top-tree LLs and the whole-tree engine's float32
+     candidate scores within BOUND of the float64 engine on the same
+     trees, each iteration from the float32 run's own state; Sankoff's
+     scores on the card equal to its float64 version's; the batched
+     scorer's float64 scores on the card within SCORER_BOUND relative of
+     the serial numpy scorer on the first and the last iteration's
+     candidate sets (ROUNDED_BOUND where a Brent step was decided by
+     rounding: the searches end at other points); the GP-scored search's
+     float32 scores within BOUND of a float64 GP engine on the same
+     grafted DAG from the float32 run's state, and a float32 GP engine
+     refusing TF32; each search's iterations/s, an iteration split by
+     phase (the engines' timer.phase names and the faithful search's
+     score / accept / post, the card synchronised at each edge), the
+     top-1 margins, and the torch operations on the card of one batched
+     scorer call and of one GP-scored iteration.
   4. CUDA-event times of each kernel, its plain version and, where one
      PyTorch call computes the same function, that call; pipe_cell, the
      stream sums and static_chain, whose wrappers' host work outlasts
@@ -174,7 +211,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      preponly's share of a call; the gp path's populate + per-PCSP pass
      (best of 3, the card synchronised) and its optimize sweep (the gp
      path's call) with the device kernels and torch operations each runs;
-     all with the card's name and limit.
+     paired_ll_onchip at the whole-tree NNI engine's last candidate batch
+     (JC69, C = 1) beside its plain version and its bound; all with the
+     card's name and limit.
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -202,7 +241,13 @@ from bito_tpu_torch.perflab import (GRAPH_TIMING, card_line, cuda_ms,
                                     perf_chunk_lab, perf_lab, perf_pipe_lab,
                                     perf_static_probe)
 from bito_tpu_torch.api.gp import gp_instance
-from bito_tpu_torch.gp.engine import _sbn_segment_softmax
+from bito_tpu_torch.dag.graft import graft_node_pairs
+from bito_tpu_torch.gp.engine import GPEngine, _sbn_segment_softmax
+from bito_tpu_torch.nni.engine import NNIEngine
+from bito_tpu_torch.nni.golden import nni_sort_key
+from bito_tpu_torch.nni.search import PosteriorProbabilityMaps, SearchResults
+from bito_tpu_torch.parsimony.sankoff import SankoffHandler
+from bito_tpu_torch.tp import batch_scorer
 from bito_tpu_torch.api.instances import rooted_instance, unrooted_instance
 from bito_tpu_torch.sbn import maps as sbn_maps
 from bito_tpu_torch.treelike import (_kernels, chunked, paired, pernode, prep,
@@ -251,6 +296,16 @@ GP_REPS = 3  # phase 4: best of 3 populate passes
 # must exceed it: the softmax on float64's LLs rounded to this many
 # significand bits (float32 keeps 24)
 Q_BOUND, Q_CONTROL_BITS = 1e-2, 18
+# the nni path: bito_tpu's bench_configs.py config5 (the faithful
+# TP-likelihood search on DS1, 20 iterations at opt_max 1, and the
+# GP-scored search on six_taxon, run to completion), on synthetic inputs
+NNI_ITERS, NNI_OPT_MAX = 20, 1
+NNI_WHOLE_ITERS = 3  # the whole-tree engines at DS1's shape
+NNI_GP_TAXA, NNI_GP_SITES, NNI_GP_ITERS = 6, 200, 10
+# the batched scorer against the serial one: relative, and where a Brent
+# step was decided by rounding (the searches end at other points), by the
+# LL reached (tests/test_torch_batch_scorer.py)
+SCORER_BOUND, ROUNDED_BOUND = 1e-10, 1e-7
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # name -> its source, its TPU kernel, the launcher that counts its
@@ -260,7 +315,7 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
         wrapper=paired.paired_ll_onchip, path="paired",
-        also=("vbpi", "rooted")),
+        also=("vbpi", "rooted", "nni")),
     "paired_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
@@ -1763,6 +1818,419 @@ def gp_times(inst, times, card):
     return pop_ms, opt_ms
 
 
+# -- the nni path ---------------------------------------------------------------
+def no_launches(what):
+    """Check that no hand-written kernel launched (since the last reset)."""
+    counts = {n: spec["wrapper"].launches for n, spec in KERNELS.items()}
+    check(not any(counts.values()), f"{what}: no hand-written kernel "
+          f"launched ({ {n: c for n, c in counts.items() if c} })")
+
+
+def nni_instance(paths, dev, dtype, scoring):
+    """A gp_instance as nni_search builds one: the FASTA and the seed
+    Newick read, make_dag, then for TP scoring make_tp_engine and its two
+    take-first setters, for GP scoring make_gp_engine and
+    take_first_branch_length."""
+    inst = gp_instance(device=dev, dtype=dtype)
+    inst.read_fasta_file(paths["alignment.fasta"])
+    inst.read_newick_file(paths["seed.nwk"])
+    inst.make_dag()
+    if scoring == "gp_likelihood":
+        inst.make_gp_engine()
+        inst.take_first_branch_length()
+    else:
+        inst.make_tp_engine()
+        inst.tp_engine_set_branch_lengths_by_taking_first()
+        inst.tp_engine_set_choice_map_by_taking_first()
+    return inst
+
+
+def timed_method(obj, name, timer, phase):
+    """Wrap obj.name so that each call runs inside timer.phase(phase)."""
+    fn = getattr(obj, name)
+
+    def call(*args, **kwargs):
+        with timer.phase(phase):
+            return fn(*args, **kwargs)
+
+    setattr(obj, name, call)
+
+
+def batched_against_serial(search, label):
+    """Hold the batched scorer (float64 on the card) against the serial
+    numpy scorer on the search's next candidate set: within SCORER_BOUND
+    relative, or ROUNDED_BOUND where a Brent step was decided by rounding.
+    Returns (candidates, rounded, worst relative error of the others,
+    torch operations on the card of one batched call)."""
+    eng = search.engine
+    nnis = sorted(search.new_adjacent or search.adjacent, key=nni_sort_key)
+    best = eng.build_best_edge_map(nnis)
+    batched, serial, rounded = batch_scorer.scores_with_brent_traces(
+        eng, nnis, best)
+    with CudaOps() as counter:
+        eng.score_proposed_nnis_batched(nnis, best)
+    ops = counter.count
+    rel = np.abs(batched - serial) / np.abs(serial)
+    worst = float(rel[~rounded].max()) if (~rounded).any() else 0.0
+    print(f"# phase 3: nni batched scorer ({label} candidate set, "
+          f"{len(nnis)} candidates): float64 on the card against the serial "
+          f"numpy scorer, worst rel err {worst:.3e} (bound {SCORER_BOUND:g}) "
+          f"over {int((~rounded).sum())}; {int(rounded.sum())} with a Brent "
+          f"step decided by rounding, worst rel err "
+          f"{float(rel[rounded].max()) if rounded.any() else 0.0:.3e} "
+          f"(bound {ROUNDED_BOUND:g}); {ops} torch operations on the card "
+          "in one batched call")
+    check(np.isfinite(batched).all() and worst <= SCORER_BOUND
+          and bool(np.all(rel[rounded] <= ROUNDED_BOUND)),
+          f"nni: the batched scorer agrees with the serial scorer ({label})")
+    return len(nnis), int(rounded.sum()), worst, ops
+
+
+def faithful_search(paths, dev, card):
+    """config5's product path: the faithful TP-likelihood search through
+    gp_instance (make_nni_engine's default scoring) at DS1's shape,
+    NNI_ITERS iterations at opt_max NNI_OPT_MAX, top-1, with nni/search.py's
+    posterior tracking.  First the TP engine's top_tree_log_likelihoods
+    (paired_ll_onchip) against float64.  The batched scorer is held to
+    the serial scorer on the first and the last iteration's candidate
+    sets; the search itself launches no hand-written kernel.  Returns
+    {what: value} for phase 4 and the records."""
+    inst = nni_instance(paths, dev, PRODUCT_DTYPE, "tp_likelihood")
+    tp = inst.get_tp_engine()
+    reset_launches()
+    top = tp.top_tree_log_likelihoods()
+    torch.cuda.synchronize()
+    read_launches("nni")
+    top_launches = paired.paired_ll_onchip.launches
+    twin = TreeLikelihoodEngine(tp.site_pattern,
+                                PhyloModel(PhyloModelSpecification()),
+                                device=dev, dtype=torch.float64)
+    top64 = twin.log_likelihoods(tp.top_trees(), {}).cpu().numpy()
+    top_err = float(np.max(np.abs(top - top64) / np.abs(top64)))
+    print(f"# phase 3: nni TP engine top_tree_log_likelihoods ("
+          f"{len(top)} DAG edges' top trees, JC69, C = 1): "
+          f"{top_launches} launches of paired_ll_onchip, rel err against "
+          f"float64 {top_err:.3e} (bound {BOUND:g})")
+    check(np.isfinite(top).all() and top_err <= BOUND,
+          "nni: top-tree LLs agree with float64")
+
+    eng = inst.make_nni_engine("tp_likelihood")
+    search = eng.search
+    check(search.engine.device == dev, "nni: the faithful engine's scorer "
+          "runs on the card")
+    search.engine.optimize_max_iter = NNI_OPT_MAX
+    eng.set_top_k_score_filtering_scheme(1)
+    pp_maps = PosteriorProbabilityMaps(
+        paths["alignment.fasta"], paths["credible.nwk"], paths["pp.csv"],
+        paths["pcsp_pp.csv"])
+    results = SearchResults()
+    timer = SyncedPhases()
+    timed_method(search.engine, "score_adjacent_nnis", timer, "score")
+    timed_method(search, "_add_accepted_nnis_to_dag", timer, "accept")
+    timed_method(search, "run_post_loop", timer, "post")
+    reset_launches()
+    eng.run_init()
+    cred0 = pp_maps.get_credible_edge_count(eng.dag)[0]
+    checks, margins, loop_s = [], [], 0.0
+    for it in range(1, NNI_ITERS + 1):
+        if it in (1, NNI_ITERS):
+            checks.append(batched_against_serial(
+                search, "first" if it == 1 else "last"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        accepted = eng.run_main_loop()
+        loop_s += time.perf_counter() - t0
+        ranked = sorted(search.scored.values(), reverse=True)
+        margins.append(ranked[0] - ranked[1] if len(ranked) > 1 else math.inf)
+        results.add_entry(it, eng.dag, eng, pp_maps, eng.scored_nnis())
+        check(accepted, f"nni: the faithful search accepted at iteration {it}")
+        t0 = time.perf_counter()
+        eng.run_post_loop()
+        torch.cuda.synchronize()
+        loop_s += time.perf_counter() - t0
+    no_launches("nni faithful search")
+    cred = pp_maps.get_credible_edge_count(eng.dag)[0]
+    phases = {n: v * 1e3 / NNI_ITERS for n, v in timer.totals.items()}
+    ips = NNI_ITERS / loop_s
+    print(f"# phase 3: nni faithful search (gp_instance, make_nni_engine "
+          f"tp_likelihood; {eng.dag.taxon_count} taxa, "
+          f"{search.engine.site_pattern.pattern_count} patterns, opt_max "
+          f"{NNI_OPT_MAX}, top-1): {NNI_ITERS} iterations, "
+          f"{len(results.rows)} accepted, {ips:.3f} iterations/s; an "
+          "iteration (ms, the card synchronised at phase edges): "
+          + ", ".join(f"{n} {ms:.1f}" for n, ms in phases.items())
+          + f"; DAG {eng.dag.node_count_without_dag_root()} nodes, "
+          f"{eng.dag.edge_count()} edges, credible edges {cred0} -> {cred} "
+          f"of {pp_maps.get_credible_edge_total()}; top-1 margins (best - "
+          "second score) " + ", ".join(f"{m:.4g}" for m in margins)
+          + f"; on {card}")
+    check(len(results.rows) == NNI_ITERS
+          and all(np.isfinite(r["score"]) for r in results.rows),
+          "nni: one finite accepted score an iteration")
+    return dict(ips=ips, phases=phases, checks=checks,
+                top_launches=top_launches)
+
+
+def pending_candidates(eng):
+    """(keys, trees) that the whole-tree engine's next score_adjacent_nnis
+    scores: the adjacent NNIs not yet scored, each with its candidate tree
+    (a fresh copy)."""
+    keys, trees = [], []
+    for key, nni in eng.adjacent.items():
+        if key in eng.scored:
+            continue
+        tree = eng._candidate_tree(nni)
+        if tree is not None:
+            keys.append(key)
+            trees.append(tree)
+    return keys, trees
+
+
+def whole_tree_search(paths, dev, scoring, card):
+    """The whole-tree NNIEngine at DS1's shape on the card in float32,
+    NNI_WHOLE_ITERS iterations, top-1.  Each iteration's candidate trees
+    are scored by a float64 engine on the card from the float32 run's own
+    state.  With TP likelihood: the float32 run's candidate trees, with
+    the branch lengths its optimize_selected_branches gave them, by the
+    float64 engine (the scan tape) within BOUND relative of the float32
+    scores; and, printed without a bound, the scores that float64 reaches
+    when it optimizes the same trees' new edges itself (two Jacobi rounds
+    of Brent from the same lengths, which float32's rounding can steer to
+    another point: a branch at the lower bound moves a conflicting site's
+    LL by log t).  With parsimony: Sankoff in float64, equal.  Returns (iterations/s, the last candidate set's trees,
+    their site patterns, the iteration's phases, paired_ll_onchip's
+    launches)."""
+    inst = nni_instance(paths, dev, PRODUCT_DTYPE, scoring)
+    likelihood = scoring == "tp_likelihood"
+    sp = inst.get_tp_engine().site_pattern
+    if likelihood:  # make_nni_engine's tp_likelihood is the faithful search
+        eng = NNIEngine(inst.get_dag(), sp, inst.tree_collection.trees,
+                        device=dev, dtype=PRODUCT_DTYPE)
+        twin = TreeLikelihoodEngine(sp, PhyloModel(PhyloModelSpecification()),
+                                    device=dev, dtype=torch.float64)
+    else:
+        eng = inst.make_nni_engine(scoring)
+        twin = SankoffHandler(sp, device=dev, dtype=torch.float64)
+    eng.timer = SyncedPhases()
+    timed_method(eng, "score_adjacent_nnis", eng.timer, "score")
+    timed_method(eng, "_rebuild_engines", eng.timer, "accept.rebuild")
+    eng.set_top_k_score_filtering_scheme(1)
+    reset_launches()
+    eng.run_init()
+    errs, margins, loop_s, trees = [], [], 0.0, []
+    for it in range(NNI_WHOLE_ITERS):
+        keys, trees = pending_candidates(eng)
+        if likelihood:
+            indexer = eng.dag.build_edge_indexer()
+            sel = [eng._new_edge_nodes(t, indexer) for t in trees]
+            bl = twin.optimize_selected_branches(
+                trees, {}, sel, iterations=eng._optimization_iterations)
+            for b, t in enumerate(trees):
+                t.branch_lengths = bl[b, : t.topology.num_nodes].copy()
+            ref = twin.log_likelihoods(trees, {}).cpu().numpy()
+        else:
+            ref = -twin.run_sankoff(trees)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check(eng.run_main_loop(), f"nni {scoring}: accepted at {it + 1}")
+        torch.cuda.synchronize()
+        loop_s += time.perf_counter() - t0
+        scores = {**eng.scored, **eng.accepted_scores_this_iter}
+        got = np.array([scores[k] for k in keys])
+        rest = [eng.scored[k] for k in eng.adjacent if k in eng.scored]
+        margins.append(max(eng.accepted_scores_this_iter.values())
+                       - max(rest) if rest else math.inf)
+        if likelihood:
+            mine = [eng._candidate_trees[k] for k in keys]
+            kernel_ref = twin.log_likelihoods(mine, {}).cpu().numpy()
+            errs.append((float(np.max(np.abs(got - ref) / np.abs(ref))),
+                         float(np.max(np.abs(got - kernel_ref)
+                                      / np.abs(kernel_ref)))))
+        else:
+            check(np.array_equal(got, ref), "nni tp_parsimony: Sankoff on "
+                  "the card equals the float64 plain version")
+        t0 = time.perf_counter()
+        eng.run_post_loop()
+        torch.cuda.synchronize()
+        loop_s += time.perf_counter() - t0
+    launches = 0
+    if likelihood:
+        read_launches("nni")
+        launches = paired.paired_ll_onchip.launches
+    else:
+        no_launches("nni tp_parsimony")
+    phases = {n: v * 1e3 / NNI_WHOLE_ITERS for n, v in eng.timer.totals.items()}
+    ips = NNI_WHOLE_ITERS / loop_s
+    what = ("candidate LLs against float64 on the float32 run's "
+            f"optimized trees: worst rel err {max(e[1] for e in errs):.3e} "
+            f"(bound {BOUND:g}); against float64's own optimization of the "
+            f"same trees (no bound): worst rel err "
+            f"{max(e[0] for e in errs):.3e}; {launches} launches of "
+            "paired_ll_onchip"
+            if likelihood else "Sankoff scores on the card equal to float64's "
+            "plain version; no hand-written kernel launched")
+    print(f"# phase 3: nni whole-tree engine, {scoring} ({sp.num_taxa} taxa, "
+          f"{sp.pattern_count} patterns, top-1): {NNI_WHOLE_ITERS} iterations,"
+          f" {len(keys)} candidates in the last, {ips:.3f} iterations/s; an "
+          "iteration (ms, the card synchronised at phase edges): "
+          + ", ".join(f"{n} {ms:.1f}" for n, ms in phases.items())
+          + f"; {what}; top-1 margins " + ", ".join(f"{m:.4g}" for m in margins)
+          + f"; on {card}")
+    if likelihood:
+        check(all(e[1] <= BOUND for e in errs), "nni tp_likelihood: float32 "
+              "candidate scores agree with float64 on the same trees")
+    return ips, trees, sp, phases, launches
+
+
+def gp_scores64(eng, dev):
+    """The GP-scored engine's next scores, by a float64 GP engine on the
+    card over the same grafted DAG, from the float32 run's state (its
+    carried branch lengths and frozen q), as score_adjacent_nnis builds
+    them."""
+    keys = list(eng.adjacent)
+    grafted, central = graft_node_pairs(
+        eng.dag, [(eng.adjacent[k].parent, eng.adjacent[k].child)
+                  for k in keys])
+    e64 = GPEngine(eng.site_pattern, grafted, device=dev, dtype=torch.float64)
+    eng._carry_branch_lengths(e64, dict(zip(eng.gp.dag.pretty_edges(),
+                                            eng.gp._host(eng.gp._blc))))
+    eng._carry_q(e64, keys)
+    e64.populate_plvs()
+    e64.compute_likelihoods()
+    ll = e64.per_gpcsp_log_likelihoods()
+    return {k: float(ll[c]) for k, c in zip(keys, central)}
+
+
+def gp_scored_search(paths, dev, card):
+    """config5's GP-scored search (gp_instance, make_gp_engine,
+    take_first_branch_length, make_nni_engine gp_likelihood) on six taxa
+    on the card in float32, run to completion (at most NNI_GP_ITERS
+    iterations), top-1; each iteration's scores against a float64 GP
+    engine from the float32 run's state within BOUND relative; no
+    hand-written kernel.  A float32 GP engine refuses TF32.  Returns
+    (iterations/s, the iteration's phases, torch operations on the card
+    of one iteration)."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        nni_instance(paths, dev, PRODUCT_DTYPE, "gp_likelihood")
+        refused = False
+    except RuntimeError:
+        refused = True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(refused, "nni: a float32 GP engine refuses TF32")
+    inst = nni_instance(paths, dev, PRODUCT_DTYPE, "gp_likelihood")
+    eng = inst.make_nni_engine("gp_likelihood")
+    eng.set_top_k_score_filtering_scheme(1)
+    reset_launches()
+    eng.run_init()
+    iters, errs, margins, loop_s, ops = 0, [], [], 0.0, None
+    while iters < NNI_GP_ITERS and eng.adjacent_nni_count():
+        ref = gp_scores64(eng, dev)
+        # The first iteration counts the torch operations on the card (a
+        # dispatch hook on every one) and is not timed.
+        counting = contextlib.nullcontext() if iters else CudaOps()
+        if iters == 1:
+            eng.timer = SyncedPhases()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counting:
+            accepted = eng.run_main_loop()
+            if accepted:
+                eng.run_post_loop()
+        torch.cuda.synchronize()
+        if iters:
+            loop_s += time.perf_counter() - t0
+        else:
+            ops = counting.count
+        scores = {**eng.scored, **getattr(eng, "accepted_scores_this_iter",
+                                          {})}
+        errs.append(max(abs(scores[k] - v) / abs(v) for k, v in ref.items()))
+        ranked = sorted(ref.values(), reverse=True)
+        margins.append(ranked[0] - ranked[1] if len(ranked) > 1 else math.inf)
+        if not accepted:
+            break
+        iters += 1
+    no_launches("nni gp_likelihood")
+    timed = max(iters - 1, 1)
+    phases = {n: v * 1e3 / timed for n, v in eng.timer.totals.items()}
+    ips = (iters - 1) / loop_s if iters > 1 else math.nan
+    print(f"# phase 3: nni GP-scored search ({NNI_GP_TAXA} taxa, "
+          f"{eng.site_pattern.pattern_count} patterns, top-1, to completion): "
+          f"{iters} iterations, {ips:.3f} iterations/s (all but the first); "
+          "an iteration (ms, the card synchronised at phase edges): "
+          + ", ".join(
+              f"{n} {ms:.1f}" for n, ms in phases.items())
+          + f"; {ops} torch operations on the card in the first; scores "
+          f"against float64 worst rel err {max(errs):.3e} (bound {BOUND:g}); "
+          "top-1 margins (float64) " + ", ".join(f"{m:.4g}" for m in margins)
+          + f"; no hand-written kernel launched; on {card}")
+    check(iters > 0 and max(errs) <= BOUND, "nni: the GP-scored search's "
+          "float32 scores agree with float64")
+    return ips, phases, ops
+
+
+def nni_path(tmp, dev, card):
+    """The nni path (phase 3): config5's two searches, the faithful
+    TP-likelihood search at DS1's shape and the GP-scored search on six
+    taxa, and the whole-tree engine at DS1's shape with TP-likelihood and
+    with parsimony scoring.  Inputs from _synthetic.write_nni_inputs: the
+    seed is a random rooted tree, the alignment simulated under JC69 along
+    the seed after TRUTH_NNIS random NNIs.  Returns {what: value} for
+    phase 4 and the PERF.md lines."""
+    ds1 = _synthetic.write_nni_inputs(
+        tempfile.mkdtemp(dir=tmp), SEED, _synthetic.DS1_TAXA,
+        _synthetic.DS1_SITES, _synthetic.DS1_DISTINCT_COLUMNS)
+    six = _synthetic.write_nni_inputs(tempfile.mkdtemp(dir=tmp), SEED,
+                                      NNI_GP_TAXA, NNI_GP_SITES)
+    out = dict(faithful=faithful_search(ds1, dev, card))
+    out["tp_likelihood"] = whole_tree_search(ds1, dev, "tp_likelihood", card)
+    out["tp_parsimony"] = whole_tree_search(ds1, dev, "tp_parsimony", card)
+    out["gp"] = gp_scored_search(six, dev, card)
+    return out
+
+
+def nni_kernel_times(nni, dev, card):
+    """Phase 4 for the nni path: paired_ll_onchip at the whole-tree
+    engine's last candidate batch (JC69, C = 1), its plain version and its
+    bound; held once against the float64 plain version within BOUND."""
+    _ips, trees, sp, _phases, _launches = nni["tp_likelihood"]
+    model = PhyloModel(PhyloModelSpecification())
+    e = TreeLikelihoodEngine(sp, model, device=dev, dtype=PRODUCT_DTYPE)
+    enc = e.encode(trees)
+    bl = e.branch_length_matrix(trees, enc)
+    eig, rates, props, clock = e._model_ingredients({}, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P = prep.prepare_inputs(eig, rates, clock, bl)
+    dst, tip, _src, edge, _mask = e._paired_tapes(enc)
+    onchip = e._onchip_tape(enc)
+    tips, w = e._kernel_tips, e._kernel_weights
+    ops = (dst, tip, edge, P, tips, pi, prop, w)
+    got = paired.paired_log_likelihoods(*ops, onchip=onchip)
+    want = paired.paired_log_likelihoods_ref(
+        *[x.double() if x.is_floating_point() else x for x in ops])
+    err = rel_err(got, want)
+    check(err <= BOUND, "nni: paired_ll_onchip at the candidate batch")
+    p1 = cuda_ms(lambda: paired.paired_log_likelihoods_ref(*ops), 5)
+    k1 = cuda_ms(lambda: paired.paired_log_likelihoods(*ops, onchip=onchip),
+                 50)
+    k2 = cuda_ms(lambda: paired.paired_log_likelihoods(*ops, onchip=onchip),
+                 50)
+    p2 = cuda_ms(lambda: paired.paired_log_likelihoods_ref(*ops), 5)
+    fl_ll, _ = tree_flops(enc, sp, model, len(trees))
+    moved = nbytes(dst, onchip.child, onchip.live_row, edge, P, tips, pi,
+                   prop, w) + len(trees) * 4
+    b_ms, b_by = bound(fl_ll, moved)
+    print(f"# phase 4: nni paired_ll_onchip at the whole-tree engine's "
+          f"candidate batch ({len(trees)} trees x {sp.num_taxa} taxa x "
+          f"{sp.pattern_count} patterns, pad {e.pattern_pad}, C = 1): kernel "
+          f"{(k1 + k2) / 2:.4f} ms (CUDA events around the calls), plain "
+          f"{(p1 + p2) / 2:.4f} ms, bound {b_ms:.6f} ms by {b_by} "
+          f"({fl_ll:,} FLOPs, {moved:,} bytes); rel err "
+          f"against float64 {err:.3e}; on {card}")
+    return (k1 + k2) / 2, (p1 + p2) / 2, b_ms
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs an NVIDIA card: "
@@ -2071,6 +2539,8 @@ def main():
     rooted_dir.cleanup()
     with tempfile.TemporaryDirectory() as gp_dir:
         gp_run = gp_path(gp_files(gp_dir), dev, card)
+    with tempfile.TemporaryDirectory() as nni_dir:
+        nni_run = nni_path(nni_dir, dev, card)
 
     # The float64 reference's own gradients against central differences.
     h = 1e-6
@@ -2224,6 +2694,7 @@ def main():
               for label, s2, t2, reps in sets)
           + f"; one auto LL+gradient call at B={BATCH} takes "
           f"{auto_rate[1]:.4f} ms on {card}")
+    nni_kernel_times(nni_run, dev, card)
     # Last, since its torch.profiler pass leaves the profiler set up.
     t0 = time.perf_counter()
     gp_times(*gp_run, card)

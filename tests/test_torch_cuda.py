@@ -6,7 +6,10 @@ trainer step's kernels, the SBN's device programs against numpy, the
 native representations against the pure-Python ones); the rooted
 instance on the card against float64; the chunk lab's kernel variants
 against their plain versions, with the shipping chunked LL body equal to
-its v0; and the GP engine on the card in float32 against float64.
+its v0; the GP engine on the card in float32 against float64; and the
+NNI search's pieces (the whole-tree engine's float32 candidate scores
+against float64, the batched NNI scorer on the card against the CPU,
+Sankoff on the card against the CPU).
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -1367,3 +1370,99 @@ def test_gp_engine_refuses_tf32_in_float32(cuda, tmp_path):
         assert np.isfinite(i64.get_log_marginal_likelihood())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _nni_instance(tmp_path, device, dtype, taxa=8, sites=300):
+    """gp_instance on synthetic NNI inputs (_synthetic.write_nni_inputs)
+    with the DAG and the TP engine made and set by taking first."""
+    from bito_tpu_torch.api.gp import gp_instance
+
+    paths = _synthetic.write_nni_inputs(tmp_path, 3, taxa, sites)
+    inst = gp_instance(device=device, dtype=dtype)
+    inst.read_fasta_file(paths["alignment.fasta"])
+    inst.read_newick_file(paths["seed.nwk"])
+    inst.make_dag()
+    inst.make_tp_engine()
+    inst.tp_engine_set_branch_lengths_by_taking_first()
+    inst.tp_engine_set_choice_map_by_taking_first()
+    return inst
+
+
+def test_whole_tree_nni_scores_on_the_card_match_float64(cuda, tmp_path):
+    """The whole-tree NNI engine with TP-likelihood scoring on the card in
+    float32, two iterations: each iteration's candidate scores (the paired
+    on-chip LL kernel) against the float64 engine on the card on the same
+    candidate trees within 5e-5 relative."""
+    from bito_tpu_torch.nni.engine import NNIEngine
+
+    inst = _nni_instance(tmp_path, cuda, torch.float32)
+    sp = inst.get_tp_engine().site_pattern
+    eng = NNIEngine(inst.get_dag(), sp, inst.tree_collection.trees,
+                    device=cuda, dtype=torch.float32)
+    ref = TreeLikelihoodEngine(sp, PhyloModel(PhyloModelSpecification()),
+                               device=cuda, dtype=torch.float64)
+    eng.run_init()
+    before = paired.paired_ll_onchip.launches
+    for _ in range(2):
+        assert eng.run_main_loop()
+        scores = {**eng.scored, **eng.accepted_scores_this_iter}
+        keys = list(eng._candidate_trees)
+        got = np.array([scores[k] for k in keys if k in scores])
+        want = ref.log_likelihoods(
+            [eng._candidate_trees[k] for k in keys if k in scores],
+            {}).cpu().numpy()
+        assert np.all(np.abs(got - want) <= 5e-5 * np.abs(want))
+        eng.run_post_loop()
+    assert paired.paired_ll_onchip.launches > before
+
+
+def test_batched_nni_scorer_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The faithful search's batched scorer in float64 on the card against
+    the same scorer on the CPU: within 1e-10 relative wherever the two
+    runs' Brent line searches end at the same points, and within 1e-7
+    where a step was decided by rounding (tests/test_torch_batch_scorer.py)."""
+    from bito_tpu_torch.nni.golden import nni_sort_key
+    from bito_tpu_torch.tp import batch_scorer
+
+    inst = _nni_instance(tmp_path, cuda, torch.float32)
+    eng = inst.make_nni_engine("tp_likelihood")
+    eng.run_init()
+    search = eng.search
+    nnis = sorted(search.adjacent, key=nni_sort_key)
+    best = search.engine.build_best_edge_map(nnis)
+    traced = batch_scorer._brent_minimize
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            ys = []
+
+            def rec(f, guess, lo, hi, active=None, **kwargs):
+                y, fy = traced(f, guess, lo, hi, active=active, **kwargs)
+                ys.append(torch.where(active, y, torch.nan).cpu().numpy())
+                return y, fy
+
+            batch_scorer._brent_minimize = rec
+            search.engine.device = dev
+            out[dev] = (np.asarray(search.engine.score_proposed_nnis_batched(
+                nnis, best)), np.stack(ys))
+    finally:
+        batch_scorer._brent_minimize = traced
+    (card, card_y), (cpu, cpu_y) = out["cuda"], out["cpu"]
+    rounded = np.any(~np.isclose(card_y, cpu_y, rtol=0, atol=1e-8,
+                                 equal_nan=True), axis=0)
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    assert len(nnis) >= 4 and np.isfinite(card).all()
+    assert np.all(rel[~rounded] <= 1e-10) and np.all(rel[rounded] <= 1e-7)
+
+
+def test_sankoff_on_the_card_equals_the_cpu(cuda, tmp_path):
+    """Sankoff on the card in float32 equals Sankoff on the CPU in float64
+    (integer sums), for the TP engine's top trees."""
+    from bito_tpu_torch.parsimony.sankoff import SankoffHandler
+
+    inst = _nni_instance(tmp_path, cuda, torch.float32, taxa=12)
+    tp = inst.get_tp_engine()
+    got = tp.top_tree_parsimony_scores()
+    want = SankoffHandler(tp.site_pattern, device="cpu",
+                          dtype=torch.float64).run_sankoff(tp.top_trees())
+    np.testing.assert_array_equal(got, want)

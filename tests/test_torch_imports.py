@@ -41,8 +41,8 @@ print("ok", len({modules!r}))
 
 def test_imports_without_jax_or_bito_tpu():
     """Every module of the port, the perf lab's, the native library's, the
-    rooted instance's and the GP engine's included (and the package with
-    its whole top-level API), imports in a fresh interpreter where
+    rooted instance's, the GP engine's and the NNI search's (parsimony/,
+    tp/, nni/) included (and the package with its whole top-level API), imports in a fresh interpreter where
     jax cannot be imported, none of them loads bito_tpu, and no import
     loads the kernel library or the native one."""
     assert {"bito_tpu_torch.perflab", "bito_tpu_torch.perflab.__main__",
@@ -54,7 +54,13 @@ def test_imports_without_jax_or_bito_tpu():
             "bito_tpu_torch.gp.engine", "bito_tpu_torch.gp.optimize",
             "bito_tpu_torch.api.gp", "bito_tpu_torch.dag.schedule",
             "bito_tpu_torch.dag.sampler", "bito_tpu_torch.dag.tidy",
-            "bito_tpu_torch.dag.reference_order"} <= set(MODULES)
+            "bito_tpu_torch.dag.reference_order",
+            "bito_tpu_torch.parsimony", "bito_tpu_torch.parsimony.sankoff",
+            "bito_tpu_torch.tp", "bito_tpu_torch.tp.choice_map",
+            "bito_tpu_torch.tp.engine", "bito_tpu_torch.tp.eval_engine",
+            "bito_tpu_torch.tp.batch_scorer", "bito_tpu_torch.nni",
+            "bito_tpu_torch.nni.engine", "bito_tpu_torch.nni.golden",
+            "bito_tpu_torch.nni.search"} <= set(MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(modules=MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=120)

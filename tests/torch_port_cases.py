@@ -264,16 +264,22 @@ def max_norm(a, b) -> float:
 # Copied modules and the SBN / VBPI inputs
 # ---------------------------------------------------------------------------
 
-def without_docstrings(path) -> str:
+def without_docstrings(path, drop=()) -> str:
     """The module's AST dump with every docstring removed: two copies of a
-    module compare equal where only their docstrings differ."""
+    module compare equal where only their docstrings differ.  Functions
+    and methods named in `drop` are removed too (a copy's named
+    exceptions)."""
     tree = ast.parse(pathlib.Path(path).read_text())
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if (isinstance(body, list) and body and isinstance(body[0], ast.Expr)
                 and isinstance(body[0].value, ast.Constant)
                 and isinstance(body[0].value.value, str)):
-            node.body = body[1:]
+            node.body = body = body[1:]
+        if isinstance(body, list) and drop:
+            node.body = [item for item in body
+                         if not (isinstance(item, ast.FunctionDef)
+                                 and item.name in drop)]
     return ast.dump(tree)
 
 
