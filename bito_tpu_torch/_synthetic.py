@@ -253,6 +253,41 @@ def random_alignment(seed: int, names: List[str], num_sites: int,
     return {name: "".join(mat[i]) for i, name in enumerate(names)}
 
 
+# The 61 sense codons of the universal code, in TCAG order (as
+# models/codon.py's SENSE_CODONS; this module imports no model code).
+_SENSE_CODONS = [a + b + c for a in "TCAG" for b in "TCAG" for c in "TCAG"
+                 if a + b + c not in ("TAA", "TAG", "TGA")]
+# Codon config6's shape: DS1 read as codons, 649 triplets of which 573
+# are distinct patterns.
+DS1_CODONS = 649
+DS1_DISTINCT_CODON_COLUMNS = 573
+
+
+def codon_alignment(seed: int, names: List[str], num_codons: int,
+                    num_distinct: int | None = None,
+                    missing_rate: float = 0.05) -> Dict[str, str]:
+    """Random codon sequences over the 61 sense codons, with missing
+    ('---') and stop ('TAA', read as missing) triplets at `missing_rate`
+    in all, half each, as bito_tpu's tests/test_codon.py makes them.
+
+    The columns are drawn from `num_distinct` random codon columns (all
+    of `num_codons` distinct by default), each used at least once, as
+    random_alignment draws nucleotide columns."""
+    rng = np.random.default_rng(seed)
+    D = num_distinct or num_codons
+    if D > num_codons:
+        raise ValueError("num_distinct exceeds num_codons")
+    tokens = np.array(_SENSE_CODONS + ["---", "TAA"])
+    idx = rng.integers(0, len(_SENSE_CODONS), size=(len(names), D))
+    u = rng.random((len(names), D))
+    idx[u < missing_rate / 2] = len(_SENSE_CODONS)
+    idx[(u >= missing_rate / 2) & (u < missing_rate)] = len(_SENSE_CODONS) + 1
+    cols = np.concatenate([np.arange(D), rng.integers(0, D, num_codons - D)])
+    rng.shuffle(cols)
+    mat = tokens[idx[:, cols]]
+    return {name: "".join(mat[i]) for i, name in enumerate(names)}
+
+
 def ds1_shaped(seed: int, num_trees: int) -> Tuple[str, Dict[str, str]]:
     """(Newick text of `num_trees` unrooted trees, alignment) in DS1's
     shape: 27 taxa, 1,949 columns, 934 distinct."""

@@ -30,7 +30,9 @@ from .device import resolve
 
 def params_from_numpy(params: Mapping[str, np.ndarray], device,
                       dtype) -> Dict[str, torch.Tensor]:
-    """{block name: array} -> {block name: tensor on (device, dtype)}."""
+    """{block name: array} -> {block name: tensor on (device, dtype)}: any
+    model's blocks, shared [k] or per-tree [B, k] (MG94's rates [kappa,
+    omega] and nucleotide frequencies [4] as GTR's six rates)."""
     device, dtype = resolve(device, dtype)
     return {key: torch.as_tensor(np.asarray(value), dtype=dtype, device=device)
             for key, value in params.items()}

@@ -69,10 +69,18 @@ class PhyloModel:
     def clock_rate(self, params, *, device, dtype) -> torch.Tensor:
         return self.clock.rate(params, device=device, dtype=dtype)
 
+    def rate_matrix(self, params, *, device, dtype):
+        """Padded Q for uniformized transition matrices (codon models);
+        None for models served by the eigen route."""
+        return self.substitution.rate_matrix(params, device=device,
+                                             dtype=dtype)
+
     @property
     def category_count(self) -> int:
         return self.site.category_count
 
     @property
     def num_states(self) -> int:
+        """Per-state dimension A (4 for nucleotide models, 64 for the
+        padded codon models); flows into every engine buffer shape."""
         return self.substitution.num_states

@@ -1,4 +1,4 @@
-"""Substitution models: JC69, HKY, GTR (torch).
+"""Substitution models: JC69, HKY, GTR and MG94 (torch).
 
 Port of bito_tpu.models.substitution (reference:
 src/substitution_model.cpp:20-210).  Each model gives an eigensystem
@@ -16,11 +16,14 @@ Conventions (matching the reference):
   - HKY rates: a single kappa.
   - frequencies sum to 1; states ordered A, C, G, T.
 
-MG94 (codon), the uniformized transition route and `rate_matrix` wait for
-the codon slice of the port.
+MG94 (codon, models/codon.py) runs on 64 padded states.  Its transition
+matrices take the uniformized route (`uniformized_stack`,
+`uniformized_transition_matrices`) from the padded Q that `rate_matrix`
+gives, for a shared model; per-tree rows take the eigen route.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple
 
 import torch
@@ -30,10 +33,10 @@ class EigenDecomp(NamedTuple):
     """Eigendecomposition of Q: Q = U @ diag(values) @ U_inv, plus the
     stationary distribution pi.  Fields carry any common leading shape."""
 
-    U: torch.Tensor        # [..., 4, 4]
-    values: torch.Tensor   # [..., 4]
-    U_inv: torch.Tensor    # [..., 4, 4]
-    pi: torch.Tensor       # [..., 4]
+    U: torch.Tensor        # [..., A, A]
+    values: torch.Tensor   # [..., A]
+    U_inv: torch.Tensor    # [..., A, A]
+    pi: torch.Tensor       # [..., A]
 
 
 def jc69_eigen(*, device, dtype) -> EigenDecomp:
@@ -131,11 +134,84 @@ def hky_eigen(kappa: torch.Tensor, frequencies: torch.Tensor) -> EigenDecomp:
     return EigenDecomp(U, values, U_inv, pi)
 
 
+# The Poisson tail past the last power of the uniformized series, and the
+# largest q*t the series is summed for (its K is then about 1,300 terms).
+UNIFORMIZED_TAIL = 2.0 ** -53
+MAX_UNIFORMIZED_QT = 1000.0
+
+
+def uniformized_terms(qt: float) -> int:
+    """The least K whose Poisson(qt) tail past K, sum_{k > K} e^-qt qt^k /
+    k!, is under UNIFORMIZED_TAIL: the series' last power for scaled
+    times up to qt / q.  The tail grows with qt, so one K serves every
+    smaller time.  Raises past MAX_UNIFORMIZED_QT.
+
+    bito_tpu stops at K = 40 whatever qt is, which leaves P's rows 5.5%
+    short at qt = 31; this K leaves them short by less than float64
+    rounding."""
+    if not 0.0 <= qt <= MAX_UNIFORMIZED_QT:
+        raise ValueError(f"uniformized transition matrices take q*t in "
+                         f"[0, {MAX_UNIFORMIZED_QT:g}], got {qt!r}")
+    if qt == 0.0:
+        return 0
+    log_qt = math.log(qt)
+    k = 0
+    while True:
+        # The tail past k is at most pmf(k + 1) / (1 - qt / (k + 2)) once
+        # k + 2 > qt: the terms after k + 1 fall by that ratio or faster.
+        log_next = -qt + (k + 1) * log_qt - math.lgamma(k + 2)
+        if k + 2 > qt and (log_next - math.log1p(-qt / (k + 2))
+                           < math.log(UNIFORMIZED_TAIL)):
+            return k
+        k += 1
+
+
+def uniformized_stack(Q: torch.Tensor, t_max: float):
+    """Powers M^k of the uniformized matrix M = I + Q/q (q = max |Q_ii|),
+    k = 0..K with K = uniformized_terms(q * t_max), and q: the ingredients
+    of positivity-preserving transition matrices for scaled times up to
+    t_max.  Q: one shared [A, A] rate matrix.
+
+    Why (bito_tpu's finding): P(t) = U e^{Lambda t} U^-1 rebuilds small
+    entries by signed cancellation; in float32 a conflicting codon site's
+    likelihood is such an entry chain (a 54x error on a site likelihood of
+    1.8e-10 on DS1 codon data, and 18x on the summed branch gradient).  The
+    series P(t) = e^{-qt} sum_k (qt)^k/k! M^k has only nonnegative terms.
+
+    Returns (stack [K+1, A, A], q as a 0-dim tensor).  The stack is built
+    by doubling, stack[n:2n] = stack[:n] @ M^n, in log2(K) products."""
+    q = float((-torch.diagonal(Q, dim1=-2, dim2=-1)).max())
+    K = uniformized_terms(q * float(t_max))
+    A = Q.shape[-1]
+    eye = torch.eye(A, device=Q.device, dtype=Q.dtype)
+    Mn = eye + Q / max(q, 1e-30)
+    stack = eye[None]
+    while stack.shape[0] < K + 1:
+        stack = torch.cat([stack, stack @ Mn])
+        Mn = Mn @ Mn
+    return stack[:K + 1], torch.tensor(q, device=Q.device, dtype=Q.dtype)
+
+
+def uniformized_transition_matrices(stack: torch.Tensor, q: torch.Tensor,
+                                    t: torch.Tensor) -> torch.Tensor:
+    """P(t) = sum_k poisson_k(qt) M^k from a power stack [K+1, A, A]:
+    scaled times t [...] -> [..., A, A].  The Poisson weights are taken in
+    log space; qt == 0 gives the identity through the k == 0 term."""
+    K1, A = stack.shape[0], stack.shape[-1]
+    qt = (q * t)[..., None]                                   # [..., 1]
+    k = torch.arange(K1, device=t.device, dtype=stack.dtype)
+    safe = torch.clamp_min(qt, 1e-30)
+    logc = -qt + k * torch.log(safe) - torch.lgamma(k + 1.0)
+    c = torch.where(qt > 0, torch.exp(logc), (k == 0).to(stack.dtype))
+    return (c.reshape(-1, K1) @ stack.reshape(K1, A * A)).reshape(
+        t.shape + (A, A))
+
+
 def transition_matrices(eig: EigenDecomp, t: torch.Tensor) -> torch.Tensor:
     """P(t) = U exp(Lambda t) U^-1 for scaled times t [...]: returns
-    [..., 4, 4].  The eigensystem fields broadcast against t's leading
+    [..., A, A].  The eigensystem fields broadcast against t's leading
     shape (pass them with singleton axes for batched use)."""
-    expvals = torch.exp(eig.values * t[..., None])          # [..., 4]
+    expvals = torch.exp(eig.values * t[..., None])          # [..., A]
     P = (eig.U * expvals[..., None, :]) @ eig.U_inv
     # Transition probabilities are nonnegative; in f32 an eigen
     # reconstruction can round a small entry slightly negative, which would
@@ -152,7 +228,7 @@ def transition_derivatives(eig: EigenDecomp, t: torch.Tensor) -> torch.Tensor:
 
 
 def rate_matrix_of(eig: EigenDecomp) -> torch.Tensor:
-    """Q = U diag(values) U^-1, [..., 4, 4]."""
+    """Q = U diag(values) U^-1, [..., A, A]."""
     return (eig.U * eig.values[..., None, :]) @ eig.U_inv
 
 
@@ -164,23 +240,29 @@ class SubstitutionModelSpec:
     (src/substitution_model.cpp:6-18)."""
 
     def __init__(self, name: str):
-        if name == "MG94":
-            raise ValueError("MG94 is not ported to bito_tpu_torch yet")
-        if name not in ("JC69", "HKY", "GTR"):
+        if name not in ("JC69", "HKY", "GTR", "MG94"):
             raise ValueError(f"Substitution model not known: {name}")
         self.name = name
 
     @property
     def num_states(self) -> int:
-        return 4
+        """Per-state dimension A: MG94 runs on the 61 sense codons padded
+        to 64 (models/codon.py's padding contract); nucleotide models are
+        A=4."""
+        return 64 if self.name == "MG94" else 4
 
     @property
     def param_counts(self):
-        """Block sizes matching reference BlockSpecification keys."""
+        """Block sizes matching reference BlockSpecification keys.  MG94:
+        rates = [kappa, omega], frequencies = the 4 nucleotide frequencies
+        (TCAG order) of its F1x4 codon frequencies."""
         if self.name == "JC69":
             return {}
         if self.name == "HKY":
             return {"substitution_model_rates": 1,
+                    "substitution_model_frequencies": 4}
+        if self.name == "MG94":
+            return {"substitution_model_rates": 2,
                     "substitution_model_frequencies": 4}
         return {"substitution_model_rates": 6,
                 "substitution_model_frequencies": 4}
@@ -188,11 +270,11 @@ class SubstitutionModelSpec:
     def default_params(self, *, device, dtype):
         if self.name == "JC69":
             return {}
-        rates = (torch.ones(1, device=device, dtype=dtype)
-                 if self.name == "HKY"
-                 else torch.full((6,), 1.0 / 6.0, device=device, dtype=dtype))
+        rates = {"HKY": [1.0], "MG94": [2.0, 0.2]}.get(self.name,
+                                                      [1.0 / 6.0] * 6)
         return {
-            "substitution_model_rates": rates,
+            "substitution_model_rates": torch.tensor(rates, device=device,
+                                                     dtype=dtype),
             "substitution_model_frequencies": torch.full(
                 (4,), 0.25, device=device, dtype=dtype),
         }
@@ -204,4 +286,22 @@ class SubstitutionModelSpec:
         freqs = params["substitution_model_frequencies"]
         if self.name == "HKY":
             return hky_eigen(rates[..., 0], freqs)
+        if self.name == "MG94":
+            from .codon import mg94_eigen
+
+            return mg94_eigen(rates[..., 0], rates[..., 1], freqs)
         return gtr_eigen(rates, freqs)
+
+    def rate_matrix(self, params, *, device, dtype):
+        """The padded rate matrix Q of a model whose transition matrices go
+        through the positivity-preserving uniformized route (MG94, whose
+        eigen reconstruction cancels small entries away; see
+        uniformized_stack), [..., 64, 64]; None for the 4-state models,
+        whose eigen route is exact enough."""
+        if self.name != "MG94":
+            return None
+        from .codon import mg94_q_padded
+
+        rates = params["substitution_model_rates"]
+        return mg94_q_padded(rates[..., 0], rates[..., 1],
+                             params["substitution_model_frequencies"])

@@ -29,7 +29,8 @@ _BUILD = _ROOT / "_build"
 # ../../treelike/csrc/common.cuh.
 _SOURCES = tuple(f"treelike/csrc/{name}" for name in (
     "paired_ll.cu", "paired_grad.cu", "paired_ll_onchip.cu",
-    "paired_grad_onchip.cu", "chunked_ll.cu", "chunked_grad.cu",
+    "paired_grad_onchip.cu", "paired_ll_a64.cu", "paired_grad_a64.cu",
+    "chunked_ll.cu", "chunked_grad.cu",
     "chunked_grad_onchip.cu", "pernode_ll.cu", "pernode_grad.cu",
     "pernode_grad_onchip.cu")) + tuple(
     f"perflab/csrc/{name}" for name in (
@@ -37,7 +38,8 @@ _SOURCES = tuple(f"treelike/csrc/{name}" for name in (
         "chunk_variant.cu"))
 _HEADERS = ("treelike/csrc/common.cuh", "treelike/csrc/onchip.cuh",
             "treelike/csrc/pernode_onchip.cuh",
-            "treelike/csrc/paired_ll_onchip.cuh")
+            "treelike/csrc/paired_ll_onchip.cuh",
+            "treelike/csrc/paired_a64.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
@@ -55,6 +57,10 @@ _SIGNATURES = {
     # post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows,
     # B, M, T, N1, C, S, rows, cols, ring, stream
     "bito_paired_ll_onchip": [_P] * 9 + [_I] * 9 + [_P],
+    # as bito_paired_ll, at 64 states
+    "bito_paired_ll_a64": [_P] * 10 + [_I] * 6 + [_P],
+    # as bito_paired_grad, at 64 states
+    "bito_paired_grad_a64": [_P] * 14 + [_I] * 6 + [_P],
     # post_dst, child, post_src, post_e, P, dP, tips, pi, props, weights,
     # ll_rows, grad_rows, B, M, T, N1, C, S, rows, cols, ring, stream
     "bito_paired_grad_onchip": [_P] * 12 + [_I] * 9 + [_P],

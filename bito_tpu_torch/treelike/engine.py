@@ -13,10 +13,14 @@ device or dtype (bito_tpu_torch.device: PRODUCT_DEVICE, PRODUCT_DTYPE).
 
 Kernel selection, `engine.kernel`:
   "auto"    — the hand-written CUDA paired kernels (treelike/paired.py) on
-              a CUDA device in float32 with a shared model of 4 states and
-              at most paired.MAX_CATEGORIES rate categories; the scan tape
-              otherwise.  The limit of 1-8 categories is the port's own:
-              the kernels are compiled for those counts, where bito_tpu
+              a CUDA device in float32 with a shared model of 4 states, or
+              of 64 (MG94 codon models: their own A=64 kernels), and at
+              most paired.MAX_CATEGORIES rate categories; the scan tape
+              otherwise.  At 64 states this differs from bito_tpu, whose
+              auto takes the scan tape there (faster on its TPU); on the
+              card auto takes the kernels.  The limit of 1-8 categories
+              is the port's own: the kernels are compiled for those
+              counts, where bito_tpu
               pads categories (zero proportions) so that its paired Pallas
               kernel takes any count.  The paired wrappers launch the on-chip
               bodies, or the global ones for a tree on which those would
@@ -26,7 +30,8 @@ Kernel selection, `engine.kernel`:
               kernels, on the CPU their plain torch versions.
   "chunked" — always the chunked kernels' wrappers (treelike/chunked.py),
               with dP from the eigen derivative (prep.prepare_inputs_grad)
-              as in bito_tpu's chunked route; 4-state models only.  The
+              as in bito_tpu's chunked route; 4-state models only (it
+              raises for codon models, as bito_tpu's does).  The
               wrappers launch the on-chip bodies, or the global ones for
               a tree on which those would be the slower
               (chunked.ll_plan for LL, chunked.onchip_plan for grad).
@@ -36,7 +41,10 @@ do not take.  (bito_tpu's forced kernels take them and silently use tree
 have no route here, as bito_tpu's have none.
 
 The tape runs on the engine's device and dtype; the kernel operands are
-float32 on a card and in the engine's dtype on the CPU.  The model
+float32 on a card and in the engine's dtype on the CPU.  A codon model
+(MG94) shared by the batch takes uniformized transition matrices from its
+padded rate matrix on every route (`_rate_Q`, as in bito_tpu); per-tree
+rows take the eigen route.  The model
 ingredients and the transition matrices are computed in float64 and cast
 to those (_model_ingredients).  bito_tpu's TPU
 launch policy (tree interleave, tile and VMEM sizing, category padding,
@@ -119,7 +127,7 @@ class TreeLikelihoodEngine:
                 and self.device.type == "cuda"
                 and self.dtype == torch.float32
                 and shared_model
-                and self.num_states == 4
+                and self.num_states in paired.KERNEL_STATES
                 and self.model.category_count <= paired.MAX_CATEGORIES):
             return "paired"
         return "scan"
@@ -129,6 +137,17 @@ class TreeLikelihoodEngine:
         batch; per-tree model rows run on the scan tape."""
         return all(torch.as_tensor(params[k]).dim() == 1
                    for k in self.model.blocks)
+
+    def _rate_Q(self, params):
+        """The shared model's padded rate matrix [A, A] in float64 for the
+        uniformized transition route (codon models; None otherwise, and
+        None for per-tree rows, which take the eigen route)."""
+        if not self._shared_model(params):
+            return None
+        kw = dict(device=self.device, dtype=torch.float64)
+        return self.model.rate_matrix(
+            {k: torch.as_tensor(params[k], **kw) for k in self.model.blocks},
+            **kw)
 
     # -- encoding cache -------------------------------------------------
     def encode(self, trees: Sequence[Tree]) -> TreeBatchEncoding:
@@ -169,15 +188,17 @@ class TreeLikelihoodEngine:
             self._tapes["paired"] = self._kernel_tapes(
                 enc, (pe.post_dst, pe.tip_slot, pe.post_src, pe.post_e))
             # The on-chip bodies' tape, from the same host arrays; the CPU
-            # runs the plain versions, which need none.
+            # runs the plain versions and the A=64 kernels read the paired
+            # tapes, which need none.
             self._tapes["onchip"] = paired.onchip_tape(
                 pe.post_dst, pe.tip_slot, self.device) if (
-                    self.device.type == "cuda") else None
+                    self.device.type == "cuda"
+                    and self.num_states == 4) else None
         return self._tapes["paired"]
 
     def _onchip_tape(self, enc: TreeBatchEncoding):
         """The paired kernels' on-chip tape (child codes and LL rows),
-        cached with the encoding; None on the CPU."""
+        cached with the encoding; None on the CPU and at 64 states."""
         self._paired_tapes(enc)
         return self._tapes["onchip"]
 
@@ -260,16 +281,17 @@ class TreeLikelihoodEngine:
         bl = self._branch_lengths(trees, enc, branch_lengths)
         eig, rates, props, clock = self._model_ingredients(params, len(trees))
         route = self._route(self._shared_model(params))
+        Q = self._rate_Q(params)
         if route == "scan":
             post_ops, _pre, root, _mask = self._scan_tapes(enc)
             return pruning.log_likelihoods_impl(
                 post_ops, root, self.tip_partials, self.weights, bl,
-                eig, rates, props, clock,
+                eig, rates, props, clock, Q,
                 num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
                 category_count=self.model.category_count)
         dt = self._operand_dtype
         pi, prop = prep.kernel_model(eig, props, dt)
-        P = prep.prepare_inputs(eig, rates, clock, bl, dt)
+        P = prep.prepare_inputs(eig, rates, clock, bl, dt, Q=Q)
         tips, w = self._kernel_tips, self._kernel_weights
         if route == "paired":
             post_dst, tip_slot, _src, post_e, _mask = self._paired_tapes(enc)
@@ -298,13 +320,14 @@ class TreeLikelihoodEngine:
         enc = self.encode(trees)
         eig, rates, props, clock = self._model_ingredients(params, len(trees))
         route = self._route(self._shared_model(params))
+        Q = self._rate_Q(params)
         if route == "scan":
             post_ops, pre_ops, root, edge_mask = self._scan_tapes(enc)
 
             def fn(bl):
                 return pruning.ll_and_branch_gradients_impl(
                     post_ops, pre_ops, root, edge_mask, self.tip_partials,
-                    self.weights, bl, eig, rates, props, clock,
+                    self.weights, bl, eig, rates, props, clock, Q,
                     num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
                     category_count=self.model.category_count)
 
@@ -318,7 +341,8 @@ class TreeLikelihoodEngine:
             onchip = self._onchip_tape(enc)
 
             def kernel(bl):
-                P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl, dt)
+                P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl, dt,
+                                                   Q=Q)
                 return paired.paired_ll_and_gradients(
                     post_dst, tip_slot, post_src, post_e, mask, P, dP, tips,
                     pi, prop, w, onchip=onchip)

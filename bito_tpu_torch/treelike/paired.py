@@ -22,6 +22,13 @@ The on-chip LL body also serves the chunked and per-node LL kernels
 (chunked.py, pernode.py): their tapes are walked as paired tapes, one op
 at a time, through `launch_ll_onchip`.
 
+At 64 states (MG94 codon models) each kernel has one body of its own
+(csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu): a block takes one tree
+and a tile of patterns, the partials stay in device memory, and each op's
+64x64 products run as float32 FMAs with the matrices and the children's
+slices staged in shared memory.  The wrappers launch them for A=64
+operands on the card; they need no OnchipTape.
+
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which computes the
     same numbers and is what the CPU runs and what the kernels are checked
@@ -38,8 +45,8 @@ Beside them, in this module:
 
 Operands (built by treelike/prep.py):
   post_dst [B, M], tip_slot [B, T], post_src / post_e [B, M, 2] int32 tapes;
-  P, dP [B, N+1, C, 4, 4]; tips [T, 4, S]; pi [4]; props [C]; weights [S];
-  edge_mask [B, N].
+  P, dP [B, N+1, C, A, A]; tips [T, A, S]; pi [A]; props [C]; weights [S];
+  edge_mask [B, N]; A is 4 or 64 (KERNEL_STATES).
 
 Both versions rescale after every op (bito_tpu's kernel: every fourth);
 the log scales keep the log likelihoods exact and the gradient rows are
@@ -56,6 +63,7 @@ from . import _kernels
 
 RESK = 4  # the tape is padded to a multiple of this many ops, as in bito_tpu
 MAX_CATEGORIES = 8  # the category counts the kernels are compiled for
+KERNEL_STATES = (4, 64)  # the state counts the paired kernels take
 
 
 def _rup(x: int, m: int) -> int:
@@ -381,7 +389,7 @@ def paired_ll_and_gradients_ref(post_dst, tip_slot, post_src, post_e,
 # Public wrappers and the bodies' launchers
 # ---------------------------------------------------------------------------
 
-def _check_cuda_operands(ints, floats, C, A):
+def _check_cuda_operands(ints, floats, C, A, states=(4,)):
     for name, t in {**ints, **floats}.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
@@ -393,8 +401,9 @@ def _check_cuda_operands(ints, floats, C, A):
     for name, t in floats.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if A != 4:
-        raise ValueError(f"the kernels take 4-state models, got A={A}")
+    if A not in states:
+        raise ValueError(f"the kernels take {' or '.join(map(str, states))}"
+                         f"-state models, got A={A}")
     if not 1 <= C <= MAX_CATEGORIES:
         raise ValueError(f"the kernels take 1..{MAX_CATEGORIES} rate "
                          f"categories, got {C}")
@@ -456,9 +465,10 @@ def paired_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
                            onchip: OnchipTape | None = None) -> torch.Tensor:
     """Per-tree log likelihoods [B] over the paired-slot tape.
 
-    On the card it launches the on-chip body where onchip_plan gives a
-    plan, else the global body; `onchip`, the tape's OnchipTape, is required
-    there.  The CPU runs the plain version, which needs none."""
+    On the card it launches, at 4 states, the on-chip body where
+    onchip_plan gives a plan, else the global body, and `onchip`, the
+    tape's OnchipTape, is required there; at 64 states the A=64 body,
+    which needs none.  The CPU runs the plain version."""
     if P.device.type == "cpu":
         return paired_log_likelihoods_ref(post_dst, tip_slot, post_e, P,
                                           tips, pi, props, weights)
@@ -466,7 +476,11 @@ def paired_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
                                          pi, props, weights)
     _check_cuda_operands(
         dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
-        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A)
+        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
+        KERNEL_STATES)
+    if A == 64:
+        return paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi,
+                             props) @ weights
     plan = _onchip_plan("ll", onchip, M, N1, C)
     if plan is None:
         ll_rows = paired_ll_global(post_dst, tip_slot, post_e, P, tips, pi,
@@ -498,7 +512,11 @@ def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
              post_e=post_e),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A)
+        C, A, KERNEL_STATES)
+    if A == 64:
+        return finish_rows(*paired_grad_a64(post_dst, tip_slot, post_src,
+                                            post_e, P, dP, tips, pi, props,
+                                            weights), edge_mask, weights)
     plan = _onchip_plan("grad", onchip, M, N1, C)
     if plan is None:
         rows = paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP,
@@ -629,3 +647,59 @@ def paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
 
 
 paired_grad_global.launches = 0
+
+
+def paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi, props):
+    """Launch csrc/paired_ll_a64.cu (operands checked by the wrapper):
+    per-pattern LL rows [B, S] at 64 states.  Its scratch, the partials
+    [B, 2M+3, C, 64, S] and their log scales [B, 2M+3, S], is allocated
+    here."""
+    B, M = post_dst.shape
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    NS = 2 * M + 3
+    kw = dict(device=P.device, dtype=torch.float32)
+    buf = torch.empty((B, NS, C, 64, S), **kw)
+    ls = torch.empty((B, NS, S), **kw)
+    ll_rows = torch.empty((B, S), **kw)
+    with torch.cuda.device(P.device):
+        rc = _kernels.library().bito_paired_ll_a64(
+            post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
+            P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
+            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
+            B, M, T, N1, C, S, _stream())
+    _kernels.check(rc, "bito_paired_ll_a64")
+    paired_ll_a64.launches += 1
+    return ll_rows
+
+
+paired_ll_a64.launches = 0
+
+
+def paired_grad_a64(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
+                    props, weights):
+    """Launch csrc/paired_grad_a64.cu (operands checked by the wrapper):
+    (LL rows [B, S], weighted gradient rows [B, N1, S], zero where no op
+    writes) at 64 states, with the scratch of paired_ll_a64."""
+    B, M = post_dst.shape
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    NS = 2 * M + 3
+    kw = dict(device=P.device, dtype=torch.float32)
+    buf = torch.empty((B, NS, C, 64, S), **kw)
+    ls = torch.empty((B, NS, S), **kw)
+    ll_rows = torch.empty((B, S), **kw)
+    grad_rows = torch.zeros((B, N1, S), **kw)
+    with torch.cuda.device(P.device):
+        rc = _kernels.library().bito_paired_grad_a64(
+            post_dst.data_ptr(), tip_slot.data_ptr(), post_src.data_ptr(),
+            post_e.data_ptr(), P.data_ptr(), dP.data_ptr(), tips.data_ptr(),
+            pi.data_ptr(), props.data_ptr(), weights.data_ptr(),
+            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
+            grad_rows.data_ptr(), B, M, T, N1, C, S, _stream())
+    _kernels.check(rc, "bito_paired_grad_a64")
+    paired_grad_a64.launches += 1
+    return ll_rows, grad_rows
+
+
+paired_grad_a64.launches = 0

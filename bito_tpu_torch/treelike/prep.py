@@ -12,7 +12,11 @@ As in bito_tpu:
   - index N of P is the identity edge and index N of dP is zero (the
     multifurcating-root accumulator ops and the tape's padding use it);
   - prepare_inputs_grad_q takes dP = rate_c * clock * Q @ P, with
-    Q = U diag(lambda) U^-1 (the paired route); prepare_inputs_grad takes
+    Q = U diag(lambda) U^-1 (the paired route), or the shared Q passed in
+    (`Q=`, codon models: P is then uniformized, pruning.
+    transition_matrices_ext, and dP comes from that Q, not from the
+    eigensystem, whose reconstruction cancels small entries away);
+    prepare_inputs_grad takes
     dP from the eigen derivative (the chunked route, and the per-node
     kernels as scripts/bench_kernel_race.py drives them);
   - the kernel operands are float32.  `dtype` gives the plain versions
@@ -39,22 +43,26 @@ def kernel_model(eig: EigenDecomp, category_proportions: torch.Tensor,
 
 
 def prepare_inputs(eig: EigenDecomp, category_rates, clock_rate,
-                   branch_lengths, dtype=KERNEL_DTYPE) -> torch.Tensor:
-    """Transition matrices P [B, N+1, C, A, A] float32, identity at N."""
+                   branch_lengths, dtype=KERNEL_DTYPE, Q=None) -> torch.Tensor:
+    """Transition matrices P [B, N+1, C, A, A] float32, identity at N;
+    uniformized from the shared [A, A] `Q` where one is given."""
     P = pruning.transition_matrices_ext(eig, branch_lengths,
-                                        category_rates, clock_rate)
+                                        category_rates, clock_rate, Q=Q)
     return P.to(dtype).contiguous()
 
 
 def prepare_inputs_grad_q(eig: EigenDecomp, category_rates, clock_rate,
-                          branch_lengths, dtype=KERNEL_DTYPE):
+                          branch_lengths, dtype=KERNEL_DTYPE, Q=None):
     """(P, dP), both [B, N+1, C, A, A] float32, with dP from the
-    dP = rate*clock * Q P identity and zero at the identity edge N."""
+    dP = rate*clock * Q P identity and zero at the identity edge N.  Q:
+    the shared [A, A] rate matrix of the uniformized route, else None
+    (Q from the eigensystem, P by the eigen route)."""
     P = pruning.transition_matrices_ext(eig, branch_lengths, category_rates,
-                                        clock_rate)
-    Q = rate_matrix_of(eig)                                  # [B, A, A]
+                                        clock_rate, Q=Q)
+    Qb = (rate_matrix_of(eig) if Q is None
+          else Q.to(P.dtype).expand(P.shape[0], *Q.shape))  # [B, A, A]
     QC = ((category_rates * clock_rate[:, None])[:, :, None, None]
-          * Q[:, None])                                      # [B, C, A, A]
+          * Qb[:, None])                                     # [B, C, A, A]
     dP = QC[:, None] @ P                                     # [B, N+1, C, A, A]
     dP[:, -1] = 0.0
     return P.to(dtype).contiguous(), dP.to(dtype).contiguous()

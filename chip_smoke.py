@@ -11,7 +11,8 @@ kernels, the six tree kernels in two bodies each; a ninth, the VBPI
 trainer, and a tenth, the rooted time-tree instance, run the paired
 kernels as their users' calls reach them; an eleventh, the GP engine,
 runs no hand-written kernel; a twelfth, the NNI search, runs the paired
-LL kernel where its TP-likelihood scoring reaches it:
+LL kernel where its TP-likelihood scoring reaches it; a thirteenth, the
+MG94 codon models, runs the paired kernels' A=64 bodies:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
   - large: the same entry points on two trees of 921 taxa (128 patterns:
@@ -101,7 +102,17 @@ LL kernel where its TP-likelihood scoring reaches it:
     tape, then the paired on-chip LL body) and with parsimony (Sankoff's
     torch operations); and the GP-scored search on NNI_GP_TAXA taxa and
     NNI_GP_SITES columns, run to completion (at most NNI_GP_ITERS
-    iterations).
+    iterations);
+  - codon: bito_tpu's config6 (bench_configs.py:263-366) at its shape:
+    CodonSitePattern over 27 taxa and 649 codon columns drawn from 573
+    distinct ones (_synthetic.codon_alignment; DS1 is not in the
+    repository), CODON_TREES random unrooted topologies cycled to
+    CODON_BATCH trees, MG94 with kappa 2.5, omega 0.3 and nucleotide
+    frequencies (0.3, 0.2, 0.3, 0.2), constant rates: log_likelihoods,
+    ll_and_branch_gradients and CODON_SWEEP branch_eval_fn calls over
+    scaled branch lengths on auto, which takes the A=64 kernels
+    (csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu) on uniformized
+    transition matrices.
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the
@@ -123,6 +134,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      column), within 1e-5 of max |out| against its float32 plain version.
      The rooted path's trees (bifurcating roots) through both paired
      on-chip kernels against their float64 plain versions within 5e-5.
+     Both A=64 kernels against their float64 plain versions at the codon
+     path's shape (C = 1) and at MG94+Weibull4 (C = 4, CODON_C4_BATCH
+     trees), within 5e-5.
      chunk_variant's variants (v0, w4, w8, norescale, notips, fixstore,
      nodot, unroll) against their float64 plain versions on the
      flagship's chunked operands: the LL within 5e-5 relative (notips,
@@ -176,7 +190,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      launch none); the top-tree LLs and the whole-tree engine's float32
      candidate scores within BOUND of the float64 engine on the same
      trees, each iteration from the float32 run's own state; Sankoff's
-     scores on the card equal to its float64 version's; the batched
+     scores on the card equal to its float64 version's; on the codon
+     path: only the two A=64 kernels launched and no scan tape call ran,
+     the results within 5e-5 of the same engine in float64 on the card
+     (the uniformized scan tape), the float64 gradients against central
+     differences; the batched
      scorer's float64 scores on the card within SCORER_BOUND relative of
      the serial numpy scorer on the first and the last iteration's
      candidate sets (ROUNDED_BOUND where a Brent step was decided by
@@ -212,8 +230,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (best of 3, the card synchronised) and its optimize sweep (the gp
      path's call) with the device kernels and torch operations each runs;
      paired_ll_onchip at the whole-tree NNI engine's last candidate batch
-     (JC69, C = 1) beside its plain version and its bound; all with the
-     card's name and limit.
+     (JC69, C = 1) beside its plain version and its bound; the codon
+     path's LL+gradient evals/s on auto (the A=64 kernels) and on the
+     float32 scan tape (TF32 off: bito_tpu's auto route at 64 states), and
+     its device memory high-water mark; all with the card's name and
+     limit.
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -234,8 +255,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from bito_tpu_torch import PRODUCT_DEVICE, PRODUCT_DTYPE, _native, _synthetic
 from bito_tpu_torch.convert import gp_state, gp_state_from_numpy, params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
-from bito_tpu_torch.core.site_pattern import SitePattern
+from bito_tpu_torch.core.site_pattern import CodonSitePattern, SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
+from bito_tpu_torch.models.substitution import uniformized_terms
 from bito_tpu_torch.perflab import (GRAPH_TIMING, card_line, cuda_ms,
                                     graph_ms, max_sm_clock_mhz,
                                     perf_chunk_lab, perf_lab, perf_pipe_lab,
@@ -306,6 +328,15 @@ NNI_GP_TAXA, NNI_GP_SITES, NNI_GP_ITERS = 6, 200, 10
 # step was decided by rounding (the searches end at other points), by the
 # LL reached (tests/test_torch_batch_scorer.py)
 SCORER_BOUND, ROUNDED_BOUND = 1e-10, 1e-7
+# the codon path: bito_tpu's bench_configs.py config6 (MG94 through the
+# product engine on DS1 read as codons: 27 taxa, 649 triplets, 573
+# distinct; its 10 trees cycled to a batch of 128; a sweep of 10 calls
+# over scaled branch lengths), on a synthetic alignment and random trees
+CODON_BATCH, CODON_TREES, CODON_SWEEP = 128, 10, 10
+CODON_PARAMS = {"substitution_model_rates": np.array([2.5, 0.3]),
+                "substitution_model_frequencies": np.array([0.3, 0.2, 0.3,
+                                                            0.2])}
+CODON_C4_BATCH, CODON_WEIBULL = 16, 0.8  # phase 2's MG94+Weibull4 check
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # name -> its source, its TPU kernel, the launcher that counts its
@@ -385,6 +416,14 @@ KERNELS = {
         source=PROBES + "chunk_variant.cu",
         replaces="scripts/perf_chunk_lab.py:60",
         wrapper=perf_chunk_lab.chunk_variant, path="chunklab"),
+    "paired_ll_a64": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_ll_a64.cu",
+        replaces="bito_tpu/treelike/pallas_paired.py:423",
+        wrapper=paired.paired_ll_a64, path="codon"),
+    "paired_grad_a64": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_grad_a64.cu",
+        replaces="bito_tpu/treelike/pallas_paired.py:446",
+        wrapper=paired.paired_grad_a64, path="codon"),
 }
 
 
@@ -408,7 +447,7 @@ def ptxas_usage(log):
     `variant_grad_kernel<26,51,1,true>`."""
     usage, kernel, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\w*?([a-z][a-z_]*_kernel)"
+        m = re.search(r"Compiling entry function '\w*?([a-z][a-z0-9_]*_kernel)"
                       r"(I(?:L[ib]\d+E)+E)?", line)
         if m:
             args = re.findall(r"L([ib])(\d+)E", m.group(2) or "")
@@ -774,6 +813,11 @@ LAB_SHAPES = {
     "static_chain": f"dynamic, R={CHAIN_R}, 52 ops x 1024 columns",
     "chunk_variant": f"v0 (the shipping body), float32, {BATCH} trees x "
                      "1024 patterns",
+    **dict.fromkeys(("paired_ll_a64", "paired_grad_a64"), (
+        f"MG94 C=1, float32, {CODON_BATCH} trees x "
+        f"{pruning.pad_patterns(_synthetic.DS1_DISTINCT_CODON_COLUMNS)} "
+        f"patterns ({_synthetic.DS1_DISTINCT_CODON_COLUMNS} true), "
+        f"{_synthetic.DS1_TAXA} taxa")),
 }
 
 
@@ -2231,6 +2275,193 @@ def nni_kernel_times(nni, dev, card):
     return (k1 + k2) / 2, (p1 + p2) / 2, b_ms
 
 
+def central_differences(label, ref, trees, params64, bl64, grads):
+    """Hold a float64 engine's gradients `grads` [B, N] at nodes 0, 13 and
+    40 against central differences of its log likelihoods (h = 1e-6),
+    within 1e-6 of the largest."""
+    h = 1e-6
+    for node in (0, 13, 40):
+        step = torch.zeros_like(bl64)
+        step[:, node] = h
+        fd = (ref.log_likelihoods(trees, params64, bl64 + step)
+              - ref.log_likelihoods(trees, params64, bl64 - step)) / (2 * h)
+        fd_err = norm_err(grads[:, node], fd)
+        print(f"# phase 3: {label}float64 gradient vs central difference, "
+              f"node {node}: max-abs/max|g| {fd_err:.3e}")
+        check(fd_err <= 1e-6, f"{label}float64 gradient matches finite "
+              "differences")
+
+
+def codon_workload(site="constant", batch=CODON_BATCH):
+    """config6's shape: (trees, CodonSitePattern, PhyloModel, numpy
+    parameters): 27 taxa over 649 codon columns drawn from 573 distinct
+    ones (_synthetic.codon_alignment, seed 0), CODON_TREES random unrooted
+    topologies cycled to `batch` trees, MG94 with config6's parameters
+    and `site` rate categories (Weibull shape CODON_WEIBULL)."""
+    coll = parse_newick_text(_synthetic.random_trees_newick(
+        SEED, _synthetic.DS1_TAXA, CODON_TREES))
+    aln = _synthetic.codon_alignment(SEED, coll.taxon_names,
+                                     _synthetic.DS1_CODONS,
+                                     _synthetic.DS1_DISTINCT_CODON_COLUMNS)
+    params = dict(CODON_PARAMS)
+    if site != "constant":
+        params["site_model_parameters"] = np.array([CODON_WEIBULL])
+    return ([coll.trees[i % CODON_TREES] for i in range(batch)],
+            CodonSitePattern(aln, coll.taxon_names),
+            PhyloModel(PhyloModelSpecification("MG94", site)), params)
+
+
+def codon_operands(eng, trees, params):
+    """The A=64 kernels' operands from the engine's own prep (uniformized
+    P, dP = Q P, float32): the LL wrapper's and the grad wrapper's
+    positional arguments."""
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(
+        eig, rates, clock, eng.branch_length_matrix(trees, enc),
+        Q=eng._rate_Q(params))
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    return ((dst, tip, e, P, tips, pi, prop, w),
+            (dst, tip, src, e, mask, P, dP, tips, pi, prop, w))
+
+
+def codon_flops(enc, sp, C, batch):
+    """(LL, LL+gradient) FLOPs of one call over `batch` trees, counted as
+    bito_tpu's config6 counts them (bench_configs.py:315-323): the
+    algorithm's work over the 61 sense states and the true patterns."""
+    S, A = sp.pattern_count, 61
+    E = int(np.asarray(enc.edge_mask).sum(axis=1).mean())
+    evolve = 2 * A * A * C * S
+    fl_ll = E * evolve + (enc.num_slots - sp.num_taxa) * A * C * S \
+        + 2 * A * C * S
+    fl_grad = fl_ll + E * (2 * evolve + 3 * A * C * S)
+    return fl_ll * batch, fl_grad * batch
+
+
+def codon_parity(dev, errs):
+    """Phase 2: each A=64 kernel, through its wrapper, against its float64
+    plain version on the same float32 operands, at config6's shape (C = 1)
+    and at MG94+Weibull4 (C = 4, CODON_C4_BATCH trees), within BOUND.
+    Records the C = 1 errors in `errs`; returns phase 4's work and calls:
+    {kernel: (FLOPs, bytes, None)}, {kernel: (plain call, kernel call)}."""
+    work, calls = {}, {}
+    for site, batch in (("constant", CODON_BATCH),
+                        ("weibull+4", CODON_C4_BATCH)):
+        trees, sp, model, params = codon_workload(site, batch)
+        eng = TreeLikelihoodEngine(sp, model, device=dev,
+                                   dtype=PRODUCT_DTYPE)
+        ll_ops, grad_ops = codon_operands(
+            eng, trees, params_from_numpy(params, dev, PRODUCT_DTYPE))
+        ll_k = paired.paired_log_likelihoods(*ll_ops)
+        ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops)
+        torch.cuda.synchronize()
+        ll_p, g_p = paired.paired_ll_and_gradients_ref(
+            *[x.double() if x.is_floating_point() else x for x in grad_ops])
+        e_ll, e_llg, e_g = (rel_err(ll_k, ll_p), rel_err(ll_g, ll_p),
+                            norm_err(g_k, g_p))
+        print(f"# phase 2: MG94 {site} (C={model.category_count}, {batch} "
+              f"trees x {eng.pattern_pad} patterns): paired_ll_a64 LL rel "
+              f"err {e_ll:.3e}; paired_grad_a64 LL rel err {e_llg:.3e}, "
+              f"grad max-abs/max|g| {e_g:.3e} (bound {BOUND:g}, plain "
+              f"version in float64 on the same operands)")
+        check(max(e_ll, e_llg, e_g) <= BOUND, f"the A=64 kernels at {site}")
+        if site != "constant":
+            continue
+        errs["paired_ll_a64"] = (e_ll, (ll_k.double() - ll_p).abs().max()
+                                 .item())
+        errs["paired_grad_a64"] = (e_g, (g_k.double() - g_p).abs().max()
+                                   .item())
+        enc = eng.encode(trees)
+        fl_ll, fl_grad = codon_flops(enc, sp, 1, batch)
+        work["paired_ll_a64"] = (fl_ll, nbytes(*ll_ops) + batch * 4, None)
+        work["paired_grad_a64"] = (fl_grad, nbytes(*grad_ops)
+                                   + batch * (1 + enc.num_slots) * 4, None)
+        calls["paired_ll_a64"] = (
+            lambda ops=ll_ops: paired.paired_log_likelihoods_ref(*ops),
+            lambda ops=ll_ops: paired.paired_log_likelihoods(*ops))
+        calls["paired_grad_a64"] = (
+            lambda ops=grad_ops: paired.paired_ll_and_gradients_ref(*ops),
+            lambda ops=grad_ops: paired.paired_ll_and_gradients(*ops))
+    return work, calls
+
+
+def codon_path(dev, card, against_reference):
+    """Phase 3's codon path at config6's shape: engine.log_likelihoods,
+    ll_and_branch_gradients and a sweep of CODON_SWEEP branch_eval_fn
+    calls over scaled branch lengths, on auto in float32.  Only the two
+    A=64 kernels may launch and no scan tape call may run; the results are
+    held against the same engine in float64 on the card (the uniformized
+    scan tape), whose gradients are held against central differences.
+    Returns what phase 4 times: (engine, trees, params, branch lengths,
+    launches, the path's device memory high-water mark in bytes)."""
+    trees, sp, model, params_np = codon_workload()
+    eng = TreeLikelihoodEngine(sp, model, device=dev, dtype=PRODUCT_DTYPE)
+    ref = TreeLikelihoodEngine(sp, model, device=dev, dtype=torch.float64)
+    params = params_from_numpy(params_np, dev, PRODUCT_DTYPE)
+    params64 = params_from_numpy(params_np, dev, torch.float64)
+    enc = eng.encode(trees)
+    bl = eng.branch_length_matrix(trees, enc)
+    bl64 = bl.double()
+    scales = [1.0 + 0.001 * k for k in range(CODON_SWEEP)]
+    Q = eng._rate_Q(params)
+    qt = float(-torch.diagonal(Q).min()) * float(bl.max())
+    print(f"# phase 3: codon path: {sp.num_taxa} taxa, {sp.site_count} "
+          f"codons, {sp.pattern_count} patterns (pad {eng.pattern_pad}), "
+          f"{len(trees)} trees ({CODON_TREES} topologies), {enc.num_slots} "
+          f"nodes, MG94 kappa 2.5 omega 0.3, C=1; largest q*t {qt:.3f} "
+          f"(the uniformized series to K="
+          f"{uniformized_terms(qt * max(scales))})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with counting_scan_calls() as scan:
+        ll = eng.log_likelihoods(trees, params)
+        pairs = [eng.ll_and_branch_gradients(trees, params)]
+        fn = eng.branch_eval_fn(trees, params)
+        pairs += [fn(bl * f) for f in scales]
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    launches = read_launches("codon")
+    print(f"# phase 3: codon path scan tape calls {scan['calls']}")
+    check(scan["calls"] == 0, "the codon path ran no scan tape call")
+    ref_fn = ref.branch_eval_fn(trees, params64)
+    refs = [ref.ll_and_branch_gradients(trees, params64)] + [
+        ref_fn(bl64 * f) for f in scales]
+    against_reference("codon", [ll], pairs, refs)
+    central_differences("codon ", ref, trees, params64, bl64, refs[0][1])
+    return eng, trees, params, bl, launches, peak
+
+
+def codon_times(run, card):
+    """Phase 4: the codon path's LL+gradient and LL evals/s on auto (the
+    A=64 kernels) and on the float32 scan tape (TF32 off), bito_tpu's auto
+    route at 64 states, and the path's memory high-water mark."""
+    eng, trees, params, bl, _launches, peak = run
+
+    def evals_per_s(kernel, calls, make=eng.branch_eval_fn):
+        eng.kernel = kernel
+        f = make(trees, params)
+        ms = cuda_ms(lambda: f(bl), calls)
+        return f"{len(trees) / (ms / 1e3):.1f} ({ms:.4f} ms/call)"
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+    rates = {(what, kernel): evals_per_s(kernel, calls, make)
+             for what, make in (("LL+gradient", eng.branch_eval_fn),
+                                ("LL", eng.ll_eval_fn))
+             for kernel, calls in (("auto", 10), ("scan", 3))}
+    eng.kernel = "auto"
+    print(f"# phase 4: end to end, config6-shaped MG94 (C=1) evals/s at "
+          f"B={len(trees)}: " + "; ".join(
+              f"{what} A=64 kernels (auto) {rates[what, 'auto']}, scan tape "
+              f"in float32 {rates[what, 'scan']}"
+              for what in ("LL+gradient", "LL"))
+          + " (the scan tape with allow_tf32 False: bito_tpu's auto route "
+          f"at 64 states); the codon path's device memory high-water mark "
+          f"{peak / 2**30:.3f} GiB; on {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs an NVIDIA card: "
@@ -2379,6 +2610,7 @@ def main():
     rooted_dir = tempfile.TemporaryDirectory()
     rooted_inputs = rooted_files(rooted_dir.name)
     rooted_calls = rooted_parity(rooted_inputs, dev)
+    codon_work, codon_calls = codon_parity(dev, errs)
 
     ends.append(time.perf_counter())
     # -- 3. the paths ------------------------------------------------------------
@@ -2541,18 +2773,11 @@ def main():
         gp_run = gp_path(gp_files(gp_dir), dev, card)
     with tempfile.TemporaryDirectory() as nni_dir:
         nni_run = nni_path(nni_dir, dev, card)
+    codon_run = codon_path(dev, card, against_reference)
+    launches.update(codon_run[4])
 
     # The float64 reference's own gradients against central differences.
-    h = 1e-6
-    for node in (0, 13, 40):
-        step = torch.zeros_like(bl64)
-        step[:, node] = h
-        fd = (ref.log_likelihoods(trees, params64, bl64 + step)
-              - ref.log_likelihoods(trees, params64, bl64 - step)) / (2 * h)
-        fd_err = norm_err(g_ref[:, node], fd)
-        print(f"# phase 3: float64 gradient vs central difference, node "
-              f"{node}: max-abs/max|g| {fd_err:.3e}")
-        check(fd_err <= 1e-6, "float64 gradient matches finite differences")
+    central_differences("", ref, trees, params64, bl64, g_ref)
 
     ends.append(time.perf_counter())
     # -- 4. times --------------------------------------------------------------
@@ -2595,6 +2820,8 @@ def main():
     calls = {name: (lambda p=plain, a=a: p(*a), kernel)
              for name, (plain, a, kernel) in args.items()}
     calls.update(lab_calls)
+    calls.update(codon_calls)
+    work.update(codon_work)
     calls["chunk_variant"] = (
         lambda: perf_chunk_lab.chunk_variant_ref(
             cdst, ctip, cedge, P, tips, pi, prop, variant="v0"),
@@ -2695,6 +2922,8 @@ def main():
           + f"; one auto LL+gradient call at B={BATCH} takes "
           f"{auto_rate[1]:.4f} ms on {card}")
     nni_kernel_times(nni_run, dev, card)
+    codon_times(codon_run, card)
+    del codon_run
     # Last, since its torch.profiler pass leaves the profiler set up.
     t0 = time.perf_counter()
     gp_times(*gp_run, card)

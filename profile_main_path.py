@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where the device time of one branch_eval_fn call goes, on one NVIDIA card.
 
-    python3 profile_main_path.py [auto|chunked]
+    python3 profile_main_path.py [auto|chunked|codon]
 
 The workload is chip_smoke.py's flagship (DS1 shape, GTR+Gamma4, 200
 trees) through the engine's kernel path in float32: the paired kernels
-(engine.kernel "auto", the default) or the chunked ones ("chunked").
+(engine.kernel "auto", the default) or the chunked ones ("chunked"); or
+chip_smoke.py's codon path ("codon": config6's shape, MG94 at 64
+states, 128 trees, on auto, the A=64 kernels).
 After 5 warm-up calls it traces 20 back-to-back calls with torch.profiler
 and reads the device side from the exported Chrome trace alone: its
 kernel, memcpy and memset events.  (The profiler's per-operator rows also carry the time of
@@ -30,7 +32,7 @@ from torch.profiler import ProfilerActivity, profile
 from bito_tpu_torch import PRODUCT_DEVICE, PRODUCT_DTYPE
 from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
-from chip_smoke import PARAMS, card_line, cuda_ms, flagship
+from chip_smoke import PARAMS, card_line, codon_workload, cuda_ms, flagship
 
 CALLS = 20
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -57,18 +59,22 @@ def union_us(intervals):
 
 def main():
     kernel = sys.argv[1] if len(sys.argv) > 1 else "auto"
-    if kernel not in ("auto", "chunked"):
-        sys.exit(f"usage: profile_main_path.py [auto|chunked], got {kernel!r}")
+    if kernel not in ("auto", "chunked", "codon"):
+        sys.exit("usage: profile_main_path.py [auto|chunked|codon], got "
+                 f"{kernel!r}")
     if not torch.cuda.is_available():
         sys.exit("profile_main_path.py needs an NVIDIA card: "
                  "torch.cuda.is_available() is False")
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     dev = torch.device(PRODUCT_DEVICE)
-    trees, sp, model = flagship()
+    if kernel == "codon":
+        trees, sp, model, numpy_params = codon_workload()
+    else:
+        (trees, sp, model), numpy_params = flagship(), PARAMS
     eng = TreeLikelihoodEngine(sp, model, device=dev, dtype=PRODUCT_DTYPE)
-    eng.kernel = kernel
-    params = params_from_numpy(PARAMS, dev, PRODUCT_DTYPE)
+    eng.kernel = "auto" if kernel == "codon" else kernel
+    params = params_from_numpy(numpy_params, dev, PRODUCT_DTYPE)
     bl = eng.branch_length_matrix(trees, eng.encode(trees))
     fn = eng.branch_eval_fn(trees, params)
     for _ in range(5):

@@ -9,7 +9,9 @@ against their plain versions, with the shipping chunked LL body equal to
 its v0; the GP engine on the card in float32 against float64; and the
 NNI search's pieces (the whole-tree engine's float32 candidate scores
 against float64, the batched NNI scorer on the card against the CPU,
-Sankoff on the card against the CPU).
+Sankoff on the card against the CPU); and the MG94 codon path (both A=64
+kernels against their float64 plain versions, the engine's auto taking
+them, the float32 scan tape at 64 states refusing TF32).
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -31,7 +33,7 @@ from bito_tpu_torch import _synthetic
 from bito_tpu_torch.api.instances import rooted_instance, unrooted_instance
 from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
-from bito_tpu_torch.core.site_pattern import SitePattern
+from bito_tpu_torch.core.site_pattern import CodonSitePattern, SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
 from bito_tpu_torch.perflab import perf_lab, perf_pipe_lab, perf_static_probe
 from bito_tpu_torch.treelike import chunked, paired, pernode, prep, pruning
@@ -258,6 +260,99 @@ def test_wrappers_reject_operands_the_kernels_do_not_take(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         paired.paired_ll_onchip(dst, onchip, e, P, eng._kernel_tips, pi, prop,
                                 dataclasses.replace(plan, cols=plan.cols - 1))
+
+
+MG94 = {"substitution_model_rates": np.array([2.5, 0.3]),
+        "substitution_model_frequencies": np.array([0.3, 0.2, 0.3, 0.2])}
+A64 = (paired.paired_ll_a64, paired.paired_grad_a64)
+
+
+def _codon_engine(site, seed, num_taxa, num_trees, rooted, device, dtype,
+                  codons=200, distinct=150):
+    """An MG94 engine (with `site` rate categories, Weibull or Gamma shape
+    0.8) over a synthetic codon alignment: (engine, trees, params)."""
+    coll = parse_newick_text(_synthetic.random_trees_newick(
+        seed, num_taxa, num_trees, rooted))
+    aln = _synthetic.codon_alignment(seed + 1, coll.taxon_names, codons,
+                                     distinct)
+    eng = TreeLikelihoodEngine(
+        CodonSitePattern(aln, coll.taxon_names),
+        PhyloModel(PhyloModelSpecification("MG94", site)),
+        device=device, dtype=dtype)
+    params = dict(MG94) if site == "constant" else dict(
+        MG94, site_model_parameters=np.array([0.8]))
+    return eng, coll.trees, params_from_numpy(params, device, dtype)
+
+
+@pytest.mark.parametrize("site,rooted,num_trees,patterns", [
+    ("constant", False, 4, None), ("constant", True, 3, 77),
+    ("gamma+2", False, 3, None), ("gamma+2", True, 2, 100),
+    ("weibull+4", False, 2, 130), ("weibull+4", True, 3, None)])
+def test_a64_kernels_match_plain(cuda, site, rooted, num_trees, patterns):
+    """Both A=64 kernels at C = 1, 2 and 4 on trifurcating and bifurcating
+    roots against their plain versions in float64 on the same float32
+    operands (uniformized P, dP = Q P); `patterns` cuts the pattern axis
+    to a width that is not a multiple of a block's 64 patterns."""
+    eng, trees, params = _codon_engine(site, 3, 9, num_trees, rooted, cuda,
+                                       torch.float32)
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, num_trees)
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(
+        eig, rates, clock, eng.branch_length_matrix(trees, enc),
+        Q=eng._rate_Q(params))
+    assert P.shape[-1] == 64 and P.shape[2] == eng.model.category_count
+    S = patterns or eng.pattern_pad
+    tips = eng._kernel_tips[..., :S].contiguous()
+    w = eng._kernel_weights[:S].contiguous()
+    before = [f.launches for f in A64]
+    ll = paired.paired_log_likelihoods(dst, tip, e, P, tips, pi, prop, w)
+    ll2, g = paired.paired_ll_and_gradients(dst, tip, src, e, mask, P, dP,
+                                            tips, pi, prop, w)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(A64, before)] == [1, 1]
+    ll_ref, g_ref = paired.paired_ll_and_gradients_ref(
+        dst, tip, src, e, mask, *_f64(P, dP, tips, pi, prop, w))
+    assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
+    assert _norm(g, g_ref) < 5e-5
+
+
+def test_engine_auto_takes_the_a64_kernels(cuda):
+    """auto on the card in float32 with a shared MG94 model takes the two
+    A=64 kernels and no other, and agrees with the float64 engine on the
+    CPU (the uniformized scan tape)."""
+    eng, trees, params = _codon_engine("constant", 7, 8, 4, False, cuda,
+                                       torch.float32)
+    ref, _, ref_params = _codon_engine("constant", 7, 8, 4, False, "cpu",
+                                       torch.float64)
+    before, others = [f.launches for f in A64], [f.launches for f in PAIRED]
+    ll = eng.log_likelihoods(trees, params)
+    ll2, g = eng.ll_and_branch_gradients(trees, params)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(A64, before)] == [1, 1]
+    assert _launched(others) == [0, 0, 0, 0]
+    ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
+    assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
+    assert _norm(g.cpu(), g_ref) < 5e-5
+
+
+def test_float32_codon_scan_refuses_tf32(cuda):
+    """The float32 scan tape at 64 states raises while TF32 matmuls are
+    allowed, and runs once they are not."""
+    eng, trees, params = _codon_engine("constant", 7, 8, 2, False, cuda,
+                                       torch.float32)
+    eng.kernel = "scan"
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            eng.log_likelihoods(trees, params)
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            eng.ll_and_branch_gradients(trees, params)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert bool(torch.isfinite(eng.ll_and_branch_gradients(trees,
+                                                           params)[1]).all())
 
 
 def _case_operands(eng, trees, params, patterns):
