@@ -288,6 +288,39 @@ def codon_alignment(seed: int, names: List[str], num_codons: int,
     return {name: "".join(mat[i]) for i, name in enumerate(names)}
 
 
+# Sense codons four at a time, each differing from the other three at all
+# three positions.
+_DISJOINT_CODONS = (("AAA", "CCC", "GGG", "TTT"), ("ACG", "CGT", "GTA", "TAC"),
+                    ("AGT", "CTA", "GAC", "TCG"))
+
+
+def disagreeing_codons(seed: int, num_cherries: int, num_codons: int,
+                       branch_length: float) -> Tuple[str, Dict[str, str]]:
+    """(Newick text of one unrooted tree, alignment) at the edge of float32's
+    range: 2 * `num_cherries` taxa (at least 6) in cherries joined into a
+    caterpillar, every branch `branch_length` long, and codon columns in
+    which the two tips of each cherry differ at all three positions, so
+    that each cherry's partial is of the order of `branch_length` cubed."""
+    if num_cherries < 3:
+        raise ValueError("num_cherries must be at least 3")
+    rng = np.random.default_rng(seed)
+    names = taxon_names(2 * num_cherries)
+    t = repr(float(branch_length))
+    nodes = [f"({names[2 * k]}:{t},{names[2 * k + 1]}:{t})"
+             for k in range(num_cherries)]
+    while len(nodes) > 3:
+        nodes = [f"({nodes[0]}:{t},{nodes[1]}:{t})"] + nodes[2:]
+    newick = "(" + ",".join(f"{x}:{t}" for x in nodes) + ");"
+    seqs: Dict[str, List[str]] = {n: [] for n in names}
+    for _ in range(num_codons):
+        codons = _DISJOINT_CODONS[rng.integers(len(_DISJOINT_CODONS))]
+        for k in range(num_cherries):
+            i, j = rng.choice(4, 2, replace=False)
+            seqs[names[2 * k]].append(codons[i])
+            seqs[names[2 * k + 1]].append(codons[j])
+    return newick, {n: "".join(v) for n, v in seqs.items()}
+
+
 def ds1_shaped(seed: int, num_trees: int) -> Tuple[str, Dict[str, str]]:
     """(Newick text of `num_trees` unrooted trees, alignment) in DS1's
     shape: 27 taxa, 1,949 columns, 934 distinct."""

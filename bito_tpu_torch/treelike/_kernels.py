@@ -61,6 +61,8 @@ _SIGNATURES = {
     "bito_paired_ll_a64": [_P] * 10 + [_I] * 6 + [_P],
     # as bito_paired_grad, at 64 states
     "bito_paired_grad_a64": [_P] * 14 + [_I] * 6 + [_P],
+    # patterns a block of the A=64 kernels takes (no arguments)
+    "bito_paired_a64_tile": [],
     # post_dst, child, post_src, post_e, P, dP, tips, pi, props, weights,
     # ll_rows, grad_rows, B, M, T, N1, C, S, rows, cols, ring, stream
     "bito_paired_grad_onchip": [_P] * 12 + [_I] * 9 + [_P],

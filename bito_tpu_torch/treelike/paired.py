@@ -24,10 +24,14 @@ at a time, through `launch_ll_onchip`.
 
 At 64 states (MG94 codon models) each kernel has one body of its own
 (csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu): a block takes one tree
-and a tile of patterns, the partials stay in device memory, and each op's
-64x64 products run as float32 FMAs with the matrices and the children's
-slices staged in shared memory.  The wrappers launch them for A=64
-operands on the card; they need no OnchipTape.
+and a tile of 128 patterns, a warp 16 patterns and all 64 states of
+them, the partials stay in device memory, and every 64x64 product runs
+on the tensor cores in 3xTF32 (csrc/paired_a64.cuh): a step's matrices
+arrive during the step before and are split once a block into hi and lo
+planes in shared memory.  The wrappers launch them for A=64 operands on
+the card; they need no OnchipTape.  `tf32_mm` and
+`paired_ll_and_gradients_tf32` emulate their arithmetic in plain torch,
+for the tests.
 
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which computes the
@@ -54,7 +58,9 @@ ratios that no scale changes.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
@@ -385,6 +391,117 @@ def paired_ll_and_gradients_ref(post_dst, tip_slot, post_src, post_e,
     return ll, grad_rows.sum(dim=-1)[:, :N] * edge_mask.to(dtype)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 x rounded to TF32 as cvt.rna.tf32.f32 rounds it: 10
+    explicit mantissa bits, ties away from zero (on the magnitude's bits,
+    by integer view)."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_mm(a: torch.Tensor, b: torch.Tensor, passes: int = 3):
+    """a @ b in float32 as the A=64 kernels form it on the tensor cores:
+    each operand split as hi = tf32(x), lo = tf32(x - hi); for each block
+    of 8 along K, acc += lo hi, then hi lo, then hi hi (passes=3, 3xTF32),
+    or hi hi alone (passes=1, one TF32 pass).  A product of two TF32
+    values is exact in float32; the sums round in float32."""
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    a, b = a.float(), b.float()
+    ahi, bhi = tf32_round(a), tf32_round(b)
+    alo, blo = tf32_round(a - ahi), tf32_round(b - bhi)
+    acc = 0.0
+    for k in range(0, a.shape[-1], 8):
+        ks = slice(k, k + 8)
+        if passes == 3:
+            acc = acc + alo[..., ks] @ bhi[..., ks, :]
+            acc = acc + ahi[..., ks] @ blo[..., ks, :]
+        acc = acc + ahi[..., ks] @ bhi[..., ks, :]
+    return acc
+
+
+def paired_ll_and_gradients_tf32(post_dst, tip_slot, post_src, post_e,
+                                 edge_mask, P, dP, tips, pi, props, weights,
+                                 passes: int = 3):
+    """The A=64 kernels' arithmetic in plain torch, for the tests: the walk
+    of paired_ll_and_gradients_ref in float32 on the CPU with every P p,
+    dP p and P^T o through tf32_mm(passes), rescaled as the kernels
+    rescale (csrc/paired_a64.cuh): each category of an output stored
+    scaled by 2^-e, e the exponent of its largest entry, the slot's E the
+    largest e over the categories, and a reader's factor 2^(e - E).
+    (ll [B], branch gradients [B, N])."""
+    B, M = post_dst.shape
+    T = tip_slot.shape[1]
+    N1, C, A = P.shape[1], P.shape[2], P.shape[3]
+    S = tips.shape[-1]
+    f = dict(dtype=torch.float32)
+    P, dP, tips = P.float(), dP.float(), tips.float()
+    w, pi, props = weights.float(), pi.float(), props.float()
+    mm = partial(tf32_mm, passes=passes)
+    b = torch.arange(B)
+
+    def exponent(x, dims):  # e of x's largest entry over dims, >= -126
+        mx = x.amax(dim=dims)
+        return torch.frexp(mx).exponent.clamp(min=-126).masked_fill(
+            mx <= 0, -126)
+
+    def scale(x, e):  # x [..., C, A, S] by 2^e, e [..., C, S]
+        return torch.ldexp(x, e.unsqueeze(-2).float())
+
+    NS = 2 * M + 3
+    buf = torch.ones((B, NS, C, A, S), **f)
+    e_cat = torch.zeros((B, NS, C, S), dtype=torch.int32)
+    E = torch.zeros((B, NS, S), dtype=torch.int32)
+    ls = torch.zeros((B, NS, S), **f)
+    buf[b[:, None], tip_slot.long()] = tips[None, :, None].expand(
+        B, T, C, A, S)
+    dst_all, e_all, src_all = post_dst.long(), post_e.long(), post_src.long()
+    root = 2 * M
+    site = torch.zeros((B, S), **f)
+    for m in range(M):
+        pair = slice(2 * m, 2 * m + 2)
+        ev = scale(mm(P[b[:, None], e_all[:, m]], buf[:, pair]),
+                   e_cat[:, pair] - E[:, pair, None])
+        q = ev[:, 0] * ev[:, 1]
+        dst = dst_all[:, m]
+        at_root = (dst == root)[:, None]
+        site = torch.where(at_root, torch.einsum("c,a,bcas->bs", props, pi,
+                                                 q), site)
+        e = exponent(q, 2)
+        buf[b, dst] = scale(q, -e)
+        e_cat[b, dst] = e
+        E[b, dst] = torch.where(at_root, 0, e.amax(dim=1))
+        ls[b, dst] = ls[:, pair].sum(dim=1) + E[b, dst]
+    ll = (torch.log(site) + ls[:, root] * math.log(2.0)) @ w
+    buf[:, root] = pi[None, None, :, None].expand(B, C, A, S)
+    e_cat[:, root] = 0
+    grad_rows = torch.zeros((B, N1, S), **f)
+    for m in range(M - 1, -1, -1):
+        pair = slice(2 * m, 2 * m + 2)
+        e = e_all[:, m]
+        P2, dP2 = P[b[:, None], e], dP[b[:, None], e]
+        rel = e_cat[:, pair] - E[:, pair, None]
+        ev, dv = scale(mm(P2, buf[:, pair]), rel), scale(mm(dP2, buf[:, pair]),
+                                                        rel)
+        dst = dst_all[:, m]
+        up = scale(buf[b, dst], e_cat[b, dst] - E[b, dst][:, None])
+        o = up[:, None] * ev.flip(1)
+        eo = exponent(o, (1, 3))  # [B, C, S]
+        os = scale(o, -eo[:, None])
+        rel_o = (eo - eo.amax(dim=1, keepdim=True))[:, None, :, None]
+        den = torch.einsum("c,bjcas->bjs", props,
+                           torch.ldexp(os * ev, rel_o.float()))
+        num = torch.einsum("c,bjcas->bjs", props,
+                           torch.ldexp(os * dv, rel_o.float()))
+        den = torch.where(den > 0, den, torch.ones_like(den))
+        grad_rows[b[:, None], src_all[:, m]] = w * num / den
+        buf[:, pair] = mm(P2.transpose(-1, -2), os)
+        e_cat[:, pair] = eo[:, None]
+        E[:, pair] = eo.amax(dim=1)[:, None]
+    N = edge_mask.shape[1]
+    return ll, grad_rows.sum(dim=-1)[:, :N] * edge_mask.float()
+
+
 # ---------------------------------------------------------------------------
 # Public wrappers and the bodies' launchers
 # ---------------------------------------------------------------------------
@@ -649,28 +766,57 @@ def paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
 paired_grad_global.launches = 0
 
 
+def _a64_operands(tips, weights=None, **mats):
+    """(tips, weights, S) for the A=64 kernels: tips (and weights) with the
+    pattern axis padded to a multiple of 4 where it is not one, since the
+    kernels copy [64, S] rows in 16-byte pieces (padded patterns: tips of
+    ones, weight 0; their rows are cut off by the caller); S the true
+    pattern count.  Raises where an operand is not 16-byte aligned."""
+    S = tips.shape[-1]
+    pad = -S % 4
+    if pad:
+        tips = torch.nn.functional.pad(tips, (0, pad), value=1.0)
+        if weights is not None:
+            weights = torch.nn.functional.pad(weights, (0, pad))
+    for name, t in dict(tips=tips, **mats).items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
+    return tips, weights, S
+
+
+def _a64_scratch(B, M, S, C, device):
+    """The A=64 kernels' scratch: the partials buf [B, 2M+3, C, 64, S] and
+    one float32 block of B*NS*(2+C)*S floats (each slot's scales) and
+    B * tiles * NS ints (each block's slot codes; tiles the pattern tiles
+    of the kernels' blocks, bito_paired_a64_tile patterns each), laid out
+    as csrc/paired_a64.cuh says."""
+    NS = 2 * M + 3
+    tiles = -(-S // _kernels.library().bito_paired_a64_tile())
+    kw = dict(device=device, dtype=torch.float32)
+    return (torch.empty((B, NS, C, 64, S), **kw),
+            torch.empty(B * NS * (2 + C) * S + B * tiles * NS, **kw))
+
+
 def paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi, props):
     """Launch csrc/paired_ll_a64.cu (operands checked by the wrapper):
-    per-pattern LL rows [B, S] at 64 states.  Its scratch, the partials
-    [B, 2M+3, C, 64, S] and their log scales [B, 2M+3, S], is allocated
-    here."""
+    per-pattern LL rows [B, S] at 64 states.  Its scratch is allocated
+    here (_a64_scratch)."""
     B, M = post_dst.shape
-    T, S = tips.shape[0], tips.shape[-1]
+    T = tips.shape[0]
     N1, C = P.shape[1], P.shape[2]
-    NS = 2 * M + 3
-    kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C, 64, S), **kw)
-    ls = torch.empty((B, NS, S), **kw)
-    ll_rows = torch.empty((B, S), **kw)
+    tips, _, S = _a64_operands(tips, P=P)
+    Sp = tips.shape[-1]
+    buf, scratch = _a64_scratch(B, M, Sp, C, P.device)
+    ll_rows = torch.empty((B, Sp), device=P.device, dtype=torch.float32)
     with torch.cuda.device(P.device):
         rc = _kernels.library().bito_paired_ll_a64(
             post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
             P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
-            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            B, M, T, N1, C, S, _stream())
+            buf.data_ptr(), scratch.data_ptr(), ll_rows.data_ptr(),
+            B, M, T, N1, C, Sp, _stream())
     _kernels.check(rc, "bito_paired_ll_a64")
     paired_ll_a64.launches += 1
-    return ll_rows
+    return ll_rows[:, :S]
 
 
 paired_ll_a64.launches = 0
@@ -682,24 +828,24 @@ def paired_grad_a64(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
     (LL rows [B, S], weighted gradient rows [B, N1, S], zero where no op
     writes) at 64 states, with the scratch of paired_ll_a64."""
     B, M = post_dst.shape
-    T, S = tips.shape[0], tips.shape[-1]
+    T = tips.shape[0]
     N1, C = P.shape[1], P.shape[2]
-    NS = 2 * M + 3
+    tips, weights, S = _a64_operands(tips, weights, P=P, dP=dP)
+    Sp = tips.shape[-1]
+    buf, scratch = _a64_scratch(B, M, Sp, C, P.device)
     kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C, 64, S), **kw)
-    ls = torch.empty((B, NS, S), **kw)
-    ll_rows = torch.empty((B, S), **kw)
-    grad_rows = torch.zeros((B, N1, S), **kw)
+    ll_rows = torch.empty((B, Sp), **kw)
+    grad_rows = torch.zeros((B, N1, Sp), **kw)
     with torch.cuda.device(P.device):
         rc = _kernels.library().bito_paired_grad_a64(
             post_dst.data_ptr(), tip_slot.data_ptr(), post_src.data_ptr(),
             post_e.data_ptr(), P.data_ptr(), dP.data_ptr(), tips.data_ptr(),
             pi.data_ptr(), props.data_ptr(), weights.data_ptr(),
-            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            grad_rows.data_ptr(), B, M, T, N1, C, S, _stream())
+            buf.data_ptr(), scratch.data_ptr(), ll_rows.data_ptr(),
+            grad_rows.data_ptr(), B, M, T, N1, C, Sp, _stream())
     _kernels.check(rc, "bito_paired_grad_a64")
     paired_grad_a64.launches += 1
-    return ll_rows, grad_rows
+    return ll_rows[:, :S], grad_rows[..., :S]
 
 
 paired_grad_a64.launches = 0

@@ -35,8 +35,18 @@ shared-memory row, a parent's children evolved together,
 device memory, `pernode_grad_global`); `onchip_plan` chooses, from the
 tape that `onchip_tape` derives on the host.
 
-Operands: post_ops, pre_ops, root int32; P, dP [B, N+1, C, 4, 4]; tips
-[T, 4, S]; pi [4]; props [C]; weights [S]; edge_mask [B, N].
+At 64 states (MG94 codon models, as bito_tpu's per-node kernels take
+them) both functions run on the paired kernels' A=64 bodies
+(csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu, `paired.paired_ll_a64`
+and `paired.paired_grad_a64`, which count the launches), over the paired
+tape that `a64_tape` derives on the host: the LL's from post_ops and
+root, as ll_tape derives it; the grad's the same, after checking that
+pre_ops describes the same tree, since the paired walk reads the
+preorder from the postorder's own tape.
+
+Operands: post_ops, pre_ops, root int32; P, dP [B, N+1, C, A, A]; tips
+[T, A, S]; pi [A]; props [C]; weights [S]; edge_mask [B, N]; A is 4 or 64
+(paired.KERNEL_STATES).
 """
 from __future__ import annotations
 
@@ -111,14 +121,16 @@ def _check_shapes(post_ops, root, P, tips, pi, props, weights):
 
 
 def pernode_log_likelihoods(post_ops, root, P, tips, pi, props, weights, *,
-                            onchip: LLTape | None = None) -> torch.Tensor:
+                            onchip: LLTape | A64Tape | None = None
+                            ) -> torch.Tensor:
     """Per-tree log likelihoods [B] over the per-node tape.
 
-    On the card it launches the on-chip body where
-    `paired.onchip_plan("ll", ...)` gives a plan, else the global body.
-    `onchip` is the tape's `ll_tape`; where it is not given the wrapper
-    derives it (a copy of the tapes to the host).  The CPU runs the plain
-    version, which needs none."""
+    On the card it launches, at 4 states, the on-chip body where
+    `paired.onchip_plan("ll", ...)` gives a plan, else the global body,
+    and `onchip` is the tape's `ll_tape`; at 64 states the paired A=64 LL
+    kernel, and `onchip` is the tape's `a64_tape`.  Where `onchip` is not
+    given the wrapper derives it (a copy of the tapes to the host).  The
+    CPU runs the plain version, which needs none."""
     if P.device.type == "cpu":
         return pernode_log_likelihoods_ref(post_ops, root, P, tips, pi, props,
                                            weights)
@@ -126,7 +138,12 @@ def pernode_log_likelihoods(post_ops, root, P, tips, pi, props, weights, *,
                                          weights)
     _check_cuda_operands(
         dict(post_ops=post_ops, root=root),
-        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A)
+        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
+        paired.KERNEL_STATES)
+    if A == 64:
+        tape = _a64_of(onchip, post_ops, root, None, T, N1, P.device)
+        return paired.paired_ll_a64(tape.post_dst, tape.tip_slot,
+                                    tape.post_e, P, tips, pi, props) @ weights
     if onchip is None:
         onchip = ll_tape(post_ops.cpu().numpy(), root.cpu().numpy(), T,
                          N1 - 1, P.device)
@@ -142,13 +159,15 @@ def pernode_log_likelihoods(post_ops, root, P, tips, pi, props, weights, *,
 
 def pernode_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
                              pi, props, weights, *,
-                             onchip: OnchipTape | None = None):
+                             onchip: OnchipTape | A64Tape | None = None):
     """Per-tree (log likelihood [B], branch gradients [B, N]).
 
-    On the card it launches the on-chip body where `onchip_plan` gives a
-    plan, else the global body.  `onchip` is the tape's OnchipTape; where
-    it is not given the wrapper derives it (a copy of the tapes to the
-    host).  The CPU runs the plain version, which needs none."""
+    On the card it launches, at 4 states, the on-chip body where
+    `onchip_plan` gives a plan, else the global body, and `onchip` is the
+    tape's OnchipTape; at 64 states the paired A=64 grad kernel, and
+    `onchip` is the tape's `a64_tape` with pre_ops.  Where `onchip` is not
+    given the wrapper derives it (a copy of the tapes to the host).  The
+    CPU runs the plain version, which needs none."""
     if P.device.type == "cpu":
         return pernode_ll_and_gradients_ref(post_ops, pre_ops, root,
                                             edge_mask, P, dP, tips, pi, props,
@@ -165,7 +184,12 @@ def pernode_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
         dict(post_ops=post_ops, pre_ops=pre_ops, root=root),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A)
+        C, A, paired.KERNEL_STATES)
+    if A == 64:
+        tape = _a64_of(onchip, post_ops, root, pre_ops, T, N1, P.device)
+        return paired.finish_rows(*paired.paired_grad_a64(
+            tape.post_dst, tape.tip_slot, tape.post_src, tape.post_e, P, dP,
+            tips, pi, props, weights), edge_mask, weights)
     if onchip is None:
         onchip = onchip_tape(*(x.cpu().numpy() for x in (post_ops, pre_ops,
                                                          root)),
@@ -207,25 +231,11 @@ class LLTape:
     ll_rows: int            # rows a pattern: their peak over the batch
 
 
-def ll_tape(post_ops: np.ndarray, root: np.ndarray, num_taxa: int,
-            num_slots: int, device) -> LLTape:
-    """The LL body's tape, derived on the host from the scan tape's
-    post_ops and root (numpy) for `num_taxa` tips and the dummy node
-    `num_slots`, and put on `device`.
-
-    A source is read as the op that last wrote it before the reading op.
-    So the trifurcating root's accumulator [u, u, N, x, x] reads the
-    earlier op that wrote u, never itself, and its output may take the row
-    that read frees (a thread loads both children before it stores).  The
-    root op is the last op that writes root[b]; an earlier op that writes
-    it stores to a row like any other.  Ops whose outputs do not reach the
-    root op (padded ones, dest N, among them) are skipped, as the root's
-    partial does not depend on them.  Raises where an op reads an internal
-    node that no earlier op wrote (bito_tpu's kernel would read ones
-    there), an output is read twice, or the root is a tip or never
-    written."""
-    post_ops, root = np.asarray(post_ops), np.asarray(root)
-    T, N = num_taxa, num_slots
+def _paired_post(post_ops: np.ndarray, root: np.ndarray, T: int,
+                 N: int) -> tuple[np.ndarray, np.ndarray]:
+    """(post_dst [B, M], child [B, M, 2]) int32: the per-node postorder as
+    a paired tape walked one op at a time (see ll_tape), from post_ops and
+    root (numpy) for T tips and the dummy node N."""
     _post_tape(post_ops, T, N)  # raises where it is not a per-node tape
     B, M, _ = post_ops.shape
     post_dst = np.full((B, M), 2 * M + 1, dtype=np.int32)
@@ -264,6 +274,28 @@ def ll_tape(post_ops: np.ndarray, root: np.ndarray, num_taxa: int,
                                          "is read twice")
                     post_dst[b, c] = 2 * m + j
                     todo.append(c)
+    return post_dst, child
+
+
+def ll_tape(post_ops: np.ndarray, root: np.ndarray, num_taxa: int,
+            num_slots: int, device) -> LLTape:
+    """The LL body's tape, derived on the host from the scan tape's
+    post_ops and root (numpy) for `num_taxa` tips and the dummy node
+    `num_slots`, and put on `device`.
+
+    A source is read as the op that last wrote it before the reading op.
+    So the trifurcating root's accumulator [u, u, N, x, x] reads the
+    earlier op that wrote u, never itself, and its output may take the row
+    that read frees (a thread loads both children before it stores).  The
+    root op is the last op that writes root[b]; an earlier op that writes
+    it stores to a row like any other.  Ops whose outputs do not reach the
+    root op (padded ones, dest N, among them) are skipped, as the root's
+    partial does not depend on them.  Raises where an op reads an internal
+    node that no earlier op wrote (bito_tpu's kernel would read ones
+    there), an output is read twice, or the root is a tip or never
+    written."""
+    post_ops, root = np.asarray(post_ops), np.asarray(root)
+    post_dst, child = _paired_post(post_ops, root, num_taxa, num_slots)
     row, rows = paired.live_rows(post_dst, child)
     post_e = post_ops[..., [2, 4]].astype(np.int32)
     return LLTape(*(torch.as_tensor(np.ascontiguousarray(x), device=device)
@@ -310,6 +342,92 @@ def pernode_ll_global(post_ops, root, P, tips, pi, props) -> torch.Tensor:
 
 
 pernode_ll_global.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The A=64 route: the paired A=64 kernels on the per-node tape
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class A64Tape:
+    """The per-node tape as the paired A=64 kernels read it (paired.py's
+    layout, M ops walked one at a time), on the device of the tapes."""
+
+    post_dst: torch.Tensor  # [B, M] int32, as LLTape's
+    tip_slot: torch.Tensor  # [B, T] int32: each tip's pair slot (2M+1
+    #                         where no op that runs reads it)
+    post_src: torch.Tensor  # [B, M, 2] int32: the node each child is (its
+    #                         gradient row; N for the dummy)
+    post_e: torch.Tensor    # [B, M, 2] int32: the two edges (N: identity)
+    with_pre: bool = False  # derived with pre_ops, as the grad needs
+
+
+def _same_parents(post_ops: np.ndarray, pre_ops: np.ndarray, N: int):
+    """Raise where pre_ops gives a node another parent than post_ops (the
+    accumulator's read of its own node aside)."""
+    for b in range(post_ops.shape[0]):
+        post = {(s, u) for u, s1, _e1, s2, _e2 in post_ops[b].tolist()
+                if u != N for s in (s1, s2) if s not in (N, u)}
+        pre = {(c, v) for c, v, *_ in pre_ops[b].tolist() if c != N}
+        if post != pre:
+            raise ValueError(f"tree {b}: pre_ops and post_ops give nodes "
+                             "other parents")
+
+
+def a64_tape(post_ops: np.ndarray, root: np.ndarray, num_taxa: int,
+             num_slots: int, device, pre_ops: np.ndarray | None = None
+             ) -> A64Tape:
+    """The A=64 kernels' tape, derived on the host from the scan tape's
+    post_ops and root (numpy), as ll_tape derives its own (the same
+    post_dst and edges; each tip at the slot that reads it), for
+    `num_taxa` tips and the dummy node `num_slots`, and put on `device`.
+    For the grad kernel pass pre_ops: it must be the scan tape's preorder
+    (the checks of onchip_tape) of the same tree, each node under the
+    parent that post_ops gives it, since the paired walk reads the
+    preorder from the postorder; raises otherwise, and where a tip is
+    read twice."""
+    post_ops, root = np.asarray(post_ops), np.asarray(root)
+    T, N = num_taxa, num_slots
+    post_dst, child = _paired_post(post_ops, root, T, N)
+    if pre_ops is not None:
+        pre_ops = np.asarray(pre_ops)
+        _group_tape(post_ops, pre_ops, root, T, N)
+        _same_parents(post_ops, pre_ops, N)
+    B, M = post_dst.shape
+    tip_slot = np.full((B, T), 2 * M + 1, dtype=np.int32)
+    b, m, j = np.nonzero((child < 0) & (child != ONES))
+    t = -1 - child[b, m, j]
+    if len(set(zip(b.tolist(), t.tolist()))) < len(t):
+        raise ValueError("a tip is read twice: the paired tape holds each "
+                         "tip in one slot")
+    tip_slot[b, t] = 2 * m + j
+    return A64Tape(*(torch.as_tensor(np.ascontiguousarray(x), device=device)
+                     for x in (post_dst, tip_slot,
+                               post_ops[..., [1, 3]].astype(np.int32),
+                               post_ops[..., [2, 4]].astype(np.int32))),
+                   with_pre=pre_ops is not None)
+
+
+def _a64_of(onchip, post_ops, root, pre_ops, T, N1, device) -> A64Tape:
+    """`onchip`, or where it is None the tape's a64_tape (a copy of the
+    tapes to the host); raises where it is not an A64Tape of the tape, or,
+    for the grad (pre_ops given), one derived without pre_ops."""
+    if onchip is None:
+        onchip = a64_tape(post_ops.cpu().numpy(), root.cpu().numpy(), T,
+                          N1 - 1, device,
+                          None if pre_ops is None else pre_ops.cpu().numpy())
+    if not isinstance(onchip, A64Tape) or tuple(
+            onchip.post_dst.shape) != tuple(post_ops.shape[:2]):
+        raise ValueError("at 64 states the kernels take the tape's "
+                         "pernode.a64_tape")
+    if pre_ops is not None and not onchip.with_pre:
+        raise ValueError("the grad at 64 states takes the tape's "
+                         "pernode.a64_tape derived with pre_ops")
+    _check_cuda_operands(dict(post_dst=onchip.post_dst,
+                              tip_slot=onchip.tip_slot,
+                              post_src=onchip.post_src,
+                              post_e=onchip.post_e), {}, 1, 4)
+    return onchip
 
 
 # ---------------------------------------------------------------------------

@@ -111,13 +111,14 @@ MG94 codon models, runs the paired kernels' A=64 bodies:
     frequencies (0.3, 0.2, 0.3, 0.2), constant rates: log_likelihoods,
     ll_and_branch_gradients and CODON_SWEEP branch_eval_fn calls over
     scaled branch lengths on auto, which takes the A=64 kernels
-    (csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu) on uniformized
-    transition matrices.
+    (csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu: every 64x64 product
+    on the tensor cores in 3xTF32) on uniformized transition matrices.
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the
      sources in the checkout (nvcc, at first use), with each kernel's
-     registers and spills.
+     registers and spills; the A=64 kernels' SASS (cuobjdump), which must
+     hold HMMA or HGMMA instructions, and its most used opcodes.
   2. each kernel against its plain torch version in float64 on the same
      operands (both bodies of each tree kernel on the flagship's): LL
      relative error
@@ -136,7 +137,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      on-chip kernels against their float64 plain versions within 5e-5.
      Both A=64 kernels against their float64 plain versions at the codon
      path's shape (C = 1) and at MG94+Weibull4 (C = 4, CODON_C4_BATCH
-     trees), within 5e-5.
+     trees), within A64_BOUND (1e-6, which one TF32 pass misses); their
+     gradients nearer to the 3xTF32 emulation
+     (paired.paired_ll_and_gradients_tf32, on the CPU) than to one TF32
+     pass, on two trees; at the edge of float32's range
+     (_synthetic.disagreeing_codons at CODON_EDGE_LENGTHS), finite and
+     within A64_BOUND; the per-node functions at 64 states
+     (pernode_log_likelihoods, pernode_ll_and_gradients: the A=64 kernels
+     on the per-node tape) within A64_BOUND on CODON_PERNODE_BATCH trees,
+     each launching each A=64 kernel once.
      chunk_variant's variants (v0, w4, w8, norescale, notips, fixstore,
      nodot, unroll) against their float64 plain versions on the
      flagship's chunked operands: the LL within 5e-5 relative (notips,
@@ -192,8 +201,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      trees, each iteration from the float32 run's own state; Sankoff's
      scores on the card equal to its float64 version's; on the codon
      path: only the two A=64 kernels launched and no scan tape call ran,
-     the results within 5e-5 of the same engine in float64 on the card
-     (the uniformized scan tape), the float64 gradients against central
+     the results within A64_BOUND of the same engine in float64 on the
+     card (the uniformized scan tape), the float64 gradients against central
      differences; the batched
      scorer's float64 scores on the card within SCORER_BOUND relative of
      the serial numpy scorer on the first and the last iteration's
@@ -233,16 +242,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (JC69, C = 1) beside its plain version and its bound; the codon
      path's LL+gradient evals/s on auto (the A=64 kernels) and on the
      float32 scan tape (TF32 off: bito_tpu's auto route at 64 states), and
-     its device memory high-water mark; all with the card's name and
-     limit.
+     its device memory high-water mark; the A=64 kernels beside both
+     bounds, at 3xTF32 on the tensor cores (PEAK_3XTF32, the JSON line's)
+     and at float32 FMAs; the per-node functions at 64 states at the codon
+     path's shape beside their plain versions; all with the card's name
+     and limit.
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
 """
+import collections
 import contextlib
 import json
 import math
+import os
 import re
+import subprocess
 import sys
 import tempfile
 import time
@@ -281,6 +296,12 @@ SEED = 0
 BATCH = 200
 SWEEP = 40
 BOUND = 5e-5  # bench.py's on-device parity guard
+# The A=64 kernels against float64: 3xTF32 reads at most 2.7e-7, one TF32
+# pass at least 3.1e-5 on the gradients (tests/test_torch_a64_tf32.py's
+# emulation), so this limit, unlike BOUND, tells the two apart.
+A64_BOUND = 1e-6
+# phase 2's range cases: branch lengths of _synthetic.disagreeing_codons
+CODON_EDGE_LENGTHS = (1e-6, 1e-8)
 PARAMS = _synthetic.GTR_GAMMA4_PARAMS  # bench.py's
 LAB_REPS = 5  # CUDA-event repetitions of each perf-lab measurement here
 CELLS = perf_pipe_lab.CELLS  # the pipe lab's cells, 100
@@ -337,7 +358,11 @@ CODON_PARAMS = {"substitution_model_rates": np.array([2.5, 0.3]),
                 "substitution_model_frequencies": np.array([0.3, 0.2, 0.3,
                                                             0.2])}
 CODON_C4_BATCH, CODON_WEIBULL = 16, 0.8  # phase 2's MG94+Weibull4 check
+CODON_PERNODE_BATCH = 8  # phase 2's per-node functions at 64 states
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
+# H100 SXM dense TF32 on the tensor cores over three passes: the rate of a
+# float32-accurate product in 3xTF32 (the A=64 kernels)
+PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # name -> its source, its TPU kernel, the launcher that counts its
 # launches, its path and the other paths that launch it
@@ -419,12 +444,14 @@ KERNELS = {
     "paired_ll_a64": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_a64.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
-        wrapper=paired.paired_ll_a64, path="codon"),
+        wrapper=paired.paired_ll_a64, path="codon", peak=PEAK_3XTF32),
     "paired_grad_a64": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_a64.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
-        wrapper=paired.paired_grad_a64, path="codon"),
+        wrapper=paired.paired_grad_a64, path="codon", peak=PEAK_3XTF32),
 }
+# The A=64 kernels' __global__ functions, whose SASS phase 1 reads
+TENSOR_KERNELS = ("paired_ll_a64_kernel", "paired_grad_a64_kernel")
 
 
 def check(ok, what):
@@ -765,18 +792,51 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(flops, moved):
+def bound(flops, moved, peak=PEAK_FLOPS):
     """(ms, "operations" or "bytes"): the least time the card could take,
-    at PEAK_FLOPS and PEAK_BYTES."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, moved / PEAK_BYTES * 1e3
+    at `peak` FLOP/s (PEAK_FLOPS: float32 FMAs) and PEAK_BYTES."""
+    t_ops, t_bytes = flops / peak * 1e3, moved / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def kernel_bound(flops, moved, library=None, shared_ms=0.0):
-    """bound() of a phase-4 work entry, or its shared-memory term (ms of
-    the bytes it must move through shared memory, pipe_cell's scratch)
-    where that is larger."""
-    return max(bound(flops, moved), (shared_ms, "bytes"))
+def kernel_bound(flops, moved, library=None, shared_ms=0.0, *,
+                 peak=PEAK_FLOPS):
+    """bound() of a phase-4 work entry at the kernel's `peak`, or its
+    shared-memory term (ms of the bytes it must move through shared
+    memory, pipe_cell's scratch) where that is larger."""
+    return max(bound(flops, moved, peak), (shared_ms, "bytes"))
+
+
+def bound_of(name, work):
+    """kernel_bound of kernel `name`'s work entry at its peak (KERNELS'
+    `peak`: 3xTF32 for the A=64 kernels, else float32 FMAs)."""
+    return kernel_bound(*work[name],
+                        peak=KERNELS[name].get("peak", PEAK_FLOPS))
+
+
+# An instruction line of cuobjdump -sass: its address, a predicate, then
+# the opcode
+SASS_LINE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def sass_mix(so, names=TENSOR_KERNELS):
+    """{kernel: Counter of its SASS opcodes} for the kernels of the library
+    `so` whose mangled names hold one of `names`, read with cuobjdump."""
+    cuobjdump = os.path.join(os.path.dirname(_kernels._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(so)], check=True,
+                          capture_output=True, text=True).stdout
+    mix, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = next((n for n in names if n in m.group(1)), None)
+            if fn:
+                mix[fn] = collections.Counter()
+            continue
+        m = SASS_LINE.search(line)
+        if fn and m:
+            mix[fn][m.group(1)] += 1
+    return mix
 
 
 def reset_launches():
@@ -2343,9 +2403,11 @@ def codon_flops(enc, sp, C, batch):
 def codon_parity(dev, errs):
     """Phase 2: each A=64 kernel, through its wrapper, against its float64
     plain version on the same float32 operands, at config6's shape (C = 1)
-    and at MG94+Weibull4 (C = 4, CODON_C4_BATCH trees), within BOUND.
-    Records the C = 1 errors in `errs`; returns phase 4's work and calls:
-    {kernel: (FLOPs, bytes, None)}, {kernel: (plain call, kernel call)}."""
+    and at MG94+Weibull4 (C = 4, CODON_C4_BATCH trees), within A64_BOUND;
+    at C = 4 the grad kernel's gradients nearer to the 3xTF32 emulation
+    than to one TF32 pass (codon_passes).  Records the C = 1 errors in
+    `errs`; returns phase 4's work and calls: {kernel: (FLOPs, bytes,
+    None)}, {kernel: (plain call, kernel call)}."""
     work, calls = {}, {}
     for site, batch in (("constant", CODON_BATCH),
                         ("weibull+4", CODON_C4_BATCH)):
@@ -2364,10 +2426,12 @@ def codon_parity(dev, errs):
         print(f"# phase 2: MG94 {site} (C={model.category_count}, {batch} "
               f"trees x {eng.pattern_pad} patterns): paired_ll_a64 LL rel "
               f"err {e_ll:.3e}; paired_grad_a64 LL rel err {e_llg:.3e}, "
-              f"grad max-abs/max|g| {e_g:.3e} (bound {BOUND:g}, plain "
+              f"grad max-abs/max|g| {e_g:.3e} (bound {A64_BOUND:g}, plain "
               f"version in float64 on the same operands)")
-        check(max(e_ll, e_llg, e_g) <= BOUND, f"the A=64 kernels at {site}")
+        check(max(e_ll, e_llg, e_g) <= A64_BOUND,
+              f"the A=64 kernels at {site}")
         if site != "constant":
+            codon_passes(grad_ops, g_k)
             continue
         errs["paired_ll_a64"] = (e_ll, (ll_k.double() - ll_p).abs().max()
                                  .item())
@@ -2385,6 +2449,117 @@ def codon_parity(dev, errs):
             lambda ops=grad_ops: paired.paired_ll_and_gradients_ref(*ops),
             lambda ops=grad_ops: paired.paired_ll_and_gradients(*ops))
     return work, calls
+
+
+def codon_passes(grad_ops, g_k, trees=2):
+    """Phase 2: on the first `trees` trees, the grad kernel's gradients
+    `g_k` against paired.paired_ll_and_gradients_tf32 on the CPU with three
+    TF32 passes and with one: nearer to three by at least 10 times."""
+    cpu = ([x[:trees].cpu() for x in grad_ops[:7]]  # the per-tree operands
+           + [x.cpu() for x in grad_ops[7:]])
+    _, g3 = paired.paired_ll_and_gradients_tf32(*cpu)
+    _, g1 = paired.paired_ll_and_gradients_tf32(*cpu, passes=1)
+    g = g_k[:trees].cpu()
+    d3, d1 = norm_err(g, g3), norm_err(g, g1)
+    print(f"# phase 2: paired_grad_a64 against the 3xTF32 emulation "
+          f"(paired.paired_ll_and_gradients_tf32, CPU) on {trees} trees: "
+          f"max-abs/max|g| {d3:.3e} from three passes, {d1:.3e} from one")
+    check(d3 < 0.1 * d1, "the A=64 grad kernel takes three TF32 passes")
+
+
+def codon_edge_parity(dev):
+    """Phase 2: both A=64 kernels at the edge of float32's range
+    (_synthetic.disagreeing_codons: 8 taxa in cherries whose tips differ
+    at all three codon positions, 64 codons, every branch one of
+    CODON_EDGE_LENGTHS), finite and within A64_BOUND of their float64
+    plain versions on the same float32 operands."""
+    for t in CODON_EDGE_LENGTHS:
+        newick, aln = _synthetic.disagreeing_codons(SEED, 4, 64, t)
+        coll = parse_newick_text(newick)
+        eng = TreeLikelihoodEngine(
+            CodonSitePattern(aln, coll.taxon_names),
+            PhyloModel(PhyloModelSpecification("MG94", "constant")),
+            device=dev, dtype=PRODUCT_DTYPE)
+        ll_ops, grad_ops = codon_operands(
+            eng, coll.trees,
+            params_from_numpy(dict(CODON_PARAMS), dev, PRODUCT_DTYPE))
+        ll_k = paired.paired_log_likelihoods(*ll_ops)
+        ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops)
+        torch.cuda.synchronize()
+        ll_p, g_p = paired.paired_ll_and_gradients_ref(
+            *[x.double() if x.is_floating_point() else x for x in grad_ops])
+        e_ll, e_llg, e_g = (rel_err(ll_k, ll_p), rel_err(ll_g, ll_p),
+                            norm_err(g_k, g_p))
+        print(f"# phase 2: A=64 kernels at the edge of float32's range "
+              f"(every branch {t:g}, cherries differing at all three codon "
+              f"positions, LL {float(ll_p[0]):.4f}): paired_ll_a64 LL rel "
+              f"err {e_ll:.3e}; paired_grad_a64 LL rel err {e_llg:.3e}, "
+              f"grad max-abs/max|g| {e_g:.3e} (bound {A64_BOUND:g})")
+        check(all(bool(torch.isfinite(x).all()) for x in (ll_k, ll_g, g_k)),
+              f"the A=64 kernels' outputs are finite at branch length {t:g}")
+        check(max(e_ll, e_llg, e_g) <= A64_BOUND,
+              f"the A=64 kernels at branch length {t:g}")
+
+
+def codon_pernode_operands(eng, trees, params, dev):
+    """The per-node functions' operands at 64 states from the engine's own
+    prep (uniformized P, dP = Q P, float32): the LL's and the grad's
+    positional arguments, and the tape (pernode.a64_tape)."""
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(
+        eig, rates, clock, eng.branch_length_matrix(trees, enc),
+        Q=eng._rate_Q(params))
+    post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+                       for x in (enc.post_ops, enc.pre_ops, enc.root))
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=dev)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    tape = pernode.a64_tape(enc.post_ops, enc.root, enc.num_taxa,
+                            enc.num_slots, dev, pre_ops=enc.pre_ops)
+    return ((post, root, P, tips, pi, prop, w),
+            (post, pre, root, mask, P, dP, tips, pi, prop, w), tape)
+
+
+def codon_pernode_parity(dev):
+    """Phase 2: pernode_log_likelihoods and pernode_ll_and_gradients at 64
+    states, which launch the paired A=64 kernels on the per-node tape,
+    against their float64 plain versions on the same float32 operands, at
+    config6's shape on CODON_PERNODE_BATCH trees, C = 1 and MG94+Weibull4
+    (C = 4), within A64_BOUND.  Returns the launches of each A=64
+    kernel."""
+    launched = [0, 0]
+    for site in ("constant", "weibull+4"):
+        trees, sp, model, params = codon_workload(site, CODON_PERNODE_BATCH)
+        eng = TreeLikelihoodEngine(sp, model, device=dev,
+                                   dtype=PRODUCT_DTYPE)
+        ll_ops, grad_ops, _ = codon_pernode_operands(
+            eng, trees, params_from_numpy(params, dev, PRODUCT_DTYPE), dev)
+        before = [paired.paired_ll_a64.launches,
+                  paired.paired_grad_a64.launches]
+        ll_k = pernode.pernode_log_likelihoods(*ll_ops)
+        ll_g, g_k = pernode.pernode_ll_and_gradients(*grad_ops)
+        torch.cuda.synchronize()
+        counts = [paired.paired_ll_a64.launches - before[0],
+                  paired.paired_grad_a64.launches - before[1]]
+        ll_p, g_p = pernode.pernode_ll_and_gradients_ref(
+            *[x.double() if x.is_floating_point() else x for x in grad_ops])
+        e_ll, e_llg, e_g = (rel_err(ll_k, ll_p), rel_err(ll_g, ll_p),
+                            norm_err(g_k, g_p))
+        print(f"# phase 2: per-node functions at 64 states, MG94 {site} "
+              f"(C={model.category_count}, {CODON_PERNODE_BATCH} trees x "
+              f"{eng.pattern_pad} patterns): pernode_log_likelihoods LL rel "
+              f"err {e_ll:.3e}; pernode_ll_and_gradients LL rel err "
+              f"{e_llg:.3e}, grad max-abs/max|g| {e_g:.3e} (bound "
+              f"{A64_BOUND:g}, plain versions in float64 on the same "
+              f"operands); "
+              f"launches of paired_ll_a64, paired_grad_a64 {counts}")
+        check(counts == [1, 1], "the per-node functions at 64 states "
+              "launched the A=64 kernels once each")
+        check(max(e_ll, e_llg, e_g) <= A64_BOUND,
+              f"the per-node functions at 64 states at {site}")
+        launched = [a + b for a, b in zip(launched, counts)]
+    return launched
 
 
 def codon_path(dev, card, against_reference):
@@ -2429,16 +2604,38 @@ def codon_path(dev, card, against_reference):
     ref_fn = ref.branch_eval_fn(trees, params64)
     refs = [ref.ll_and_branch_gradients(trees, params64)] + [
         ref_fn(bl64 * f) for f in scales]
-    against_reference("codon", [ll], pairs, refs)
+    against_reference("codon", [ll], pairs, refs, bound=A64_BOUND)
     central_differences("codon ", ref, trees, params64, bl64, refs[0][1])
     return eng, trees, params, bl, launches, peak
 
 
-def codon_times(run, card):
+def codon_times(run, card, pernode_launches):
     """Phase 4: the codon path's LL+gradient and LL evals/s on auto (the
     A=64 kernels) and on the float32 scan tape (TF32 off), bito_tpu's auto
-    route at 64 states, and the path's memory high-water mark."""
+    route at 64 states, and the path's memory high-water mark; the
+    per-node functions at 64 states at the path's shape (their tape
+    given) beside their plain versions, with phase 2's launches."""
     eng, trees, params, bl, _launches, peak = run
+    ll_ops, grad_ops, tape = codon_pernode_operands(eng, trees, params,
+                                                    bl.device)
+    pn = {}
+    for name, fn, plain, ops in (
+            ("pernode_log_likelihoods", pernode.pernode_log_likelihoods,
+             pernode.pernode_log_likelihoods_ref, ll_ops),
+            ("pernode_ll_and_gradients", pernode.pernode_ll_and_gradients,
+             pernode.pernode_ll_and_gradients_ref, grad_ops)):
+        p1 = cuda_ms(lambda: plain(*ops), 3)
+        k1 = cuda_ms(lambda: fn(*ops, onchip=tape), 20)
+        k2 = cuda_ms(lambda: fn(*ops, onchip=tape), 20)
+        p2 = cuda_ms(lambda: plain(*ops), 3)
+        pn[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    print("# phase 4: per-node functions at 64 states (the A=64 kernels on "
+          f"pernode.a64_tape, MG94 C=1, float32, {len(trees)} trees x "
+          f"{eng.pattern_pad} patterns, CUDA events around the calls): "
+          + "; ".join(f"{name} {k:.4f} ms, plain {p:.4f} ms"
+                      for name, (k, p) in pn.items())
+          + f"; phase 2's launches of paired_ll_a64, paired_grad_a64 "
+          f"{pernode_launches}; on {card}")
 
     def evals_per_s(kernel, calls, make=eng.branch_eval_fn):
         eng.kernel = kernel
@@ -2487,6 +2684,14 @@ def main():
           f"({so.name})")
     for kernel, spill, regs in ptxas_usage(so.with_suffix(".log").read_text()):
         print(f"#   ptxas {kernel}: {regs}; {spill}")
+    mix = sass_mix(so)
+    for kernel in TENSOR_KERNELS:
+        ops = mix.get(kernel, collections.Counter())
+        print(f"#   SASS {kernel}: {sum(ops.values())} instructions, "
+              f"{ops['HMMA']} HMMA, {ops['HGMMA']} HGMMA; most used "
+              + ", ".join(f"{op} {n}" for op, n in ops.most_common(10)))
+        check(ops["HMMA"] + ops["HGMMA"] > 0,
+              f"{kernel} runs on the tensor cores (HMMA or HGMMA in its SASS)")
 
     # -- the workload ---------------------------------------------------------
     trees, sp, model = flagship()
@@ -2611,6 +2816,8 @@ def main():
     rooted_inputs = rooted_files(rooted_dir.name)
     rooted_calls = rooted_parity(rooted_inputs, dev)
     codon_work, codon_calls = codon_parity(dev, errs)
+    codon_edge_parity(dev)
+    pernode_a64_launches = codon_pernode_parity(dev)
 
     ends.append(time.perf_counter())
     # -- 3. the paths ------------------------------------------------------------
@@ -2620,10 +2827,11 @@ def main():
     bl64 = bl.double()
     refs = [(ll_ref, g_ref)] + [ref_fn(bl64 * f) for f in scales]
 
-    def against_reference(path, lls, pairs, refs=refs):
+    def against_reference(path, lls, pairs, refs=refs, bound=BOUND):
         """Hold the path's (ll) and sweep (ll, grads) against the float64
-        engine's `refs`: lls at the base branch lengths, pairs [(ll,
-        grads)] beside refs, at the base and then at scaled lengths."""
+        engine's `refs` within `bound`: lls at the base branch lengths,
+        pairs [(ll, grads)] beside refs, at the base and then at scaled
+        lengths."""
         ll_r0, g_r0 = refs[0]
         check(pairs[0][0].shape == ll_r0.shape
               and pairs[0][1].shape == g_r0.shape, f"{path} output shapes")
@@ -2638,8 +2846,8 @@ def main():
         print(f"# phase 3: {path} path against the float64 engine (scan "
               f"tape), worst over {len(g_errs)} calls: LL rel err "
               f"{max(ll_errs):.3e}, grad max-abs/max|g| {max(g_errs):.3e} "
-              f"(bound {BOUND:g})")
-        check(max(ll_errs + g_errs) <= BOUND,
+              f"(bound {bound:g})")
+        check(max(ll_errs + g_errs) <= bound,
               f"{path} path agrees with the float64 engine")
 
     launches = {}
@@ -2848,12 +3056,17 @@ def main():
         p2 = cuda_ms(plain, 5)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
                        (l1 + l2) / 2 if library else None)
-        b_ms, b_by = kernel_bound(*work[name])
+        b_ms, b_by = bound_of(name, work)
         shape = LAB_SHAPES.get(name, f"float32, {BATCH} trees x "
                                      f"{eng.pattern_pad} patterns")
         terms = (f" (terms: device memory {bound(*work[name][:2])[0]:.4f}, "
                  f"shared memory {work[name][3]:.4f})"
                  if len(work[name]) > 3 else "")
+        if "peak" in KERNELS[name]:  # on the tensor cores: both bounds
+            fma_ms = bound(*work[name][:2])[0]
+            terms = (f" at 3xTF32 ({100 * b_ms / times[name][0]:.1f}% of "
+                     f"it); at float32 FMAs {fma_ms:.4f} ms ("
+                     f"{100 * fma_ms / times[name][0]:.1f}%)")
         print(f"# phase 4: {name} kernel {times[name][0]:.4f} ms ("
               + (GRAPH_TIMING if name in GRAPH_TIMED else "CUDA events around "
                  "the calls") + f"), plain {times[name][1]:.4f} ms"
@@ -2922,7 +3135,7 @@ def main():
           + f"; one auto LL+gradient call at B={BATCH} takes "
           f"{auto_rate[1]:.4f} ms on {card}")
     nni_kernel_times(nni_run, dev, card)
-    codon_times(codon_run, card)
+    codon_times(codon_run, card, pernode_a64_launches)
     del codon_run
     # Last, since its torch.profiler pass leaves the profiler set up.
     t0 = time.perf_counter()
@@ -2937,7 +3150,7 @@ def main():
     # -- 5. results -------------------------------------------------------------
     kernels = []
     for name, spec in KERNELS.items():
-        b_ms, b_by = kernel_bound(*work[name])
+        b_ms, b_by = bound_of(name, work)
         kernels.append(
             {"name": name, "route": "cuda", "source": spec["source"],
              "replaces": spec["replaces"], "launches": launches[name],

@@ -265,6 +265,11 @@ def test_wrappers_reject_operands_the_kernels_do_not_take(cuda):
 MG94 = {"substitution_model_rates": np.array([2.5, 0.3]),
         "substitution_model_frequencies": np.array([0.3, 0.2, 0.3, 0.2])}
 A64 = (paired.paired_ll_a64, paired.paired_grad_a64)
+# The A=64 kernels against float64 on the same float32 operands: 3xTF32
+# reads at most 2.7e-7 (chip_smoke.py, tests/test_torch_a64_tf32.py), one
+# TF32 pass at least 3.1e-5 on the gradients, so the limit tells them
+# apart (5e-5, the guard, does not).
+A64_LIMIT = 1e-6
 
 
 def _codon_engine(site, seed, num_taxa, num_trees, rooted, device, dtype,
@@ -291,8 +296,9 @@ def _codon_engine(site, seed, num_taxa, num_trees, rooted, device, dtype,
 def test_a64_kernels_match_plain(cuda, site, rooted, num_trees, patterns):
     """Both A=64 kernels at C = 1, 2 and 4 on trifurcating and bifurcating
     roots against their plain versions in float64 on the same float32
-    operands (uniformized P, dP = Q P); `patterns` cuts the pattern axis
-    to a width that is not a multiple of a block's 64 patterns."""
+    operands (uniformized P, dP = Q P) within A64_LIMIT; `patterns` cuts
+    the pattern axis to a width that is not a multiple of a block's
+    patterns."""
     eng, trees, params = _codon_engine(site, 3, 9, num_trees, rooted, cuda,
                                        torch.float32)
     enc = eng.encode(trees)
@@ -314,8 +320,64 @@ def test_a64_kernels_match_plain(cuda, site, rooted, num_trees, patterns):
     assert [f.launches - n for f, n in zip(A64, before)] == [1, 1]
     ll_ref, g_ref = paired.paired_ll_and_gradients_ref(
         dst, tip, src, e, mask, *_f64(P, dP, tips, pi, prop, w))
-    assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
-    assert _norm(g, g_ref) < 5e-5
+    assert _rel(ll, ll_ref) < A64_LIMIT and _rel(ll2, ll_ref) < A64_LIMIT
+    assert _norm(g, g_ref) < A64_LIMIT
+
+
+def _a64_operands(eng, trees, params):
+    """The paired A=64 grad kernel's float32 operands from the engine's
+    own prep (uniformized P, dP = Q P)."""
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(
+        eig, rates, clock, eng.branch_length_matrix(trees, enc),
+        Q=eng._rate_Q(params))
+    return (dst, tip, src, e, mask, P, dP, eng._kernel_tips, pi, prop,
+            eng._kernel_weights)
+
+
+def test_a64_kernels_take_three_tf32_passes(cuda):
+    """The grad kernel's gradients lie nearer to the 3xTF32 emulation
+    (paired.paired_ll_and_gradients_tf32 on the CPU) than to the same walk
+    with one TF32 pass, on the same float32 operands."""
+    eng, trees, params = _codon_engine("gamma+2", 4, 8, 2, False, cuda,
+                                       torch.float32)
+    ops = _a64_operands(eng, trees, params)
+    _, g = paired.paired_ll_and_gradients(*ops)
+    cpu = [x.cpu() for x in ops]
+    _, g3 = paired.paired_ll_and_gradients_tf32(*cpu)
+    _, g1 = paired.paired_ll_and_gradients_tf32(*cpu, passes=1)
+    g = g.cpu()
+    assert _norm(g, g3) < 0.1 * _norm(g, g1)
+
+
+@pytest.mark.parametrize("branch_length", [1e-6, 1e-8])
+def test_a64_kernels_keep_float32_range(cuda, branch_length):
+    """Tips whose cherries differ at all three codon positions, every
+    branch `branch_length` long (_synthetic.disagreeing_codons): each
+    cherry's partial is near the cube of the length, so a product of two
+    children's scales leaves float32.  Both kernels stay finite and within
+    A64_LIMIT of their float64 plain versions."""
+    newick, aln = _synthetic.disagreeing_codons(0, 4, 64, branch_length)
+    coll = parse_newick_text(newick)
+    eng = TreeLikelihoodEngine(
+        CodonSitePattern(aln, coll.taxon_names),
+        PhyloModel(PhyloModelSpecification("MG94", "constant")),
+        device=cuda, dtype=torch.float32)
+    params = params_from_numpy(dict(MG94), cuda, torch.float32)
+    ops = _a64_operands(eng, coll.trees, params)
+    before = [f.launches for f in A64]
+    ll = paired.paired_log_likelihoods(*ops[:2], ops[3], ops[5], *ops[7:])
+    ll2, g = paired.paired_ll_and_gradients(*ops)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(A64, before)] == [1, 1]
+    ll_ref, g_ref = paired.paired_ll_and_gradients_ref(
+        *ops[:5], *_f64(*ops[5:]))
+    assert all(bool(torch.isfinite(x).all()) for x in (ll, ll2, g))
+    assert _rel(ll, ll_ref) < A64_LIMIT and _rel(ll2, ll_ref) < A64_LIMIT
+    assert _norm(g, g_ref) < A64_LIMIT
 
 
 def test_engine_auto_takes_the_a64_kernels(cuda):
@@ -589,6 +651,84 @@ def test_pernode_grad_raises_without_falling_back(cuda):
         pernode.pernode_ll_and_gradients(*args[:4], shifted, *args[5:],
                                          onchip=onchip)
     assert _pernode_launched(before) == [0, 0, 0, 0]
+
+
+def _codon_pernode_operands(site, rooted, num_trees, patterns, device):
+    """An MG94 case's per-node operands in float32 on the card (the
+    engine's uniformized P, dP = Q P), the pattern axis cut to
+    `patterns`: (enc, post, pre, root, mask, P, dP, tips, pi, prop, w)."""
+    eng, trees, params = _codon_engine(site, 5, 8, num_trees, rooted, device,
+                                       torch.float32)
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, num_trees)
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(
+        eig, rates, clock, eng.branch_length_matrix(trees, enc),
+        Q=eng._rate_Q(params))
+    S = patterns or eng.pattern_pad
+    tips = eng._kernel_tips[..., :S].contiguous()
+    w = eng._kernel_weights[:S].contiguous()
+    post, pre, root = _pernode_tapes(enc, device)
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=device)
+    return enc, post, pre, root, mask, P, dP, tips, pi, prop, w
+
+
+@pytest.mark.parametrize("site,rooted,num_trees,patterns", [
+    ("constant", False, 3, None), ("gamma+2", True, 2, 77),
+    ("weibull+4", False, 2, 130)])
+def test_pernode_a64_functions_match_plain(cuda, site, rooted, num_trees,
+                                           patterns):
+    """pernode_log_likelihoods and pernode_ll_and_gradients at 64 states
+    launch the paired A=64 kernels (one launch each, no per-node body) and
+    agree with their plain versions in float64 on the same float32
+    operands within A64_LIMIT, with and without the tape given."""
+    enc, post, pre, root, mask, P, dP, tips, pi, prop, w = (
+        _codon_pernode_operands(site, rooted, num_trees, patterns, cuda))
+    tape = pernode.a64_tape(enc.post_ops, enc.root, enc.num_taxa,
+                            enc.num_slots, cuda, pre_ops=enc.pre_ops)
+    ll_ref, g_ref = pernode.pernode_ll_and_gradients_ref(
+        post, pre, root, mask, *_f64(P, dP, tips, pi, prop, w))
+    for onchip in (None, tape):
+        before = [f.launches for f in A64]
+        others = [f.launches for f in PERNODE]
+        ll = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop, w,
+                                             onchip=onchip)
+        ll2, g = pernode.pernode_ll_and_gradients(
+            post, pre, root, mask, P, dP, tips, pi, prop, w, onchip=onchip)
+        torch.cuda.synchronize()
+        assert [f.launches - n for f, n in zip(A64, before)] == [1, 1]
+        assert _pernode_launched(others) == [0, 0, 0, 0]
+        assert _rel(ll, ll_ref) < A64_LIMIT and _rel(ll2, ll_ref) < A64_LIMIT
+        assert _norm(g, g_ref) < A64_LIMIT
+
+
+def test_pernode_a64_raises_without_falling_back(cuda):
+    """At 64 states the per-node functions raise on a tape that is not the
+    operands' a64_tape, on a grad tape derived without pre_ops, on a
+    preorder of another tree and on operands the kernels do not take,
+    before any launch."""
+    enc, post, pre, root, mask, P, dP, tips, pi, prop, w = (
+        _codon_pernode_operands("constant", False, 2, None, cuda))
+    args = (post, pre, root, mask, P, dP, tips, pi, prop, w)
+    before = [f.launches for f in A64]
+    with pytest.raises(ValueError, match="a64_tape"):
+        pernode.pernode_log_likelihoods(
+            post, root, P, tips, pi, prop, w, onchip=pernode.ll_tape(
+                enc.post_ops, enc.root, enc.num_taxa, enc.num_slots, cuda))
+    with pytest.raises(ValueError, match="pre_ops"):
+        pernode.pernode_ll_and_gradients(*args, onchip=pernode.a64_tape(
+            enc.post_ops, enc.root, enc.num_taxa, enc.num_slots, cuda))
+    swapped = pre[[1, 0]].contiguous()  # the other tree's preorder
+    with pytest.raises(ValueError, match="parent"):
+        pernode.pernode_ll_and_gradients(post, swapped, *args[2:])
+    with pytest.raises(TypeError):
+        pernode.pernode_ll_and_gradients(*args[:4], P.double(), dP.double(),
+                                         *args[6:])
+    with pytest.raises(ValueError, match="rate categories"):
+        pernode.pernode_log_likelihoods(
+            post, root, P.repeat(1, 1, 9, 1, 1), tips, pi,
+            prop.repeat(9) / 9, w)
+    assert [f.launches for f in A64] == before
 
 
 def _flagship_engine(num_trees, device, dtype):
