@@ -12,13 +12,32 @@ The public surface is bito_tpu's (itself the reference pybind module
 specifications and bitset factories, beside the port's device policy
 (PRODUCT_DEVICE, PRODUCT_DTYPE, TEST_DEVICE, TEST_DTYPE).  Every instance
 takes `device=` and `dtype=`, the card in float32 by default.  bito_tpu's
-persistent XLA compilation cache has no counterpart, and its start-up
-join of a multi-process job waits for the port's torch.distributed work.
+persistent XLA compilation cache has no counterpart: torch compiles no
+program a shape, and the CUDA kernels are built once into
+bito_tpu_torch/_build (treelike/_kernels.py).  As bito_tpu does, the
+package joins a multi-process job when it is imported with
+BITO_COORDINATOR set (dist/multihost.py, which dist/launch.py drives).
 
 This package imports torch and numpy only, never jax and never bito_tpu,
 and importing it builds nothing (neither the CUDA kernels nor the native
 library).
 """
+import os as _os
+
+
+def _maybe_init_distributed():
+    """Join a multi-process job at import, as bito_tpu does: activated by
+    BITO_COORDINATOR, which dist.launch sets; without it nothing happens.
+    Explicit callers can run dist.multihost.initialize(...) instead."""
+    if not _os.environ.get("BITO_COORDINATOR"):
+        return
+    from .dist import multihost
+
+    multihost.initialize()
+
+
+_maybe_init_distributed()
+
 from .device import PRODUCT_DEVICE, PRODUCT_DTYPE, TEST_DEVICE, TEST_DTYPE
 
 from .api.instances import (

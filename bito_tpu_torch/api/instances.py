@@ -731,7 +731,9 @@ class RootedSBNInstance(GenericSBNInstance):
             return ll_with(p)
 
         y0 = torch.as_tensor(np.concatenate([y for _, y, _ in blocks]), **kw)
-        jac = self._per_tree_jacobian(f, y0, B).cpu().numpy()
+        # A pattern-sharded engine's tape sums this rank's patterns only.
+        jac = engine._all_reduce(
+            self._per_tree_jacobian(f, y0, B)).cpu().numpy()
         for (key, _, _), a, b in zip(blocks, starts, ends):
             out[key] = jac[:, a:b]
         if "substitution_model" in out and spec.substitution == "HKY":

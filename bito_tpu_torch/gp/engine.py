@@ -32,8 +32,13 @@ torch operations, run level by level from Python:
 Every entry point runs on the engine's device in its dtype; a CUDA device
 without a card raises (device.resolve).
 
-Left out, waiting for the port's torch.distributed work: shard_patterns
-(bito_tpu's site-pattern sharding over a device mesh).
+shard_patterns(group) splits the site patterns over the ranks of a
+torch.distributed process group, as bito_tpu's shards them over a device
+mesh: each rank keeps its slice of the tips and weights, and every sum
+over patterns (the per-edge and marginal likelihoods, every line
+search's objective and derivatives, the quartet totals) is all-reduced
+over the group through the programs' `reduce` argument, so every rank
+takes the same line searches and holds the same branch lengths.
 """
 from __future__ import annotations
 
@@ -54,6 +59,7 @@ from ..dag.schedule import (
 )
 from ..dag.subsplit_dag import LEFT, RIGHT, SubsplitDAG
 from ..device import PRODUCT_DEVICE, PRODUCT_DTYPE, resolve
+from ..dist.mesh import PatternSharded, unsharded
 from . import optimize
 
 MIN_LOG_BL = -13.9       # reference src/dag_branch_handler.hpp:272
@@ -204,11 +210,13 @@ def _populate_impl(idx, blc, qc, tips, np1, n_taxa):
     return plv, ls
 
 
-def _likelihoods_impl(idx, plv, ls, blc, qc, weights):
+def _likelihoods_impl(idx, plv, ls, blc, qc, weights, reduce=unsharded):
     """Per-edge log likelihoods + per-site log marginal + total marginal
     (reference GPDAG::ComputeLikelihoods + IncrementMarginalLikelihood).
     Outputs are capacity-sized; padded edge rows are masked to zero and
-    padded rootsplit rows are not written."""
+    padded rootsplit rows are not written.  `reduce` makes the per-edge
+    and total sums over this rank's patterns the whole alignment's (one
+    all_reduce); the per-site log marginal stays this rank's."""
     _, q_ext = _ext(blc, qc)
     trans = jc69_transition(blc)
     r = plv[idx["like_r_plv"], idx["like_parent"]]      # [ecap, 4, S]
@@ -239,11 +247,12 @@ def _likelihoods_impl(idx, plv, ls, blc, qc, weights):
     # rootsplit rows carry edge ecap, past the end, and are not written.
     real = rootsplit_edges < per_edge.shape[0]
     per_edge[rootsplit_edges[real]] = per_edge_root[real]
-    return per_edge, log_marginal_site, log_marginal_site @ weights
+    sums = reduce(torch.cat([per_edge, (log_marginal_site @ weights)[None]]))
+    return sums[:-1], log_marginal_site, sums[-1]
 
 
 def _estimate_impl(idx, blc, qc, tips, weights, tol, edge_mask, np1,
-                   n_taxa, method, max_iter):
+                   n_taxa, method, max_iter, reduce=unsharded):
     """EstimateBranchLengths' coordinate ascent: populate, then while
     (it < max_iter and mean |dbl| over real edges >= tol) { sweep;
     populate }, the mean read back to the host once a sweep.  Returns
@@ -254,7 +263,8 @@ def _estimate_impl(idx, blc, qc, tips, weights, tol, edge_mask, np1,
     it = 0
     while it < max_iter:
         old = blc
-        plv, ls, blc = _sweep_impl(idx, plv, ls, blc, qc, weights, method)
+        plv, ls, blc = _sweep_impl(idx, plv, ls, blc, qc, weights, method,
+                                   reduce)
         plv, ls = _populate_impl(idx, blc, qc, tips, np1, n_taxa)
         diffs = torch.abs(blc - old) * edge_mask
         it += 1
@@ -285,29 +295,38 @@ def _ll_and_tangent(r, p, w, t, dt):
     return torch.log(v) @ w, (dv / v) @ w
 
 
-def _optimize_side(plv, bl_ext, edges, parents, children, r_plv, w, method):
+def _optimize_side(plv, bl_ext, edges, parents, children, r_plv, w, method,
+                   reduce=unsharded):
     """Batched per-edge 1-D optimization over one side's edges
     (reference DAGBranchHandler::OptimizeBranchLength,
     src/dag_branch_handler.cpp:123-285); padding rows optimize a flat
     objective and write the dummy bl slot.  Returns the new bl_ext.
     First derivatives are the closed forms of _ll_and_tangent; Newton's
-    second derivative is one jvp of that first derivative (torch.func)."""
+    second derivative is one jvp of that first derivative (torch.func),
+    taken on this rank's sum, which is linear in it, before `reduce`
+    (one all_reduce an evaluation, of every quantity it returns)."""
     dtype = bl_ext.dtype
     r = plv[r_plv, parents]               # [K, 4, S]
     p = plv[P, children]
 
     def ll_of_t(t):
-        return _log_positive(_edge_values(r, jc69_transition(t), p)) @ w
+        return reduce(_log_positive(_edge_values(r, jc69_transition(t), p))
+                      @ w)
 
     def ll_y(y):
         return ll_of_t(torch.exp(y))
 
-    def ll_prime_y(y):  # d ll(exp(y)) / dy = ll'(x) x
+    def local_ll_prime_y(y):  # d ll(exp(y)) / dy = ll'(x) x, this rank's
         x = torch.exp(y)
         return _ll_and_tangent(r, p, w, x, x * 1.0)[1]
 
+    def ll_prime_y(y):
+        return reduce(local_ll_prime_y(y))
+
     def ffp(x):  # (ll, d ll / d x)
-        return _ll_and_tangent(r, p, w, x, torch.ones_like(x))
+        both = reduce(torch.stack(_ll_and_tangent(r, p, w, x,
+                                                  torch.ones_like(x))))
+        return both[0], both[1]
 
     guess_x = bl_ext[edges]
     lo = torch.full(edges.shape, MIN_LOG_BL, dtype=dtype, device=r.device)
@@ -340,7 +359,12 @@ def _optimize_side(plv, bl_ext, edges, parents, children, r_plv, w, method):
             torch.full_like(guess_x, float(np.exp(MIN_LOG_BL))))
     elif method == "newton":
         def f3(y):
-            return ll_y(y), ll_prime_y(y), _per_lane_grad(ll_prime_y, y)
+            x = torch.exp(y)
+            local = torch.stack([
+                _log_positive(_edge_values(r, jc69_transition(x), p)) @ w,
+                local_ll_prime_y(y), _per_lane_grad(local_ll_prime_y, y)])
+            both = reduce(local)
+            return both[0], both[1], both[2]
 
         y_opt = optimize.newton_raphson_batched(
             f3, torch.log(guess_x), lo, hi)
@@ -360,10 +384,11 @@ def _rebuild_phat(plv, ls, bl_ext, q_ext, edge, dest, src, ptype, nodes):
     _write_levels(plv, ls, acc, acc_ls, (ptype,), nodes)
 
 
-def _sweep_impl(idx, plv, ls, blc, qc, weights, method):
+def _sweep_impl(idx, plv, ls, blc, qc, weights, method, reduce=unsharded):
     """One leafward optimization sweep (the tidy traversal, levelized);
     see GPEngine.optimize_branch_lengths_once.  Works on copies of plv and
-    ls, which it returns with the new branch lengths."""
+    ls, which it returns with the new branch lengths.  `reduce`: as in
+    _optimize_side."""
     plv, ls = plv.clone(), ls.clone()
     bl_ext, q_ext = _ext(blc, qc)
     _seed_rhat(plv, ls, q_ext, idx["rootsplit_nodes"],
@@ -379,14 +404,16 @@ def _sweep_impl(idx, plv, ls, blc, qc, weights, method):
         # Right side: RRight = RHat o PHatLeft, optimize, rebuild.
         _multiply_rescale(plv, ls, RRIGHT, RHAT, PHAT_LEFT, lvl["nodes"])
         bl_ext = _optimize_side(plv, bl_ext, lvl["r_edge"], lvl["r_parent"],
-                                lvl["r_child"], RRIGHT, weights, method)
+                                lvl["r_child"], RRIGHT, weights, method,
+                                reduce)
         _rebuild_phat(plv, ls, bl_ext, q_ext, lvl["reb_r_edge"],
                       lvl["reb_r_dest"], lvl["reb_r_src"], PHAT_RIGHT,
                       lvl["internal"])
         # Left side.
         _multiply_rescale(plv, ls, RLEFT, RHAT, PHAT_RIGHT, lvl["nodes"])
         bl_ext = _optimize_side(plv, bl_ext, lvl["l_edge"], lvl["l_parent"],
-                                lvl["l_child"], RLEFT, weights, method)
+                                lvl["l_child"], RLEFT, weights, method,
+                                reduce)
         _rebuild_phat(plv, ls, bl_ext, q_ext, lvl["reb_l_edge"],
                       lvl["reb_l_dest"], lvl["reb_l_src"], PHAT_LEFT,
                       lvl["internal"])
@@ -394,7 +421,7 @@ def _sweep_impl(idx, plv, ls, blc, qc, weights, method):
     return plv, ls, bl_ext[:-1]
 
 
-class GPEngine:
+class GPEngine(PatternSharded):
     def __init__(self, site_pattern: SitePattern, dag: SubsplitDAG,
                  optimization_method: str = "brent",
                  caps: Optional[Dict[str, int]] = None,
@@ -731,6 +758,28 @@ class GPEngine:
     # ------------------------------------------------------------------
     # public API (mirroring reference GPEngine / GPInstance verbs)
     # ------------------------------------------------------------------
+    def shard_patterns(self, group=None):
+        """Shard the site-pattern axis over the ranks of `group`, a
+        torch.distributed process group (the world where None), as
+        bito_tpu/gp/engine.py:730-770 shards it over a device mesh: the
+        patterns are padded to a multiple of the group's size with all-ones
+        tips and weight 0, this rank keeps its contiguous slice
+        (`pattern_shard`; `S` is its width from here on), and the
+        per-pattern state is cleared.  DAG structure, q and branch lengths
+        stay whole on every rank, and every sum over patterns is
+        all-reduced (`_all_reduce`), so each public method returns the
+        whole alignment's value on every rank.  `log_marginal_site` holds
+        this rank's patterns."""
+        shard = self._take_shard(self.S, 1, group)
+        self.tips = shard.take(self.tips, 2, fill=1.0)
+        self.weights = shard.take(self.weights, 0, fill=0.0)
+        self.S = shard.width
+        self.plv = None
+        self.ls = None
+        self.per_edge_ll = None
+        self.log_marginal_site = None
+        self._log_marginal = None
+
     def populate_plvs(self):
         self._check_precision()
         self.plv, self.ls = _populate_impl(
@@ -742,7 +791,7 @@ class GPEngine:
         assert self.plv is not None, "Call populate_plvs first"
         per_edge, self.log_marginal_site, self._log_marginal = (
             _likelihoods_impl(self._idx, self.plv, self.ls, self._blc,
-                              self._qc, self.weights))
+                              self._qc, self.weights, self._all_reduce))
         self.per_edge_ll = per_edge[: self.schedule.edge_count]
 
     def log_marginal_likelihood(self) -> float:
@@ -785,7 +834,7 @@ class GPEngine:
         old = self._blc
         self.plv, self.ls, self._blc = _sweep_impl(
             self._idx, self.plv, self.ls, self._blc, self._qc,
-            self.weights, self.optimization_method)
+            self.weights, self.optimization_method, self._all_reduce)
         self.branch_length_differences = torch.abs(self._blc - old)[:E]
 
     def estimate_branch_lengths(self, tol: float, max_iter: int,
@@ -806,7 +855,7 @@ class GPEngine:
                 self._idx, self._blc, self._qc, self.tips, self.weights,
                 tol, self._tensor(mask), self._np1,
                 self.schedule.taxon_count, self.optimization_method,
-                max_iter)
+                max_iter, self._all_reduce)
             self.plv, self.ls, self._blc = plv, ls, blc
             self.branch_length_differences = self._host(diff)[:E]
             self.compute_likelihoods()
@@ -939,12 +988,15 @@ def _sbn_segment_softmax(q, ll, hybrid, seg_ids, nseg, singleton, covered):
 def _quartet_hybrid_program(root_pv, root_ls, root_bl, log_prior_g,
                             inv_prior_i, sis_pv, sis_ls, sis_bl, q_j,
                             central_bl, rot_pv, rot_ls, rot_bl, q_k,
-                            sor_pv, sor_ls, sor_bl, q_l, weights):
+                            sor_pv, sor_ls, sor_bl, q_l, weights,
+                            reduce=unsharded):
     """All (i, j, k, l) quartet log likelihoods of a batch of hybrid
     requests of one shape, with a leading request axis r on every input
     but the weights (replaces the reference's nested per-tip loops,
     src/gp_engine.cpp:748-816).  PV inputs are [R, N, 4, S]; scale inputs
-    [R, N, S]; returns [R, I, J, K, L] in the reference's loop order."""
+    [R, N, S]; returns [R, I, J, K, L] in the reference's loop order.
+    `reduce` makes the sums over this rank's patterns whole, before the
+    terms that are not sums over patterns are added."""
     root = torch.einsum("riab,ribs->rias", jc69_transition(root_bl), root_pv)
     sis = torch.einsum("rjab,rjbs->rjas", jc69_transition(sis_bl), sis_pv)
     rot = torch.einsum("rkab,rkbs->rkas", jc69_transition(rot_bl), rot_pv)
@@ -959,7 +1011,7 @@ def _quartet_hybrid_program(root_pv, root_ls, root_bl, log_prior_g,
                 + scales_ijk[:, :, :, :, None, :]
                 + sor_ls[:, None, None, None, :, :]
                 - log_prior_g[:, :, None, None, None, None])
-    total = torch.einsum("rijkls,s->rijkl", per_site, weights)
+    total = reduce(torch.einsum("rijkls,s->rijkl", per_site, weights))
     non_seq = (torch.log(inv_prior_i)[:, :, None, None, None]
                + torch.log(q_j)[:, None, :, None, None]
                + torch.log(q_k)[:, None, None, :, None]
@@ -1023,7 +1075,7 @@ class _HybridMixin:
             return None
         central_edge = self.dag.edge_to_id[(parent_id, child_id)]
         vals = _quartet_hybrid_program(*self._hybrid_inputs(
-            [req], [central_edge]))
+            [req], [central_edge]), reduce=self._all_reduce)
         return self._host(vals[0]).reshape(-1)
 
     def process_quartet_hybrid_request(self, parent_id: int, is_left: bool,
@@ -1063,7 +1115,7 @@ class _HybridMixin:
         for shape, reqs in groups.items():
             centrals = np.asarray([c for c, _ in reqs])
             vals = _quartet_hybrid_program(*self._hybrid_inputs(
-                [r for _, r in reqs], centrals))
+                [r for _, r in reqs], centrals), reduce=self._all_reduce)
             self.hybrid_marginal_log_likelihoods[centrals] = self._host(
                 torch.logsumexp(vals.flatten(1), dim=1))
 

@@ -18,9 +18,12 @@ Where the port differs from bito_tpu:
     (bito_tpu appends None to the supporting trees there);
   - sync_adjacent_nnis_with_dag clears `adjacent_source` with `adjacent`
     (bito_tpu keeps every key it ever saw; each current key is written
-    again either way, so no result changes);
-  - GPScoredNNIEngine has no shard_patterns: it waits for the port's
-    torch.distributed work, as GPEngine.shard_patterns does.
+    again either way, so no result changes).
+
+GPScoredNNIEngine.shard_patterns(group) shards its GP engine and every
+grafted scoring engine an iteration builds over a torch.distributed
+process group (GPEngine.shard_patterns); the DAG and the NNI sets stay
+host state, the same on every rank.
 
 DAG growth is a rebuild from the accumulated supporting trees rather than
 the reference's incremental AddNodePair + reindexing
@@ -548,9 +551,26 @@ class GPScoredNNIEngine(NNIEngine):
         # buckets only grow, so after the first iterations every engine
         # has the same index shapes.
         self._gp_caps: Dict[str, int] = {}
+        self.group = None  # set by shard_patterns() for multi-process runs
         self.gp = GPEngine(site_pattern, self.dag, caps=self._gp_caps,
                            headroom=2, device=self.device, dtype=self.dtype)
         self.gp.estimate_branch_lengths(1e-3, 10)
+
+    def shard_patterns(self, group=None):
+        """Run every GP scoring program pattern-sharded over the ranks of
+        `group` (the world where None), as bito_tpu/nni/engine.py:535-545
+        runs them over a device mesh: the persistent GP engine now, and
+        each iteration's grafted scoring engine as it is built.  The
+        persistent engine keeps its branch lengths and q, and its PLVs and
+        likelihoods, which sharding clears, are computed again from
+        them."""
+        from ..dist import mesh
+
+        group = mesh.make_group() if group is None else group
+        self.gp.shard_patterns(group)
+        self.group = group
+        self.gp.populate_plvs()
+        self.gp.compute_likelihoods()
 
     def _rebuild_engines(self):
         from contextlib import nullcontext
@@ -651,6 +671,8 @@ class GPScoredNNIEngine(NNIEngine):
             engine = GPEngine(self.site_pattern, grafted,
                               caps=self._gp_caps, headroom=2,
                               device=self.device, dtype=self.dtype)
+            if self.group is not None:
+                engine.shard_patterns(self.group)
         with ph("score.carry"):
             self._carry_branch_lengths(
                 engine,

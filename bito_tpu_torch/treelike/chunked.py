@@ -40,7 +40,9 @@ Beside them, in this module:
   - each body's launcher (`chunked_ll_onchip`, `chunked_ll_global`,
     `chunked_grad_onchip`, `chunked_grad_global`) with its launch count,
     `.launches`, raised by one where it launches its kernel and nowhere
-    else.
+    else;
+  - the pattern-sharded wrappers (`chunked_log_likelihoods_sharded`,
+    `chunked_ll_and_gradients_sharded`), as paired.py's.
 
 Operands: post_dst [B, MW], tip_slot [B, T], post_e [B, MW, 2] and
 node_row [B, N] int32 tapes (MW = Mc*W); P, dP [B, N+1, C, 4, 4]; tips
@@ -68,6 +70,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..dist import mesh
 from . import _kernels, paired
 from .paired import _check_cuda_operands, _check_shapes, _rescale, _root_rows
 
@@ -512,6 +515,30 @@ def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
         rows = chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi,
                                    props, weights, plan)
     return finish_rows(*rows, node_row, edge_mask, weights)
+
+
+def chunked_log_likelihoods_sharded(group, post_dst, tip_slot, post_e, P,
+                                    tips, pi, props, weights, *,
+                                    onchip: paired.OnchipTape | None = None
+                                    ) -> torch.Tensor:
+    """Pattern-sharded chunked_log_likelihoods: `tips` and `weights` are
+    this rank's slice of the pattern axis; one all_reduce over `group`
+    sums the per-tree totals (paired.paired_log_likelihoods_sharded)."""
+    return mesh.all_reduce_sum(chunked_log_likelihoods(
+        post_dst, tip_slot, post_e, P, tips, pi, props, weights,
+        onchip=onchip), group)
+
+
+def chunked_ll_and_gradients_sharded(group, post_dst, tip_slot, post_e,
+                                     node_row, edge_mask, P, dP, tips, pi,
+                                     props, weights, *,
+                                     onchip: paired.OnchipTape | None = None):
+    """Pattern-sharded chunked_ll_and_gradients: one all_reduce of LL [B]
+    and one of the gradients [B, N] over `group`."""
+    ll, grads = chunked_ll_and_gradients(
+        post_dst, tip_slot, post_e, node_row, edge_mask, P, dP, tips, pi,
+        props, weights, onchip=onchip)
+    return mesh.all_reduce_sum(ll, group), mesh.all_reduce_sum(grads, group)
 
 
 def finish_rows(ll_rows, grad_rows, node_row, edge_mask, weights):

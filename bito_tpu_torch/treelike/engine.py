@@ -51,6 +51,19 @@ launch policy (tree interleave, tile and VMEM sizing, category padding,
 the MXU-sized chunk width) has no counterpart: the kernels take any
 batch, pattern count and category count up to paired.MAX_CATEGORIES as
 they are.
+
+`use_leveled` (False by default, as in bito_tpu) takes the levelized
+tapes (encode.encode_trees_leveled, pruning.*_leveled_impl): a step is
+one level of every tree, and the route is the scan tape's, whatever
+`kernel` says, as bito_tpu's _use_pallas has it.  A shared codon model
+takes the uniformized transition route there as on the scan tape
+(bito_tpu's leveled impls take the eigen route).
+
+`shard_patterns(group)` splits the site patterns over the ranks of a
+torch.distributed process group (dist/): each rank keeps its slice of the
+tips and weights, runs the same route on it (the kernel wrappers, or the
+scan tape), and all-reduces each sum over patterns, so every public
+method returns the whole alignment's value on every rank.
 """
 from __future__ import annotations
 
@@ -62,15 +75,17 @@ import torch
 from ..core.site_pattern import SitePattern
 from ..core.tree import Tree
 from ..device import PRODUCT_DEVICE, PRODUCT_DTYPE, resolve
+from ..dist.mesh import PatternSharded
 from ..models.phylo_model import PhyloModel
 from ..models.substitution import EigenDecomp
 from . import chunked, paired, prep, pruning
-from .encode import TreeBatchEncoding, encode_trees
+from .encode import (LeveledEncoding, TreeBatchEncoding, encode_trees,
+                     encode_trees_leveled)
 
 KERNELS = ("auto", "scan", "cuda", "chunked")
 
 
-class TreeLikelihoodEngine:
+class TreeLikelihoodEngine(PatternSharded):
     """Batched likelihood/gradient evaluation for a fixed tree batch.
 
     The encoding is rebuilt when topologies change; branch lengths and model
@@ -104,7 +119,11 @@ class TreeLikelihoodEngine:
         self._encoding: Optional[TreeBatchEncoding] = None
         self._encoding_key = None
         self._tapes: Dict[str, tuple] = {}
+        self._leveled: Optional[LeveledEncoding] = None
+        self._leveled_key = None
+        self._leveled_tapes_cache: Optional[tuple] = None
         self.kernel = "auto"
+        self.use_leveled = False
 
     # -- kernel selection --------------------------------------------------
     def _route(self, shared_model: bool) -> str:
@@ -112,6 +131,8 @@ class TreeLikelihoodEngine:
         if self.kernel not in KERNELS:
             raise ValueError(f"kernel must be one of {KERNELS}, "
                              f"got {self.kernel!r}")
+        if self.use_leveled:
+            return "scan"
         if self.kernel in ("cuda", "chunked") and not shared_model:
             raise ValueError(f"kernel={self.kernel!r} takes one model shared "
                              "by the batch; per-tree parameter rows need the "
@@ -149,6 +170,33 @@ class TreeLikelihoodEngine:
             {k: torch.as_tensor(params[k], **kw) for k in self.model.blocks},
             **kw)
 
+    # -- pattern sharding ------------------------------------------------
+    def shard_patterns(self, group=None):
+        """Shard the site-pattern axis over the ranks of `group`, a
+        torch.distributed process group (the world where None): this rank
+        keeps its slice of the tips and weights (`pattern_shard`), and
+        every sum over patterns is all-reduced over the group, so each
+        public method returns the whole alignment's value on every rank.
+        Tree encodings, branch lengths and model parameters stay whole on
+        every rank, as in bito_tpu (bito_tpu/treelike/engine.py:385-414).
+
+        The pattern axis is padded to a multiple of the group's size times
+        paired.PATTERN_MULTIPLE with all-ones tips of the model's
+        num_states states and weight 0, then split into equal contiguous
+        slices.  (bito_tpu pads with 4-state tips whatever the model.)
+        The routes stay those of the unsharded engine: the same kernel
+        wrappers or the scan tape on the slice, then one all_reduce a
+        result (as paired.py's and chunked.py's *_sharded wrappers do).
+        `pattern_pad` is the slice's width from here on."""
+        shard = self._take_shard(self.pattern_pad, paired.PATTERN_MULTIPLE,
+                                 group)
+        self.tip_partials = shard.take(self.tip_partials, 1, fill=1.0)
+        self.weights = shard.take(self.weights, 0, fill=0.0)
+        self._kernel_tips = self.tip_partials.transpose(1, 2).to(
+            self._operand_dtype).contiguous()
+        self._kernel_weights = self.weights.to(self._operand_dtype)
+        self.pattern_pad = shard.width
+
     # -- encoding cache -------------------------------------------------
     def encode(self, trees: Sequence[Tree]) -> TreeBatchEncoding:
         key = tuple(t.topology.key() for t in trees)
@@ -157,6 +205,28 @@ class TreeLikelihoodEngine:
             self._encoding_key = key
             self._tapes = {}
         return self._encoding
+
+    def encode_leveled(self, trees: Sequence[Tree]) -> LeveledEncoding:
+        """The levelized encoding of the batch, cached by topology."""
+        key = tuple(t.topology.key() for t in trees)
+        if key != self._leveled_key:
+            self._leveled = encode_trees_leveled([t.topology for t in trees])
+            self._leveled_key = key
+            self._leveled_tapes_cache = None
+        return self._leveled
+
+    def _leveled_tapes(self, trees: Sequence[Tree]):
+        """(post_levels, pre_levels, root, edge_mask, num_slots) on the
+        device for the leveled impls, cached with the levelized encoding."""
+        lev = self.encode_leveled(trees)
+        if self._leveled_tapes_cache is None:
+            dev = self.device
+            self._leveled_tapes_cache = tuple(
+                torch.as_tensor(x, dtype=torch.long, device=dev)
+                for x in (lev.post_levels, lev.pre_levels, lev.root)) + (
+                torch.as_tensor(lev.edge_mask, dtype=self.dtype, device=dev),
+                lev.num_slots)
+        return self._leveled_tapes_cache
 
     def _scan_tapes(self, enc: TreeBatchEncoding):
         """(post_ops, pre_ops, root, edge_mask) on the device, cached with
@@ -282,28 +352,35 @@ class TreeLikelihoodEngine:
         eig, rates, props, clock = self._model_ingredients(params, len(trees))
         route = self._route(self._shared_model(params))
         Q = self._rate_Q(params)
+        if route == "scan" and self.use_leveled:
+            post_levels, _pre, root, _mask, N = self._leveled_tapes(trees)
+            return self._all_reduce(pruning.log_likelihoods_leveled_impl(
+                post_levels, root, self.tip_partials, self.weights, bl,
+                eig, rates, props, clock, Q, num_slots=N,
+                pattern_pad=self.pattern_pad,
+                category_count=self.model.category_count))
         if route == "scan":
             post_ops, _pre, root, _mask = self._scan_tapes(enc)
-            return pruning.log_likelihoods_impl(
+            return self._all_reduce(pruning.log_likelihoods_impl(
                 post_ops, root, self.tip_partials, self.weights, bl,
                 eig, rates, props, clock, Q,
                 num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
-                category_count=self.model.category_count)
+                category_count=self.model.category_count))
         dt = self._operand_dtype
         pi, prop = prep.kernel_model(eig, props, dt)
         P = prep.prepare_inputs(eig, rates, clock, bl, dt, Q=Q)
-        tips, w = self._kernel_tips, self._kernel_weights
+        ops = (P, self._kernel_tips, pi, prop, self._kernel_weights)
         if route == "paired":
             post_dst, tip_slot, _src, post_e, _mask = self._paired_tapes(enc)
-            ll = paired.paired_log_likelihoods(
-                post_dst, tip_slot, post_e, P, tips, pi, prop, w,
-                onchip=self._onchip_tape(enc))
+            tapes, onchip = (post_dst, tip_slot, post_e), self._onchip_tape(enc)
+            wrapper = paired.paired_log_likelihoods
         else:
             post_dst, tip_slot, post_e, _row, _mask = self._chunked_tapes(enc)
-            ll = chunked.chunked_log_likelihoods(
-                post_dst, tip_slot, post_e, P, tips, pi, prop, w,
-                onchip=self._chunked_onchip_tape(enc))
-        return ll.to(self.dtype)
+            tapes = (post_dst, tip_slot, post_e)
+            onchip = self._chunked_onchip_tape(enc)
+            wrapper = chunked.chunked_log_likelihoods
+        return self._all_reduce(wrapper(*tapes, *ops, onchip=onchip)).to(
+            self.dtype)
 
     def ll_and_branch_gradients(self, trees: Sequence[Tree], params,
                                 branch_lengths=None):
@@ -321,15 +398,29 @@ class TreeLikelihoodEngine:
         eig, rates, props, clock = self._model_ingredients(params, len(trees))
         route = self._route(self._shared_model(params))
         Q = self._rate_Q(params)
+        if route == "scan" and self.use_leveled:
+            post_levels, pre_levels, root, edge_mask, N = (
+                self._leveled_tapes(trees))
+
+            def fn(bl):
+                ll, grads = pruning.ll_and_branch_gradients_leveled_impl(
+                    post_levels, pre_levels, root, edge_mask,
+                    self.tip_partials, self.weights, bl, eig, rates, props,
+                    clock, Q, num_slots=N, pattern_pad=self.pattern_pad,
+                    category_count=self.model.category_count)
+                return self._all_reduce(ll), self._all_reduce(grads)
+
+            return fn
         if route == "scan":
             post_ops, pre_ops, root, edge_mask = self._scan_tapes(enc)
 
             def fn(bl):
-                return pruning.ll_and_branch_gradients_impl(
+                ll, grads = pruning.ll_and_branch_gradients_impl(
                     post_ops, pre_ops, root, edge_mask, self.tip_partials,
                     self.weights, bl, eig, rates, props, clock, Q,
                     num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
                     category_count=self.model.category_count)
+                return self._all_reduce(ll), self._all_reduce(grads)
 
             return fn
 
@@ -343,9 +434,8 @@ class TreeLikelihoodEngine:
             def kernel(bl):
                 P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl, dt,
                                                    Q=Q)
-                return paired.paired_ll_and_gradients(
-                    post_dst, tip_slot, post_src, post_e, mask, P, dP, tips,
-                    pi, prop, w, onchip=onchip)
+                return paired.paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, mask, P,
+                               dP, tips, pi, prop, w, onchip=onchip)
         else:
             post_dst, tip_slot, post_e, node_row, mask = self._chunked_tapes(
                 enc)
@@ -353,13 +443,13 @@ class TreeLikelihoodEngine:
 
             def kernel(bl):
                 P, dP = prep.prepare_inputs_grad(eig, rates, clock, bl, dt)
-                return chunked.chunked_ll_and_gradients(
-                    post_dst, tip_slot, post_e, node_row, mask, P, dP, tips,
-                    pi, prop, w, onchip=onchip)
+                return chunked.chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row, mask, P,
+                               dP, tips, pi, prop, w, onchip=onchip)
 
         def fn(bl):
             ll, grads = kernel(bl)
-            return ll.to(self.dtype), grads.to(self.dtype)
+            return (self._all_reduce(ll).to(self.dtype),
+                    self._all_reduce(grads).to(self.dtype))
 
         return fn
 
@@ -406,5 +496,6 @@ class TreeLikelihoodEngine:
             torch.as_tensor(mask, device=self.device),
             num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
             category_count=self.model.category_count,
-            iterations=iterations)
+            iterations=iterations,
+            reduce=self._all_reduce)
         return out.cpu().numpy()

@@ -45,7 +45,12 @@ Beside them, in this module:
     `paired_grad_onchip`, `paired_grad_global`), which returns the
     per-pattern rows (`finish_rows` sums them) and counts its launches in
     `.launches`, raised by one where it launches its kernel and nowhere
-    else.
+    else;
+  - the pattern-sharded wrappers (`paired_log_likelihoods_sharded`,
+    `paired_ll_and_gradients_sharded`): each rank of a process group runs
+    the public wrapper on its slice of the pattern axis, and one
+    all_reduce a result sums the per-tree totals over the ranks
+    (bito_tpu's shard_map and psum).
 
 Operands (built by treelike/prep.py):
   post_dst [B, M], tip_slot [B, T], post_src / post_e [B, M, 2] int32 tapes;
@@ -65,11 +70,15 @@ from functools import partial
 import numpy as np
 import torch
 
+from ..dist import mesh
 from . import _kernels
 
 RESK = 4  # the tape is padded to a multiple of this many ops, as in bito_tpu
 MAX_CATEGORIES = 8  # the category counts the kernels are compiled for
 KERNEL_STATES = (4, 64)  # the state counts the paired kernels take
+# A shard's pattern count is a multiple of this (TreeLikelihoodEngine.
+# shard_patterns): the A=64 kernels copy [64, S] rows in 16-byte pieces.
+PATTERN_MULTIPLE = 4
 
 
 def _rup(x: int, m: int) -> int:
@@ -642,6 +651,33 @@ def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
         rows = paired_grad_onchip(post_dst, onchip, post_src, post_e, P, dP,
                                   tips, pi, props, weights, plan)
     return finish_rows(*rows, edge_mask, weights)
+
+
+def paired_log_likelihoods_sharded(group, post_dst, tip_slot, post_e, P,
+                                   tips, pi, props, weights, *,
+                                   onchip: OnchipTape | None = None
+                                   ) -> torch.Tensor:
+    """Pattern-sharded paired_log_likelihoods: `tips` [T, A, S_r] and
+    `weights` [S_r] are this rank's slice of the pattern axis
+    (TreeLikelihoodEngine.shard_patterns), the rest whole on every rank.
+    The same body runs on the slice, and one all_reduce over `group` sums
+    the per-tree totals: every rank gets the whole alignment's LL [B]."""
+    return mesh.all_reduce_sum(paired_log_likelihoods(
+        post_dst, tip_slot, post_e, P, tips, pi, props, weights,
+        onchip=onchip), group)
+
+
+def paired_ll_and_gradients_sharded(group, post_dst, tip_slot, post_src,
+                                    post_e, edge_mask, P, dP, tips, pi,
+                                    props, weights, *,
+                                    onchip: OnchipTape | None = None):
+    """Pattern-sharded paired_ll_and_gradients, as
+    paired_log_likelihoods_sharded: one all_reduce of LL [B] and one of
+    the gradients [B, N] over `group`."""
+    ll, grads = paired_ll_and_gradients(
+        post_dst, tip_slot, post_src, post_e, edge_mask, P, dP, tips, pi,
+        props, weights, onchip=onchip)
+    return mesh.all_reduce_sum(ll, group), mesh.all_reduce_sum(grads, group)
 
 
 def _stream():

@@ -25,6 +25,7 @@ from typing import Tuple
 
 import torch
 
+from ..dist import mesh
 from ..models.substitution import (
     EigenDecomp,
     transition_derivatives,
@@ -345,6 +346,107 @@ def log_likelihoods_differentiable(
         root, tip_partials, weights, num_slots, pattern_pad)
 
 
+# ---------------------------------------------------------------------------
+# Levelized wavefront variants (bito_tpu/treelike/pruning.py:487-600): a
+# step is one level of every tree, W ops side by side, in place of one op
+# of every tree.  Same arithmetic as the scan tape above; the engine takes
+# them where use_leveled is set (off by default, as in bito_tpu).
+# ---------------------------------------------------------------------------
+def postorder_pass_leveled(post_levels, P, partials, logscale,
+                           rescale: bool = True):
+    """post_levels: [L, B, W, 5] int64 (encode.encode_trees_leveled):
+    each level's ops (dest, s1, e1, s2, e2) of every tree at once.
+    partials and logscale are updated in place and returned.  Padded ops
+    read and write the dummy slot N, whose partials stay ones."""
+    check_precision(partials)
+    b = torch.arange(partials.shape[0], device=partials.device)[:, None]
+    for ops in post_levels:                               # [B, W, 5]
+        dest, s1, e1, s2, e2 = ops.unbind(-1)             # [B, W] each
+        prod = (_evolve(P[b, e1], partials[b, s1])
+                * _evolve(P[b, e2], partials[b, s2]))     # [B, W, C, A, S]
+        ls = logscale[b, s1] + logscale[b, s2]            # [B, W, S]
+        if rescale:
+            mx = prod.amax(dim=(2, 3))
+            mx = torch.where(mx > 0, mx, torch.ones_like(mx))
+            prod = prod / mx[:, :, None, None]
+            ls = ls + torch.log(mx)
+        partials[b, dest] = prod
+        logscale[b, dest] = ls
+    return partials, logscale
+
+
+def preorder_pass_leveled(pre_levels, P, partials, root, pi,
+                          rescale: bool = True):
+    """pre_levels: [Lp, B, Wp, 6] int64 ops (dest, parent, s1, e1, s2,
+    e2); returns the outside vectors [B, N+1, C, A, S] of preorder_pass,
+    a level of every tree at a time."""
+    B, N1, C, A, S = partials.shape
+    b = torch.arange(B, device=partials.device)
+    outside = torch.zeros_like(partials)
+    upper = torch.zeros_like(partials)
+    upper[b, root] = pi[:, None, :, None].expand(B, C, A, S)
+    b = b[:, None]
+    for ops in pre_levels:                                # [B, Wp, 6]
+        dest, parent, s1, e1, s2, e2 = ops.unbind(-1)
+        o = (upper[b, parent] * _evolve(P[b, e1], partials[b, s1])
+             * _evolve(P[b, e2], partials[b, s2]))
+        if rescale:
+            mx = o.amax(dim=(2, 3))
+            mx = torch.where(mx > 0, mx, torch.ones_like(mx))
+            o = o / mx[:, :, None, None]
+        outside[b, dest] = o
+        upper[b, dest] = _evolve_t(P[b, dest], o)
+    return outside
+
+
+def log_likelihoods_leveled_impl(
+    post_levels, root, tip_partials, weights, branch_lengths,
+    eig: EigenDecomp, category_rates, category_proportions, clock_rate,
+    Q=None, *, num_slots: int, pattern_pad: int, category_count: int,
+    rescale: bool = True,
+) -> torch.Tensor:
+    """log_likelihoods_impl on the levelized tape: [B]."""
+    B = branch_lengths.shape[0]
+    dt = tip_partials.dtype
+    P = transition_matrices_ext(eig, branch_lengths, category_rates,
+                                clock_rate, Q=Q).to(dt)
+    buf, logs = init_partials(tip_partials, B, num_slots, category_count,
+                              pattern_pad)
+    buf, logs = postorder_pass_leveled(post_levels, P, buf, logs,
+                                       rescale=rescale)
+    per_pattern = root_log_likelihood(buf, logs, root, eig.pi.to(dt),
+                                      category_proportions.to(dt))
+    return per_pattern @ weights
+
+
+def ll_and_branch_gradients_leveled_impl(
+    post_levels, pre_levels, root, edge_mask, tip_partials, weights,
+    branch_lengths, eig: EigenDecomp, category_rates, category_proportions,
+    clock_rate, Q=None, *, num_slots: int, pattern_pad: int,
+    category_count: int, rescale: bool = True,
+):
+    """ll_and_branch_gradients_impl on the levelized tapes: ([B], [B, N]),
+    the gradients from the outside vectors (branch_length_gradients), as
+    bito_tpu's leveled variant takes them."""
+    B = branch_lengths.shape[0]
+    dt = tip_partials.dtype
+    P = transition_matrices_ext(eig, branch_lengths, category_rates,
+                                clock_rate, Q=Q).to(dt)
+    dP = transition_matrices_ext(eig, branch_lengths, category_rates,
+                                 clock_rate, derivative=True, Q=Q).to(dt)
+    pi, props = eig.pi.to(dt), category_proportions.to(dt)
+    buf, logs = init_partials(tip_partials, B, num_slots, category_count,
+                              pattern_pad)
+    buf, logs = postorder_pass_leveled(post_levels, P, buf, logs,
+                                       rescale=rescale)
+    ll = root_log_likelihood(buf, logs, root, pi, props) @ weights
+    outside = preorder_pass_leveled(pre_levels, P, buf, root, pi,
+                                    rescale=rescale)
+    grads = branch_length_gradients(outside, buf, P, dP, props, weights,
+                                    edge_mask)
+    return ll, grads
+
+
 MIN_LOG_BL = -13.9   # reference src/dag_branch_handler.hpp:272
 MAX_LOG_BL = 1.1     # reference src/dag_branch_handler.hpp:275
 
@@ -355,7 +457,7 @@ def optimize_selected_branches_impl(
     sel_nodes,     # [B, K] int64 node ids to optimize (pad with num_slots)
     sel_mask,      # [B, K] bool
     *, num_slots: int, pattern_pad: int, category_count: int,
-    iterations: int = 2,
+    iterations: int = 2, reduce=mesh.unsharded,
 ) -> torch.Tensor:
     """Batched exact conditional branch-length optimization of selected
     edges (the classical-engine counterpart of the reference's
@@ -370,7 +472,10 @@ def optimize_selected_branches_impl(
     (postorder + preorder, joint Brent) form the coordinate ascent.  Runs
     on the scan tape in the tips' dtype (the model ingredients and each
     P are float64, cast to it), as bito_tpu runs it on its scan tape.
-    Returns the branch lengths [B, N]."""
+    `reduce` maps each objective's local sum over patterns to the whole
+    alignment's (a pattern-sharded engine's all_reduce), so that every
+    rank takes the same steps.  Returns the branch lengths
+    [B, N]."""
     from ..gp import optimize as gp_optimize
 
     dt = tip_partials.dtype
@@ -402,7 +507,8 @@ def optimize_selected_branches_impl(
             val = torch.einsum("bc,bkcas->bks", category_proportions.to(dt),
                                o * (Pk @ p))
             tiny = torch.full_like(val, 1e-300)
-            return -(torch.log(torch.where(val > 0, val, tiny)) @ weights)
+            out = -(torch.log(torch.where(val > 0, val, tiny)) @ weights)
+            return reduce(out)
 
         lo = torch.full((B, K), MIN_LOG_BL, dtype=dt, device=bl.device)
         hi = torch.full((B, K), MAX_LOG_BL, dtype=dt, device=bl.device)

@@ -12,7 +12,10 @@ trainer, and a tenth, the rooted time-tree instance, run the paired
 kernels as their users' calls reach them; an eleventh, the GP engine,
 runs no hand-written kernel; a twelfth, the NNI search, runs the paired
 LL kernel where its TP-likelihood scoring reaches it; a thirteenth, the
-MG94 codon models, runs the paired kernels' A=64 bodies:
+MG94 codon models, runs the paired kernels' A=64 bodies; a fourteenth,
+the dist path, runs the pattern-sharded engines on two ranks of the card
+(rows 1-4 and the A=64 bodies on every rank); then the leveled variant
+and the VI command line with a checkpoint:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
   - large: the same entry points on two trees of 921 taxa (128 patterns:
@@ -112,7 +115,24 @@ MG94 codon models, runs the paired kernels' A=64 bodies:
     ll_and_branch_gradients and CODON_SWEEP branch_eval_fn calls over
     scaled branch lengths on auto, which takes the A=64 kernels
     (csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu: every 64x64 product
-    on the tensor cores in 3xTF32) on uniformized transition matrices.
+    on the tensor cores in 3xTF32) on uniformized transition matrices;
+  - dist: the port's launcher (python -m bito_tpu_torch.dist.launch)
+    starts DIST_RANKS ranks of this script (`--dist-worker gloo OUTDIR`)
+    on the one card over Gloo, each holding half the patterns
+    (TreeLikelihoodEngine.shard_patterns and GPEngine.shard_patterns):
+    the flagship at full width on auto (paired_ll_onchip,
+    paired_grad_onchip) and on chunked (chunked_ll_onchip,
+    chunked_grad_onchip), LL-only and LL+gradients; the codon path's
+    shape on auto (paired_ll_a64, paired_grad_a64); the GP engine at
+    config3's shape in float64.  Then one rank over NCCL (`--dist-worker
+    nccl`), and NCCL asked for two ranks on one card, which the launcher
+    refuses before any worker starts;
+  - leveled: the flagship's float64 engine with use_leveled (the
+    levelized tapes, no hand-written kernel);
+  - cli: `python -m bito_tpu_torch.vi.cli`'s benchmark (2 steps on a
+    synthetic directory X with X_out.t and X.fasta at DS1's shape, on
+    the card: the paired on-chip bodies at C = 1) and dag-to-dot; a
+    Burrito checkpoint (utils/checkpoint.py) restored into a fresh one.
 
 Phases, each printing its lines; any failure raises and exits non-zero:
   1. the card's name and power limit; build the CUDA kernels from the
@@ -215,6 +235,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      score / accept / post, the card synchronised at each edge), the
      top-1 margins, and the torch operations on the card of one batched
      scorer call and of one GP-scored iteration.
+     On the dist path, each rank (dist_worker; a failed check exits it
+     non-zero, and a failed or silent rank makes the launcher and this
+     script fail): on each route the launch counts set to 0 just before
+     the sharded LL and LL+gradient calls and read after them (the
+     route's two kernels, no other); the results the same on every rank
+     and within 5e-5 (flagship) or A64_BOUND (codon) of the unsharded
+     float64 engine, printed beside their distance from the unsharded
+     float32 kernels; ms a call on the rank (host clock after a barrier,
+     the card synchronised around each all_reduce) and the all_reduces'
+     share of it, the unsharded call's ms and each kernel wrapper's ms
+     on the rank's operands; the GP engine's log marginal, per-PCSP LLs
+     and (after one sweep) branch lengths within GP_DIST_BOUND of the
+     unsharded engine (dist_gp), the same on every rank; the NCCL rank's
+     auto call equal
+     to the unsharded call.  On the leveled path: within LEVELED_BOUND of
+     the scan tape, no kernel launched, both calls' ms.  On the cli path:
+     only the two paired on-chip kernels launched, a finite final ELBO,
+     the two CSVs with bito_tpu's columns, the .dot file; the restored
+     Burrito's parameters and Adam state bit-equal.
   4. CUDA-event times of each kernel, its plain version and, where one
      PyTorch call computes the same function, that call; pipe_cell, the
      stream sums and static_chain, whose wrappers' host work outlasts
@@ -253,6 +292,8 @@ It has no CPU path: without a card it exits non-zero and prints no result.
 """
 import collections
 import contextlib
+import csv
+import io
 import json
 import math
 import os
@@ -290,7 +331,11 @@ from bito_tpu_torch.sbn import maps as sbn_maps
 from bito_tpu_torch.treelike import (_kernels, chunked, paired, pernode, prep,
                                      pruning)
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
+from bito_tpu_torch.vi import cli as vi_cli
 from bito_tpu_torch.vi.burrito import Burrito
+from bito_tpu_torch.dist import mesh as dist_mesh
+from bito_tpu_torch.dist import multihost
+from bito_tpu_torch.utils import checkpoint
 
 SEED = 0
 BATCH = 200
@@ -371,12 +416,12 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
         wrapper=paired.paired_ll_onchip, path="paired",
-        also=("vbpi", "rooted", "nni")),
+        also=("vbpi", "rooted", "nni", "cli")),
     "paired_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
         wrapper=paired.paired_grad_onchip, path="paired",
-        also=("vbpi", "rooted")),
+        also=("vbpi", "rooted", "cli")),
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
@@ -2659,6 +2704,459 @@ def codon_times(run, card, pernode_launches):
           f"{peak / 2**30:.3f} GiB; on {card}")
 
 
+# ---------------------------------------------------------------------------
+# The dist path: the pattern-sharded engines on two ranks of one card
+# ---------------------------------------------------------------------------
+DIST_RANKS = 2
+DIST_STALL_S, DIST_HARD_S = 120, 600  # the launcher's stall and hard limits
+DIST_REPS = 10  # CUDA-event calls a timing on each rank
+GP_DIST_BOUND = 1e-9  # tests/test_dist.py:179-180
+LEVELED_BOUND = 1e-10
+DIST_EXPECT = {  # the route's kernels on the dist path
+    "auto": ("paired_ll_onchip", "paired_grad_onchip"),
+    "chunked": ("chunked_ll_onchip", "chunked_grad_onchip"),
+    "codon": ("paired_ll_a64", "paired_grad_a64")}
+
+
+def rank_launches(label, expect):
+    """{kernel: launches} on this rank since reset_launches(), after
+    checking that the kernels `expect` launched and no other did."""
+    counts = {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
+    for name, n in counts.items():
+        if name in expect:
+            check(n > 0, f"dist {label}: {name} launched")
+        else:
+            check(n == 0, f"dist {label}: {name} did not launch")
+    return {name: counts[name] for name in expect}
+
+
+def same_on_every_rank(label, *tensors):
+    """Check that every rank holds rank 0's values of `tensors` (the whole
+    alignment's results, not a shard's partial sums)."""
+    for t in tensors:
+        r0 = t.detach().clone().contiguous()
+        dist_mesh.replicate(r0)
+        check(torch.equal(r0, t), f"dist {label}: every rank holds rank "
+                                  "0's values")
+
+
+@contextlib.contextmanager
+def all_reduce_clock():
+    """Time every dist.mesh.all_reduce_sum while the block runs: yields
+    [seconds, calls], the card synchronised before each all_reduce (so
+    that none is charged the kernels before it) and after it."""
+    real, spent = dist_mesh.all_reduce_sum, [0.0, 0]
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(t, group)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        spent[1] += 1
+        return out
+
+    dist_mesh.all_reduce_sum = timed
+    try:
+        yield spent
+    finally:
+        dist_mesh.all_reduce_sum = real
+
+
+def sharded_ms(fn, reps=DIST_REPS):
+    """(ms a call of `fn` on this rank, the all_reduces' share of it): a
+    warm-up call and a barrier, then a host clock over `reps` calls, the
+    card synchronised at both ends and around each all_reduce."""
+    fn()
+    torch.distributed.barrier()
+    torch.cuda.synchronize()
+    with all_reduce_clock() as spent:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    return total * 1e3 / reps, spent[0] / total
+
+
+def dist_route(label, kernel, sharded, whole, trees, params, refs, bound):
+    """One route of a sharded engine on this rank: its LL and LL+gradient
+    calls held to the float64 references `refs` within `bound` (LL
+    relative, gradients max-abs over max |g|, chip_smoke's measures) and
+    set beside the unsharded float32 engine `whole`; its launches; ms a
+    call on this rank (CUDA events), the unsharded call's, the two
+    all_reduces' alone, and each kernel wrapper's on this rank's
+    operands.  Every timing starts after a barrier, so the ranks start
+    together."""
+    sharded.kernel = whole.kernel = kernel
+    ll_ref, g_ref = refs
+    reset_launches()
+    ll = sharded.log_likelihoods(trees, params)
+    ll2, g = sharded.ll_and_branch_gradients(trees, params)
+    torch.cuda.synchronize()
+    launches = rank_launches(label, DIST_EXPECT[label])
+    same_on_every_rank(label, ll, ll2, g)
+    errs = (rel_err(ll, ll_ref), rel_err(ll2, ll_ref), norm_err(g, g_ref))
+    check(max(errs) <= bound, f"dist {label}: within {bound:g} of float64")
+    w_ll = whole.log_likelihoods(trees, params)
+    w_ll2, w_g = whole.ll_and_branch_gradients(trees, params)
+    vs_whole = ((ll - w_ll).abs().max().item(),
+                (g - w_g).abs().max().item())
+    enc = sharded.encode(trees)
+    bl = sharded.branch_length_matrix(trees, enc)
+    fn, ll_fn = (sharded.branch_eval_fn(trees, params),
+                 sharded.ll_eval_fn(trees, params))
+    w_fn = whole.branch_eval_fn(trees, params)
+    times = {}
+    times["call"], times["all_reduce_share"] = sharded_ms(lambda: fn(bl))
+    times["ll_call"], times["ll_all_reduce_share"] = sharded_ms(
+        lambda: ll_fn(bl))
+    torch.distributed.barrier()
+    times["unsharded_call"] = cuda_ms(lambda: w_fn(bl), DIST_REPS)
+    eig, rates, props, clock = sharded._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    ops = (sharded._kernel_tips, pi, prop, sharded._kernel_weights)
+    torch.distributed.barrier()
+    if label == "chunked":
+        dst, tip, e, row, mask = sharded._chunked_tapes(enc)
+        onchip = sharded._chunked_onchip_tape(enc)
+        P, dP = prep.prepare_inputs_grad(eig, rates, clock, bl)
+        times["ll_kernel"] = cuda_ms(lambda: chunked.chunked_log_likelihoods(
+            dst, tip, e, P, *ops, onchip=onchip), DIST_REPS)
+        times["grad_kernel"] = cuda_ms(
+            lambda: chunked.chunked_ll_and_gradients(
+                dst, tip, e, row, mask, P, dP, *ops, onchip=onchip),
+            DIST_REPS)
+    else:
+        dst, tip, src, e, mask = sharded._paired_tapes(enc)
+        onchip = sharded._onchip_tape(enc)
+        Q = sharded._rate_Q(params)
+        P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl, Q=Q)
+        times["ll_kernel"] = cuda_ms(lambda: paired.paired_log_likelihoods(
+            dst, tip, e, P, *ops, onchip=onchip), DIST_REPS)
+        times["grad_kernel"] = cuda_ms(
+            lambda: paired.paired_ll_and_gradients(
+                dst, tip, src, e, mask, P, dP, *ops, onchip=onchip),
+            DIST_REPS)
+    print(f"# dist {label}: rank {sharded.pattern_shard.rank} of "
+          f"{sharded.pattern_shard.size}, {sharded.pattern_pad} of "
+          f"{sharded.pattern_shard.total} patterns; LL rel err "
+          f"{max(errs[:2]):.3e}, grad max-abs/max|g| {errs[2]:.3e} against "
+          f"float64 unsharded (bound {bound:g}); from the unsharded float32 "
+          f"kernels: LL {vs_whole[0]:.3e}, grad {vs_whole[1]:.3e} (max "
+          f"abs); launches {launches}; ms a call on this rank: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    return dict(errs=errs, vs_whole=vs_whole, launches=launches, times=times)
+
+
+def dist_gp(dev, tmp):
+    """config3's shape in float64 on this rank: the log marginal and
+    per-PCSP LLs after populate + likelihoods, and the branch lengths
+    after one optimize_branch_lengths_once, sharded against unsharded
+    within GP_DIST_BOUND; the same branch lengths on every rank.  The
+    branches past the bound, if any, are counted and printed."""
+    nwk, fasta = gp_files(tmp)
+    runs = []
+    for shard in (False, True):
+        inst = gp_instance(device=dev, dtype=torch.float64)
+        inst.read_fasta_file(fasta)
+        inst.read_newick_file(nwk)
+        inst.make_dag()
+        inst.make_gp_engine()
+        if shard:
+            inst.get_gp_engine().shard_patterns()
+        inst.populate_plvs()
+        inst.compute_likelihoods()
+        out = dict(marginal=inst.get_log_marginal_likelihood(),
+                   pcsp=inst.get_per_gpcsp_log_likelihoods())
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        with all_reduce_clock() as spent:
+            t0 = time.perf_counter()
+            inst.optimize_branch_lengths_once()
+            torch.cuda.synchronize()
+            out["sweep_s"] = time.perf_counter() - t0
+        out["all_reduces"] = spent
+        out["bl"] = inst.get_branch_lengths()
+        inst.populate_plvs()
+        inst.compute_likelihoods()
+        out["marginal_after"] = inst.get_log_marginal_likelihood()
+        runs.append(out)
+    whole, sharded = runs
+    errs = (abs(sharded["marginal"] - whole["marginal"]),
+            float(np.abs(sharded["pcsp"] - whole["pcsp"]).max()),
+            abs(sharded["marginal_after"] - whole["marginal_after"]))
+    bl_err = np.abs(sharded["bl"] - whole["bl"])
+    past = bl_err > GP_DIST_BOUND
+    same_on_every_rank("gp", torch.as_tensor(sharded["bl"], device=dev))
+    print(f"# dist gp: log marginal {sharded['marginal']:.6f}, from the "
+          f"unsharded engine: marginal {errs[0]:.3e}, per-PCSP LL "
+          f"{errs[1]:.3e}; after one sweep: branch lengths {bl_err.max():.3e}"
+          f" ({int(past.sum())} of {past.size} past {GP_DIST_BOUND:g}), "
+          f"marginal {errs[2]:.3e} (bound "
+          f"{GP_DIST_BOUND:g} absolute); sweep {sharded['sweep_s']:.3f} s "
+          f"sharded ({sharded['all_reduces'][1]} all_reduces, "
+          f"{sharded['all_reduces'][0]:.3f} s of it, the card synchronised "
+          f"around each), {whole['sweep_s']:.3f} s unsharded on this rank",
+          flush=True)
+    check(max(errs) <= GP_DIST_BOUND and not past.any(),
+          "dist gp: within the bound of the unsharded engine")
+    return dict(errs=errs, bl_err=float(bl_err.max()),
+                bl_past=int(past.sum()),
+                sweep_s=(sharded["sweep_s"], whole["sweep_s"]),
+                all_reduces=sharded["all_reduces"])
+
+
+def dist_worker(label, outdir):
+    """A rank of the dist path, started by dist.launch (`import
+    bito_tpu_torch` joined the job): `gloo` runs the flagship's auto and
+    chunked routes, the codon path's auto and the GP engine sharded;
+    `nccl`, one rank, the flagship's auto route, equal to the unsharded
+    call.  Writes its results to OUTDIR/<label>.<rank>.json."""
+    check(torch.distributed.is_initialized(), "the worker joined the job")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = multihost.local_device()
+    torch.cuda.set_device(dev)
+    rank = multihost.process_index()
+    _kernels.library()
+    out = {"rank": rank, "size": multihost.process_count(),
+           "backend": torch.distributed.get_backend(), "card": card_line()}
+    trees, sp, model = flagship()
+    params = params_from_numpy(PARAMS, dev, PRODUCT_DTYPE)
+    whole = TreeLikelihoodEngine(sp, model, device=dev, dtype=PRODUCT_DTYPE)
+    sharded = TreeLikelihoodEngine(sp, model, device=dev,
+                                   dtype=PRODUCT_DTYPE)
+    sharded.shard_patterns()
+    if label == "nccl":
+        ll, (ll2, g) = (sharded.log_likelihoods(trees, params),
+                        sharded.ll_and_branch_gradients(trees, params))
+        w_ll, (w_ll2, w_g) = (whole.log_likelihoods(trees, params),
+                              whole.ll_and_branch_gradients(trees, params))
+        check(torch.equal(ll, w_ll) and torch.equal(ll2, w_ll2)
+              and torch.equal(g, w_g), "dist nccl: one rank's sharded auto "
+              "call equals the unsharded call")
+        fn = sharded.branch_eval_fn(trees, params)
+        bl = sharded.branch_length_matrix(trees, sharded.encode(trees))
+        out["call_ms"] = cuda_ms(lambda: fn(bl), DIST_REPS)
+        print(f"# dist nccl: one rank, the auto call equal to the unsharded "
+              f"call; {out['call_ms']:.4f} ms a call", flush=True)
+    else:
+        ref = TreeLikelihoodEngine(sp, model, device=dev, dtype=torch.float64)
+        ref.kernel = "scan"
+        refs = ref.ll_and_branch_gradients(
+            trees, params_from_numpy(PARAMS, dev, torch.float64))
+        del ref
+        for kernel in ("auto", "chunked"):
+            out[kernel] = dist_route(kernel, kernel, sharded, whole, trees,
+                                     params, refs, BOUND)
+        del whole, sharded, refs
+        ctrees, csp, cmodel, cparams_np = codon_workload()
+        cparams = params_from_numpy(cparams_np, dev, PRODUCT_DTYPE)
+        cref = TreeLikelihoodEngine(csp, cmodel, device=dev,
+                                    dtype=torch.float64)
+        crefs = cref.ll_and_branch_gradients(
+            ctrees, params_from_numpy(cparams_np, dev, torch.float64))
+        del cref
+        cwhole = TreeLikelihoodEngine(csp, cmodel, device=dev,
+                                      dtype=PRODUCT_DTYPE)
+        csharded = TreeLikelihoodEngine(csp, cmodel, device=dev,
+                                        dtype=PRODUCT_DTYPE)
+        csharded.shard_patterns()
+        out["codon"] = dist_route("codon", "auto", csharded, cwhole, ctrees,
+                                  cparams, crefs, A64_BOUND)
+        del cwhole, csharded
+        with tempfile.TemporaryDirectory() as tmp:
+            out["gp"] = dist_gp(dev, tmp)
+    with open(os.path.join(outdir, f"{label}.{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+
+
+REFUSED = "open(__import__('sys').argv[1], 'w').close()\n"
+
+
+def launch(args, cwd):
+    """Run dist.launch with `args` (no worker output is lost: the
+    launcher's own lines and each worker's `[p<i>]` lines)."""
+    return subprocess.run(
+        [sys.executable, "-m", "bito_tpu_torch.dist.launch", *args],
+        cwd=cwd, capture_output=True, text=True, timeout=DIST_HARD_S + 60)
+
+
+def dist_path(card):
+    """Phase 3's dist path: the port's launcher runs DIST_RANKS ranks on the
+    one card over Gloo (dist_worker "gloo"), then one rank over NCCL
+    ("nccl"), and is refused NCCL for two ranks on one card before any
+    worker starts.  A rank that fails or goes silent past DIST_STALL_S
+    makes the launcher, and so this script, fail.  Returns the ranks'
+    results."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, n in (("gloo", DIST_RANKS), ("nccl", 1)):
+            t0 = time.perf_counter()
+            proc = launch(["-n", str(n), "--backend", label, "--device",
+                           "cuda", "--stall-timeout", str(DIST_STALL_S),
+                           "--hard-timeout", str(DIST_HARD_S),
+                           os.path.abspath(__file__), "--dist-worker", label,
+                           tmp], here)
+            for line in proc.stdout.splitlines():
+                if "] # dist" in line:
+                    print(f"# phase 3: {line}")
+            check(proc.returncode == 0,
+                  f"the {label} dist run: launcher exit {proc.returncode}\n"
+                  + proc.stdout[-4000:] + proc.stderr[-4000:])
+            print(f"# phase 3: dist {label}: {n} rank(s) in "
+                  f"{time.perf_counter() - t0:.1f} s")
+            runs[label] = []
+            for r in range(n):
+                with open(os.path.join(tmp, f"{label}.{r}.json")) as f:
+                    runs[label].append(json.load(f))
+        marker = os.path.join(tmp, "started")
+        with open(os.path.join(tmp, "refused.py"), "w") as f:
+            f.write(REFUSED)
+        proc = launch(["-n", "2", "--backend", "nccl", "--device", "cuda",
+                       os.path.join(tmp, "refused.py"), marker], here)
+        check(proc.returncode != 0 and "NCCL takes one card a rank"
+              in proc.stderr and not os.path.exists(marker),
+              "NCCL for two ranks on one card is refused before any worker "
+              "starts")
+        print("# phase 3: dist: NCCL for two ranks on one card refused "
+              f"before any worker started ({proc.stderr.strip()})")
+    for kernel in ("auto", "chunked", "codon"):
+        res = [r[kernel] for r in runs["gloo"]]
+        launches = {k: [r["launches"][k] for r in res]
+                    for k in DIST_EXPECT[kernel]}
+        times = {k: [r["times"][k] for r in res] for k in res[0]["times"]}
+        print(f"# phase 3: dist {kernel} summary, per rank: launches "
+              f"{launches}; " + ", ".join(
+                  f"{k} " + "/".join(f"{v:.4f}" for v in vs)
+                  for k, vs in times.items()) + f" (ms a call; two ranks "
+              f"share the card) on {card}")
+    return runs
+
+
+def leveled_path(ref, trees, params64, card):
+    """The leveled variant (use_leveled) in float64 at the flagship shape,
+    held to the scan tape within LEVELED_BOUND (LL relative, gradients
+    max-abs over max |g|); no hand-written kernel launches; its ms beside
+    the scan tape's."""
+    ref.kernel = "scan"
+    ll_s, g_s = ref.ll_and_branch_gradients(trees, params64)
+    ref.use_leveled = True
+    reset_launches()
+    ll_l = ref.log_likelihoods(trees, params64)
+    ll_g, g_l = ref.ll_and_branch_gradients(trees, params64)
+    torch.cuda.synchronize()
+    counts = {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
+    check(not any(counts.values()), "leveled: no kernel launched")
+    errs = (rel_err(ll_l, ll_s), rel_err(ll_g, ll_s), norm_err(g_l, g_s))
+    bl = ref.branch_length_matrix(trees, ref.encode(trees))
+    fn = ref.branch_eval_fn(trees, params64)
+    lev_ms = cuda_ms(lambda: fn(bl), 3, warmup=1)
+    ref.use_leveled = False
+    fn = ref.branch_eval_fn(trees, params64)
+    scan_ms = cuda_ms(lambda: fn(bl), 3, warmup=1)
+    lev = ref.encode_leveled(trees)
+    print(f"# phase 3: leveled path (float64, {len(trees)} trees, "
+          f"{lev.post_levels.shape[0]} postorder levels against "
+          f"{ref.encode(trees).post_ops.shape[1]} scan ops): LL rel err "
+          f"{max(errs[:2]):.3e}, grad max-abs/max|g| {errs[2]:.3e} against "
+          f"the scan tape (bound {LEVELED_BOUND:g}); LL+gradient call "
+          f"{lev_ms:.4f} ms leveled, {scan_ms:.4f} ms scan tape on {card}")
+    check(max(errs) <= LEVELED_BOUND, "leveled: agrees with the scan tape")
+    return lev_ms, scan_ms
+
+
+def cli_path(dev, card):
+    """The VI command line (vi/cli.py) on the card: `benchmark` for 2 steps
+    on a synthetic data directory X (X_out.t from _synthetic.mcmc_nexus,
+    X.fasta from random_alignment at DS1's shape), its launches read as a
+    path, its CSVs and final ELBO checked; `dag-to-dot` on the gp path's
+    inputs.  Then a Burrito checkpoint (utils/checkpoint.py) restored into
+    a fresh Burrito, whose state must be bit-equal."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "synth")
+        os.makedirs(data)
+        nexus = os.path.join(data, "synth_out.t")
+        fasta = os.path.join(data, "synth.fasta")
+        with open(nexus, "w") as f:
+            f.write(_synthetic.mcmc_nexus(SEED + 7, _synthetic.DS1_TAXA,
+                                          VBPI_TREES))
+        with open(fasta, "w") as f:
+            f.write(_synthetic.fasta_text(_synthetic.random_alignment(
+                SEED + 8, _synthetic.taxon_names(_synthetic.DS1_TAXA),
+                _synthetic.DS1_SITES, _synthetic.DS1_DISTINCT_COLUMNS)))
+        prefix = os.path.join(tmp, "run")
+        text = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            vi_cli.main(["benchmark", "--step-count", "2", "--particle-count",
+                         str(VBPI_PARTICLES), "--final-elbo-particle-count",
+                         "100", "--device", str(dev), "--out-prefix", prefix,
+                         data])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches("cli")
+        elbo = float(re.search(r"'final_elbo': ([-0-9.e+]+)",
+                               text.getvalue()).group(1))
+        with open(prefix + "_fitting_results.csv") as f:
+            rows = list(csv.reader(f))
+        with open(prefix + "_opt_trace.csv") as f:
+            trace = list(csv.reader(f))
+        check(np.isfinite(elbo), "cli: a finite final ELBO")
+        check(rows[0] == ["type", "variable", "value"] and len(rows) > 1
+              and all(np.isfinite(float(r[2])) for r in rows[1:])
+              and trace[0] == ["index", "elbo"], "cli: the two CSVs")
+        nwk, _ = gp_files(tmp)
+        dot = os.path.join(tmp, "dag.dot")
+        with contextlib.redirect_stdout(text):
+            vi_cli.main(["dag-to-dot", "-fasta", fasta, "-newick", nwk,
+                         "-output", dot])
+        with open(dot) as f:
+            check(f.read().startswith("digraph"), "cli: dag-to-dot's .dot")
+        print(f"# phase 3: cli path: benchmark, 2 steps of {VBPI_PARTICLES} "
+              f"particles ({_synthetic.DS1_TAXA} taxa), {seconds:.2f} s, "
+              f"final ELBO {elbo:.4f}, {len(rows) - 1} fitting rows; "
+              f"dag-to-dot wrote {os.path.getsize(dot)} bytes; launches "
+              f"{launches} on {card}")
+
+        def burrito():
+            return Burrito(
+                mcmc_nexus_path=nexus, burn_in_fraction=0.1, fasta_path=fasta,
+                phylo_model_specification=PhyloModelSpecification(*VBPI_SPEC),
+                branch_model_name="split", scalar_model_name="lognormal",
+                optimizer_name="simple", particle_count=VBPI_PARTICLES,
+                seed=SEED, device=dev, dtype=PRODUCT_DTYPE)
+
+        trained = burrito()
+        trained.gradient_step()
+        path = os.path.join(tmp, "burrito.npz")
+        checkpoint.checkpoint_burrito(trained, path, step=1)
+        fresh = burrito()
+        check(checkpoint.restore_burrito(fresh, path) == 1,
+              "checkpoint: the step")
+        opt, opt2 = trained.opt, fresh.opt
+        pairs = [(trained.branch_model.scalar_model.q_params,
+                  fresh.branch_model.scalar_model.q_params),
+                 (trained.inst.sbn_parameters, fresh.inst.sbn_parameters),
+                 (np.asarray(opt.step_size), np.asarray(opt2.step_size)),
+                 (np.asarray(opt.sbn_step_size),
+                  np.asarray(opt2.sbn_step_size)),
+                 (np.asarray(opt.adam_count), np.asarray(opt2.adam_count))]
+        pairs += [(opt.adam_mu[k], opt2.adam_mu[k]) for k in opt.adam_mu]
+        pairs += [(opt.adam_nu[k], opt2.adam_nu[k]) for k in opt.adam_nu]
+        check(all(np.array_equal(a, b) for a, b in pairs),
+              "checkpoint: the restored Burrito's parameters are bit-equal")
+        print(f"# phase 3: checkpoint: a Burrito after one step restored "
+              f"into a fresh one from {os.path.getsize(path)} bytes, "
+              f"{len(pairs)} arrays bit-equal")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs an NVIDIA card: "
@@ -2983,6 +3481,11 @@ def main():
         nni_run = nni_path(nni_dir, dev, card)
     codon_run = codon_path(dev, card, against_reference)
     launches.update(codon_run[4])
+    t0 = time.perf_counter()
+    dist_path(card)
+    print(f"# phase 3: the dist path took {time.perf_counter() - t0:.1f} s")
+    leveled_path(ref, trees, params64, card)
+    cli_path(dev, card)
 
     # The float64 reference's own gradients against central differences.
     central_differences("", ref, trees, params64, bl64, g_ref)
@@ -3164,4 +3667,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dist-worker"]:  # a rank of the dist path
+        dist_worker(*sys.argv[2:4])
+    else:
+        main()

@@ -1701,3 +1701,72 @@ def test_sankoff_on_the_card_equals_the_cpu(cuda, tmp_path):
     want = SankoffHandler(tp.site_pattern, device="cpu",
                           dtype=torch.float64).run_sankoff(tp.top_trees())
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# The pattern-sharded engines and the leveled variant on the card
+# ---------------------------------------------------------------------------
+def test_two_gloo_ranks_shard_the_kernels_on_one_card(cuda, tmp_path):
+    """chip_smoke.py's dist worker on two ranks of one card over Gloo, as
+    dist.launch starts it: the flagship's auto (rows 1-2) and chunked (rows
+    3-4) routes within 5e-5 and the codon shape's auto (rows 1b-2b) within
+    1e-6 of the unsharded float64 tape, the route's kernels launched on
+    every rank, the same results on both ranks, and the GP engine within
+    1e-9 of the unsharded one (the worker checks; any failure exits it
+    non-zero)."""
+    import json
+    import pathlib
+    import subprocess
+    import sys
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    proc = subprocess.run(
+        [sys.executable, "-m", "bito_tpu_torch.dist.launch", "-n", "2",
+         "--backend", "gloo", "--device", "cuda", "--stall-timeout", "120",
+         "--hard-timeout", "600", str(root / "chip_smoke.py"),
+         "--dist-worker", "gloo", str(tmp_path)],
+        cwd=root, capture_output=True, text=True, timeout=660)
+    assert proc.returncode == 0, proc.stdout[-4000:] + proc.stderr[-4000:]
+    ranks = [json.loads((tmp_path / f"gloo.{r}.json").read_text())
+             for r in range(2)]
+    for r in ranks:
+        assert r["backend"] == "gloo" and r["size"] == 2
+        assert max(r["auto"]["errs"]) <= 5e-5
+        assert max(r["chunked"]["errs"]) <= 5e-5
+        assert max(r["codon"]["errs"]) <= 1e-6
+        assert all(n > 0 for n in r["codon"]["launches"].values())
+        assert max(r["gp"]["errs"]) <= 1e-9
+
+
+def test_launcher_refuses_nccl_for_more_ranks_than_cards(cuda, tmp_path):
+    """NCCL takes one card a rank: asked for one rank more than the visible
+    cards, the launcher exits before any worker starts."""
+    from bito_tpu_torch.dist import launch
+
+    marker = tmp_path / "started"
+    script = tmp_path / "worker.py"
+    script.write_text(f"open({str(marker)!r}, 'w').close()\n")
+    with pytest.raises(SystemExit) as exc:
+        launch.main(["-n", str(torch.cuda.device_count() + 1), "--backend",
+                     "nccl", "--device", "cuda", str(script)])
+    assert "NCCL takes one card a rank" in str(exc.value.code)
+    assert not marker.exists()
+
+
+@pytest.mark.parametrize("rooted", [False, True])
+def test_leveled_variant_on_the_card_matches_the_scan_tape(cuda, rooted):
+    """use_leveled in float64 on the card: LL and branch gradients within
+    1e-10 of the scan tape (relative and of the largest gradient), with no
+    kernel launched."""
+    eng, trees, params = _engine("gtr_gamma4", 21, 16, 8, rooted, cuda,
+                                 torch.float64)
+    eng.kernel = "scan"
+    ll_s, g_s = eng.ll_and_branch_gradients(trees, params)
+    eng.use_leveled = True
+    before = paired.paired_ll_onchip.launches
+    ll_l = eng.log_likelihoods(trees, params)
+    ll_g, g_l = eng.ll_and_branch_gradients(trees, params)
+    assert paired.paired_ll_onchip.launches == before
+    for ll in (ll_l, ll_g):
+        assert ((ll - ll_s).abs() / ll_s.abs()).max().item() <= 1e-10
+    assert ((g_l - g_s).abs().max() / g_s.abs().max()).item() <= 1e-10
