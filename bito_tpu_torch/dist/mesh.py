@@ -81,6 +81,28 @@ def all_reduce_sum(tensor: torch.Tensor, group) -> torch.Tensor:
     return tensor
 
 
+def check_same(value: int, group, what: str) -> None:
+    """Raise on every rank of `group` (the world where None) unless every
+    rank passed the same `value`, an int in [0, 2**63): one all_gather of
+    one int64 a rank, so that every rank sees every rank's value and all
+    raise together (none is left waiting in a later collective).  The
+    message names `what` differs and which group ranks differ from rank
+    0.  The tensor is on the card under NCCL, else on the CPU."""
+    group = _world() if group is None else group
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if dist.get_backend(group) == "nccl" else torch.device("cpu"))
+    mine = torch.tensor([value], dtype=torch.int64, device=device)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(every, mine, group=group)
+    values = [int(v) for v in every]
+    if len(set(values)) > 1:
+        differ = [r for r, v in enumerate(values) if v != values[0]]
+        raise RuntimeError(
+            f"the ranks of the process group hold different {what}: group "
+            f"rank(s) {differ} differ from rank 0 ({len(set(values))} "
+            f"distinct values over {len(values)} ranks)")
+
+
 def pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 

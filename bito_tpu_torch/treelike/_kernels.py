@@ -39,6 +39,7 @@ _SOURCES = tuple(f"treelike/csrc/{name}" for name in (
 _HEADERS = ("treelike/csrc/common.cuh", "treelike/csrc/onchip.cuh",
             "treelike/csrc/pernode_onchip.cuh",
             "treelike/csrc/paired_ll_onchip.cuh",
+            "treelike/csrc/paired_lanes.cuh",
             "treelike/csrc/paired_a64.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",

@@ -131,8 +131,8 @@ chunked_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, MW]
     t_child[i] = child[j];
     t_e[i] = post_e[j];
   }
-  zero_idle<C>(mats, 2 * N1);
-  stage_all<C>(mats, P + tree_mats, dP + tree_mats, N1);
+  zero_idle<G>(mats, 2 * N1, C);
+  stage_all<G>(mats, P + tree_mats, dP + tree_mats, N1, C);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();

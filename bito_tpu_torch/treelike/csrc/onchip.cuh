@@ -7,7 +7,10 @@
 // at or above the category count C: lane g holds category g's 4 states as
 // one float4, and lanes g >= C are idle (their matrices are zero, so they
 // compute zeros).  Thread tid = x * G + g is lane g of pattern x of the
-// tile.
+// tile.  G runs to 32 (C = 17..32: a pattern is a whole warp).  The
+// helpers take G as a template parameter and C as an argument: the
+// kernels of 1..8 categories pass a compile-time C, those of 9..32 the
+// run-time count (one instantiation a G).
 //
 // Dynamic shared memory, in this order:
 //   rows   [rows][threads] float4   row r of thread tid at rows[r * threads
@@ -37,7 +40,12 @@ constexpr int kSmemMax = 232448;   // shared memory one block can take
 
 template <int C>
 struct Lanes {
-  static constexpr int G = C <= 1 ? 1 : C <= 2 ? 2 : C <= 4 ? 4 : 8;
+  static constexpr int G = C <= 1   ? 1
+                           : C <= 2 ? 2
+                           : C <= 4 ? 4
+                           : C <= 8 ? 8
+                           : C <= 16 ? 16
+                                     : 32;
 };
 
 // Bytes of dynamic shared memory: `mats_per_op` is 2 for the LL kernel (P
@@ -139,22 +147,20 @@ __device__ __forceinline__ float4 evolve_t(const float4* __restrict__ Mg,
 // 4] float32, row-major) into slot `k` of `dst` ([slot][4][G] float4), as
 // one 16-byte cp.async.  Idle lanes' rows are not touched (zero_idle
 // zeroes them once).
-template <int C>
+template <int G>
 __device__ __forceinline__ void copy_matrix(float4* dst, int k,
                                             const float* __restrict__ src_b,
-                                            int e, int i) {
-  constexpr int G = Lanes<C>::G;
+                                            int C, int e, int i) {
   const int c = i / A, a = i % A;
   cp_async16(dst + (k * A + a) * G + c,
              src_b + (static_cast<size_t>(e) * C + c) * A * A + a * A);
 }
 
 // Zero the rows of idle lanes (g >= C) of `nmat` matrix slots.
-template <int C>
-__device__ __forceinline__ void zero_idle(float4* mats, int nmat) {
-  constexpr int G = Lanes<C>::G;
-  if constexpr (G > C) {
-    constexpr int idle = G - C;
+template <int G>
+__device__ __forceinline__ void zero_idle(float4* mats, int nmat, int C) {
+  if (G > C) {
+    const int idle = G - C;
     for (int i = threadIdx.x; i < nmat * A * idle; i += blockDim.x)
       mats[i / idle * G + C + i % idle] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
@@ -163,33 +169,34 @@ __device__ __forceinline__ void zero_idle(float4* mats, int nmat) {
 // Stage the tree's P for every edge into slots 0 .. N1-1 and, with dP_b,
 // its dP into slots N1 .. 2*N1-1.  The caller commits, waits and
 // synchronises.
-template <int C>
+template <int G>
 __device__ __forceinline__ void stage_all(float4* mats,
                                           const float* __restrict__ P_b,
                                           const float* __restrict__ dP_b,
-                                          int N1) {
+                                          int N1, int C) {
   const int per = C * A;
   const int n = N1 * per;
   for (int i = threadIdx.x; i < n; i += blockDim.x)
-    copy_matrix<C>(mats, i / per, P_b, i / per, i % per);
+    copy_matrix<G>(mats, i / per, P_b, C, i / per, i % per);
   if (dP_b)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      copy_matrix<C>(mats, N1 + i / per, dP_b, i / per, i % per);
+      copy_matrix<G>(mats, N1 + i / per, dP_b, C, i / per, i % per);
 }
 
 // Stage one op's matrices into the ring, slots slot0 ..: P of both
 // children's edges (e0, e1), then with dP_b their dP.  The caller commits.
-template <int C>
+template <int G>
 __device__ __forceinline__ void stage_op(float4* mats, int slot0, int e0,
                                          int e1,
                                          const float* __restrict__ P_b,
-                                         const float* __restrict__ dP_b) {
+                                         const float* __restrict__ dP_b,
+                                         int C) {
   const int per = C * A;
   const int n = (dP_b ? 4 : 2) * per;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int k = i / per;
     const float* src = k < 2 ? P_b : dP_b;
-    copy_matrix<C>(mats, slot0 + k, src, (k & 1) ? e1 : e0, i % per);
+    copy_matrix<G>(mats, slot0 + k, src, C, (k & 1) ? e1 : e0, i % per);
   }
 }
 
@@ -222,7 +229,7 @@ __device__ __forceinline__ Op op_at(const int* t_dst, const int* t_child,
 
 }  // namespace onchip
 
-// Instantiate a launcher for every category count and both stagings.
+// Instantiate a launcher for every category count 1..8 and both stagings.
 #define ONCHIP_DISPATCH(C_VALUE, RING, LAUNCH)                \
   switch ((C_VALUE) * 2 + ((RING) ? 1 : 0)) {                 \
     case 2: LAUNCH(1, false); break;                          \
@@ -242,4 +249,15 @@ __device__ __forceinline__ Op op_at(const int* t_dst, const int* t_child,
     case 16: LAUNCH(8, false); break;                         \
     case 17: LAUNCH(8, true); break;                          \
     default: return cudaErrorInvalidValue;                    \
+  }
+
+// The same for 9..32 categories: one launcher a lane count G (16 or 32)
+// and staging, which takes the run-time count.
+#define ONCHIP_DISPATCH_WIDE(C_VALUE, RING, LAUNCH)            \
+  switch (((C_VALUE) <= 16 ? 16 : 32) * 2 + ((RING) ? 1 : 0)) { \
+    case 32: LAUNCH(16, false); break;                          \
+    case 33: LAUNCH(16, true); break;                           \
+    case 64: LAUNCH(32, false); break;                          \
+    case 65: LAUNCH(32, true); break;                           \
+    default: return cudaErrorInvalidValue;                      \
   }

@@ -47,13 +47,21 @@
 // bound (PERF.md, chip runs).  Larger trees hold more rows a pattern and
 // fewer warps an SM; below three warps paired_grad.cu is the faster, and
 // paired.py's onchip_plan hands the tree to it (about 150 taxa at C=4).
+//
+// Instantiations: <C, ring> for C = 1..8, and for 9..32 categories one a
+// lane count (G = 16 or 32) and staging, with the count read at run time.
+// At G = 32 a pattern is a whole warp, and at G >= 16 the tree's P and dP
+// staged at once take 64 G bytes a matrix (about 104 KB at the flagship
+// and G = 16), so the plan takes the ring sooner.
 #include "onchip.cuh"
 
 namespace {
 
 using onchip::A;
 
-template <int C, bool kRing>
+// G lanes a pattern; CF the category count where it is fixed at compile
+// time (1..8), else 0 and the run-time count C_run (G / 2 < C_run <= G).
+template <int G, int CF, bool kRing>
 __global__ void __launch_bounds__(onchip::kMaxThreads)
 paired_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, M]
                           const int* __restrict__ child,      // [B, M, 2]
@@ -67,9 +75,10 @@ paired_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, M]
                           const float* __restrict__ weights,  // [S]
                           float* __restrict__ ll_rows,        // [B, S]
                           float* __restrict__ grad_rows,      // [B, N1, S]
-                          int M, int T, int N1, int S, int rows) {
+                          int M, int T, int N1, int S, int rows,
+                          int C_run) {
   using namespace onchip;
-  constexpr int G = Lanes<C>::G;
+  const int C = CF > 0 ? CF : C_run;
   extern __shared__ float4 smem[];
   const int threads = blockDim.x;
   const int tid = threadIdx.x;
@@ -100,8 +109,8 @@ paired_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, M]
     t_e[i] = post_e[k];
     t_src[i] = post_src[k];
   }
-  zero_idle<C>(mats, nslots);
-  if (!kRing) stage_all<C>(mats, P_b, dP_b, N1);
+  zero_idle<G>(mats, nslots, C);
+  if (!kRing) stage_all<G>(mats, P_b, dP_b, N1, C);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -114,7 +123,7 @@ paired_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, M]
   // -- postorder: op m's output to row m ------------------------------------
   int lsc = 0;  // the running log scale, in powers of two
   if (kRing) {
-    stage_op<C>(mats, 0, t_e[0], t_e[1], P_b, nullptr);
+    stage_op<G>(mats, 0, t_e[0], t_e[1], P_b, nullptr, C);
     cp_async_commit();
   }
   // Op m's tape and leaves are read one op ahead, before op m - 1's
@@ -130,8 +139,8 @@ paired_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, M]
     const float4* M0;
     const float4* M1;
     if (kRing) {
-      if (m + 1 < M) stage_op<C>(mats, 4 * (mn & 1), nx.e0, nx.e1, P_b,
-                                 nullptr);
+      if (m + 1 < M) stage_op<G>(mats, 4 * (mn & 1), nx.e0, nx.e1, P_b,
+                                 nullptr, C);
       cp_async_commit();
       cp_async_wait<1>();  // op m's matrices have landed
       __syncthreads();
@@ -166,7 +175,7 @@ paired_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, M]
   const float w = __ldg(weights + s);
   float* const grad_b = grad_rows + static_cast<size_t>(b) * N1 * S + s_raw;
   if (kRing) {
-    stage_op<C>(mats, 0, t_e[2 * M - 2], t_e[2 * M - 1], P_b, dP_b);
+    stage_op<G>(mats, 0, t_e[2 * M - 2], t_e[2 * M - 1], P_b, dP_b, C);
     cp_async_commit();
   }
   op = op_at(t_dst, t_child, t_e, M - 1);
@@ -180,8 +189,8 @@ paired_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, M]
     const int src0 = t_src[2 * m], src1 = t_src[2 * m + 1];
     const float4 *M0, *M1, *dM0, *dM1;
     if (kRing) {
-      if (m > 0) stage_op<C>(mats, 4 * ((k + 1) & 1), nx.e0, nx.e1, P_b,
-                             dP_b);
+      if (m > 0) stage_op<G>(mats, 4 * ((k + 1) & 1), nx.e0, nx.e1, P_b,
+                             dP_b, C);
       cp_async_commit();
       cp_async_wait<1>();
       __syncthreads();
@@ -227,14 +236,14 @@ paired_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, M]
   }
 }
 
-template <int C, bool kRing>
+template <int G, int CF, bool kRing>
 cudaError_t launch(const int* post_dst, const int* child, const int* post_src,
                    const int* post_e, const float* P, const float* dP,
                    const float* tips, const float* pi, const float* props,
                    const float* weights, float* ll_rows, float* grad_rows,
-                   int B, int M, int T, int N1, int S, int rows, int cols,
-                   cudaStream_t st) {
-  constexpr int G = onchip::Lanes<C>::G;
+                   int B, int M, int T, int N1, int C, int S, int rows,
+                   int cols, cudaStream_t st) {
+  if (CF == 0 && (C <= G / 2 || C > G)) return cudaErrorInvalidValue;
   const int threads = cols * G;
   if (cols < 1 || threads > onchip::kMaxThreads || threads % 32)
     return cudaErrorInvalidValue;
@@ -242,13 +251,13 @@ cudaError_t launch(const int* post_dst, const int* child, const int* post_src,
       onchip::smem_bytes(rows, threads, G, N1, 4, kRing, 7 * M);
   if (smem > onchip::kSmemMax) return cudaErrorInvalidValue;
   const cudaError_t attr = cudaFuncSetAttribute(
-      paired_grad_onchip_kernel<C, kRing>,
+      paired_grad_onchip_kernel<G, CF, kRing>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, onchip::kSmemMax);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + cols - 1) / cols, B);
-  paired_grad_onchip_kernel<C, kRing><<<grid, threads, smem, st>>>(
+  paired_grad_onchip_kernel<G, CF, kRing><<<grid, threads, smem, st>>>(
       post_dst, child, post_src, post_e, P, dP, tips, pi, props, weights,
-      ll_rows, grad_rows, M, T, N1, S, rows);
+      ll_rows, grad_rows, M, T, N1, S, rows, C);
   return cudaGetLastError();
 }
 
@@ -268,11 +277,19 @@ extern "C" int bito_paired_grad_onchip(
   if (B <= 0 || B > 65535 || S <= 0 || M <= 0 || rows < 1 || rows > M)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define ONCHIP_LAUNCH_GRAD(CV, RV)                                           \
-  return static_cast<int>(launch<CV, RV>(                                    \
+#define ONCHIP_LAUNCH_GRAD_AT(GV, CV, RV)                                    \
+  return static_cast<int>(launch<GV, CV, RV>(                                \
       post_dst, child, post_src, post_e, P, dP, tips, pi, props, weights,    \
-      ll_rows, grad_rows, B, M, T, N1, S, rows, cols, st))
+      ll_rows, grad_rows, B, M, T, N1, C, S, rows, cols, st))
+#define ONCHIP_LAUNCH_GRAD(CV, RV) \
+  ONCHIP_LAUNCH_GRAD_AT(onchip::Lanes<CV>::G, CV, RV)
+#define ONCHIP_LAUNCH_GRAD_WIDE(GV, RV) ONCHIP_LAUNCH_GRAD_AT(GV, 0, RV)
+  if (C > 8) {
+    ONCHIP_DISPATCH_WIDE(C, ring != 0, ONCHIP_LAUNCH_GRAD_WIDE)
+  }
   ONCHIP_DISPATCH(C, ring != 0, ONCHIP_LAUNCH_GRAD)
+#undef ONCHIP_LAUNCH_GRAD_WIDE
 #undef ONCHIP_LAUNCH_GRAD
+#undef ONCHIP_LAUNCH_GRAD_AT
   return cudaErrorInvalidValue;
 }

@@ -1,0 +1,223 @@
+// The global bodies of the paired kernels at 9..32 rate categories:
+// paired_ll.cu and paired_grad.cu launch them where C > 8.  They compute
+// what those sources' C = 1..8 bodies compute, over the same paired-slot
+// tape, in the on-chip bodies' lane layout (onchip.cuh) with the slots in
+// device memory.
+//
+// Why not the C = 1..8 layout: there one thread takes a pattern and holds
+// all C*4 values of each vector of an op in registers; the grad body
+// already spills at C = 8, and at C = 32 (128 values a vector, six
+// vectors) that cannot hold.  Here a pattern has G = 16 or 32 lanes, lane g
+// holding category g's 4 states as one float4 (idle lanes, g >= C, compute
+// zeros), and the sums over categories are shuffles over the G lanes.
+//
+// A block of kThreads threads takes one tree (blockIdx.y) and kThreads / G
+// patterns.  The slots are float4 [B, NS, Sp, G]: slot k of pattern s,
+// lane g at ((b NS + k) Sp + s) G + g, so that a warp's lanes touch 512
+// contiguous bytes.  Sp is S rounded up to a block's patterns: a thread
+// past the last pattern computes a copy of it in a column of its own
+// (every lane of a warp takes part in the shuffles) and writes no output.
+// One group of lanes walks the whole tape for its pattern, so, as in
+// paired_grad.cu, the outside pass's in-place writes need no barrier.  As
+// in the on-chip bodies, each op rescales by a power of two and the root's
+// log scale is the running sum of the exponents: no log-scale slots.
+// The matrices are read from device memory (L1 and L2 resident: every
+// pattern of a tree reads the same ones).
+#pragma once
+
+#include "onchip.cuh"
+
+namespace paired_lanes {
+
+using onchip::A;
+constexpr int kThreads = 128;  // threads a block (treelike/paired.py GLOBAL_THREADS)
+
+namespace {
+
+// This lane's slots of one pattern: slot k at base[k * stride].
+struct Slots {
+  float4* base;
+  size_t stride;
+  __device__ __forceinline__ float4& operator[](int k) const {
+    return base[static_cast<size_t>(k) * stride];
+  }
+};
+
+// The lane's category of matrix Pe ([C, 4, 4]) times p, or zeros on an
+// idle lane.
+__device__ __forceinline__ float4 evolve(const float* __restrict__ Pe, int g,
+                                         int C, float4 p) {
+  if (g >= C) return make_float4(0.f, 0.f, 0.f, 0.f);
+  return onchip::evolve<1>(reinterpret_cast<const float4*>(Pe) + g * A, p);
+}
+
+// Its transpose times o, or zeros on an idle lane.
+__device__ __forceinline__ float4 evolve_t(const float* __restrict__ Pe,
+                                           int g, int C, float4 o) {
+  if (g >= C) return make_float4(0.f, 0.f, 0.f, 0.f);
+  return onchip::evolve_t<1>(reinterpret_cast<const float4*>(Pe) + g * A, o);
+}
+
+// Where a thread's pattern lies: its lane, its column (s_raw) and the
+// pattern whose tips and weight it reads (s).
+template <int G>
+struct Lane {
+  int g, s_raw, s;
+  __device__ __forceinline__ explicit Lane(int S)
+      : g(threadIdx.x % G),
+        s_raw(blockIdx.x * (kThreads / G) + threadIdx.x / G),
+        s(min(s_raw, S - 1)) {}
+  __device__ __forceinline__ Slots slots(float4* buf, int NS) const {
+    const int Sp = gridDim.x * (kThreads / G);
+    return Slots{buf + (static_cast<size_t>(blockIdx.y) * NS * Sp + s_raw) *
+                           G + g,
+                 static_cast<size_t>(Sp) * G};
+  }
+};
+
+// The tips into their slots, then the postorder: op m evolves slots 2m and
+// 2m+1 along its edges, multiplies, rescales over the pattern's lanes and
+// writes slot post_dst[m]; at the root op, the pattern's log likelihood
+// (the same on every lane), which is returned.
+template <int G>
+__device__ __forceinline__ float postorder(
+    const Lane<G>& ln, const Slots& col, const int* __restrict__ dst_b,
+    const int* __restrict__ tip_b, const int* __restrict__ e_b,
+    const float* __restrict__ P_b, const float* __restrict__ tips,
+    const float* __restrict__ pi, float prop, int M, int T, int C, int S) {
+  for (int t = 0; t < T; ++t) {
+    const float* p = tips + static_cast<size_t>(t) * A * S + ln.s;
+    col[tip_b[t]] = make_float4(__ldg(p), __ldg(p + S), __ldg(p + 2 * S),
+                                __ldg(p + 3 * S));
+  }
+  const int root = 2 * M, trash = 2 * M + 1;
+  const size_t mat = static_cast<size_t>(C) * A * A;
+  const float4 pi4 = make_float4(__ldg(pi), __ldg(pi + 1), __ldg(pi + 2),
+                                 __ldg(pi + 3));
+  int lsc = 0;  // the running log scale, in powers of two
+  float site = 1.f;
+  for (int m = 0; m < M; ++m) {
+    const int dst = dst_b[m];
+    if (dst == trash) continue;  // a padded op: the whole block skips it
+    float4 prod = onchip::mul(
+        evolve(P_b + e_b[2 * m] * mat, ln.g, C, col[2 * m]),
+        evolve(P_b + e_b[2 * m + 1] * mat, ln.g, C, col[2 * m + 1]));
+    const int ex = onchip::scale_exponent(
+        onchip::group_max<G>(onchip::max4(prod)));
+    prod = onchip::scale(prod, onchip::pow2_neg(ex));
+    lsc += ex;
+    if (dst == root)
+      site = onchip::group_sum<G>(prop * onchip::dot(pi4, prod));
+    else
+      col[dst] = prod;
+  }
+  return logf(site) + lsc * onchip::kLn2;
+}
+
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+ll_kernel(const int* __restrict__ post_dst,   // [B, M]
+          const int* __restrict__ tip_slot,   // [B, T]
+          const int* __restrict__ post_e,     // [B, M, 2]
+          const float* __restrict__ P,        // [B, N1, C, 4, 4]
+          const float* __restrict__ tips,     // [T, 4, S]
+          const float* __restrict__ pi,       // [4]
+          const float* __restrict__ props,    // [C]
+          float4* __restrict__ buf,           // [B, 2M+3, Sp, G]
+          float* __restrict__ ll_rows,        // [B, S]
+          int M, int T, int N1, int C, int S) {
+  const Lane<G> ln(S);
+  const int b = blockIdx.y;
+  const float ll = postorder<G>(
+      ln, ln.slots(buf, 2 * M + 3), post_dst + static_cast<size_t>(b) * M,
+      tip_slot + static_cast<size_t>(b) * T,
+      post_e + static_cast<size_t>(b) * 2 * M,
+      P + static_cast<size_t>(b) * N1 * C * A * A, tips, pi,
+      ln.g < C ? __ldg(props + ln.g) : 0.f, M, T, C, S);
+  if (ln.g == 0 && ln.s_raw < S)
+    ll_rows[static_cast<size_t>(b) * S + ln.s_raw] = ll;
+}
+
+// The postorder, then the outside pass in reverse tape order: op m takes
+// its outside value from slot post_dst[m] (pi at the root op), forms both
+// children's outside vectors o0 = up * ev1 and o1 = up * ev0, rescales
+// them over the pattern's lanes, writes each child's weighted gradient
+// row w * sum_ca prop*o*(dP p) / sum_ca prop*o*(P p) to row post_src[m, j],
+// then P^T o over slots (2m, 2m+1), whose partials op m was the last to
+// read.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+grad_kernel(const int* __restrict__ post_dst,   // [B, M]
+            const int* __restrict__ tip_slot,   // [B, T]
+            const int* __restrict__ post_src,   // [B, M, 2]
+            const int* __restrict__ post_e,     // [B, M, 2]
+            const float* __restrict__ P,        // [B, N1, C, 4, 4]
+            const float* __restrict__ dP,       // [B, N1, C, 4, 4]
+            const float* __restrict__ tips,     // [T, 4, S]
+            const float* __restrict__ pi,       // [4]
+            const float* __restrict__ props,    // [C]
+            const float* __restrict__ weights,  // [S]
+            float4* __restrict__ buf,           // [B, 2M+3, Sp, G]
+            float* __restrict__ ll_rows,        // [B, S]
+            float* __restrict__ grad_rows,      // [B, N1, S], zeroed
+            int M, int T, int N1, int C, int S) {
+  const Lane<G> ln(S);
+  const int b = blockIdx.y;
+  const Slots col = ln.slots(buf, 2 * M + 3);
+  const int* dst_b = post_dst + static_cast<size_t>(b) * M;
+  const int* e_b = post_e + static_cast<size_t>(b) * 2 * M;
+  const int* src_b = post_src + static_cast<size_t>(b) * 2 * M;
+  const size_t tree = static_cast<size_t>(b) * N1 * C * A * A;
+  const size_t mat = static_cast<size_t>(C) * A * A;
+  const float prop = ln.g < C ? __ldg(props + ln.g) : 0.f;
+  const bool writer = ln.g == 0 && ln.s_raw < S;
+  const float ll = postorder<G>(ln, col, dst_b,
+                                tip_slot + static_cast<size_t>(b) * T, e_b,
+                                P + tree, tips, pi, prop, M, T, C, S);
+  if (writer) ll_rows[static_cast<size_t>(b) * S + ln.s_raw] = ll;
+
+  const int root = 2 * M, trash = 2 * M + 1;
+  const float4 pi4 = make_float4(__ldg(pi), __ldg(pi + 1), __ldg(pi + 2),
+                                 __ldg(pi + 3));
+  const float w = __ldg(weights + ln.s);
+  float* const grad_b = grad_rows + static_cast<size_t>(b) * N1 * S +
+                        ln.s_raw;
+  for (int m = M - 1; m >= 0; --m) {
+    const int dst = dst_b[m];
+    if (dst == trash) continue;
+    const float* P0 = P + tree + e_b[2 * m] * mat;
+    const float* P1 = P + tree + e_b[2 * m + 1] * mat;
+    const float4 p0 = col[2 * m], p1 = col[2 * m + 1];
+    const float4 ev0 = evolve(P0, ln.g, C, p0), ev1 = evolve(P1, ln.g, C, p1);
+    const float4 up = dst == root ? pi4 : col[dst];
+    float4 o0 = onchip::mul(up, ev1), o1 = onchip::mul(up, ev0);
+    const float inv = onchip::pow2_neg(onchip::scale_exponent(
+        onchip::group_max<G>(fmaxf(onchip::max4(o0), onchip::max4(o1)))));
+    o0 = onchip::scale(o0, inv);
+    o1 = onchip::scale(o1, inv);
+    const float n0 = onchip::group_sum<G>(prop * onchip::dot(
+        o0, evolve(dP + tree + e_b[2 * m] * mat, ln.g, C, p0)));
+    const float n1 = onchip::group_sum<G>(prop * onchip::dot(
+        o1, evolve(dP + tree + e_b[2 * m + 1] * mat, ln.g, C, p1)));
+    float d0 = onchip::group_sum<G>(prop * onchip::dot(o0, ev0));
+    float d1 = onchip::group_sum<G>(prop * onchip::dot(o1, ev1));
+    if (writer) {
+      d0 = d0 > 0.f ? d0 : 1.f;
+      d1 = d1 > 0.f ? d1 : 1.f;
+      grad_b[static_cast<size_t>(src_b[2 * m]) * S] = w * n0 / d0;
+      grad_b[static_cast<size_t>(src_b[2 * m + 1]) * S] = w * n1 / d1;
+    }
+    col[2 * m] = evolve_t(P0, ln.g, C, o0);
+    col[2 * m + 1] = evolve_t(P1, ln.g, C, o1);
+  }
+}
+
+// The grid of either kernel: blocks of kThreads / G patterns by trees.
+template <int G>
+dim3 grid(int B, int S) {
+  constexpr int per = kThreads / G;
+  return dim3((S + per - 1) / per, B);
+}
+
+}  // namespace
+}  // namespace paired_lanes

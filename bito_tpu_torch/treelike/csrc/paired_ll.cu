@@ -27,7 +27,13 @@
 // paired_ll_onchip.cu keeps the live partials in shared memory and is the
 // body the wrappers launch (treelike/paired.py); this one takes the trees
 // whose rows do not fit there.
+//
+// At 9..32 rate categories the kernel is paired_lanes.cuh's ll_kernel (a
+// category a lane, the slots in device memory as float4 [B, NS, Sp, G]),
+// launched here with the same arguments: `buf` holds B * NS * Sp * G * 4
+// floats and `ls` is not read.
 #include "common.cuh"
+#include "paired_lanes.cuh"
 
 namespace {
 
@@ -75,8 +81,22 @@ extern "C" int bito_paired_ll(const int* post_dst, const int* tip_slot,
                               float* ll_rows, int B, int M, int T, int N1,
                               int C, int S, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((S + bito::kThreads - 1) / bito::kThreads, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > 8 && C <= 32) {
+    float4* slots = reinterpret_cast<float4*>(buf);
+    if (C <= 16)
+      paired_lanes::ll_kernel<16>
+          <<<paired_lanes::grid<16>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, tip_slot, post_e, P, tips, pi, props, slots, ll_rows,
+              M, T, N1, C, S);
+    else
+      paired_lanes::ll_kernel<32>
+          <<<paired_lanes::grid<32>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, tip_slot, post_e, P, tips, pi, props, slots, ll_rows,
+              M, T, N1, C, S);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((S + bito::kThreads - 1) / bito::kThreads, B);
 #define BITO_LAUNCH_LL(CV)                                                  \
   paired_ll_kernel<CV><<<grid, bito::kThreads, 0, st>>>(                   \
       post_dst, tip_slot, post_e, P, tips, pi, props, buf, ls, ll_rows, M, \

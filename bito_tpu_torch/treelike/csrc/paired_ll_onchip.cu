@@ -55,7 +55,11 @@
 //
 // The body is the template of paired_ll_onchip.cuh, which the perf lab's
 // chunk_variant.cu instantiates with its knobs; this source compiles the
-// shipping instantiations, <C, ring> for C = 1..8 with no knob.
+// shipping instantiations: <C, ring> for C = 1..8 with no knob, and for
+// 9..32 categories one a lane count (16 or 32) and staging, with the count
+// read at run time (idle lanes, g >= C, have zero matrices as at C = 3 or
+// 5..7).  At G = 32 a pattern is a whole warp: the shuffles span it, and a
+// block of 512 threads holds 16 patterns.
 #include "paired_ll_onchip.cuh"
 
 // `rows` is the peak number of live outputs (paired.py live_rows); `cols`
@@ -74,7 +78,15 @@ extern "C" int bito_paired_ll_onchip(const int* post_dst, const int* child,
   return static_cast<int>(paired_ll_onchip::launch<CV, RV>(            \
       post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows, B, \
       M, T, N1, S, rows, cols, st))
+#define ONCHIP_LAUNCH_LL_WIDE(GV, RV)                                   \
+  return static_cast<int>(paired_ll_onchip::launch_wide<GV, RV>(        \
+      post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows, B, \
+      M, T, N1, C, S, rows, cols, st))
+  if (C > 8) {
+    ONCHIP_DISPATCH_WIDE(C, ring != 0, ONCHIP_LAUNCH_LL_WIDE)
+  }
   ONCHIP_DISPATCH(C, ring != 0, ONCHIP_LAUNCH_LL)
+#undef ONCHIP_LAUNCH_LL_WIDE
 #undef ONCHIP_LAUNCH_LL
   return cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // The on-chip LL body: per-pattern tree log likelihoods over a tape of the
 // paired-slot layout, with every partial on chip.  A template, instantiated
-// by paired_ll_onchip.cu (the shipping body, <C, kRing, 0, 0>) and by the
-// perf lab's chunk_variant.cu (the knobs below).  What the body computes,
+// by paired_ll_onchip.cu (the shipping body: `launch` <C, kRing, 0, 0> for
+// C = 1..8, `launch_wide` <G, kRing> for 9..32 categories on G = 16 or 32
+// lanes) and by the perf lab's chunk_variant.cu (the knobs below).  What the body computes,
 // for which TPU kernels, and why it is laid out so, is in the header of
 // paired_ll_onchip.cu.
 //
@@ -54,7 +55,9 @@ __device__ __forceinline__ int row_of(int op, const int* t_row, int rows) {
   return t_row[op];
 }
 
-template <int C, bool kRing, int MU, int KNOBS>
+// G lanes a pattern; CF the category count where it is fixed at compile
+// time (1..8), else 0 and the run-time count C_run (G / 2 < C_run <= G).
+template <int G, int CF, bool kRing, int MU, int KNOBS>
 __global__ void __launch_bounds__(onchip::kMaxThreads)
 paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
                         const int* __restrict__ child,     // [B, M, 2]
@@ -65,9 +68,10 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
                         const float* __restrict__ pi,      // [4]
                         const float* __restrict__ props,   // [C]
                         float* __restrict__ ll_rows,       // [B, S]
-                        int M_run, int T, int N1, int S, int rows) {
+                        int M_run, int T, int N1, int S, int rows,
+                        int C_run) {
   using namespace onchip;
-  constexpr int G = Lanes<C>::G;
+  const int C = CF > 0 ? CF : C_run;
   constexpr bool kDot = !(KNOBS & kNoDot);
   const int M = MU > 0 ? MU : M_run;
   extern __shared__ float4 smem[];
@@ -98,8 +102,8 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
     t_e[i] = post_e[static_cast<size_t>(b) * 2 * M + i];
   }
   if constexpr (kDot) {
-    zero_idle<C>(mats, nslots);
-    if (!kRing) stage_all<C>(mats, P_b, nullptr, N1);
+    zero_idle<G>(mats, nslots, C);
+    if (!kRing) stage_all<G>(mats, P_b, nullptr, N1, C);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -111,7 +115,7 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
   const float prop = g < C ? __ldg(props + g) : 0.f;
   int lsc = 0;  // the running log scale, in powers of two
   if (kRing && kDot) {
-    stage_op<C>(mats, 0, t_e[0], t_e[1], P_b, nullptr);
+    stage_op<G>(mats, 0, t_e[0], t_e[1], P_b, nullptr, C);
     cp_async_commit();
   }
   // Op m's tape, its children's rows and its leaves are read one op
@@ -135,8 +139,8 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
     const float4* M1 = nullptr;
     if constexpr (kDot) {
       if (kRing) {
-        if (m + 1 < M) stage_op<C>(mats, 2 * (mn & 1), nx.e0, nx.e1, P_b,
-                                   nullptr);
+        if (m + 1 < M) stage_op<G>(mats, 2 * (mn & 1), nx.e0, nx.e1, P_b,
+                                   nullptr, C);
         cp_async_commit();
         cp_async_wait<1>();  // op m's matrices have landed
         __syncthreads();
@@ -184,13 +188,13 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
   }
 }
 
-template <int C, bool kRing, int MU = 0, int KNOBS = 0>
-cudaError_t launch(const int* post_dst, const int* child, const int* live_row,
-                   const int* post_e, const float* P, const float* tips,
-                   const float* pi, const float* props, float* ll_rows, int B,
-                   int M, int T, int N1, int S, int rows, int cols,
-                   cudaStream_t st) {
-  constexpr int G = onchip::Lanes<C>::G;
+template <int G, int CF, bool kRing, int MU, int KNOBS>
+cudaError_t launch_body(const int* post_dst, const int* child,
+                        const int* live_row, const int* post_e,
+                        const float* P, const float* tips, const float* pi,
+                        const float* props, float* ll_rows, int B, int M,
+                        int T, int N1, int C, int S, int rows, int cols,
+                        cudaStream_t st) {
   const int threads = cols * G;
   if (cols < 1 || threads > onchip::kMaxThreads || threads % 32)
     return cudaErrorInvalidValue;
@@ -199,14 +203,43 @@ cudaError_t launch(const int* post_dst, const int* child, const int* live_row,
       onchip::smem_bytes(rows, threads, G, N1, 2, kRing, 6 * M);
   if (smem > onchip::kSmemMax) return cudaErrorInvalidValue;
   const cudaError_t attr = cudaFuncSetAttribute(
-      paired_ll_onchip_kernel<C, kRing, MU, KNOBS>,
+      paired_ll_onchip_kernel<G, CF, kRing, MU, KNOBS>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, onchip::kSmemMax);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + cols - 1) / cols, B);
-  paired_ll_onchip_kernel<C, kRing, MU, KNOBS><<<grid, threads, smem, st>>>(
-      post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows, M, T,
-      N1, S, rows);
+  paired_ll_onchip_kernel<G, CF, kRing, MU, KNOBS>
+      <<<grid, threads, smem, st>>>(post_dst, child, live_row, post_e, P,
+                                    tips, pi, props, ll_rows, M, T, N1, S,
+                                    rows, C);
   return cudaGetLastError();
+}
+
+// C = 1..8 categories, fixed at compile time.
+template <int C, bool kRing, int MU = 0, int KNOBS = 0>
+cudaError_t launch(const int* post_dst, const int* child, const int* live_row,
+                   const int* post_e, const float* P, const float* tips,
+                   const float* pi, const float* props, float* ll_rows, int B,
+                   int M, int T, int N1, int S, int rows, int cols,
+                   cudaStream_t st) {
+  return launch_body<onchip::Lanes<C>::G, C, kRing, MU, KNOBS>(
+      post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows, B, M,
+      T, N1, C, S, rows, cols, st);
+}
+
+// C = G / 2 + 1 .. G categories on G = 16 or 32 lanes, read at run time.
+template <int G, bool kRing>
+cudaError_t launch_wide(const int* post_dst, const int* child,
+                        const int* live_row, const int* post_e,
+                        const float* P, const float* tips, const float* pi,
+                        const float* props, float* ll_rows, int B, int M,
+                        int T, int N1, int C, int S, int rows, int cols,
+                        cudaStream_t st) {
+  static_assert(G == 16 || G == 32, "the wide instantiations take 16 or 32 "
+                "lanes");
+  if (C <= G / 2 || C > G) return cudaErrorInvalidValue;
+  return launch_body<G, 0, kRing, 0, 0>(post_dst, child, live_row, post_e, P,
+                                        tips, pi, props, ll_rows, B, M, T, N1,
+                                        C, S, rows, cols, st);
 }
 
 }  // namespace

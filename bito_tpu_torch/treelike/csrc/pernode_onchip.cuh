@@ -150,8 +150,8 @@ pernode_grad_onchip_kernel(const int* __restrict__ post,     // [B, M, 5]
   for (int i = tid; i < Z; i += threads)
     t_zero[i] = zero[static_cast<size_t>(b) * Z + i];
   if constexpr (!NODOT) {
-    zero_idle<C>(mats, 2 * N1);
-    stage_all<C>(mats, P_b, dP_b, N1);
+    zero_idle<G>(mats, 2 * N1, C);
+    stage_all<G>(mats, P_b, dP_b, N1, C);
   }
   cp_async_commit();
   cp_async_wait<0>();

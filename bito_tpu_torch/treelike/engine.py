@@ -13,16 +13,18 @@ device or dtype (bito_tpu_torch.device: PRODUCT_DEVICE, PRODUCT_DTYPE).
 
 Kernel selection, `engine.kernel`:
   "auto"    — the hand-written CUDA paired kernels (treelike/paired.py) on
-              a CUDA device in float32 with a shared model of 4 states, or
-              of 64 (MG94 codon models: their own A=64 kernels), and at
-              most paired.MAX_CATEGORIES rate categories; the scan tape
-              otherwise.  At 64 states this differs from bito_tpu, whose
-              auto takes the scan tape there (faster on its TPU); on the
-              card auto takes the kernels.  The limit of 1-8 categories
-              is the port's own: the kernels are compiled for those
-              counts, where bito_tpu
-              pads categories (zero proportions) so that its paired Pallas
-              kernel takes any count.  The paired wrappers launch the on-chip
+              a CUDA device in float32 with a shared model of 4 states and
+              at most paired.PAIRED_CATEGORIES (32) rate categories, or of
+              64 (MG94 codon models: their own A=64 kernels) and at most
+              paired.MAX_CATEGORIES (8); the scan tape otherwise.  At 64
+              states this differs from bito_tpu, whose auto takes the scan
+              tape there (faster on its TPU); on the card auto takes the
+              kernels.  The category limits are the port's own (a rate
+              category is a lane of the kernels, a pattern at most a
+              warp), where bito_tpu pads categories (zero proportions) so
+              that its paired Pallas kernel takes any count: past 32
+              categories at 4 states (past 8 at 64) auto takes the scan
+              tape.  The paired wrappers launch the on-chip
               bodies, or the global ones for a tree on which those would
               be the slower (paired.onchip_plan).
   "scan"    — always the scan tape (treelike/pruning.py).
@@ -49,8 +51,8 @@ ingredients and the transition matrices are computed in float64 and cast
 to those (_model_ingredients).  bito_tpu's TPU
 launch policy (tree interleave, tile and VMEM sizing, category padding,
 the MXU-sized chunk width) has no counterpart: the kernels take any
-batch, pattern count and category count up to paired.MAX_CATEGORIES as
-they are.
+batch, pattern count and category count up to their limits
+(paired.max_categories) as they are.
 
 `use_leveled` (False by default, as in bito_tpu) takes the levelized
 tapes (encode.encode_trees_leveled, pruning.*_leveled_impl): a step is
@@ -67,6 +69,7 @@ method returns the whole alignment's value on every rank.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -75,7 +78,7 @@ import torch
 from ..core.site_pattern import SitePattern
 from ..core.tree import Tree
 from ..device import PRODUCT_DEVICE, PRODUCT_DTYPE, resolve
-from ..dist.mesh import PatternSharded
+from ..dist.mesh import PatternSharded, check_same
 from ..models.phylo_model import PhyloModel
 from ..models.substitution import EigenDecomp
 from . import chunked, paired, prep, pruning
@@ -118,6 +121,7 @@ class TreeLikelihoodEngine(PatternSharded):
         self._kernel_weights = self.weights.to(self._operand_dtype)
         self._encoding: Optional[TreeBatchEncoding] = None
         self._encoding_key = None
+        self._encoding_digest = None
         self._tapes: Dict[str, tuple] = {}
         self._leveled: Optional[LeveledEncoding] = None
         self._leveled_key = None
@@ -149,7 +153,8 @@ class TreeLikelihoodEngine(PatternSharded):
                 and self.dtype == torch.float32
                 and shared_model
                 and self.num_states in paired.KERNEL_STATES
-                and self.model.category_count <= paired.MAX_CATEGORIES):
+                and self.model.category_count
+                <= paired.max_categories(self.num_states)):
             return "paired"
         return "scan"
 
@@ -187,7 +192,15 @@ class TreeLikelihoodEngine(PatternSharded):
         The routes stay those of the unsharded engine: the same kernel
         wrappers or the scan tape on the slice, then one all_reduce a
         result (as paired.py's and chunked.py's *_sharded wrappers do).
-        `pattern_pad` is the slice's width from here on."""
+        `pattern_pad` is the slice's width from here on.
+
+        Every rank must pass the same trees, branch lengths and model
+        parameters to each call: the all_reduce adds each rank's partial
+        sums tree by tree.  The engine checks the topologies (`encode`:
+        one all_gather of a hash of the batch's topology keys on every
+        call, raising on every rank where they differ); the branch lengths
+        and parameters are the caller's to keep equal, e.g. a VBPI trainer
+        (vi.Burrito) made with the same seed on every rank."""
         shard = self._take_shard(self.pattern_pad, paired.PATTERN_MULTIPLE,
                                  group)
         self.tip_partials = shard.take(self.tip_partials, 1, fill=1.0)
@@ -199,12 +212,35 @@ class TreeLikelihoodEngine(PatternSharded):
 
     # -- encoding cache -------------------------------------------------
     def encode(self, trees: Sequence[Tree]) -> TreeBatchEncoding:
+        """The batch's encoding, cached by topology.  A pattern-sharded
+        engine first checks that every rank of its group holds the same
+        topologies (_check_topologies)."""
         key = tuple(t.topology.key() for t in trees)
         if key != self._encoding_key:
             self._encoding = encode_trees([t.topology for t in trees])
             self._encoding_key = key
+            self._encoding_digest = None
             self._tapes = {}
+        if self.group is not None:
+            self._check_topologies()
         return self._encoding
+
+    def _check_topologies(self):
+        """Raise on every rank of the group unless every rank's batch has
+        the same topology keys, in order: a rank that sampled other trees
+        would otherwise add its partial sums to another rank's trees.  It
+        runs on every call, not once per new encoding, since whether a
+        call brings a new encoding is a rank's own (a rank may draw the
+        topologies it had while another does not), and a collective that
+        one rank skips would leave the others waiting.  The hash is
+        computed once per encoding."""
+        if self._encoding_digest is None:
+            digest = hashlib.blake2b(repr(self._encoding_key).encode(),
+                                     digest_size=8).digest()
+            self._encoding_digest = int.from_bytes(digest, "little") >> 1
+        check_same(self._encoding_digest, self.group,
+                   f"tree topologies ({len(self._encoding_key)} trees a "
+                   "batch)")
 
     def encode_leveled(self, trees: Sequence[Tree]) -> LeveledEncoding:
         """The levelized encoding of the batch, cached by topology."""

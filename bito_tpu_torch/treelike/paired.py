@@ -14,10 +14,16 @@ Each kernel has two bodies on the card:
     produced it, through the compact child tape of `onchip_tape`), and
     gives each rate category of a pattern its own lane;
   - the global body (csrc/paired_ll.cu, csrc/paired_grad.cu): one thread
-    per (tree, pattern), the paired slots in device memory.  It takes any
-    tree; the wrappers launch it where a block of the on-chip body would
-    hold too few warps of patterns to be the faster (`onchip_plan`
-    returns None), decided from the tape before the launch.
+    per (tree, pattern), the paired slots in device memory; at 9-32 rate
+    categories the on-chip bodies' lane layout with the slots in device
+    memory (csrc/paired_lanes.cuh).  It takes any tree; the wrappers
+    launch it where a block of the on-chip body would hold too few warps
+    of patterns to be the faster (`onchip_plan` returns None), decided
+    from the tape before the launch.
+At 4 states both bodies take 1 to PAIRED_CATEGORIES (32) rate categories:
+1-8 compiled one count at a time, 9-32 on 16 or 32 lanes a pattern with
+the count read at run time.  The chunked, per-node and A=64 kernels take
+1 to MAX_CATEGORIES (8).
 The on-chip LL body also serves the chunked and per-node LL kernels
 (chunked.py, pernode.py): their tapes are walked as paired tapes, one op
 at a time, through `launch_ll_onchip`.
@@ -74,7 +80,11 @@ from ..dist import mesh
 from . import _kernels
 
 RESK = 4  # the tape is padded to a multiple of this many ops, as in bito_tpu
-MAX_CATEGORIES = 8  # the category counts the kernels are compiled for
+# The category counts the kernels take: the chunked, per-node and A=64
+# kernels 1..MAX_CATEGORIES; the 4-state paired kernels (both bodies)
+# 1..PAIRED_CATEGORIES, one lane a category, a pattern at most a warp.
+MAX_CATEGORIES = 8
+PAIRED_CATEGORIES = 32
 KERNEL_STATES = (4, 64)  # the state counts the paired kernels take
 # A shard's pattern count is a multiple of this (TreeLikelihoodEngine.
 # shard_patterns): the A=64 kernels copy [64, S] rows in 16-byte pieces.
@@ -301,9 +311,9 @@ def onchip_plan(kernel: str, rows: int, M: int, N1: int, C: int,
     staging at any number of warps, to measure it."""
     if kernel not in ("ll", "grad"):
         raise ValueError(f"kernel must be 'll' or 'grad', got {kernel!r}")
-    if not 1 <= C <= MAX_CATEGORIES:
-        raise ValueError(f"the kernels take 1..{MAX_CATEGORIES} rate "
-                         f"categories, got {C}")
+    if not 1 <= C <= PAIRED_CATEGORIES:
+        raise ValueError(f"the on-chip bodies take 1..{PAIRED_CATEGORIES} "
+                         f"rate categories, got {C}")
     if ring is None:
         staged = _warps(kernel, rows, M, N1, C, False)
         ringed = _warps(kernel, rows, M, N1, C, True)
@@ -515,7 +525,17 @@ def paired_ll_and_gradients_tf32(post_dst, tip_slot, post_src, post_e,
 # Public wrappers and the bodies' launchers
 # ---------------------------------------------------------------------------
 
-def _check_cuda_operands(ints, floats, C, A, states=(4,)):
+def max_categories(A: int) -> int:
+    """The category counts the paired kernels take at A states: 1..this
+    (PAIRED_CATEGORIES at 4 states, MAX_CATEGORIES at 64)."""
+    return PAIRED_CATEGORIES if A == 4 else MAX_CATEGORIES
+
+
+def _check_cuda_operands(ints, floats, C, A, states=(4,),
+                         categories=MAX_CATEGORIES):
+    """Raise unless every operand is a contiguous CUDA tensor of its
+    dtype (int32 or float32), A is one of `states` and C is in
+    1..`categories`."""
     for name, t in {**ints, **floats}.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
@@ -530,8 +550,8 @@ def _check_cuda_operands(ints, floats, C, A, states=(4,)):
     if A not in states:
         raise ValueError(f"the kernels take {' or '.join(map(str, states))}"
                          f"-state models, got A={A}")
-    if not 1 <= C <= MAX_CATEGORIES:
-        raise ValueError(f"the kernels take 1..{MAX_CATEGORIES} rate "
+    if not 1 <= C <= categories:
+        raise ValueError(f"the kernels take 1..{categories} rate "
                          f"categories, got {C}")
 
 
@@ -603,7 +623,7 @@ def paired_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     _check_cuda_operands(
         dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
         dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
-        KERNEL_STATES)
+        KERNEL_STATES, max_categories(A))
     if A == 64:
         return paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi,
                              props) @ weights
@@ -638,7 +658,7 @@ def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
              post_e=post_e),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A, KERNEL_STATES)
+        C, A, KERNEL_STATES, max_categories(A))
     if A == 64:
         return finish_rows(*paired_grad_a64(post_dst, tip_slot, post_src,
                                             post_e, P, dP, tips, pi, props,
@@ -748,17 +768,34 @@ def paired_grad_onchip(post_dst, onchip, post_src, post_e, P, dP, tips, pi,
 paired_grad_onchip.launches = 0
 
 
+# Threads a block of the global bodies' lane layout (9..32 categories,
+# csrc/paired_lanes.cuh kThreads): 128 / G patterns a block.
+GLOBAL_THREADS = 128
+
+
+def _global_scratch(B, M, C, S, device):
+    """The global bodies' scratch (buf, ls): at 1..8 categories the slots
+    [B, 2M+3, C*4, S] and their log scales [B, 2M+3, S]; at 9..32 the lane
+    layout's slots [B, 2M+3, Sp, G, 4], Sp = S rounded up to a block's
+    patterns, and no log scales (csrc/paired_lanes.cuh)."""
+    NS = 2 * M + 3
+    kw = dict(device=device, dtype=torch.float32)
+    if C <= MAX_CATEGORIES:
+        return (torch.empty((B, NS, C * 4, S), **kw),
+                torch.empty((B, NS, S), **kw))
+    G = lanes(C)
+    return (torch.empty((B, NS, _rup(S, GLOBAL_THREADS // G), G, 4), **kw),
+            torch.empty(0, **kw))
+
+
 def paired_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props):
     """Launch csrc/paired_ll.cu (operands checked by the wrapper):
     per-pattern LL rows [B, S]."""
     B, M = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
-    NS = 2 * M + 3
-    kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C * 4, S), **kw)
-    ls = torch.empty((B, NS, S), **kw)
-    ll_rows = torch.empty((B, S), **kw)
+    buf, ls = _global_scratch(B, M, C, S, P.device)
+    ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
     with torch.cuda.device(P.device):
         rc = _kernels.library().bito_paired_ll(
             post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
@@ -781,10 +818,8 @@ def paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
     B, M = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
-    NS = 2 * M + 3
     kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C * 4, S), **kw)
-    ls = torch.empty((B, NS, S), **kw)
+    buf, ls = _global_scratch(B, M, C, S, P.device)
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, N1, S), **kw)
     with torch.cuda.device(P.device):

@@ -8,6 +8,14 @@ gradients on the instance's engine (the paired kernels on the card: the
 instance hands the engine one shared model row), assembles the scalar
 (reparameterization) and topology (VIMCO) gradients, and Adam-steps both
 parameter sets.
+
+Sharded over the site patterns (`burrito.inst.engine.shard_patterns()`
+on every rank of a process group), each rank samples topologies and
+branch lengths on its own host, and the engine adds the ranks' partial
+likelihoods tree by tree: every rank must then draw the same samples,
+that is, make its Burrito with the same `seed` (and the same inputs).
+The engine checks the topologies on every call and raises on every rank
+where they differ; equal branch lengths follow from equal seeds.
 """
 from __future__ import annotations
 

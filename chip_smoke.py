@@ -18,6 +18,11 @@ the dist path, runs the pattern-sharded engines on two ranks of the card
 and the VI command line with a checkpoint:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
+  - categories: the same entry points at GTR+Gamma16 (CATEGORY_PATH_C),
+    which auto took to the scan tape before the paired kernels took 9-32
+    rate categories: the on-chip bodies on 16 lanes a pattern, counted
+    for the JSON line's entries paired_ll_onchip@C16 and
+    paired_grad_onchip@C16;
   - large: the same entry points on two trees of 921 taxa (128 patterns:
     a cherry comb and a balanced tree) past the on-chip bodies' limits,
     where the wrappers hand over to the global bodies (csrc/paired_ll.cu,
@@ -124,7 +129,8 @@ and the VI command line with a checkpoint:
     paired_grad_onchip) and on chunked (chunked_ll_onchip,
     chunked_grad_onchip), LL-only and LL+gradients; the codon path's
     shape on auto (paired_ll_a64, paired_grad_a64); the GP engine at
-    config3's shape in float64.  Then one rank over NCCL (`--dist-worker
+    config3's shape in float64; the vbpi path's trainer with its instance
+    engine sharded beside the same trainer unsharded (dist_vbpi).  Then one rank over NCCL (`--dist-worker
     nccl`), and NCCL asked for two ranks on one card, which the launcher
     refuses before any worker starts;
   - leveled: the flagship's float64 engine with use_leveled (the
@@ -166,6 +172,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      (pernode_log_likelihoods, pernode_ll_and_gradients: the A=64 kernels
      on the per-node tape) within A64_BOUND on CODON_PERNODE_BATCH trees,
      each launching each A=64 kernel once.
+     Both paired kernels at CATEGORY_COUNTS (9, 16, 32) rate categories
+     through their wrappers against their float64 plain versions within
+     5e-5: on the flagship (the on-chip bodies), on the flagship with
+     every branch CATEGORY_EDGE_LENGTH (1e-6) long, and on the large
+     path's trees (the global bodies), each launching the body its plan
+     names (category_parity).
      chunk_variant's variants (v0, w4, w8, norescale, notips, fixstore,
      nodot, unroll) against their float64 plain versions on the
      flagship's chunked operands: the LL within 5e-5 relative (notips,
@@ -247,7 +259,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      share of it, the unsharded call's ms and each kernel wrapper's ms
      on the rank's operands; the GP engine's log marginal, per-PCSP LLs
      and (after one sweep) branch lengths within GP_DIST_BOUND of the
-     unsharded engine (dist_gp), the same on every rank; the NCCL rank's
+     unsharded engine (dist_gp), the same on every rank; the sharded VBPI
+     trainer's last sample's LL and gradients, its ELBO and its SBN and
+     scalar parameters after three steps within 5e-5 of the unsharded
+     trainer's, the same trees drawn, and ms a step on the rank sharded
+     and unsharded (dist_vbpi); the NCCL rank's
      auto call equal
      to the unsharded call.  On the leveled path: within LEVELED_BOUND of
      the scan tape, no kernel launched, both calls' ms.  On the cli path:
@@ -285,7 +301,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      bounds, at 3xTF32 on the tensor cores (PEAK_3XTF32, the JSON line's)
      and at float32 FMAs; the per-node functions at 64 states at the codon
      path's shape beside their plain versions; all with the card's name
-     and limit.
+     and limit; the paired kernels at CATEGORY_COUNTS categories on the
+     flagship (their on-chip bodies, and at CATEGORY_PATH_C also the
+     global bodies) beside their float32 plain versions and bounds, and
+     at CATEGORY_PATH_C auto's LL+gradient call beside the scan tape's
+     (category_times).
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -363,6 +383,13 @@ VBPI_PARTICLES = 20
 VBPI_STEPS = 5
 VBPI_SPEC = ("JC69", "constant", "strict")
 VBPI_EM = (0.0, 30, 0.0)  # alpha, iterations, score epsilon
+# 9-32 rate categories (the paired kernels' lane bodies, GTR+Gamma C):
+# phase 2's counts, the categories path's count and its scaled calls, and
+# phase 2's short branches (every branch this long)
+CATEGORY_COUNTS = (9, 16, 32)
+CATEGORY_PATH_C = 16
+CATEGORY_SWEEP = 4
+CATEGORY_EDGE_LENGTH = 1e-6
 # the rooted path: the rooted oracle's shape (tests/test_rooted.py)
 ROOTED_TAXA = 69  # fluA's count
 ROOTED_SPEC = ("GTR", "weibull+4", "strict")
@@ -416,12 +443,24 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
         wrapper=paired.paired_ll_onchip, path="paired",
-        also=("vbpi", "rooted", "nni", "cli")),
+        also=("vbpi", "rooted", "nni", "cli", "categories")),
     "paired_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
         wrapper=paired.paired_grad_onchip, path="paired",
-        also=("vbpi", "rooted", "cli")),
+        also=("vbpi", "rooted", "cli", "categories")),
+    # Rows 1-2 at CATEGORY_PATH_C categories (16 lanes a pattern, the count
+    # read at run time): the same launchers, counted on the categories path
+    "paired_ll_onchip@C16": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_paired.py:423",
+        wrapper=paired.paired_ll_onchip, path="categories",
+        also=("paired", "vbpi", "rooted", "nni", "cli")),
+    "paired_grad_onchip@C16": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_paired.py:446",
+        wrapper=paired.paired_grad_onchip, path="categories",
+        also=("paired", "vbpi", "rooted", "cli")),
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
@@ -793,6 +832,201 @@ def pernode_bodies(label, eng, trees, params, card):
           f"{body_of(paired.onchip_plan('ll', lt.ll_rows, M, N1, 4))}, grad "
           f"{chosen}; on {card}")
     return ms
+
+
+# -- 9-32 rate categories --------------------------------------------------
+def category_model(C):
+    return PhyloModel(PhyloModelSpecification("GTR", f"gamma+{C}"))
+
+
+def paired_operands(eng, trees, params, bl=None):
+    """(LL operands, LL+gradient operands, on-chip tape) of the paired
+    kernels on `eng`'s tapes, at its branch lengths or `bl`."""
+    enc = eng.encode(trees)
+    bl = eng.branch_length_matrix(trees, enc) if bl is None else bl
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl)
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    return ((dst, tip, e, P, tips, pi, prop, w),
+            (dst, tip, src, e, mask, P, dP, tips, pi, prop, w),
+            eng._onchip_tape(enc))
+
+
+def plain64(grad_ops, step=40):
+    """The float64 plain version of the LL+gradient kernel on float32
+    operands `grad_ops`, `step` trees at a time (its scratch [step, 2M+3,
+    C, 4, S] in float64, 2.5 GB at the flagship's shape and C = 32)."""
+    dst, tip, src, e, mask, P, dP, tips, pi, prop, w = grad_ops
+    f64 = [x.double() for x in (tips, pi, prop, w)]
+    parts = [paired.paired_ll_and_gradients_ref(
+        dst[i:i + step], tip[i:i + step], src[i:i + step], e[i:i + step],
+        mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
+        *f64) for i in range(0, dst.shape[0], step)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def category_parity(dev, errs):
+    """Phase 2 at CATEGORY_COUNTS rate categories: both paired kernels
+    through their wrappers against the float64 plain version on the same
+    operands, within BOUND, on the flagship (the on-chip bodies), on the
+    flagship with every branch CATEGORY_EDGE_LENGTH long, and on the large
+    path's trees (the global bodies: the lane layout in device memory);
+    each case launching the body its plan names.  Fills errs for the
+    JSON line's entries at CATEGORY_PATH_C."""
+    params = params_from_numpy(PARAMS, dev, PRODUCT_DTYPE)
+    trees, sp, _ = flagship()
+    ltrees, lsp, _ = large_trees()
+    bodies = (paired.paired_ll_onchip, paired.paired_grad_onchip,
+              paired.paired_ll_global, paired.paired_grad_global)
+    for C in CATEGORY_COUNTS:
+        cases = (("flagship", trees, sp, None), ("flagship, branches "
+                 f"{CATEGORY_EDGE_LENGTH:g}", trees, sp, CATEGORY_EDGE_LENGTH),
+                 ("large", ltrees, lsp, None))
+        for label, tr, s, edge in cases:
+            eng = TreeLikelihoodEngine(s, category_model(C), device=dev,
+                                       dtype=PRODUCT_DTYPE)
+            enc = eng.encode(tr)
+            bl = eng.branch_length_matrix(tr, enc)
+            if edge is not None:
+                bl = torch.where(bl > 0, torch.full_like(bl, edge), bl)
+            ll_ops, grad_ops, on = paired_operands(eng, tr, params, bl)
+            M, N1 = ll_ops[0].shape[1], ll_ops[3].shape[1]
+            plans = (paired.onchip_plan("ll", on.ll_rows, M, N1, C),
+                     paired.onchip_plan("grad", on.grad_rows, M, N1, C))
+            onchip = label != "large"
+            check(all((p is not None) == onchip for p in plans),
+                  f"C={C} {label}: the plans name the "
+                  + ("on-chip" if onchip else "global") + " bodies")
+            before = [f.launches for f in bodies]
+            ll_k = paired.paired_log_likelihoods(*ll_ops, onchip=on)
+            ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops, onchip=on)
+            torch.cuda.synchronize()
+            ran = [f.launches - n for f, n in zip(bodies, before)]
+            check(ran == ([1, 1, 0, 0] if onchip else [0, 0, 1, 1]),
+                  f"C={C} {label}: the wrappers launched the planned bodies")
+            ll_p, g_p = plain64(grad_ops)
+            e = (rel_err(ll_k, ll_p), rel_err(ll_g, ll_p), norm_err(g_k, g_p))
+            finite = bool(torch.isfinite(ll_k).all()
+                          and torch.isfinite(g_k).all())
+            print(f"# phase 2: paired kernels at C={C} ({paired.lanes(C)} lanes), "
+                  f"{label} ({len(tr)} trees x {eng.pattern_pad} patterns, "
+                  f"{enc.num_taxa} taxa; "
+                  + ("on-chip bodies, plans " + ", ".join(
+                      f"{p.cols} patterns a block{' ring' if p.ring else ''}"
+                      for p in plans) if onchip else "global bodies")
+                  + f"): LL rel err {e[0]:.3e}, grad kernel's LL {e[1]:.3e}, "
+                  f"grad max-abs/max|g| {e[2]:.3e} (bound {BOUND:g}, plain "
+                  "version in float64 on the same operands)")
+            check(finite and max(e) <= BOUND,
+                  f"C={C} {label}: the paired kernels within {BOUND:g}")
+            if C == CATEGORY_PATH_C and edge is None and onchip:
+                errs["paired_ll_onchip@C16"] = (
+                    e[0], (ll_k.double() - ll_p).abs().max().item())
+                errs["paired_grad_onchip@C16"] = (
+                    e[2], (g_k.double() - g_p).abs().max().item())
+            del eng, ll_ops, grad_ops, on, ll_p, g_p
+            torch.cuda.empty_cache()
+
+
+def categories_path(trees, sp, params, params64, dev, against_reference):
+    """The categories path (phase 3): the flagship at GTR+Gamma
+    CATEGORY_PATH_C on the engine's auto route (before this slice a model
+    past 8 categories took the scan tape): log_likelihoods,
+    ll_and_branch_gradients and CATEGORY_SWEEP calls over scaled branch
+    lengths, against the float64 engine on the scan tape.  Returns (the
+    engine, its launch counts, the scaled calls' factors)."""
+    model = category_model(CATEGORY_PATH_C)
+    eng = TreeLikelihoodEngine(sp, model, device=dev, dtype=PRODUCT_DTYPE)
+    check(eng._route(True) == "paired",
+          f"auto takes the paired kernels at C={CATEGORY_PATH_C}")
+    ref = TreeLikelihoodEngine(sp, model, device=dev, dtype=torch.float64)
+    ref.kernel = "scan"
+    enc = eng.encode(trees)
+    bl = eng.branch_length_matrix(trees, enc)
+    scales = [1.0 + 0.001 * k for k in range(1, CATEGORY_SWEEP + 1)]
+    ref_fn = ref.branch_eval_fn(trees, params64)
+    refs = [ref.ll_and_branch_gradients(trees, params64)] + [
+        ref_fn(bl.double() * f) for f in scales]
+    del ref, ref_fn
+    torch.cuda.empty_cache()
+    reset_launches()
+    ll = eng.log_likelihoods(trees, params)
+    pairs = [eng.ll_and_branch_gradients(trees, params)]
+    fn = eng.branch_eval_fn(trees, params)
+    pairs += [fn(bl * f) for f in scales]
+    torch.cuda.synchronize()
+    launches = read_launches("categories")
+    against_reference("categories", [ll], pairs, refs)
+    return eng, launches
+
+
+def category_times(eng, trees, card):
+    """Phase 4 at CATEGORY_COUNTS categories on the flagship: each paired
+    kernel through its wrapper (the on-chip bodies) beside its float32
+    plain version and its bound, timed in turns (plain, kernel, kernel,
+    plain); at CATEGORY_PATH_C also the global bodies on the same
+    operands and one LL+gradient call of the auto route beside the scan
+    tape's, which auto took before.  `eng` is the categories path's
+    engine."""
+    params = params_from_numpy(PARAMS, eng.device, PRODUCT_DTYPE)
+    sp = eng.site_pattern
+    for C in CATEGORY_COUNTS:
+        e = eng if C == CATEGORY_PATH_C else TreeLikelihoodEngine(
+            sp, category_model(C), device=eng.device, dtype=PRODUCT_DTYPE)
+        enc = e.encode(trees)
+        ll_ops, grad_ops, on = paired_operands(e, trees, params)
+        dst, tip, src, edges, mask, P, dP, tips, pi, prop, w = grad_ops
+        fl_ll, fl_grad = tree_flops(enc, sp, e.model, BATCH)
+        moved_ll = (nbytes(dst, on.child, on.live_row, edges, P, tips, pi,
+                           prop, w) + BATCH * 4)
+        moved_grad = (nbytes(dst, on.child, src, edges, P, dP, tips, pi,
+                             prop, w, mask) + BATCH * (1 + enc.num_slots) * 4)
+        calls = {
+            "ll": (lambda: paired.paired_log_likelihoods_ref(*ll_ops),
+                   lambda: paired.paired_log_likelihoods(*ll_ops, onchip=on),
+                   bound(fl_ll, moved_ll)),
+            "grad": (lambda: paired.paired_ll_and_gradients_ref(*grad_ops),
+                     lambda: paired.paired_ll_and_gradients(*grad_ops,
+                                                            onchip=on),
+                     bound(fl_grad, moved_grad))}
+        if C == CATEGORY_PATH_C:
+            calls["ll global"] = (calls["ll"][0], lambda: paired.paired_ll_global(
+                dst, tip, edges, P, tips, pi, prop) @ w, calls["ll"][2])
+            calls["grad global"] = (calls["grad"][0], lambda: paired.finish_rows(
+                *paired.paired_grad_global(dst, tip, src, edges, P, dP, tips,
+                                           pi, prop, w), mask, w),
+                calls["grad"][2])
+        parts = []
+        for name, (plain, kernel, (b_ms, b_by)) in calls.items():
+            p1, k1 = cuda_ms(plain, 3), cuda_ms(kernel, 20)
+            k2, p2 = cuda_ms(kernel, 20), cuda_ms(plain, 3)
+            k, pl = (k1 + k2) / 2, (p1 + p2) / 2
+            parts.append(f"{name} {k:.4f} ms (plain {pl:.4f}; bound "
+                         f"{b_ms:.4f} by {b_by}, {100 * b_ms / k:.1f}% of it)")
+        line = "; ".join(parts)
+        if C == CATEGORY_PATH_C:
+            bl = e.branch_length_matrix(trees, enc)
+            rates = []
+            for kernel, reps in (("auto", 20), ("scan", 3)):
+                e.kernel = kernel
+                f = e.branch_eval_fn(trees, params)
+                ms = cuda_ms(lambda: f(bl), reps)
+                rates.append(f"{kernel} {ms:.4f} ms ({BATCH / (ms / 1e3):.1f}"
+                             " evals/s)")
+            e.kernel = "auto"
+            line += ("; one LL+gradient call (branch_eval_fn): "
+                     + ", ".join(rates))
+        plan = paired.onchip_plan("grad", on.grad_rows, dst.shape[1],
+                                  P.shape[1], C)
+        print(f"# phase 4: paired kernels at C={C} ({paired.lanes(C)} lanes; "
+              f"grad plan {plan.cols} patterns a block"
+              f"{', ring' if plan.ring else ', staged'}), flagship "
+              f"(float32, {BATCH} trees x {e.pattern_pad} patterns, CUDA "
+              f"events): {line}; on {card}")
+        del e, ll_ops, grad_ops, on, calls
+        torch.cuda.empty_cache()
 
 
 def topology_set_ms(sp, model, trees, reps):
@@ -2710,6 +2944,7 @@ def codon_times(run, card, pernode_launches):
 DIST_RANKS = 2
 DIST_STALL_S, DIST_HARD_S = 120, 600  # the launcher's stall and hard limits
 DIST_REPS = 10  # CUDA-event calls a timing on each rank
+DIST_VBPI_STEPS = 2  # the sharded trainer's timed steps, after a warm-up
 GP_DIST_BOUND = 1e-9  # tests/test_dist.py:179-180
 LEVELED_BOUND = 1e-10
 DIST_EXPECT = {  # the route's kernels on the dist path
@@ -2722,10 +2957,11 @@ def rank_launches(label, expect):
     """{kernel: launches} on this rank since reset_launches(), after
     checking that the kernels `expect` launched and no other did."""
     counts = {name: spec["wrapper"].launches for name, spec in KERNELS.items()}
+    launchers = {KERNELS[name]["wrapper"] for name in expect}
     for name, n in counts.items():
         if name in expect:
             check(n > 0, f"dist {label}: {name} launched")
-        else:
+        elif KERNELS[name]["wrapper"] not in launchers:  # not an alias
             check(n == 0, f"dist {label}: {name} did not launch")
     return {name: counts[name] for name in expect}
 
@@ -2907,6 +3143,70 @@ def dist_gp(dev, tmp):
                 all_reduces=sharded["all_reduces"])
 
 
+def dist_vbpi(dev, tmp):
+    """The vbpi path's trainer at config4's shape on this rank, its
+    instance engine pattern-sharded, beside the same trainer unsharded
+    (the same seed, so the same samples): one warm-up step, then
+    DIST_VBPI_STEPS timed steps (host clock after a barrier, the card
+    synchronised at both ends) and estimate_elbo; the last sample's LL
+    and branch gradients (phylo_gradients) held to the unsharded
+    trainer's within BOUND (LL relative, gradients max-abs over max |g|),
+    the ELBO within BOUND relative and the SBN and scalar parameters
+    within BOUND absolute; the same samples as unsharded, and the same
+    LLs on every rank."""
+    nexus, fasta = _synthetic.write_vbpi_inputs(
+        tmp, SEED, _synthetic.DS1_TAXA, VBPI_TREES, _synthetic.DS1_SITES,
+        _synthetic.DS1_DISTINCT_COLUMNS)
+    runs = []
+    for shard in (False, True):
+        burrito = Burrito(
+            mcmc_nexus_path=nexus, burn_in_fraction=0.0, fasta_path=fasta,
+            phylo_model_specification=PhyloModelSpecification(*VBPI_SPEC),
+            branch_model_name="split", scalar_model_name="lognormal",
+            optimizer_name="simple", particle_count=VBPI_PARTICLES,
+            seed=SEED, device=dev, dtype=PRODUCT_DTYPE)
+        if shard:
+            burrito.inst.engine.shard_patterns()
+        burrito.gradient_step()  # warm-up
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DIST_VBPI_STEPS):
+            burrito.gradient_step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / DIST_VBPI_STEPS
+        grads = burrito.inst.phylo_gradients()
+        runs.append(dict(
+            ms=step_ms, elbo=burrito.estimate_elbo(VBPI_PARTICLES),
+            keys=[t.topology.key() for t in burrito.inst.tree_collection.trees],
+            ll=torch.as_tensor([g.log_likelihood_ for g in grads]),
+            grad=torch.as_tensor(np.stack([g.gradient["branch_lengths"]
+                                           for g in grads])),
+            sbn=np.array(burrito.inst.sbn_parameters),
+            q=np.array(burrito.branch_model.scalar_model.q_params),
+            width=burrito.inst.engine.pattern_pad))
+        del burrito
+    whole, sharded = runs
+    check(sharded["keys"] == whole["keys"],
+          "dist vbpi: the sharded trainer drew the unsharded one's trees")
+    same_on_every_rank("vbpi", sharded["ll"].to(dev))
+    errs = dict(ll=rel_err(sharded["ll"], whole["ll"]),
+                grad=norm_err(sharded["grad"], whole["grad"]),
+                elbo=abs(sharded["elbo"] - whole["elbo"]) / abs(whole["elbo"]),
+                sbn=float(np.abs(sharded["sbn"] - whole["sbn"]).max()),
+                q=float(np.abs(sharded["q"] - whole["q"]).max()))
+    print(f"# dist vbpi: config4's trainer ({_synthetic.DS1_TAXA} taxa, "
+          f"{VBPI_PARTICLES} particles, {sharded['width']} of "
+          f"{whole['width']} patterns on this rank), after "
+          f"{1 + DIST_VBPI_STEPS} steps sharded against unsharded: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (bound {BOUND:g}); ms a step on this rank: sharded "
+          f"{sharded['ms']:.2f}, unsharded {whole['ms']:.2f}", flush=True)
+    check(max(errs.values()) <= BOUND,
+          "dist vbpi: the sharded step within the bound of the unsharded")
+    return dict(errs=errs, ms=(sharded["ms"], whole["ms"]))
+
+
 def dist_worker(label, outdir):
     """A rank of the dist path, started by dist.launch (`import
     bito_tpu_torch` joined the job): `gloo` runs the flagship's auto and
@@ -2967,6 +3267,8 @@ def dist_worker(label, outdir):
         del cwhole, csharded
         with tempfile.TemporaryDirectory() as tmp:
             out["gp"] = dist_gp(dev, tmp)
+        with tempfile.TemporaryDirectory() as tmp:
+            out["vbpi"] = dist_vbpi(dev, tmp)
     with open(os.path.join(outdir, f"{label}.{rank}.json"), "w") as f:
         json.dump(out, f)
     torch.distributed.destroy_process_group()
@@ -3035,6 +3337,11 @@ def dist_path(card):
                   f"{k} " + "/".join(f"{v:.4f}" for v in vs)
                   for k, vs in times.items()) + f" (ms a call; two ranks "
               f"share the card) on {card}")
+    vbpi = [r["vbpi"] for r in runs["gloo"]]
+    print("# phase 3: dist vbpi summary, per rank: ms a step sharded "
+          + "/".join(f"{r['ms'][0]:.2f}" for r in vbpi) + ", unsharded "
+          + "/".join(f"{r['ms'][1]:.2f}" for r in vbpi) + " (two ranks "
+          f"share the card) on {card}")
     return runs
 
 
@@ -3316,6 +3623,7 @@ def main():
     codon_work, codon_calls = codon_parity(dev, errs)
     codon_edge_parity(dev)
     pernode_a64_launches = codon_pernode_parity(dev)
+    category_parity(dev, errs)
 
     ends.append(time.perf_counter())
     # -- 3. the paths ------------------------------------------------------------
@@ -3357,6 +3665,11 @@ def main():
     torch.cuda.synchronize()
     launches.update(read_launches("paired"))
     against_reference("paired", [ll], pairs)
+
+    # The categories path: auto at CATEGORY_PATH_C rate categories.
+    cat_eng, cat_launches = categories_path(trees, sp, params, params64, dev,
+                                            against_reference)
+    launches.update(cat_launches)
 
     # The large path: the same entry points, past the on-chip bodies.
     ltrees, lsp, lmodel = large_trees()
@@ -3533,6 +3846,21 @@ def main():
     calls.update(lab_calls)
     calls.update(codon_calls)
     work.update(codon_work)
+    # Rows 1-2 at CATEGORY_PATH_C categories, through their wrappers (the
+    # on-chip bodies), on the categories path's operands
+    cll, cgrad, con16 = paired_operands(cat_eng, trees, params)
+    enc16 = cat_eng.encode(trees)
+    c_ll, c_grad = tree_flops(enc16, sp, cat_eng.model, BATCH)
+    work["paired_ll_onchip@C16"] = (c_ll, nbytes(
+        cll[0], con16.child, con16.live_row, *cll[2:]) + ll_out, None)
+    work["paired_grad_onchip@C16"] = (c_grad, nbytes(
+        cgrad[0], con16.child, *cgrad[2:]) + grad_out, None)
+    calls["paired_ll_onchip@C16"] = (
+        lambda: paired.paired_log_likelihoods_ref(*cll),
+        lambda: paired.paired_log_likelihoods(*cll, onchip=con16))
+    calls["paired_grad_onchip@C16"] = (
+        lambda: paired.paired_ll_and_gradients_ref(*cgrad),
+        lambda: paired.paired_ll_and_gradients(*cgrad, onchip=con16))
     calls["chunk_variant"] = (
         lambda: perf_chunk_lab.chunk_variant_ref(
             cdst, ctip, cedge, P, tips, pi, prop, variant="v0"),
@@ -3578,6 +3906,8 @@ def main():
         if name in GRAPH_TIMED:  # a device time under its bound is wrong
             check(times[name][0] >= b_ms, f"{name} within its bound")
 
+    category_times(cat_eng, trees, card)
+    del cat_eng, cll, cgrad, con16
     E = int(np.asarray(enc.edge_mask).sum(axis=1).mean())
     chunk_lab_times(chunk_flag, chunk_out,
                     (fl_ll, E * 2 * 16 * 4 * sp.pattern_count * BATCH), card)

@@ -11,7 +11,10 @@ NNI search's pieces (the whole-tree engine's float32 candidate scores
 against float64, the batched NNI scorer on the card against the CPU,
 Sankoff on the card against the CPU); and the MG94 codon path (both A=64
 kernels against their float64 plain versions, the engine's auto taking
-them, the float32 scan tape at 64 states refusing TF32).
+them, the float32 scan tape at 64 states refusing TF32); and the paired
+kernels at 9-32 rate categories (both bodies of both kernels on 16 or 32
+lanes a pattern, at short branches too, past the on-chip limit, and the
+engine's auto taking them).
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -260,6 +263,127 @@ def test_wrappers_reject_operands_the_kernels_do_not_take(cuda):
     with pytest.raises(RuntimeError, match="launch failed"):
         paired.paired_ll_onchip(dst, onchip, e, P, eng._kernel_tips, pi, prop,
                                 dataclasses.replace(plan, cols=plan.cols - 1))
+
+
+# 9..32 rate categories: the paired kernels' bodies on 16 or 32 lanes a
+# pattern (C = 9 and 17 with idle lanes), both on a tree under the on-chip
+# limit and on the large trees past it, and at branches of 1e-6, where
+# each category's share of a pattern's likelihood is smallest.
+WIDE = (9, 16, 17, 32)
+
+
+def _wide_operands(eng, trees, params, scale=1.0):
+    """The paired kernels' float32 operands of `eng` at its branch lengths
+    times `scale`, and the float64 plain version's (ll, grads) on them."""
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(
+        eig, rates, clock, eng.branch_length_matrix(trees, enc) * scale)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    ops = (dst, tip, src, e, mask, P, dP, tips, pi, prop, w)
+    ref = paired.paired_ll_and_gradients_ref(
+        dst, tip, src, e, mask, *_f64(P, dP, tips, pi, prop, w))
+    return ops, eng._onchip_tape(enc), ref
+
+
+def _wide_engine(C, large, device, dtype):
+    if large:
+        eng, trees, _ = _large_tree_engine(device, dtype)
+        eng = TreeLikelihoodEngine(
+            eng.site_pattern,
+            PhyloModel(PhyloModelSpecification("GTR", f"gamma+{C}")),
+            device=device, dtype=dtype)
+    else:
+        text = _synthetic.random_trees_newick(13, 11, 3, False)
+        coll = parse_newick_text(text)
+        aln = _synthetic.random_alignment(14, coll.taxon_names, 300)
+        eng = TreeLikelihoodEngine(
+            SitePattern(aln, coll.taxon_names),
+            PhyloModel(PhyloModelSpecification("GTR", f"gamma+{C}")),
+            device=device, dtype=dtype)
+        trees = coll.trees
+    return eng, trees, params_from_numpy(GTR, device, dtype)
+
+
+@pytest.mark.parametrize("C", WIDE)
+@pytest.mark.parametrize("scale", [1.0, 1e-6], ids=["bl", "bl1e-6"])
+def test_kernels_past_8_categories_match_plain(cuda, C, scale):
+    """Both bodies of both kernels at 9..32 categories (the on-chip ones in
+    either staging) against their plain versions in float64 on the same
+    float32 operands, on an 11-taxon batch, at its branch lengths and at
+    those times 1e-6 (about 1e-7 substitutions a branch)."""
+    eng, trees, params = _wide_engine(C, False, cuda, torch.float32)
+    ops, onchip, (ll_ref, g_ref) = _wide_operands(eng, trees, params, scale)
+    dst, tip, src, e, mask, P, dP, tips, pi, prop, w = ops
+    M, N1 = dst.shape[1], P.shape[1]
+    bodies = {"global": (
+        lambda: paired.paired_ll_global(dst, tip, e, P, tips, pi, prop),
+        lambda: paired.paired_grad_global(dst, tip, src, e, P, dP, tips, pi,
+                                          prop, w))}
+    for ring in (False, True):
+        ll_plan = paired.onchip_plan("ll", onchip.ll_rows, M, N1, C, ring)
+        grad_plan = paired.onchip_plan("grad", onchip.grad_rows, M, N1, C,
+                                       ring)
+        assert ll_plan.lanes == grad_plan.lanes == (16 if C <= 16 else 32)
+        bodies[f"onchip ring={ring}"] = (
+            lambda p=ll_plan: paired.paired_ll_onchip(dst, onchip, e, P, tips,
+                                                      pi, prop, p),
+            lambda p=grad_plan: paired.paired_grad_onchip(
+                dst, onchip, src, e, P, dP, tips, pi, prop, w, p))
+    for body, (ll_body, grad_body) in bodies.items():
+        before = [f.launches for f in PAIRED]
+        ll = ll_body() @ w
+        ll2, g = paired.finish_rows(*grad_body(), mask, w)
+        torch.cuda.synchronize()
+        assert _launched(before) == ([0, 1, 0, 1] if body == "global"
+                                     else [1, 0, 1, 0])
+        assert bool(torch.isfinite(g).all()), body
+        assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5, body
+        assert _norm(g, g_ref) < 5e-5, body
+
+
+@pytest.mark.parametrize("C", [9, 16, 32])
+def test_tree_past_the_limit_takes_the_global_bodies_past_8_categories(
+        cuda, C):
+    """The large trees at 9..32 categories: the wrappers take the global
+    bodies (the lane layout in device memory), within 5e-5 of float64."""
+    eng, trees, params = _wide_engine(C, True, cuda, torch.float32)
+    ops, onchip, (ll_ref, g_ref) = _wide_operands(eng, trees, params)
+    dst, tip, src, e, mask, P, dP, tips, pi, prop, w = ops
+    M, N1 = dst.shape[1], P.shape[1]
+    assert paired.onchip_plan("ll", onchip.ll_rows, M, N1, C) is None
+    assert paired.onchip_plan("grad", onchip.grad_rows, M, N1, C) is None
+    before = [f.launches for f in PAIRED]
+    ll = paired.paired_log_likelihoods(dst, tip, e, P, tips, pi, prop, w,
+                                       onchip=onchip)
+    ll2, g = paired.paired_ll_and_gradients(*ops, onchip=onchip)
+    torch.cuda.synchronize()
+    assert _launched(before) == [0, 1, 0, 1]
+    assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
+    assert _norm(g, g_ref) < 5e-5
+
+
+def test_engine_auto_takes_the_kernels_at_16_categories(cuda):
+    """auto on the card at GTR+Gamma16 takes the on-chip bodies of both
+    kernels (before, 9 or more categories took the scan tape), within
+    5e-5 of the float64 engine on the CPU; past 32 categories auto takes
+    the scan tape and kernel='cuda' raises."""
+    eng, trees, params = _wide_engine(16, False, cuda, torch.float32)
+    ref, _, ref_params = _wide_engine(16, False, "cpu", torch.float64)
+    before = [f.launches for f in PAIRED]
+    ll = eng.log_likelihoods(trees, params)
+    ll2, g = eng.ll_and_branch_gradients(trees, params)
+    assert _launched(before) == [1, 0, 1, 0]
+    ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
+    assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
+    assert _norm(g.cpu(), g_ref) < 5e-5
+    wide, trees, params = _wide_engine(33, False, cuda, torch.float32)
+    assert wide._route(True) == "scan"
+    wide.kernel = "cuda"
+    with pytest.raises(ValueError, match="1..32 rate categories"):
+        wide.log_likelihoods(trees, params)
 
 
 MG94 = {"substitution_model_rates": np.array([2.5, 0.3]),

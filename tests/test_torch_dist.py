@@ -11,9 +11,14 @@ flagship-like engine (8 taxa, about 300 patterns, 4 trees, GTR+Gamma4) on
 the scan, paired, chunked and leveled routes (plain versions, on the CPU)
 and through the public *_sharded wrappers, the GP engine after
 estimate_branch_lengths(1e-4, 5), a Newton sweep and the hybrid
-marginals, one GP-scored NNI iteration, and a rooted instance's phylo
+marginals, one GP-scored NNI iteration, a rooted instance's phylo
 gradients (against the port's unsharded instance, which
-test_torch_rooted.py holds to bito_tpu's); one 3-rank run an MG94 engine
+test_torch_rooted.py holds to bito_tpu's), and a VBPI trainer (Burrito,
+6 taxa, JC69, 4 particles) whose instance engine is sharded: two
+gradient steps and an ELBO estimate against the same trainer unsharded
+within 1e-8 (test_torch_vi.py holds that one to bito_tpu's), the same
+samples on both ranks, and the engine's guard raising on both ranks once
+rank 1 draws other topologies; one 3-rank run an MG94 engine
 whose padded pattern count is not a multiple of 3 (the port pads with
 64-state tips, where bito_tpu/treelike/engine.py:401-402 pads with
 4-state ones).  Bounds are tests/test_dist.py's: LL 1e-9, gradients 1e-8,
@@ -59,6 +64,11 @@ MG94 = {"substitution_model_rates": np.array([2.5, 0.3]),
 KERNELS = ("scan", "cuda", "chunked")
 ROOTED_KEYS = ("branch_lengths", "ratios_root_height", "clock_model",
                "substitution_model", "site_model")
+# The VBPI trainer's inputs (_synthetic.write_vbpi_inputs), its seed, and
+# test_torch_vi.py's bound on a trainer's state.
+VBPI = dict(seed=8, taxa=6, trees=10, sites=100, particles=4, burrito=3,
+            steps=2)
+VBPI_BOUND = 1e-8
 
 
 def _flagship_inputs():
@@ -253,6 +263,71 @@ def _nni_worker(out, directory):
     out["nni_marginal"] = eng.gp.log_marginal_likelihood()
 
 
+def _vbpi_burrito(directory):
+    """The VBPI trainer of VBPI's inputs, written into `directory`, in
+    float64 on the CPU (JC69, the split branch model, the simple
+    optimizer)."""
+    from bito_tpu_torch.models.phylo_model import PhyloModelSpecification
+    from bito_tpu_torch.vi.burrito import Burrito
+
+    os.makedirs(directory, exist_ok=True)
+    nexus, fasta = _synthetic.write_vbpi_inputs(
+        directory, VBPI["seed"], VBPI["taxa"], VBPI["trees"], VBPI["sites"])
+    return Burrito(
+        mcmc_nexus_path=nexus, burn_in_fraction=0.0, fasta_path=fasta,
+        phylo_model_specification=PhyloModelSpecification(
+            "JC69", "constant", "strict"),
+        branch_model_name="split", scalar_model_name="lognormal",
+        optimizer_name="simple", particle_count=VBPI["particles"],
+        seed=VBPI["burrito"], **F64)
+
+
+def _vbpi_run(burrito, out, prefix):
+    """VBPI["steps"] gradient steps, then an ELBO estimate, into `out`:
+    each step's sampled topologies (their keys, joined) and branch
+    lengths, the ELBO, the SBN parameters and the scalar parameters."""
+    keys, lengths = [], []
+    for _ in range(VBPI["steps"]):
+        burrito.gradient_step()
+        trees = burrito.inst.tree_collection.trees
+        keys.append(" ".join(",".join(map(str, t.topology.key()))
+                             for t in trees))
+        lengths.append(np.stack([t.branch_lengths for t in trees]))
+    out[f"{prefix}_keys"] = np.array(keys)
+    out[f"{prefix}_lengths"] = np.stack(lengths)
+    out[f"{prefix}_elbo"] = burrito.estimate_elbo(VBPI["particles"])
+    out[f"{prefix}_sbn"] = np.array(burrito.inst.sbn_parameters)
+    out[f"{prefix}_q"] = np.array(burrito.branch_model.scalar_model.q_params)
+
+
+def _vbpi_worker(out, directory):
+    """The trainer with its instance engine sharded, then the guard: rank
+    1 re-seeds its topology sampler, both ranks draw a batch, and the
+    phylo gradients must raise on both (caught here: the raise is what
+    this rank reports)."""
+    burrito = _vbpi_burrito(directory)
+    engine = burrito.inst.engine
+    engine.shard_patterns()
+    out["vbpi_width"] = engine.pattern_pad
+    _vbpi_run(burrito, out, "vbpi")
+    ranks = [None] * multihost.process_count()
+    torch.distributed.all_gather_object(
+        ranks, (str(out["vbpi_keys"]), out["vbpi_lengths"].tobytes()))
+    assert all(r == ranks[0] for r in ranks), "the ranks drew other samples"
+    if multihost.process_index() == 1:
+        burrito.inst.rng = np.random.default_rng(VBPI["burrito"] + 1000)
+    burrito.sample_topologies(VBPI["particles"])
+    drawn = [None] * multihost.process_count()
+    torch.distributed.all_gather_object(drawn, [
+        t.topology.key() for t in burrito.inst.tree_collection.trees])
+    assert drawn[0] != drawn[1], "rank 1's new seed drew rank 0's trees"
+    try:
+        burrito.inst.phylo_gradients()
+        out["vbpi_guard"] = ""
+    except RuntimeError as err:
+        out["vbpi_guard"] = str(err)
+
+
 def _codon_worker(out):
     from bito_tpu_torch.convert import params_from_numpy
     from bito_tpu_torch.core.newick import parse_newick_text
@@ -297,6 +372,9 @@ def _worker(case, path, directory=None):
         print(f"rank {rank}: nni {time.perf_counter() - t0:.1f} s",
               flush=True)
         _rooted_worker(out, os.path.join(directory, f"rooted{rank}"))
+        print(f"rank {rank}: rooted {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        _vbpi_worker(out, os.path.join(directory, f"vbpi{rank}"))
     else:
         _codon_worker(out)
     print(f"rank {rank}: {case} {time.perf_counter() - t0:.1f} s", flush=True)
@@ -426,6 +504,8 @@ def test_two_ranks_match_bito_tpus_unsharded_engines(tmp_path):
     ll_ref, g_ref = _jax_flagship()
     marginal_ref, bl_ref, per_pcsp_ref, newton_ref, hybrid_ref = _jax_gp()
     nni_ref = _jax_nni(tmp_path / "jax_nni")
+    vbpi_ref = {}
+    _vbpi_run(_vbpi_burrito(tmp_path / "vbpi_unsharded"), vbpi_ref, "vbpi")
     rc, stdout, stderr = _finish(proc)
     assert rc == 0, stdout[-3000:] + stderr[-3000:]
     ranks = _ranks(out, 2)
@@ -480,6 +560,18 @@ def test_two_ranks_match_bito_tpus_unsharded_engines(tmp_path):
     assert list(r["nni_accepted_keys"]) == ["|".join(k)
                                             for k in accepted_keys]
     assert abs(float(r["nni_marginal"]) - nni_marginal) <= GP_BOUND
+    # The sharded VBPI trainer against the unsharded one: the same samples
+    # on both ranks (_same_on_every_rank) and as unsharded, and its state
+    # within VBPI_BOUND; then the guard raised on both ranks.
+    assert int(r["vbpi_width"]) * 2 == 128  # 100 sites pad to 128
+    assert list(r["vbpi_keys"]) == list(vbpi_ref["vbpi_keys"])
+    for key in ("vbpi_lengths", "vbpi_elbo", "vbpi_sbn", "vbpi_q"):
+        np.testing.assert_allclose(r[key], vbpi_ref[key], rtol=VBPI_BOUND,
+                                   atol=VBPI_BOUND, err_msg=key)
+    for rank in ranks:
+        guard = str(rank["vbpi_guard"])
+        assert "different tree topologies" in guard, guard
+        assert "rank(s) [1] differ from rank 0" in guard, guard
 
 
 def test_three_ranks_shard_a_codon_engine(tmp_path):

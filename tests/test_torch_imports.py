@@ -11,7 +11,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "bito_tpu_torch"
 # The port's sources, and its scripts at the root of the repository.
-SCRIPTS = ("chip_smoke.py", "compare_first_design.py", "profile_main_path.py")
+SCRIPTS = ("chip_smoke.py", "compare_first_design.py", "profile_main_path.py",
+           "time_paired_kernels.py")
 SOURCES = sorted(p.relative_to(ROOT).as_posix()
                  for p in PACKAGE.rglob("*") if p.suffix in (".py", ".cu", ".cuh", ".cpp")
                  ) + list(SCRIPTS)

@@ -347,7 +347,7 @@ def test_hand_over_to_the_global_bodies(C):
     staged = max(M for M in range(4, limit, 4) if not plan(M).ring)
     assert 0 < staged < limit
     with pytest.raises(ValueError):
-        paired.onchip_plan("grad", 10, 12, 14, 9)
+        paired.onchip_plan("grad", 10, 12, 14, paired.PAIRED_CATEGORIES + 1)
 
 
 def test_plan_follows_the_card_times():
