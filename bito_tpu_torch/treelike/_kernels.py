@@ -40,6 +40,7 @@ _HEADERS = ("treelike/csrc/common.cuh", "treelike/csrc/onchip.cuh",
             "treelike/csrc/pernode_onchip.cuh",
             "treelike/csrc/paired_ll_onchip.cuh",
             "treelike/csrc/paired_lanes.cuh",
+            "treelike/csrc/pernode_lanes.cuh",
             "treelike/csrc/paired_a64.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -67,15 +68,15 @@ _SIGNATURES = {
     # post_dst, child, post_src, post_e, P, dP, tips, pi, props, weights,
     # ll_rows, grad_rows, B, M, T, N1, C, S, rows, cols, ring, stream
     "bito_paired_grad_onchip": [_P] * 12 + [_I] * 9 + [_P],
-    # post_dst, tip_slot, post_e, P, tips, pi, props, buf, ls, ll_rows,
-    # B, MW, W, T, N1, C, S, stream
-    "bito_chunked_ll": [_P] * 10 + [_I] * 7 + [_P],
-    # post_dst, tip_slot, post_e, P, dP, tips, pi, props, weights, buf, ls,
-    # ll_rows, grad_rows, B, MW, W, T, N1, C, S, stream
-    "bito_chunked_grad": [_P] * 13 + [_I] * 7 + [_P],
+    # post_dst, tip_slot, child, post_e, P, tips, pi, props, buf, ls,
+    # ll_rows, B, MW, W, T, N1, C, S, stream
+    "bito_chunked_ll": [_P] * 11 + [_I] * 7 + [_P],
+    # post_dst, tip_slot, child, post_e, P, dP, tips, pi, props, weights,
+    # buf, ls, ll_rows, grad_rows, B, MW, W, T, N1, C, S, stream
+    "bito_chunked_grad": [_P] * 14 + [_I] * 7 + [_P],
     # post_dst, child, post_e, P, dP, tips, pi, props, weights, ll_rows,
-    # grad_rows, B, MW, W, T, N1, C, S, rows, cols, stream
-    "bito_chunked_grad_onchip": [_P] * 11 + [_I] * 9 + [_P],
+    # grad_rows, B, MW, W, T, N1, C, S, rows, cols, op_lanes, stream
+    "bito_chunked_grad_onchip": [_P] * 11 + [_I] * 10 + [_P],
     # post_ops, root, P, tips, pi, props, buf, ls, ll_rows,
     # B, M, T, N1, C, S, stream
     "bito_pernode_ll": [_P] * 9 + [_I] * 6 + [_P],

@@ -16,18 +16,25 @@ Each kernel has two bodies on the card, as the paired kernels do
   - the on-chip body: a block takes one tree and a tile of patterns and
     keeps the tile's partials in shared memory, through the child tape of
     `onchip_tape`.  The grad kernel's (csrc/chunked_grad_onchip.cu) keeps
-    one row per grid op and gives a pattern W op lanes x one lane per rate
-    category.  The LL kernel's is the paired LL body
+    one row per grid op and gives a pattern the plan's op lanes (W where a
+    warp holds W x G threads, else one: at G = 32 the chunk's ops run in
+    turn) x one lane per rate category.  The LL kernel's is the paired LL body
     (csrc/paired_ll_onchip.cu) walking the chunked tape one grid op at a
     time, with rows by liveness: the chunked schedule is a postorder, and
     on the card the chunk's lanes buy nothing over a lane per category
     (the on-chip bodies are bound by instruction issue, not by the chain
     of dependent ops);
   - the global body (csrc/chunked_ll.cu, csrc/chunked_grad.cu): W threads
-    per (tree, pattern), the pair slots in device memory.  It takes any
-    tree; the wrappers launch it where a block of the on-chip body would
-    hold too few warps of patterns to be the faster (`ll_plan` or
-    `onchip_plan` returns None), decided from the tape before the launch.
+    per (tree, pattern), the pair slots in device memory; at 9-32 rate
+    categories the paired kernels' lane bodies (csrc/paired_lanes.cuh)
+    walking the chunked tape one grid op at a time, children by child
+    code.  It takes any tree; the wrappers launch it where a block of the
+    on-chip body would hold too few warps of patterns to be the faster
+    (`ll_plan` or `onchip_plan` returns None), decided from the tape before
+    the launch.
+Both bodies take 1 to paired.PAIRED_CATEGORIES (32) rate categories: 1-8
+compiled one count at a time, 9-32 on 16 or 32 lanes a pattern with the
+count read at run time.
 
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which runs one
@@ -72,7 +79,8 @@ import torch
 
 from ..dist import mesh
 from . import _kernels, paired
-from .paired import _check_cuda_operands, _check_shapes, _rescale, _root_rows
+from .paired import (_check_cuda_operands, _check_cuda_tensors, _check_shapes,
+                     _rescale, _root_rows)
 
 W = 2  # ops per chunk (the kernels' op lanes); see the module docstring
 
@@ -282,20 +290,26 @@ def smem_bytes(rows: int, MW: int, N1: int, C: int, cols: int) -> int:
         5 * MW * 4, 16)
 
 
+def op_lanes(C: int) -> int:
+    """Op lanes a pattern of the on-chip grad body: W where a warp holds W
+    x G threads, else WARP // G (one at G = 32, a pattern a warp, where
+    the chunk's ops run in turn on its lanes)."""
+    return min(W, paired.WARP // paired.lanes(C))
+
+
 def onchip_plan(rows: int, MW: int, N1: int, C: int,
                 least: int = MIN_WARPS) -> paired.OnchipPlan | None:
     """How the on-chip body launches, or None where the global body takes
     the tape: a block of as many whole warps of patterns as fit in
     paired.SMEM_BYTES, up to paired.MAX_THREADS threads, and at least
     `least` warps (1 asks for the body wherever it fits, to measure it).
-    A pattern takes W op lanes x G category lanes of one warp."""
-    if not 1 <= C <= paired.MAX_CATEGORIES:
-        raise ValueError(f"the kernels take 1..{paired.MAX_CATEGORIES} rate "
-                         f"categories, got {C}")
-    G = paired.lanes(C)
-    if paired.WARP % (W * G):
-        return None
-    per_warp = paired.WARP // (W * G)  # patterns a warp
+    A pattern takes op_lanes(C) op lanes x G category lanes of one warp
+    (the plan's `op_lanes`)."""
+    if not 1 <= C <= paired.PAIRED_CATEGORIES:
+        raise ValueError(f"the kernels take 1..{paired.PAIRED_CATEGORIES} "
+                         f"rate categories, got {C}")
+    G, L = paired.lanes(C), op_lanes(C)
+    per_warp = paired.WARP // (L * G)  # patterns a warp
     fixed = smem_bytes(0, MW, N1, C, 0)
     warps = 0 if fixed >= paired.SMEM_BYTES else min(
         (paired.SMEM_BYTES - fixed)
@@ -305,7 +319,7 @@ def onchip_plan(rows: int, MW: int, N1: int, C: int,
         return None
     cols = warps * per_warp
     return paired.OnchipPlan(G, cols, False,
-                             smem_bytes(rows, MW, N1, C, cols))
+                             smem_bytes(rows, MW, N1, C, cols), L)
 
 
 # ---------------------------------------------------------------------------
@@ -422,7 +436,8 @@ def chunked_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
                                            tips, pi, props, weights)
     _check_cuda_operands(
         dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
-        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A)
+        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
+        categories=paired.max_categories(A))
     if onchip is None:
         onchip = onchip_tape(post_dst.cpu().numpy(), tip_slot.cpu().numpy(),
                              P.device)
@@ -431,7 +446,7 @@ def chunked_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     plan = ll_plan(onchip.ll_rows, MW, N1, C)
     if plan is None:
         ll_rows = chunked_ll_global(post_dst, tip_slot, post_e, P, tips, pi,
-                                    props)
+                                    props, child=onchip.child)
     else:
         ll_rows = chunked_ll_onchip(post_dst, onchip, post_e, P, tips, pi,
                                     props, plan)
@@ -452,20 +467,40 @@ def chunked_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
 chunked_ll_onchip.launches = 0
 
 
-def chunked_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props):
+def _global_scratch(post_dst, child, P, S):
+    """The global bodies' slots and log scales: at 1..8 categories [B,
+    2MW+2, C*4, S] and [B, 2MW+2, S]; at 9..32 the lane layout of
+    paired._global_scratch, whose walk reads the children by code, so
+    `child` (the on-chip tape's, onchip_tape(...).child) is required and
+    checked there."""
+    B, MW = post_dst.shape
+    C = P.shape[2]
+    if C > paired.COMPILED_CATEGORIES:
+        if child is None or tuple(child.shape) != (B, MW, 2):
+            raise ValueError("the global body at 9-32 rate categories needs "
+                             "the tape's child codes: pass child="
+                             "chunked.onchip_tape(...).child")
+        _check_cuda_tensors(dict(child=child), {})
+        return paired._global_scratch(B, MW, C, S, P.device)
+    kw = dict(device=P.device, dtype=torch.float32)
+    return (torch.empty((B, 2 * MW + 2, C * 4, S), **kw),
+            torch.empty((B, 2 * MW + 2, S), **kw))
+
+
+def chunked_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props,
+                      child=None):
     """Launch csrc/chunked_ll.cu, the global body (operands checked by the
-    wrapper): per-pattern LL rows [B, S]."""
+    wrapper): per-pattern LL rows [B, S].  At 9..32 categories it needs
+    `child`, the tape's child codes."""
     B, MW = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
-    NS = 2 * MW + 2
-    kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C * 4, S), **kw)
-    ls = torch.empty((B, NS, S), **kw)
-    ll_rows = torch.empty((B, S), **kw)
+    buf, ls = _global_scratch(post_dst, child, P, S)
+    ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
     with torch.cuda.device(P.device):
         rc = _kernels.library().bito_chunked_ll(
-            post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
+            post_dst.data_ptr(), tip_slot.data_ptr(),
+            None if child is None else child.data_ptr(), post_e.data_ptr(),
             P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
             buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
             B, MW, W, T, N1, C, S, paired._stream())
@@ -502,7 +537,7 @@ def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
              node_row=node_row),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A)
+        C, A, categories=paired.max_categories(A))
     if onchip is None:
         raise ValueError("the chunked grad kernel needs the tape's "
                          "OnchipTape on the card: pass "
@@ -510,7 +545,7 @@ def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
     plan = onchip_plan(onchip.grad_rows, MW, N1, C)
     if plan is None:
         rows = chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips,
-                                   pi, props, weights)
+                                   pi, props, weights, child=onchip.child)
     else:
         rows = chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi,
                                    props, weights, plan)
@@ -559,7 +594,7 @@ def chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi, props,
     if tips.numel() >= 2**31:  # the kernel indexes tips with 32-bit offsets
         raise ValueError(f"tips has {tips.numel()} entries, the on-chip "
                          "body takes fewer than 2**31")
-    _check_cuda_operands(dict(child=onchip.child), {}, 1, 4)
+    _check_cuda_tensors(dict(child=onchip.child), {})
     for name, t in (("P", P), ("dP", dP)):  # cp.async copies 16-byte rows
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -574,7 +609,7 @@ def chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi, props,
             P.data_ptr(), dP.data_ptr(), tips.data_ptr(), pi.data_ptr(),
             props.data_ptr(), weights.data_ptr(), ll_rows.data_ptr(),
             grad_rows.data_ptr(), B, MW, W, T, N1, C, S, onchip.grad_rows,
-            plan.cols, paired._stream())
+            plan.cols, plan.op_lanes, paired._stream())
     _kernels.check(rc, "bito_chunked_grad_onchip")
     chunked_grad_onchip.launches += 1
     return ll_rows, grad_rows
@@ -584,22 +619,22 @@ chunked_grad_onchip.launches = 0
 
 
 def chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips, pi, props,
-                        weights):
+                        weights, child=None):
     """Launch csrc/chunked_grad.cu, the global body (operands checked by the
     wrapper): (LL rows [B, S], weighted gradient rows [B, 2MW+1, S], zero
-    where no op writes)."""
+    where no op writes).  At 9..32 categories it needs `child`, the
+    tape's child codes."""
     B, MW = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
-    NS = 2 * MW + 2
+    buf, ls = _global_scratch(post_dst, child, P, S)
     kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, NS, C * 4, S), **kw)
-    ls = torch.empty((B, NS, S), **kw)
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, 2 * MW + 1, S), **kw)
     with torch.cuda.device(P.device):
         rc = _kernels.library().bito_chunked_grad(
-            post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
+            post_dst.data_ptr(), tip_slot.data_ptr(),
+            None if child is None else child.data_ptr(), post_e.data_ptr(),
             P.data_ptr(), dP.data_ptr(), tips.data_ptr(), pi.data_ptr(),
             props.data_ptr(), weights.data_ptr(), buf.data_ptr(),
             ls.data_ptr(), ll_rows.data_ptr(), grad_rows.data_ptr(),

@@ -30,7 +30,17 @@
 // the kernel is bound by memory bandwidth and L2.  Registers: 190 at C=4
 // without spills (paired_grad.cu: 255 and a spill), still two 128-thread
 // blocks to an SM.
+//
+// At 9..32 rate categories the kernel is paired_lanes.cuh's grad_kernel on
+// the chunked tape (a category a lane, the slots in device memory as
+// float4 [B, 2MW+3, Sp, G], the children by the code of `child`, grid
+// order one op at a time forward and in reverse, gradient rows 2g and
+// 2g+1 of op g), launched here with the same arguments: `buf` holds
+// B * (2MW+3) * Sp * G * 4 floats, and `ls` and tip_slot are not read.
+// This body spills 228 bytes at C = 8 already (its registers hold C * 4
+// values a vector); the lane layout holds 4.
 #include "common.cuh"
+#include "paired_lanes.cuh"
 
 namespace {
 
@@ -155,22 +165,39 @@ chunked_grad_kernel(const int* __restrict__ post_dst,   // [B, MW]
 
 // grad_rows must be zero-filled by the caller.  Returns cudaGetLastError()
 // after the launch (0 on success).  W must divide kThreads and MW; the
-// caller checks both.
+// caller checks both.  `child` is the chunked tape's child tape
+// (treelike/paired.py child_tape), read at C > 8 only.
 extern "C" int bito_chunked_grad(const int* post_dst, const int* tip_slot,
-                                 const int* post_e, const float* P,
-                                 const float* dP, const float* tips,
-                                 const float* pi, const float* props,
-                                 const float* weights, float* buf, float* ls,
-                                 float* ll_rows, float* grad_rows, int B,
-                                 int MW, int W, int T, int N1, int C, int S,
-                                 void* stream) {
+                                 const int* child, const int* post_e,
+                                 const float* P, const float* dP,
+                                 const float* tips, const float* pi,
+                                 const float* props, const float* weights,
+                                 float* buf, float* ls, float* ll_rows,
+                                 float* grad_rows, int B, int MW, int W,
+                                 int T, int N1, int C, int S, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || W <= 0 || bito::kThreads % W ||
       MW % W)
     return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > 8 && C <= 32) {
+    float4* slots = reinterpret_cast<float4*>(buf);
+    if (C <= 16)
+      paired_lanes::grad_kernel<16, true>
+          <<<paired_lanes::grid<16>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, child, nullptr, post_e, P, dP, tips, pi, props,
+              weights, slots, ll_rows, grad_rows, MW, T, N1, C, S,
+              2 * MW + 1);
+    else
+      paired_lanes::grad_kernel<32, true>
+          <<<paired_lanes::grid<32>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, child, nullptr, post_e, P, dP, tips, pi, props,
+              weights, slots, ll_rows, grad_rows, MW, T, N1, C, S,
+              2 * MW + 1);
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 block(bito::kThreads / W, W);
   const dim3 grid((S + block.x - 1) / block.x, B);
   const size_t smem = 2 * static_cast<size_t>(MW) + 2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BITO_LAUNCH_CGRAD(CV)                                              \
   chunked_grad_kernel<CV><<<grid, block, smem, st>>>(                      \
       post_dst, tip_slot, post_e, P, dP, tips, pi, props, weights, buf,   \

@@ -24,25 +24,33 @@
 // positions and the root op store nothing; tips are read in place from
 // tips[t, :, s] (L2-resident), one chunk ahead.
 //
-// The lanes.  A pattern has W op lanes x G category lanes (G the power of
+// The lanes.  A pattern has L op lanes x G category lanes (G the power of
 // two at or above C, onchip.cuh), all in one warp: thread l of a warp is op
-// lane k = l / (32 / W), pattern (l % (32 / W)) / G of the warp's, category
-// lane l % G.  The W ops of a chunk run side by side, one per op lane.  No
-// op reads a slot that another op of its chunk writes (the schedule's
+// lane k = l / (32 / L), pattern (l % (32 / L)) / G of the warp's, category
+// lane l % G.  L is the plan's op_lanes (treelike/chunked.py onchip_plan):
+// W at G <= 32 / W, else 32 / G (one at G = 32, where a pattern is a whole
+// warp).  Op lane k runs grid ops k, k + L, k + 2L, ... in turn: the W / L
+// ops of a chunk that fall to it one after another, the chunks in order.
+// No op reads a slot that another op of its chunk writes (the schedule's
 // guarantee), and every row is written in an earlier chunk than the one
-// that reads it, so __syncwarp() between chunks orders a pattern's rows:
-// no block-wide barrier after the staging.  The 32 / W threads of an op
-// lane run the same op of the same tree, so an op lane is the unit of
-// divergence: a padded position's lane skips its op, and the shuffles over
-// the G category lanes (the rescale max, the sums over categories, the root
-// LL) name the op lane's threads only.  In shared memory a row's slice of a
-// pattern is G float4 (16*G bytes); the 8 threads of a quarter warp are one
-// op lane's, so their 16-byte accesses hit one row of neighbouring
-// patterns: no bank conflicts.
+// that reads it, so __syncwarp() after each op lane's step orders a
+// pattern's rows: no block-wide barrier after the staging.  The 32 / L
+// threads of an op lane run the same op of the same tree, so an op lane is
+// the unit of divergence: a padded position's lane skips its op, and the
+// shuffles over the G category lanes (the rescale max, the sums over
+// categories, the root LL) name the op lane's threads only.  In shared
+// memory a row's slice of a pattern is G float4 (16*G bytes); the 8
+// threads of a quarter warp are one op lane's, so their 16-byte accesses
+// hit one row of neighbouring patterns: no bank conflicts.
+//
+// Category counts: 1..8 compiled one count at a time; 9..32 on G = 16 (two
+// op lanes) or 32 (one) with the count read at run time (onchip.cuh).  At
+// G = 32 the tree's P and dP staged at once take 4 KB an edge, so
+// chunked.py's onchip_plan hands larger trees to chunked_grad.cu sooner.
 //
 // The rescale, as in paired_grad_onchip.cu: an op scales by a power of two
 // (exact, no divide), each op lane keeps the running sum of its ops'
-// exponents, and the root's log likelihood adds the W lanes' sums: one log
+// exponents, and the root's log likelihood adds the L lanes' sums: one log
 // a pattern.  The outside pass needs no scale: each gradient row is a
 // ratio.
 //
@@ -82,7 +90,9 @@ __device__ __forceinline__ float lanes_sum(unsigned mask, float v) {
   return v;
 }
 
-template <int C>
+// G lanes a pattern; CF the category count where it is fixed at compile
+// time (1..8), else 0 and the run-time count C_run (G / 2 < C_run <= G).
+template <int G, int CF>
 __global__ void __launch_bounds__(onchip::kMaxThreads)
 chunked_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, MW]
                            const int* __restrict__ child,      // [B, MW, 2]
@@ -95,12 +105,13 @@ chunked_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, MW]
                            const float* __restrict__ weights,  // [S]
                            float* __restrict__ ll_rows,        // [B, S]
                            float* __restrict__ grad_rows,  // [B, 2MW+1, S]
-                           int MW, int W, int T, int N1, int S, int rows) {
+                           int MW, int L, int T, int N1, int S, int rows,
+                           int C_run) {
   using namespace onchip;
-  constexpr int G = Lanes<C>::G;
+  const int C = CF > 0 ? CF : C_run;
   extern __shared__ float4 smem[];
   const int tid = threadIdx.x;
-  const int span = 32 / W;  // threads of one op lane in a warp
+  const int span = 32 / L;  // threads of one op lane in a warp
   const int l = tid % 32;
   const int k = l / span;
   const int g = l % G;
@@ -137,23 +148,23 @@ chunked_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, MW]
   cp_async_wait<0>();
   __syncthreads();
 
-  const int Mc = MW / W, root = 2 * MW, trash = 2 * MW + 1;
+  const int steps = MW / L, root = 2 * MW, trash = 2 * MW + 1;
   const float4 pi4 = make_float4(__ldg(pi), __ldg(pi + 1), __ldg(pi + 2),
                                  __ldg(pi + 3));
   const float prop = g < C ? __ldg(props + g) : 0.f;
 
-  // -- postorder, chunk by chunk: op g's output to row g -------------------
+  // -- postorder, step by step: op g's output to row g ---------------------
   int lsc = 0;        // this op lane's running log scale, in powers of two
   float site = 0.f;   // the root op's site likelihood, on its op lane
   bool holds_root = false;
-  // The next chunk's op and leaves are read a chunk ahead, before this
-  // chunk's stores, so their latency overlaps its work.
+  // The next step's op and leaves are read a step ahead, before this
+  // step's stores, so their latency overlaps its work.
   Op op = op_at(t_dst, t_child, t_e, k);
   float4 l0 = leaf_value(op.c0, T, S, tips_s);
   float4 l1 = leaf_value(op.c1, T, S, tips_s);
-  for (int c = 0; c < Mc; ++c) {
-    const int gp = c * W + k;
-    const Op nx = op_at(t_dst, t_child, t_e, min(gp + W, MW - W + k));
+  for (int c = 0; c < steps; ++c) {
+    const int gp = c * L + k;
+    const Op nx = op_at(t_dst, t_child, t_e, min(gp + L, MW - L + k));
     const float4 n0 = leaf_value(nx.c0, T, S, tips_s);
     const float4 n1 = leaf_value(nx.c1, T, S, tips_s);
     if (op.dst != trash) {
@@ -176,23 +187,23 @@ chunked_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, MW]
     l0 = n0;
     l1 = n1;
   }
-  // The tree's log scale: the sum over the W op lanes of a pattern.
+  // The tree's log scale: the sum over the L op lanes of a pattern.
   for (int o = span; o < 32; o <<= 1)
     lsc += __shfl_xor_sync(0xffffffffu, lsc, o);
   if (holds_root && writer)
     ll_rows[static_cast<size_t>(b) * S + s_raw] = logf(site) + lsc * kLn2;
 
-  // -- outside pass, chunks in reverse: op g's outside value in row g -------
+  // -- outside pass, steps in reverse: op g's outside value in row g -------
   const float w = __ldg(weights + s);
   float* const grad_b =
       grad_rows + static_cast<size_t>(b) * (2 * MW + 1) * S + s_raw;
   if (writer && k == 0) grad_b[static_cast<size_t>(2 * MW) * S] = 0.f;
-  op = op_at(t_dst, t_child, t_e, (Mc - 1) * W + k);
+  op = op_at(t_dst, t_child, t_e, (steps - 1) * L + k);
   l0 = leaf_value(op.c0, T, S, tips_s);
   l1 = leaf_value(op.c1, T, S, tips_s);
-  for (int c = Mc - 1; c >= 0; --c) {
-    const int gp = c * W + k;
-    const Op nx = op_at(t_dst, t_child, t_e, max(gp - W, k));
+  for (int c = steps - 1; c >= 0; --c) {
+    const int gp = c * L + k;
+    const Op nx = op_at(t_dst, t_child, t_e, max(gp - L, k));
     const float4 n0 = leaf_value(nx.c0, T, S, tips_s);
     const float4 n1 = leaf_value(nx.c1, T, S, tips_s);
     if (op.dst != trash) {
@@ -233,29 +244,32 @@ chunked_grad_onchip_kernel(const int* __restrict__ post_dst,   // [B, MW]
   }
 }
 
-template <int C>
+template <int G, int CF>
 cudaError_t launch(const int* post_dst, const int* child, const int* post_e,
                    const float* P, const float* dP, const float* tips,
                    const float* pi, const float* props, const float* weights,
                    float* ll_rows, float* grad_rows, int B, int MW, int W,
-                   int T, int N1, int S, int rows, int cols, cudaStream_t st) {
-  constexpr int G = onchip::Lanes<C>::G;
-  // A pattern's W*G threads in one warp, and a block of whole warps.
-  if (W < 1 || 32 % (W * G) || cols < 1 || cols % (32 / (W * G)))
+                   int L, int T, int N1, int C, int S, int rows, int cols,
+                   cudaStream_t st) {
+  if (CF == 0 && (C <= G / 2 || C > G)) return cudaErrorInvalidValue;
+  // A pattern's L*G threads in one warp, L op lanes that divide the chunk,
+  // and a block of whole warps.
+  if (L < 1 || W % L || 32 % (L * G) || cols < 1 ||
+      cols % (32 / (L * G)))
     return cudaErrorInvalidValue;
-  const int threads = cols * W * G;
+  const int threads = cols * L * G;
   if (threads > onchip::kMaxThreads) return cudaErrorInvalidValue;
   const size_t smem =
       onchip::smem_bytes(rows, cols * G, G, N1, 4, false, 5 * MW);
   if (smem > onchip::kSmemMax) return cudaErrorInvalidValue;
   const cudaError_t attr = cudaFuncSetAttribute(
-      chunked_grad_onchip_kernel<C>,
+      chunked_grad_onchip_kernel<G, CF>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, onchip::kSmemMax);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + cols - 1) / cols, B);
-  chunked_grad_onchip_kernel<C><<<grid, threads, smem, st>>>(
+  chunked_grad_onchip_kernel<G, CF><<<grid, threads, smem, st>>>(
       post_dst, child, post_e, P, dP, tips, pi, props, weights, ll_rows,
-      grad_rows, MW, W, T, N1, S, rows);
+      grad_rows, MW, L, T, N1, S, rows, C);
   return cudaGetLastError();
 }
 
@@ -263,24 +277,33 @@ cudaError_t launch(const int* post_dst, const int* child, const int* post_e,
 
 // `child` is the child tape of the chunked tape (paired.py child_tape);
 // `rows` one more than the last grid position that stores a row (paired.py
-// grad_rows_needed); `cols` patterns per block (whole warps); W the op
-// lanes, which must divide MW.  Returns cudaGetLastError() after the launch
-// (0 on success).
+// grad_rows_needed); `cols` patterns per block (whole warps); W the chunk
+// width, which must divide MW, and `op_lanes` the op lanes a pattern,
+// which must divide W (chunked.py onchip_plan).  Returns
+// cudaGetLastError() after the launch (0 on success).
 extern "C" int bito_chunked_grad_onchip(
     const int* post_dst, const int* child, const int* post_e, const float* P,
     const float* dP, const float* tips, const float* pi, const float* props,
     const float* weights, float* ll_rows, float* grad_rows, int B, int MW,
-    int W, int T, int N1, int C, int S, int rows, int cols, void* stream) {
+    int W, int T, int N1, int C, int S, int rows, int cols, int op_lanes,
+    void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || MW <= 0 || W <= 0 || MW % W ||
       rows < 1 || rows > MW)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define CHUNKED_LAUNCH_GRAD(CV, RV)                                        \
-  return static_cast<int>(launch<CV>(post_dst, child, post_e, P, dP, tips, \
-                                     pi, props, weights, ll_rows,          \
-                                     grad_rows, B, MW, W, T, N1, S, rows,  \
-                                     cols, st))
+#define CHUNKED_LAUNCH_GRAD_AT(GV, CV)                                      \
+  return static_cast<int>(launch<GV, CV>(                                   \
+      post_dst, child, post_e, P, dP, tips, pi, props, weights, ll_rows,    \
+      grad_rows, B, MW, W, op_lanes, T, N1, C, S, rows, cols, st))
+#define CHUNKED_LAUNCH_GRAD(CV, RV) \
+  CHUNKED_LAUNCH_GRAD_AT(onchip::Lanes<CV>::G, CV)
+#define CHUNKED_LAUNCH_GRAD_WIDE(GV, RV) CHUNKED_LAUNCH_GRAD_AT(GV, 0)
+  if (C > 8) {
+    ONCHIP_DISPATCH_WIDE(C, false, CHUNKED_LAUNCH_GRAD_WIDE)
+  }
   ONCHIP_DISPATCH(C, false, CHUNKED_LAUNCH_GRAD)
+#undef CHUNKED_LAUNCH_GRAD_WIDE
 #undef CHUNKED_LAUNCH_GRAD
+#undef CHUNKED_LAUNCH_GRAD_AT
   return cudaErrorInvalidValue;
 }

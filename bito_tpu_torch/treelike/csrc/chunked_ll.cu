@@ -30,7 +30,16 @@
 // taxa x 1024 patterns under Gamma4) and each op reads two columns and
 // writes one, so it is bound by memory bandwidth and L2.  The lanes shorten
 // the dependent chain; they do not cut the bytes.
+//
+// At 9..32 rate categories the kernel is paired_lanes.cuh's ll_kernel on
+// the chunked tape (a category a lane, the slots in device memory as
+// float4 [B, 2MW+3, Sp, G], the children by the code of `child`, grid
+// order one op at a time), launched here with the same arguments: `buf`
+// holds B * (2MW+3) * Sp * G * 4 floats, and `ls` and tip_slot are not
+// read.  This layout's registers do not scale to C * 4 values a vector
+// (paired_lanes.cuh says why); its walk does not need the chunk's lanes.
 #include "common.cuh"
+#include "paired_lanes.cuh"
 
 namespace {
 
@@ -78,20 +87,36 @@ chunked_ll_kernel(const int* __restrict__ post_dst,   // [B, MW]
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 on success).  W must
-// divide kThreads and MW; the caller checks both.
+// divide kThreads and MW; the caller checks both.  `child` is the chunked
+// tape's child tape (treelike/paired.py child_tape), read at C > 8 only.
 extern "C" int bito_chunked_ll(const int* post_dst, const int* tip_slot,
-                               const int* post_e, const float* P,
-                               const float* tips, const float* pi,
-                               const float* props, float* buf, float* ls,
-                               float* ll_rows, int B, int MW, int W, int T,
-                               int N1, int C, int S, void* stream) {
+                               const int* child, const int* post_e,
+                               const float* P, const float* tips,
+                               const float* pi, const float* props,
+                               float* buf, float* ls, float* ll_rows, int B,
+                               int MW, int W, int T, int N1, int C, int S,
+                               void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || W <= 0 || bito::kThreads % W ||
       MW % W)
     return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > 8 && C <= 32) {
+    float4* slots = reinterpret_cast<float4*>(buf);
+    if (C <= 16)
+      paired_lanes::ll_kernel<16, true>
+          <<<paired_lanes::grid<16>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, child, post_e, P, tips, pi, props, slots, ll_rows,
+              MW, T, N1, C, S);
+    else
+      paired_lanes::ll_kernel<32, true>
+          <<<paired_lanes::grid<32>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, child, post_e, P, tips, pi, props, slots, ll_rows,
+              MW, T, N1, C, S);
+    return static_cast<int>(cudaGetLastError());
+  }
   const dim3 block(bito::kThreads / W, W);
   const dim3 grid((S + block.x - 1) / block.x, B);
   const size_t smem = 2 * static_cast<size_t>(MW) + 2;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BITO_LAUNCH_CLL(CV)                                                \
   chunked_ll_kernel<CV><<<grid, block, smem, st>>>(                        \
       post_dst, tip_slot, post_e, P, tips, pi, props, buf, ls, ll_rows,    \

@@ -189,15 +189,15 @@ extern "C" int bito_paired_grad(const int* post_dst, const int* tip_slot,
   if (C > 8 && C <= 32) {
     float4* slots = reinterpret_cast<float4*>(buf);
     if (C <= 16)
-      paired_lanes::grad_kernel<16>
+      paired_lanes::grad_kernel<16, false>
           <<<paired_lanes::grid<16>(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, tip_slot, post_src, post_e, P, dP, tips, pi, props,
-              weights, slots, ll_rows, grad_rows, M, T, N1, C, S);
+              weights, slots, ll_rows, grad_rows, M, T, N1, C, S, N1);
     else
-      paired_lanes::grad_kernel<32>
+      paired_lanes::grad_kernel<32, false>
           <<<paired_lanes::grid<32>(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, tip_slot, post_src, post_e, P, dP, tips, pi, props,
-              weights, slots, ll_rows, grad_rows, M, T, N1, C, S);
+              weights, slots, ll_rows, grad_rows, M, T, N1, C, S, N1);
     return static_cast<int>(cudaGetLastError());
   }
   const dim3 grid((S + bito::kThreads - 1) / bito::kThreads, B);

@@ -1,5 +1,6 @@
 // The global bodies of the paired kernels at 9..32 rate categories:
-// paired_ll.cu and paired_grad.cu launch them where C > 8.  They compute
+// paired_ll.cu and paired_grad.cu launch them where C > 8, and so do
+// chunked_ll.cu and chunked_grad.cu on the chunked tape.  They compute
 // what those sources' C = 1..8 bodies compute, over the same paired-slot
 // tape, in the on-chip bodies' lane layout (onchip.cuh) with the slots in
 // device memory.
@@ -23,6 +24,20 @@
 // log scale is the running sum of the exponents: no log-scale slots.
 // The matrices are read from device memory (L1 and L2 resident: every
 // pattern of a tree reads the same ones).
+//
+// Two tapes (the template's kChunked):
+//   - the paired tape (false): the tips are copied into the slots that
+//     tip_slot names, and op m's gradient rows are post_src[m, j];
+//   - the chunked tape (true, treelike/chunked.py), walked one grid op at a
+//     time as a paired tape, which it is: grid op g reads pair slots (2g,
+//     2g+1) and writes slot post_dst[g], the root is slot 2MW and the trash
+//     slot 2MW+1.  A chunk's ops read no slot another of them writes, so
+//     grid order is a postorder.  Its children come by child code
+//     (treelike/paired.py child_tape): an op's output from its slot, a tip
+//     read in place, ones for a slot that nothing writes (a DUMMY child,
+//     which the paired tape's trees never read); op g's gradient rows are
+//     its grid rows 2g and 2g+1 (chunked.py finish_rows maps them to
+//     nodes).
 #pragma once
 
 #include "onchip.cuh"
@@ -75,20 +90,39 @@ struct Lane {
   }
 };
 
-// The tips into their slots, then the postorder: op m evolves slots 2m and
-// 2m+1 along its edges, multiplies, rescales over the pattern's lanes and
-// writes slot post_dst[m]; at the root op, the pattern's log likelihood
-// (the same on every lane), which is returned.
-template <int G>
+// Child j of op m: on the chunked tape by its code (slot 2m+j where an op
+// wrote it, else a tip in place or ones), on the paired tape its slot.
+template <bool kChunked>
+__device__ __forceinline__ float4 child_value(const Slots& col,
+                                              const int* __restrict__ ch_b,
+                                              int k, int T, int S,
+                                              const float* __restrict__ tips_s) {
+  if constexpr (kChunked) {
+    const int code = ch_b[k];
+    if (code < 0) return onchip::leaf_value(code, T, S, tips_s);
+  }
+  return col[k];
+}
+
+// The tips into their slots (paired tape), then the postorder: op m
+// evolves its children along its edges, multiplies, rescales over the
+// pattern's lanes and writes slot post_dst[m]; at the root op, the
+// pattern's log likelihood (the same on every lane), which is returned.
+// `tip_b` is the tree's tip_slot on the paired tape, its child codes on
+// the chunked tape.
+template <int G, bool kChunked>
 __device__ __forceinline__ float postorder(
     const Lane<G>& ln, const Slots& col, const int* __restrict__ dst_b,
     const int* __restrict__ tip_b, const int* __restrict__ e_b,
     const float* __restrict__ P_b, const float* __restrict__ tips,
     const float* __restrict__ pi, float prop, int M, int T, int C, int S) {
-  for (int t = 0; t < T; ++t) {
-    const float* p = tips + static_cast<size_t>(t) * A * S + ln.s;
-    col[tip_b[t]] = make_float4(__ldg(p), __ldg(p + S), __ldg(p + 2 * S),
-                                __ldg(p + 3 * S));
+  const float* const tips_s = tips + ln.s;
+  if constexpr (!kChunked) {
+    for (int t = 0; t < T; ++t) {
+      const float* p = tips_s + static_cast<size_t>(t) * A * S;
+      col[tip_b[t]] = make_float4(__ldg(p), __ldg(p + S), __ldg(p + 2 * S),
+                                  __ldg(p + 3 * S));
+    }
   }
   const int root = 2 * M, trash = 2 * M + 1;
   const size_t mat = static_cast<size_t>(C) * A * A;
@@ -100,8 +134,10 @@ __device__ __forceinline__ float postorder(
     const int dst = dst_b[m];
     if (dst == trash) continue;  // a padded op: the whole block skips it
     float4 prod = onchip::mul(
-        evolve(P_b + e_b[2 * m] * mat, ln.g, C, col[2 * m]),
-        evolve(P_b + e_b[2 * m + 1] * mat, ln.g, C, col[2 * m + 1]));
+        evolve(P_b + e_b[2 * m] * mat, ln.g, C,
+               child_value<kChunked>(col, tip_b, 2 * m, T, S, tips_s)),
+        evolve(P_b + e_b[2 * m + 1] * mat, ln.g, C,
+               child_value<kChunked>(col, tip_b, 2 * m + 1, T, S, tips_s)));
     const int ex = onchip::scale_exponent(
         onchip::group_max<G>(onchip::max4(prod)));
     prod = onchip::scale(prod, onchip::pow2_neg(ex));
@@ -114,10 +150,10 @@ __device__ __forceinline__ float postorder(
   return logf(site) + lsc * onchip::kLn2;
 }
 
-template <int G>
+template <int G, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 ll_kernel(const int* __restrict__ post_dst,   // [B, M]
-          const int* __restrict__ tip_slot,   // [B, T]
+          const int* __restrict__ tip_slot,   // [B, T]; chunked: child [B, M, 2]
           const int* __restrict__ post_e,     // [B, M, 2]
           const float* __restrict__ P,        // [B, N1, C, 4, 4]
           const float* __restrict__ tips,     // [T, 4, S]
@@ -128,9 +164,9 @@ ll_kernel(const int* __restrict__ post_dst,   // [B, M]
           int M, int T, int N1, int C, int S) {
   const Lane<G> ln(S);
   const int b = blockIdx.y;
-  const float ll = postorder<G>(
+  const float ll = postorder<G, kChunked>(
       ln, ln.slots(buf, 2 * M + 3), post_dst + static_cast<size_t>(b) * M,
-      tip_slot + static_cast<size_t>(b) * T,
+      tip_slot + static_cast<size_t>(b) * (kChunked ? 2 * M : T),
       post_e + static_cast<size_t>(b) * 2 * M,
       P + static_cast<size_t>(b) * N1 * C * A * A, tips, pi,
       ln.g < C ? __ldg(props + ln.g) : 0.f, M, T, C, S);
@@ -142,14 +178,15 @@ ll_kernel(const int* __restrict__ post_dst,   // [B, M]
 // its outside value from slot post_dst[m] (pi at the root op), forms both
 // children's outside vectors o0 = up * ev1 and o1 = up * ev0, rescales
 // them over the pattern's lanes, writes each child's weighted gradient
-// row w * sum_ca prop*o*(dP p) / sum_ca prop*o*(P p) to row post_src[m, j],
-// then P^T o over slots (2m, 2m+1), whose partials op m was the last to
-// read.
-template <int G>
+// row w * sum_ca prop*o*(dP p) / sum_ca prop*o*(P p) to row post_src[m, j]
+// (the chunked tape: 2m + j) of the tree's NR rows, then P^T o over slots
+// (2m, 2m+1), whose partials op m was the last to read (on the chunked
+// tape only where an op's output is there: nothing reads a tip's).
+template <int G, bool kChunked>
 __global__ void __launch_bounds__(kThreads)
 grad_kernel(const int* __restrict__ post_dst,   // [B, M]
-            const int* __restrict__ tip_slot,   // [B, T]
-            const int* __restrict__ post_src,   // [B, M, 2]
+            const int* __restrict__ tip_slot,   // [B, T]; chunked: child [B, M, 2]
+            const int* __restrict__ post_src,   // [B, M, 2]; chunked: unread
             const int* __restrict__ post_e,     // [B, M, 2]
             const float* __restrict__ P,        // [B, N1, C, 4, 4]
             const float* __restrict__ dP,       // [B, N1, C, 4, 4]
@@ -159,35 +196,41 @@ grad_kernel(const int* __restrict__ post_dst,   // [B, M]
             const float* __restrict__ weights,  // [S]
             float4* __restrict__ buf,           // [B, 2M+3, Sp, G]
             float* __restrict__ ll_rows,        // [B, S]
-            float* __restrict__ grad_rows,      // [B, N1, S], zeroed
-            int M, int T, int N1, int C, int S) {
+            float* __restrict__ grad_rows,      // [B, NR, S], zeroed
+            int M, int T, int N1, int C, int S, int NR) {
   const Lane<G> ln(S);
   const int b = blockIdx.y;
   const Slots col = ln.slots(buf, 2 * M + 3);
   const int* dst_b = post_dst + static_cast<size_t>(b) * M;
+  const int* tip_b =
+      tip_slot + static_cast<size_t>(b) * (kChunked ? 2 * M : T);
   const int* e_b = post_e + static_cast<size_t>(b) * 2 * M;
-  const int* src_b = post_src + static_cast<size_t>(b) * 2 * M;
+  const int* src_b =
+      kChunked ? nullptr : post_src + static_cast<size_t>(b) * 2 * M;
+  const float* const tips_s = tips + ln.s;
   const size_t tree = static_cast<size_t>(b) * N1 * C * A * A;
   const size_t mat = static_cast<size_t>(C) * A * A;
   const float prop = ln.g < C ? __ldg(props + ln.g) : 0.f;
   const bool writer = ln.g == 0 && ln.s_raw < S;
-  const float ll = postorder<G>(ln, col, dst_b,
-                                tip_slot + static_cast<size_t>(b) * T, e_b,
-                                P + tree, tips, pi, prop, M, T, C, S);
+  const float ll = postorder<G, kChunked>(ln, col, dst_b, tip_b, e_b,
+                                          P + tree, tips, pi, prop, M, T, C,
+                                          S);
   if (writer) ll_rows[static_cast<size_t>(b) * S + ln.s_raw] = ll;
 
   const int root = 2 * M, trash = 2 * M + 1;
   const float4 pi4 = make_float4(__ldg(pi), __ldg(pi + 1), __ldg(pi + 2),
                                  __ldg(pi + 3));
   const float w = __ldg(weights + ln.s);
-  float* const grad_b = grad_rows + static_cast<size_t>(b) * N1 * S +
+  float* const grad_b = grad_rows + static_cast<size_t>(b) * NR * S +
                         ln.s_raw;
   for (int m = M - 1; m >= 0; --m) {
     const int dst = dst_b[m];
     if (dst == trash) continue;
     const float* P0 = P + tree + e_b[2 * m] * mat;
     const float* P1 = P + tree + e_b[2 * m + 1] * mat;
-    const float4 p0 = col[2 * m], p1 = col[2 * m + 1];
+    const float4 p0 = child_value<kChunked>(col, tip_b, 2 * m, T, S, tips_s);
+    const float4 p1 =
+        child_value<kChunked>(col, tip_b, 2 * m + 1, T, S, tips_s);
     const float4 ev0 = evolve(P0, ln.g, C, p0), ev1 = evolve(P1, ln.g, C, p1);
     const float4 up = dst == root ? pi4 : col[dst];
     float4 o0 = onchip::mul(up, ev1), o1 = onchip::mul(up, ev0);
@@ -204,11 +247,14 @@ grad_kernel(const int* __restrict__ post_dst,   // [B, M]
     if (writer) {
       d0 = d0 > 0.f ? d0 : 1.f;
       d1 = d1 > 0.f ? d1 : 1.f;
-      grad_b[static_cast<size_t>(src_b[2 * m]) * S] = w * n0 / d0;
-      grad_b[static_cast<size_t>(src_b[2 * m + 1]) * S] = w * n1 / d1;
+      const int r0 = kChunked ? 2 * m : src_b[2 * m];
+      const int r1 = kChunked ? 2 * m + 1 : src_b[2 * m + 1];
+      grad_b[static_cast<size_t>(r0) * S] = w * n0 / d0;
+      grad_b[static_cast<size_t>(r1) * S] = w * n1 / d1;
     }
-    col[2 * m] = evolve_t(P0, ln.g, C, o0);
-    col[2 * m + 1] = evolve_t(P1, ln.g, C, o1);
+    if (!kChunked || tip_b[2 * m] >= 0) col[2 * m] = evolve_t(P0, ln.g, C, o0);
+    if (!kChunked || tip_b[2 * m + 1] >= 0)
+      col[2 * m + 1] = evolve_t(P1, ln.g, C, o1);
   }
 }
 

@@ -85,12 +85,12 @@ extern "C" int bito_paired_ll(const int* post_dst, const int* tip_slot,
   if (C > 8 && C <= 32) {
     float4* slots = reinterpret_cast<float4*>(buf);
     if (C <= 16)
-      paired_lanes::ll_kernel<16>
+      paired_lanes::ll_kernel<16, false>
           <<<paired_lanes::grid<16>(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, tip_slot, post_e, P, tips, pi, props, slots, ll_rows,
               M, T, N1, C, S);
     else
-      paired_lanes::ll_kernel<32>
+      paired_lanes::ll_kernel<32, false>
           <<<paired_lanes::grid<32>(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, tip_slot, post_e, P, tips, pi, props, slots, ll_rows,
               M, T, N1, C, S);

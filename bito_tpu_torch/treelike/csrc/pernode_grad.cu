@@ -25,7 +25,14 @@
 // against 3.8 KB for the paired kernel's 59 slots), and each preorder op
 // reads four columns (up[parent], both siblings, p[dest]) and writes one,
 // where a paired outside op reads three and writes two for two edges.
+//
+// At 9..32 rate categories the kernel is pernode_lanes.cuh's grad_kernel (a
+// category a lane, internal nodes' partials and up values in device memory
+// as float4 [B, N1-T, Sp, G] each), launched here with the same arguments:
+// `buf` and `up` hold B * (N1-T) * Sp * G * 4 floats each and `ls` is not
+// read.
 #include "common.cuh"
+#include "pernode_lanes.cuh"
 
 namespace {
 
@@ -125,8 +132,24 @@ extern "C" int bito_pernode_grad(const int* post_ops, const int* pre_ops,
                                  int B, int M, int Mp, int T, int N1, int C,
                                  int S, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((S + bito::kThreads - 1) / bito::kThreads, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > 8 && C <= 32) {
+    if (T >= N1) return cudaErrorInvalidValue;
+    float4* rows = reinterpret_cast<float4*>(buf);
+    float4* ups = reinterpret_cast<float4*>(up);
+    if (C <= 16)
+      pernode_lanes::grad_kernel<16>
+          <<<paired_lanes::grid<16>(B, S), pernode_lanes::kThreads, 0, st>>>(
+              post_ops, pre_ops, root, P, dP, tips, pi, props, weights, rows,
+              ups, ll_rows, grad_rows, M, Mp, T, N1, C, S);
+    else
+      pernode_lanes::grad_kernel<32>
+          <<<paired_lanes::grid<32>(B, S), pernode_lanes::kThreads, 0, st>>>(
+              post_ops, pre_ops, root, P, dP, tips, pi, props, weights, rows,
+              ups, ll_rows, grad_rows, M, Mp, T, N1, C, S);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((S + bito::kThreads - 1) / bito::kThreads, B);
 #define BITO_LAUNCH_NGRAD(CV)                                              \
   pernode_grad_kernel<CV><<<grid, bito::kThreads, 0, st>>>(               \
       post_ops, pre_ops, root, P, dP, tips, pi, props, weights, buf, up,  \

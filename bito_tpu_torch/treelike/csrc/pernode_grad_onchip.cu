@@ -1,6 +1,10 @@
 // The per-node grad kernel with every partial on chip: the shipping
 // instantiations of pernode_onchip.cuh's body, for C = 1..8 rate
-// categories.
+// categories one count at a time, and for 9..32 one a lane count (G = 16
+// or 32 lanes a pattern, a group's sums over categories over G lanes) with
+// the count read at run time.  At G >= 16 the tree's P and dP staged at
+// once take 2 KB (G = 16) or 4 KB (G = 32) an edge, so pernode.py's
+// onchip_plan hands trees to pernode_grad.cu sooner.
 //
 // Replaces bito_tpu/treelike/pallas_pruning.py::_grad_kernel, as
 // pernode_grad.cu does; treelike/pernode.py's onchip_plan chooses between
@@ -35,6 +39,15 @@ extern "C" int bito_pernode_grad_onchip(
     return static_cast<int>(pernode_onchip::launch<CV>(                     \
         post, groups, zero, root, P, dP, tips, pi, props, weights, ll_rows, \
         grad_rows, B, M, NG, Z, T, N1, S, rows, cols, st))
+  if (C > 8 && C <= 32) {
+    if (C <= 16)
+      return static_cast<int>(pernode_onchip::launch_wide<16>(
+          post, groups, zero, root, P, dP, tips, pi, props, weights, ll_rows,
+          grad_rows, B, M, NG, Z, T, N1, C, S, rows, cols, st));
+    return static_cast<int>(pernode_onchip::launch_wide<32>(
+        post, groups, zero, root, P, dP, tips, pi, props, weights, ll_rows,
+        grad_rows, B, M, NG, Z, T, N1, C, S, rows, cols, st));
+  }
   switch (C) {
     PERNODE_LAUNCH_GRAD(1);
     PERNODE_LAUNCH_GRAD(2);

@@ -26,7 +26,13 @@
 // ([B, N+1, C*4, S] float32, 0.69 GB at 200 trees x 53 slots x 1024
 // patterns under Gamma4) and each op reads two columns and writes one, so
 // the kernel is bound by memory bandwidth and L2, as paired_ll.cu.
+//
+// At 9..32 rate categories the kernel is pernode_lanes.cuh's ll_kernel (a
+// category a lane, internal nodes' partials in device memory as float4
+// [B, N1-T, Sp, G]), launched here with the same arguments: `buf` holds
+// B * (N1-T) * Sp * G * 4 floats and `ls` is not read.
 #include "common.cuh"
+#include "pernode_lanes.cuh"
 
 namespace {
 
@@ -74,8 +80,23 @@ extern "C" int bito_pernode_ll(const int* post_ops, const int* root,
                                int M, int T, int N1, int C, int S,
                                void* stream) {
   if (B <= 0 || B > 65535 || S <= 0) return cudaErrorInvalidValue;
-  const dim3 grid((S + bito::kThreads - 1) / bito::kThreads, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > 8 && C <= 32) {
+    if (T >= N1) return cudaErrorInvalidValue;
+    float4* rows = reinterpret_cast<float4*>(buf);
+    if (C <= 16)
+      pernode_lanes::ll_kernel<16>
+          <<<paired_lanes::grid<16>(B, S), pernode_lanes::kThreads, 0, st>>>(
+              post_ops, root, P, tips, pi, props, rows, ll_rows, M, T, N1, C,
+              S);
+    else
+      pernode_lanes::ll_kernel<32>
+          <<<paired_lanes::grid<32>(B, S), pernode_lanes::kThreads, 0, st>>>(
+              post_ops, root, P, tips, pi, props, rows, ll_rows, M, T, N1, C,
+              S);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((S + bito::kThreads - 1) / bito::kThreads, B);
 #define BITO_LAUNCH_NLL(CV)                                                \
   pernode_ll_kernel<CV><<<grid, bito::kThreads, 0, st>>>(                 \
       post_ops, root, P, tips, pi, props, buf, ls, ll_rows, M, T, N1, S)

@@ -1,8 +1,9 @@
 // The per-node grad kernel's on-chip body: per-pattern tree log likelihoods
 // and branch-length gradient rows over the scan tape's per-node ops, with
 // every partial on chip.  A template, instantiated by pernode_grad_onchip.cu
-// (the shipping body, <C, 0, 0, 1, false>) and by the perf lab's
-// variant_grad.cu (the knobs below).
+// (the shipping body: launch<C> for C = 1..8, and launch_wide<G> for 9..32
+// categories on G = 16 or 32 lanes with the count read at run time) and by
+// the perf lab's variant_grad.cu (launch<C, knobs...>, the knobs below).
 //
 // Replaces bito_tpu/treelike/pallas_pruning.py::_grad_kernel, as
 // pernode_grad.cu does, and computes the same numbers: the LL rows [B, S]
@@ -103,7 +104,9 @@ inline bool bad_args(int B, int M, int NG, int Z, int S, int rows) {
 // includes this header compiles its own instantiations.
 namespace {
 
-template <int C, int MU, int GU, int RESK, bool NODOT>
+// G lanes a pattern; CF the category count where it is fixed at compile
+// time (1..8), else 0 and the run-time count C_run (G / 2 < C_run <= G).
+template <int G, int CF, int MU, int GU, int RESK, bool NODOT>
 __global__ void __launch_bounds__(onchip::kMaxThreads)
 pernode_grad_onchip_kernel(const int* __restrict__ post,     // [B, M, 5]
                            const int* __restrict__ groups,   // [B, NG, 4]
@@ -118,11 +121,11 @@ pernode_grad_onchip_kernel(const int* __restrict__ post,     // [B, M, 5]
                            float* __restrict__ ll_rows,        // [B, S]
                            float* __restrict__ grad_rows,      // [B, N1, S]
                            int M, int NG, int Z, int T, int N1, int S,
-                           int rows) {
+                           int rows, int C_run) {
   using namespace onchip;
   static_assert((MU > 0) == (GU > 0), "unroll both walks or neither");
   static_assert(MU > 0 || RESK == 1, "resk applies to unrolled walks only");
-  constexpr int G = Lanes<C>::G;
+  const int C = CF > 0 ? CF : C_run;
   extern __shared__ float4 smem[];
   const int threads = blockDim.x;
   const int tid = threadIdx.x;
@@ -297,6 +300,32 @@ pernode_grad_onchip_kernel(const int* __restrict__ post,     // [B, M, 5]
   }
 }
 
+template <int G, int CF, int MU, int GU, int RESK, bool NODOT>
+cudaError_t launch_at(const int* post, const int* groups, const int* zero,
+                      const int* root, const float* P, const float* dP,
+                      const float* tips, const float* pi, const float* props,
+                      const float* weights, float* ll_rows, float* grad_rows,
+                      int B, int M, int NG, int Z, int T, int N1, int C,
+                      int S, int rows, int cols, cudaStream_t st) {
+  if (CF == 0 && (C <= G / 2 || C > G)) return cudaErrorInvalidValue;
+  const int threads = cols * G;
+  if (cols < 1 || threads > onchip::kMaxThreads || threads % 32)
+    return cudaErrorInvalidValue;
+  const size_t smem =
+      smem_bytes(rows, threads, G, N1, kPostInts * M + kGroupInts * NG + Z);
+  if (smem > onchip::kSmemMax) return cudaErrorInvalidValue;
+  auto* kernel = pernode_grad_onchip_kernel<G, CF, MU, GU, RESK, NODOT>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, onchip::kSmemMax);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid((S + cols - 1) / cols, B);
+  kernel<<<grid, threads, smem, st>>>(post, groups, zero, root, P, dP, tips,
+                                      pi, props, weights, ll_rows, grad_rows,
+                                      M, NG, Z, T, N1, S, rows, C);
+  return cudaGetLastError();
+}
+
+// C = 1..8 categories, fixed at compile time, with the knobs.
 template <int C, int MU = 0, int GU = 0, int RESK = 1, bool NODOT = false>
 cudaError_t launch(const int* post, const int* groups, const int* zero,
                    const int* root, const float* P, const float* dP,
@@ -304,22 +333,23 @@ cudaError_t launch(const int* post, const int* groups, const int* zero,
                    const float* weights, float* ll_rows, float* grad_rows,
                    int B, int M, int NG, int Z, int T, int N1, int S, int rows,
                    int cols, cudaStream_t st) {
-  constexpr int G = onchip::Lanes<C>::G;
-  const int threads = cols * G;
-  if (cols < 1 || threads > onchip::kMaxThreads || threads % 32)
-    return cudaErrorInvalidValue;
-  const size_t smem =
-      smem_bytes(rows, threads, G, N1, kPostInts * M + kGroupInts * NG + Z);
-  if (smem > onchip::kSmemMax) return cudaErrorInvalidValue;
-  auto* kernel = pernode_grad_onchip_kernel<C, MU, GU, RESK, NODOT>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, onchip::kSmemMax);
-  if (attr != cudaSuccess) return attr;
-  const dim3 grid((S + cols - 1) / cols, B);
-  kernel<<<grid, threads, smem, st>>>(post, groups, zero, root, P, dP, tips,
-                                      pi, props, weights, ll_rows, grad_rows,
-                                      M, NG, Z, T, N1, S, rows);
-  return cudaGetLastError();
+  return launch_at<onchip::Lanes<C>::G, C, MU, GU, RESK, NODOT>(
+      post, groups, zero, root, P, dP, tips, pi, props, weights, ll_rows,
+      grad_rows, B, M, NG, Z, T, N1, C, S, rows, cols, st);
+}
+
+// C = 9..32 categories on G = 16 or 32 lanes, the count read at run time.
+template <int G>
+cudaError_t launch_wide(const int* post, const int* groups, const int* zero,
+                        const int* root, const float* P, const float* dP,
+                        const float* tips, const float* pi,
+                        const float* props, const float* weights,
+                        float* ll_rows, float* grad_rows, int B, int M,
+                        int NG, int Z, int T, int N1, int C, int S, int rows,
+                        int cols, cudaStream_t st) {
+  return launch_at<G, 0, 0, 0, 1, false>(
+      post, groups, zero, root, P, dP, tips, pi, props, weights, ll_rows,
+      grad_rows, B, M, NG, Z, T, N1, C, S, rows, cols, st);
 }
 
 }  // namespace

@@ -33,14 +33,17 @@ Kernel selection, `engine.kernel`:
   "chunked" — always the chunked kernels' wrappers (treelike/chunked.py),
               with dP from the eigen derivative (prep.prepare_inputs_grad)
               as in bito_tpu's chunked route; 4-state models only (it
-              raises for codon models, as bito_tpu's does).  The
+              raises for codon models, as bito_tpu's does), of 1 to
+              paired.PAIRED_CATEGORIES (32) rate categories (the
+              wrappers raise past that on the card).  The
               wrappers launch the on-chip bodies, or the global ones for
               a tree on which those would be the slower
               (chunked.ll_plan for LL, chunked.onchip_plan for grad).
 "cuda" and "chunked" raise for per-tree parameter rows, which the kernels
 do not take.  (bito_tpu's forced kernels take them and silently use tree
-0's model for the whole batch.)  The per-node kernels (treelike/pernode.py)
-have no route here, as bito_tpu's have none.
+0's model for the whole batch.)  The per-node kernels (treelike/pernode.py,
+1-32 categories at 4 states, 1-8 at 64) have no route here, as bito_tpu's
+have none.
 
 The tape runs on the engine's device and dtype; the kernel operands are
 float32 on a card and in the engine's dtype on the CPU.  A codon model

@@ -22,8 +22,8 @@ Each kernel has two bodies on the card:
     from the tape before the launch.
 At 4 states both bodies take 1 to PAIRED_CATEGORIES (32) rate categories:
 1-8 compiled one count at a time, 9-32 on 16 or 32 lanes a pattern with
-the count read at run time.  The chunked, per-node and A=64 kernels take
-1 to MAX_CATEGORIES (8).
+the count read at run time.  So do the chunked and per-node kernels
+(chunked.py, pernode.py); the A=64 kernels take 1 to MAX_CATEGORIES (8).
 The on-chip LL body also serves the chunked and per-node LL kernels
 (chunked.py, pernode.py): their tapes are walked as paired tapes, one op
 at a time, through `launch_ll_onchip`.
@@ -80,11 +80,16 @@ from ..dist import mesh
 from . import _kernels
 
 RESK = 4  # the tape is padded to a multiple of this many ops, as in bito_tpu
-# The category counts the kernels take: the chunked, per-node and A=64
-# kernels 1..MAX_CATEGORIES; the 4-state paired kernels (both bodies)
-# 1..PAIRED_CATEGORIES, one lane a category, a pattern at most a warp.
+# The category counts the kernels take (max_categories): the A=64 kernels
+# 1..MAX_CATEGORIES; every 4-state kernel (the paired, chunked and
+# per-node families, both bodies each) 1..PAIRED_CATEGORIES, one lane a
+# category, a pattern at most a warp.  The 4-state kernels compile
+# 1..COMPILED_CATEGORIES one count at a time; past it their bodies take
+# the count at run time and their global bodies the lane layouts
+# (csrc/paired_lanes.cuh, csrc/pernode_lanes.cuh).
 MAX_CATEGORIES = 8
 PAIRED_CATEGORIES = 32
+COMPILED_CATEGORIES = 8
 KERNEL_STATES = (4, 64)  # the state counts the paired kernels take
 # A shard's pattern count is a multiple of this (TreeLikelihoodEngine.
 # shard_patterns): the A=64 kernels copy [64, S] rows in 16-byte pieces.
@@ -276,6 +281,7 @@ class OnchipPlan:
     cols: int      # patterns per block
     ring: bool     # matrices double-buffered per op, else staged all at once
     smem: int      # bytes of dynamic shared memory per block
+    op_lanes: int = 1  # ops a pattern runs side by side (chunked.py's grad)
 
 
 # The choice between the stagings and the global body, set from times on
@@ -526,16 +532,27 @@ def paired_ll_and_gradients_tf32(post_dst, tip_slot, post_src, post_e,
 # ---------------------------------------------------------------------------
 
 def max_categories(A: int) -> int:
-    """The category counts the paired kernels take at A states: 1..this
+    """The category counts the kernels take at A states: 1..this
     (PAIRED_CATEGORIES at 4 states, MAX_CATEGORIES at 64)."""
     return PAIRED_CATEGORIES if A == 4 else MAX_CATEGORIES
 
 
-def _check_cuda_operands(ints, floats, C, A, states=(4,),
-                         categories=MAX_CATEGORIES):
+def _check_cuda_operands(ints, floats, C, A, states=(4,), *, categories):
     """Raise unless every operand is a contiguous CUDA tensor of its
     dtype (int32 or float32), A is one of `states` and C is in
-    1..`categories`."""
+    1..`categories` (the caller's limit: max_categories(A) or its own)."""
+    _check_cuda_tensors(ints, floats)
+    if A not in states:
+        raise ValueError(f"the kernels take {' or '.join(map(str, states))}"
+                         f"-state models, got A={A}")
+    if not 1 <= C <= categories:
+        raise ValueError(f"the kernels take 1..{categories} rate "
+                         f"categories, got {C}")
+
+
+def _check_cuda_tensors(ints, floats):
+    """Raise unless every tensor is a contiguous CUDA tensor of its dtype
+    (int32 or float32)."""
     for name, t in {**ints, **floats}.items():
         if t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}, the kernel needs CUDA")
@@ -547,12 +564,6 @@ def _check_cuda_operands(ints, floats, C, A, states=(4,),
     for name, t in floats.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if A not in states:
-        raise ValueError(f"the kernels take {' or '.join(map(str, states))}"
-                         f"-state models, got A={A}")
-    if not 1 <= C <= categories:
-        raise ValueError(f"the kernels take 1..{categories} rate "
-                         f"categories, got {C}")
 
 
 def _check_shapes(post_dst, tip_slot, post_e, P, tips, pi, props, weights):
@@ -580,8 +591,8 @@ def _check_onchip(onchip: OnchipTape, post_dst, tips, mats):
     if tips.numel() >= 2**31:  # the kernels index tips with 32-bit offsets
         raise ValueError(f"tips has {tips.numel()} entries, the on-chip "
                          "bodies take fewer than 2**31")
-    _check_cuda_operands(dict(child=onchip.child, live_row=onchip.live_row),
-                         {}, 1, 4)
+    _check_cuda_tensors(dict(child=onchip.child, live_row=onchip.live_row),
+                        {})
     for name, t in mats.items():  # cp.async copies 16-byte rows
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -623,7 +634,7 @@ def paired_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     _check_cuda_operands(
         dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
         dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
-        KERNEL_STATES, max_categories(A))
+        KERNEL_STATES, categories=max_categories(A))
     if A == 64:
         return paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi,
                              props) @ weights
@@ -658,7 +669,7 @@ def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
              post_e=post_e),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A, KERNEL_STATES, max_categories(A))
+        C, A, KERNEL_STATES, categories=max_categories(A))
     if A == 64:
         return finish_rows(*paired_grad_a64(post_dst, tip_slot, post_src,
                                             post_e, P, dP, tips, pi, props,
@@ -780,7 +791,7 @@ def _global_scratch(B, M, C, S, device):
     patterns, and no log scales (csrc/paired_lanes.cuh)."""
     NS = 2 * M + 3
     kw = dict(device=device, dtype=torch.float32)
-    if C <= MAX_CATEGORIES:
+    if C <= COMPILED_CATEGORIES:
         return (torch.empty((B, NS, C * 4, S), **kw),
                 torch.empty((B, NS, S), **kw))
     G = lanes(C)

@@ -35,6 +35,13 @@ shared-memory row, a parent's children evolved together,
 device memory, `pernode_grad_global`); `onchip_plan` chooses, from the
 tape that `onchip_tape` derives on the host.
 
+At 4 states both kernels take 1 to paired.PAIRED_CATEGORIES (32) rate
+categories, as the paired ones do: 1-8 compiled one count at a time, 9-32
+on 16 or 32 lanes a pattern with the count read at run time (the on-chip
+bodies' templates; the global bodies are then csrc/pernode_lanes.cuh,
+which walks post_ops and pre_ops as pernode_ll.cu and pernode_grad.cu
+do, a category a lane).
+
 At 64 states (MG94 codon models, as bito_tpu's per-node kernels take
 them) both functions run on the paired kernels' A=64 bodies
 (csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu, `paired.paired_ll_a64`
@@ -56,7 +63,7 @@ import numpy as np
 import torch
 
 from . import _kernels, paired, pruning
-from .paired import _check_cuda_operands
+from .paired import _check_cuda_operands, _check_cuda_tensors
 
 
 def _postorder(post_ops, P, tips):
@@ -139,7 +146,7 @@ def pernode_log_likelihoods(post_ops, root, P, tips, pi, props, weights, *,
     _check_cuda_operands(
         dict(post_ops=post_ops, root=root),
         dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
-        paired.KERNEL_STATES)
+        paired.KERNEL_STATES, categories=paired.max_categories(A))
     if A == 64:
         tape = _a64_of(onchip, post_ops, root, None, T, N1, P.device)
         return paired.paired_ll_a64(tape.post_dst, tape.tip_slot,
@@ -184,7 +191,7 @@ def pernode_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
         dict(post_ops=post_ops, pre_ops=pre_ops, root=root),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A, paired.KERNEL_STATES)
+        C, A, paired.KERNEL_STATES, categories=paired.max_categories(A))
     if A == 64:
         tape = _a64_of(onchip, post_ops, root, pre_ops, T, N1, P.device)
         return paired.finish_rows(*paired.paired_grad_a64(
@@ -309,8 +316,8 @@ def pernode_ll_onchip(tape: LLTape, P, tips, pi, props,
     B, M = tape.post_dst.shape
     if B != P.shape[0] or tuple(tape.post_e.shape) != (B, M, 2):
         raise ValueError("the on-chip tape does not match P")
-    _check_cuda_operands(dict(post_dst=tape.post_dst, post_e=tape.post_e),
-                         {}, 1, 4)
+    _check_cuda_tensors(dict(post_dst=tape.post_dst, post_e=tape.post_e),
+                        {})
     ll_rows = paired.launch_ll_onchip(tape.post_dst, tape, tape.post_e, P,
                                       tips, pi, props, plan)
     pernode_ll_onchip.launches += 1
@@ -320,16 +327,29 @@ def pernode_ll_onchip(tape: LLTape, P, tips, pi, props,
 pernode_ll_onchip.launches = 0
 
 
+def _global_rows(B, T, N1, C, S, device):
+    """The global bodies' per-node scratch and log scales: at 1..8
+    categories [B, N1, C*4, S] and [B, N1, S]; at 9..32 the lane layout of
+    csrc/pernode_lanes.cuh, the internal nodes' rows [B, N1-T, Sp, G, 4]
+    (Sp = S rounded up to a block's patterns), and no log scales."""
+    kw = dict(device=device, dtype=torch.float32)
+    if C <= paired.COMPILED_CATEGORIES:
+        return (torch.empty((B, N1, C * 4, S), **kw),
+                torch.empty((B, N1, S), **kw))
+    G = paired.lanes(C)
+    return (torch.empty((B, N1 - T, paired._rup(S, paired.GLOBAL_THREADS
+                                                 // G), G, 4), **kw),
+            torch.empty(0, **kw))
+
+
 def pernode_ll_global(post_ops, root, P, tips, pi, props) -> torch.Tensor:
     """Launch csrc/pernode_ll.cu, the global body (operands checked by the
     wrapper): per-pattern LL rows [B, S]."""
     B, M = post_ops.shape[:2]
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
-    kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, N1, C * 4, S), **kw)
-    ls = torch.empty((B, N1, S), **kw)
-    ll_rows = torch.empty((B, S), **kw)
+    buf, ls = _global_rows(B, T, N1, C, S, P.device)
+    ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
     with torch.cuda.device(P.device):
         rc = _kernels.library().bito_pernode_ll(
             post_ops.data_ptr(), root.data_ptr(), P.data_ptr(),
@@ -423,10 +443,10 @@ def _a64_of(onchip, post_ops, root, pre_ops, T, N1, device) -> A64Tape:
     if pre_ops is not None and not onchip.with_pre:
         raise ValueError("the grad at 64 states takes the tape's "
                          "pernode.a64_tape derived with pre_ops")
-    _check_cuda_operands(dict(post_dst=onchip.post_dst,
-                              tip_slot=onchip.tip_slot,
-                              post_src=onchip.post_src,
-                              post_e=onchip.post_e), {}, 1, 4)
+    _check_cuda_tensors(dict(post_dst=onchip.post_dst,
+                             tip_slot=onchip.tip_slot,
+                             post_src=onchip.post_src,
+                             post_e=onchip.post_e), {})
     return onchip
 
 
@@ -588,9 +608,9 @@ def onchip_plan(rows: int, tape_ints: int, N1: int, C: int,
     the tape: a block of as many whole warps of patterns as fit in
     paired.SMEM_BYTES, up to paired.MAX_THREADS threads, and at least
     `least` warps (1 asks for the body wherever it fits, to measure it)."""
-    if not 1 <= C <= paired.MAX_CATEGORIES:
-        raise ValueError(f"the kernels take 1..{paired.MAX_CATEGORIES} rate "
-                         f"categories, got {C}")
+    if not 1 <= C <= paired.PAIRED_CATEGORIES:
+        raise ValueError(f"the kernels take 1..{paired.PAIRED_CATEGORIES} "
+                         f"rate categories, got {C}")
     G = paired.lanes(C)
     per_warp = paired.WARP // G  # patterns a warp
     fixed = smem_bytes(rows, tape_ints, N1, C, 0)
@@ -617,8 +637,8 @@ def check_onchip(onchip: OnchipTape, B: int, tips, P, dP) -> None:
     if tips.numel() >= 2**31:  # the kernel indexes tips with 32-bit offsets
         raise ValueError(f"tips has {tips.numel()} entries, the on-chip "
                          "body takes fewer than 2**31")
-    _check_cuda_operands(dict(post=onchip.post, groups=onchip.groups,
-                              zero=onchip.zero), {}, 1, 4)
+    _check_cuda_tensors(dict(post=onchip.post, groups=onchip.groups,
+                             zero=onchip.zero), {})
     for name, t in (("P", P), ("dP", dP)):  # cp.async copies 16-byte rows
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
@@ -662,9 +682,8 @@ def pernode_grad_global(post_ops, pre_ops, root, P, dP, tips, pi, props,
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
     kw = dict(device=P.device, dtype=torch.float32)
-    buf = torch.empty((B, N1, C * 4, S), **kw)
-    up = torch.empty((B, N1, C * 4, S), **kw)
-    ls = torch.empty((B, N1, S), **kw)
+    buf, ls = _global_rows(B, T, N1, C, S, P.device)
+    up = torch.empty_like(buf)
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, N1, S), **kw)
     with torch.cuda.device(P.device):

@@ -22,7 +22,12 @@ and the VI command line with a checkpoint:
     which auto took to the scan tape before the paired kernels took 9-32
     rate categories: the on-chip bodies on 16 lanes a pattern, counted
     for the JSON line's entries paired_ll_onchip@C16 and
-    paired_grad_onchip@C16;
+    paired_grad_onchip@C16; then the same engine with kernel="chunked"
+    and the per-node functions on its tapes, whose wrappers refused 9-32
+    categories before the chunked and per-node kernels took them: their
+    on-chip bodies, counted for chunked_ll_onchip@C16,
+    chunked_grad_onchip@C16 (two op lanes a pattern),
+    pernode_ll_onchip@C16 and pernode_grad_onchip@C16;
   - large: the same entry points on two trees of 921 taxa (128 patterns:
     a cherry comb and a balanced tree) past the on-chip bodies' limits,
     where the wrappers hand over to the global bodies (csrc/paired_ll.cu,
@@ -177,7 +182,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      5e-5: on the flagship (the on-chip bodies), on the flagship with
      every branch CATEGORY_EDGE_LENGTH (1e-6) long, and on the large
      path's trees (the global bodies), each launching the body its plan
-     names (category_parity).
+     names (category_parity); the chunked and per-node kernels (rows 3-6)
+     the same way, and on the flagship also each body their plans do not
+     name, through its launcher (category_rows_parity).
      chunk_variant's variants (v0, w4, w8, norescale, notips, fixstore,
      nodot, unroll) against their float64 plain versions on the
      flagship's chunked operands: the LL within 5e-5 relative (notips,
@@ -304,8 +311,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      and limit; the paired kernels at CATEGORY_COUNTS categories on the
      flagship (their on-chip bodies, and at CATEGORY_PATH_C also the
      global bodies) beside their float32 plain versions and bounds, and
-     at CATEGORY_PATH_C auto's LL+gradient call beside the scan tape's
-     (category_times).
+     at CATEGORY_PATH_C auto's and the chunked route's LL+gradient call
+     beside the scan tape's (category_times); the chunked and per-node
+     kernels the same way (category_rows_times).
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -461,6 +469,28 @@ KERNELS = {
         replaces="bito_tpu/treelike/pallas_paired.py:446",
         wrapper=paired.paired_grad_onchip, path="categories",
         also=("paired", "vbpi", "rooted", "cli")),
+    # Rows 3-6 at CATEGORY_PATH_C categories: the chunked route's and the
+    # per-node functions' on-chip bodies, counted on the categories path
+    "chunked_ll_onchip@C16": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_chunked.py:384",
+        wrapper=chunked.chunked_ll_onchip, path="categories",
+        also=("chunked",)),
+    "chunked_grad_onchip@C16": dict(
+        source="bito_tpu_torch/treelike/csrc/chunked_grad_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_chunked.py:404",
+        wrapper=chunked.chunked_grad_onchip, path="categories",
+        also=("chunked",)),
+    "pernode_ll_onchip@C16": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_pruning.py:90",
+        wrapper=pernode.pernode_ll_onchip, path="categories",
+        also=("pernode",)),
+    "pernode_grad_onchip@C16": dict(
+        source="bito_tpu_torch/treelike/csrc/pernode_grad_onchip.cu",
+        replaces="bito_tpu/treelike/pallas_pruning.py:179",
+        wrapper=pernode.pernode_grad_onchip, path="categories",
+        also=("pernode", "perflab")),
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
@@ -472,7 +502,8 @@ KERNELS = {
     "chunked_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
-        wrapper=chunked.chunked_ll_onchip, path="chunked"),
+        wrapper=chunked.chunked_ll_onchip, path="chunked",
+        also=("categories",)),
     "chunked_ll": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_ll.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
@@ -480,7 +511,8 @@ KERNELS = {
     "chunked_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
-        wrapper=chunked.chunked_grad_onchip, path="chunked"),
+        wrapper=chunked.chunked_grad_onchip, path="chunked",
+        also=("categories",)),
     "chunked_grad": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_grad.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
@@ -488,7 +520,8 @@ KERNELS = {
     "pernode_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
-        wrapper=pernode.pernode_ll_onchip, path="pernode"),
+        wrapper=pernode.pernode_ll_onchip, path="pernode",
+        also=("categories",)),
     "pernode_ll": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_ll.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
@@ -497,7 +530,7 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/pernode_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
         wrapper=pernode.pernode_grad_onchip, path="pernode",
-        also=("perflab",)),
+        also=("perflab", "categories")),
     "pernode_grad": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_grad.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
@@ -884,9 +917,13 @@ def category_parity(dev, errs):
         cases = (("flagship", trees, sp, None), ("flagship, branches "
                  f"{CATEGORY_EDGE_LENGTH:g}", trees, sp, CATEGORY_EDGE_LENGTH),
                  ("large", ltrees, lsp, None))
+        engines = {}  # one a tree set, with rows 3-6's tapes, built once
         for label, tr, s, edge in cases:
-            eng = TreeLikelihoodEngine(s, category_model(C), device=dev,
-                                       dtype=PRODUCT_DTYPE)
+            if id(tr) not in engines:
+                new = TreeLikelihoodEngine(s, category_model(C), device=dev,
+                                           dtype=PRODUCT_DTYPE)
+                engines[id(tr)] = (new, rows_tapes(new, tr))
+            eng, tapes = engines[id(tr)]
             enc = eng.encode(tr)
             bl = eng.branch_length_matrix(tr, enc)
             if edge is not None:
@@ -926,17 +963,205 @@ def category_parity(dev, errs):
                     e[0], (ll_k.double() - ll_p).abs().max().item())
                 errs["paired_grad_onchip@C16"] = (
                     e[2], (g_k.double() - g_p).abs().max().item())
-            del eng, ll_ops, grad_ops, on, ll_p, g_p
+            del ll_ops, grad_ops, on, ll_p, g_p
             torch.cuda.empty_cache()
+            flagship_bl = edge is None and onchip
+            category_rows_parity(C, label, eng, tr, params, bl, tapes,
+                                 flagship_bl, errs if flagship_bl
+                                 and C == CATEGORY_PATH_C else None)
+            del eng, tapes
+            torch.cuda.empty_cache()
+        del engines
+        torch.cuda.empty_cache()
+
+
+# The chunked and per-node kernels' launchers (rows 3-6): on-chip and
+# global, LL and grad, of each family
+ROWS_BODIES = (chunked.chunked_ll_onchip, chunked.chunked_ll_global,
+               chunked.chunked_grad_onchip, chunked.chunked_grad_global,
+               pernode.pernode_ll_onchip, pernode.pernode_ll_global,
+               pernode.pernode_grad_onchip, pernode.pernode_grad_global)
+
+
+def rows_tapes(eng, trees):
+    """The chunked and per-node kernels' tapes of `trees` on `eng`'s
+    device: (the chunked tapes with the edge mask, their OnchipTape, the
+    per-node tapes, their LLTape, their OnchipTape)."""
+    enc = eng.encode(trees)
+    dev = eng.device
+    chunked_tapes = eng._chunked_tapes(enc)
+    dst, tip = chunked_tapes[:2]
+    T, N = enc.num_taxa, enc.num_slots
+    return (chunked_tapes,
+            chunked.onchip_tape(dst.cpu().numpy(), tip.cpu().numpy(), dev),
+            tuple(torch.as_tensor(x, dtype=torch.int32, device=dev)
+                  for x in (enc.post_ops, enc.pre_ops, enc.root)),
+            pernode.ll_tape(enc.post_ops, enc.root, T, N, dev),
+            pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root, T, N,
+                                dev))
+
+
+def rows_operands(eng, trees, params, bl=None, tapes=None):
+    """The chunked and per-node kernels' operands on `eng`'s tapes
+    (`tapes`, rows_tapes' result, where given) at its branch lengths or
+    `bl` (dP from prep.prepare_inputs_grad, as on their routes): (chunked
+    LL+gradient operands, its OnchipTape, per-node LL+gradient operands,
+    its LLTape, its OnchipTape)."""
+    enc = eng.encode(trees)
+    bl = eng.branch_length_matrix(trees, enc) if bl is None else bl
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad(eig, rates, clock, bl)
+    (dst, tip, e, row, mask), con, (post, pre, root), pll, pon = (
+        tapes or rows_tapes(eng, trees))
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    return ((dst, tip, e, row, mask, P, dP, tips, pi, prop, w), con,
+            (post, pre, root, mask, P, dP, tips, pi, prop, w), pll, pon)
+
+
+def rows_plain64(c_ops, p_ops, step=100):
+    """The float64 plain versions of the chunked and per-node LL+gradient
+    kernels on the float32 operands, `step` trees at a time (`step`
+    bounds their float64 scratch: every slot's partial, and the per-node
+    version's adjoints, of those trees): ((ll, grads) chunked, (ll,
+    grads) per-node)."""
+    out = []
+    for plain, ops, ints in (
+            (chunked.chunked_ll_and_gradients_ref, c_ops, 4),
+            (pernode.pernode_ll_and_gradients_ref, p_ops, 3)):
+        parts = [plain(*[x[i:i + step] for x in ops[:ints]],
+                       ops[ints][i:i + step].double(),
+                       ops[ints + 1][i:i + step].double(),
+                       ops[ints + 2][i:i + step].double(),
+                       *[x.double() for x in ops[ints + 3:]])
+                 for i in range(0, ops[0].shape[0], step)]
+        out.append((torch.cat([q[0] for q in parts]),
+                    torch.cat([q[1] for q in parts])))
+    return out
+
+
+def rows_runs(c_ops, con, p_ops, pll, pon, forced):
+    """[(label, call -> (ll, grads or None), family, launches in
+    ROWS_BODIES' order)]: the four wrappers, each expected to launch the
+    body its plan names; with `forced` also the body each plan does not
+    name, through its launcher (an on-chip one at least=1, which must
+    fit)."""
+    dst, tip, e, row, mask, P, dP, tips, pi, prop, w = c_ops
+    post, pre, root = p_ops[:3]
+    N1, C = P.shape[1], P.shape[2]
+    MW, M = dst.shape[1], post.shape[1]
+    plans = (chunked.ll_plan(con.ll_rows, MW, N1, C),
+             chunked.onchip_plan(con.grad_rows, MW, N1, C),
+             paired.onchip_plan("ll", pll.ll_rows, M, N1, C),
+             pernode.onchip_plan(pon.rows, pon.ints, N1, C))
+
+    def hot(k, onchip):  # launches with body k of kernel k // 2 (+1 global)
+        return [int(i == 2 * k + (0 if onchip else 1)) for i in range(8)]
+
+    cfin = lambda rows: chunked.finish_rows(*rows, row, mask, w)
+    pfin = lambda rows: pernode.finish_rows(*rows, mask, w)
+    runs = [
+        ("chunked LL wrapper", lambda: (chunked.chunked_log_likelihoods(
+            dst, tip, e, P, tips, pi, prop, w, onchip=con), None),
+         "chunked", hot(0, plans[0] is not None)),
+        ("chunked grad wrapper", lambda: chunked.chunked_ll_and_gradients(
+            *c_ops, onchip=con), "chunked", hot(1, plans[1] is not None)),
+        ("pernode LL wrapper", lambda: (pernode.pernode_log_likelihoods(
+            post, root, P, tips, pi, prop, w, onchip=pll), None),
+         "pernode", hot(2, plans[2] is not None)),
+        ("pernode grad wrapper", lambda: pernode.pernode_ll_and_gradients(
+            *p_ops, onchip=pon), "pernode", hot(3, plans[3] is not None))]
+    if not forced:
+        return runs, plans
+    least = (paired.onchip_plan("ll", con.ll_rows, MW, N1, C, ring=True),
+             chunked.onchip_plan(con.grad_rows, MW, N1, C, least=1),
+             paired.onchip_plan("ll", pll.ll_rows, M, N1, C, ring=True),
+             pernode.onchip_plan(pon.rows, pon.ints, N1, C, least=1))
+    check(all(p is not None for p in least),
+          f"C={C}: every on-chip body of rows 3-6 fits a warp")
+    other = {
+        0: (lambda: (chunked.chunked_ll_global(
+                dst, tip, e, P, tips, pi, prop, child=con.child) @ w, None),
+            lambda: (chunked.chunked_ll_onchip(
+                dst, con, e, P, tips, pi, prop, least[0]) @ w, None)),
+        1: (lambda: cfin(chunked.chunked_grad_global(
+                dst, tip, e, P, dP, tips, pi, prop, w, child=con.child)),
+            lambda: cfin(chunked.chunked_grad_onchip(
+                dst, con, e, P, dP, tips, pi, prop, w, least[1]))),
+        2: (lambda: (pernode.pernode_ll_global(
+                post, root, P, tips, pi, prop) @ w, None),
+            lambda: (pernode.pernode_ll_onchip(
+                pll, P, tips, pi, prop, least[2]) @ w, None)),
+        3: (lambda: pfin(pernode.pernode_grad_global(
+                post, pre, root, P, dP, tips, pi, prop, w)),
+            lambda: pfin(pernode.pernode_grad_onchip(
+                pon, root, P, dP, tips, pi, prop, w, least[3])))}
+    for k, name in enumerate(("chunked LL", "chunked grad", "pernode LL",
+                              "pernode grad")):
+        onchip = plans[k] is None  # the body the wrapper does not take
+        runs.append((f"{name} {'on-chip' if onchip else 'global'} body",
+                     other[k][int(onchip)], name.split()[0],
+                     hot(k, onchip)))
+    return runs, plans
+
+
+def category_rows_parity(C, label, eng, trees, params, bl, tapes, forced,
+                         errs):
+    """Rows 3-6 (the chunked and per-node kernels) at C categories on one
+    of category_parity's cases: each wrapper launches the body its plan
+    names, and with `forced` (the flagship at its own branch lengths) also
+    the other body through its launcher; every one within BOUND of the
+    float64 plain version on the same operands.  Fills `errs`, where
+    given, for the JSON line's rows 3-6 entries at CATEGORY_PATH_C."""
+    c_ops, con, p_ops, pll, pon = rows_operands(eng, trees, params, bl,
+                                                tapes)
+    refs = dict(zip(("chunked", "pernode"), rows_plain64(c_ops, p_ops)))
+    runs, plans = rows_runs(c_ops, con, p_ops, pll, pon, forced)
+    parts = []
+    for name, call, family, want in runs:
+        before = [f.launches for f in ROWS_BODIES]
+        ll_k, g_k = call()
+        torch.cuda.synchronize()
+        ran = [f.launches - n for f, n in zip(ROWS_BODIES, before)]
+        check(ran == want, f"C={C} {label}: {name} launched {want}, "
+              f"not {ran}")
+        ll_p, g_p = refs[family]
+        e = [rel_err(ll_k, ll_p)] + ([] if g_k is None
+                                     else [norm_err(g_k, g_p)])
+        finite = bool(torch.isfinite(ll_k).all()) and (
+            g_k is None or bool(torch.isfinite(g_k).all()))
+        check(finite and max(e) <= BOUND,
+              f"C={C} {label}: {name} within {BOUND:g}")
+        parts.append(f"{name} " + "/".join(f"{x:.2e}" for x in e))
+        if errs is not None and name.endswith("wrapper"):
+            key = {"chunked LL": "chunked_ll_onchip",
+                   "chunked grad": "chunked_grad_onchip",
+                   "pernode LL": "pernode_ll_onchip",
+                   "pernode grad": "pernode_grad_onchip"}[
+                       name[:-len(" wrapper")]] + "@C16"
+            x, ref = (ll_k, ll_p) if g_k is None else (g_k, g_p)
+            errs[key] = (e[-1], (x.double() - ref).abs().max().item())
+    print(f"# phase 2: chunked and per-node kernels at C={C}, {label}; "
+          "plans " + ", ".join(
+              "global" if p is None else
+              f"{p.cols} patterns a block{' ring' if p.ring else ''}"
+              + (f" {p.op_lanes} op lanes" if p.op_lanes > 1 else "")
+              for p in plans)
+          + " (chunked LL, grad; per-node LL, grad): LL rel err / grad "
+          "max-abs/max|g| against the float64 plain version: "
+          + "; ".join(parts) + f" (bound {BOUND:g})")
 
 
 def categories_path(trees, sp, params, params64, dev, against_reference):
     """The categories path (phase 3): the flagship at GTR+Gamma
-    CATEGORY_PATH_C on the engine's auto route (before this slice a model
-    past 8 categories took the scan tape): log_likelihoods,
+    CATEGORY_PATH_C on the engine's auto route (before PR 16 a model past
+    8 categories took the scan tape): log_likelihoods,
     ll_and_branch_gradients and CATEGORY_SWEEP calls over scaled branch
-    lengths, against the float64 engine on the scan tape.  Returns (the
-    engine, its launch counts, the scaled calls' factors)."""
+    lengths; the same calls on its chunked route (kernel="chunked", whose
+    wrappers raised past 8 categories before PR 17); and the per-node
+    functions on the same trees and branch lengths.  Each against the
+    float64 engine on the scan tape.  Returns (the engine, its launch
+    counts)."""
     model = category_model(CATEGORY_PATH_C)
     eng = TreeLikelihoodEngine(sp, model, device=dev, dtype=PRODUCT_DTYPE)
     check(eng._route(True) == "paired",
@@ -951,14 +1176,43 @@ def categories_path(trees, sp, params, params64, dev, against_reference):
         ref_fn(bl.double() * f) for f in scales]
     del ref, ref_fn
     torch.cuda.empty_cache()
+    # The per-node functions' operands and tapes, made before the counts
+    # are reset.
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+                       for x in (enc.post_ops, enc.pre_ops, enc.root))
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=dev)
+    pll = pernode.ll_tape(enc.post_ops, enc.root, enc.num_taxa,
+                          enc.num_slots, dev)
+    pon = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
+                              enc.num_taxa, enc.num_slots, dev)
+    tips, w = eng._kernel_tips, eng._kernel_weights
     reset_launches()
     ll = eng.log_likelihoods(trees, params)
     pairs = [eng.ll_and_branch_gradients(trees, params)]
     fn = eng.branch_eval_fn(trees, params)
     pairs += [fn(bl * f) for f in scales]
+    eng.kernel = "chunked"
+    ll_c = eng.log_likelihoods(trees, params)
+    pairs_c = [eng.ll_and_branch_gradients(trees, params)]
+    fn = eng.branch_eval_fn(trees, params)
+    pairs_c += [fn(bl * f) for f in scales]
+    eng.kernel = "auto"
+    P, _ = prep.prepare_inputs_grad(eig, rates, clock, bl)
+    ll_p = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop, w,
+                                           onchip=pll)
+    pairs_p = []
+    for f in [1.0] + scales:
+        Pk, dPk = prep.prepare_inputs_grad(eig, rates, clock, bl * f)
+        pairs_p.append(pernode.pernode_ll_and_gradients(
+            post, pre, root, mask, Pk, dPk, tips, pi, prop, w, onchip=pon))
     torch.cuda.synchronize()
     launches = read_launches("categories")
     against_reference("categories", [ll], pairs, refs)
+    against_reference("categories (chunked route)", [ll_c], pairs_c, refs)
+    against_reference("categories (per-node functions)", [ll_p], pairs_p,
+                      refs)
     return eng, launches
 
 
@@ -1009,7 +1263,7 @@ def category_times(eng, trees, card):
         if C == CATEGORY_PATH_C:
             bl = e.branch_length_matrix(trees, enc)
             rates = []
-            for kernel, reps in (("auto", 20), ("scan", 3)):
+            for kernel, reps in (("auto", 20), ("chunked", 20), ("scan", 3)):
                 e.kernel = kernel
                 f = e.branch_eval_fn(trees, params)
                 ms = cuda_ms(lambda: f(bl), reps)
@@ -1025,8 +1279,88 @@ def category_times(eng, trees, card):
               f"{', ring' if plan.ring else ', staged'}), flagship "
               f"(float32, {BATCH} trees x {e.pattern_pad} patterns, CUDA "
               f"events): {line}; on {card}")
-        del e, ll_ops, grad_ops, on, calls
+        del ll_ops, grad_ops, on, calls
         torch.cuda.empty_cache()
+        category_rows_times(C, e, trees, params, (fl_ll, fl_grad),
+                            BATCH * (1 + enc.num_slots) * 4, card)
+        del e
+        torch.cuda.empty_cache()
+
+
+def category_rows_times(C, eng, trees, params, flops, grad_out, card):
+    """Phase 4 for rows 3-6 (the chunked and per-node kernels) at C
+    categories on the flagship: each wrapper (the body its plan names)
+    beside its float32 plain version and its bound (the paired kernels'
+    FLOPs, the family's own bytes), in turns (plain, kernel, kernel,
+    plain); at CATEGORY_PATH_C also each global body on the same
+    operands."""
+    c_ops, con, p_ops, pll, pon = rows_operands(eng, trees, params)
+    dst, tip, e, row, mask, P, dP, tips, pi, prop, w = c_ops
+    post, pre, root = p_ops[:3]
+    fl_ll, fl_grad = flops
+    f_ll = nbytes(P, tips, pi, prop, w) + BATCH * 4
+    f_grad = nbytes(P, dP, tips, pi, prop, w, mask) + grad_out
+    calls = {
+        "chunked ll": (
+            lambda: chunked.chunked_log_likelihoods_ref(
+                dst, tip, e, P, tips, pi, prop, w),
+            lambda: chunked.chunked_log_likelihoods(
+                dst, tip, e, P, tips, pi, prop, w, onchip=con),
+            bound(fl_ll, nbytes(dst, con.child, con.live_row, e) + f_ll)),
+        "chunked grad": (
+            lambda: chunked.chunked_ll_and_gradients_ref(*c_ops),
+            lambda: chunked.chunked_ll_and_gradients(*c_ops, onchip=con),
+            bound(fl_grad, nbytes(dst, con.child, e, row) + f_grad)),
+        "pernode ll": (
+            lambda: pernode.pernode_log_likelihoods_ref(
+                post, root, P, tips, pi, prop, w),
+            lambda: pernode.pernode_log_likelihoods(
+                post, root, P, tips, pi, prop, w, onchip=pll),
+            bound(fl_ll, nbytes(pll.post_dst, pll.child, pll.live_row,
+                                pll.post_e) + f_ll)),
+        "pernode grad": (
+            lambda: pernode.pernode_ll_and_gradients_ref(*p_ops),
+            lambda: pernode.pernode_ll_and_gradients(*p_ops, onchip=pon),
+            bound(fl_grad, nbytes(pon.post, pon.groups, pon.zero, root)
+                  + f_grad))}
+    if C == CATEGORY_PATH_C:
+        calls["chunked ll global"] = (calls["chunked ll"][0], lambda: (
+            chunked.chunked_ll_global(dst, tip, e, P, tips, pi, prop,
+                                      child=con.child) @ w),
+            bound(fl_ll, nbytes(dst, con.child, e) + f_ll))
+        calls["chunked grad global"] = (calls["chunked grad"][0], lambda: (
+            chunked.finish_rows(*chunked.chunked_grad_global(
+                dst, tip, e, P, dP, tips, pi, prop, w, child=con.child),
+                row, mask, w)),
+            bound(fl_grad, nbytes(dst, con.child, e, row) + f_grad))
+        calls["pernode ll global"] = (calls["pernode ll"][0], lambda: (
+            pernode.pernode_ll_global(post, root, P, tips, pi, prop) @ w),
+            bound(fl_ll, nbytes(post, root) + f_ll))
+        calls["pernode grad global"] = (calls["pernode grad"][0], lambda: (
+            pernode.finish_rows(*pernode.pernode_grad_global(
+                post, pre, root, P, dP, tips, pi, prop, w), mask, w)),
+            bound(fl_grad, nbytes(post, pre, root) + f_grad))
+    parts = []
+    for name, (plain, kernel, (b_ms, b_by)) in calls.items():
+        p1, k1 = cuda_ms(plain, 2, warmup=1), cuda_ms(kernel, 10)
+        k2, p2 = cuda_ms(kernel, 10), cuda_ms(plain, 2, warmup=1)
+        k, pl = (k1 + k2) / 2, (p1 + p2) / 2
+        parts.append(f"{name} {k:.4f} ms (plain {pl:.4f}; bound "
+                     f"{b_ms:.4f} by {b_by}, {100 * b_ms / k:.1f}% of it)")
+    N1, MW, M = P.shape[1], dst.shape[1], post.shape[1]
+    plans = (chunked.ll_plan(con.ll_rows, MW, N1, C),
+             chunked.onchip_plan(con.grad_rows, MW, N1, C),
+             paired.onchip_plan("ll", pll.ll_rows, M, N1, C),
+             pernode.onchip_plan(pon.rows, pon.ints, N1, C))
+    print(f"# phase 4: chunked and per-node kernels at C={C} "
+          f"({paired.lanes(C)} lanes; the wrappers take " + ", ".join(
+              "global" if p is None else f"on-chip {p.cols} patterns a block"
+              + (" ring" if p.ring else "")
+              + (f" {p.op_lanes} op lanes" if p.op_lanes > 1 else "")
+              for p in plans)
+          + " for chunked LL, grad, per-node LL, grad), flagship (float32, "
+          f"{BATCH} trees x {eng.pattern_pad} patterns, CUDA events): "
+          + "; ".join(parts) + f"; on {card}")
 
 
 def topology_set_ms(sp, model, trees, reps):
@@ -3861,6 +4195,39 @@ def main():
     calls["paired_grad_onchip@C16"] = (
         lambda: paired.paired_ll_and_gradients_ref(*cgrad),
         lambda: paired.paired_ll_and_gradients(*cgrad, onchip=con16))
+    # Rows 3-6 at CATEGORY_PATH_C categories, through their wrappers (the
+    # on-chip bodies), on the same engine's chunked and per-node operands
+    r_c, r_con, r_p, r_pll, r_pon = rows_operands(cat_eng, trees, params)
+    (rdst, rtip, redge, rrow, rmask, rP, rdP, rtips, rpi, rprop,
+     rw) = r_c
+    rpost, rroot = r_p[0], r_p[2]
+    r_ll = nbytes(rP, rtips, rpi, rprop, rw) + ll_out
+    r_grad = nbytes(rP, rdP, rtips, rpi, rprop, rw, rmask) + grad_out
+    work["chunked_ll_onchip@C16"] = (c_ll, nbytes(
+        rdst, r_con.child, r_con.live_row, redge) + r_ll, None)
+    work["chunked_grad_onchip@C16"] = (c_grad, nbytes(
+        rdst, r_con.child, redge, rrow) + r_grad, None)
+    work["pernode_ll_onchip@C16"] = (c_ll, nbytes(
+        r_pll.post_dst, r_pll.child, r_pll.live_row, r_pll.post_e) + r_ll,
+        None)
+    work["pernode_grad_onchip@C16"] = (c_grad, nbytes(
+        r_pon.post, r_pon.groups, r_pon.zero, rroot) + r_grad, None)
+    calls["chunked_ll_onchip@C16"] = (
+        lambda: chunked.chunked_log_likelihoods_ref(
+            rdst, rtip, redge, rP, rtips, rpi, rprop, rw),
+        lambda: chunked.chunked_log_likelihoods(
+            rdst, rtip, redge, rP, rtips, rpi, rprop, rw, onchip=r_con))
+    calls["chunked_grad_onchip@C16"] = (
+        lambda: chunked.chunked_ll_and_gradients_ref(*r_c),
+        lambda: chunked.chunked_ll_and_gradients(*r_c, onchip=r_con))
+    calls["pernode_ll_onchip@C16"] = (
+        lambda: pernode.pernode_log_likelihoods_ref(
+            rpost, rroot, rP, rtips, rpi, rprop, rw),
+        lambda: pernode.pernode_log_likelihoods(
+            rpost, rroot, rP, rtips, rpi, rprop, rw, onchip=r_pll))
+    calls["pernode_grad_onchip@C16"] = (
+        lambda: pernode.pernode_ll_and_gradients_ref(*r_p),
+        lambda: pernode.pernode_ll_and_gradients(*r_p, onchip=r_pon))
     calls["chunk_variant"] = (
         lambda: perf_chunk_lab.chunk_variant_ref(
             cdst, ctip, cedge, P, tips, pi, prop, variant="v0"),
@@ -3907,7 +4274,7 @@ def main():
             check(times[name][0] >= b_ms, f"{name} within its bound")
 
     category_times(cat_eng, trees, card)
-    del cat_eng, cll, cgrad, con16
+    del cat_eng, cll, cgrad, con16, r_c, r_con, r_p, r_pll, r_pon
     E = int(np.asarray(enc.edge_mask).sum(axis=1).mean())
     chunk_lab_times(chunk_flag, chunk_out,
                     (fl_ll, E * 2 * 16 * 4 * sp.pattern_count * BATCH), card)

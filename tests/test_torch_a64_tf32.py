@@ -34,7 +34,14 @@ from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecificatio
 from bito_tpu_torch.treelike import paired, prep
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
-from torch_port_cases import max_norm, max_rel
+from torch_port_cases import max_norm, max_rel, one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 BOUND = 5e-5
 CARD_LIMIT = 1e-6

@@ -15,6 +15,15 @@ import torch
 import bito_tpu_torch as bito
 from bito_tpu_torch import _synthetic
 
+from torch_port_cases import one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

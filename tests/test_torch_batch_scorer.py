@@ -37,7 +37,14 @@ from bito_tpu_torch.nni.golden import GoldenNNISearch, nni_sort_key
 from bito_tpu_torch.tp import batch_scorer
 from bito_tpu_torch.tp.eval_engine import brent_minimize_scalar
 
-from torch_port_cases import without_docstrings
+from torch_port_cases import one_torch_thread, without_docstrings
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 BOUND = 1e-10

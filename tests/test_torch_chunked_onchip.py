@@ -6,18 +6,19 @@ the CPU: what runs here of it.
     chunk schedule, over random rooted and unrooted trees of 4-60 taxa
     (padded positions, trifurcating roots) and a hand-built tape with a
     DUMMY child; and the rows a pattern needs;
-  - the sizing (treelike/chunked.py onchip_plan: lanes, patterns a block,
-    bytes) and the tree size at which it hands over to the global body,
-    for C = 1..8;
+  - the sizing (treelike/chunked.py onchip_plan: lanes, op lanes,
+    patterns a block, bytes) and the tree size at which it hands over to
+    the global body, for C = 1..8 and at 16 and 32 lanes (C = 16, 17, 32);
   - a float64 torch emulation of the body's schedule, kept here: rows by
     producer, tips read in place, each chunk's ops side by side on
     chunked.W op lanes (each op reads the rows as they stood before its
-    chunk, and no op of a chunk reads a row that another writes), the
-    rescale by a power of two with an integer log scale per op lane, and
-    outside values written over rows.  It is held against the plain
-    version within 1e-10 and against bito_tpu's Pallas kernel in
-    interpret mode within 1e-5 (LL, relative) and 5e-5 (gradients, of the
-    largest), bench.py's guard.
+    chunk, and no op of a chunk reads a row that another writes; at 32
+    lanes one op lane, which runs a chunk's ops in turn), the rescale by a
+    power of two with an integer log scale per op lane, and outside values
+    written over rows, at 1-8 and at 9, 16 and 32 categories.  It is held
+    against the plain version within 1e-10 and against bito_tpu's Pallas
+    kernel in interpret mode within 1e-5 (LL, relative) and 5e-5
+    (gradients, of the largest), bench.py's guard.
 """
 import math
 
@@ -29,32 +30,28 @@ import torch
 from bito_tpu.treelike import pallas_chunked, pallas_pruning
 from bito_tpu_torch import _synthetic
 from bito_tpu_torch.core.newick import parse_newick_text
+from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
 from bito_tpu_torch.treelike import chunked, paired, prep
-from bito_tpu_torch.treelike.encode import TreeBatchEncoding, encode_trees
+from bito_tpu_torch.treelike.encode import encode_trees
+from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
-from torch_port_cases import (GTR, MODELS, jax_engine, jax_params, make_case,
-                              max_norm, max_rel, torch_engine, torch_params)
+from torch_port_cases import (GTR, MODELS, dummy_child_encoding, jax_engine,
+                              jax_params, make_case, max_norm, max_rel,
+                              one_torch_thread, torch_engine, torch_params)
 
 F64 = torch.float64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
 WIDTHS = (2, 4, 8)
 
 
 def _encoding(seed, num_taxa, num_trees, rooted):
     text = _synthetic.random_trees_newick(seed, num_taxa, num_trees, rooted)
     return encode_trees([t.topology for t in parse_newick_text(text).trees])
-
-
-def _dummy_child_encoding():
-    """Three taxa joined by two ops, then a root op whose second child is
-    the DUMMY node through the identity edge: a unary root with a branch."""
-    N = 6
-    post = np.array([[[3, 0, 0, 1, 1], [4, 3, 3, 2, 2], [5, 4, 4, N, N],
-                      [N, N, N, N, N]]], dtype=np.int32)
-    pre = np.full((1, 1, 6), N, dtype=np.int32)
-    mask = np.array([[1, 1, 1, 1, 1, 0]], dtype=np.int32)
-    return TreeBatchEncoding(num_taxa=3, num_slots=N, post_ops=post,
-                             pre_ops=pre, root=np.array([5], np.int32),
-                             edge_mask=mask, node_counts=np.array([6]))
 
 
 def _expected_children(enc, W, MW):
@@ -113,7 +110,7 @@ def test_child_tape_of_chunked_tapes(seed, num_taxa, rooted, W):
 
 @pytest.mark.parametrize("W", WIDTHS)
 def test_child_tape_of_a_dummy_child(W):
-    enc = _dummy_child_encoding()
+    enc = dummy_child_encoding()
     ce = chunked.build_chunked_encoding(enc, W)
     child = paired.child_tape(ce.post_dst, ce.tip_slot)
     np.testing.assert_array_equal(child, _expected_children(enc, W, ce.MW))
@@ -143,19 +140,32 @@ def test_rows_cover_every_stored_output(seed, num_taxa, rooted, W):
 # Sizing and the hand-over to the global body
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("C", range(1, 9))
+CATEGORIES = (*range(1, 9), 16, 17, 32)
+
+
+@pytest.mark.parametrize("C", CATEGORIES)
 def test_plan_fills_a_block_within_shared_memory(C):
+    """A pattern takes L op lanes x G category lanes of one warp: L = W
+    up to 16 lanes, one at 32 (a pattern a warp).  At 16 and 32 lanes the
+    largest tree's P and dP alone (127 edges x 2 or 4 KB) exceed a block,
+    and no warp fits."""
     G = paired.lanes(C)
-    per_warp = 32 // (chunked.W * G)  # patterns a warp
+    L = chunked.op_lanes(C)
+    assert L == (1 if G == 32 else chunked.W)
+    per_warp = 32 // (L * G)  # patterns a warp
     for rows, MW, N1 in ((27, 28, 53), (5, 8, 13), (60, 64, 127)):
         plan = chunked.onchip_plan(rows, MW, N1, C, least=1)
-        assert plan.lanes == G and not plan.ring
+        if plan is None:
+            assert G >= 16 and N1 == 127
+            assert chunked.smem_bytes(0, MW, N1, C, 0) > paired.SMEM_BYTES
+            continue
+        assert plan.lanes == G and plan.op_lanes == L and not plan.ring
         assert plan.cols % per_warp == 0
-        assert plan.cols * chunked.W * G <= paired.MAX_THREADS
+        assert plan.cols * L * G <= paired.MAX_THREADS
         assert plan.smem == chunked.smem_bytes(rows, MW, N1, C, plan.cols)
         assert plan.smem <= paired.SMEM_BYTES
         more = plan.cols + per_warp  # one warp more does not fit or exceeds
-        assert (more * chunked.W * G > paired.MAX_THREADS
+        assert (more * L * G > paired.MAX_THREADS
                 or chunked.smem_bytes(rows, MW, N1, C, more)
                 > paired.SMEM_BYTES)
 
@@ -167,39 +177,42 @@ def test_plan_at_the_flagship():
     plan = chunked.onchip_plan(27, 28, 53, 4)
     assert plan == paired.OnchipPlan(lanes=4, cols=64, ring=False,
                                      smem=27 * 64 * 4 * 16 + 106 * 4 * 4 * 16
-                                     + 5 * 28 * 4)
+                                     + 5 * 28 * 4, op_lanes=chunked.W)
     assert plan.smem == 138_288
     assert chunked.onchip_plan(27, 28, 53, 8).cols == 32  # 2 patterns a warp
 
 
-@pytest.mark.parametrize("C", range(1, 9))
+@pytest.mark.parametrize("C", CATEGORIES)
 def test_hand_over_to_the_global_body(C):
     """Trees grow (MW grid positions, N1 = MW edges, MW - 1 rows): the
     plan holds fewer warps as rows and matrices grow, and hands over to
     the global body once fewer than MIN_WARPS fit.  A warp's slice of a
-    row is 512 / W bytes at every C, and the staged matrices 512 * G / 4
-    bytes an edge, so the hand-over comes earlier at larger G."""
-    G = paired.lanes(C)
+    row is 512 / L bytes (L op lanes: W up to 16 lanes, one at 32), and
+    the staged matrices 512 * G / 4 bytes an edge, so the hand-over comes
+    earlier at larger G: at 32 lanes past 40 grid positions."""
+    G, L = paired.lanes(C), chunked.op_lanes(C)
 
     def plan(MW, least=chunked.MIN_WARPS):
         return chunked.onchip_plan(MW - 1, MW, MW, C, least)
 
     limit = max(MW for MW in range(2, 800, 2) if plan(MW) is not None)
     assert all(plan(MW) is None for MW in range(limit + 2, 800, 2))
-    warps = [plan(MW, 1).cols * chunked.W * G // 32
+    warps = [plan(MW, 1).cols * L * G // 32
              for MW in range(2, limit + 1, 2)]
     assert warps == sorted(warps, reverse=True) and warps[0] == 16
     assert warps[-1] >= chunked.MIN_WARPS
     # The closed form: MIN_WARPS warps' rows, the matrices and the tape.
     fits = [MW for MW in range(2, 800, 2)
-            if (MW - 1) * chunked.MIN_WARPS * 512 // chunked.W
+            if (MW - 1) * chunked.MIN_WARPS * 512 // L
             + MW * 2 * G * 64 + (5 * MW * 4 + 15) // 16 * 16
             <= paired.SMEM_BYTES]
     assert limit == max(fits)
+    if G == 32:
+        assert limit == 40
     # Asked for with least=1, the body launches past it while one warp fits.
     assert plan(limit + 2, 1) is not None
-    with pytest.raises(ValueError):
-        chunked.onchip_plan(10, 12, 14, 9)
+    with pytest.raises(ValueError, match="1..32"):
+        chunked.onchip_plan(10, 12, 14, paired.PAIRED_CATEGORIES + 1)
 
 
 def test_plan_follows_the_card_times():
@@ -302,10 +315,11 @@ def emulate_grad(dst, child, e, rows_needed, P, dP, tips, pi, props,
     return ll_rows, grad_rows
 
 
-def _emulate(ops, extra, tape):
+def _emulate(ops, extra, tape, lanes=chunked.W):
     ll_rows, grad_rows = emulate_grad(
         ops["post_dst"], tape.child, ops["post_e"], tape.grad_rows, ops["P"],
-        extra["dP"], ops["tips"], ops["pi"], ops["props"], ops["weights"])
+        extra["dP"], ops["tips"], ops["pi"], ops["props"], ops["weights"],
+        lanes)
     return chunked.finish_rows(ll_rows, grad_rows, extra["node_row"],
                                extra["edge_mask"], ops["weights"])
 
@@ -350,10 +364,36 @@ def test_emulation_matches_the_plain_version(model, num_taxa, rooted,
     assert max_norm(g.numpy(), g_ref.numpy()) < 1e-10
 
 
+@pytest.mark.parametrize("C", [9, 16, 32])
+def test_emulation_past_8_categories(C):
+    """The body's schedule at 9..32 categories in float64 against the
+    plain version, within 1e-10: at 16 lanes the chunk's W ops side by
+    side, at 32 lanes one op lane (chunked.op_lanes) that runs them in
+    turn.  Each schedule gives the plain version's numbers at either
+    count, on a binary and a trifurcating root."""
+    for rooted in (False, True):
+        case = make_case(seed=60 + C, num_taxa=9, num_sites=30,
+                         num_trees=2, rooted=rooted)
+        te = TreeLikelihoodEngine(
+            case.torch_pattern,
+            PhyloModel(PhyloModelSpecification("GTR", f"gamma+{C}")),
+            device="cpu", dtype=F64)
+        ops, extra, tape = _operands(te, case.torch_trees,
+                                     torch_params(GTR), chunked.W)
+        assert ops["P"].shape[2] == C
+        ll_ref, g_ref = chunked.chunked_ll_and_gradients_ref(**ops,
+                                                             **extra)
+        assert chunked.op_lanes(C) == (chunked.W if C <= 16 else 1)
+        for lanes in {chunked.op_lanes(C), 1, chunked.W}:
+            ll, g = _emulate(ops, extra, tape, lanes)
+            assert max_rel(ll.numpy(), ll_ref.numpy()) < 1e-10, lanes
+            assert max_norm(g.numpy(), g_ref.numpy()) < 1e-10, lanes
+
+
 def test_emulation_of_a_dummy_child():
     """The hand-built tape with a DUMMY child (all ones through the
     identity edge), emulated and plain, on random operands."""
-    enc = _dummy_child_encoding()
+    enc = dummy_child_encoding()
     ce = chunked.build_chunked_encoding(enc, chunked.W)
     rng = np.random.default_rng(3)
     C, S, N1 = 2, 7, enc.num_slots + 1

@@ -42,8 +42,16 @@ from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecificatio
 from bito_tpu_torch.treelike import paired, prep
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
-from torch_port_cases import (max_norm, max_rel, paired_launches,
-                              per_tree_rows, without_docstrings)
+from torch_port_cases import (max_norm, max_rel, one_torch_thread,
+                              paired_launches, per_tree_rows,
+                              without_docstrings)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 F64 = dict(device="cpu", dtype=torch.float64)
@@ -348,9 +356,11 @@ def test_routes_at_64_states_on_the_cpu():
 
 def test_wrappers_refuse_other_state_counts():
     with pytest.raises(ValueError, match="4 or 64-state"):
-        paired._check_cuda_operands({}, {}, 1, 20, paired.KERNEL_STATES)
+        paired._check_cuda_operands({}, {}, 1, 20, paired.KERNEL_STATES,
+                                    categories=paired.MAX_CATEGORIES)
     with pytest.raises(ValueError, match="4-state"):  # the other kernels
-        paired._check_cuda_operands({}, {}, 1, 64)
+        paired._check_cuda_operands({}, {}, 1, 64,
+                                    categories=paired.max_categories(4))
 
 
 @pytest.fixture(scope="module")

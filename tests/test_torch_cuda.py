@@ -14,7 +14,9 @@ kernels against their float64 plain versions, the engine's auto taking
 them, the float32 scan tape at 64 states refusing TF32); and the paired
 kernels at 9-32 rate categories (both bodies of both kernels on 16 or 32
 lanes a pattern, at short branches too, past the on-chip limit, and the
-engine's auto taking them).
+engine's auto taking them), and the chunked and per-node kernels there
+(every body against float64, at short branches too, past the on-chip
+limit, and the engine's chunked route at 16).
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -382,6 +384,204 @@ def test_engine_auto_takes_the_kernels_at_16_categories(cuda):
     wide, trees, params = _wide_engine(33, False, cuda, torch.float32)
     assert wide._route(True) == "scan"
     wide.kernel = "cuda"
+    with pytest.raises(ValueError, match="1..32 rate categories"):
+        wide.log_likelihoods(trees, params)
+
+
+def _rows_3_to_6(eng, trees, params, scale=1.0):
+    """The chunked and per-node kernels' float32 operands of `eng` at its
+    branch lengths times `scale` (dP from prep.prepare_inputs_grad, as on
+    their routes): (chunked (dst, tip, e, row, on-chip tape), per-node
+    (post, pre, root, LL tape, grad tape), mask, P, dP, tips, pi, prop, w)
+    and the float64 plain versions' (ll, grads) of each family."""
+    enc = eng.encode(trees)
+    dev = eng.device
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad(
+        eig, rates, clock, eng.branch_length_matrix(trees, enc) * scale)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=dev)
+    ce = chunked.build_chunked_encoding(enc, chunked.W)
+    dst, tip, e, row = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+                        for x in (ce.post_dst, ce.tip_slot, ce.post_e,
+                                  ce.node_row))
+    post, pre, root = _pernode_tapes(enc, dev)
+    ctapes = (dst, tip, e, row, chunked.onchip_tape(ce.post_dst, ce.tip_slot,
+                                                    dev))
+    ptapes = (post, pre, root,
+              pernode.ll_tape(enc.post_ops, enc.root, enc.num_taxa,
+                              enc.num_slots, dev),
+              pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
+                                  enc.num_taxa, enc.num_slots, dev))
+    f64 = _f64(P, dP, tips, pi, prop, w)
+    refs = (chunked.chunked_ll_and_gradients_ref(dst, tip, e, row, mask,
+                                                 *f64),
+            pernode.pernode_ll_and_gradients_ref(post, pre, root, mask, *f64))
+    return (ctapes, ptapes, mask, P, dP, tips, pi, prop, w), refs
+
+
+def _rows_3_to_6_bodies(ops, onchip_least):
+    """Every body of the chunked and per-node kernels as (name, LL call or
+    None, grad call or None, launches in CHUNKED + PERNODE order): the
+    on-chip ones with plans at `onchip_least` warps (None: the wrappers'
+    own choice, through the wrappers), the global ones through their
+    launchers.  Each call returns (ll [B], grads [B, N] or None)."""
+    (dst, tip, e, row, con), (post, pre, root, lt, gt), mask, P, dP, tips, \
+        pi, prop, w = ops
+    C, N1 = P.shape[2], P.shape[1]
+    MW, M = dst.shape[1], post.shape[1]
+    cgrad = lambda rows: chunked.finish_rows(*rows, row, mask, w)
+    pgrad = lambda rows: pernode.finish_rows(*rows, mask, w)
+    bodies = [
+        ("chunked ll global", lambda: (chunked.chunked_ll_global(
+            dst, tip, e, P, tips, pi, prop, child=con.child) @ w, None),
+         [0, 1, 0, 0, 0, 0, 0, 0]),
+        ("chunked grad global", lambda: cgrad(chunked.chunked_grad_global(
+            dst, tip, e, P, dP, tips, pi, prop, w, child=con.child)),
+         [0, 0, 0, 1, 0, 0, 0, 0]),
+        ("pernode ll global", lambda: (pernode.pernode_ll_global(
+            post, root, P, tips, pi, prop) @ w, None),
+         [0, 0, 0, 0, 0, 1, 0, 0]),
+        ("pernode grad global", lambda: pgrad(pernode.pernode_grad_global(
+            post, pre, root, P, dP, tips, pi, prop, w)),
+         [0, 0, 0, 0, 0, 0, 0, 1])]
+    if onchip_least is not None:
+        cl = chunked.ll_plan(con.ll_rows, MW, N1, C)
+        cg = chunked.onchip_plan(con.grad_rows, MW, N1, C, onchip_least)
+        pl = paired.onchip_plan("ll", lt.ll_rows, M, N1, C)
+        pg = pernode.onchip_plan(gt.rows, gt.ints, N1, C, onchip_least)
+        assert all(p.lanes == paired.lanes(C) for p in (cl, cg, pl, pg))
+        assert cg.op_lanes == (1 if C > 16 else chunked.W)
+        bodies += [
+            ("chunked ll onchip", lambda: (chunked.chunked_ll_onchip(
+                dst, con, e, P, tips, pi, prop, cl) @ w, None),
+             [1, 0, 0, 0, 0, 0, 0, 0]),
+            ("chunked grad onchip", lambda: cgrad(chunked.chunked_grad_onchip(
+                dst, con, e, P, dP, tips, pi, prop, w, cg)),
+             [0, 0, 1, 0, 0, 0, 0, 0]),
+            ("pernode ll onchip", lambda: (pernode.pernode_ll_onchip(
+                lt, P, tips, pi, prop, pl) @ w, None),
+             [0, 0, 0, 0, 1, 0, 0, 0]),
+            ("pernode grad onchip", lambda: pgrad(pernode.pernode_grad_onchip(
+                gt, root, P, dP, tips, pi, prop, w, pg)),
+             [0, 0, 0, 0, 0, 0, 1, 0])]
+    return bodies
+
+
+def _check_rows_3_to_6(ops, refs, bodies):
+    for name, call, launched in bodies:
+        before = [f.launches for f in CHUNKED + PERNODE]
+        ll, g = call()
+        torch.cuda.synchronize()
+        assert [f.launches - n for f, n in zip(CHUNKED + PERNODE,
+                                               before)] == launched, name
+        ll_ref, g_ref = refs[0 if name.startswith("chunked") else 1]
+        assert bool(torch.isfinite(ll).all()), name
+        assert _rel(ll, ll_ref) < 5e-5, name
+        if g is not None:
+            assert bool(torch.isfinite(g).all()), name
+            assert _norm(g, g_ref) < 5e-5, name
+
+
+@pytest.mark.parametrize("C", WIDE)
+@pytest.mark.parametrize("scale", [1.0, 1e-6], ids=["bl", "bl1e-6"])
+def test_chunked_and_pernode_kernels_past_8_categories_match_plain(
+        cuda, C, scale):
+    """Every body of the chunked and per-node kernels at 9..32 categories
+    (the on-chip ones on 16 or 32 lanes a pattern, the chunked grad on two
+    op lanes or one; the global ones in the lane layout) against their
+    plain versions in float64 on the same float32 operands, on the
+    11-taxon batch, at its branch lengths and at those times 1e-6; and
+    the four wrappers, which take the on-chip bodies there."""
+    eng, trees, params = _wide_engine(C, False, cuda, torch.float32)
+    ops, refs = _rows_3_to_6(eng, trees, params, scale)
+    _check_rows_3_to_6(ops, refs, _rows_3_to_6_bodies(ops, 1))
+    (dst, tip, e, row, con), (post, pre, root, lt, gt), mask, P, dP, tips, \
+        pi, prop, w = ops
+    _check_rows_3_to_6(ops, refs, [
+        ("chunked wrappers", lambda: (
+            chunked.chunked_log_likelihoods(dst, tip, e, P, tips, pi, prop,
+                                            w, onchip=con),
+            chunked.chunked_ll_and_gradients(dst, tip, e, row, mask, P, dP,
+                                             tips, pi, prop, w,
+                                             onchip=con)[1]),
+         [1, 0, 1, 0, 0, 0, 0, 0]),
+        ("pernode wrappers", lambda: (
+            pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop, w,
+                                            onchip=lt),
+            pernode.pernode_ll_and_gradients(post, pre, root, mask, P, dP,
+                                             tips, pi, prop, w,
+                                             onchip=gt)[1]),
+         [0, 0, 0, 0, 1, 0, 1, 0])])
+
+
+@pytest.mark.parametrize("C", [9, 16, 32])
+def test_tree_past_the_limit_takes_the_global_chunked_and_pernode_bodies(
+        cuda, C):
+    """The 921-taxon trees at 9..32 categories: no warp of any on-chip
+    body of the chunked and per-node kernels fits, and their wrappers
+    launch the global bodies (the lane layouts in device memory), within
+    5e-5 of float64."""
+    eng, trees, params = _wide_engine(C, True, cuda, torch.float32)
+    ops, refs = _rows_3_to_6(eng, trees, params)
+    (dst, tip, e, row, con), (post, pre, root, lt, gt), mask, P, dP, tips, \
+        pi, prop, w = ops
+    N1 = P.shape[1]
+    assert chunked.onchip_plan(con.grad_rows, dst.shape[1], N1, C,
+                               least=1) is None
+    assert pernode.onchip_plan(gt.rows, gt.ints, N1, C, least=1) is None
+    assert chunked.ll_plan(con.ll_rows, dst.shape[1], N1, C) is None
+    assert paired.onchip_plan("ll", lt.ll_rows, post.shape[1], N1, C) is None
+    _check_rows_3_to_6(ops, refs, [
+        ("chunked wrappers", lambda: (
+            chunked.chunked_log_likelihoods(dst, tip, e, P, tips, pi, prop,
+                                            w, onchip=con),
+            chunked.chunked_ll_and_gradients(dst, tip, e, row, mask, P, dP,
+                                             tips, pi, prop, w,
+                                             onchip=con)[1]),
+         [0, 1, 0, 1, 0, 0, 0, 0]),
+        ("pernode wrappers", lambda: (
+            pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop, w,
+                                            onchip=lt),
+            pernode.pernode_ll_and_gradients(post, pre, root, mask, P, dP,
+                                             tips, pi, prop, w,
+                                             onchip=gt)[1]),
+         [0, 0, 0, 0, 0, 1, 0, 1])])
+
+
+def test_engine_chunked_takes_the_chunked_kernels_at_16_categories(cuda):
+    """kernel="chunked" on the card at GTR+Gamma16 on the flagship's shape
+    launches the on-chip bodies of both chunked kernels (before, its
+    wrappers raised past 8 categories) for log_likelihoods,
+    ll_and_branch_gradients and branch_eval_fn, within 5e-5 of the
+    float64 scan tape on the card; past 32 categories it raises."""
+    text, aln = _synthetic.ds1_shaped(0, 6)
+    coll = parse_newick_text(text)
+    sp = SitePattern(aln, coll.taxon_names)
+    model = PhyloModel(PhyloModelSpecification("GTR", "gamma+16"))
+    eng = TreeLikelihoodEngine(sp, model, device=cuda, dtype=torch.float32)
+    eng.kernel = "chunked"
+    ref = TreeLikelihoodEngine(sp, model, device=cuda, dtype=torch.float64)
+    ref.kernel = "scan"
+    trees = coll.trees
+    params = params_from_numpy(GTR, cuda, torch.float32)
+    params64 = params_from_numpy(GTR, cuda, torch.float64)
+    bl = eng.branch_length_matrix(trees, eng.encode(trees))
+    before = [f.launches for f in CHUNKED + PAIRED]
+    ll = eng.log_likelihoods(trees, params)
+    ll2, g = eng.ll_and_branch_gradients(trees, params)
+    ll3, g3 = eng.branch_eval_fn(trees, params)(bl * 1.01)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(CHUNKED + PAIRED, before)] == [
+        1, 0, 2, 0, 0, 0, 0, 0]
+    ll_ref, g_ref = ref.ll_and_branch_gradients(trees, params64)
+    ll3_ref, g3_ref = ref.branch_eval_fn(trees, params64)(bl.double() * 1.01)
+    assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
+    assert _norm(g, g_ref) < 5e-5
+    assert _rel(ll3, ll3_ref) < 5e-5 and _norm(g3, g3_ref) < 5e-5
+    wide, trees, params = _wide_engine(33, False, cuda, torch.float32)
+    wide.kernel = "chunked"
     with pytest.raises(ValueError, match="1..32 rate categories"):
         wide.log_likelihoods(trees, params)
 

@@ -11,8 +11,16 @@ import pytest
 import torch
 
 from torch_port_cases import (MODELS, jax_engine, jax_params, make_case,
-                              max_norm, max_rel, paired_launches,
-                              per_tree_rows, torch_engine, torch_params)
+                              max_norm, max_rel, one_torch_thread,
+                              paired_launches, per_tree_rows, torch_engine,
+                              torch_params)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 # (model, rooted, per-tree parameter rows, batch size)
 CASES = [

@@ -41,6 +41,15 @@ from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecificatio
 from bito_tpu_torch.treelike import pruning
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
+from torch_port_cases import one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
+
 F64 = torch.float64
 METHODS = gpe.METHODS
 # The methods whose argmin rounding decides (see the module docstring).

@@ -15,7 +15,14 @@ from bito_tpu_torch import TEST_DEVICE, TEST_DTYPE, _synthetic
 from bito_tpu_torch.api.instances import unrooted_instance
 from bito_tpu_torch.models.phylo_model import PhyloModelSpecification
 
-from torch_port_cases import GTR, per_tree_rows
+from torch_port_cases import GTR, one_torch_thread, per_tree_rows
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 TOL = 1e-10
 TAXA, MCMC_TREES, SITES, SAMPLED = 10, 12, 200, 6

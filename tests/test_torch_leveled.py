@@ -11,7 +11,15 @@ from bito_tpu.treelike import pruning as jax_pruning
 from bito_tpu_torch.treelike import pruning
 
 from torch_port_cases import (MODELS, jax_engine, jax_params, make_case,
-                              per_tree_rows, torch_engine, torch_params)
+                              one_torch_thread, per_tree_rows, torch_engine,
+                              torch_params)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 BOUND = 1e-10
 # (case, per-tree parameter rows): unrooted trees with a shared model,

@@ -35,7 +35,14 @@ from bito_tpu_torch.nni.engine import GPScoredNNIEngine, NNIEngine
 from bito_tpu_torch.nni.golden import FaithfulNNIEngine
 from bito_tpu_torch.nni.search import nni_search
 
-from torch_port_cases import without_docstrings
+from torch_port_cases import one_torch_thread, without_docstrings
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 F64 = dict(device="cpu", dtype=torch.float64)

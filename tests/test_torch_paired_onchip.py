@@ -31,7 +31,15 @@ from bito_tpu_torch.treelike.encode import TreeBatchEncoding, encode_trees
 
 from torch_port_cases import (GTR, MODELS, check_live_rows, emulate_grad,
                               emulate_ll, jax_engine, jax_params, make_case,
-                              max_norm, max_rel, torch_engine, torch_params)
+                              max_norm, max_rel, one_torch_thread,
+                              torch_engine, torch_params)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 F64 = torch.float64
 

@@ -9,12 +9,13 @@ csrc/pernode_onchip.cuh) on the CPU: what runs here of it.
     with a DUMMY child; tapes that are not the scan tape's are refused;
   - the sizing (pernode.onchip_plan: lanes, patterns a block, bytes, the
     choice of staging) and the tree size at which it hands over to the
-    global body, for C = 1..8;
+    global body, for C = 1..8 and at 16 and 32 lanes (C = 16, 17, 32);
   - a float64 torch emulation of the body's schedule, kept here: rows by
     node, tips read in place, a parent's children evolved together, each
     child's up value written over its partial only after its group, and
-    the rescale by a power of two with an integer log scale.  It is held
-    against the plain version within 1e-10 and against bito_tpu's Pallas
+    the rescale by a power of two with an integer log scale, at 1-8 and at
+    9, 16 and 32 categories.  It is held against the plain version within
+    1e-10 and against bito_tpu's Pallas
     kernel in interpret mode within 1e-5 (LL, relative) and 5e-5
     (gradients, of the largest), bench.py's guard.  The same emulation
     with each up value written right after its child's own op breaks a
@@ -30,14 +31,22 @@ import torch
 from bito_tpu.treelike import pallas_pruning
 from bito_tpu_torch import _synthetic
 from bito_tpu_torch.core.newick import parse_newick_text
+from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
 from bito_tpu_torch.treelike import paired, pernode
 from bito_tpu_torch.treelike.encode import TreeBatchEncoding, encode_trees
+from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
 from torch_port_cases import (GTR, MODELS, jax_engine, jax_params, make_case,
-                              max_norm, max_rel, pernode_operands,
-                              torch_engine)
+                              max_norm, max_rel, one_torch_thread,
+                              pernode_operands, torch_engine)
 
 F64 = torch.float64
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
 
 
 def _encoding(seed, num_taxa, num_trees, rooted):
@@ -198,12 +207,22 @@ def test_tapes_that_are_not_the_scan_tapes_are_refused(order, sibling,
 # Sizing and the hand-over to the global body
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("C", range(1, 9))
+CATEGORIES = (*range(1, 9), 16, 17, 32)
+
+
+@pytest.mark.parametrize("C", CATEGORIES)
 def test_plan_fills_a_block_within_shared_memory(C):
+    """At 16 and 32 lanes the largest tree's P and dP alone (105 edges x 2
+    or 4 KB) leave no room for a warp of rows."""
     G = paired.lanes(C)
     per_warp = 32 // G
     for rows, ints, N1 in ((25, 232, 53), (3, 40, 9), (50, 470, 105)):
         plan = pernode.onchip_plan(rows, ints, N1, C, least=1)
+        if plan is None:
+            assert G >= 16 and N1 == 105
+            assert pernode.smem_bytes(rows, ints, N1, C, per_warp) > (
+                paired.SMEM_BYTES)
+            continue
         assert plan.lanes == G and not plan.ring
         assert plan.cols % per_warp == 0
         assert plan.cols * G <= paired.MAX_THREADS
@@ -213,8 +232,8 @@ def test_plan_fills_a_block_within_shared_memory(C):
         assert (more * G > paired.MAX_THREADS
                 or pernode.smem_bytes(rows, ints, N1, C, more)
                 > paired.SMEM_BYTES)
-    with pytest.raises(ValueError):
-        pernode.onchip_plan(25, 232, 53, 9)
+    with pytest.raises(ValueError, match="1..32"):
+        pernode.onchip_plan(25, 232, 53, paired.PAIRED_CATEGORIES + 1)
 
 
 def test_plan_at_the_flagship():
@@ -233,7 +252,7 @@ def test_plan_at_the_flagship():
     assert pernode.onchip_plan(25, 232, 53, 8).cols == 52  # 13 warps of 4
 
 
-@pytest.mark.parametrize("C", range(1, 9))
+@pytest.mark.parametrize("C", CATEGORIES)
 def test_hand_over_to_the_global_body(C):
     """Unrooted trees of T taxa (T - 2 rows, N1 = 2T - 1 edges, a tape of
     5(T - 2) + 4(T - 2) + 2 ints): the plan holds fewer warps as rows and
@@ -258,6 +277,8 @@ def test_hand_over_to_the_global_body(C):
             + (4 * (9 * (T - 2) + 2) + 15) // 16 * 16 <= paired.SMEM_BYTES]
     assert limit == max(fits)
     assert plan(limit + 1, 1) is not None  # asked for, it still launches
+    with pytest.raises(ValueError, match="1..32"):
+        pernode.onchip_plan(3, 40, 9, paired.PAIRED_CATEGORIES + 1)
 
 
 def test_plan_follows_the_card_times():
@@ -395,6 +416,28 @@ def test_emulation_matches_the_plain_version(model, num_taxa, rooted,
     ll_ref, g_ref = pernode.pernode_ll_and_gradients_ref(**ops, **extra)
     assert max_rel(ll.numpy(), ll_ref.numpy()) < 1e-10
     assert max_norm(g.numpy(), g_ref.numpy()) < 1e-10
+
+
+@pytest.mark.parametrize("C", [9, 16, 32])
+def test_emulation_past_8_categories(C):
+    """The body's group schedule at 9..32 categories (16 or 32 lanes a
+    pattern: the sums over categories and the rescale span the pattern's
+    lanes, idle lanes zero) in float64 against the plain version within
+    1e-10, on a trifurcating and a binary root."""
+    for rooted in (False, True):
+        case = make_case(seed=70 + C, num_taxa=9, num_sites=30,
+                         num_trees=2, rooted=rooted)
+        te = TreeLikelihoodEngine(
+            case.torch_pattern,
+            PhyloModel(PhyloModelSpecification("GTR", f"gamma+{C}")),
+            device="cpu", dtype=F64)
+        ops, extra = pernode_operands(te, case, GTR, dtype=F64)
+        assert ops["P"].shape[2] == C
+        ll, g = _emulate(ops, extra, _tape_of(ops, extra))
+        ll_ref, g_ref = pernode.pernode_ll_and_gradients_ref(**ops,
+                                                             **extra)
+        assert max_rel(ll.numpy(), ll_ref.numpy()) < 1e-10
+        assert max_norm(g.numpy(), g_ref.numpy()) < 1e-10
 
 
 def _random_operands(enc, seed, C=2, S=7):

@@ -32,7 +32,14 @@ from bito_tpu_torch.models.transforms import (stick_breaking_forward,
 from bito_tpu_torch.treelike import paired, prep
 
 from torch_port_cases import (emulate_grad, emulate_ll, max_norm, max_rel,
-                              without_docstrings)
+                              one_torch_thread, without_docstrings)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 F64 = torch.float64

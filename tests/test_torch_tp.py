@@ -24,8 +24,15 @@ from bito_tpu_torch.tp.engine import TPEngine
 from bito_tpu_torch.treelike import pruning as tpr
 
 from torch_port_cases import (MODELS, jax_engine, jax_params, make_case,
-                              max_norm, max_rel, torch_engine, torch_params,
-                              without_docstrings)
+                              max_norm, max_rel, one_torch_thread,
+                              torch_engine, torch_params, without_docstrings)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 F64 = dict(device="cpu", dtype=torch.float64)

@@ -19,6 +19,15 @@ from bito_tpu_torch.models.phylo_model import PhyloModelSpecification
 from bito_tpu_torch.vi import optimizers, scalar_model
 from bito_tpu_torch.vi.burrito import Burrito
 
+from torch_port_cases import one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
+
 SCALAR_MODELS = ["lognormal", "jax_lognormal", "jax_gamma",
                  "jax_truncated_lognormal"]
 TAXA, MCMC_TREES, SITES, PARTICLES = 10, 10, 200, 4

@@ -16,6 +16,15 @@ from bito_tpu.vi.benchmark import fixed as jax_fixed
 from bito_tpu_torch import _synthetic
 from bito_tpu_torch.vi import benchmark, cli
 
+from torch_port_cases import one_torch_thread
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    with one_torch_thread():
+        yield
+
+
 BOUND = 1e-8
 TAXA, TREES, SITES = 6, 10, 120
 RUN = dict(branch_model_name="split", scalar_model_name="lognormal",

@@ -7,6 +7,7 @@ builds its own engine from them.
 from __future__ import annotations
 
 import ast
+import contextlib
 import math
 import pathlib
 from dataclasses import dataclass
@@ -26,6 +27,7 @@ from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
 from bito_tpu_torch.treelike import paired, prep
+from bito_tpu_torch.treelike.encode import TreeBatchEncoding
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
 GTR = _synthetic.GTR_GAMMA4_PARAMS
@@ -60,6 +62,20 @@ def make_case(seed: int, num_taxa: int = 8, num_sites: int = 150,
     return Case(text, aln, jc.trees, tc.trees,
                 JaxSitePattern(aln, jc.taxon_names),
                 SitePattern(aln, tc.taxon_names))
+
+
+@contextlib.contextmanager
+def one_torch_thread():
+    """torch on one intra-op thread inside the block.  The tests' small
+    torch ops, run by the suite's six workers at once, are slowed many
+    times over by their contending thread pools (28 s against 0.9 s for
+    test_torch_categories.py's emulations beside five busy processes)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def per_tree_rows(params: dict, batch: int, seed: int) -> dict:
@@ -228,6 +244,122 @@ def emulate_grad(dst, child, src, e, edge_mask, P, dP, tips, pi, props,
             grad_rows.sum(dim=-1)[:, :N] * edge_mask.to(P.dtype))
 
 
+def emulate_lanes_chunked(dst, child, e, P, dP, tips, pi, props, weights):
+    """(ll_rows [B, S], grad_rows [B, 2MW+1, S]) as the global lane bodies
+    (csrc/paired_lanes.cuh, kChunked) compute them on the chunked tape:
+    one grid op at a time over pair slots [2MW+3] (op g reads slots 2g and
+    2g+1 where its child code names an op, a tip in place or ones
+    otherwise, and writes slot dst[g]; 2MW the root, 2MW+1 the trash
+    slot), a running power-of-two log scale, then the outside pass in
+    reverse: the up value from slot dst[g] (pi at the root), gradient rows
+    2g and 2g+1, and P^T o over slots 2g+j where an op's output was.  In
+    the operands' dtype."""
+    B, MW = dst.shape
+    C, A, S = P.shape[2], P.shape[3], tips.shape[-1]
+    root, trash = 2 * MW, 2 * MW + 1
+    ll_rows = torch.empty((B, S), dtype=P.dtype)
+    grad_rows = torch.zeros((B, 2 * MW + 1, S), dtype=P.dtype)
+    for b in range(B):
+        slots = torch.full((2 * MW + 3, C, A, S), float("nan"),
+                           dtype=P.dtype)
+
+        def child_of(g, j):
+            code = int(child[b, g, j])
+            return (slots[2 * g + j] if code >= 0
+                    else leaf_value(code, tips, C))
+
+        lsc = torch.zeros(S, dtype=torch.int64)
+        for g in range(MW):
+            if dst[b, g] == trash:
+                continue
+            ev = [torch.einsum("cak,cks->cas", P[b, int(e[b, g, j])],
+                               child_of(g, j)) for j in (0, 1)]
+            prod, ex = rescale_pow2(ev[0] * ev[1])
+            lsc = lsc + ex
+            if dst[b, g] == root:
+                site = torch.einsum("c,a,cas->s", props, pi, prod)
+            else:
+                slots[int(dst[b, g])] = prod
+        ll_rows[b] = torch.log(site) + lsc.to(P.dtype) * math.log(2.0)
+        for g in range(MW - 1, -1, -1):
+            if dst[b, g] == trash:
+                continue
+            up = (pi[None, :, None].expand(C, A, S) if dst[b, g] == root
+                  else slots[int(dst[b, g])])
+            p = [child_of(g, j) for j in (0, 1)]
+            Pj = [P[b, int(e[b, g, j])] for j in (0, 1)]
+            ev = [torch.einsum("cak,cks->cas", Pj[j], p[j]) for j in (0, 1)]
+            o, _ = rescale_pow2(
+                torch.stack([up * ev[1], up * ev[0]]).flatten(0, 1))
+            o = o.unflatten(0, (2, C))
+            for j in (0, 1):
+                dv = torch.einsum("cak,cks->cas", dP[b, int(e[b, g, j])],
+                                  p[j])
+                num = torch.einsum("c,cas->s", props, o[j] * dv)
+                den = torch.einsum("c,cas->s", props, o[j] * ev[j])
+                den = torch.where(den > 0, den, torch.ones_like(den))
+                grad_rows[b, 2 * g + j] = weights * num / den
+            for j in (0, 1):
+                if int(child[b, g, j]) >= 0:
+                    slots[2 * g + j] = torch.einsum("cak,cas->cks", Pj[j],
+                                                    o[j])
+    return ll_rows, grad_rows
+
+
+def emulate_lanes_pernode(post_ops, pre_ops, root, P, dP, tips, pi, props,
+                          weights):
+    """(ll_rows [B, S], grad_rows [B, N1, S]) as the per-node global lane
+    bodies (csrc/pernode_lanes.cuh) compute them: post_ops in order into
+    rows by internal node (a tip in place, the dummy N as ones, both
+    evolved through the op's edge), a running power-of-two log scale, the
+    root's row for the LL; then pre_ops in order with the up values in
+    rows of their own: o = up[parent] (pi at the root) times both evolved
+    siblings, rescaled, node dest's gradient row, up[dest] = P^T o for an
+    internal dest.  In the operands' dtype."""
+    B, N1, C, A = P.shape[:4]
+    T, S = tips.shape[0], tips.shape[-1]
+    N = N1 - 1
+    ll_rows = torch.empty((B, S), dtype=P.dtype)
+    grad_rows = torch.zeros((B, N1, S), dtype=P.dtype)
+    ones = torch.ones((C, A, S), dtype=P.dtype)
+    for b in range(B):
+        rows = torch.full((N1 - T, C, A, S), float("nan"), dtype=P.dtype)
+        ups = torch.full((N1 - T, C, A, S), float("nan"), dtype=P.dtype)
+
+        def value(n):
+            if n < T:
+                return tips[n][None].expand(C, A, S)
+            return ones if n == N else rows[n - T]
+
+        def ev(e, n):
+            return torch.einsum("cak,cks->cas", P[b, e], value(n))
+
+        lsc = torch.zeros(S, dtype=torch.int64)
+        for u, s1, e1, s2, e2 in post_ops[b].tolist():
+            if u == N:
+                continue
+            prod, ex = rescale_pow2(ev(e1, s1) * ev(e2, s2))
+            lsc = lsc + ex
+            rows[u - T] = prod
+        r = int(root[b])
+        site = torch.einsum("c,a,cas->s", props, pi, rows[r - T])
+        ll_rows[b] = torch.log(site) + lsc.to(P.dtype) * math.log(2.0)
+        for c, v, s1, e1, s2, e2 in pre_ops[b].tolist():
+            if c == N:
+                continue
+            up = pi[None, :, None].expand(C, A, S) if v == r else ups[v - T]
+            o, _ = rescale_pow2(up * ev(e1, s1) * ev(e2, s2))
+            p = value(c)
+            num = torch.einsum("c,cas->s", props, o * torch.einsum(
+                "cak,cks->cas", dP[b, c], p))
+            den = torch.einsum("c,cas->s", props, o * ev(c, c))
+            den = torch.where(den > 0, den, torch.ones_like(den))
+            grad_rows[b, c] = weights * num / den
+            if c >= T:
+                ups[c - T] = torch.einsum("cak,cas->cks", P[b, c], o)
+    return ll_rows, grad_rows
+
+
 def check_live_rows(dst, child, row, peak):
     """Rows by liveness (paired.live_rows) on a tape of the paired layout:
     every stored output keeps its row until the op that reads it, and is
@@ -245,6 +377,19 @@ def check_live_rows(dst, child, row, peak):
                 assert row[b, m] < peak and int(row[b, m]) not in holder
                 holder[int(row[b, m])] = m
         assert not holder  # every stored output was read
+
+
+def dummy_child_encoding():
+    """Three taxa joined by two ops, then a root op whose second child is
+    the DUMMY node through the identity edge: a unary root with a branch."""
+    N = 6
+    post = np.array([[[3, 0, 0, 1, 1], [4, 3, 3, 2, 2], [5, 4, 4, N, N],
+                      [N, N, N, N, N]]], dtype=np.int32)
+    pre = np.full((1, 1, 6), N, dtype=np.int32)
+    mask = np.array([[1, 1, 1, 1, 1, 0]], dtype=np.int32)
+    return TreeBatchEncoding(num_taxa=3, num_slots=N, post_ops=post,
+                             pre_ops=pre, root=np.array([5], np.int32),
+                             edge_mask=mask, node_counts=np.array([6]))
 
 
 def max_rel(a, b) -> float:
