@@ -96,6 +96,17 @@
 // So every stored value and every sum is relative to its largest entry,
 // as a store scaled after the op would be.  Tips and unwritten slots have
 // E = L = e_c = 0.
+//
+// Categories.  Both kernels take 1..kMaxCategories (32) rate categories,
+// as bito_tpu's paired Pallas kernels take any count at 64 states.
+// Nothing in the bodies assumes fewer: a step is one (op, category) and
+// next_step reads C at run time; no array is sized by C (PostAcc and the
+// grad body's OutAcc hold two rows' sums, rescaled by 2^(e_c - e_max) as
+// e_max grows, so 32 terms keep each sum relative to its largest); every
+// offset that C scales (a slot of buf, the scales [NS, 2 + C, S], the
+// code tables after them, a category's matrix) is taken in size_t.  What
+// grows with C is the scratch in device memory, which the launchers in
+// treelike/paired.py size and split by trees.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -115,6 +126,8 @@ constexpr int kSlice = kA * kXStride;  // floats of a warp's staged slice
 constexpr int kBuf = -1;               // slot code: an op writes it to buf
 constexpr int kOnes = -2;              // slot code: nothing writes it
 constexpr float kLn2 = 0.693147180559945309f;
+
+constexpr int kMaxCategories = 32;  // rate categories the launchers take
 
 constexpr int kPlanes = 2;  // matrices split into hi and lo planes at once
 

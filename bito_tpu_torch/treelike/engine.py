@@ -13,20 +13,23 @@ device or dtype (bito_tpu_torch.device: PRODUCT_DEVICE, PRODUCT_DTYPE).
 
 Kernel selection, `engine.kernel`:
   "auto"    — the hand-written CUDA paired kernels (treelike/paired.py) on
-              a CUDA device in float32 with a shared model of 4 states and
-              at most paired.PAIRED_CATEGORIES (32) rate categories, or of
-              64 (MG94 codon models: their own A=64 kernels) and at most
-              paired.MAX_CATEGORIES (8); the scan tape otherwise.  At 64
-              states this differs from bito_tpu, whose auto takes the scan
-              tape there (faster on its TPU); on the card auto takes the
-              kernels.  The category limits are the port's own (a rate
-              category is a lane of the kernels, a pattern at most a
-              warp), where bito_tpu pads categories (zero proportions) so
+              a CUDA device in float32 with a shared model of 4 or 64
+              states (MG94 codon models: their own A=64 kernels) and at
+              most paired.max_categories(A) rate categories,
+              paired.PAIRED_CATEGORIES (32) at both; the scan tape
+              otherwise.  At 64 states this differs from bito_tpu, whose
+              auto takes the scan tape there (faster on its TPU); on the
+              card auto takes the kernels.  The category limit is the
+              port's own (at 4 states a rate category is a lane of the
+              kernels, a pattern at most a warp; at 64 one limit for
+              both), where bito_tpu pads categories (zero proportions) so
               that its paired Pallas kernel takes any count: past 32
-              categories at 4 states (past 8 at 64) auto takes the scan
-              tape.  The paired wrappers launch the on-chip
-              bodies, or the global ones for a tree on which those would
-              be the slower (paired.onchip_plan).
+              categories auto takes the scan tape.  The paired wrappers
+              launch the on-chip bodies, or the global ones for a tree on
+              which those would be the slower (paired.onchip_plan); at 64
+              states the A=64 kernels, over slices of the batch where
+              their scratch for all of it would not fit in the card's
+              free memory (paired.tree_slices).
   "scan"    — always the scan tape (treelike/pruning.py).
   "cuda"    — always the paired kernels' wrappers: on a CUDA device the
               kernels, on the CPU their plain torch versions.
@@ -42,7 +45,7 @@ Kernel selection, `engine.kernel`:
 "cuda" and "chunked" raise for per-tree parameter rows, which the kernels
 do not take.  (bito_tpu's forced kernels take them and silently use tree
 0's model for the whole batch.)  The per-node kernels (treelike/pernode.py,
-1-32 categories at 4 states, 1-8 at 64) have no route here, as bito_tpu's
+1-32 categories at 4 and 64 states) have no route here, as bito_tpu's
 have none.
 
 The tape runs on the engine's device and dtype; the kernel operands are

@@ -23,7 +23,8 @@ Each kernel has two bodies on the card:
 At 4 states both bodies take 1 to PAIRED_CATEGORIES (32) rate categories:
 1-8 compiled one count at a time, 9-32 on 16 or 32 lanes a pattern with
 the count read at run time.  So do the chunked and per-node kernels
-(chunked.py, pernode.py); the A=64 kernels take 1 to MAX_CATEGORIES (8).
+(chunked.py, pernode.py) and the A=64 kernels: one limit,
+max_categories(A), at both state counts.
 The on-chip LL body also serves the chunked and per-node LL kernels
 (chunked.py, pernode.py): their tapes are walked as paired tapes, one op
 at a time, through `launch_ll_onchip`.
@@ -38,6 +39,32 @@ planes in shared memory.  The wrappers launch them for A=64 operands on
 the card; they need no OnchipTape.  `tf32_mm` and
 `paired_ll_and_gradients_tf32` emulate their arithmetic in plain torch,
 for the tests.
+
+Their scratch grows with the categories C: the partials buf [B, NS, C,
+64, S] float32 (NS = 2M + 3), each slot's scales [B, NS, 2 + C, S] and
+the slot codes [B, tiles, NS] (`a64_tree_bytes` a tree).  At config6's
+shape (bench_configs.py: 27 taxa, 640 padded patterns, M = 28 ops, NS =
+59, N + 1 = 53 edges, B = 128 trees) that is, at C = 9 / 16 / 32:
+  - buf 9.67 MB a tree and category: 11.1 / 19.8 / 39.6 GB at B = 128;
+  - the scales 0.15 MB a tree and (2 + C): 0.21 / 0.35 / 0.66 GB;
+  - the codes 1,180 bytes a tree;
+  - so 88.7 / 157.4 / 314.5 MB a tree, 11.3 / 20.1 / 40.3 GB at B = 128
+    and 17.7 / 31.5 / 62.9 GB at B = 200;
+  - beside it the operands P and dP [B, N + 1, C, 64, 64] float32, 0.111
+    GB a category each at B = 128: 1.0 / 1.8 / 3.6 GB each;
+  - and, before the launch, the float64 prep's transients (the
+    uniformized P [B, N, C, 64, 64], its copy with the identity edge, dP
+    = Q P: prep.prepare_inputs_grad_q) at 0.22 GB a category each: 2.0 /
+    3.6 / 7.1 GB each, freed to torch's cache before the launch.
+The plain version in float64 holds buf in float64, twice the kernels'
+(about 80 GB at C = 32 over 128 trees), so the card's checks hold the
+kernels to it on a few of the trees they time: each tree's rows depend
+on that tree alone.  The launchers launch once where the scratch of the
+whole batch can be allocated; where it cannot, over consecutive slices
+of the batch (`tree_slices`), each of as many trees as the card's free
+memory holds (`a64_budget`: with what torch's cache can release; less
+A64_HEADROOM), into one scratch; each slice is a launch.  Where one tree
+does not fit they raise and name the bytes.
 
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which computes the
@@ -69,6 +96,7 @@ ratios that no scale changes.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from functools import partial
@@ -80,14 +108,13 @@ from ..dist import mesh
 from . import _kernels
 
 RESK = 4  # the tape is padded to a multiple of this many ops, as in bito_tpu
-# The category counts the kernels take (max_categories): the A=64 kernels
-# 1..MAX_CATEGORIES; every 4-state kernel (the paired, chunked and
-# per-node families, both bodies each) 1..PAIRED_CATEGORIES, one lane a
-# category, a pattern at most a warp.  The 4-state kernels compile
-# 1..COMPILED_CATEGORIES one count at a time; past it their bodies take
-# the count at run time and their global bodies the lane layouts
-# (csrc/paired_lanes.cuh, csrc/pernode_lanes.cuh).
-MAX_CATEGORIES = 8
+# The category counts every kernel takes (max_categories): the 4-state
+# ones (the paired, chunked and per-node families, both bodies each) one
+# lane a category, a pattern at most a warp; the A=64 kernels a step a
+# category (csrc/paired_a64.cuh kMaxCategories).  The 4-state kernels
+# compile 1..COMPILED_CATEGORIES one count at a time; past it their
+# bodies take the count at run time and their global bodies the lane
+# layouts (csrc/paired_lanes.cuh, csrc/pernode_lanes.cuh).
 PAIRED_CATEGORIES = 32
 COMPILED_CATEGORIES = 8
 KERNEL_STATES = (4, 64)  # the state counts the paired kernels take
@@ -532,9 +559,9 @@ def paired_ll_and_gradients_tf32(post_dst, tip_slot, post_src, post_e,
 # ---------------------------------------------------------------------------
 
 def max_categories(A: int) -> int:
-    """The category counts the kernels take at A states: 1..this
-    (PAIRED_CATEGORIES at 4 states, MAX_CATEGORIES at 64)."""
-    return PAIRED_CATEGORIES if A == 4 else MAX_CATEGORIES
+    """The category counts the kernels take at A states (4 or 64): 1..this,
+    PAIRED_CATEGORIES at both."""
+    return PAIRED_CATEGORIES
 
 
 def _check_cuda_operands(ints, floats, C, A, states=(4,), *, categories):
@@ -866,38 +893,117 @@ def _a64_operands(tips, weights=None, **mats):
     return tips, weights, S
 
 
-def _a64_scratch(B, M, S, C, device):
-    """The A=64 kernels' scratch: the partials buf [B, 2M+3, C, 64, S] and
-    one float32 block of B*NS*(2+C)*S floats (each slot's scales) and
-    B * tiles * NS ints (each block's slot codes; tiles the pattern tiles
-    of the kernels' blocks, bito_paired_a64_tile patterns each), laid out
-    as csrc/paired_a64.cuh says."""
+A64_TILE = 128  # patterns a block of the A=64 kernels (bito_paired_a64_tile)
+A64_HEADROOM = 256 << 20  # device bytes left free beside their scratch
+GRID_TREES = 65535  # trees one launch takes: the grid's y extent
+
+
+def _a64_tree_words(M, S, C):
+    """One tree's 4-byte words in the A=64 kernels' scratch, laid out as
+    csrc/paired_a64.cuh says: (buf [NS, C, 64, S] floats, then the scales
+    [NS, 2 + C, S] floats and the slot codes [tiles, NS] ints, tiles the
+    blocks' pattern tiles of A64_TILE), NS = 2M + 3."""
     NS = 2 * M + 3
-    tiles = -(-S // _kernels.library().bito_paired_a64_tile())
+    return NS * C * 64 * S, NS * (2 + C) * S + -(-S // A64_TILE) * NS
+
+
+def _a64_scratch(B, M, S, C, device):
+    """The A=64 kernels' scratch for B trees: the partials buf [B, 2M+3,
+    C, 64, S] and one float32 block of the scales and slot codes."""
+    _, rest = _a64_tree_words(M, S, C)
     kw = dict(device=device, dtype=torch.float32)
-    return (torch.empty((B, NS, C, 64, S), **kw),
-            torch.empty(B * NS * (2 + C) * S + B * tiles * NS, **kw))
+    return (torch.empty((B, 2 * M + 3, C, 64, S), **kw),
+            torch.empty(B * rest, **kw))
+
+
+def a64_tree_bytes(M: int, S: int, C: int) -> int:
+    """Bytes of the A=64 kernels' scratch for one tree of M padded ops over
+    S patterns (a multiple of 4) at C categories: its slice of
+    _a64_scratch."""
+    return 4 * sum(_a64_tree_words(M, S, C))
+
+
+@functools.cache
+def _a64_library():
+    """The kernel library, once its A=64 kernels' tile is A64_TILE."""
+    lib = _kernels.library()
+    tile = lib.bito_paired_a64_tile()
+    if tile != A64_TILE:
+        raise RuntimeError(f"the A=64 kernels take {tile} patterns a "
+                           f"block; paired.A64_TILE is {A64_TILE}")
+    return lib
+
+
+def tree_slices(B: int, tree_bytes: int,
+                budget: int) -> list[tuple[int, int]]:
+    """The A=64 launchers' slices of a batch of B trees: consecutive
+    [start, stop) ranges that cover it in order, each of as many trees as
+    `budget` bytes hold at `tree_bytes` a tree (and at most GRID_TREES),
+    so one slice where the whole batch fits.  Raises where one tree does
+    not fit."""
+    if tree_bytes > budget:
+        raise torch.cuda.OutOfMemoryError(
+            f"the A=64 kernels' scratch takes {tree_bytes} bytes a tree; "
+            f"{budget} bytes of device memory are free for it")
+    n = min(budget // tree_bytes, GRID_TREES)
+    return [(b, min(b + n, B)) for b in range(0, B, n)]
+
+
+def a64_budget(device) -> int:
+    """Bytes of `device`'s memory the A=64 kernels' scratch may take: what
+    the card has free, with what torch's cache holds unused and can
+    release (not the unused parts of split segments), less
+    A64_HEADROOM."""
+    stats = torch.cuda.memory_stats(device)
+    cached = (stats.get("reserved_bytes.all.current", 0)
+              - stats.get("allocated_bytes.all.current", 0)
+              - stats.get("inactive_split_bytes.all.current", 0))
+    return torch.cuda.mem_get_info(device)[0] + cached - A64_HEADROOM
+
+
+def _launch_a64(entry, B, M, S, C, device, launch) -> int:
+    """Launch `entry` (a C entry point's name) over B trees: once a
+    GRID_TREES trees where the scratch of that many can be allocated, else
+    once a slice of tree_slices under a64_budget, into one scratch sized
+    for the largest slice.  The allocation is the test of what fits: it
+    costs the call no query of the card (cudaMemGetInfo or torch's
+    statistics), host time that auto's codon call, waiting on the host,
+    pays.  launch(b0, b1, buf, scratch) returns its code.  Returns the
+    launches."""
+    try:
+        slices = [(b, min(b + GRID_TREES, B))
+                  for b in range(0, B, GRID_TREES)]
+        buf, scratch = _a64_scratch(min(B, GRID_TREES), M, S, C, device)
+    except torch.cuda.OutOfMemoryError:
+        slices = tree_slices(B, a64_tree_bytes(M, S, C), a64_budget(device))
+        buf, scratch = _a64_scratch(max(b1 - b0 for b0, b1 in slices), M, S,
+                                    C, device)
+    with torch.cuda.device(device):
+        for b0, b1 in slices:
+            _kernels.check(launch(b0, b1, buf, scratch), entry)
+    return len(slices)
 
 
 def paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi, props):
     """Launch csrc/paired_ll_a64.cu (operands checked by the wrapper):
     per-pattern LL rows [B, S] at 64 states.  Its scratch is allocated
-    here (_a64_scratch)."""
+    here (_a64_scratch), for the trees of one launch: one for the batch
+    where it can be allocated, else one a slice of trees (_launch_a64)."""
     B, M = post_dst.shape
     T = tips.shape[0]
     N1, C = P.shape[1], P.shape[2]
     tips, _, S = _a64_operands(tips, P=P)
     Sp = tips.shape[-1]
-    buf, scratch = _a64_scratch(B, M, Sp, C, P.device)
     ll_rows = torch.empty((B, Sp), device=P.device, dtype=torch.float32)
-    with torch.cuda.device(P.device):
-        rc = _kernels.library().bito_paired_ll_a64(
-            post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
-            P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
-            buf.data_ptr(), scratch.data_ptr(), ll_rows.data_ptr(),
-            B, M, T, N1, C, Sp, _stream())
-    _kernels.check(rc, "bito_paired_ll_a64")
-    paired_ll_a64.launches += 1
+    lib = _a64_library()
+    paired_ll_a64.launches += _launch_a64(
+        "bito_paired_ll_a64", B, M, Sp, C, P.device,
+        lambda b0, b1, buf, scratch: lib.bito_paired_ll_a64(
+            post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
+            post_e[b0:b1].data_ptr(), P[b0:b1].data_ptr(), tips.data_ptr(),
+            pi.data_ptr(), props.data_ptr(), buf.data_ptr(),
+            scratch.data_ptr(), ll_rows[b0:b1].data_ptr(), b1 - b0, M, T,
+            N1, C, Sp, _stream()))
     return ll_rows[:, :S]
 
 
@@ -908,25 +1014,27 @@ def paired_grad_a64(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
                     props, weights):
     """Launch csrc/paired_grad_a64.cu (operands checked by the wrapper):
     (LL rows [B, S], weighted gradient rows [B, N1, S], zero where no op
-    writes) at 64 states, with the scratch of paired_ll_a64."""
+    writes) at 64 states, with the scratch and the slices of trees of
+    paired_ll_a64."""
     B, M = post_dst.shape
     T = tips.shape[0]
     N1, C = P.shape[1], P.shape[2]
     tips, weights, S = _a64_operands(tips, weights, P=P, dP=dP)
     Sp = tips.shape[-1]
-    buf, scratch = _a64_scratch(B, M, Sp, C, P.device)
     kw = dict(device=P.device, dtype=torch.float32)
     ll_rows = torch.empty((B, Sp), **kw)
     grad_rows = torch.zeros((B, N1, Sp), **kw)
-    with torch.cuda.device(P.device):
-        rc = _kernels.library().bito_paired_grad_a64(
-            post_dst.data_ptr(), tip_slot.data_ptr(), post_src.data_ptr(),
-            post_e.data_ptr(), P.data_ptr(), dP.data_ptr(), tips.data_ptr(),
+    lib = _a64_library()
+    paired_grad_a64.launches += _launch_a64(
+        "bito_paired_grad_a64", B, M, Sp, C, P.device,
+        lambda b0, b1, buf, scratch: lib.bito_paired_grad_a64(
+            post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
+            post_src[b0:b1].data_ptr(), post_e[b0:b1].data_ptr(),
+            P[b0:b1].data_ptr(), dP[b0:b1].data_ptr(), tips.data_ptr(),
             pi.data_ptr(), props.data_ptr(), weights.data_ptr(),
-            buf.data_ptr(), scratch.data_ptr(), ll_rows.data_ptr(),
-            grad_rows.data_ptr(), B, M, T, N1, C, Sp, _stream())
-    _kernels.check(rc, "bito_paired_grad_a64")
-    paired_grad_a64.launches += 1
+            buf.data_ptr(), scratch.data_ptr(), ll_rows[b0:b1].data_ptr(),
+            grad_rows[b0:b1].data_ptr(), b1 - b0, M, T, N1, C, Sp,
+            _stream()))
     return ll_rows[:, :S], grad_rows[..., :S]
 
 

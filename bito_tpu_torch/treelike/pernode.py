@@ -49,7 +49,9 @@ and `paired.paired_grad_a64`, which count the launches), over the paired
 tape that `a64_tape` derives on the host: the LL's from post_ops and
 root, as ll_tape derives it; the grad's the same, after checking that
 pre_ops describes the same tree, since the paired walk reads the
-preorder from the postorder's own tape.
+preorder from the postorder's own tape.  They take 1 to
+paired.max_categories(64) (32) categories there too, and the launchers'
+slices of trees where the scratch would not fit (paired.tree_slices).
 
 Operands: post_ops, pre_ops, root int32; P, dP [B, N+1, C, A, A]; tips
 [T, A, S]; pi [A]; props [C]; weights [S]; edge_mask [B, N]; A is 4 or 64

@@ -12,7 +12,8 @@ trainer, and a tenth, the rooted time-tree instance, run the paired
 kernels as their users' calls reach them; an eleventh, the GP engine,
 runs no hand-written kernel; a twelfth, the NNI search, runs the paired
 LL kernel where its TP-likelihood scoring reaches it; a thirteenth, the
-MG94 codon models, runs the paired kernels' A=64 bodies; a fourteenth,
+MG94 codon models, runs the paired kernels' A=64 bodies, also at 16
+rate categories (codon-categories); a fourteenth,
 the dist path, runs the pattern-sharded engines on two ranks of the card
 (rows 1-4 and the A=64 bodies on every rank); then the leveled variant
 and the VI command line with a checkpoint:
@@ -126,6 +127,15 @@ and the VI command line with a checkpoint:
     scaled branch lengths on auto, which takes the A=64 kernels
     (csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu: every 64x64 product
     on the tensor cores in 3xTF32) on uniformized transition matrices;
+  - codon-categories: the same shape at MG94+Gamma16 (CODON_CATEGORY_C,
+    Gamma shape CODON_WEIBULL), which auto took to the scan tape before
+    the A=64 kernels took 9-32 rate categories: log_likelihoods, an
+    ll_eval_fn call, ll_and_branch_gradients and CODON_CATEGORY_SWEEP
+    branch_eval_fn calls on auto, counted for the JSON line's entries
+    paired_ll_a64@C16 and paired_grad_a64@C16; then kernel="cuda" at 33
+    categories, which must raise, and branch_eval_fn at
+    CODON_WIDE_BATCH trees x 32 categories, over the launchers' slices
+    of trees where their scratch does not fit in one launch;
   - dist: the port's launcher (python -m bito_tpu_torch.dist.launch)
     starts DIST_RANKS ranks of this script (`--dist-worker gloo OUTDIR`)
     on the one card over Gloo, each holding half the patterns
@@ -176,7 +186,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      within A64_BOUND; the per-node functions at 64 states
      (pernode_log_likelihoods, pernode_ll_and_gradients: the A=64 kernels
      on the per-node tape) within A64_BOUND on CODON_PERNODE_BATCH trees,
-     each launching each A=64 kernel once.
+     each launching each A=64 kernel once.  Both A=64 kernels at
+     CODON_CATEGORY_COUNTS (9, 16, 32) categories at the codon path's
+     shape on all CODON_BATCH trees, finite, the first CODON_REF_TREES
+     trees' rows within A64_BOUND of their float64 plain versions, also
+     with every branch CATEGORY_EDGE_LENGTH long and on the disagreeing
+     codons, with each count's scratch a tree and the trees one launch
+     takes; at CODON_CATEGORY_C the grad kernel nearer to the 3xTF32
+     emulation than to one pass (one tree) and the per-node functions
+     (codon_category_parity).
      Both paired kernels at CATEGORY_COUNTS (9, 16, 32) rate categories
      through their wrappers against their float64 plain versions within
      5e-5: on the flagship (the on-chip bodies), on the flagship with
@@ -242,7 +260,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      path: only the two A=64 kernels launched and no scan tape call ran,
      the results within A64_BOUND of the same engine in float64 on the
      card (the uniformized scan tape), the float64 gradients against central
-     differences; the batched
+     differences; on the codon-categories path the same on the first
+     CODON_REF_TREES trees (the float64 engine on those trees), every
+     result finite, kernel="cuda" at 33 categories raising before any
+     launch, and the CODON_WIDE_BATCH-tree call's launches and first
+     trees within A64_BOUND; the batched
      scorer's float64 scores on the card within SCORER_BOUND relative of
      the serial numpy scorer on the first and the last iteration's
      candidate sets (ROUNDED_BOUND where a Brent step was decided by
@@ -313,7 +335,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      global bodies) beside their float32 plain versions and bounds, and
      at CATEGORY_PATH_C auto's and the chunked route's LL+gradient call
      beside the scan tape's (category_times); the chunked and per-node
-     kernels the same way (category_rows_times).
+     kernels the same way (category_rows_times); the A=64 kernels at
+     CODON_CATEGORY_COUNTS beside their float32 plain versions and both
+     bounds, auto's LL+gradient call and its device memory high-water
+     mark at each count, and at CODON_CATEGORY_C the float32 scan tape's
+     call (codon_category_times).
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -439,6 +465,17 @@ CODON_PARAMS = {"substitution_model_rates": np.array([2.5, 0.3]),
                                                             0.2])}
 CODON_C4_BATCH, CODON_WEIBULL = 16, 0.8  # phase 2's MG94+Weibull4 check
 CODON_PERNODE_BATCH = 8  # phase 2's per-node functions at 64 states
+# The codon path at 9-32 rate categories (MG94+Gamma C, shape
+# CODON_WEIBULL, at config6's shape): phase 2's counts, the
+# codon-categories path's count and its scaled calls, the trees of a
+# batch held to float64 (the plain version holds its partials in float64,
+# about 80 GB at C = 32 over CODON_BATCH trees; each tree's rows depend on
+# that tree alone), and phase 3's larger batch at the largest count
+CODON_CATEGORY_COUNTS = (9, 16, 32)
+CODON_CATEGORY_C = 16
+CODON_CATEGORY_SWEEP = 4
+CODON_REF_TREES = 8
+CODON_WIDE_BATCH = 200
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # H100 SXM dense TF32 on the tensor cores over three passes: the rate of a
 # float32-accurate product in 3xTF32 (the A=64 kernels)
@@ -561,11 +598,25 @@ KERNELS = {
     "paired_ll_a64": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_a64.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
-        wrapper=paired.paired_ll_a64, path="codon", peak=PEAK_3XTF32),
+        wrapper=paired.paired_ll_a64, path="codon", peak=PEAK_3XTF32,
+        also=("codon-categories",)),
     "paired_grad_a64": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_a64.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
-        wrapper=paired.paired_grad_a64, path="codon", peak=PEAK_3XTF32),
+        wrapper=paired.paired_grad_a64, path="codon", peak=PEAK_3XTF32,
+        also=("codon-categories",)),
+    # Rows 1b-2b at CODON_CATEGORY_C categories: the same launchers,
+    # counted on the codon-categories path
+    "paired_ll_a64@C16": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_ll_a64.cu",
+        replaces="bito_tpu/treelike/pallas_paired.py:423",
+        wrapper=paired.paired_ll_a64, path="codon-categories",
+        peak=PEAK_3XTF32, also=("codon",)),
+    "paired_grad_a64@C16": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_grad_a64.cu",
+        replaces="bito_tpu/treelike/pallas_paired.py:446",
+        wrapper=paired.paired_grad_a64, path="codon-categories",
+        peak=PEAK_3XTF32, also=("codon",)),
 }
 # The A=64 kernels' __global__ functions, whose SASS phase 1 reads
 TENSOR_KERNELS = ("paired_ll_a64_kernel", "paired_grad_a64_kernel")
@@ -1486,11 +1537,14 @@ LAB_SHAPES = {
     "static_chain": f"dynamic, R={CHAIN_R}, 52 ops x 1024 columns",
     "chunk_variant": f"v0 (the shipping body), float32, {BATCH} trees x "
                      "1024 patterns",
-    **dict.fromkeys(("paired_ll_a64", "paired_grad_a64"), (
-        f"MG94 C=1, float32, {CODON_BATCH} trees x "
+    **{name + suffix: (
+        f"MG94 {model}, float32, {CODON_BATCH} trees x "
         f"{pruning.pad_patterns(_synthetic.DS1_DISTINCT_CODON_COLUMNS)} "
         f"patterns ({_synthetic.DS1_DISTINCT_CODON_COLUMNS} true), "
-        f"{_synthetic.DS1_TAXA} taxa")),
+        f"{_synthetic.DS1_TAXA} taxa")
+       for suffix, model in (("", "C=1"),
+                             ("@C16", f"+Gamma{CODON_CATEGORY_C}"))
+       for name in ("paired_ll_a64", "paired_grad_a64")},
 }
 
 
@@ -2984,16 +3038,16 @@ def codon_workload(site="constant", batch=CODON_BATCH):
             PhyloModel(PhyloModelSpecification("MG94", site)), params)
 
 
-def codon_operands(eng, trees, params):
+def codon_operands(eng, trees, params, bl=None):
     """The A=64 kernels' operands from the engine's own prep (uniformized
-    P, dP = Q P, float32): the LL wrapper's and the grad wrapper's
-    positional arguments."""
+    P, dP = Q P, float32), at the trees' branch lengths or `bl`: the LL
+    wrapper's and the grad wrapper's positional arguments."""
     enc = eng.encode(trees)
+    bl = eng.branch_length_matrix(trees, enc) if bl is None else bl
     eig, rates, props, clock = eng._model_ingredients(params, len(trees))
     pi, prop = prep.kernel_model(eig, props)
-    P, dP = prep.prepare_inputs_grad_q(
-        eig, rates, clock, eng.branch_length_matrix(trees, enc),
-        Q=eng._rate_Q(params))
+    P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl,
+                                       Q=eng._rate_Q(params))
     dst, tip, src, e, mask = eng._paired_tapes(enc)
     tips, w = eng._kernel_tips, eng._kernel_weights
     return ((dst, tip, e, P, tips, pi, prop, w),
@@ -3050,17 +3104,25 @@ def codon_parity(dev, errs):
                                  .item())
         errs["paired_grad_a64"] = (e_g, (g_k.double() - g_p).abs().max()
                                    .item())
-        enc = eng.encode(trees)
-        fl_ll, fl_grad = codon_flops(enc, sp, 1, batch)
-        work["paired_ll_a64"] = (fl_ll, nbytes(*ll_ops) + batch * 4, None)
-        work["paired_grad_a64"] = (fl_grad, nbytes(*grad_ops)
-                                   + batch * (1 + enc.num_slots) * 4, None)
-        calls["paired_ll_a64"] = (
-            lambda ops=ll_ops: paired.paired_log_likelihoods_ref(*ops),
-            lambda ops=ll_ops: paired.paired_log_likelihoods(*ops))
-        calls["paired_grad_a64"] = (
-            lambda ops=grad_ops: paired.paired_ll_and_gradients_ref(*ops),
-            lambda ops=grad_ops: paired.paired_ll_and_gradients(*ops))
+        work, calls = codon_timed(eng, trees, ll_ops, grad_ops)
+    return work, calls
+
+
+def codon_timed(eng, trees, ll_ops, grad_ops, suffix=""):
+    """Phase 4's work and calls of both A=64 kernels (KERNELS' names with
+    `suffix`) on `eng`'s operands `ll_ops`, `grad_ops` for `trees`:
+    ({name: (FLOPs, bytes, None)}, {name: (plain call, kernel call)})."""
+    enc, B = eng.encode(trees), len(trees)
+    fl_ll, fl_grad = codon_flops(enc, eng.site_pattern,
+                                 eng.model.category_count, B)
+    ll, grad = "paired_ll_a64" + suffix, "paired_grad_a64" + suffix
+    work = {ll: (fl_ll, nbytes(*ll_ops) + B * 4, None),
+            grad: (fl_grad, nbytes(*grad_ops) + B * (1 + enc.num_slots) * 4,
+                   None)}
+    calls = {ll: (lambda: paired.paired_log_likelihoods_ref(*ll_ops),
+                  lambda: paired.paired_log_likelihoods(*ll_ops)),
+             grad: (lambda: paired.paired_ll_and_gradients_ref(*grad_ops),
+                    lambda: paired.paired_ll_and_gradients(*grad_ops))}
     return work, calls
 
 
@@ -3080,22 +3142,25 @@ def codon_passes(grad_ops, g_k, trees=2):
     check(d3 < 0.1 * d1, "the A=64 grad kernel takes three TF32 passes")
 
 
-def codon_edge_parity(dev):
+def codon_edge_parity(dev, site="constant"):
     """Phase 2: both A=64 kernels at the edge of float32's range
     (_synthetic.disagreeing_codons: 8 taxa in cherries whose tips differ
     at all three codon positions, 64 codons, every branch one of
-    CODON_EDGE_LENGTHS), finite and within A64_BOUND of their float64
-    plain versions on the same float32 operands."""
+    CODON_EDGE_LENGTHS), MG94 with `site` rate categories (Gamma shape
+    CODON_WEIBULL), finite and within A64_BOUND of their float64 plain
+    versions on the same float32 operands."""
+    params = dict(CODON_PARAMS)
+    if site != "constant":
+        params["site_model_parameters"] = np.array([CODON_WEIBULL])
     for t in CODON_EDGE_LENGTHS:
         newick, aln = _synthetic.disagreeing_codons(SEED, 4, 64, t)
         coll = parse_newick_text(newick)
         eng = TreeLikelihoodEngine(
             CodonSitePattern(aln, coll.taxon_names),
-            PhyloModel(PhyloModelSpecification("MG94", "constant")),
+            PhyloModel(PhyloModelSpecification("MG94", site)),
             device=dev, dtype=PRODUCT_DTYPE)
         ll_ops, grad_ops = codon_operands(
-            eng, coll.trees,
-            params_from_numpy(dict(CODON_PARAMS), dev, PRODUCT_DTYPE))
+            eng, coll.trees, params_from_numpy(params, dev, PRODUCT_DTYPE))
         ll_k = paired.paired_log_likelihoods(*ll_ops)
         ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops)
         torch.cuda.synchronize()
@@ -3104,14 +3169,16 @@ def codon_edge_parity(dev):
         e_ll, e_llg, e_g = (rel_err(ll_k, ll_p), rel_err(ll_g, ll_p),
                             norm_err(g_k, g_p))
         print(f"# phase 2: A=64 kernels at the edge of float32's range "
-              f"(every branch {t:g}, cherries differing at all three codon "
-              f"positions, LL {float(ll_p[0]):.4f}): paired_ll_a64 LL rel "
+              f"(MG94 {site}, every branch {t:g}, cherries differing at all "
+              f"three codon positions, LL {float(ll_p[0]):.4f}): "
+              f"paired_ll_a64 LL rel "
               f"err {e_ll:.3e}; paired_grad_a64 LL rel err {e_llg:.3e}, "
               f"grad max-abs/max|g| {e_g:.3e} (bound {A64_BOUND:g})")
         check(all(bool(torch.isfinite(x).all()) for x in (ll_k, ll_g, g_k)),
-              f"the A=64 kernels' outputs are finite at branch length {t:g}")
+              f"the A=64 kernels' outputs are finite at branch length {t:g}"
+              f" ({site})")
         check(max(e_ll, e_llg, e_g) <= A64_BOUND,
-              f"the A=64 kernels at branch length {t:g}")
+              f"the A=64 kernels at branch length {t:g} ({site})")
 
 
 def codon_pernode_operands(eng, trees, params, dev):
@@ -3134,15 +3201,15 @@ def codon_pernode_operands(eng, trees, params, dev):
             (post, pre, root, mask, P, dP, tips, pi, prop, w), tape)
 
 
-def codon_pernode_parity(dev):
+def codon_pernode_parity(dev, sites=("constant", "weibull+4")):
     """Phase 2: pernode_log_likelihoods and pernode_ll_and_gradients at 64
     states, which launch the paired A=64 kernels on the per-node tape,
     against their float64 plain versions on the same float32 operands, at
-    config6's shape on CODON_PERNODE_BATCH trees, C = 1 and MG94+Weibull4
-    (C = 4), within A64_BOUND.  Returns the launches of each A=64
-    kernel."""
+    config6's shape on CODON_PERNODE_BATCH trees, MG94 at each of `sites`
+    (C = 1 and MG94+Weibull4, C = 4, unless given), within A64_BOUND.
+    Returns the launches of each A=64 kernel."""
     launched = [0, 0]
-    for site in ("constant", "weibull+4"):
+    for site in sites:
         trees, sp, model, params = codon_workload(site, CODON_PERNODE_BATCH)
         eng = TreeLikelihoodEngine(sp, model, device=dev,
                                    dtype=PRODUCT_DTYPE)
@@ -3270,6 +3337,251 @@ def codon_times(run, card, pernode_launches):
           + " (the scan tape with allow_tf32 False: bito_tpu's auto route "
           f"at 64 states); the codon path's device memory high-water mark "
           f"{peak / 2**30:.3f} GiB; on {card}")
+
+
+# -- the codon path at 9-32 rate categories ----------------------------------
+def codon_plain64(grad_ops, n):
+    """The float64 plain LL+gradient version on the first `n` trees of the
+    float32 operands `grad_ops` (each tree's rows depend on its own
+    operands alone): (ll [n], grads [n, N])."""
+    sub = [x[:n] for x in grad_ops[:7]] + list(grad_ops[7:])
+    return paired.paired_ll_and_gradients_ref(
+        *[x.double() if x.is_floating_point() else x for x in sub])
+
+
+def codon_category_parity(dev, errs):
+    """Phase 2 at CODON_CATEGORY_COUNTS rate categories (MG94+Gamma C, shape
+    CODON_WEIBULL) at config6's shape: both A=64 kernels through their
+    wrappers on all CODON_BATCH trees, finite, and their first
+    CODON_REF_TREES trees' rows against the float64 plain version on
+    those trees' float32 operands within A64_BOUND; at the trees' branch
+    lengths and with every branch CATEGORY_EDGE_LENGTH long; at the edge
+    of float32's range (codon_edge_parity at C); at CODON_CATEGORY_C the
+    grad kernel's gradients nearer to the 3xTF32 emulation than to one
+    TF32 pass (codon_passes, one tree) and the per-node functions at 64
+    states (codon_pernode_parity).  Prints each count's scratch a tree
+    and the trees one launch takes in the card's free memory.  Fills
+    errs for the JSON line's @C16 entries; returns the per-node
+    functions' launches of each A=64 kernel."""
+    R = CODON_REF_TREES
+    a64 = (paired.paired_ll_a64, paired.paired_grad_a64)
+    for C in CODON_CATEGORY_COUNTS:
+        trees, sp, model, params_np = codon_workload(f"gamma+{C}")
+        eng = TreeLikelihoodEngine(sp, model, device=dev,
+                                   dtype=PRODUCT_DTYPE)
+        params = params_from_numpy(params_np, dev, PRODUCT_DTYPE)
+        enc = eng.encode(trees)
+        bl = eng.branch_length_matrix(trees, enc)
+        short = torch.where(bl > 0, torch.full_like(bl, CATEGORY_EDGE_LENGTH),
+                            bl)
+        for label, lengths in (("branch lengths", bl), (
+                f"every branch {CATEGORY_EDGE_LENGTH:g}", short)):
+            ll_ops, grad_ops = codon_operands(eng, trees, params, lengths)
+            M, S = ll_ops[0].shape[1], ll_ops[4].shape[-1]
+            tree = paired.a64_tree_bytes(M, S, C)
+            fits = paired.a64_budget(dev) // tree
+            before = [f.launches for f in a64]
+            ll_k = paired.paired_log_likelihoods(*ll_ops)
+            ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops)
+            torch.cuda.synchronize()
+            ran = [f.launches - n for f, n in zip(a64, before)]
+            ll_p, g_p = codon_plain64(grad_ops, R)
+            e = (rel_err(ll_k[:R], ll_p), rel_err(ll_g[:R], ll_p),
+                 norm_err(g_k[:R], g_p))
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (ll_k, ll_g, g_k))
+            print(f"# phase 2: A=64 kernels at MG94+Gamma{C}, {label} "
+                  f"({len(trees)} trees x {eng.pattern_pad} patterns; "
+                  f"scratch {tree / 1e6:.1f} MB a tree, "
+                  f"{len(trees) * tree / 1e9:.2f} GB for the batch, the "
+                  f"free memory holds {fits} trees a launch; launches of "
+                  f"paired_ll_a64, paired_grad_a64 {ran}): on the first {R}"
+                  f" trees LL rel err {e[0]:.3e}, grad kernel's LL "
+                  f"{e[1]:.3e}, grad max-abs/max|g| {e[2]:.3e} (bound "
+                  f"{A64_BOUND:g}, plain version in float64 on the same "
+                  "operands)")
+            check(min(ran) >= 1, f"C={C} {label}: both A=64 kernels launched")
+            check(finite and max(e) <= A64_BOUND,
+                  f"C={C} {label}: the A=64 kernels within {A64_BOUND:g}")
+            if C == CODON_CATEGORY_C and lengths is bl:
+                errs["paired_ll_a64@C16"] = (
+                    e[0], (ll_k[:R].double() - ll_p).abs().max().item())
+                errs["paired_grad_a64@C16"] = (
+                    e[2], (g_k[:R].double() - g_p).abs().max().item())
+                codon_passes(grad_ops, g_k, trees=1)
+            del ll_ops, grad_ops, ll_k, ll_g, g_k, ll_p, g_p
+            torch.cuda.empty_cache()
+        del eng
+        torch.cuda.empty_cache()
+        codon_edge_parity(dev, f"gamma+{C}")
+    return codon_pernode_parity(dev, (f"gamma+{CODON_CATEGORY_C}",))
+
+
+def codon_refs64(sp, model, trees, params_np, bl, scales, dev):
+    """The float64 engine's (ll, grads) on the card (the uniformized scan
+    tape) on `trees`, at branch lengths `bl` and then at `bl` times each
+    of `scales`."""
+    ref = TreeLikelihoodEngine(sp, model, device=dev, dtype=torch.float64)
+    params64 = params_from_numpy(params_np, dev, torch.float64)
+    fn = ref.branch_eval_fn(trees, params64)
+    return [fn(bl.double() * f) for f in [1.0] + list(scales)]
+
+
+def codon_categories_path(dev, against_reference):
+    """Phase 3's codon-categories path: config6's shape at MG94+Gamma
+    CODON_CATEGORY_C on auto in float32 (before, past 8 categories auto
+    took the scan tape and kernel="cuda" raised): log_likelihoods, an
+    ll_eval_fn call, ll_and_branch_gradients and CODON_CATEGORY_SWEEP
+    branch_eval_fn calls over scaled branch lengths.  Only the two A=64
+    kernels may launch (counted for the JSON line's @C16 entries) and no
+    scan tape call may run; every result is finite and the first
+    CODON_REF_TREES trees' are held against the float64 engine on those
+    trees (codon_refs64) within A64_BOUND.  Then kernel="cuda" at 33
+    categories raises before any launch, and branch_eval_fn at
+    CODON_WIDE_BATCH trees and the largest of CODON_CATEGORY_COUNTS runs
+    on as many launches as the scratch's slices of trees need, held the
+    same way.  Returns (engine, trees, float32 params, launches)."""
+    C, R = CODON_CATEGORY_C, CODON_REF_TREES
+    trees, sp, model, params_np = codon_workload(f"gamma+{C}")
+    eng = TreeLikelihoodEngine(sp, model, device=dev, dtype=PRODUCT_DTYPE)
+    check(eng._route(True) == "paired",
+          f"auto takes the A=64 kernels at C={C}")
+    params = params_from_numpy(params_np, dev, PRODUCT_DTYPE)
+    bl = eng.branch_length_matrix(trees, eng.encode(trees))
+    scales = [1.0 + 0.001 * k for k in range(1, CODON_CATEGORY_SWEEP + 1)]
+    refs = codon_refs64(sp, model, trees[:R], params_np, bl[:R], scales, dev)
+    torch.cuda.empty_cache()
+    reset_launches()
+    with counting_scan_calls() as scan:
+        ll = eng.log_likelihoods(trees, params)
+        ll_fn = eng.ll_eval_fn(trees, params)(bl)
+        pairs = [eng.ll_and_branch_gradients(trees, params)]
+        fn = eng.branch_eval_fn(trees, params)
+        pairs += [fn(bl * f) for f in scales]
+        torch.cuda.synchronize()
+    launches = read_launches("codon-categories")
+    print(f"# phase 3: codon-categories path (MG94+Gamma{C}, {len(trees)} "
+          f"trees x {eng.pattern_pad} patterns) scan tape calls "
+          f"{scan['calls']}")
+    check(scan["calls"] == 0, "the codon-categories path ran no scan tape "
+          "call")
+    check(all(bool(torch.isfinite(x).all())
+              for x in [ll, ll_fn] + [x for pair in pairs for x in pair]),
+          "the codon-categories path's outputs are finite")
+    against_reference(f"codon-categories (first {R} trees)",
+                      [ll[:R], ll_fn[:R]],
+                      [(x[:R], g[:R]) for x, g in pairs], refs,
+                      bound=A64_BOUND)
+
+    past = max(CODON_CATEGORY_COUNTS) + 1
+    t33, sp33, m33, p33 = codon_workload(f"gamma+{past}", 2)
+    e33 = TreeLikelihoodEngine(sp33, m33, device=dev, dtype=PRODUCT_DTYPE)
+    check(e33._route(True) == "scan", f"auto takes the scan tape at C={past}")
+    e33.kernel = "cuda"
+    before = [paired.paired_ll_a64.launches, paired.paired_grad_a64.launches]
+    try:
+        e33.log_likelihoods(t33, params_from_numpy(p33, dev, PRODUCT_DTYPE))
+        raised = None
+    except ValueError as err:
+        raised = err
+    print(f"# phase 3: kernel='cuda' at MG94+Gamma{past} raises: {raised}")
+    check(raised is not None and "1..32" in str(raised)
+          and before == [paired.paired_ll_a64.launches,
+                         paired.paired_grad_a64.launches],
+          f"kernel='cuda' at C={past} raises before any launch")
+
+    Cw = max(CODON_CATEGORY_COUNTS)
+    tw, spw, mw, pw = codon_workload(f"gamma+{Cw}", CODON_WIDE_BATCH)
+    wide = TreeLikelihoodEngine(spw, mw, device=dev, dtype=PRODUCT_DTYPE)
+    encw = wide.encode(tw)
+    blw = wide.branch_length_matrix(tw, encw)
+    refs = codon_refs64(spw, mw, tw[:R], pw, blw[:R], (), dev)
+    torch.cuda.empty_cache()
+    fn = wide.branch_eval_fn(tw, params_from_numpy(pw, dev, PRODUCT_DTYPE))
+    tree = paired.a64_tree_bytes(wide._paired_tapes(encw)[0].shape[1],
+                                 wide.pattern_pad, Cw)
+    before = paired.paired_grad_a64.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pair = fn(blw)
+    torch.cuda.synchronize()
+    print(f"# phase 3: branch_eval_fn at MG94+Gamma{Cw} on "
+          f"{CODON_WIDE_BATCH} trees: {paired.paired_grad_a64.launches - before}"
+          f" launch(es) of paired_grad_a64 (scratch {tree / 1e6:.1f} MB a "
+          f"tree, {CODON_WIDE_BATCH * tree / 1e9:.2f} GB for the batch); "
+          "device memory high-water mark "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    check(paired.paired_grad_a64.launches > before
+          and all(bool(torch.isfinite(x).all()) for x in pair),
+          f"branch_eval_fn at C={Cw} x {CODON_WIDE_BATCH} trees ran the A=64 "
+          "grad kernel, finite")
+    against_reference(f"codon-categories at C={Cw} x {CODON_WIDE_BATCH} trees "
+                      f"(first {R} trees)", [], [(pair[0][:R], pair[1][:R])],
+                      refs, bound=A64_BOUND)
+    return eng, trees, params, launches
+
+
+def codon_category_times(run, times, card):
+    """Phase 4 at CODON_CATEGORY_COUNTS categories at config6's shape: each
+    A=64 kernel through its wrapper beside its float32 plain version, in
+    turns (plain, kernel, kernel, plain; at CODON_CATEGORY_C the JSON
+    line's times from the main loop), and beside both bounds (bito_tpu's
+    FLOPs, codon_flops, at 3xTF32 and at float32 FMAs); auto's
+    LL+gradient call (branch_eval_fn) and the device memory high-water
+    mark over it (after a reset); at CODON_CATEGORY_C its evals/s beside
+    the float32 scan tape's call, which auto took before (TF32 off)."""
+    eng16, trees16, params16, _ = run
+    for C in CODON_CATEGORY_COUNTS:
+        if C == CODON_CATEGORY_C:
+            eng, trees, params = eng16, trees16, params16
+        else:
+            trees, sp, model, params_np = codon_workload(f"gamma+{C}")
+            eng = TreeLikelihoodEngine(sp, model, device=eng16.device,
+                                       dtype=PRODUCT_DTYPE)
+            params = params_from_numpy(params_np, eng16.device,
+                                       PRODUCT_DTYPE)
+        ll_ops, grad_ops = codon_operands(eng, trees, params)
+        work, calls = codon_timed(eng, trees, ll_ops, grad_ops)
+        parts = []
+        for name in ("paired_ll_a64", "paired_grad_a64"):
+            if C == CODON_CATEGORY_C:
+                k, pl = times[name + "@C16"][:2]
+            else:
+                plain, kernel = calls[name]
+                p1, k1 = cuda_ms(plain, 1, warmup=1), cuda_ms(kernel, 10)
+                k2, p2 = cuda_ms(kernel, 10), cuda_ms(plain, 1, warmup=1)
+                k, pl = (k1 + k2) / 2, (p1 + p2) / 2
+            tf_ms = bound(*work[name][:2], peak=PEAK_3XTF32)[0]
+            fma_ms = bound(*work[name][:2])[0]
+            parts.append(f"{name} {k:.4f} ms (plain {pl:.4f}; bound "
+                         f"{tf_ms:.4f} at 3xTF32, {100 * tf_ms / k:.1f}% of "
+                         f"it; {fma_ms:.4f} at float32 FMAs, "
+                         f"{100 * fma_ms / k:.1f}%)")
+        del ll_ops, grad_ops, calls
+        torch.cuda.empty_cache()
+        bl = eng.branch_length_matrix(trees, eng.encode(trees))
+        fn = eng.branch_eval_fn(trees, params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(lambda: fn(bl), 5)
+        parts.append(f"auto's LL+gradient call (branch_eval_fn) {ms:.4f} ms "
+                     f"({len(trees) / (ms / 1e3):.1f} evals/s), device "
+                     "memory high-water mark "
+                     f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if C == CODON_CATEGORY_C:
+            check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+            eng.kernel = "scan"
+            scan = eng.branch_eval_fn(trees, params)
+            s_ms = cuda_ms(lambda: scan(bl), 2, warmup=1)
+            eng.kernel = "auto"
+            parts.append(f"the float32 scan tape's call, auto's route before,"
+                         f" {s_ms:.4f} ms ({len(trees) / (s_ms / 1e3):.1f} "
+                         "evals/s)")
+        print(f"# phase 4: A=64 kernels at MG94+Gamma{C} (float32, "
+              f"{len(trees)} trees x {eng.pattern_pad} patterns, CUDA "
+              f"events): " + "; ".join(parts) + f"; on {card}")
+        del eng, fn, bl
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -3958,6 +4270,8 @@ def main():
     codon_edge_parity(dev)
     pernode_a64_launches = codon_pernode_parity(dev)
     category_parity(dev, errs)
+    pernode_a64_launches = [a + b for a, b in zip(
+        pernode_a64_launches, codon_category_parity(dev, errs))]
 
     ends.append(time.perf_counter())
     # -- 3. the paths ------------------------------------------------------------
@@ -4128,6 +4442,9 @@ def main():
         nni_run = nni_path(nni_dir, dev, card)
     codon_run = codon_path(dev, card, against_reference)
     launches.update(codon_run[4])
+    # The codon-categories path: auto at MG94+Gamma CODON_CATEGORY_C.
+    cc_run = codon_categories_path(dev, against_reference)
+    launches.update(cc_run[3])
     t0 = time.perf_counter()
     dist_path(card)
     print(f"# phase 3: the dist path took {time.perf_counter() - t0:.1f} s")
@@ -4180,6 +4497,12 @@ def main():
     calls.update(lab_calls)
     calls.update(codon_calls)
     work.update(codon_work)
+    # Rows 1b-2b at CODON_CATEGORY_C categories, through their wrappers, on
+    # the codon-categories path's operands
+    cc_work, cc_calls = codon_timed(
+        cc_run[0], cc_run[1], *codon_operands(*cc_run[:3]), suffix="@C16")
+    work.update(cc_work)
+    calls.update(cc_calls)
     # Rows 1-2 at CATEGORY_PATH_C categories, through their wrappers (the
     # on-chip bodies), on the categories path's operands
     cll, cgrad, con16 = paired_operands(cat_eng, trees, params)
@@ -4337,6 +4660,11 @@ def main():
     nni_kernel_times(nni_run, dev, card)
     codon_times(codon_run, card, pernode_a64_launches)
     del codon_run
+    del cc_calls
+    calls.clear()
+    torch.cuda.empty_cache()
+    codon_category_times(cc_run, times, card)
+    del cc_run
     # Last, since its torch.profiler pass leaves the profiler set up.
     t0 = time.perf_counter()
     gp_times(*gp_run, card)

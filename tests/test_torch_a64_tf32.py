@@ -4,13 +4,20 @@ paired.tf32_round rounds as cvt.rna.tf32.f32 does, paired.tf32_mm forms a
 product as the kernels do, and paired.paired_ll_and_gradients_tf32 walks
 the paired tape with every P p, dP p and P^T o through it.
 
-Cases: MG94 on 6-8 taxa, 128 patterns, C = 1 and 2, trifurcating and
-bifurcating roots (synthetic codon alignments), the float32 operands of
-the engine's own prep (uniformized P, dP = Q P); and the edge of
-float32's range (_synthetic.disagreeing_codons: 8 taxa in cherries whose
-tips differ at all three codon positions, every branch 1e-6 to 1e-8
-long, so that a cherry's partial is near 1e-20 and a walk that let the
-scales of two children meet in one product would leave float32).
+Cases: MG94 on 6-8 taxa, 128 patterns, C = 1, 2, 9 and 16 (Gamma shape
+0.8), trifurcating and bifurcating roots (synthetic codon alignments),
+the float32 operands of the engine's own prep (uniformized P, dP = Q P);
+and the edge of float32's range (_synthetic.disagreeing_codons: 8 taxa
+in cherries whose tips differ at all three codon positions, every branch
+1e-6 to 1e-8 long, so that a cherry's partial is near 1e-20 and a walk
+that let the scales of two children meet in one product would leave
+float32), at C = 1 and at C = 9, where the categories' own powers of two
+span the slowest category's and the fastest's.  The three passes are
+held there at every branch 1e-6, 1e-7 and 1e-8; the one-pass control
+takes all but C = 9 at 1e-8, where one TF32 pass lies 3.4e-5 of the
+largest gradient from float64, 370 times the three passes' 9.0e-8 but
+inside the guard, so that case would not separate the two by the
+guard.
 
 Bounds: the 3xTF32 walk within 5e-5 of the float64 plain version (LL
 relative, gradients of the largest), the kernels' guard, and within
@@ -22,6 +29,8 @@ from float64, two of the four past the guard (so the guard alone does
 not separate the two there), 430-760 times the three passes' error, and
 the control asserts 100 times and 1e-5; at the edge of the range they
 lie 2.1e-4 to 4.2e-4 off, past the guard in every case."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -86,6 +95,9 @@ CASES = {  # id -> (site, seed, taxa, rooted)
     "c1-7-bifurcating": ("constant", 5, 7, True),
     "c2-6-trifurcating": ("gamma+2", 4, 6, False),
     "c2-8-bifurcating": ("gamma+2", 9, 8, True),
+    "c9-8-trifurcating": ("gamma+9", 3, 8, False),
+    "c9-7-bifurcating": ("gamma+9", 5, 7, True),
+    "c16-6-trifurcating": ("gamma+16", 4, 6, False),
 }
 
 
@@ -157,21 +169,44 @@ def test_one_pass_is_the_control(case):
     assert max_rel(ll1.numpy(), ll64) > 10 * max_rel(ll3.numpy(), ll64)
 
 
-@pytest.fixture(scope="module", params=[1e-6, 1e-7, 1e-8])
-def edge_case(request):
-    newick, aln = _synthetic.disagreeing_codons(0, 4, 64, request.param)
-    ops, _ = _kernel_operands(parse_newick_text(newick), aln, "constant")
+EDGES = [1e-6, 1e-7, 1e-8,
+         pytest.param((1e-6, "gamma+9"), id="gamma9-1e-06"),
+         pytest.param((1e-7, "gamma+9"), id="gamma9-1e-07")]
+
+
+@functools.cache
+def _edge(param):
+    """Every branch `length` long, at C = 1 where the parameter is the
+    length alone, else at (length, site)."""
+    length, site = (param if isinstance(param, tuple)
+                    else (param, "constant"))
+    newick, aln = _synthetic.disagreeing_codons(0, 4, 64, length)
+    ops, _ = _kernel_operands(parse_newick_text(newick), aln, site)
     ll64, g64 = paired.paired_ll_and_gradients_ref(
         *[x.double() if x.is_floating_point() else x for x in ops])
     return ops, ll64.numpy(), g64.numpy()
 
 
-def test_three_passes_keep_float32_range(edge_case):
+@pytest.fixture(scope="module", params=EDGES)
+def edge_case(request):
+    """The edge cases where one TF32 pass leaves the guard."""
+    return _edge(request.param)
+
+
+@pytest.fixture(scope="module", params=EDGES + [
+    pytest.param((1e-8, "gamma+9"), id="gamma9-1e-08")])
+def range_case(request):
+    """Every edge case, with C = 9 at every branch 1e-8, where one TF32
+    pass stays inside the guard (so the control does not take it)."""
+    return _edge(request.param)
+
+
+def test_three_passes_keep_float32_range(range_case):
     """At the edge of float32's range the 3xTF32 walk, which scales each
     category of a stored output by its own power of two and each child's
     product by its own factor before two are multiplied, stays finite and
     within CARD_LIMIT of float64 on the LL and the gradients."""
-    ops, ll64, g64 = edge_case
+    ops, ll64, g64 = range_case
     ll, g = paired.paired_ll_and_gradients_tf32(*ops)
     assert bool(torch.isfinite(ll).all()) and bool(torch.isfinite(g).all())
     assert max_rel(ll.numpy(), ll64) < CARD_LIMIT

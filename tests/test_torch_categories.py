@@ -21,11 +21,13 @@ them.
   - the on-chip plans and shared-memory sizes at 16 and 32 lanes, of the
     paired, chunked and per-node kernels;
   - the engine's route: auto takes the paired kernels on a card for a
-    shared 4-state model of 1-32 categories and the scan tape past 32
-    (and past 8 at 64 states), decided without a card;
-  - the limits: every 4-state family takes 1..32 categories, the A=64
-    kernels 1..8.
+    shared model of 4 or 64 states and 1-32 categories and the scan tape
+    past 32, decided without a card;
+  - the limits: every 4-state family and the A=64 kernels take 1..32
+    categories.
 """
+import itertools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +39,7 @@ from bito_tpu.treelike import pallas_chunked, pallas_paired, pallas_pruning
 from bito_tpu.treelike.engine import TreeLikelihoodEngine as JaxEngine
 from bito_tpu_torch import _synthetic
 from bito_tpu_torch.core.newick import parse_newick_text
+from bito_tpu_torch.core.site_pattern import CodonSitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
 from bito_tpu_torch.treelike import chunked, paired, pernode, prep
 from bito_tpu_torch.treelike.encode import encode_trees
@@ -200,15 +203,21 @@ def test_plan_at_16_and_32_lanes(C):
 def test_route_takes_the_paired_kernels_to_32_categories():
     """_route on a card device in float32 (the engine built on the CPU and
     then pointed at the card, which is all _route reads): the paired
-    kernels for a shared 4-state model of 1-32 categories, the scan tape
-    past 32, for per-tree rows and in float64; kernel='cuda' takes the
-    paired route at any count (its wrappers raise past 32 on the card)."""
+    kernels for a shared model of 4 or 64 states (MG94) and 1-32
+    categories, the scan tape past 32, for per-tree rows and in float64;
+    kernel='cuda' takes the paired route at any count (its wrappers raise
+    past 32 on the card)."""
     case = make_case(seed=5, num_taxa=5, num_sites=20, num_trees=1)
-    for C, want in ((1, "paired"), (4, "paired"), (9, "paired"),
-                    (16, "paired"), (32, "paired"), (33, "scan")):
+    names = list(case.alignment)
+    codons = CodonSitePattern(_synthetic.codon_alignment(6, names, 20, 15),
+                              names)
+    for (model, sp), (C, want) in itertools.product(
+            (("GTR", case.torch_pattern), ("MG94", codons)),
+            ((1, "paired"), (4, "paired"), (9, "paired"), (16, "paired"),
+             (32, "paired"), (33, "scan"))):
         te = TreeLikelihoodEngine(
-            case.torch_pattern, PhyloModel(PhyloModelSpecification(
-                "GTR", "constant" if C == 1 else f"gamma+{C}")),
+            sp, PhyloModel(PhyloModelSpecification(
+                model, "constant" if C == 1 else f"gamma+{C}")),
             device="cpu", dtype=torch.float32)
         assert te._route(True) == "scan"  # on the CPU
         te.device = torch.device("cuda")
@@ -219,7 +228,7 @@ def test_route_takes_the_paired_kernels_to_32_categories():
         te.kernel, te.dtype = "auto", F64
         assert te._route(True) == "scan"
     assert paired.max_categories(4) == paired.PAIRED_CATEGORIES == 32
-    assert paired.max_categories(64) == paired.MAX_CATEGORIES == 8
+    assert paired.max_categories(64) == paired.PAIRED_CATEGORIES
 
 
 def test_other_kernel_families_keep_8_categories():
@@ -227,12 +236,14 @@ def test_other_kernel_families_keep_8_categories():
     4-state paired kernels do, and refuse a 33rd: their plans, and the
     operand check their wrappers run on the card
     (paired._check_cuda_operands at max_categories(4)); the A=64 kernels
-    still refuse a 9th (max_categories(64))."""
+    take 1..32 as well and refuse a 33rd (max_categories(64))."""
     for C in (1, 9, 16, 32):
         assert chunked.onchip_plan(10, 12, 14, C, least=1) is not None
         assert pernode.onchip_plan(3, 40, 9, C, least=1) is not None
         paired._check_cuda_operands({}, {}, C, 4, paired.KERNEL_STATES,
                                     categories=paired.max_categories(4))
+        paired._check_cuda_operands({}, {}, C, 64, paired.KERNEL_STATES,
+                                    categories=paired.max_categories(64))
     with pytest.raises(ValueError, match="1..32"):
         chunked.onchip_plan(10, 12, 14, 33)
     with pytest.raises(ValueError, match="1..32"):
@@ -240,8 +251,8 @@ def test_other_kernel_families_keep_8_categories():
     with pytest.raises(ValueError, match="1..32"):
         paired._check_cuda_operands({}, {}, 33, 4, paired.KERNEL_STATES,
                                     categories=paired.max_categories(4))
-    with pytest.raises(ValueError, match="1..8"):
-        paired._check_cuda_operands({}, {}, 9, 64, paired.KERNEL_STATES,
+    with pytest.raises(ValueError, match="1..32"):
+        paired._check_cuda_operands({}, {}, 33, 64, paired.KERNEL_STATES,
                                     categories=paired.max_categories(64))
     with pytest.raises(TypeError):  # every caller states its limit
         paired._check_cuda_operands({}, {}, 9, 4)

@@ -11,7 +11,9 @@ NNI search's pieces (the whole-tree engine's float32 candidate scores
 against float64, the batched NNI scorer on the card against the CPU,
 Sankoff on the card against the CPU); and the MG94 codon path (both A=64
 kernels against their float64 plain versions, the engine's auto taking
-them, the float32 scan tape at 64 states refusing TF32); and the paired
+them, the float32 scan tape at 64 states refusing TF32; both at 9-32
+rate categories, the engine's auto taking them at 16, and their launches
+over slices of trees, bit-equal to one launch); and the paired
 kernels at 9-32 rate categories (both bodies of both kernels on 16 or 32
 lanes a pattern, at short branches too, past the on-chip limit, and the
 engine's auto taking them), and the chunked and per-node kernels there
@@ -741,6 +743,108 @@ def test_float32_codon_scan_refuses_tf32(cuda):
                                                            params)[1]).all())
 
 
+@pytest.mark.parametrize("C", [9, 16, 32])
+@pytest.mark.parametrize("scale", [1.0, 1e-6], ids=["bl", "bl1e-6"])
+def test_a64_kernels_past_8_categories_match_plain(cuda, C, scale):
+    """Both A=64 kernels at MG94+Gamma9/16/32 (before, they refused a 9th
+    category) on 9 taxa x 3 trees, at the branch lengths and at those
+    times 1e-6, against their plain versions in float64 on the same
+    float32 operands within A64_LIMIT."""
+    eng, trees, params = _codon_engine(f"gamma+{C}", 3, 9, 3, False, cuda,
+                                       torch.float32)
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(
+        eig, rates, clock, eng.branch_length_matrix(trees, enc) * scale,
+        Q=eng._rate_Q(params))
+    assert P.shape[2] == C
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    before = [f.launches for f in A64]
+    ll = paired.paired_log_likelihoods(dst, tip, e, P, tips, pi, prop, w)
+    ll2, g = paired.paired_ll_and_gradients(dst, tip, src, e, mask, P, dP,
+                                            tips, pi, prop, w)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(A64, before)] == [1, 1]
+    ll_ref, g_ref = paired.paired_ll_and_gradients_ref(
+        dst, tip, src, e, mask, *_f64(P, dP, tips, pi, prop, w))
+    assert all(bool(torch.isfinite(x).all()) for x in (ll, ll2, g))
+    assert _rel(ll, ll_ref) < A64_LIMIT and _rel(ll2, ll_ref) < A64_LIMIT
+    assert _norm(g, g_ref) < A64_LIMIT
+
+
+def test_engine_auto_takes_the_a64_kernels_at_16_categories(cuda):
+    """auto on the card in float32 at MG94+Gamma16 takes the two A=64
+    kernels (before, it took the scan tape past 8 categories) and agrees
+    with the float64 engine on the CPU within 5e-5; past 32 categories
+    auto takes the scan tape and kernel='cuda' raises."""
+    eng, trees, params = _codon_engine("gamma+16", 7, 8, 4, False, cuda,
+                                       torch.float32)
+    ref, _, ref_params = _codon_engine("gamma+16", 7, 8, 4, False, "cpu",
+                                       torch.float64)
+    assert eng._route(True) == "paired"
+    before, others = [f.launches for f in A64], [f.launches for f in PAIRED]
+    ll = eng.log_likelihoods(trees, params)
+    ll2, g = eng.ll_and_branch_gradients(trees, params)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(A64, before)] == [1, 1]
+    assert _launched(others) == [0, 0, 0, 0]
+    ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
+    assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
+    assert _norm(g.cpu(), g_ref) < 5e-5
+    wide, trees, params = _codon_engine("gamma+33", 7, 8, 2, False, cuda,
+                                        torch.float32)
+    assert wide._route(True) == "scan"
+    wide.kernel = "cuda"
+    before = [f.launches for f in A64]
+    with pytest.raises(ValueError, match="1..32 rate categories"):
+        wide.log_likelihoods(trees, params)
+    assert [f.launches for f in A64] == before
+
+
+def test_a64_tree_slices_give_the_rows_of_one_launch(cuda, monkeypatch):
+    """On a card that holds the scratch of two trees
+    (paired.a64_tree_bytes), its allocation and paired.a64_budget faked,
+    5 trees at MG94+Gamma9 take three launches of each A=64 kernel, over
+    paired.tree_slices under that budget, whose rows are bit-equal to one
+    launch's; a budget under one tree raises before any launch."""
+    eng, trees, params = _codon_engine("gamma+9", 3, 9, 5, False, cuda,
+                                       torch.float32)
+    dst, tip, src, e, mask, P, dP, tips, pi, prop, w = _a64_operands(
+        eng, trees, params)
+    tree = paired.a64_tree_bytes(dst.shape[1], tips.shape[-1], 9)
+    whole = (paired.paired_ll_a64(dst, tip, e, P, tips, pi, prop),
+             *paired.paired_grad_a64(dst, tip, src, e, P, dP, tips, pi,
+                                     prop, w))
+
+    allocate = paired._a64_scratch
+
+    def under(budget):
+        """A card on which `budget` bytes of scratch fit."""
+        def scratch(B, M, S, C, device):
+            if B * paired.a64_tree_bytes(M, S, C) > budget:
+                raise torch.cuda.OutOfMemoryError("the card is full")
+            return allocate(B, M, S, C, device)
+
+        monkeypatch.setattr(paired, "_a64_scratch", scratch)
+        monkeypatch.setattr(paired, "a64_budget", lambda device: budget)
+
+    before = [f.launches for f in A64]
+    under(2 * tree + tree // 2)
+    sliced = (paired.paired_ll_a64(dst, tip, e, P, tips, pi, prop),
+              *paired.paired_grad_a64(dst, tip, src, e, P, dP, tips, pi,
+                                      prop, w))
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(A64, before)] == [3, 3]
+    for a, b in zip(whole, sliced):
+        assert torch.equal(a, b)
+    under(tree - 1)
+    with pytest.raises(torch.cuda.OutOfMemoryError, match="bytes a tree"):
+        paired.paired_ll_a64(dst, tip, e, P, tips, pi, prop)
+    assert [f.launches - n for f, n in zip(A64, before)] == [3, 3]
+
+
 def _case_operands(eng, trees, params, patterns):
     """(enc, P, dP, tips, pi, prop, w) in float32 on the card, from
     prep.prepare_inputs_grad (the chunked and per-node routes' dP), with
@@ -999,7 +1103,7 @@ def _codon_pernode_operands(site, rooted, num_trees, patterns, device):
 
 @pytest.mark.parametrize("site,rooted,num_trees,patterns", [
     ("constant", False, 3, None), ("gamma+2", True, 2, 77),
-    ("weibull+4", False, 2, 130)])
+    ("weibull+4", False, 2, 130), ("gamma+16", True, 2, None)])
 def test_pernode_a64_functions_match_plain(cuda, site, rooted, num_trees,
                                            patterns):
     """pernode_log_likelihoods and pernode_ll_and_gradients at 64 states
@@ -1048,10 +1152,10 @@ def test_pernode_a64_raises_without_falling_back(cuda):
     with pytest.raises(TypeError):
         pernode.pernode_ll_and_gradients(*args[:4], P.double(), dP.double(),
                                          *args[6:])
-    with pytest.raises(ValueError, match="rate categories"):
+    with pytest.raises(ValueError, match="1..32 rate categories"):
         pernode.pernode_log_likelihoods(
-            post, root, P.repeat(1, 1, 9, 1, 1), tips, pi,
-            prop.repeat(9) / 9, w)
+            post, root, P.repeat(1, 1, 33, 1, 1), tips, pi,
+            prop.repeat(33) / 33, w)
     assert [f.launches for f in A64] == before
 
 

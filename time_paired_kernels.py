@@ -6,7 +6,7 @@ way to set one commit's kernels beside another's on one card, each
 checkout in a process of its own, in turns (first, second, second,
 first).
 
-    python3 time_paired_kernels.py [CHECKOUT] [C ...]
+    python3 time_paired_kernels.py [--codon] [CHECKOUT] [C ...]
 
 CHECKOUT (default: this script's directory) is the root of the checkout
 whose package is imported and whose kernels are built, into its own
@@ -18,7 +18,12 @@ each C it prints one line with the card's name and power limit: where
 the checkout's auto route takes the paired kernels, each kernel's ms
 (CUDA events, the mean of 50 calls after a warm-up, in two turns), and
 the auto route's LL+gradient call (branch_eval_fn) in ms and evals/s,
-whichever route it takes.  Needs a card and nvcc.
+whichever route it takes.  With --codon the workload is chip_smoke.py's
+codon path instead (bito_tpu's config6: 128 trees cycled from 10 random
+topologies of 27 taxa over 649 codons of 573 distinct patterns, MG94
+with config6's parameters, constant rates at C = 1 and Gamma C, shape
+0.8, past it), and the kernels are rows 1b-2b, the A=64 kernels (default
+C: 1).  Needs a card and nvcc.
 """
 from __future__ import annotations
 
@@ -26,17 +31,24 @@ import os
 import sys
 
 
+CODON_PARAMS = {"substitution_model_rates": [2.5, 0.3],
+                "substitution_model_frequencies": [0.3, 0.2, 0.3, 0.2]}
+
+
 def main(argv):
+    codon = argv[:1] == ["--codon"]
+    argv = argv[codon:]
     root = os.path.abspath(argv[0] if argv else os.path.dirname(
         os.path.abspath(__file__)))
-    counts = [int(c) for c in argv[1:]] or [4]
+    counts = [int(c) for c in argv[1:]] or [1 if codon else 4]
     sys.path.insert(0, root)
+    import numpy as np
     import torch
 
     from bito_tpu_torch import _synthetic
     from bito_tpu_torch.convert import params_from_numpy
     from bito_tpu_torch.core.newick import parse_newick_text
-    from bito_tpu_torch.core.site_pattern import SitePattern
+    from bito_tpu_torch.core.site_pattern import CodonSitePattern, SitePattern
     from bito_tpu_torch.models.phylo_model import (PhyloModel,
                                                    PhyloModelSpecification)
     from bito_tpu_torch.perflab import card_line, cuda_ms
@@ -53,16 +65,29 @@ def main(argv):
         sys.exit(f"imported {package}, not the package of {root}")
     card = card_line()
     dev = torch.device("cuda")
-    batch = 200
-    text, aln = _synthetic.ds1_shaped(0, batch)
-    coll = parse_newick_text(text)
-    sp = SitePattern(aln, coll.taxon_names)
-    trees = coll.trees
-    params = params_from_numpy(_synthetic.GTR_GAMMA4_PARAMS, dev,
-                               torch.float32)
+    if codon:
+        batch, model_name = 128, "MG94"
+        coll = parse_newick_text(_synthetic.random_trees_newick(
+            0, _synthetic.DS1_TAXA, 10))
+        sp = CodonSitePattern(_synthetic.codon_alignment(
+            0, coll.taxon_names, _synthetic.DS1_CODONS,
+            _synthetic.DS1_DISTINCT_CODON_COLUMNS), coll.taxon_names)
+        trees = [coll.trees[i % 10] for i in range(batch)]
+    else:
+        batch, model_name = 200, "GTR"
+        text, aln = _synthetic.ds1_shaped(0, batch)
+        coll = parse_newick_text(text)
+        sp = SitePattern(aln, coll.taxon_names)
+        trees = coll.trees
     for C in counts:
+        site = "constant" if codon and C == 1 else f"gamma+{C}"
+        raw = (dict(CODON_PARAMS, **({} if C == 1 else {
+            "site_model_parameters": [0.8]})) if codon
+               else _synthetic.GTR_GAMMA4_PARAMS)
+        params = params_from_numpy({k: np.asarray(v) for k, v in raw.items()},
+                                   dev, torch.float32)
         eng = TreeLikelihoodEngine(
-            sp, PhyloModel(PhyloModelSpecification("GTR", f"gamma+{C}")),
+            sp, PhyloModel(PhyloModelSpecification(model_name, site)),
             device=dev, dtype=torch.float32)
         enc = eng.encode(trees)
         bl = eng.branch_length_matrix(trees, enc)
@@ -71,9 +96,10 @@ def main(argv):
         if route == "paired":
             eig, rates, props, clock = eng._model_ingredients(params, batch)
             pi, prop = prep.kernel_model(eig, props)
-            P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl)
+            P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl,
+                                               Q=eng._rate_Q(params))
             dst, tip, src, e, mask = eng._paired_tapes(enc)
-            on = eng._onchip_tape(enc)
+            on = None if codon else eng._onchip_tape(enc)
             tips, w = eng._kernel_tips, eng._kernel_weights
             calls = {
                 "ll": lambda: paired.paired_log_likelihoods(
@@ -91,7 +117,8 @@ def main(argv):
         call = cuda_ms(lambda: fn(bl), 20 if route == "paired" else 3)
         parts.append(f"auto ({route}) call {call:.4f} ms, "
                      f"{batch / (call / 1e3):.1f} evals/s")
-        print(f"# {root}: GTR+Gamma{C}, {batch} trees x {eng.pattern_pad} "
+        print(f"# {root}: {model_name} {site}, {batch} trees x "
+              f"{eng.pattern_pad} "
               f"patterns: " + "; ".join(parts) + f"; on {card}", flush=True)
         del eng
         torch.cuda.empty_cache()
