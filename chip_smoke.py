@@ -15,7 +15,8 @@ LL kernel where its TP-likelihood scoring reaches it; a thirteenth, the
 MG94 codon models, runs the paired kernels' A=64 bodies, also at 16
 rate categories (codon-categories); a fourteenth,
 the dist path, runs the pattern-sharded engines on two ranks of the card
-(rows 1-4 and the A=64 bodies on every rank); then the leveled variant
+(rows 1-4 and the A=64 bodies on every rank); a fifteenth, the graft
+path, the driver's entry points (rows 1-2); then the leveled variant
 and the VI command line with a checkpoint:
   - paired: the engine's default (kernel="auto"), the on-chip bodies of
     paired_ll and paired_grad (csrc/paired_*_onchip.cu);
@@ -148,6 +149,15 @@ and the VI command line with a checkpoint:
     engine sharded beside the same trainer unsharded (dist_vbpi).  Then one rank over NCCL (`--dist-worker
     nccl`), and NCCL asked for two ranks on one card, which the launcher
     refuses before any worker starts;
+  - graft: the driver's entry points (bito_tpu_torch/graft_entry.py, the
+    counterpart of bito_tpu's __graft_entry__.py): entry()'s forward on
+    the card in float32 (batched GTR+Gamma4 LLs of 4 rooted trees of 8
+    taxa x 256 patterns, paired_ll_onchip alone), then
+    dryrun_multichip(DIST_RANKS): its six programs (a training step, the
+    GP engine, the flagship engine, a VBPI step, a GP-scored NNI search,
+    an MG94 engine on the scan tape) pattern-sharded over two Gloo ranks
+    of the card, started through the port's launcher, whose flagship
+    programs launch rows 1-2 on every rank;
   - leveled: the flagship's float64 engine with use_leveled (the
     levelized tapes, no hand-written kernel);
   - cli: `python -m bito_tpu_torch.vi.cli`'s benchmark (2 steps on a
@@ -294,7 +304,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      trainer's, the same trees drawn, and ms a step on the rank sharded
      and unsharded (dist_vbpi); the NCCL rank's
      auto call equal
-     to the unsharded call.  On the leveled path: within LEVELED_BOUND of
+     to the unsharded call.  On the graft path: only paired_ll_onchip
+     launched by the forward, its LLs finite, of shape [4] and within 5e-5
+     of the float64 plain version on the same inputs, its ms a call (CUDA
+     events) beside the kernel's alone on the card's name and limit; the
+     dryrun's OK line, each rank's results the same, and each rank's
+     launches of rows 1-2 (paired_ll_onchip and paired_grad_onchip both
+     launched on every rank).  On the leveled path: within LEVELED_BOUND of
      the scan tape, no kernel launched, both calls' ms.  On the cli path:
      only the two paired on-chip kernels launched, a finite final ELBO,
      the two CSVs with bito_tpu's columns, the .dot file; the restored
@@ -362,7 +378,8 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from bito_tpu_torch import PRODUCT_DEVICE, PRODUCT_DTYPE, _native, _synthetic
+from bito_tpu_torch import (PRODUCT_DEVICE, PRODUCT_DTYPE, _native, _synthetic,
+                            graft_entry)
 from bito_tpu_torch.convert import gp_state, gp_state_from_numpy, params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import CodonSitePattern, SitePattern
@@ -482,13 +499,15 @@ PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # name -> its source, its TPU kernel, the launcher that counts its
-# launches, its path and the other paths that launch it
+# launches, its path and the other paths that launch it (the graft path's
+# dryrun launches rows 1-2 in its ranks' processes, which count them
+# there: graft_path reads them from the ranks' lines)
 KERNELS = {
     "paired_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
         wrapper=paired.paired_ll_onchip, path="paired",
-        also=("vbpi", "rooted", "nni", "cli", "categories")),
+        also=("vbpi", "rooted", "nni", "cli", "categories", "graft")),
     "paired_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
@@ -500,7 +519,7 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
         wrapper=paired.paired_ll_onchip, path="categories",
-        also=("paired", "vbpi", "rooted", "nni", "cli")),
+        also=("paired", "vbpi", "rooted", "nni", "cli", "graft")),
     "paired_grad_onchip@C16": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
@@ -3991,6 +4010,86 @@ def dist_path(card):
     return runs
 
 
+GRAFT_REPS = 50  # CUDA-event calls of entry()'s forward and its kernel
+GRAFT_RANK = re.compile(r"dryrun_multichip\(\d+\): rank (\d+) of (\d+) "
+                        r"\((\w+), ([\w:]+), (\w+)\): launches (\{.*\}); "
+                        r"seconds (.*)$")
+
+
+def graft_path(card):
+    """The graft path (phase 3): the driver's entry points on the card.
+    entry()'s forward in float32 with the launch counts set to 0 just
+    before and read just after (paired_ll_onchip alone), held to the
+    float64 plain version on the same inputs within BOUND (LL relative),
+    and timed beside the kernel alone; then dryrun_multichip(DIST_RANKS),
+    whose ranks share the card over Gloo (its launcher's backend rule):
+    its OK line, and each rank's launches of rows 1-2, which must include
+    both paired on-chip kernels on every rank.  Returns (the forward's
+    launches of paired_ll_onchip, [each rank's {kernel: launches} of
+    rows 1-2])."""
+    fn, args = graft_entry.entry()
+    check(all(a.device.type == "cuda" and a.dtype == torch.float32
+              for a in args), "graft: entry() defaults to the card in "
+          "float32")
+    reset_launches()
+    ll = fn(*args)
+    torch.cuda.synchronize()
+    read_launches("graft")
+    forward_launches = KERNELS["paired_ll_onchip"]["wrapper"].launches
+    fn64, _ = graft_entry.entry(device="cpu")
+    ref = fn64(*[a.detach().cpu().double() for a in args])
+    check(ll.shape == ref.shape == (4,) and bool(torch.isfinite(ll).all()),
+          "graft: entry()'s forward gives 4 finite LLs")
+    err = rel_err(ll.cpu(), ref)
+    forward_ms = cuda_ms(lambda: fn(*args), GRAFT_REPS)
+    ops = fn.operands(*args)
+    onchip = paired.onchip_tape(ops[0].cpu().numpy(), ops[1].cpu().numpy(),
+                                ops[0].device)
+    kernel_ms = cuda_ms(lambda: paired.paired_log_likelihoods(
+        *ops, onchip=onchip), GRAFT_REPS)
+    print(f"# phase 3: graft path: entry() forward ({ops[0].shape[0]} trees "
+          f"x {ops[4].shape[-1]} patterns, {ops[4].shape[0]} taxa, "
+          f"GTR+Gamma4, rooted): launches {{'paired_ll_onchip': "
+          f"{forward_launches}}}; LL rel err {err:.3e} against the float64 "
+          f"plain version (bound {BOUND:g}); {forward_ms:.4f} ms a call "
+          f"(CUDA events, P formed on the card), the kernel alone "
+          f"{kernel_ms:.4f} ms on {card}")
+    check(err <= BOUND, "graft: the forward within the bound of float64")
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        graft_entry.dryrun_multichip(DIST_RANKS)
+    seconds = time.perf_counter() - t0
+    lines = text.getvalue().splitlines()
+    for line in lines:
+        print(f"# phase 3: graft {line}")
+    check(bool(lines) and lines[-1].startswith(
+        f"dryrun_multichip({DIST_RANKS}): loss=")
+          and lines[-1].endswith(" OK"), "graft: the dryrun's OK line")
+    ranks = {}
+    for line in lines:
+        m = GRAFT_RANK.match(line)
+        if m:
+            counts = json.loads(m.group(6))
+            ranks[int(m.group(1))] = {
+                name: sum(c.get(name, 0) for c in counts.values())
+                for name in graft_entry.ROW_LAUNCHERS}
+            check(m.group(3) == "gloo" and m.group(4).startswith("cuda")
+                  and m.group(5) == "float32", f"graft: rank {m.group(1)} "
+                  "ran over Gloo on the card in float32")
+    check(sorted(ranks) == list(range(DIST_RANKS)),
+          "graft: every rank reported")
+    for r, counts in sorted(ranks.items()):
+        check(counts["paired_ll_onchip"] > 0
+              and counts["paired_grad_onchip"] > 0,
+              f"graft: rank {r} launched rows 1-2")
+    print(f"# phase 3: graft dryrun_multichip({DIST_RANKS}) in "
+          f"{seconds:.1f} s; rows 1-2 launches per rank "
+          + "; ".join(f"rank {r} {c}" for r, c in sorted(ranks.items()))
+          + f" (two ranks share the card) on {card}")
+    return forward_launches, [ranks[r] for r in sorted(ranks)]
+
+
 def leveled_path(ref, trees, params64, card):
     """The leveled variant (use_leveled) in float64 at the flagship shape,
     held to the scan tape within LEVELED_BOUND (LL relative, gradients
@@ -4448,6 +4547,9 @@ def main():
     t0 = time.perf_counter()
     dist_path(card)
     print(f"# phase 3: the dist path took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    graft_path(card)
+    print(f"# phase 3: the graft path took {time.perf_counter() - t0:.1f} s")
     leveled_path(ref, trees, params64, card)
     cli_path(dev, card)
 

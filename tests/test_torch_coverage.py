@@ -1,7 +1,8 @@
 """Every module of bito_tpu has a counterpart in bito_tpu_torch: the same
 path, or one of the explicitly mapped exceptions below.  Likewise every
 function of bito_tpu's package __init__, with one exception that has no
-counterpart."""
+counterpart, and every function of the driver's entry points
+(__graft_entry__.py at the root) in bito_tpu_torch/graft_entry.py."""
 import ast
 import pathlib
 
@@ -57,3 +58,9 @@ def test_package_functions_have_counterparts():
     assert NO_COUNTERPART <= jax_fns
     assert jax_fns - NO_COUNTERPART <= _functions(PORT / "__init__.py")
     assert not NO_COUNTERPART & _functions(PORT / "__init__.py")
+
+
+@pytest.mark.parametrize("function",
+                         sorted(_functions(ROOT / "__graft_entry__.py")))
+def test_graft_entry_functions_have_counterparts(function):
+    assert function in _functions(PORT / "graft_entry.py")

@@ -18,7 +18,8 @@ kernels at 9-32 rate categories (both bodies of both kernels on 16 or 32
 lanes a pattern, at short branches too, past the on-chip limit, and the
 engine's auto taking them), and the chunked and per-node kernels there
 (every body against float64, at short branches too, past the on-chip
-limit, and the engine's chunked route at 16).
+limit, and the engine's chunked route at 16); and the driver's entry()
+forward (graft_entry.py), which takes the paired on-chip LL body alone.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -36,7 +37,7 @@ import numpy as np
 import pytest
 import torch
 
-from bito_tpu_torch import _synthetic
+from bito_tpu_torch import _synthetic, graft_entry
 from bito_tpu_torch.api.instances import rooted_instance, unrooted_instance
 from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
@@ -2198,3 +2199,21 @@ def test_leveled_variant_on_the_card_matches_the_scan_tape(cuda, rooted):
     for ll in (ll_l, ll_g):
         assert ((ll - ll_s).abs() / ll_s.abs()).max().item() <= 1e-10
     assert ((g_l - g_s).abs().max() / g_s.abs().max()).item() <= 1e-10
+
+
+def test_graft_entry_forward_takes_the_onchip_ll_kernel(cuda):
+    """entry() defaults to the card in float32, and its forward launches
+    the paired on-chip LL body once a call and no other paired body; its
+    LLs within 5e-5 of the float64 plain version (entry on the CPU) on the
+    same inputs."""
+    fn, args = graft_entry.entry()
+    assert all(a.device.type == "cuda" and a.dtype == torch.float32
+               for a in args)
+    before = [f.launches for f in PAIRED]
+    ll = fn(*args)
+    torch.cuda.synchronize()
+    assert _launched(before) == [1, 0, 0, 0]
+    fn64, _ = graft_entry.entry(device="cpu")
+    ref = fn64(*[a.cpu().double() for a in args])
+    assert ll.shape == (4,) and torch.isfinite(ll).all()
+    assert _rel(ll.cpu(), ref) <= 5e-5

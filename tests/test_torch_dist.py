@@ -18,7 +18,11 @@ test_torch_rooted.py holds to bito_tpu's), and a VBPI trainer (Burrito,
 gradient steps and an ELBO estimate against the same trainer unsharded
 within 1e-8 (test_torch_vi.py holds that one to bito_tpu's), the same
 samples on both ranks, and the engine's guard raising on both ranks once
-rank 1 draws other topologies; one 3-rank run an MG94 engine
+rank 1 draws other topologies, then the driver's dryrun inside the job
+(graft_entry.dryrun_results: its training step, GP engine, VBPI step and
+codon engine against bito_tpu's unsharded programs on the same synthetic
+inputs, the codon engine within 1e-10; its flagship engine and NNI
+search the same on both ranks); one 3-rank run an MG94 engine
 whose padded pattern count is not a multiple of 3 (the port pads with
 64-state tips, where bito_tpu/treelike/engine.py:401-402 pads with
 4-state ones).  Bounds are tests/test_dist.py's: LL 1e-9, gradients 1e-8,
@@ -69,6 +73,8 @@ ROOTED_KEYS = ("branch_lengths", "ratios_root_height", "clock_model",
 VBPI = dict(seed=8, taxa=6, trees=10, sites=100, particles=4, burrito=3,
             steps=2)
 VBPI_BOUND = 1e-8
+# The dryrun's codon engine against bito_tpu's unsharded scan tape
+CODON_BOUND = 1e-10
 
 
 def _flagship_inputs():
@@ -328,6 +334,24 @@ def _vbpi_worker(out, directory):
         out["vbpi_guard"] = str(err)
 
 
+def _dryrun_worker(out):
+    """The driver's dryrun inside this job (graft_entry.dryrun_results:
+    the rank body on the world, every rank's results gathered and checked
+    equal), in float64 on the CPU: this rank's results under dryrun_
+    keys."""
+    from bito_tpu_torch import graft_entry
+
+    results = graft_entry.dryrun_results(2, device="cpu")
+    rank = multihost.process_index()
+    assert [r["rank"] for r in results] == [0, 1]
+    for r in results:  # the CPU runs the plain versions, no kernel
+        assert not any(n for counts in r["launches"].values()
+                       for n in counts.values())
+    for key, value in results[rank].items():
+        if key not in ("rank", "size", "launches", "seconds"):
+            out[f"dryrun_{key}"] = np.asarray(value)
+
+
 def _codon_worker(out):
     from bito_tpu_torch.convert import params_from_numpy
     from bito_tpu_torch.core.newick import parse_newick_text
@@ -373,6 +397,9 @@ def _worker(case, path, directory=None):
               flush=True)
         _rooted_worker(out, os.path.join(directory, f"rooted{rank}"))
         print(f"rank {rank}: rooted {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        _dryrun_worker(out)
+        print(f"rank {rank}: dryrun {time.perf_counter() - t0:.1f} s",
               flush=True)
         _vbpi_worker(out, os.path.join(directory, f"vbpi{rank}"))
     else:
@@ -486,6 +513,86 @@ def _jax_codon():
     return np.asarray(ll), np.asarray(grads)
 
 
+def _jax_dryrun(directory):
+    """bito_tpu's unsharded counterparts of the dryrun's programs 1, 2, 4
+    and 6 on the inputs that graft_entry makes: the training step
+    (__graft_entry__._toy_inputs, pruning.ll_and_branch_gradients_impl,
+    the ascent step), the GP engine's flow, the VBPI step and the codon
+    engine's scan tape in float64."""
+    import importlib.util
+
+    import jax.numpy as jnp
+
+    from bito_tpu.api.gp import gp_instance as jax_gp
+    from bito_tpu.core.newick import parse_newick_text as jparse
+    from bito_tpu.core.site_pattern import CodonSitePattern as JCodon
+    from bito_tpu.models.phylo_model import PhyloModel as JModel
+    from bito_tpu.models.phylo_model import PhyloModelSpecification as JSpec
+    from bito_tpu.models.site import gamma_median_category_rates
+    from bito_tpu.models.substitution import gtr_eigen
+    from bito_tpu.treelike import pruning
+    from bito_tpu.treelike.engine import TreeLikelihoodEngine as JEngine
+    from bito_tpu.vi.burrito import Burrito as JaxBurrito
+    from bito_tpu_torch import graft_entry
+
+    spec = importlib.util.spec_from_file_location(
+        "graft_entry_reference", ROOT / "__graft_entry__.py")
+    reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reference)
+    out = {}
+    train = graft_entry.TRAIN
+    S = mesh.pad_to_multiple(train["num_patterns"], 2)
+    enc, bl, tips, weights, rates6, freqs = reference._toy_inputs(
+        num_taxa=train["num_taxa"], num_patterns=S, batch=train["batch"])
+    B, C = bl.shape[0], graft_entry.ENTRY_CATEGORIES
+    eig = gtr_eigen(rates6, freqs)
+
+    def bcast(x):
+        return jnp.broadcast_to(x, (B,) + x.shape)
+
+    ll, grads = pruning.ll_and_branch_gradients_impl(
+        jnp.asarray(enc.post_ops), jnp.asarray(enc.pre_ops),
+        jnp.asarray(enc.root), jnp.asarray(enc.edge_mask, dtype=bl.dtype),
+        tips, weights, bl, type(eig)(*(bcast(x) for x in eig)),
+        bcast(gamma_median_category_rates(
+            jnp.asarray(graft_entry.GAMMA_SHAPE), C)),
+        bcast(jnp.full((C,), 1.0 / C)), jnp.ones((B,), bl.dtype),
+        num_slots=enc.num_slots, pattern_pad=S, category_count=C)
+    out["loss"] = float(ll.sum())
+    out["new_bl"] = np.asarray(jnp.maximum(bl + graft_entry.STEP * grads,
+                                           graft_entry.MIN_LENGTH))
+    paths = graft_entry.write_inputs(directory)
+    inst = jax_gp("")
+    inst.read_fasta_file(paths["hello.fasta"])
+    inst.read_newick_file(paths["hello_rooted.nwk"])
+    inst.make_gp_engine()
+    inst.populate_plvs()
+    inst.compute_likelihoods()
+    inst.get_gp_engine().optimize_branch_lengths_once()
+    out["gp_marginal"] = inst.get_log_marginal_likelihood()
+    vbpi = graft_entry.VBPI
+    burrito = JaxBurrito(
+        mcmc_nexus_path=paths["vbpi.t"], burn_in_fraction=0.0,
+        fasta_path=paths["vbpi.fasta"],
+        phylo_model_specification=JSpec("JC69", "constant", "strict"),
+        branch_model_name="split", scalar_model_name="lognormal",
+        optimizer_name="simple", particle_count=vbpi["particles"],
+        seed=vbpi["burrito"])
+    burrito.gradient_step()
+    out["vbpi_elbo"] = burrito.estimate_elbo(particle_count=vbpi["particles"])
+    text, aln = graft_entry.codon_inputs()
+    coll = jparse(text)
+    eng = JEngine(JCodon(aln, coll.taxon_names), JModel(JSpec("MG94")))
+    eng.kernel = "scan"
+    trees = coll.trees[:2]
+    for t in trees:
+        t.branch_lengths[:] = graft_entry.BRANCH_LENGTH
+    ll, grads = eng.ll_and_branch_gradients(
+        trees, {k: np.asarray(v) for k, v in graft_entry.MG94_PARAMS.items()})
+    out["codon_ll"], out["codon_grad"] = np.asarray(ll), np.asarray(grads)
+    return out
+
+
 def _same_on_every_rank(ranks, keys):
     for key in keys:
         for r in ranks[1:]:
@@ -494,9 +601,10 @@ def _same_on_every_rank(ranks, keys):
 
 def test_two_ranks_match_bito_tpus_unsharded_engines(tmp_path):
     """2 ranks over Gloo: every route of the flagship-like engine, the GP
-    engine after estimate_branch_lengths and one GP-scored NNI iteration,
-    the same on both ranks and within test_dist.py's bounds of bito_tpu's
-    unsharded engines."""
+    engine after estimate_branch_lengths, one GP-scored NNI iteration and
+    the driver's dryrun programs, the same on both ranks and within
+    test_dist.py's bounds of bito_tpu's unsharded engines (the dryrun's
+    codon engine within CODON_BOUND)."""
     out = tmp_path / "pair"
     proc = _launch(tmp_path, ["-n", "2", "--device", "cpu", "--backend",
                               "gloo", "--stall-timeout", STALL_TIMEOUT],
@@ -506,6 +614,7 @@ def test_two_ranks_match_bito_tpus_unsharded_engines(tmp_path):
     nni_ref = _jax_nni(tmp_path / "jax_nni")
     vbpi_ref = {}
     _vbpi_run(_vbpi_burrito(tmp_path / "vbpi_unsharded"), vbpi_ref, "vbpi")
+    dryrun_ref = _jax_dryrun(tmp_path / "jax_dryrun")
     rc, stdout, stderr = _finish(proc)
     assert rc == 0, stdout[-3000:] + stderr[-3000:]
     ranks = _ranks(out, 2)
@@ -572,6 +681,32 @@ def test_two_ranks_match_bito_tpus_unsharded_engines(tmp_path):
         guard = str(rank["vbpi_guard"])
         assert "different tree topologies" in guard, guard
         assert "rank(s) [1] differ from rank 0" in guard, guard
+    # The dryrun's programs (their results the same on both ranks, above)
+    # against bito_tpu's unsharded ones: the training step's loss and
+    # updated lengths, the GP log marginal, the VBPI ELBO and the codon
+    # engine; the flagship engine (float32, as bito_tpu's) and the NNI
+    # search finite, the LL call beside the gradient call's LL.
+    assert str(r["dryrun_dtype"]) == "float64"
+    assert abs(float(r["dryrun_loss"]) - dryrun_ref["loss"]) <= LL_BOUND
+    np.testing.assert_allclose(r["dryrun_new_bl"], dryrun_ref["new_bl"],
+                               rtol=0, atol=GRAD_BOUND)
+    assert abs(float(r["dryrun_gp_marginal"])
+               - dryrun_ref["gp_marginal"]) <= GP_BOUND
+    np.testing.assert_allclose(float(r["dryrun_vbpi_elbo"]),
+                               dryrun_ref["vbpi_elbo"], rtol=VBPI_BOUND,
+                               atol=VBPI_BOUND)
+    np.testing.assert_allclose(r["dryrun_codon_ll"], dryrun_ref["codon_ll"],
+                               rtol=CODON_BOUND, atol=0)
+    scale = max(1.0, float(np.abs(dryrun_ref["codon_grad"]).max()))
+    np.testing.assert_allclose(r["dryrun_codon_grad"],
+                               dryrun_ref["codon_grad"], rtol=0,
+                               atol=CODON_BOUND * scale)
+    assert r["dryrun_cuda_ll"].shape == (2,)
+    np.testing.assert_allclose(r["dryrun_cuda_ll_only"], r["dryrun_cuda_ll"],
+                               rtol=5e-5, atol=0)
+    assert 1 <= int(r["dryrun_nni_iters"]) <= 2
+    assert r["dryrun_nni_scores"].size and np.isfinite(
+        r["dryrun_nni_scores"]).all()
 
 
 def test_three_ranks_shard_a_codon_engine(tmp_path):

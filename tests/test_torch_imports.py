@@ -43,7 +43,8 @@ print("ok", len({modules!r}))
 def test_imports_without_jax_or_bito_tpu():
     """Every module of the port, the perf lab's, the native library's, the
     rooted instance's, the GP engine's, the NNI search's (parsimony/,
-    tp/, nni/) and the codon models' included (and the package with its whole top-level API), imports in a fresh interpreter where
+    tp/, nni/), the codon models' and the driver's entry points
+    (graft_entry) included (and the package with its whole top-level API), imports in a fresh interpreter where
     jax cannot be imported, none of them loads bito_tpu, and no import
     loads the kernel library or the native one."""
     assert {"bito_tpu_torch.perflab", "bito_tpu_torch.perflab.__main__",
@@ -61,8 +62,8 @@ def test_imports_without_jax_or_bito_tpu():
             "bito_tpu_torch.tp.engine", "bito_tpu_torch.tp.eval_engine",
             "bito_tpu_torch.tp.batch_scorer", "bito_tpu_torch.nni",
             "bito_tpu_torch.nni.engine", "bito_tpu_torch.nni.golden",
-            "bito_tpu_torch.nni.search", "bito_tpu_torch.models.codon"
-            } <= set(MODULES)
+            "bito_tpu_torch.nni.search", "bito_tpu_torch.models.codon",
+            "bito_tpu_torch.graft_entry"} <= set(MODULES)
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE.format(modules=MODULES)],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
