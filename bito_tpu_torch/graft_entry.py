@@ -20,9 +20,10 @@ ranks runs the programs on the job's group; called outside one, it
 starts n ranks through `python -m bito_tpu_torch.dist.launch` (NCCL where
 each rank has a card of its own, Gloo where ranks share one), each of
 which runs `dryrun_rank`; `dryrun_results` returns every rank's results
-where `dryrun_multichip` prints them.  bito_tpu reads the dryrun's inputs from the
-reference's data directory; here they are synthetic stand-ins of the
-same taxon counts made from fixed seeds (`write_inputs`, _synthetic.py).
+where `dryrun_multichip` prints them.  bito_tpu reads the dryrun's inputs
+from the reference's data directory; here they are synthetic stand-ins
+of the same taxon counts made from fixed seeds (`write_inputs`,
+_synthetic.py).
 
 Everything runs on the card unless the caller passes device="cpu" (then
 in float64, where the tests hold it to bito_tpu).  Every check raises
@@ -78,6 +79,10 @@ MG94_PARAMS = {"substitution_model_rates": [2.5, 0.3],
                "substitution_model_frequencies": [0.3, 0.2, 0.3, 0.2]}
 # bito_tpu's tolerances for the sharded codon engine against the unsharded
 CODON_LL_RTOL, CODON_GRAD_RTOL, CODON_GRAD_ATOL = 1e-5, 1e-3, 1e-4
+# Programs 1, 3 and 4 against the float64 plain versions on the same
+# inputs, unsharded (bench.py's on-device parity guard): LL relative,
+# gradients relative to the largest
+BOUND = 5e-5
 # The launcher's heartbeat and wall-clock limits for the dryrun's ranks
 STALL_S, HARD_S = 240, 900
 # Rows 1 and 2 of the port's kernel table: each body's launcher
@@ -291,15 +296,41 @@ def _host(x):
     return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
 
 
-def train_step(group, device, dtype):
-    """Program 1: LL and branch gradients of the toy batch through the
-    pattern-sharded paired kernel wrapper, then one ascent step
-    bl <- max(bl + STEP g, MIN_LENGTH).  Returns (ll [B], new bl)."""
-    from .dist.mesh import group_rank_size, pad_to_multiple
-    from .dist.multihost import place
+def _ll_err(ll, ref) -> float:
+    """The largest relative error of log likelihoods."""
+    ll, ref = _host(ll).astype(np.float64), _host(ref).astype(np.float64)
+    return float(np.max(np.abs(ll - ref) / np.abs(ref)))
 
-    _rank, size = group_rank_size(group)
-    S = pad_to_multiple(TRAIN["num_patterns"], size)
+
+def _errors(ll, grads, ll_ref, grads_ref) -> list:
+    """[LL relative error, gradient error relative to the largest
+    reference gradient] of (ll, grads) against float64 references."""
+    grads, grads_ref = (_host(x).astype(np.float64)
+                        for x in (grads, grads_ref))
+    return [_ll_err(ll, ll_ref), float(np.max(np.abs(grads - grads_ref))
+                                       / np.max(np.abs(grads_ref)))]
+
+
+def _plain(eng, trees, params):
+    """LL and branch gradients of `trees` under `params` by the float64
+    scan tape on the CPU over `eng`'s site patterns and model, unsharded:
+    the reference of an engine that ran the kernels."""
+    from .treelike.engine import TreeLikelihoodEngine
+
+    ref = TreeLikelihoodEngine(eng.site_pattern, eng.model, device="cpu",
+                               dtype=torch.float64)
+    ref.kernel = "scan"
+    return ref.ll_and_branch_gradients(
+        trees, {k: v.detach().to("cpu", torch.float64)
+                for k, v in params.items()})
+
+
+def _train_inputs(S, device, dtype):
+    """The training step's toy batch on S patterns: (bl [B, num_slots] in
+    float64 on `device`; the wrapper's operands before the tips, the
+    tapes, edge mask, P and dP, in `dtype`; the tips [T, S, 4] and
+    weights [S] as numpy; pi and the proportions in `dtype`; the on-chip
+    tape)."""
     enc, bl, tips, weights, rates6, freqs = _toy_inputs(
         num_taxa=TRAIN["num_taxa"], num_patterns=S, batch=TRAIN["batch"])
     dst, tip, src, e, mask, onchip = _paired_tapes(enc, device)
@@ -313,15 +344,36 @@ def train_step(group, device, dtype):
     P, dP = prep.prepare_inputs_grad_q(
         EigenDecomp(*(rows(x) for x in eig)), rows(rates),
         torch.ones((B,), dtype=torch.float64, device=device), bl64, dtype)
+    return (bl64, (dst, tip, src, e, mask.to(dtype), P, dP), tips, weights,
+            (eig.pi.to(dtype), props.to(dtype)), onchip)
+
+
+def train_step(group, S, device, dtype):
+    """Program 1: LL and branch gradients of the toy batch on S patterns
+    through the pattern-sharded paired kernel wrapper, then one ascent
+    step bl <- max(bl + STEP g, MIN_LENGTH).  Returns (ll [B], gradients,
+    new bl), whole on every rank."""
+    from .dist.multihost import place
+
+    bl64, head, tips, weights, tail, onchip = _train_inputs(S, device, dtype)
     shard = place(tips, device=device, dtype=dtype, pattern_axis=1,
                   group=group).transpose(1, 2).contiguous()
     w = place(weights, device=device, dtype=dtype, pattern_axis=0,
               group=group)
     ll, grads = paired.paired_ll_and_gradients_sharded(
-        group, dst, tip, src, e, mask.to(dtype), P, dP, shard,
-        eig.pi.to(dtype), props.to(dtype), w, onchip=onchip)
-    new_bl = torch.clamp(bl64.to(dtype) + STEP * grads, min=MIN_LENGTH)
-    return ll, new_bl
+        group, *head, shard, *tail, w, onchip=onchip)
+    return ll, grads, torch.clamp(bl64.to(dtype) + STEP * grads,
+                                  min=MIN_LENGTH)
+
+
+def train_plain(S):
+    """Program 1's LL and gradients on S patterns by the paired wrapper's
+    plain version, unsharded, in float64 on the CPU."""
+    _bl, head, tips, weights, tail, _ = _train_inputs(
+        S, torch.device("cpu"), torch.float64)
+    return paired.paired_ll_and_gradients(
+        *head, torch.as_tensor(tips).transpose(1, 2).contiguous(), *tail,
+        torch.as_tensor(weights))
 
 
 def gp_program(paths, group, device, dtype):
@@ -370,14 +422,16 @@ def flagship_program(group, device):
         {k: np.asarray(v) for k, v in FLAGSHIP_PARAMS.items()}, device,
         torch.float32)
     ll, grads = like.ll_and_branch_gradients(trees, params)
-    return ll, grads, like.log_likelihoods(trees, params)
+    return (ll, grads, like.log_likelihoods(trees, params), like, trees,
+            params)
 
 
 def vbpi_program(paths, group, device, dtype):
     """Program 4: one VBPI gradient step with the instance engine sharded
     (JC69, the split branch model, lognormal scalars, the simple
     optimizer), then an ELBO estimate.  Every rank makes the trainer from
-    the same seed, so every rank draws the same trees."""
+    the same seed, so every rank draws the same trees.  Returns (the
+    ELBO, the trainer)."""
     from .models.phylo_model import PhyloModelSpecification
     from .vi.burrito import Burrito
 
@@ -393,13 +447,14 @@ def vbpi_program(paths, group, device, dtype):
     _check(burro.inst.engine.group is not None,
            "the VBPI instance engine is not sharded")
     burro.gradient_step()
-    return burro.estimate_elbo(particle_count=VBPI["particles"])
+    return burro.estimate_elbo(particle_count=VBPI["particles"]), burro
 
 
 def nni_program(paths, group, device, dtype):
     """Program 5: a GP-scored NNI search of at most NNI_ITERS iterations
     on the five-taxon stand-in, its scoring sharded.  Returns
-    (iterations, scores)."""
+    (iterations, the scored NNIs' keys joined by "|" and sorted, their
+    scores)."""
     from .api.gp import gp_instance
 
     inst = gp_instance("dryrun_nni", device=device, dtype=dtype)
@@ -417,7 +472,10 @@ def nni_program(paths, group, device, dtype):
         if not nni.run_main_loop():
             break
         it += 1
-    return it, np.array(list(nni.scored.values()), dtype=np.float64)
+    scores = nni.scored_nnis()
+    keys = sorted(scores)
+    return (it, ["|".join(k) for k in keys],
+            np.array([scores[k] for k in keys], dtype=np.float64))
 
 
 def codon_program(group, device, dtype):
@@ -459,19 +517,22 @@ def codon_program(group, device, dtype):
     return ll_c, g_c, ll_u, g_u
 
 
-def dryrun_rank(group=None, device=None, dtype=None) -> dict:
+def dryrun_rank(device=None) -> dict:
     """The dryrun's six programs on this rank's share of the site
-    patterns of `group` (the world where None), on `device` (the card in
-    float32 where None; the CPU in float64).  Program 3 runs in float32,
-    as bito_tpu's does.  Returns their results, whole on every rank, and
-    this rank's launches of rows 1-2 (each body's launcher) per program.
-    On the card the flagship programs (1, 3 and 4) must have launched the
-    paired kernels, row 2 in each and row 1 in 3 and 4; the codon program
-    takes the scan tape and launches neither."""
-    from .dist.mesh import group_rank_size, make_group
+    patterns of the world, on `device` (the card in float32 where None;
+    the CPU in float64).  Program 3 runs in float32, as bito_tpu's does.
+    Returns their results, whole on every rank, and this rank's launches
+    of rows 1-2 (each body's launcher) per program.  Programs 1, 3 and 4
+    are held within BOUND of the float64 plain versions on the same
+    inputs, unsharded, on the CPU (program 4 on its trainer's last
+    sample, by calls outside its count of launches).  On the card the
+    flagship programs (1, 3 and 4) must have launched the paired
+    kernels, row 2 in each and row 1 in 3 and 4; the codon program takes
+    the scan tape and launches neither."""
+    from .dist.mesh import group_rank_size, make_group, pad_to_multiple
 
-    device, dtype = _devtype(device, dtype)
-    group = make_group() if group is None else group
+    device, dtype = _devtype(device, None)
+    group = make_group()
     rank, size = group_rank_size(group)
     out = {"rank": rank, "size": size, "device": str(device),
            "dtype": str(dtype).replace("torch.", "")}
@@ -484,10 +545,17 @@ def dryrun_rank(group=None, device=None, dtype=None) -> dict:
         print(f"# dryrun rank {rank}: {program} took "
               f"{seconds[program]:.1f} s", flush=True)
 
+    def held(program, errors):
+        out[program + "_err"] = errors
+        _check(max(errors) <= BOUND, f"{program}: the kernels' LL or "
+               f"gradients differ from the float64 plain version by "
+               f"{errors} (bound {BOUND:g})")
+
     with tempfile.TemporaryDirectory() as tmp:
         paths = write_inputs(tmp)
+        S = pad_to_multiple(TRAIN["num_patterns"], size)
         before = _launch_counts()
-        ll, new_bl = train_step(group, device, dtype)
+        ll, grads, new_bl = train_step(group, S, device, dtype)
         out["loss"], out["ll"], out["new_bl"] = (float(ll.sum()), _host(ll),
                                                  _host(new_bl))
         _check(np.isfinite(out["loss"]), "the training step's loss is not "
@@ -495,13 +563,15 @@ def dryrun_rank(group=None, device=None, dtype=None) -> dict:
         _check(np.isfinite(out["new_bl"]).all(), "the training step's "
                "branch lengths are not finite")
         done("train", before)
+        held("train", _errors(ll, grads, *train_plain(S)))
         before = _launch_counts()
         out["gp_marginal"] = gp_program(paths, group, device, dtype)
         _check(np.isfinite(out["gp_marginal"]),
                "the GP engine's log marginal is not finite")
         done("gp", before)
         before = _launch_counts()
-        ll_p, g_p, ll_only = flagship_program(group, device)
+        ll_p, g_p, ll_only, like, trees, params = flagship_program(group,
+                                                                   device)
         out["cuda_ll"], out["cuda_grad"], out["cuda_ll_only"] = (
             _host(ll_p), _host(g_p), _host(ll_only))
         _check(np.isfinite(out["cuda_ll"]).all()
@@ -510,14 +580,22 @@ def dryrun_rank(group=None, device=None, dtype=None) -> dict:
                "the sharded flagship engine's LL or gradients are not "
                "finite")
         done("flagship", before)
+        ll_r, g_r = _plain(like, trees, params)
+        held("flagship", _errors(ll_p, g_p, ll_r, g_r)
+             + [_ll_err(ll_only, ll_r)])
         before = _launch_counts()
-        out["vbpi_elbo"] = vbpi_program(paths, group, device, dtype)
+        out["vbpi_elbo"], burro = vbpi_program(paths, group, device, dtype)
         _check(np.isfinite(out["vbpi_elbo"]),
                "the sharded VBPI step's ELBO is not finite")
         done("vbpi", before)
+        trees, params = (burro.inst.tree_collection.trees,
+                         burro.inst._params_dict())
+        held("vbpi", _errors(
+            *burro.inst.engine.ll_and_branch_gradients(trees, params),
+            *_plain(burro.inst.engine, trees, params)))
         before = _launch_counts()
-        out["nni_iters"], out["nni_scores"] = nni_program(paths, group,
-                                                          device, dtype)
+        out["nni_iters"], out["nni_keys"], out["nni_scores"] = nni_program(
+            paths, group, device, dtype)
         _check(out["nni_scores"].size > 0
                and np.isfinite(out["nni_scores"]).all(),
                "the sharded NNI search scored nothing finite")
@@ -548,17 +626,36 @@ def ok_line(n_devices: int, r: dict) -> str:
             f"codon_ll={float(r['codon_ll'][0]):.4f} OK")
 
 
+def rank_line(n_devices: int, r: dict) -> str:
+    """One rank's backend, device, dtype, launches of rows 1-2 and
+    seconds a program."""
+    launched = {program: {k: n for k, n in counts.items() if n}
+                for program, counts in r["launches"].items()}
+    return (f"dryrun_multichip({n_devices}): rank {r['rank']} of "
+            f"{r['size']} ({r['backend']}, {r['device']}, {r['dtype']}): "
+            f"launches {json.dumps(launched)}; seconds "
+            + ", ".join(f"{k} {v:.2f}" for k, v in r["seconds"].items()))
+
+
 def _jsonable(r: dict) -> dict:
     return {k: (v.tolist() if isinstance(v, np.ndarray) else v)
             for k, v in r.items()}
 
 
+# A rank's own fields: its rank, its card (rank r of a job with a card a
+# rank runs on cuda:r), its launches and its seconds
+PER_RANK = ("rank", "device", "launches", "seconds")
+
+
 def _same_results(results):
     """Raise unless every rank returned rank 0's results (the programs'
-    outputs are whole on every rank); the launches are each rank's own."""
-    keys = [k for k in results[0] if k not in ("rank", "launches",
-                                                 "seconds")]
+    outputs are whole on every rank) on the same kind of device."""
+    keys = [k for k in results[0] if k not in PER_RANK]
+    kind = torch.device(results[0]["device"]).type
     for r in results[1:]:
+        _check(torch.device(r["device"]).type == kind,
+               f"rank {r['rank']} ran on {r['device']}, rank 0 on "
+               f"{results[0]['device']}")
         for k in keys:
             _check(np.array_equal(np.asarray(r[k]), np.asarray(results[0][k])),
                    f"rank {r['rank']}'s {k} differs from rank 0's")
@@ -665,13 +762,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     bito_tpu's line, which ends in OK; raise on any failure."""
     results = dryrun_results(n_devices, device)
     for r in results:
-        launched = {program: {k: n for k, n in counts.items() if n}
-                    for program, counts in r["launches"].items()}
-        print(f"dryrun_multichip({n_devices}): rank {r['rank']} of "
-              f"{r['size']} ({r['backend']}, {r['device']}, {r['dtype']}): "
-              f"launches {json.dumps(launched)}; seconds "
-              + ", ".join(f"{k} {v:.2f}" for k, v in r["seconds"].items()),
-              flush=True)
+        print(rank_line(n_devices, r), flush=True)
     print(ok_line(n_devices, results[0]), flush=True)
 
 

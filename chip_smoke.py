@@ -308,9 +308,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      launched by the forward, its LLs finite, of shape [4] and within 5e-5
      of the float64 plain version on the same inputs, its ms a call (CUDA
      events) beside the kernel's alone on the card's name and limit; the
-     dryrun's OK line, each rank's results the same, and each rank's
-     launches of rows 1-2 (paired_ll_onchip and paired_grad_onchip both
-     launched on every rank).  On the leveled path: within LEVELED_BOUND of
+     dryrun's OK line, each rank's results the same, its training step,
+     flagship engine and VBPI engine (on the trainer's last sample)
+     within 5e-5 of the float64 plain versions on the same inputs,
+     unsharded, and each rank's launches of rows 1-2 (paired_ll_onchip
+     and paired_grad_onchip both launched on every rank).  On the leveled path: within LEVELED_BOUND of
      the scan tape, no kernel launched, both calls' ms.  On the cli path:
      only the two paired on-chip kernels launched, a finite final ELBO,
      the two CSVs with bito_tpu's columns, the .dot file; the restored
@@ -501,7 +503,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 # name -> its source, its TPU kernel, the launcher that counts its
 # launches, its path and the other paths that launch it (the graft path's
 # dryrun launches rows 1-2 in its ranks' processes, which count them
-# there: graft_path reads them from the ranks' lines)
+# there: graft_path reads them from graft_entry.dryrun_results)
 KERNELS = {
     "paired_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
@@ -4011,9 +4013,6 @@ def dist_path(card):
 
 
 GRAFT_REPS = 50  # CUDA-event calls of entry()'s forward and its kernel
-GRAFT_RANK = re.compile(r"dryrun_multichip\(\d+\): rank (\d+) of (\d+) "
-                        r"\((\w+), ([\w:]+), (\w+)\): launches (\{.*\}); "
-                        r"seconds (.*)$")
 
 
 def graft_path(card):
@@ -4021,10 +4020,13 @@ def graft_path(card):
     entry()'s forward in float32 with the launch counts set to 0 just
     before and read just after (paired_ll_onchip alone), held to the
     float64 plain version on the same inputs within BOUND (LL relative),
-    and timed beside the kernel alone; then dryrun_multichip(DIST_RANKS),
-    whose ranks share the card over Gloo (its launcher's backend rule):
-    its OK line, and each rank's launches of rows 1-2, which must include
-    both paired on-chip kernels on every rank.  Returns (the forward's
+    and timed beside the kernel alone; then the ranks' results of
+    dryrun_multichip(DIST_RANKS) (graft_entry.dryrun_results), whose ranks
+    share the card over Gloo (its launcher's backend rule): its OK line,
+    programs 1, 3 and 4 within graft_entry.BOUND of the float64 plain
+    versions (each rank raises past it), and each rank's launches of rows
+    1-2, which must include both paired on-chip kernels on every rank.
+    Returns (the forward's
     launches of paired_ll_onchip, [each rank's {kernel: launches} of
     rows 1-2])."""
     fn, args = graft_entry.entry()
@@ -4055,39 +4057,38 @@ def graft_path(card):
           f"(CUDA events, P formed on the card), the kernel alone "
           f"{kernel_ms:.4f} ms on {card}")
     check(err <= BOUND, "graft: the forward within the bound of float64")
-    text = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(text):
-        graft_entry.dryrun_multichip(DIST_RANKS)
+    results = graft_entry.dryrun_results(DIST_RANKS)
     seconds = time.perf_counter() - t0
-    lines = text.getvalue().splitlines()
-    for line in lines:
-        print(f"# phase 3: graft {line}")
-    check(bool(lines) and lines[-1].startswith(
-        f"dryrun_multichip({DIST_RANKS}): loss=")
-          and lines[-1].endswith(" OK"), "graft: the dryrun's OK line")
-    ranks = {}
-    for line in lines:
-        m = GRAFT_RANK.match(line)
-        if m:
-            counts = json.loads(m.group(6))
-            ranks[int(m.group(1))] = {
-                name: sum(c.get(name, 0) for c in counts.values())
-                for name in graft_entry.ROW_LAUNCHERS}
-            check(m.group(3) == "gloo" and m.group(4).startswith("cuda")
-                  and m.group(5) == "float32", f"graft: rank {m.group(1)} "
-                  "ran over Gloo on the card in float32")
-    check(sorted(ranks) == list(range(DIST_RANKS)),
-          "graft: every rank reported")
-    for r, counts in sorted(ranks.items()):
+    ranks = []
+    for r in results:
+        print(f"# phase 3: graft {graft_entry.rank_line(DIST_RANKS, r)}")
+        check(r["backend"] == "gloo" and r["device"].startswith("cuda")
+              and r["dtype"] == "float32", f"graft: rank {r['rank']} ran "
+              "over Gloo on the card in float32")
+        counts = {name: sum(c[name] for c in r["launches"].values())
+                  for name in graft_entry.ROW_LAUNCHERS}
         check(counts["paired_ll_onchip"] > 0
               and counts["paired_grad_onchip"] > 0,
-              f"graft: rank {r} launched rows 1-2")
+              f"graft: rank {r['rank']} launched rows 1-2")
+        ranks.append(counts)
+    check([r["rank"] for r in results] == list(range(DIST_RANKS)),
+          "graft: every rank reported")
+    r = results[0]
+    for program in ("train", "flagship", "vbpi"):
+        check(max(r[f"{program}_err"]) <= graft_entry.BOUND,
+              f"graft: the dryrun's {program} within the bound of float64")
+    print(f"# phase 3: graft {graft_entry.ok_line(DIST_RANKS, r)}")
     print(f"# phase 3: graft dryrun_multichip({DIST_RANKS}) in "
-          f"{seconds:.1f} s; rows 1-2 launches per rank "
-          + "; ".join(f"rank {r} {c}" for r, c in sorted(ranks.items()))
+          f"{seconds:.1f} s; against the float64 plain versions, unsharded "
+          f"(LL rel, gradients rel to the largest; bound "
+          f"{graft_entry.BOUND:g}): training step {r['train_err']}, "
+          f"flagship engine (LL+grad, then LL alone) {r['flagship_err']}, "
+          f"VBPI engine on its last sample {r['vbpi_err']}; rows 1-2 "
+          "launches per rank "
+          + "; ".join(f"rank {i} {c}" for i, c in enumerate(ranks))
           + f" (two ranks share the card) on {card}")
-    return forward_launches, [ranks[r] for r in sorted(ranks)]
+    return forward_launches, ranks
 
 
 def leveled_path(ref, trees, params64, card):

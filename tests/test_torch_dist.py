@@ -75,6 +75,10 @@ VBPI = dict(seed=8, taxa=6, trees=10, sites=100, particles=4, burrito=3,
 VBPI_BOUND = 1e-8
 # The dryrun's codon engine against bito_tpu's unsharded scan tape
 CODON_BOUND = 1e-10
+# The dryrun's flagship engine, float32 as bito_tpu's runs it, against
+# bito_tpu's float64 engine: LL relative, gradients relative to the
+# largest (chip_smoke.py's float32 bound)
+FLOAT32_BOUND = 5e-5
 
 
 def _flagship_inputs():
@@ -514,11 +518,12 @@ def _jax_codon():
 
 
 def _jax_dryrun(directory):
-    """bito_tpu's unsharded counterparts of the dryrun's programs 1, 2, 4
-    and 6 on the inputs that graft_entry makes: the training step
+    """bito_tpu's unsharded counterparts of the dryrun's six programs on
+    the inputs that graft_entry makes, in float64: the training step
     (__graft_entry__._toy_inputs, pruning.ll_and_branch_gradients_impl,
-    the ascent step), the GP engine's flow, the VBPI step and the codon
-    engine's scan tape in float64."""
+    the ascent step), the GP engine's flow, the flagship engine's scan
+    tape, the VBPI step, the GP-scored NNI search and the codon engine's
+    scan tape."""
     import importlib.util
 
     import jax.numpy as jnp
@@ -526,6 +531,7 @@ def _jax_dryrun(directory):
     from bito_tpu.api.gp import gp_instance as jax_gp
     from bito_tpu.core.newick import parse_newick_text as jparse
     from bito_tpu.core.site_pattern import CodonSitePattern as JCodon
+    from bito_tpu.core.site_pattern import SitePattern as JSitePattern
     from bito_tpu.models.phylo_model import PhyloModel as JModel
     from bito_tpu.models.phylo_model import PhyloModelSpecification as JSpec
     from bito_tpu.models.site import gamma_median_category_rates
@@ -570,6 +576,19 @@ def _jax_dryrun(directory):
     inst.compute_likelihoods()
     inst.get_gp_engine().optimize_branch_lengths_once()
     out["gp_marginal"] = inst.get_log_marginal_likelihood()
+    text, aln = graft_entry.ds1_reduced_inputs()
+    coll = jparse(text)
+    eng = JEngine(JSitePattern(aln, coll.taxon_names),
+                  JModel(JSpec("GTR", "gamma+4")), dtype=jnp.float64)
+    eng.kernel = "scan"
+    trees = coll.trees[:2]
+    for t in trees:
+        t.branch_lengths[:] = graft_entry.BRANCH_LENGTH
+    ll, grads = eng.ll_and_branch_gradients(
+        trees,
+        {k: np.asarray(v) for k, v in graft_entry.FLAGSHIP_PARAMS.items()})
+    out["flagship_ll"], out["flagship_grad"] = (np.asarray(ll),
+                                                np.asarray(grads))
     vbpi = graft_entry.VBPI
     burrito = JaxBurrito(
         mcmc_nexus_path=paths["vbpi.t"], burn_in_fraction=0.0,
@@ -580,6 +599,25 @@ def _jax_dryrun(directory):
         seed=vbpi["burrito"])
     burrito.gradient_step()
     out["vbpi_elbo"] = burrito.estimate_elbo(particle_count=vbpi["particles"])
+    inst = jax_gp("")
+    inst.read_fasta_file(paths["five_taxon/alignment.fasta"])
+    inst.read_newick_file(paths["five_taxon/seed.nwk"])
+    inst.make_dag()
+    inst.make_gp_engine()
+    inst.take_first_branch_length()
+    nni = inst.make_nni_engine("gp_likelihood")
+    nni.set_top_k_score_filtering_scheme(1)
+    nni.run_init()
+    it = 0
+    while it < graft_entry.NNI_ITERS and nni.adjacent_nni_count():
+        if not nni.run_main_loop():
+            break
+        it += 1
+    out["nni_iters"] = it
+    scores = nni.scored_nnis()
+    keys = sorted(scores)
+    out["nni_keys"] = ["|".join(k) for k in keys]
+    out["nni_scores"] = np.array([scores[k] for k in keys])
     text, aln = graft_entry.codon_inputs()
     coll = jparse(text)
     eng = JEngine(JCodon(aln, coll.taxon_names), JModel(JSpec("MG94")))
@@ -683,9 +721,9 @@ def test_two_ranks_match_bito_tpus_unsharded_engines(tmp_path):
         assert "rank(s) [1] differ from rank 0" in guard, guard
     # The dryrun's programs (their results the same on both ranks, above)
     # against bito_tpu's unsharded ones: the training step's loss and
-    # updated lengths, the GP log marginal, the VBPI ELBO and the codon
-    # engine; the flagship engine (float32, as bito_tpu's) and the NNI
-    # search finite, the LL call beside the gradient call's LL.
+    # updated lengths, the GP log marginal, the flagship engine (float32,
+    # as bito_tpu's, within FLOAT32_BOUND of float64), the VBPI ELBO, the
+    # NNI search's iterations, keys and scores, and the codon engine.
     assert str(r["dryrun_dtype"]) == "float64"
     assert abs(float(r["dryrun_loss"]) - dryrun_ref["loss"]) <= LL_BOUND
     np.testing.assert_allclose(r["dryrun_new_bl"], dryrun_ref["new_bl"],
@@ -707,6 +745,19 @@ def test_two_ranks_match_bito_tpus_unsharded_engines(tmp_path):
     assert 1 <= int(r["dryrun_nni_iters"]) <= 2
     assert r["dryrun_nni_scores"].size and np.isfinite(
         r["dryrun_nni_scores"]).all()
+    for key in ("cuda_ll", "cuda_ll_only"):
+        np.testing.assert_allclose(r[f"dryrun_{key}"],
+                                   dryrun_ref["flagship_ll"],
+                                   rtol=FLOAT32_BOUND, atol=0, err_msg=key)
+    scale = float(np.abs(dryrun_ref["flagship_grad"]).max())
+    np.testing.assert_allclose(r["dryrun_cuda_grad"],
+                               dryrun_ref["flagship_grad"], rtol=0,
+                               atol=FLOAT32_BOUND * scale)
+    assert int(r["dryrun_nni_iters"]) == dryrun_ref["nni_iters"]
+    assert list(r["dryrun_nni_keys"]) == dryrun_ref["nni_keys"]
+    np.testing.assert_allclose(r["dryrun_nni_scores"],
+                               dryrun_ref["nni_scores"], rtol=0,
+                               atol=GP_BOUND)
 
 
 def test_three_ranks_shard_a_codon_engine(tmp_path):

@@ -5,7 +5,8 @@ at two seeds; `entry()`'s forward within 1e-10 relative of bito_tpu's
 jitted forward, on its own example_args and on bito_tpu's, and equal to
 the port's scan tape; the on-chip LL body's schedule (emulated in
 float64) over entry's rooted bifurcating trees; float32 within chip_smoke's
-bound of float64; no card, no run; and `dryrun_multichip(1)` through the
+bound of float64; no card, no run; every rank's results held equal but
+for each rank's own card; and `dryrun_multichip(1)` through the
 launcher, which prints bito_tpu's line ending in OK.  The two-rank dryrun
 runs in tests/test_torch_dist.py's two-rank job."""
 import importlib.util
@@ -153,6 +154,24 @@ def test_entry_points_default_to_the_card_and_refuse_without_one():
         graft_entry.entry()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         graft_entry.dryrun_multichip(1)
+
+
+def test_same_results_take_each_ranks_own_card():
+    """With a card a rank (NCCL), rank r runs on cuda:r: the ranks'
+    results still agree.  A result that differs, or a rank on another
+    kind of device, raises."""
+    def rank(r, device, ll=-10.0):
+        return {"rank": r, "size": 2, "device": device, "dtype": "float32",
+                "backend": "nccl", "loss": ll, "cuda_ll": [ll, ll - 1.0],
+                "nni_keys": ["01|10"], "launches": {"train": {"a": r}},
+                "seconds": {"train": 0.5 + r}}
+
+    graft_entry._same_results([rank(0, "cuda:0"), rank(1, "cuda:1")])
+    with pytest.raises(RuntimeError, match="rank 1's loss differs"):
+        graft_entry._same_results([rank(0, "cuda:0"),
+                                   rank(1, "cuda:1", ll=-11.0)])
+    with pytest.raises(RuntimeError, match="rank 1 ran on cpu"):
+        graft_entry._same_results([rank(0, "cuda:0"), rank(1, "cpu")])
 
 
 def test_dryrun_multichip_one_rank_on_the_cpu(tmp_path):
