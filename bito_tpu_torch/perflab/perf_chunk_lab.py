@@ -262,8 +262,11 @@ def chunk_variant(post_dst, tip_slot, post_e, P, tips, pi, props, *,
                                          tips, pi, props)
     paired._check_cuda_operands(
         dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
-        dict(P=P, tips=tips, pi=pi, props=props), C, A,
-        categories=paired.max_categories(A))
+        dict(P=P, tips=tips, pi=pi, props=props), C, A)
+    if C > paired.ONCHIP_CATEGORIES:  # on-chip bodies: a category a lane
+        raise ValueError(f"the chunk lab's bodies take 1.."
+                         f"{paired.ONCHIP_CATEGORIES} rate categories, "
+                         f"got {C}")
     if variant != "v0" and C != CATEGORIES:
         raise ValueError(f"the variants take {CATEGORIES} rate categories, "
                          f"got {C}")

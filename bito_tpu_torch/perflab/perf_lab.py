@@ -121,7 +121,7 @@ def variant_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
         dict(post_ops=post_ops, pre_ops=pre_ops, root=root),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A, categories=CATEGORIES)
+        C, A)
     if onchip is None:
         onchip = pernode.onchip_tape(
             *(x.cpu().numpy() for x in (post_ops, pre_ops, root)), T, N1 - 1,

@@ -25,16 +25,19 @@ Each kernel has two bodies on the card, as the paired kernels do
     (the on-chip bodies are bound by instruction issue, not by the chain
     of dependent ops);
   - the global body (csrc/chunked_ll.cu, csrc/chunked_grad.cu): W threads
-    per (tree, pattern), the pair slots in device memory; at 9-32 rate
+    per (tree, pattern), the pair slots in device memory; past 8 rate
     categories the paired kernels' lane bodies (csrc/paired_lanes.cuh)
     walking the chunked tape one grid op at a time, children by child
     code.  It takes any tree; the wrappers launch it where a block of the
-    on-chip body would hold too few warps of patterns to be the faster
-    (`ll_plan` or `onchip_plan` returns None), decided from the tape before
-    the launch.
-Both bodies take 1 to paired.PAIRED_CATEGORIES (32) rate categories: 1-8
-compiled one count at a time, 9-32 on 16 or 32 lanes a pattern with the
-count read at run time.
+    on-chip body would hold too few warps of patterns to be the faster,
+    and past paired.ONCHIP_CATEGORIES (`ll_plan` or `onchip_plan` returns
+    None), decided from the tape before the launch; its launchers split
+    the batch over slices of trees where its scratch would not fit
+    (paired.launch_sliced).
+The kernels take any count of rate categories: 1-8 compiled one count at
+a time, 9-32 on 16 or 32 lanes a pattern with the count read at run
+time (both bodies), past 32 on 32 lanes of paired.lane_categories(C)
+categories each (the global bodies).
 
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which runs one
@@ -304,10 +307,10 @@ def onchip_plan(rows: int, MW: int, N1: int, C: int,
     paired.SMEM_BYTES, up to paired.MAX_THREADS threads, and at least
     `least` warps (1 asks for the body wherever it fits, to measure it).
     A pattern takes op_lanes(C) op lanes x G category lanes of one warp
-    (the plan's `op_lanes`)."""
-    if not 1 <= C <= paired.PAIRED_CATEGORIES:
-        raise ValueError(f"the kernels take 1..{paired.PAIRED_CATEGORIES} "
-                         f"rate categories, got {C}")
+    (the plan's `op_lanes`).  None past paired.ONCHIP_CATEGORIES."""
+    paired.check_categories(C)
+    if C > paired.ONCHIP_CATEGORIES:
+        return None
     G, L = paired.lanes(C), op_lanes(C)
     per_warp = paired.WARP // (L * G)  # patterns a warp
     fixed = smem_bytes(0, MW, N1, C, 0)
@@ -436,8 +439,7 @@ def chunked_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
                                            tips, pi, props, weights)
     _check_cuda_operands(
         dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
-        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
-        categories=paired.max_categories(A))
+        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A)
     if onchip is None:
         onchip = onchip_tape(post_dst.cpu().numpy(), tip_slot.cpu().numpy(),
                              P.device)
@@ -467,45 +469,51 @@ def chunked_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
 chunked_ll_onchip.launches = 0
 
 
-def _global_scratch(post_dst, child, P, S):
-    """The global bodies' slots and log scales: at 1..8 categories [B,
-    2MW+2, C*4, S] and [B, 2MW+2, S]; at 9..32 the lane layout of
-    paired._global_scratch, whose walk reads the children by code, so
-    `child` (the on-chip tape's, onchip_tape(...).child) is required and
-    checked there."""
+def _global_scratch(post_dst, child, C, S):
+    """alloc(n, device) of the global bodies' scratch
+    (paired.global_scratch): at 1..8 categories the slots [n, 2MW+2,
+    C*4, S] and their log scales [n, 2MW+2, S]; past 8 the lane layout
+    over 2MW+3 slots, whose walk reads the children by code, so `child`
+    (the on-chip tape's, onchip_tape(...).child) is required and checked
+    there."""
     B, MW = post_dst.shape
-    C = P.shape[2]
     if C > paired.COMPILED_CATEGORIES:
         if child is None or tuple(child.shape) != (B, MW, 2):
-            raise ValueError("the global body at 9-32 rate categories needs "
+            raise ValueError("the global body past 8 rate categories needs "
                              "the tape's child codes: pass child="
                              "chunked.onchip_tape(...).child")
         _check_cuda_tensors(dict(child=child), {})
-        return paired._global_scratch(B, MW, C, S, P.device)
-    kw = dict(device=P.device, dtype=torch.float32)
-    return (torch.empty((B, 2 * MW + 2, C * 4, S), **kw),
-            torch.empty((B, 2 * MW + 2, S), **kw))
+        return paired.global_scratch(2 * MW + 3, C, S)
+    return paired.global_scratch(2 * MW + 2, C, S)
+
+
+def _child_ptr(child, b0, b1):
+    return None if child is None else child[b0:b1].data_ptr()
 
 
 def chunked_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props,
                       child=None):
     """Launch csrc/chunked_ll.cu, the global body (operands checked by the
-    wrapper): per-pattern LL rows [B, S].  At 9..32 categories it needs
-    `child`, the tape's child codes."""
+    wrapper): per-pattern LL rows [B, S].  Past 8 categories it needs
+    `child`, the tape's child codes.  Its scratch is allocated here, for
+    the batch where it can be, else over slices of trees
+    (paired.launch_sliced), each a launch."""
     B, MW = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
-    buf, ls = _global_scratch(post_dst, child, P, S)
+    alloc = _global_scratch(post_dst, child, C, S)
     ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
-    with torch.cuda.device(P.device):
-        rc = _kernels.library().bito_chunked_ll(
-            post_dst.data_ptr(), tip_slot.data_ptr(),
-            None if child is None else child.data_ptr(), post_e.data_ptr(),
-            P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
-            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            B, MW, W, T, N1, C, S, paired._stream())
-    _kernels.check(rc, "bito_chunked_ll")
-    chunked_ll_global.launches += 1
+    lib = _kernels.library()
+    chunked_ll_global.launches += paired.launch_sliced(
+        "bito_chunked_ll", B, alloc,
+        lambda b0, b1, buf, ls: lib.bito_chunked_ll(
+            post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
+            _child_ptr(child, b0, b1), post_e[b0:b1].data_ptr(),
+            P[b0:b1].data_ptr(), tips.data_ptr(), pi.data_ptr(),
+            props.data_ptr(), buf.data_ptr(), ls.data_ptr(),
+            ll_rows[b0:b1].data_ptr(), b1 - b0, MW, W, T, N1, C, S,
+            paired._stream()),
+        P.device)
     return ll_rows
 
 
@@ -537,7 +545,7 @@ def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
              node_row=node_row),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A, categories=paired.max_categories(A))
+        C, A)
     if onchip is None:
         raise ValueError("the chunked grad kernel needs the tape's "
                          "OnchipTape on the card: pass "
@@ -622,25 +630,27 @@ def chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips, pi, props,
                         weights, child=None):
     """Launch csrc/chunked_grad.cu, the global body (operands checked by the
     wrapper): (LL rows [B, S], weighted gradient rows [B, 2MW+1, S], zero
-    where no op writes).  At 9..32 categories it needs `child`, the
-    tape's child codes."""
+    where no op writes).  Past 8 categories it needs `child`, the tape's
+    child codes; the scratch and the slices as chunked_ll_global's."""
     B, MW = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
-    buf, ls = _global_scratch(post_dst, child, P, S)
+    alloc = _global_scratch(post_dst, child, C, S)
     kw = dict(device=P.device, dtype=torch.float32)
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, 2 * MW + 1, S), **kw)
-    with torch.cuda.device(P.device):
-        rc = _kernels.library().bito_chunked_grad(
-            post_dst.data_ptr(), tip_slot.data_ptr(),
-            None if child is None else child.data_ptr(), post_e.data_ptr(),
-            P.data_ptr(), dP.data_ptr(), tips.data_ptr(), pi.data_ptr(),
-            props.data_ptr(), weights.data_ptr(), buf.data_ptr(),
-            ls.data_ptr(), ll_rows.data_ptr(), grad_rows.data_ptr(),
-            B, MW, W, T, N1, C, S, paired._stream())
-    _kernels.check(rc, "bito_chunked_grad")
-    chunked_grad_global.launches += 1
+    lib = _kernels.library()
+    chunked_grad_global.launches += paired.launch_sliced(
+        "bito_chunked_grad", B, alloc,
+        lambda b0, b1, buf, ls: lib.bito_chunked_grad(
+            post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
+            _child_ptr(child, b0, b1), post_e[b0:b1].data_ptr(),
+            P[b0:b1].data_ptr(), dP[b0:b1].data_ptr(), tips.data_ptr(),
+            pi.data_ptr(), props.data_ptr(), weights.data_ptr(),
+            buf.data_ptr(), ls.data_ptr(), ll_rows[b0:b1].data_ptr(),
+            grad_rows[b0:b1].data_ptr(), b1 - b0, MW, W, T, N1, C, S,
+            paired._stream()),
+        P.device)
     return ll_rows, grad_rows
 
 

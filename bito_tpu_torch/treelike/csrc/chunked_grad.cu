@@ -37,6 +37,8 @@
 // order one op at a time forward and in reverse, gradient rows 2g and
 // 2g+1 of op g), launched here with the same arguments: `buf` holds
 // B * (2MW+3) * Sp * G * 4 floats, and `ls` and tip_slot are not read.
+// Past 32 categories it is wide_grad_kernel<true> (K = ceil(C / 32)
+// categories a lane of 32; `buf` B * (2MW+3) * Sp * K * 32 * 4 floats).
 // This body spills 228 bytes at C = 8 already (its registers hold C * 4
 // values a vector); the lane layout holds 4.
 #include "common.cuh"
@@ -179,7 +181,7 @@ extern "C" int bito_chunked_grad(const int* post_dst, const int* tip_slot,
       MW % W)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C > 8 && C <= 32) {
+  if (C > 8) {
     float4* slots = reinterpret_cast<float4*>(buf);
     if (C <= 16)
       paired_lanes::grad_kernel<16, true>
@@ -187,9 +189,15 @@ extern "C" int bito_chunked_grad(const int* post_dst, const int* tip_slot,
               post_dst, child, nullptr, post_e, P, dP, tips, pi, props,
               weights, slots, ll_rows, grad_rows, MW, T, N1, C, S,
               2 * MW + 1);
-    else
+    else if (C <= 32)
       paired_lanes::grad_kernel<32, true>
           <<<paired_lanes::grid<32>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, child, nullptr, post_e, P, dP, tips, pi, props,
+              weights, slots, ll_rows, grad_rows, MW, T, N1, C, S,
+              2 * MW + 1);
+    else
+      paired_lanes::wide_grad_kernel<true>
+          <<<paired_lanes::wide_grid(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, child, nullptr, post_e, P, dP, tips, pi, props,
               weights, slots, ll_rows, grad_rows, MW, T, N1, C, S,
               2 * MW + 1);

@@ -36,7 +36,8 @@
 // float4 [B, 2MW+3, Sp, G], the children by the code of `child`, grid
 // order one op at a time), launched here with the same arguments: `buf`
 // holds B * (2MW+3) * Sp * G * 4 floats, and `ls` and tip_slot are not
-// read.  This layout's registers do not scale to C * 4 values a vector
+// read.  Past 32 categories it is wide_ll_kernel<true> (K = ceil(C / 32)
+// categories a lane of 32; `buf` B * (2MW+3) * Sp * K * 32 * 4 floats).  This layout's registers do not scale to C * 4 values a vector
 // (paired_lanes.cuh says why); its walk does not need the chunk's lanes.
 #include "common.cuh"
 #include "paired_lanes.cuh"
@@ -100,16 +101,21 @@ extern "C" int bito_chunked_ll(const int* post_dst, const int* tip_slot,
       MW % W)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C > 8 && C <= 32) {
+  if (C > 8) {
     float4* slots = reinterpret_cast<float4*>(buf);
     if (C <= 16)
       paired_lanes::ll_kernel<16, true>
           <<<paired_lanes::grid<16>(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, child, post_e, P, tips, pi, props, slots, ll_rows,
               MW, T, N1, C, S);
-    else
+    else if (C <= 32)
       paired_lanes::ll_kernel<32, true>
           <<<paired_lanes::grid<32>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, child, post_e, P, tips, pi, props, slots, ll_rows,
+              MW, T, N1, C, S);
+    else
+      paired_lanes::wide_ll_kernel<true>
+          <<<paired_lanes::wide_grid(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, child, post_e, P, tips, pi, props, slots, ll_rows,
               MW, T, N1, C, S);
     return static_cast<int>(cudaGetLastError());

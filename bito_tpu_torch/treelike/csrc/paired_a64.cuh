@@ -97,16 +97,17 @@
 // as a store scaled after the op would be.  Tips and unwritten slots have
 // E = L = e_c = 0.
 //
-// Categories.  Both kernels take 1..kMaxCategories (32) rate categories,
-// as bito_tpu's paired Pallas kernels take any count at 64 states.
-// Nothing in the bodies assumes fewer: a step is one (op, category) and
-// next_step reads C at run time; no array is sized by C (PostAcc and the
-// grad body's OutAcc hold two rows' sums, rescaled by 2^(e_c - e_max) as
-// e_max grows, so 32 terms keep each sum relative to its largest); every
-// offset that C scales (a slot of buf, the scales [NS, 2 + C, S], the
-// code tables after them, a category's matrix) is taken in size_t.  What
-// grows with C is the scratch in device memory, which the launchers in
-// treelike/paired.py size and split by trees.
+// Categories.  Both kernels take any count C >= 1, as bito_tpu's paired
+// Pallas kernels take any count at 64 states: a step is one (op,
+// category) and next_step reads C at run time; no array is sized by C
+// (PostAcc and the grad body's OutAcc hold two rows' sums, rescaled by
+// 2^(e_c - e_max) as e_max grows, so any number of terms keeps each sum
+// relative to its largest; the root's sum takes each category on its
+// children's common scale, each term at most about 1); every offset that C
+// scales (a slot of buf, the scales [NS, 2 + C, S], the code tables after
+// them, a category's matrix) is taken in size_t.  What grows with C is the
+// scratch in device memory, which the launchers in treelike/paired.py size
+// and split by trees; where one tree's does not fit they raise.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -126,8 +127,6 @@ constexpr int kSlice = kA * kXStride;  // floats of a warp's staged slice
 constexpr int kBuf = -1;               // slot code: an op writes it to buf
 constexpr int kOnes = -2;              // slot code: nothing writes it
 constexpr float kLn2 = 0.693147180559945309f;
-
-constexpr int kMaxCategories = 32;  // rate categories the launchers take
 
 constexpr int kPlanes = 2;  // matrices split into hi and lo planes at once
 

@@ -39,7 +39,8 @@
 // At 9..32 rate categories the kernel is paired_lanes.cuh's grad_kernel (a
 // category a lane, the slots in device memory as float4 [B, NS, Sp, G]),
 // launched here with the same arguments: `buf` holds B * NS * Sp * G * 4
-// floats and `ls` is not read.
+// floats and `ls` is not read.  Past 32 it is wide_grad_kernel (K = ceil(C
+// / 32) categories a lane of 32), and `buf` holds B * NS * Sp * K * 32 * 4.
 #include "common.cuh"
 #include "paired_lanes.cuh"
 
@@ -186,16 +187,21 @@ extern "C" int bito_paired_grad(const int* post_dst, const int* tip_slot,
                                 int C, int S, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C > 8 && C <= 32) {
+  if (C > 8) {
     float4* slots = reinterpret_cast<float4*>(buf);
     if (C <= 16)
       paired_lanes::grad_kernel<16, false>
           <<<paired_lanes::grid<16>(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, tip_slot, post_src, post_e, P, dP, tips, pi, props,
               weights, slots, ll_rows, grad_rows, M, T, N1, C, S, N1);
-    else
+    else if (C <= 32)
       paired_lanes::grad_kernel<32, false>
           <<<paired_lanes::grid<32>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, tip_slot, post_src, post_e, P, dP, tips, pi, props,
+              weights, slots, ll_rows, grad_rows, M, T, N1, C, S, N1);
+    else
+      paired_lanes::wide_grad_kernel<false>
+          <<<paired_lanes::wide_grid(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, tip_slot, post_src, post_e, P, dP, tips, pi, props,
               weights, slots, ll_rows, grad_rows, M, T, N1, C, S, N1);
     return static_cast<int>(cudaGetLastError());

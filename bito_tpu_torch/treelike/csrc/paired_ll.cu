@@ -31,7 +31,8 @@
 // At 9..32 rate categories the kernel is paired_lanes.cuh's ll_kernel (a
 // category a lane, the slots in device memory as float4 [B, NS, Sp, G]),
 // launched here with the same arguments: `buf` holds B * NS * Sp * G * 4
-// floats and `ls` is not read.
+// floats and `ls` is not read.  Past 32 it is wide_ll_kernel (K = ceil(C /
+// 32) categories a lane of 32), and `buf` holds B * NS * Sp * K * 32 * 4.
 #include "common.cuh"
 #include "paired_lanes.cuh"
 
@@ -82,16 +83,21 @@ extern "C" int bito_paired_ll(const int* post_dst, const int* tip_slot,
                               int C, int S, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C > 8 && C <= 32) {
+  if (C > 8) {
     float4* slots = reinterpret_cast<float4*>(buf);
     if (C <= 16)
       paired_lanes::ll_kernel<16, false>
           <<<paired_lanes::grid<16>(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, tip_slot, post_e, P, tips, pi, props, slots, ll_rows,
               M, T, N1, C, S);
-    else
+    else if (C <= 32)
       paired_lanes::ll_kernel<32, false>
           <<<paired_lanes::grid<32>(B, S), paired_lanes::kThreads, 0, st>>>(
+              post_dst, tip_slot, post_e, P, tips, pi, props, slots, ll_rows,
+              M, T, N1, C, S);
+    else
+      paired_lanes::wide_ll_kernel<false>
+          <<<paired_lanes::wide_grid(B, S), paired_lanes::kThreads, 0, st>>>(
               post_dst, tip_slot, post_e, P, tips, pi, props, slots, ll_rows,
               M, T, N1, C, S);
     return static_cast<int>(cudaGetLastError());

@@ -85,8 +85,7 @@ extern "C" int bito_paired_ll_a64(const int* post_dst, const int* tip_slot,
                                   const float* props, float* buf,
                                   float* scratch, float* ll_rows, int B, int M,
                                   int T, int N1, int C, int S, void* stream) {
-  if (B <= 0 || B > 65535 || S <= 0 || S % 4 != 0 || M <= 0 || C < 1 ||
-      C > a64::kMaxCategories)
+  if (B <= 0 || B > 65535 || S <= 0 || S % 4 != 0 || M <= 0 || C < 1)
     return cudaErrorInvalidValue;
   const dim3 grid((S + a64::kTile - 1) / a64::kTile, B);
   cudaError_t err = cudaFuncSetAttribute(

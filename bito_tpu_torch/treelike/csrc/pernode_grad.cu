@@ -30,7 +30,8 @@
 // category a lane, internal nodes' partials and up values in device memory
 // as float4 [B, N1-T, Sp, G] each), launched here with the same arguments:
 // `buf` and `up` hold B * (N1-T) * Sp * G * 4 floats each and `ls` is not
-// read.
+// read.  Past 32 it is wide_grad_kernel (K = ceil(C / 32) categories a
+// lane of 32; `buf` and `up` B * (N1-T) * Sp * K * 32 * 4 floats each).
 #include "common.cuh"
 #include "pernode_lanes.cuh"
 
@@ -133,7 +134,7 @@ extern "C" int bito_pernode_grad(const int* post_ops, const int* pre_ops,
                                  int S, void* stream) {
   if (B <= 0 || B > 65535 || S <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C > 8 && C <= 32) {
+  if (C > 8) {
     if (T >= N1) return cudaErrorInvalidValue;
     float4* rows = reinterpret_cast<float4*>(buf);
     float4* ups = reinterpret_cast<float4*>(up);
@@ -142,11 +143,16 @@ extern "C" int bito_pernode_grad(const int* post_ops, const int* pre_ops,
           <<<paired_lanes::grid<16>(B, S), pernode_lanes::kThreads, 0, st>>>(
               post_ops, pre_ops, root, P, dP, tips, pi, props, weights, rows,
               ups, ll_rows, grad_rows, M, Mp, T, N1, C, S);
-    else
+    else if (C <= 32)
       pernode_lanes::grad_kernel<32>
           <<<paired_lanes::grid<32>(B, S), pernode_lanes::kThreads, 0, st>>>(
               post_ops, pre_ops, root, P, dP, tips, pi, props, weights, rows,
               ups, ll_rows, grad_rows, M, Mp, T, N1, C, S);
+    else
+      pernode_lanes::wide_grad_kernel
+          <<<paired_lanes::wide_grid(B, S), pernode_lanes::kThreads, 0,
+             st>>>(post_ops, pre_ops, root, P, dP, tips, pi, props, weights,
+                   rows, ups, ll_rows, grad_rows, M, Mp, T, N1, C, S);
     return static_cast<int>(cudaGetLastError());
   }
   const dim3 grid((S + bito::kThreads - 1) / bito::kThreads, B);

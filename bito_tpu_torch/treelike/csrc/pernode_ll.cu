@@ -30,7 +30,9 @@
 // At 9..32 rate categories the kernel is pernode_lanes.cuh's ll_kernel (a
 // category a lane, internal nodes' partials in device memory as float4
 // [B, N1-T, Sp, G]), launched here with the same arguments: `buf` holds
-// B * (N1-T) * Sp * G * 4 floats and `ls` is not read.
+// B * (N1-T) * Sp * G * 4 floats and `ls` is not read.  Past 32 it is
+// wide_ll_kernel (K = ceil(C / 32) categories a lane of 32; `buf`
+// B * (N1-T) * Sp * K * 32 * 4 floats).
 #include "common.cuh"
 #include "pernode_lanes.cuh"
 
@@ -81,7 +83,7 @@ extern "C" int bito_pernode_ll(const int* post_ops, const int* root,
                                void* stream) {
   if (B <= 0 || B > 65535 || S <= 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C > 8 && C <= 32) {
+  if (C > 8) {
     if (T >= N1) return cudaErrorInvalidValue;
     float4* rows = reinterpret_cast<float4*>(buf);
     if (C <= 16)
@@ -89,11 +91,16 @@ extern "C" int bito_pernode_ll(const int* post_ops, const int* root,
           <<<paired_lanes::grid<16>(B, S), pernode_lanes::kThreads, 0, st>>>(
               post_ops, root, P, tips, pi, props, rows, ll_rows, M, T, N1, C,
               S);
-    else
+    else if (C <= 32)
       pernode_lanes::ll_kernel<32>
           <<<paired_lanes::grid<32>(B, S), pernode_lanes::kThreads, 0, st>>>(
               post_ops, root, P, tips, pi, props, rows, ll_rows, M, T, N1, C,
               S);
+    else
+      pernode_lanes::wide_ll_kernel
+          <<<paired_lanes::wide_grid(B, S), pernode_lanes::kThreads, 0,
+             st>>>(post_ops, root, P, tips, pi, props, rows, ll_rows, M, T,
+                   N1, C, S);
     return static_cast<int>(cudaGetLastError());
   }
   const dim3 grid((S + bito::kThreads - 1) / bito::kThreads, B);

@@ -14,39 +14,36 @@ device or dtype (bito_tpu_torch.device: PRODUCT_DEVICE, PRODUCT_DTYPE).
 Kernel selection, `engine.kernel`:
   "auto"    — the hand-written CUDA paired kernels (treelike/paired.py) on
               a CUDA device in float32 with a shared model of 4 or 64
-              states (MG94 codon models: their own A=64 kernels) and at
-              most paired.max_categories(A) rate categories,
-              paired.PAIRED_CATEGORIES (32) at both; the scan tape
-              otherwise.  At 64 states this differs from bito_tpu, whose
-              auto takes the scan tape there (faster on its TPU); on the
-              card auto takes the kernels.  The category limit is the
-              port's own (at 4 states a rate category is a lane of the
-              kernels, a pattern at most a warp; at 64 one limit for
-              both), where bito_tpu pads categories (zero proportions) so
-              that its paired Pallas kernel takes any count: past 32
-              categories auto takes the scan tape.  The paired wrappers
-              launch the on-chip bodies, or the global ones for a tree on
-              which those would be the slower (paired.onchip_plan); at 64
-              states the A=64 kernels, over slices of the batch where
-              their scratch for all of it would not fit in the card's
-              free memory (paired.tree_slices).
+              states (MG94 codon models: their own A=64 kernels), at any
+              count of rate categories, as bito_tpu's paired Pallas
+              kernel takes any count (it pads categories with zero
+              proportions); the scan tape otherwise.  At 64 states this
+              differs from bito_tpu, whose auto takes the scan tape
+              there (faster on its TPU); on the card auto takes the
+              kernels.  The paired wrappers launch the on-chip bodies,
+              or the global ones for a tree on which those would be the
+              slower and past 32 categories (paired.onchip_plan); at 64
+              states the A=64 kernels.  The global bodies and the A=64
+              kernels run over slices of the batch where their scratch
+              for all of it would not fit in the card's free memory
+              (paired.tree_slices), and raise, with the bytes, where one
+              tree's does not.
   "scan"    — always the scan tape (treelike/pruning.py).
   "cuda"    — always the paired kernels' wrappers: on a CUDA device the
               kernels, on the CPU their plain torch versions.
   "chunked" — always the chunked kernels' wrappers (treelike/chunked.py),
               with dP from the eigen derivative (prep.prepare_inputs_grad)
               as in bito_tpu's chunked route; 4-state models only (it
-              raises for codon models, as bito_tpu's does), of 1 to
-              paired.PAIRED_CATEGORIES (32) rate categories (the
-              wrappers raise past that on the card).  The
-              wrappers launch the on-chip bodies, or the global ones for
-              a tree on which those would be the slower
-              (chunked.ll_plan for LL, chunked.onchip_plan for grad).
+              raises for codon models, as bito_tpu's does), at any count
+              of rate categories.  The wrappers launch the on-chip
+              bodies, or the global ones for a tree on which those would
+              be the slower and past 32 categories (chunked.ll_plan for
+              LL, chunked.onchip_plan for grad).
 "cuda" and "chunked" raise for per-tree parameter rows, which the kernels
 do not take.  (bito_tpu's forced kernels take them and silently use tree
 0's model for the whole batch.)  The per-node kernels (treelike/pernode.py,
-1-32 categories at 4 and 64 states) have no route here, as bito_tpu's
-have none.
+any count of categories at 4 and 64 states) have no route here, as
+bito_tpu's have none.
 
 The tape runs on the engine's device and dtype; the kernel operands are
 float32 on a card and in the engine's dtype on the CPU.  A codon model
@@ -57,8 +54,8 @@ ingredients and the transition matrices are computed in float64 and cast
 to those (_model_ingredients).  bito_tpu's TPU
 launch policy (tree interleave, tile and VMEM sizing, category padding,
 the MXU-sized chunk width) has no counterpart: the kernels take any
-batch, pattern count and category count up to their limits
-(paired.max_categories) as they are.
+batch, pattern count and category count as they are, within the card's
+memory.
 
 `use_leveled` (False by default, as in bito_tpu) takes the levelized
 tapes (encode.encode_trees_leveled, pruning.*_leveled_impl): a step is
@@ -158,9 +155,7 @@ class TreeLikelihoodEngine(PatternSharded):
                 and self.device.type == "cuda"
                 and self.dtype == torch.float32
                 and shared_model
-                and self.num_states in paired.KERNEL_STATES
-                and self.model.category_count
-                <= paired.max_categories(self.num_states)):
+                and self.num_states in paired.KERNEL_STATES):
             return "paired"
         return "scan"
 

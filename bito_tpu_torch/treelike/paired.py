@@ -14,17 +14,24 @@ Each kernel has two bodies on the card:
     produced it, through the compact child tape of `onchip_tape`), and
     gives each rate category of a pattern its own lane;
   - the global body (csrc/paired_ll.cu, csrc/paired_grad.cu): one thread
-    per (tree, pattern), the paired slots in device memory; at 9-32 rate
+    per (tree, pattern), the paired slots in device memory; past 8 rate
     categories the on-chip bodies' lane layout with the slots in device
-    memory (csrc/paired_lanes.cuh).  It takes any tree; the wrappers
-    launch it where a block of the on-chip body would hold too few warps
-    of patterns to be the faster (`onchip_plan` returns None), decided
-    from the tape before the launch.
-At 4 states both bodies take 1 to PAIRED_CATEGORIES (32) rate categories:
-1-8 compiled one count at a time, 9-32 on 16 or 32 lanes a pattern with
-the count read at run time.  So do the chunked and per-node kernels
-(chunked.py, pernode.py) and the A=64 kernels: one limit,
-max_categories(A), at both state counts.
+    memory (csrc/paired_lanes.cuh).  It takes any tree and any category
+    count; the wrappers launch it where a block of the on-chip body would
+    hold too few warps of patterns to be the faster, and past
+    ONCHIP_CATEGORIES (`onchip_plan` returns None), decided from the tape
+    before the launch.
+The kernels take any count C >= 1 of rate categories, as bito_tpu's
+Pallas kernels do: at 4 states 1-8 compiled one count at a time, 9-32 on
+16 or 32 lanes a pattern (`lanes`) with the count read at run time, and
+past 32 on the global bodies only, 32 lanes a pattern of
+`lane_categories(C)` categories each.  So do the chunked and per-node
+kernels (chunked.py, pernode.py); the A=64 kernels take any count on
+their one body.  What bounds C is the card's memory: the global bodies'
+and the A=64 kernels' launchers allocate their scratch for the batch,
+split it over slices of trees where it cannot be allocated
+(`tree_slices`), and raise where one tree's does not fit, with the
+bytes.
 The on-chip LL body also serves the chunked and per-node LL kernels
 (chunked.py, pernode.py): their tapes are walked as paired tapes, one op
 at a time, through `launch_ll_onchip`.
@@ -56,15 +63,21 @@ shape (bench_configs.py: 27 taxa, 640 padded patterns, M = 28 ops, NS =
     uniformized P [B, N, C, 64, 64], its copy with the identity edge, dP
     = Q P: prep.prepare_inputs_grad_q) at 0.22 GB a category each: 2.0 /
     3.6 / 7.1 GB each, freed to torch's cache before the launch.
-The plain version in float64 holds buf in float64, twice the kernels'
-(about 80 GB at C = 32 over 128 trees), so the card's checks hold the
-kernels to it on a few of the trees they time: each tree's rows depend
-on that tree alone.  The launchers launch once where the scratch of the
-whole batch can be allocated; where it cannot, over consecutive slices
-of the batch (`tree_slices`), each of as many trees as the card's free
-memory holds (`a64_budget`: with what torch's cache can release; less
-A64_HEADROOM), into one scratch; each slice is a launch.  Where one tree
-does not fit they raise and name the bytes.
+At C = 48 and 64 a tree's scratch is 471.5 / 628.6 MB (60.4 / 80.5 GB at
+B = 128: past about 100 trees at 64 the launchers slice the batch).  The
+4-state global bodies' scratch past 32 categories is the slots float4
+[B, NS, Sp, K, 32] (K = lane_categories(C), 2 at 33-64): 61.9 MB a tree
+at the flagship's shape, 12.4 GB at B = 200.  The plain version in
+float64 holds buf in float64, twice the kernels' (about 80 GB at C = 32
+over 128 trees), so the card's checks hold the kernels to it on a few of
+the trees they time: each tree's rows depend on that tree alone.  The
+launchers launch once where the scratch of the whole batch can be
+allocated; where it cannot, over consecutive slices of the batch
+(`tree_slices`), each of as many trees as the card's free memory holds
+(`scratch_budget`: with what torch's cache can release; less
+SCRATCH_HEADROOM), into one scratch; each slice is a launch
+(`launch_sliced`, which the 4-state global bodies share).  Where one
+tree does not fit they raise and name the bytes.
 
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which computes the
@@ -108,15 +121,17 @@ from ..dist import mesh
 from . import _kernels
 
 RESK = 4  # the tape is padded to a multiple of this many ops, as in bito_tpu
-# The category counts every kernel takes (max_categories): the 4-state
-# ones (the paired, chunked and per-node families, both bodies each) one
-# lane a category, a pattern at most a warp; the A=64 kernels a step a
-# category (csrc/paired_a64.cuh kMaxCategories).  The 4-state kernels
-# compile 1..COMPILED_CATEGORIES one count at a time; past it their
-# bodies take the count at run time and their global bodies the lane
-# layouts (csrc/paired_lanes.cuh, csrc/pernode_lanes.cuh).
-PAIRED_CATEGORIES = 32
+# Every kernel takes any category count C >= 1.  The 4-state ones (the
+# paired, chunked and per-node families) compile 1..COMPILED_CATEGORIES
+# one count at a time; past it their bodies take the count at run time,
+# on `lanes(C)` lanes a pattern, and their global bodies the lane layouts
+# (csrc/paired_lanes.cuh, csrc/pernode_lanes.cuh).  Their on-chip bodies
+# hold a category a lane, a pattern at most a warp: 1..ONCHIP_CATEGORIES;
+# past it the wrappers launch the global bodies, a lane of 32 holding
+# `lane_categories(C)` categories.  The A=64 kernels take a step an (op,
+# category) on one body.
 COMPILED_CATEGORIES = 8
+ONCHIP_CATEGORIES = 32
 KERNEL_STATES = (4, 64)  # the state counts the paired kernels take
 # A shard's pattern count is a multiple of this (TreeLikelihoodEngine.
 # shard_patterns): the A=64 kernels copy [64, S] rows in 16-byte pieces.
@@ -282,8 +297,16 @@ WARP = 32
 
 
 def lanes(C: int) -> int:
-    """Lanes per pattern: the power of two at or above C."""
-    return 1 << (C - 1).bit_length()
+    """Lanes per pattern: the power of two at or above C, at most a warp
+    (past ONCHIP_CATEGORIES a lane holds lane_categories(C))."""
+    return min(1 << (C - 1).bit_length(), WARP)
+
+
+def lane_categories(C: int) -> int:
+    """Categories a lane holds: 1 up to ONCHIP_CATEGORIES, past it K =
+    ceil(C / 32), categories g, g + 32, ... on lane g of the global
+    bodies (csrc/paired_lanes.cuh wide_categories)."""
+    return -(-C // WARP)
 
 
 def smem_bytes(kernel: str, rows: int, M: int, N1: int, C: int, cols: int,
@@ -335,8 +358,9 @@ def onchip_plan(kernel: str, rows: int, M: int, N1: int, C: int,
                 ring: bool | None = None,
                 full_warps: int = FULL_WARPS) -> OnchipPlan | None:
     """How an on-chip body launches, or None where the global body takes
-    the tape.  A block takes as many whole warps of patterns as fit in
-    SMEM_BYTES, up to MAX_THREADS threads.  `ring` None chooses as the
+    the tape (past ONCHIP_CATEGORIES categories always).  A block takes
+    as many whole warps of patterns as fit in SMEM_BYTES, up to
+    MAX_THREADS threads.  `ring` None chooses as the
     card's times say: all matrices staged where that leaves `full_warps`
     warps (FULL_WARPS on the paired tape; a tape whose times say
     otherwise passes its own), else the staging with more warps (staged
@@ -344,9 +368,9 @@ def onchip_plan(kernel: str, rows: int, M: int, N1: int, C: int,
     staging at any number of warps, to measure it."""
     if kernel not in ("ll", "grad"):
         raise ValueError(f"kernel must be 'll' or 'grad', got {kernel!r}")
-    if not 1 <= C <= PAIRED_CATEGORIES:
-        raise ValueError(f"the on-chip bodies take 1..{PAIRED_CATEGORIES} "
-                         f"rate categories, got {C}")
+    check_categories(C)
+    if C > ONCHIP_CATEGORIES:
+        return None
     if ring is None:
         staged = _warps(kernel, rows, M, N1, C, False)
         ringed = _warps(kernel, rows, M, N1, C, True)
@@ -558,23 +582,23 @@ def paired_ll_and_gradients_tf32(post_dst, tip_slot, post_src, post_e,
 # Public wrappers and the bodies' launchers
 # ---------------------------------------------------------------------------
 
-def max_categories(A: int) -> int:
-    """The category counts the kernels take at A states (4 or 64): 1..this,
-    PAIRED_CATEGORIES at both."""
-    return PAIRED_CATEGORIES
+def check_categories(C: int) -> None:
+    """Raise unless C is a category count: the kernels take any C >= 1;
+    what bounds it is the card's memory, which their launchers check."""
+    if C < 1:
+        raise ValueError(f"the kernels take 1 or more rate categories, "
+                         f"got {C}")
 
 
-def _check_cuda_operands(ints, floats, C, A, states=(4,), *, categories):
+def _check_cuda_operands(ints, floats, C, A, states=(4,)):
     """Raise unless every operand is a contiguous CUDA tensor of its
-    dtype (int32 or float32), A is one of `states` and C is in
-    1..`categories` (the caller's limit: max_categories(A) or its own)."""
+    dtype (int32 or float32), A is one of `states` and C is a category
+    count (check_categories)."""
     _check_cuda_tensors(ints, floats)
     if A not in states:
         raise ValueError(f"the kernels take {' or '.join(map(str, states))}"
                          f"-state models, got A={A}")
-    if not 1 <= C <= categories:
-        raise ValueError(f"the kernels take 1..{categories} rate "
-                         f"categories, got {C}")
+    check_categories(C)
 
 
 def _check_cuda_tensors(ints, floats):
@@ -661,7 +685,7 @@ def paired_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     _check_cuda_operands(
         dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
         dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
-        KERNEL_STATES, categories=max_categories(A))
+        KERNEL_STATES)
     if A == 64:
         return paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi,
                              props) @ weights
@@ -696,7 +720,7 @@ def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
              post_e=post_e),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A, KERNEL_STATES, categories=max_categories(A))
+        C, A, KERNEL_STATES)
     if A == 64:
         return finish_rows(*paired_grad_a64(post_dst, tip_slot, post_src,
                                             post_e, P, dP, tips, pi, props,
@@ -806,42 +830,106 @@ def paired_grad_onchip(post_dst, onchip, post_src, post_e, P, dP, tips, pi,
 paired_grad_onchip.launches = 0
 
 
-# Threads a block of the global bodies' lane layout (9..32 categories,
+# Threads a block of the global bodies' lane layout (past 8 categories,
 # csrc/paired_lanes.cuh kThreads): 128 / G patterns a block.
 GLOBAL_THREADS = 128
+SCRATCH_HEADROOM = 256 << 20  # device bytes left free beside the scratch
+GRID_TREES = 65535  # trees one launch takes: the grid's y extent
 
 
-def _global_scratch(B, M, C, S, device):
-    """The global bodies' scratch (buf, ls): at 1..8 categories the slots
-    [B, 2M+3, C*4, S] and their log scales [B, 2M+3, S]; at 9..32 the lane
-    layout's slots [B, 2M+3, Sp, G, 4], Sp = S rounded up to a block's
-    patterns, and no log scales (csrc/paired_lanes.cuh)."""
-    NS = 2 * M + 3
-    kw = dict(device=device, dtype=torch.float32)
-    if C <= COMPILED_CATEGORIES:
-        return (torch.empty((B, NS, C * 4, S), **kw),
-                torch.empty((B, NS, S), **kw))
-    G = lanes(C)
-    return (torch.empty((B, NS, _rup(S, GLOBAL_THREADS // G), G, 4), **kw),
-            torch.empty(0, **kw))
+def tree_slices(B: int, tree_bytes: int,
+                budget: int) -> list[tuple[int, int]]:
+    """The launchers' slices of a batch of B trees: consecutive [start,
+    stop) ranges that cover it in order, each of as many trees as
+    `budget` bytes hold at `tree_bytes` a tree (and at most GRID_TREES),
+    so one slice where the whole batch fits.  Raises where one tree does
+    not fit."""
+    if tree_bytes > budget:
+        raise torch.cuda.OutOfMemoryError(
+            f"the kernels' scratch takes {tree_bytes} bytes a tree; "
+            f"{budget} bytes of device memory are free for it")
+    n = min(budget // tree_bytes, GRID_TREES)
+    return [(b, min(b + n, B)) for b in range(0, B, n)]
+
+
+def scratch_budget(device) -> int:
+    """Bytes of `device`'s memory a launcher's scratch may take: what the
+    card has free, with what torch's cache holds unused and can release
+    (not the unused parts of split segments), less SCRATCH_HEADROOM."""
+    stats = torch.cuda.memory_stats(device)
+    cached = (stats.get("reserved_bytes.all.current", 0)
+              - stats.get("allocated_bytes.all.current", 0)
+              - stats.get("inactive_split_bytes.all.current", 0))
+    return torch.cuda.mem_get_info(device)[0] + cached - SCRATCH_HEADROOM
+
+
+def launch_sliced(entry, B, alloc, launch, device,
+                  tree_bytes: int | None = None) -> int:
+    """Launch `entry` (a C entry point's name) over B trees: once a
+    GRID_TREES trees where the scratch of that many can be allocated, else
+    once a slice of tree_slices under scratch_budget, into one scratch
+    sized for the largest slice.  alloc(n, device) returns the scratch
+    tensors of n trees; a tree's bytes are `tree_bytes`, or where None
+    reckoned from the allocation itself, alloc(1) on the meta device;
+    launch(b0, b1, *scratch) launches trees [b0, b1) and returns its
+    code.  The allocation is the
+    test of what fits: it costs the call no query of the card
+    (cudaMemGetInfo or torch's statistics), host time that a call waiting
+    on the host pays.  Returns the launches."""
+    try:
+        slices = [(b, min(b + GRID_TREES, B))
+                  for b in range(0, B, GRID_TREES)]
+        scratch = alloc(min(B, GRID_TREES), device)
+    except torch.cuda.OutOfMemoryError:
+        if tree_bytes is None:
+            tree_bytes = sum(t.numel() * t.element_size()
+                             for t in alloc(1, "meta"))
+        slices = tree_slices(B, tree_bytes, scratch_budget(device))
+        scratch = alloc(max(b1 - b0 for b0, b1 in slices), device)
+    with torch.cuda.device(device):
+        for b0, b1 in slices:
+            _kernels.check(launch(b0, b1, *scratch), entry)
+    return len(slices)
+
+
+def global_scratch(NS: int, C: int, S: int):
+    """alloc(n, device) of the global bodies' scratch over NS slots a
+    tree: at 1..8 categories the slots [n, NS, C*4, S] and their log
+    scales [n, NS, S]; past 8 the lane layout's slots [n, NS, Sp, G, 4]
+    (Sp = S rounded up to a block's GLOBAL_THREADS // G patterns), and
+    past 32 [n, NS, Sp, K, 32, 4] (K = lane_categories(C)), with no log
+    scales (csrc/paired_lanes.cuh)."""
+    def alloc(n, device):
+        kw = dict(device=device, dtype=torch.float32)
+        if C <= COMPILED_CATEGORIES:
+            return (torch.empty((n, NS, C * 4, S), **kw),
+                    torch.empty((n, NS, S), **kw))
+        G = lanes(C)
+        Sp = _rup(S, GLOBAL_THREADS // G)
+        shape = ((n, NS, Sp, G, 4) if C <= ONCHIP_CATEGORIES
+                 else (n, NS, Sp, lane_categories(C), G, 4))
+        return torch.empty(shape, **kw), torch.empty(0, **kw)
+    return alloc
 
 
 def paired_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props):
     """Launch csrc/paired_ll.cu (operands checked by the wrapper):
-    per-pattern LL rows [B, S]."""
+    per-pattern LL rows [B, S].  Its scratch (global_scratch) is
+    allocated here, for the batch where it can be, else over slices of
+    trees (launch_sliced), each a launch."""
     B, M = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
-    buf, ls = _global_scratch(B, M, C, S, P.device)
     ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
-    with torch.cuda.device(P.device):
-        rc = _kernels.library().bito_paired_ll(
-            post_dst.data_ptr(), tip_slot.data_ptr(), post_e.data_ptr(),
-            P.data_ptr(), tips.data_ptr(), pi.data_ptr(), props.data_ptr(),
-            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            B, M, T, N1, C, S, _stream())
-    _kernels.check(rc, "bito_paired_ll")
-    paired_ll_global.launches += 1
+    lib = _kernels.library()
+    paired_ll_global.launches += launch_sliced(
+        "bito_paired_ll", B, global_scratch(2 * M + 3, C, S),
+        lambda b0, b1, buf, ls: lib.bito_paired_ll(
+            post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
+            post_e[b0:b1].data_ptr(), P[b0:b1].data_ptr(), tips.data_ptr(),
+            pi.data_ptr(), props.data_ptr(), buf.data_ptr(), ls.data_ptr(),
+            ll_rows[b0:b1].data_ptr(), b1 - b0, M, T, N1, C, S, _stream()),
+        P.device)
     return ll_rows
 
 
@@ -852,23 +940,25 @@ def paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
                        props, weights):
     """Launch csrc/paired_grad.cu (operands checked by the wrapper): (LL
     rows [B, S], weighted gradient rows [B, N1, S], zero where no op
-    writes)."""
+    writes), with the scratch and the slices of paired_ll_global."""
     B, M = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
     kw = dict(device=P.device, dtype=torch.float32)
-    buf, ls = _global_scratch(B, M, C, S, P.device)
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, N1, S), **kw)
-    with torch.cuda.device(P.device):
-        rc = _kernels.library().bito_paired_grad(
-            post_dst.data_ptr(), tip_slot.data_ptr(), post_src.data_ptr(),
-            post_e.data_ptr(), P.data_ptr(), dP.data_ptr(), tips.data_ptr(),
+    lib = _kernels.library()
+    paired_grad_global.launches += launch_sliced(
+        "bito_paired_grad", B, global_scratch(2 * M + 3, C, S),
+        lambda b0, b1, buf, ls: lib.bito_paired_grad(
+            post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
+            post_src[b0:b1].data_ptr(), post_e[b0:b1].data_ptr(),
+            P[b0:b1].data_ptr(), dP[b0:b1].data_ptr(), tips.data_ptr(),
             pi.data_ptr(), props.data_ptr(), weights.data_ptr(),
-            buf.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            grad_rows.data_ptr(), B, M, T, N1, C, S, _stream())
-    _kernels.check(rc, "bito_paired_grad")
-    paired_grad_global.launches += 1
+            buf.data_ptr(), ls.data_ptr(), ll_rows[b0:b1].data_ptr(),
+            grad_rows[b0:b1].data_ptr(), b1 - b0, M, T, N1, C, S,
+            _stream()),
+        P.device)
     return ll_rows, grad_rows
 
 
@@ -894,8 +984,6 @@ def _a64_operands(tips, weights=None, **mats):
 
 
 A64_TILE = 128  # patterns a block of the A=64 kernels (bito_paired_a64_tile)
-A64_HEADROOM = 256 << 20  # device bytes left free beside their scratch
-GRID_TREES = 65535  # trees one launch takes: the grid's y extent
 
 
 def _a64_tree_words(M, S, C):
@@ -934,54 +1022,13 @@ def _a64_library():
     return lib
 
 
-def tree_slices(B: int, tree_bytes: int,
-                budget: int) -> list[tuple[int, int]]:
-    """The A=64 launchers' slices of a batch of B trees: consecutive
-    [start, stop) ranges that cover it in order, each of as many trees as
-    `budget` bytes hold at `tree_bytes` a tree (and at most GRID_TREES),
-    so one slice where the whole batch fits.  Raises where one tree does
-    not fit."""
-    if tree_bytes > budget:
-        raise torch.cuda.OutOfMemoryError(
-            f"the A=64 kernels' scratch takes {tree_bytes} bytes a tree; "
-            f"{budget} bytes of device memory are free for it")
-    n = min(budget // tree_bytes, GRID_TREES)
-    return [(b, min(b + n, B)) for b in range(0, B, n)]
-
-
-def a64_budget(device) -> int:
-    """Bytes of `device`'s memory the A=64 kernels' scratch may take: what
-    the card has free, with what torch's cache holds unused and can
-    release (not the unused parts of split segments), less
-    A64_HEADROOM."""
-    stats = torch.cuda.memory_stats(device)
-    cached = (stats.get("reserved_bytes.all.current", 0)
-              - stats.get("allocated_bytes.all.current", 0)
-              - stats.get("inactive_split_bytes.all.current", 0))
-    return torch.cuda.mem_get_info(device)[0] + cached - A64_HEADROOM
-
-
 def _launch_a64(entry, B, M, S, C, device, launch) -> int:
-    """Launch `entry` (a C entry point's name) over B trees: once a
-    GRID_TREES trees where the scratch of that many can be allocated, else
-    once a slice of tree_slices under a64_budget, into one scratch sized
-    for the largest slice.  The allocation is the test of what fits: it
-    costs the call no query of the card (cudaMemGetInfo or torch's
-    statistics), host time that auto's codon call, waiting on the host,
-    pays.  launch(b0, b1, buf, scratch) returns its code.  Returns the
-    launches."""
-    try:
-        slices = [(b, min(b + GRID_TREES, B))
-                  for b in range(0, B, GRID_TREES)]
-        buf, scratch = _a64_scratch(min(B, GRID_TREES), M, S, C, device)
-    except torch.cuda.OutOfMemoryError:
-        slices = tree_slices(B, a64_tree_bytes(M, S, C), a64_budget(device))
-        buf, scratch = _a64_scratch(max(b1 - b0 for b0, b1 in slices), M, S,
-                                    C, device)
-    with torch.cuda.device(device):
-        for b0, b1 in slices:
-            _kernels.check(launch(b0, b1, buf, scratch), entry)
-    return len(slices)
+    """launch_sliced of `entry` over B trees with the A=64 kernels'
+    scratch (_a64_scratch, looked up at each call; a64_tree_bytes a
+    tree).  Returns the launches."""
+    return launch_sliced(
+        entry, B, lambda n, dev: _a64_scratch(n, M, S, C, dev), launch,
+        device, a64_tree_bytes(M, S, C))
 
 
 def paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi, props):

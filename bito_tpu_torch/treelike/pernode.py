@@ -35,12 +35,15 @@ shared-memory row, a parent's children evolved together,
 device memory, `pernode_grad_global`); `onchip_plan` chooses, from the
 tape that `onchip_tape` derives on the host.
 
-At 4 states both kernels take 1 to paired.PAIRED_CATEGORIES (32) rate
-categories, as the paired ones do: 1-8 compiled one count at a time, 9-32
-on 16 or 32 lanes a pattern with the count read at run time (the on-chip
-bodies' templates; the global bodies are then csrc/pernode_lanes.cuh,
-which walks post_ops and pre_ops as pernode_ll.cu and pernode_grad.cu
-do, a category a lane).
+At 4 states both kernels take any count of rate categories, as the
+paired ones do: 1-8 compiled one count at a time, 9-32 on 16 or 32 lanes
+a pattern with the count read at run time (the on-chip bodies'
+templates; the global bodies are then csrc/pernode_lanes.cuh, which
+walks post_ops and pre_ops as pernode_ll.cu and pernode_grad.cu do, a
+category a lane), and past 32 (paired.ONCHIP_CATEGORIES) the global
+bodies alone, on 32 lanes of paired.lane_categories(C) categories each;
+their launchers split the batch over slices of trees where the scratch
+would not fit (paired.launch_sliced).
 
 At 64 states (MG94 codon models, as bito_tpu's per-node kernels take
 them) both functions run on the paired kernels' A=64 bodies
@@ -49,9 +52,9 @@ and `paired.paired_grad_a64`, which count the launches), over the paired
 tape that `a64_tape` derives on the host: the LL's from post_ops and
 root, as ll_tape derives it; the grad's the same, after checking that
 pre_ops describes the same tree, since the paired walk reads the
-preorder from the postorder's own tape.  They take 1 to
-paired.max_categories(64) (32) categories there too, and the launchers'
-slices of trees where the scratch would not fit (paired.tree_slices).
+preorder from the postorder's own tape.  They take any count of
+categories there too, and the launchers' slices of trees where the
+scratch would not fit (paired.tree_slices).
 
 Operands: post_ops, pre_ops, root int32; P, dP [B, N+1, C, A, A]; tips
 [T, A, S]; pi [A]; props [C]; weights [S]; edge_mask [B, N]; A is 4 or 64
@@ -148,7 +151,7 @@ def pernode_log_likelihoods(post_ops, root, P, tips, pi, props, weights, *,
     _check_cuda_operands(
         dict(post_ops=post_ops, root=root),
         dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
-        paired.KERNEL_STATES, categories=paired.max_categories(A))
+        paired.KERNEL_STATES)
     if A == 64:
         tape = _a64_of(onchip, post_ops, root, None, T, N1, P.device)
         return paired.paired_ll_a64(tape.post_dst, tape.tip_slot,
@@ -193,7 +196,7 @@ def pernode_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
         dict(post_ops=post_ops, pre_ops=pre_ops, root=root),
         dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
              edge_mask=edge_mask),
-        C, A, paired.KERNEL_STATES, categories=paired.max_categories(A))
+        C, A, paired.KERNEL_STATES)
     if A == 64:
         tape = _a64_of(onchip, post_ops, root, pre_ops, T, N1, P.device)
         return paired.finish_rows(*paired.paired_grad_a64(
@@ -329,37 +332,41 @@ def pernode_ll_onchip(tape: LLTape, P, tips, pi, props,
 pernode_ll_onchip.launches = 0
 
 
-def _global_rows(B, T, N1, C, S, device):
-    """The global bodies' per-node scratch and log scales: at 1..8
-    categories [B, N1, C*4, S] and [B, N1, S]; at 9..32 the lane layout of
-    csrc/pernode_lanes.cuh, the internal nodes' rows [B, N1-T, Sp, G, 4]
-    (Sp = S rounded up to a block's patterns), and no log scales."""
-    kw = dict(device=device, dtype=torch.float32)
-    if C <= paired.COMPILED_CATEGORIES:
-        return (torch.empty((B, N1, C * 4, S), **kw),
-                torch.empty((B, N1, S), **kw))
-    G = paired.lanes(C)
-    return (torch.empty((B, N1 - T, paired._rup(S, paired.GLOBAL_THREADS
-                                                 // G), G, 4), **kw),
-            torch.empty(0, **kw))
+def _global_rows(T, N1, C, S, grad):
+    """alloc(n, device) of the global bodies' per-node scratch: at 1..8
+    categories [n, N1, C*4, S] and the log scales [n, N1, S]; past 8 the
+    lane layout of csrc/pernode_lanes.cuh, the internal nodes' rows [n,
+    N1-T, Sp, G, 4] (past 32 [n, N1-T, Sp, K, 32, 4]; Sp = S rounded up to
+    a block's patterns; paired.global_scratch) and no log scales; with
+    `grad` also the up values, laid out as the rows."""
+    rows = paired.global_scratch(
+        N1 if C <= paired.COMPILED_CATEGORIES else N1 - T, C, S)
+
+    def alloc(n, device):
+        buf, ls = rows(n, device)
+        return (buf, torch.empty_like(buf), ls) if grad else (buf, ls)
+    return alloc
 
 
 def pernode_ll_global(post_ops, root, P, tips, pi, props) -> torch.Tensor:
     """Launch csrc/pernode_ll.cu, the global body (operands checked by the
-    wrapper): per-pattern LL rows [B, S]."""
+    wrapper): per-pattern LL rows [B, S].  Its scratch is allocated here,
+    for the batch where it can be, else over slices of trees
+    (paired.launch_sliced), each a launch."""
     B, M = post_ops.shape[:2]
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
-    buf, ls = _global_rows(B, T, N1, C, S, P.device)
     ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
-    with torch.cuda.device(P.device):
-        rc = _kernels.library().bito_pernode_ll(
-            post_ops.data_ptr(), root.data_ptr(), P.data_ptr(),
-            tips.data_ptr(), pi.data_ptr(), props.data_ptr(), buf.data_ptr(),
-            ls.data_ptr(), ll_rows.data_ptr(), B, M, T, N1, C, S,
-            paired._stream())
-    _kernels.check(rc, "bito_pernode_ll")
-    pernode_ll_global.launches += 1
+    lib = _kernels.library()
+    pernode_ll_global.launches += paired.launch_sliced(
+        "bito_pernode_ll", B, _global_rows(T, N1, C, S, False),
+        lambda b0, b1, buf, ls: lib.bito_pernode_ll(
+            post_ops[b0:b1].data_ptr(), root[b0:b1].data_ptr(),
+            P[b0:b1].data_ptr(), tips.data_ptr(), pi.data_ptr(),
+            props.data_ptr(), buf.data_ptr(), ls.data_ptr(),
+            ll_rows[b0:b1].data_ptr(), b1 - b0, M, T, N1, C, S,
+            paired._stream()),
+        P.device)
     return ll_rows
 
 
@@ -609,10 +616,11 @@ def onchip_plan(rows: int, tape_ints: int, N1: int, C: int,
     """How the on-chip body launches, or None where the global body takes
     the tape: a block of as many whole warps of patterns as fit in
     paired.SMEM_BYTES, up to paired.MAX_THREADS threads, and at least
-    `least` warps (1 asks for the body wherever it fits, to measure it)."""
-    if not 1 <= C <= paired.PAIRED_CATEGORIES:
-        raise ValueError(f"the kernels take 1..{paired.PAIRED_CATEGORIES} "
-                         f"rate categories, got {C}")
+    `least` warps (1 asks for the body wherever it fits, to measure it).
+    None past paired.ONCHIP_CATEGORIES."""
+    paired.check_categories(C)
+    if C > paired.ONCHIP_CATEGORIES:
+        return None
     G = paired.lanes(C)
     per_warp = paired.WARP // G  # patterns a warp
     fixed = smem_bytes(rows, tape_ints, N1, C, 0)
@@ -678,25 +686,27 @@ def pernode_grad_global(post_ops, pre_ops, root, P, dP, tips, pi, props,
                         weights):
     """Launch csrc/pernode_grad.cu, the global body (operands checked by
     the wrapper): (LL rows [B, S], weighted gradient rows [B, N1, S], zero
-    where no op writes)."""
+    where no op writes), with the scratch and the slices of
+    pernode_ll_global (and the up values)."""
     B, M = post_ops.shape[:2]
     Mp = pre_ops.shape[1]
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
     kw = dict(device=P.device, dtype=torch.float32)
-    buf, ls = _global_rows(B, T, N1, C, S, P.device)
-    up = torch.empty_like(buf)
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, N1, S), **kw)
-    with torch.cuda.device(P.device):
-        rc = _kernels.library().bito_pernode_grad(
-            post_ops.data_ptr(), pre_ops.data_ptr(), root.data_ptr(),
-            P.data_ptr(), dP.data_ptr(), tips.data_ptr(), pi.data_ptr(),
+    lib = _kernels.library()
+    pernode_grad_global.launches += paired.launch_sliced(
+        "bito_pernode_grad", B, _global_rows(T, N1, C, S, True),
+        lambda b0, b1, buf, up, ls: lib.bito_pernode_grad(
+            post_ops[b0:b1].data_ptr(), pre_ops[b0:b1].data_ptr(),
+            root[b0:b1].data_ptr(), P[b0:b1].data_ptr(),
+            dP[b0:b1].data_ptr(), tips.data_ptr(), pi.data_ptr(),
             props.data_ptr(), weights.data_ptr(), buf.data_ptr(),
-            up.data_ptr(), ls.data_ptr(), ll_rows.data_ptr(),
-            grad_rows.data_ptr(), B, M, Mp, T, N1, C, S, paired._stream())
-    _kernels.check(rc, "bito_pernode_grad")
-    pernode_grad_global.launches += 1
+            up.data_ptr(), ls.data_ptr(), ll_rows[b0:b1].data_ptr(),
+            grad_rows[b0:b1].data_ptr(), b1 - b0, M, Mp, T, N1, C, S,
+            paired._stream()),
+        P.device)
     return ll_rows, grad_rows
 
 

@@ -13,7 +13,8 @@ kernels as their users' calls reach them; an eleventh, the GP engine,
 runs no hand-written kernel; a twelfth, the NNI search, runs the paired
 LL kernel where its TP-likelihood scoring reaches it; a thirteenth, the
 MG94 codon models, runs the paired kernels' A=64 bodies, also at 16
-rate categories (codon-categories); a fourteenth,
+rate categories (codon-categories) and past 32 (wide, beside rows 1-6
+past 32 on the flagship); a fourteenth,
 the dist path, runs the pattern-sharded engines on two ranks of the card
 (rows 1-4 and the A=64 bodies on every rank); a fifteenth, the graft
 path, the driver's entry points (rows 1-2); then the leveled variant
@@ -134,9 +135,18 @@ and the VI command line with a checkpoint:
     ll_eval_fn call, ll_and_branch_gradients and CODON_CATEGORY_SWEEP
     branch_eval_fn calls on auto, counted for the JSON line's entries
     paired_ll_a64@C16 and paired_grad_a64@C16; then kernel="cuda" at 33
-    categories, which must raise, and branch_eval_fn at
+    categories, held to float64, and branch_eval_fn at
     CODON_WIDE_BATCH trees x 32 categories, over the launchers' slices
     of trees where their scratch does not fit in one launch;
+  - wide: past 32 rate categories, where auto once took the scan tape
+    and the forced routes raised: the flagship at GTR+Gamma64
+    (WIDE_C) on auto, kernel="chunked" and the per-node functions, each
+    launching its global body's wide kernel (csrc/paired_lanes.cuh,
+    csrc/pernode_lanes.cuh: a lane of 32 holding two categories),
+    counted for the JSON line's @C64 entries; then config6's shape at
+    MG94+Gamma48 (WIDE_CODON_C) on auto, the A=64 kernels over the
+    launchers' slices of trees, counted for the @C48 entries (the
+    wide-codon count); no scan tape call;
   - dist: the port's launcher (python -m bito_tpu_torch.dist.launch)
     starts DIST_RANKS ranks of this script (`--dist-worker gloo OUTDIR`)
     on the one card over Gloo, each holding half the patterns
@@ -213,6 +223,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      names (category_parity); the chunked and per-node kernels (rows 3-6)
      the same way, and on the flagship also each body their plans do not
      name, through its launcher (category_rows_parity).
+     Rows 1-6 at WIDE_COUNTS (33, 64) categories through their wrappers
+     on the flagship's trees, each launching its global body, the first
+     WIDE_REF_TREES trees within 5e-5 of their float64 plain versions,
+     and rows 1b-2b at 33, 48 and 64 on CODON_REF_TREES trees of the codon
+     shape within A64_BOUND (wide_parity).
      chunk_variant's variants (v0, w4, w8, norescale, notips, fixstore,
      nodot, unroll) against their float64 plain versions on the
      flagship's chunked operands: the LL within 5e-5 relative (notips,
@@ -224,13 +239,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      results (log_likelihoods, ll_and_branch_gradients, calls over scaled
      branch lengths, and ll_eval_fn on the chunked path) must be finite
      and agree with the float64 engine (the scan tape) within the phase-2
-     bounds; the float64 gradients are checked against central
-     differences.  On the perflab path the variants must agree with base
-     (nodot aside), the filled pipe experiments with phase 2's plain
-     outputs, both stream sums with each other and the sum of the ones
-     block, and every slope (both variants at every layout) must be
-     finite and not under its FMA floor; each is printed beside that floor, and each pipe experiment's us per cell beside both
-     terms of its bound (perf_pipe_lab.pipe_bound_ms).
+     bounds (on the wide path on its first WIDE_REF_TREES or
+     CODON_REF_TREES trees, and no scan tape call may run); the float64
+     gradients are checked against central differences.  On the perflab
+     path the variants must agree with base (nodot aside), the filled pipe
+     experiments with phase 2's plain outputs, both stream sums with each
+     other and the sum of the ones block, and every slope (both variants at
+     every layout) must be finite and not under its FMA floor; each is
+     printed beside that floor, and each pipe experiment's us per cell
+     beside both terms of its bound (perf_pipe_lab.pipe_bound_ms).
      On the vbpi path: the EM on the card in float64 against the numpy
      backend within 1e-10; one warm-up step, then VBPI_STEPS steps timed
      by phase (Burrito.gradient_step's phases, the card synchronised at
@@ -272,9 +289,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      card (the uniformized scan tape), the float64 gradients against central
      differences; on the codon-categories path the same on the first
      CODON_REF_TREES trees (the float64 engine on those trees), every
-     result finite, kernel="cuda" at 33 categories raising before any
-     launch, and the CODON_WIDE_BATCH-tree call's launches and first
-     trees within A64_BOUND; the batched
+     result finite, kernel="cuda" at 33 categories launching both A=64
+     kernels within A64_BOUND of float64, and the CODON_WIDE_BATCH-tree
+     call's launches and first trees within A64_BOUND; the batched
      scorer's float64 scores on the card within SCORER_BOUND relative of
      the serial numpy scorer on the first and the last iteration's
      candidate sets (ROUNDED_BOUND where a Brent step was decided by
@@ -357,7 +374,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      CODON_CATEGORY_COUNTS beside their float32 plain versions and both
      bounds, auto's LL+gradient call and its device memory high-water
      mark at each count, and at CODON_CATEGORY_C the float32 scan tape's
-     call (codon_category_times).
+     call (codon_category_times); rows 1-6 at WIDE_TIMED (33, 48, 64)
+     categories on the flagship and rows 1b-2b on WIDE_CODON_TREES trees
+     of the codon shape beside their float32 plain versions and bounds,
+     with auto's, the chunked route's and the scan tape's LL+gradient
+     call at each count (wide_times; the JSON line's @C64 and @C48
+     entries timed in the main loop at fewer calls, KERNELS' `reps`).
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -495,6 +517,24 @@ CODON_CATEGORY_C = 16
 CODON_CATEGORY_SWEEP = 4
 CODON_REF_TREES = 8
 CODON_WIDE_BATCH = 200
+# The wide path: every tree kernel past 32 rate categories.  Phase 2
+# holds each kernel at WIDE_COUNTS (rows 1-6 on the flagship's trees, the
+# first WIDE_REF_TREES held to float64; rows 1b-2b also at WIDE_CODON_C, on
+# CODON_REF_TREES trees of config6's shape); phase 3 drives the flagship at
+# GTR+Gamma WIDE_C on auto, kernel="chunked" and the per-node functions
+# (WIDE_SWEEP scaled calls each) and config6's shape at MG94+Gamma
+# WIDE_CODON_C on auto; phase 4 times them at WIDE_TIMED, rows 1b-2b on
+# WIDE_CODON_TREES trees (their float32 plain version at 128 trees and 48
+# categories would take 59 GB beside the kernels' scratch).
+WIDE_COUNTS = (33, 64)
+WIDE_C = 64
+WIDE_CODON_C = 48
+WIDE_TIMED = (33, 48, 64)
+WIDE_REF_TREES = 20
+WIDE_CODON_TREES = 32
+WIDE_SWEEP = 2
+WIDE_ROWS = ("paired_ll", "paired_grad", "chunked_ll", "chunked_grad",
+             "pernode_ll", "pernode_grad")
 PEAK_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 # H100 SXM dense TF32 on the tensor cores over three passes: the rate of a
 # float32-accurate product in 3xTF32 (the A=64 kernels)
@@ -552,11 +592,11 @@ KERNELS = {
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
-        wrapper=paired.paired_ll_global, path="large"),
+        wrapper=paired.paired_ll_global, path="large", also=("wide",)),
     "paired_grad": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
-        wrapper=paired.paired_grad_global, path="large"),
+        wrapper=paired.paired_grad_global, path="large", also=("wide",)),
     "chunked_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
@@ -565,7 +605,8 @@ KERNELS = {
     "chunked_ll": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_ll.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
-        wrapper=chunked.chunked_ll_global, path="large-chunked"),
+        wrapper=chunked.chunked_ll_global, path="large-chunked",
+        also=("wide",)),
     "chunked_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
@@ -574,7 +615,8 @@ KERNELS = {
     "chunked_grad": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_grad.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
-        wrapper=chunked.chunked_grad_global, path="large-chunked"),
+        wrapper=chunked.chunked_grad_global, path="large-chunked",
+        also=("wide",)),
     "pernode_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
@@ -583,7 +625,8 @@ KERNELS = {
     "pernode_ll": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_ll.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
-        wrapper=pernode.pernode_ll_global, path="large-pernode"),
+        wrapper=pernode.pernode_ll_global, path="large-pernode",
+        also=("wide",)),
     "pernode_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
@@ -592,7 +635,8 @@ KERNELS = {
     "pernode_grad": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_grad.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
-        wrapper=pernode.pernode_grad_global, path="large-pernode"),
+        wrapper=pernode.pernode_grad_global, path="large-pernode",
+        also=("wide",)),
     "variant_grad": dict(
         source=PROBES + "variant_grad.cu", replaces="scripts/perf_lab.py:36",
         wrapper=perf_lab.variant_ll_and_gradients, path="perflab"),
@@ -620,24 +664,53 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/paired_ll_a64.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
         wrapper=paired.paired_ll_a64, path="codon", peak=PEAK_3XTF32,
-        also=("codon-categories",)),
+        also=("codon-categories", "wide-codon")),
     "paired_grad_a64": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_a64.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
         wrapper=paired.paired_grad_a64, path="codon", peak=PEAK_3XTF32,
-        also=("codon-categories",)),
+        also=("codon-categories", "wide-codon")),
     # Rows 1b-2b at CODON_CATEGORY_C categories: the same launchers,
     # counted on the codon-categories path
     "paired_ll_a64@C16": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_a64.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
         wrapper=paired.paired_ll_a64, path="codon-categories",
-        peak=PEAK_3XTF32, also=("codon",)),
+        peak=PEAK_3XTF32, also=("codon", "wide-codon")),
     "paired_grad_a64@C16": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_a64.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
         wrapper=paired.paired_grad_a64, path="codon-categories",
-        peak=PEAK_3XTF32, also=("codon",)),
+        peak=PEAK_3XTF32, also=("codon", "wide-codon")),
+    # Rows 1-6 at WIDE_C categories (the global bodies' wide kernels, a lane
+    # of 32 holding two categories) and rows 1b-2b at WIDE_CODON_C: the same
+    # launchers, counted on the wide path; phase 4 times them at fewer
+    # calls (`reps`: plain calls, kernel calls, plain warm-up calls)
+    **{f"{row}@C{WIDE_C}": dict(
+        source=f"bito_tpu_torch/treelike/csrc/{lanes}",
+        replaces=f"bito_tpu/treelike/{tpu}", wrapper=wrapper, path="wide",
+        also=(large,), reps=(2, 10, 1))
+       for row, lanes, tpu, wrapper, large in (
+           ("paired_ll", "paired_lanes.cuh", "pallas_paired.py:423",
+            paired.paired_ll_global, "large"),
+           ("paired_grad", "paired_lanes.cuh", "pallas_paired.py:446",
+            paired.paired_grad_global, "large"),
+           ("chunked_ll", "paired_lanes.cuh", "pallas_chunked.py:384",
+            chunked.chunked_ll_global, "large-chunked"),
+           ("chunked_grad", "paired_lanes.cuh", "pallas_chunked.py:404",
+            chunked.chunked_grad_global, "large-chunked"),
+           ("pernode_ll", "pernode_lanes.cuh", "pallas_pruning.py:90",
+            pernode.pernode_ll_global, "large-pernode"),
+           ("pernode_grad", "pernode_lanes.cuh", "pallas_pruning.py:179",
+            pernode.pernode_grad_global, "large-pernode"))},
+    **{f"{name}@C{WIDE_CODON_C}": dict(
+        source=f"bito_tpu_torch/treelike/csrc/{name}.cu",
+        replaces=f"bito_tpu/treelike/pallas_paired.py:{line}",
+        wrapper=wrapper, path="wide-codon", peak=PEAK_3XTF32,
+        also=("codon", "codon-categories"), reps=(2, 10, 1))
+       for name, line, wrapper in (
+           ("paired_ll_a64", 423, paired.paired_ll_a64),
+           ("paired_grad_a64", 446, paired.paired_grad_a64))},
 }
 # The A=64 kernels' __global__ functions, whose SASS phase 1 reads
 TENSOR_KERNELS = ("paired_ll_a64_kernel", "paired_grad_a64_kernel")
@@ -957,6 +1030,12 @@ def paired_operands(eng, trees, params, bl=None):
     return ((dst, tip, e, P, tips, pi, prop, w),
             (dst, tip, src, e, mask, P, dP, tips, pi, prop, w),
             eng._onchip_tape(enc))
+
+
+def first_trees(ops, n, per_tree):
+    """`ops` with its first `per_tree` operands (the tree-major ones) cut
+    to the first `n` trees."""
+    return [x[:n] for x in ops[:per_tree]] + list(ops[per_tree:])
 
 
 def plain64(grad_ops, step=40):
@@ -1566,6 +1645,15 @@ LAB_SHAPES = {
        for suffix, model in (("", "C=1"),
                              ("@C16", f"+Gamma{CODON_CATEGORY_C}"))
        for name in ("paired_ll_a64", "paired_grad_a64")},
+    **{f"{name}@C{WIDE_CODON_C}": (
+        f"MG94 +Gamma{WIDE_CODON_C}, float32, the wide path's first "
+        f"{WIDE_CODON_TREES} trees x "
+        f"{pruning.pad_patterns(_synthetic.DS1_DISTINCT_CODON_COLUMNS)} "
+        f"patterns, {_synthetic.DS1_TAXA} taxa")
+       for name in ("paired_ll_a64", "paired_grad_a64")},
+    **{f"{row}@C{WIDE_C}": f"GTR+Gamma{WIDE_C}, float32, {BATCH} trees x "
+                           "1024 patterns"
+       for row in WIDE_ROWS},
 }
 
 
@@ -3365,9 +3453,9 @@ def codon_plain64(grad_ops, n):
     """The float64 plain LL+gradient version on the first `n` trees of the
     float32 operands `grad_ops` (each tree's rows depend on its own
     operands alone): (ll [n], grads [n, N])."""
-    sub = [x[:n] for x in grad_ops[:7]] + list(grad_ops[7:])
     return paired.paired_ll_and_gradients_ref(
-        *[x.double() if x.is_floating_point() else x for x in sub])
+        *[x.double() if x.is_floating_point() else x
+          for x in first_trees(grad_ops, n, 7)])
 
 
 def codon_category_parity(dev, errs):
@@ -3400,7 +3488,7 @@ def codon_category_parity(dev, errs):
             ll_ops, grad_ops = codon_operands(eng, trees, params, lengths)
             M, S = ll_ops[0].shape[1], ll_ops[4].shape[-1]
             tree = paired.a64_tree_bytes(M, S, C)
-            fits = paired.a64_budget(dev) // tree
+            fits = paired.scratch_budget(dev) // tree
             before = [f.launches for f in a64]
             ll_k = paired.paired_log_likelihoods(*ll_ops)
             ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops)
@@ -3458,7 +3546,8 @@ def codon_categories_path(dev, against_reference):
     scan tape call may run; every result is finite and the first
     CODON_REF_TREES trees' are held against the float64 engine on those
     trees (codon_refs64) within A64_BOUND.  Then kernel="cuda" at 33
-    categories raises before any launch, and branch_eval_fn at
+    categories on two trees launches both A=64 kernels (it once raised),
+    held to the float64 engine the same way, and branch_eval_fn at
     CODON_WIDE_BATCH trees and the largest of CODON_CATEGORY_COUNTS runs
     on as many launches as the scratch's slices of trees need, held the
     same way.  Returns (engine, trees, float32 params, launches)."""
@@ -3497,19 +3586,24 @@ def codon_categories_path(dev, against_reference):
     past = max(CODON_CATEGORY_COUNTS) + 1
     t33, sp33, m33, p33 = codon_workload(f"gamma+{past}", 2)
     e33 = TreeLikelihoodEngine(sp33, m33, device=dev, dtype=PRODUCT_DTYPE)
-    check(e33._route(True) == "scan", f"auto takes the scan tape at C={past}")
+    check(e33._route(True) == "paired", f"auto takes the A=64 kernels at "
+          f"C={past}")
     e33.kernel = "cuda"
+    bl33 = e33.branch_length_matrix(t33, e33.encode(t33))
+    refs33 = codon_refs64(sp33, m33, t33, p33, bl33, (), dev)
     before = [paired.paired_ll_a64.launches, paired.paired_grad_a64.launches]
-    try:
-        e33.log_likelihoods(t33, params_from_numpy(p33, dev, PRODUCT_DTYPE))
-        raised = None
-    except ValueError as err:
-        raised = err
-    print(f"# phase 3: kernel='cuda' at MG94+Gamma{past} raises: {raised}")
-    check(raised is not None and "1..32" in str(raised)
-          and before == [paired.paired_ll_a64.launches,
-                         paired.paired_grad_a64.launches],
-          f"kernel='cuda' at C={past} raises before any launch")
+    p33 = params_from_numpy(p33, dev, PRODUCT_DTYPE)
+    ll33 = e33.log_likelihoods(t33, p33)
+    pair33 = e33.ll_and_branch_gradients(t33, p33)
+    torch.cuda.synchronize()
+    ran = [paired.paired_ll_a64.launches - before[0],
+           paired.paired_grad_a64.launches - before[1]]
+    print(f"# phase 3: kernel='cuda' at MG94+Gamma{past}: launches of "
+          f"paired_ll_a64, paired_grad_a64 {ran}")
+    check(min(ran) >= 1, f"kernel='cuda' at C={past} launches both A=64 "
+          "kernels")
+    against_reference(f"kernel='cuda' at MG94+Gamma{past} ({len(t33)} "
+                      "trees)", [ll33], [pair33], refs33, bound=A64_BOUND)
 
     Cw = max(CODON_CATEGORY_COUNTS)
     tw, spw, mw, pw = codon_workload(f"gamma+{Cw}", CODON_WIDE_BATCH)
@@ -3602,6 +3696,387 @@ def codon_category_times(run, times, card):
               f"{len(trees)} trees x {eng.pattern_pad} patterns, CUDA "
               f"events): " + "; ".join(parts) + f"; on {card}")
         del eng, fn, bl
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# The wide path: every tree kernel past 32 rate categories
+# ---------------------------------------------------------------------------
+
+def wide_rows_timed(eng, trees, params):
+    """Rows 1-6 through their wrappers on `eng`'s flagship operands (past
+    32 categories the global bodies' wide kernels), named `<row>@C<C>`:
+    ({name: (FLOPs, bytes, None)}, {name: (plain call, kernel call)}),
+    the bytes each input read once and each output written once (the
+    tapes each body reads, the matrices, tips and model, the LL and
+    gradient rows)."""
+    C, B = eng.model.category_count, len(trees)
+    enc = eng.encode(trees)
+    fl_ll, fl_grad = tree_flops(enc, eng.site_pattern, eng.model, B)
+    ll_ops, grad_ops, on = paired_operands(eng, trees, params)
+    c_ops, con, p_ops, pll, pon = rows_operands(eng, trees, params)
+    dst, tip, src, e, mask, P, dP, tips, pi, prop, w = grad_ops
+    cdst, ctip, cedge, crow, _, cP = c_ops[:6]
+    post, pre, root = p_ops[:3]
+    cll = (cdst, ctip, cedge, cP, tips, pi, prop, w)
+    f_ll = nbytes(P, tips, pi, prop, w) + B * 4
+    f_grad = (nbytes(P, dP, tips, pi, prop, w, mask)
+              + B * (1 + enc.num_slots) * 4)
+    s = f"@C{C}"
+    work = {"paired_ll" + s: nbytes(dst, tip, e) + f_ll,
+            "paired_grad" + s: nbytes(dst, tip, src, e) + f_grad,
+            "chunked_ll" + s: nbytes(cdst, con.child, cedge) + f_ll,
+            "chunked_grad" + s: nbytes(cdst, con.child, cedge, crow) + f_grad,
+            "pernode_ll" + s: nbytes(post, root) + f_ll,
+            "pernode_grad" + s: nbytes(post, pre, root) + f_grad}
+    work = {k: ((fl_grad if "grad" in k else fl_ll), v, None)
+            for k, v in work.items()}
+    calls = {
+        "paired_ll" + s: (
+            lambda: paired.paired_log_likelihoods_ref(*ll_ops),
+            lambda: paired.paired_log_likelihoods(*ll_ops, onchip=on)),
+        "paired_grad" + s: (
+            lambda: paired.paired_ll_and_gradients_ref(*grad_ops),
+            lambda: paired.paired_ll_and_gradients(*grad_ops, onchip=on)),
+        "chunked_ll" + s: (
+            lambda: chunked.chunked_log_likelihoods_ref(*cll),
+            lambda: chunked.chunked_log_likelihoods(*cll, onchip=con)),
+        "chunked_grad" + s: (
+            lambda: chunked.chunked_ll_and_gradients_ref(*c_ops),
+            lambda: chunked.chunked_ll_and_gradients(*c_ops, onchip=con)),
+        "pernode_ll" + s: (
+            lambda: pernode.pernode_log_likelihoods_ref(
+                post, root, cP, tips, pi, prop, w),
+            lambda: pernode.pernode_log_likelihoods(
+                post, root, cP, tips, pi, prop, w, onchip=pll)),
+        "pernode_grad" + s: (
+            lambda: pernode.pernode_ll_and_gradients_ref(*p_ops),
+            lambda: pernode.pernode_ll_and_gradients(*p_ops, onchip=pon))}
+    return work, calls
+
+
+def wide_parity(dev, errs):
+    """Phase 2 past 32 categories: rows 1-6 at WIDE_COUNTS through their
+    wrappers on the flagship's BATCH trees, where no on-chip plan exists
+    and each wrapper launches its global body (the wide kernels), the
+    first WIDE_REF_TREES trees' rows against the float64 plain versions on
+    those trees' float32 operands within BOUND; rows 1b-2b at
+    WIDE_COUNTS and WIDE_CODON_C at config6's shape on CODON_REF_TREES
+    trees against the float64 plain version within A64_BOUND.  Fills
+    errs for the JSON line's @C64 and @C48 entries."""
+    params = params_from_numpy(PARAMS, dev, PRODUCT_DTYPE)
+    trees, sp, _ = flagship()
+    R = WIDE_REF_TREES
+    bodies = (paired.paired_ll_onchip, paired.paired_ll_global,
+              paired.paired_grad_onchip, paired.paired_grad_global)
+    for C in WIDE_COUNTS:
+        eng = TreeLikelihoodEngine(sp, category_model(C), device=dev,
+                                   dtype=PRODUCT_DTYPE)
+        ll_ops, grad_ops, on = paired_operands(eng, trees, params)
+        M, N1 = ll_ops[0].shape[1], ll_ops[3].shape[1]
+        check(paired.onchip_plan("ll", on.ll_rows, M, N1, C) is None
+              and paired.onchip_plan("grad", on.grad_rows, M, N1, C) is None,
+              f"C={C}: no on-chip plan past 32 categories")
+        before = [f.launches for f in bodies]
+        ll_k = paired.paired_log_likelihoods(*ll_ops, onchip=on)
+        ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops, onchip=on)
+        torch.cuda.synchronize()
+        ran = [f.launches - n for f, n in zip(bodies, before)]
+        check(ran == [0, 1, 0, 1], f"C={C}: the paired wrappers launched "
+              f"the global bodies, not {ran}")
+        ll_p, g_p = plain64(first_trees(grad_ops, R, 7), step=10)
+        out = {"paired_ll": (ll_k[:R], ll_p), "paired_grad": (g_k[:R], g_p)}
+        e = [rel_err(ll_k[:R], ll_p), rel_err(ll_g[:R], ll_p),
+             norm_err(g_k[:R], g_p)]
+        c_ops, con, p_ops, pll, pon = rows_operands(eng, trees, params)
+        refs = dict(zip(("chunked", "pernode"), rows_plain64(
+            first_trees(c_ops, R, 7), first_trees(p_ops, R, 6), step=10)))
+        runs, plans = rows_runs(c_ops, con, p_ops, pll, pon, False)
+        check(all(p is None for p in plans), f"C={C}: no on-chip plan of "
+              "rows 3-6")
+        for name, call, family, want in runs:
+            before = [f.launches for f in ROWS_BODIES]
+            ll_r, g_r = call()
+            torch.cuda.synchronize()
+            ran = [f.launches - n for f, n in zip(ROWS_BODIES, before)]
+            check(ran == want, f"C={C}: {name} launched {want}, not {ran}")
+            ll_ref, g_ref = refs[family]
+            kind = "ll" if g_r is None else "grad"
+            out[f"{family}_{kind}"] = ((ll_r[:R], ll_ref) if g_r is None
+                                       else (g_r[:R], g_ref))
+            e.append(rel_err(ll_r[:R], ll_ref))
+            if g_r is not None:
+                e.append(norm_err(g_r[:R], g_ref))
+        finite = all(bool(torch.isfinite(x).all()) for x, _ in out.values())
+        errors = {row: (rel_err(x, ref) if row.endswith("_ll")
+                        else norm_err(x, ref),
+                        (x.double() - ref).abs().max().item())
+                  for row, (x, ref) in out.items()}
+        print(f"# phase 2: rows 1-6 at C={C} ({paired.lane_categories(C)} "
+              f"categories a lane of 32; {len(trees)} trees x "
+              f"{eng.pattern_pad} patterns, the first {R} held): the global "
+              "bodies, LL rel err / grad max-abs/max|g| against the float64 "
+              "plain version: " + ", ".join(
+                  f"{row} {err:.3e}" for row, (err, _) in errors.items())
+              + f" (bound {BOUND:g}; every LL call {max(e):.3e} at most)")
+        check(finite and max(e) <= BOUND,
+              f"C={C}: rows 1-6 within {BOUND:g} of float64")
+        if C == WIDE_C:
+            errs.update({f"{row}@C{C}": v for row, v in errors.items()})
+        del eng, ll_ops, grad_ops, on, c_ops, con, p_ops, pll, pon, out
+        del refs, ll_k, ll_g, g_k, ll_p, g_p
+        torch.cuda.empty_cache()
+    a64 = (paired.paired_ll_a64, paired.paired_grad_a64)
+    for C in sorted(WIDE_COUNTS + (WIDE_CODON_C,)):
+        ctrees, csp, model, params_np = codon_workload(f"gamma+{C}",
+                                                       CODON_REF_TREES)
+        eng = TreeLikelihoodEngine(csp, model, device=dev,
+                                   dtype=PRODUCT_DTYPE)
+        ll_ops, grad_ops = codon_operands(
+            eng, ctrees, params_from_numpy(params_np, dev, PRODUCT_DTYPE))
+        before = [f.launches for f in a64]
+        ll_k = paired.paired_log_likelihoods(*ll_ops)
+        ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops)
+        torch.cuda.synchronize()
+        ran = [f.launches - n for f, n in zip(a64, before)]
+        ll_p, g_p = codon_plain64(grad_ops, len(ctrees))
+        e = (rel_err(ll_k, ll_p), rel_err(ll_g, ll_p), norm_err(g_k, g_p))
+        finite = all(bool(torch.isfinite(x).all()) for x in (ll_k, ll_g, g_k))
+        M, S = ll_ops[0].shape[1], ll_ops[4].shape[-1]
+        print(f"# phase 2: A=64 kernels at MG94+Gamma{C} ({len(ctrees)} "
+              f"trees x {eng.pattern_pad} patterns; scratch "
+              f"{paired.a64_tree_bytes(M, S, C) / 1e6:.1f} MB a tree; "
+              f"launches {ran}): LL rel err {e[0]:.3e}, grad kernel's LL "
+              f"{e[1]:.3e}, grad max-abs/max|g| {e[2]:.3e} (bound "
+              f"{A64_BOUND:g}, plain version in float64 on the same "
+              "operands)")
+        check(min(ran) >= 1 and finite and max(e) <= A64_BOUND,
+              f"C={C}: the A=64 kernels within {A64_BOUND:g}")
+        if C == WIDE_CODON_C:
+            errs[f"paired_ll_a64@C{C}"] = (
+                e[0], (ll_k.double() - ll_p).abs().max().item())
+            errs[f"paired_grad_a64@C{C}"] = (
+                e[2], (g_k.double() - g_p).abs().max().item())
+        del eng, ll_ops, grad_ops, ll_k, ll_g, g_k, ll_p, g_p
+        torch.cuda.empty_cache()
+
+
+def wide_path(dev, against_reference):
+    """The wide path (phase 3): the flagship at GTR+Gamma WIDE_C, where
+    auto once took the scan tape and kernel="chunked" and the per-node
+    functions raised: log_likelihoods, ll_and_branch_gradients
+    and WIDE_SWEEP branch_eval_fn calls over scaled branch lengths on
+    auto, the same with kernel="chunked", and the per-node functions on
+    the same trees and lengths (the global bodies' wide kernels, counted
+    for the JSON line's @C64 entries); then config6's shape at MG94+Gamma
+    WIDE_CODON_C on auto (log_likelihoods and ll_and_branch_gradients,
+    the A=64 kernels over the launchers' slices of trees, counted for the
+    @C48 entries).  No scan tape call may run; every result is finite and
+    the first WIDE_REF_TREES (flagship) or CODON_REF_TREES (codon) trees'
+    are held against the float64 engine on those trees.  Returns (engine,
+    trees, float32 params, codon engine, codon trees, codon float32
+    params, launches)."""
+    R = WIDE_REF_TREES
+    trees, sp, _ = flagship()
+    model = category_model(WIDE_C)
+    eng = TreeLikelihoodEngine(sp, model, device=dev, dtype=PRODUCT_DTYPE)
+    check(eng._route(True) == "paired",
+          f"auto takes the paired kernels at C={WIDE_C}")
+    params = params_from_numpy(PARAMS, dev, PRODUCT_DTYPE)
+    enc = eng.encode(trees)
+    bl = eng.branch_length_matrix(trees, enc)
+    scales = [1.0 + 0.001 * k for k in range(1, WIDE_SWEEP + 1)]
+    refs = codon_refs64(sp, model, trees[:R], PARAMS, bl[:R], scales, dev)
+    torch.cuda.empty_cache()
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    pi, prop = prep.kernel_model(eig, props)
+    post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+                       for x in (enc.post_ops, enc.pre_ops, enc.root))
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=dev)
+    pll = pernode.ll_tape(enc.post_ops, enc.root, enc.num_taxa,
+                          enc.num_slots, dev)
+    pon = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
+                              enc.num_taxa, enc.num_slots, dev)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    results = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    with counting_scan_calls() as scan:
+        for kernel in ("auto", "chunked"):
+            eng.kernel = kernel
+            ll = eng.log_likelihoods(trees, params)
+            pairs = [eng.ll_and_branch_gradients(trees, params)]
+            fn = eng.branch_eval_fn(trees, params)
+            results[kernel] = ([ll], pairs + [fn(bl * f) for f in scales])
+        eng.kernel = "auto"
+        P, _ = prep.prepare_inputs_grad(eig, rates, clock, bl)
+        ll = pernode.pernode_log_likelihoods(post, root, P, tips, pi, prop,
+                                             w, onchip=pll)
+        pairs = []
+        for f in [1.0] + scales:
+            Pk, dPk = prep.prepare_inputs_grad(eig, rates, clock, bl * f)
+            pairs.append(pernode.pernode_ll_and_gradients(
+                post, pre, root, mask, Pk, dPk, tips, pi, prop, w,
+                onchip=pon))
+        results["per-node functions"] = ([ll], pairs)
+        torch.cuda.synchronize()
+    launches = read_launches("wide")
+    print(f"# phase 3: wide path (GTR+Gamma{WIDE_C}, {len(trees)} trees x "
+          f"{eng.pattern_pad} patterns) in {time.perf_counter() - t0:.1f} s; "
+          f"scan tape calls {scan['calls']}")
+    check(scan["calls"] == 0, "the wide path ran no scan tape call")
+    for label, (lls, pairs) in results.items():
+        check(all(bool(torch.isfinite(x).all())
+                  for x in lls + [x for pair in pairs for x in pair]),
+              f"the wide path's {label} outputs are finite")
+        against_reference(f"wide, {label} (first {R} trees)",
+                          [x[:R] for x in lls],
+                          [(x[:R], g[:R]) for x, g in pairs], refs)
+    del results, refs, pairs, P, pon, pll
+    torch.cuda.empty_cache()
+
+    Rc = CODON_REF_TREES
+    ctrees, csp, cmodel, cparams_np = codon_workload(f"gamma+{WIDE_CODON_C}")
+    ceng = TreeLikelihoodEngine(csp, cmodel, device=dev, dtype=PRODUCT_DTYPE)
+    check(ceng._route(True) == "paired",
+          f"auto takes the A=64 kernels at C={WIDE_CODON_C}")
+    cparams = params_from_numpy(cparams_np, dev, PRODUCT_DTYPE)
+    cenc = ceng.encode(ctrees)
+    cbl = ceng.branch_length_matrix(ctrees, cenc)
+    crefs = codon_refs64(csp, cmodel, ctrees[:Rc], cparams_np, cbl[:Rc], (),
+                         dev)
+    tree = paired.a64_tree_bytes(ceng._paired_tapes(cenc)[0].shape[1],
+                                 ceng.pattern_pad, WIDE_CODON_C)
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    with counting_scan_calls() as scan:
+        ll = ceng.log_likelihoods(ctrees, cparams)
+        pair = ceng.ll_and_branch_gradients(ctrees, cparams)
+        torch.cuda.synchronize()
+    launches.update(read_launches("wide-codon"))
+    print(f"# phase 3: wide path, codon (MG94+Gamma{WIDE_CODON_C}, "
+          f"{len(ctrees)} trees x {ceng.pattern_pad} patterns; scratch "
+          f"{tree / 1e6:.1f} MB a tree, {len(ctrees) * tree / 1e9:.2f} GB "
+          f"for the batch) in {time.perf_counter() - t0:.1f} s; scan tape "
+          f"calls {scan['calls']}")
+    check(scan["calls"] == 0, "the wide codon path ran no scan tape call")
+    check(all(bool(torch.isfinite(x).all()) for x in (ll,) + tuple(pair)),
+          "the wide codon path's outputs are finite")
+    against_reference(f"wide, codon auto (first {Rc} trees)", [ll[:Rc]],
+                      [(pair[0][:Rc], pair[1][:Rc])], crefs,
+                      bound=A64_BOUND)
+    return eng, trees, params, ceng, ctrees, cparams, launches
+
+
+def in_turns(plain, kernel, reps=10):
+    """(kernel ms, plain ms): plain, kernel, kernel, plain, CUDA events,
+    `reps` kernel calls a turn after 3, one plain call after one."""
+    p1, k1 = cuda_ms(plain, 1, warmup=1), cuda_ms(kernel, reps)
+    k2, p2 = cuda_ms(kernel, reps), cuda_ms(plain, 1, warmup=1)
+    return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def wide_codon_timed(eng, trees, params):
+    """Rows 1b-2b's work and calls (codon_timed) on the first
+    WIDE_CODON_TREES of `trees`, named `<kernel>@C<C>`."""
+    sub = trees[:WIDE_CODON_TREES]
+    return codon_timed(eng, sub, *codon_operands(eng, sub, params),
+                       suffix=f"@C{eng.model.category_count}")
+
+
+def wide_times(run, times, card):
+    """Phase 4 at WIDE_TIMED categories: rows 1-6 through their wrappers
+    on the flagship (BATCH trees; the wide kernels) and rows 1b-2b on
+    WIDE_CODON_TREES trees of config6's shape, each beside its float32
+    plain version and its bound (rows 1b-2b both bounds), in turns (at
+    WIDE_C and WIDE_CODON_C the JSON line's times from the main loop);
+    at each count the LL+gradient call (branch_eval_fn) of auto, of
+    kernel="chunked" (4 states) and of the scan tape, the route auto once
+    took past 32, and the device memory high-water mark of auto's
+    call; at WIDE_CODON_C also the A=64 grad kernel on the path's whole
+    batch (CODON_BATCH trees: on WIDE_CODON_TREES the grid is 1.2 waves
+    of the card's SMs)."""
+    eng64, trees, params, ceng, ctrees, cparams, _ = run
+    dev = eng64.device
+    for C in WIDE_TIMED:
+        e = eng64 if C == WIDE_C else TreeLikelihoodEngine(
+            eng64.site_pattern, category_model(C), device=dev,
+            dtype=PRODUCT_DTYPE)
+        work, calls = wide_rows_timed(e, trees, params)
+        parts = []
+        for row in WIDE_ROWS:
+            name = f"{row}@C{C}"
+            k, pl = times[name][:2] if C == WIDE_C else in_turns(*calls[name])
+            b_ms, b_by = bound(*work[name][:2])
+            parts.append(f"{row} {k:.4f} ms (plain {pl:.4f}; bound "
+                         f"{b_ms:.4f} by {b_by}, {100 * b_ms / k:.1f}%)")
+        del calls
+        torch.cuda.empty_cache()
+        bl = e.branch_length_matrix(trees, e.encode(trees))
+        for kernel, reps in (("auto", 5), ("chunked", 5), ("scan", 2)):
+            e.kernel = kernel
+            f = e.branch_eval_fn(trees, params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: f(bl), reps, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            parts.append(f"{kernel} call {ms:.4f} ms ({BATCH / (ms / 1e3):.1f}"
+                         f" evals/s, high-water {peak:.3f} GiB)")
+        e.kernel = "auto"
+        print(f"# phase 4: rows 1-6 at GTR+Gamma{C} ({paired.lane_categories(C)}"
+              f" categories a lane of 32, the global bodies; float32, {BATCH} "
+              f"trees x {e.pattern_pad} patterns, CUDA events): "
+              + "; ".join(parts) + f"; on {card}")
+        del e, bl, f
+        torch.cuda.empty_cache()
+    for C in WIDE_TIMED:
+        if C == WIDE_CODON_C:
+            e, tr, prm = ceng, ctrees[:WIDE_CODON_TREES], cparams
+        else:
+            tr, csp, model, params_np = codon_workload(f"gamma+{C}",
+                                                       WIDE_CODON_TREES)
+            e = TreeLikelihoodEngine(csp, model, device=dev,
+                                     dtype=PRODUCT_DTYPE)
+            prm = params_from_numpy(params_np, dev, PRODUCT_DTYPE)
+        work, calls = wide_codon_timed(e, tr, prm)
+        parts = []
+        for name in ("paired_ll_a64", "paired_grad_a64"):
+            key = f"{name}@C{C}"
+            k, pl = (times[key][:2] if C == WIDE_CODON_C
+                     else in_turns(*calls[key]))
+            tf_ms = bound(*work[key][:2], peak=PEAK_3XTF32)[0]
+            fma_ms = bound(*work[key][:2])[0]
+            parts.append(f"{name} {k:.4f} ms (plain {pl:.4f}; bound "
+                         f"{tf_ms:.4f} at 3xTF32, {100 * tf_ms / k:.1f}%; "
+                         f"{fma_ms:.4f} at float32 FMAs, "
+                         f"{100 * fma_ms / k:.1f}%)")
+        del calls
+        torch.cuda.empty_cache()
+        if C == WIDE_CODON_C:  # the path's whole batch: the grid's waves
+            ll_ops, grad_ops = codon_operands(ceng, ctrees, cparams)
+            ms = cuda_ms(lambda: paired.paired_ll_and_gradients(*grad_ops),
+                         3, warmup=1)
+            parts.append(f"paired_grad_a64 on the path's {len(ctrees)} trees "
+                         f"{ms:.4f} ms")
+            del ll_ops, grad_ops
+            torch.cuda.empty_cache()
+        bl = e.branch_length_matrix(tr, e.encode(tr))
+        check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is off")
+        for kernel, reps in (("auto", 3), ("scan", 1)):
+            e.kernel = kernel
+            f = e.branch_eval_fn(tr, prm)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_ms(lambda: f(bl), reps, warmup=1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            parts.append(f"{kernel} call {ms:.4f} ms ({len(tr) / (ms / 1e3):.1f}"
+                         f" evals/s, high-water {peak:.3f} GiB)")
+        e.kernel = "auto"
+        print(f"# phase 4: A=64 kernels at MG94+Gamma{C} (float32, {len(tr)} "
+              f"trees x {e.pattern_pad} patterns, CUDA events): "
+              + "; ".join(parts) + f"; on {card}")
+        del e, bl, f
         torch.cuda.empty_cache()
 
 
@@ -4372,6 +4847,10 @@ def main():
     category_parity(dev, errs)
     pernode_a64_launches = [a + b for a, b in zip(
         pernode_a64_launches, codon_category_parity(dev, errs))]
+    t0 = time.perf_counter()
+    wide_parity(dev, errs)
+    print(f"# phase 2: past 32 categories took {time.perf_counter() - t0:.1f}"
+          " s")
 
     ends.append(time.perf_counter())
     # -- 3. the paths ------------------------------------------------------------
@@ -4545,6 +5024,11 @@ def main():
     # The codon-categories path: auto at MG94+Gamma CODON_CATEGORY_C.
     cc_run = codon_categories_path(dev, against_reference)
     launches.update(cc_run[3])
+    # The wide path: GTR+Gamma WIDE_C and MG94+Gamma WIDE_CODON_C on auto.
+    t0 = time.perf_counter()
+    wide_run = wide_path(dev, against_reference)
+    launches.update(wide_run[-1])
+    print(f"# phase 3: the wide path took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     dist_path(card)
     print(f"# phase 3: the dist path took {time.perf_counter() - t0:.1f} s")
@@ -4654,6 +5138,12 @@ def main():
     calls["pernode_grad_onchip@C16"] = (
         lambda: pernode.pernode_ll_and_gradients_ref(*r_p),
         lambda: pernode.pernode_ll_and_gradients(*r_p, onchip=r_pon))
+    # Rows 1-6 at WIDE_C and rows 1b-2b at WIDE_CODON_C, through their
+    # wrappers, on the wide path's operands
+    for timed in (wide_rows_timed(*wide_run[:3]),
+                  wide_codon_timed(*wide_run[3:6])):
+        work.update(timed[0])
+        calls.update(timed[1])
     calls["chunk_variant"] = (
         lambda: perf_chunk_lab.chunk_variant_ref(
             cdst, ctip, cedge, P, tips, pi, prop, variant="v0"),
@@ -4672,12 +5162,13 @@ def main():
         lib_timer = graph_ms if graphed else cuda_ms
         # plain, kernel, library, kernel, library, plain: all see the same
         # drift.
-        p1 = cuda_ms(plain, 5)
-        k1 = timer(kernel, 50)
-        l1 = lib_timer(library, 50) if library else None
-        k2 = timer(kernel, 50)
-        l2 = lib_timer(library, 50) if library else None
-        p2 = cuda_ms(plain, 5)
+        p_reps, k_reps, p_warm = KERNELS[name].get("reps", (5, 50, 3))
+        p1 = cuda_ms(plain, p_reps, warmup=p_warm)
+        k1 = timer(kernel, k_reps)
+        l1 = lib_timer(library, k_reps) if library else None
+        k2 = timer(kernel, k_reps)
+        l2 = lib_timer(library, k_reps) if library else None
+        p2 = cuda_ms(plain, p_reps, warmup=p_warm)
         times[name] = ((k1 + k2) / 2, (p1 + p2) / 2,
                        (l1 + l2) / 2 if library else None)
         b_ms, b_by = bound_of(name, work)
@@ -4768,6 +5259,11 @@ def main():
     torch.cuda.empty_cache()
     codon_category_times(cc_run, times, card)
     del cc_run
+    t0 = time.perf_counter()
+    wide_times(wide_run, times, card)
+    del wide_run
+    torch.cuda.empty_cache()
+    print(f"# phase 4: the wide times took {time.perf_counter() - t0:.1f} s")
     # Last, since its torch.profiler pass leaves the profiler set up.
     t0 = time.perf_counter()
     gp_times(*gp_run, card)

@@ -21,10 +21,10 @@ them.
   - the on-chip plans and shared-memory sizes at 16 and 32 lanes, of the
     paired, chunked and per-node kernels;
   - the engine's route: auto takes the paired kernels on a card for a
-    shared model of 4 or 64 states and 1-32 categories and the scan tape
-    past 32, decided without a card;
-  - the limits: every 4-state family and the A=64 kernels take 1..32
-    categories.
+    shared model of 4 or 64 states at any category count, decided
+    without a card;
+  - the limits: every 4-state family and the A=64 kernels take any count
+    C >= 1; the on-chip bodies 1..32, the global bodies past it.
 """
 import itertools
 
@@ -196,17 +196,19 @@ def test_plan_at_16_and_32_lanes(C):
     assert grad.cols * G // 32 == (9 if G == 16 else 16)
     assert paired.smem_bytes("grad", 0, 28, 53, C, 0, False) == (
         106 * G * 64 + 784)
-    with pytest.raises(ValueError, match="1..32"):
-        paired.onchip_plan("ll", 6, 28, 53, 33)
+    # Past 32 the global bodies take every tree; no count below 1.
+    assert paired.onchip_plan("ll", 6, 28, 53, 33) is None
+    with pytest.raises(ValueError, match="1 or more"):
+        paired.onchip_plan("ll", 6, 28, 53, 0)
 
 
 def test_route_takes_the_paired_kernels_to_32_categories():
     """_route on a card device in float32 (the engine built on the CPU and
     then pointed at the card, which is all _route reads): the paired
-    kernels for a shared model of 4 or 64 states (MG94) and 1-32
-    categories, the scan tape past 32, for per-tree rows and in float64;
-    kernel='cuda' takes the paired route at any count (its wrappers raise
-    past 32 on the card)."""
+    kernels for a shared model of 4 or 64 states (MG94) at every count,
+    33 included (before, auto took the scan tape past 32); the scan tape
+    for per-tree rows and in float64; kernel='cuda' takes the paired
+    route at any count."""
     case = make_case(seed=5, num_taxa=5, num_sites=20, num_trees=1)
     names = list(case.alignment)
     codons = CodonSitePattern(_synthetic.codon_alignment(6, names, 20, 15),
@@ -214,7 +216,7 @@ def test_route_takes_the_paired_kernels_to_32_categories():
     for (model, sp), (C, want) in itertools.product(
             (("GTR", case.torch_pattern), ("MG94", codons)),
             ((1, "paired"), (4, "paired"), (9, "paired"), (16, "paired"),
-             (32, "paired"), (33, "scan"))):
+             (32, "paired"), (33, "paired"))):
         te = TreeLikelihoodEngine(
             sp, PhyloModel(PhyloModelSpecification(
                 model, "constant" if C == 1 else f"gamma+{C}")),
@@ -227,35 +229,32 @@ def test_route_takes_the_paired_kernels_to_32_categories():
         assert te._route(True) == "paired"
         te.kernel, te.dtype = "auto", F64
         assert te._route(True) == "scan"
-    assert paired.max_categories(4) == paired.PAIRED_CATEGORIES == 32
-    assert paired.max_categories(64) == paired.PAIRED_CATEGORIES
+    assert not hasattr(paired, "max_categories")
+    assert not hasattr(paired, "PAIRED_CATEGORIES")
 
 
 def test_other_kernel_families_keep_8_categories():
-    """The chunked and per-node kernels take 1..32 categories, as the
-    4-state paired kernels do, and refuse a 33rd: their plans, and the
-    operand check their wrappers run on the card
-    (paired._check_cuda_operands at max_categories(4)); the A=64 kernels
-    take 1..32 as well and refuse a 33rd (max_categories(64))."""
-    for C in (1, 9, 16, 32):
-        assert chunked.onchip_plan(10, 12, 14, C, least=1) is not None
-        assert pernode.onchip_plan(3, 40, 9, C, least=1) is not None
-        paired._check_cuda_operands({}, {}, C, 4, paired.KERNEL_STATES,
-                                    categories=paired.max_categories(4))
-        paired._check_cuda_operands({}, {}, C, 64, paired.KERNEL_STATES,
-                                    categories=paired.max_categories(64))
-    with pytest.raises(ValueError, match="1..32"):
-        chunked.onchip_plan(10, 12, 14, 33)
-    with pytest.raises(ValueError, match="1..32"):
-        pernode.onchip_plan(25, 232, 53, 33)
-    with pytest.raises(ValueError, match="1..32"):
-        paired._check_cuda_operands({}, {}, 33, 4, paired.KERNEL_STATES,
-                                    categories=paired.max_categories(4))
-    with pytest.raises(ValueError, match="1..32"):
-        paired._check_cuda_operands({}, {}, 33, 64, paired.KERNEL_STATES,
-                                    categories=paired.max_categories(64))
-    with pytest.raises(TypeError):  # every caller states its limit
-        paired._check_cuda_operands({}, {}, 9, 4)
+    """The chunked and per-node kernels take any count, as the 4-state
+    paired kernels do: their on-chip plans 1..32 (past it None: the
+    global bodies take the tree), and the operand check their wrappers
+    run on the card (paired._check_cuda_operands) every count C >= 1 at
+    4 and 64 states; a count below 1 raises everywhere."""
+    for C in (1, 9, 16, 32, 33, 64, 100):
+        on = C <= paired.ONCHIP_CATEGORIES
+        assert (chunked.onchip_plan(10, 12, 14, C, least=1) is not None) == on
+        assert (pernode.onchip_plan(3, 40, 9, C, least=1) is not None) == on
+        paired._check_cuda_operands({}, {}, C, 4, paired.KERNEL_STATES)
+        paired._check_cuda_operands({}, {}, C, 64, paired.KERNEL_STATES)
+    with pytest.raises(ValueError, match="1 or more"):
+        chunked.onchip_plan(10, 12, 14, 0)
+    with pytest.raises(ValueError, match="1 or more"):
+        pernode.onchip_plan(25, 232, 53, 0)
+    with pytest.raises(ValueError, match="1 or more"):
+        paired._check_cuda_operands({}, {}, 0, 4, paired.KERNEL_STATES)
+    with pytest.raises(ValueError, match="1 or more"):
+        paired._check_cuda_operands({}, {}, 0, 64, paired.KERNEL_STATES)
+    with pytest.raises(ValueError, match="4-state"):
+        paired._check_cuda_operands({}, {}, 9, 64)
 
 
 # ---------------------------------------------------------------------------

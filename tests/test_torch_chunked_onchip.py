@@ -211,8 +211,10 @@ def test_hand_over_to_the_global_body(C):
         assert limit == 40
     # Asked for with least=1, the body launches past it while one warp fits.
     assert plan(limit + 2, 1) is not None
-    with pytest.raises(ValueError, match="1..32"):
-        chunked.onchip_plan(10, 12, 14, paired.PAIRED_CATEGORIES + 1)
+    assert chunked.onchip_plan(10, 12, 14,
+                               paired.ONCHIP_CATEGORIES + 1) is None
+    with pytest.raises(ValueError, match="1 or more"):
+        chunked.onchip_plan(10, 12, 14, 0)
 
 
 def test_plan_follows_the_card_times():

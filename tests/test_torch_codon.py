@@ -356,11 +356,9 @@ def test_routes_at_64_states_on_the_cpu():
 
 def test_wrappers_refuse_other_state_counts():
     with pytest.raises(ValueError, match="4 or 64-state"):
-        paired._check_cuda_operands({}, {}, 1, 20, paired.KERNEL_STATES,
-                                    categories=paired.max_categories(64))
+        paired._check_cuda_operands({}, {}, 1, 20, paired.KERNEL_STATES)
     with pytest.raises(ValueError, match="4-state"):  # the other kernels
-        paired._check_cuda_operands({}, {}, 1, 64,
-                                    categories=paired.max_categories(4))
+        paired._check_cuda_operands({}, {}, 1, 64)
 
 
 @pytest.fixture(scope="module")

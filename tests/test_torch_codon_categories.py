@@ -1,5 +1,5 @@
-"""The A=64 kernels (csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu) at
-9-32 rate categories, on the CPU: what runs here of them.
+"""The A=64 kernels (csrc/paired_ll_a64.cu, csrc/paired_grad_a64.cu) past
+8 rate categories, on the CPU: what runs here of them.
 
   - the port's float64 engine at MG94+Gamma9 and MG94+Weibull16 on the
     paired route (kernel="cuda": the plain A=64 versions on the CPU) and
@@ -12,8 +12,8 @@
     (gradients), the bounds of the A=4 rows;
   - the launchers' slices of trees (paired.tree_slices) and the scratch
     a tree (paired.a64_tree_bytes);
-  - the one limit: the header's kMaxCategories is max_categories(64) and
-    max_categories(4), and both launchers' guards read it.
+  - no category limit: the header has no kMaxCategories, both launchers
+    refuse only C < 1, and the operand check takes any count.
 The 3xTF32 emulation at C = 9 is in tests/test_torch_a64_tf32.py."""
 import pathlib
 import re
@@ -190,25 +190,26 @@ def test_a64_tree_bytes_is_a_tree_of_the_scratch():
 
 
 def test_one_category_limit_for_both_state_counts():
-    """max_categories is 32 at 4 and 64 states; the A=64 header's
-    kMaxCategories is that limit and its tile A64_TILE, and both A=64
-    launchers refuse past it by that constant, not by a literal."""
-    assert paired.max_categories(64) == paired.max_categories(4) == 32
+    """No category cap at 4 or 64 states: the A=64 header has no
+    kMaxCategories (its tile is A64_TILE), both A=64 launchers refuse
+    only C < 1, and the operand check takes every count C >= 1 at both
+    state counts and refuses 0."""
+    assert not hasattr(paired, "max_categories")
     assert not hasattr(paired, "MAX_CATEGORIES")
     header = (CSRC / "paired_a64.cuh").read_text()
 
     def const(name):
         return int(re.search(rf"constexpr int {name} = (\w+);", header)[1])
 
-    assert const("kMaxCategories") == paired.max_categories(64)
+    assert "kMaxCategories" not in header
     assert const("kWarps") * const("kCols") == paired.A64_TILE
     for name in ("paired_ll_a64.cu", "paired_grad_a64.cu"):
         src = (CSRC / name).read_text()
-        assert "C > a64::kMaxCategories)" in src, name
+        assert "kMaxCategories" not in src, name
+        assert "|| C < 1)" in src, name
         assert not re.search(r"C > \d", src), name
-    for C in (1, 9, 16, 32):
-        paired._check_cuda_operands({}, {}, C, 64, paired.KERNEL_STATES,
-                                    categories=paired.max_categories(64))
-    with pytest.raises(ValueError, match="1..32"):
-        paired._check_cuda_operands({}, {}, 33, 64, paired.KERNEL_STATES,
-                                    categories=paired.max_categories(64))
+    for C in (1, 9, 16, 32, 33, 48, 64):
+        for A in paired.KERNEL_STATES:
+            paired._check_cuda_operands({}, {}, C, A, paired.KERNEL_STATES)
+    with pytest.raises(ValueError, match="1 or more"):
+        paired._check_cuda_operands({}, {}, 0, 64, paired.KERNEL_STATES)

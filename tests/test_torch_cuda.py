@@ -373,8 +373,8 @@ def test_tree_past_the_limit_takes_the_global_bodies_past_8_categories(
 def test_engine_auto_takes_the_kernels_at_16_categories(cuda):
     """auto on the card at GTR+Gamma16 takes the on-chip bodies of both
     kernels (before, 9 or more categories took the scan tape), within
-    5e-5 of the float64 engine on the CPU; past 32 categories auto takes
-    the scan tape and kernel='cuda' raises."""
+    5e-5 of the float64 engine on the CPU; at 33 categories auto takes
+    the global bodies (before, the scan tape), within 5e-5 as well."""
     eng, trees, params = _wide_engine(16, False, cuda, torch.float32)
     ref, _, ref_params = _wide_engine(16, False, "cpu", torch.float64)
     before = [f.launches for f in PAIRED]
@@ -385,10 +385,107 @@ def test_engine_auto_takes_the_kernels_at_16_categories(cuda):
     assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
     assert _norm(g.cpu(), g_ref) < 5e-5
     wide, trees, params = _wide_engine(33, False, cuda, torch.float32)
-    assert wide._route(True) == "scan"
-    wide.kernel = "cuda"
-    with pytest.raises(ValueError, match="1..32 rate categories"):
-        wide.log_likelihoods(trees, params)
+    ref, _, ref_params = _wide_engine(33, False, "cpu", torch.float64)
+    assert wide._route(True) == "paired"
+    before = [f.launches for f in PAIRED]
+    ll = wide.log_likelihoods(trees, params)
+    ll2, g = wide.ll_and_branch_gradients(trees, params)
+    torch.cuda.synchronize()
+    assert _launched(before) == [0, 1, 0, 1]
+    ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
+    assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
+    assert _norm(g.cpu(), g_ref) < 5e-5
+
+
+# Past 32 categories: the global bodies, K = ceil(C / 32) categories a lane
+# of 32 (csrc/paired_lanes.cuh, csrc/pernode_lanes.cuh wide kernels)
+WIDER = (33, 64)
+
+
+@pytest.mark.parametrize("C", WIDER)
+@pytest.mark.parametrize("scale", [1.0, 1e-6], ids=["bl", "bl1e-6"])
+def test_kernels_past_32_categories_match_plain(cuda, C, scale):
+    """Both paired kernels at 33 and 64 categories: no on-chip plan, and
+    the wrappers launch the global bodies' wide kernels, within 5e-5 of
+    their plain versions in float64 on the same float32 operands, on the
+    11-taxon batch at its branch lengths and at those times 1e-6."""
+    eng, trees, params = _wide_engine(C, False, cuda, torch.float32)
+    ops, onchip, (ll_ref, g_ref) = _wide_operands(eng, trees, params, scale)
+    dst, tip, src, e, mask, P, dP, tips, pi, prop, w = ops
+    M, N1 = dst.shape[1], P.shape[1]
+    for kernel, rows in (("ll", onchip.ll_rows), ("grad", onchip.grad_rows)):
+        for ring in (None, False, True):
+            assert paired.onchip_plan(kernel, rows, M, N1, C, ring) is None
+    before = [f.launches for f in PAIRED]
+    ll = paired.paired_log_likelihoods(dst, tip, e, P, tips, pi, prop, w,
+                                       onchip=onchip)
+    ll2, g = paired.paired_ll_and_gradients(*ops, onchip=onchip)
+    torch.cuda.synchronize()
+    assert _launched(before) == [0, 1, 0, 1]
+    assert all(bool(torch.isfinite(x).all()) for x in (ll, ll2, g))
+    assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
+    assert _norm(g, g_ref) < 5e-5
+
+
+def test_global_tree_slices_give_the_rows_of_one_launch(cuda, monkeypatch):
+    """At 64 categories, on a card that holds the scratch of two trees
+    (the allocation and paired.scratch_budget faked), the paired,
+    chunked and per-node global launchers take 3 trees in two launches
+    each, whose rows are bit-equal to one launch's; a budget under one
+    tree raises before any launch, naming the bytes."""
+    eng, trees, params = _wide_engine(64, False, cuda, torch.float32)
+    ops, onchip, _ = _wide_operands(eng, trees, params)
+    dst, tip, src, e, mask, P, dP, tips, pi, prop, w = ops
+    rops, _ = _rows_3_to_6(eng, trees, params)
+    (cdst, ctip, ce, _, con), (post, pre, root, _, _), _, P4, dP4, *_ = rops
+    calls = {
+        paired.paired_ll_global: lambda: paired.paired_ll_global(
+            dst, tip, e, P, tips, pi, prop),
+        paired.paired_grad_global: lambda: paired.paired_grad_global(
+            dst, tip, src, e, P, dP, tips, pi, prop, w),
+        chunked.chunked_ll_global: lambda: chunked.chunked_ll_global(
+            cdst, ctip, ce, P4, tips, pi, prop, child=con.child),
+        chunked.chunked_grad_global: lambda: chunked.chunked_grad_global(
+            cdst, ctip, ce, P4, dP4, tips, pi, prop, w, child=con.child),
+        pernode.pernode_ll_global: lambda: pernode.pernode_ll_global(
+            post, root, P4, tips, pi, prop),
+        pernode.pernode_grad_global: lambda: pernode.pernode_grad_global(
+            post, pre, root, P4, dP4, tips, pi, prop, w)}
+    launch_sliced = paired.launch_sliced
+    for launcher, call in calls.items():
+        whole = call()
+        whole = whole if isinstance(whole, tuple) else (whole,)
+        budget = {}
+
+        def on_a_small_card(entry, B, alloc, launch, device,
+                            tree_bytes=None):
+            def sized(n, dev):
+                out = alloc(n, dev)
+                if dev != "meta" and sum(t.numel() * t.element_size()
+                                         for t in out) > budget["bytes"]:
+                    raise torch.cuda.OutOfMemoryError("the card is full")
+                return out
+            budget.setdefault("tree", sum(
+                t.numel() * t.element_size() for t in alloc(1, "meta")))
+            budget.setdefault("bytes", 2 * budget["tree"] + 1)
+            return launch_sliced(entry, B, sized, launch, device, tree_bytes)
+
+        monkeypatch.setattr(paired, "launch_sliced", on_a_small_card)
+        monkeypatch.setattr(paired, "scratch_budget",
+                            lambda device: budget["bytes"])
+        before = launcher.launches
+        sliced = call()
+        sliced = sliced if isinstance(sliced, tuple) else (sliced,)
+        torch.cuda.synchronize()
+        assert launcher.launches - before == 2, launcher.__name__
+        for a, b in zip(whole, sliced):
+            assert torch.equal(a, b), launcher.__name__
+        budget["bytes"] = budget["tree"] - 1
+        with pytest.raises(torch.cuda.OutOfMemoryError,
+                           match=f"{budget['tree']} bytes a tree"):
+            call()
+        assert launcher.launches - before == 2
+        monkeypatch.undo()
 
 
 def _rows_3_to_6(eng, trees, params, scale=1.0):
@@ -528,6 +625,12 @@ def test_tree_past_the_limit_takes_the_global_chunked_and_pernode_bodies(
     5e-5 of float64."""
     eng, trees, params = _wide_engine(C, True, cuda, torch.float32)
     ops, refs = _rows_3_to_6(eng, trees, params)
+    _check_global_rows_3_to_6(ops, refs, C)
+
+
+def _check_global_rows_3_to_6(ops, refs, C):
+    """No on-chip body of rows 3-6 takes the tree at any warp count, and
+    the four wrappers launch the global bodies within 5e-5 of float64."""
     (dst, tip, e, row, con), (post, pre, root, lt, gt), mask, P, dP, tips, \
         pi, prop, w = ops
     N1 = P.shape[1]
@@ -553,12 +656,27 @@ def test_tree_past_the_limit_takes_the_global_chunked_and_pernode_bodies(
          [0, 0, 0, 0, 0, 1, 0, 1])])
 
 
+@pytest.mark.parametrize("C", WIDER)
+@pytest.mark.parametrize("scale", [1.0, 1e-6], ids=["bl", "bl1e-6"])
+def test_chunked_and_pernode_kernels_past_32_categories_match_plain(
+        cuda, C, scale):
+    """Rows 3-6 at 33 and 64 categories on the 11-taxon batch, at its
+    branch lengths and at those times 1e-6: every global body through its
+    launcher, and the four wrappers, which take the global bodies (no
+    on-chip plan past 32), within 5e-5 of float64."""
+    eng, trees, params = _wide_engine(C, False, cuda, torch.float32)
+    ops, refs = _rows_3_to_6(eng, trees, params, scale)
+    _check_rows_3_to_6(ops, refs, _rows_3_to_6_bodies(ops, None))
+    _check_global_rows_3_to_6(ops, refs, C)
+
+
 def test_engine_chunked_takes_the_chunked_kernels_at_16_categories(cuda):
     """kernel="chunked" on the card at GTR+Gamma16 on the flagship's shape
     launches the on-chip bodies of both chunked kernels (before, its
     wrappers raised past 8 categories) for log_likelihoods,
     ll_and_branch_gradients and branch_eval_fn, within 5e-5 of the
-    float64 scan tape on the card; past 32 categories it raises."""
+    float64 scan tape on the card; at 33 categories it launches the
+    global bodies (before, it raised), within 5e-5 as well."""
     text, aln = _synthetic.ds1_shaped(0, 6)
     coll = parse_newick_text(text)
     sp = SitePattern(aln, coll.taxon_names)
@@ -584,9 +702,17 @@ def test_engine_chunked_takes_the_chunked_kernels_at_16_categories(cuda):
     assert _norm(g, g_ref) < 5e-5
     assert _rel(ll3, ll3_ref) < 5e-5 and _norm(g3, g3_ref) < 5e-5
     wide, trees, params = _wide_engine(33, False, cuda, torch.float32)
+    ref, _, ref_params = _wide_engine(33, False, "cpu", torch.float64)
     wide.kernel = "chunked"
-    with pytest.raises(ValueError, match="1..32 rate categories"):
-        wide.log_likelihoods(trees, params)
+    before = [f.launches for f in CHUNKED + PAIRED]
+    ll = wide.log_likelihoods(trees, params)
+    ll2, g = wide.ll_and_branch_gradients(trees, params)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(CHUNKED + PAIRED, before)] == [
+        0, 1, 0, 1, 0, 0, 0, 0]
+    ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
+    assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
+    assert _norm(g.cpu(), g_ref) < 5e-5
 
 
 MG94 = {"substitution_model_rates": np.array([2.5, 0.3]),
@@ -744,13 +870,13 @@ def test_float32_codon_scan_refuses_tf32(cuda):
                                                            params)[1]).all())
 
 
-@pytest.mark.parametrize("C", [9, 16, 32])
+@pytest.mark.parametrize("C", [9, 16, 32, 33, 64])
 @pytest.mark.parametrize("scale", [1.0, 1e-6], ids=["bl", "bl1e-6"])
 def test_a64_kernels_past_8_categories_match_plain(cuda, C, scale):
     """Both A=64 kernels at MG94+Gamma9/16/32 (before, they refused a 9th
-    category) on 9 taxa x 3 trees, at the branch lengths and at those
-    times 1e-6, against their plain versions in float64 on the same
-    float32 operands within A64_LIMIT."""
+    category) and 33/64 (before, a 33rd) on 9 taxa x 3 trees, at the
+    branch lengths and at those times 1e-6, against their plain versions
+    in float64 on the same float32 operands within A64_LIMIT."""
     eng, trees, params = _codon_engine(f"gamma+{C}", 3, 9, 3, False, cuda,
                                        torch.float32)
     enc = eng.encode(trees)
@@ -778,8 +904,8 @@ def test_a64_kernels_past_8_categories_match_plain(cuda, C, scale):
 def test_engine_auto_takes_the_a64_kernels_at_16_categories(cuda):
     """auto on the card in float32 at MG94+Gamma16 takes the two A=64
     kernels (before, it took the scan tape past 8 categories) and agrees
-    with the float64 engine on the CPU within 5e-5; past 32 categories
-    auto takes the scan tape and kernel='cuda' raises."""
+    with the float64 engine on the CPU within 5e-5; at 33 categories auto
+    takes them too (before, the scan tape), within 5e-5."""
     eng, trees, params = _codon_engine("gamma+16", 7, 8, 4, False, cuda,
                                        torch.float32)
     ref, _, ref_params = _codon_engine("gamma+16", 7, 8, 4, False, "cpu",
@@ -796,17 +922,22 @@ def test_engine_auto_takes_the_a64_kernels_at_16_categories(cuda):
     assert _norm(g.cpu(), g_ref) < 5e-5
     wide, trees, params = _codon_engine("gamma+33", 7, 8, 2, False, cuda,
                                         torch.float32)
-    assert wide._route(True) == "scan"
-    wide.kernel = "cuda"
+    ref, _, ref_params = _codon_engine("gamma+33", 7, 8, 2, False, "cpu",
+                                       torch.float64)
+    assert wide._route(True) == "paired"
     before = [f.launches for f in A64]
-    with pytest.raises(ValueError, match="1..32 rate categories"):
-        wide.log_likelihoods(trees, params)
-    assert [f.launches for f in A64] == before
+    ll = wide.log_likelihoods(trees, params)
+    ll2, g = wide.ll_and_branch_gradients(trees, params)
+    torch.cuda.synchronize()
+    assert [f.launches - n for f, n in zip(A64, before)] == [1, 1]
+    ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
+    assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
+    assert _norm(g.cpu(), g_ref) < 5e-5
 
 
 def test_a64_tree_slices_give_the_rows_of_one_launch(cuda, monkeypatch):
     """On a card that holds the scratch of two trees
-    (paired.a64_tree_bytes), its allocation and paired.a64_budget faked,
+    (paired.a64_tree_bytes), its allocation and paired.scratch_budget faked,
     5 trees at MG94+Gamma9 take three launches of each A=64 kernel, over
     paired.tree_slices under that budget, whose rows are bit-equal to one
     launch's; a budget under one tree raises before any launch."""
@@ -829,7 +960,7 @@ def test_a64_tree_slices_give_the_rows_of_one_launch(cuda, monkeypatch):
             return allocate(B, M, S, C, device)
 
         monkeypatch.setattr(paired, "_a64_scratch", scratch)
-        monkeypatch.setattr(paired, "a64_budget", lambda device: budget)
+        monkeypatch.setattr(paired, "scratch_budget", lambda device: budget)
 
     before = [f.launches for f in A64]
     under(2 * tree + tree // 2)
@@ -1134,8 +1265,8 @@ def test_pernode_a64_functions_match_plain(cuda, site, rooted, num_trees,
 def test_pernode_a64_raises_without_falling_back(cuda):
     """At 64 states the per-node functions raise on a tape that is not the
     operands' a64_tape, on a grad tape derived without pre_ops, on a
-    preorder of another tree and on operands the kernels do not take,
-    before any launch."""
+    preorder of another tree and on operands the kernels do not take (no
+    rate category), before any launch."""
     enc, post, pre, root, mask, P, dP, tips, pi, prop, w = (
         _codon_pernode_operands("constant", False, 2, None, cuda))
     args = (post, pre, root, mask, P, dP, tips, pi, prop, w)
@@ -1153,10 +1284,9 @@ def test_pernode_a64_raises_without_falling_back(cuda):
     with pytest.raises(TypeError):
         pernode.pernode_ll_and_gradients(*args[:4], P.double(), dP.double(),
                                          *args[6:])
-    with pytest.raises(ValueError, match="1..32 rate categories"):
+    with pytest.raises(ValueError, match="1 or more rate categories"):
         pernode.pernode_log_likelihoods(
-            post, root, P.repeat(1, 1, 33, 1, 1), tips, pi,
-            prop.repeat(33) / 33, w)
+            post, root, P[:, :, :0].contiguous(), tips, pi, prop[:0], w)
     assert [f.launches for f in A64] == before
 
 

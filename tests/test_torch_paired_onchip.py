@@ -354,8 +354,10 @@ def test_hand_over_to_the_global_bodies(C):
             assert plan(M) == ringed
     staged = max(M for M in range(4, limit, 4) if not plan(M).ring)
     assert 0 < staged < limit
+    assert paired.onchip_plan("grad", 10, 12, 14,
+                              paired.ONCHIP_CATEGORIES + 1) is None
     with pytest.raises(ValueError):
-        paired.onchip_plan("grad", 10, 12, 14, paired.PAIRED_CATEGORIES + 1)
+        paired.onchip_plan("grad", 10, 12, 14, 0)
 
 
 def test_plan_follows_the_card_times():

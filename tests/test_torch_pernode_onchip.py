@@ -232,8 +232,10 @@ def test_plan_fills_a_block_within_shared_memory(C):
         assert (more * G > paired.MAX_THREADS
                 or pernode.smem_bytes(rows, ints, N1, C, more)
                 > paired.SMEM_BYTES)
-    with pytest.raises(ValueError, match="1..32"):
-        pernode.onchip_plan(25, 232, 53, paired.PAIRED_CATEGORIES + 1)
+    assert pernode.onchip_plan(25, 232, 53,
+                               paired.ONCHIP_CATEGORIES + 1) is None
+    with pytest.raises(ValueError, match="1 or more"):
+        pernode.onchip_plan(25, 232, 53, 0)
 
 
 def test_plan_at_the_flagship():
@@ -277,8 +279,10 @@ def test_hand_over_to_the_global_body(C):
             + (4 * (9 * (T - 2) + 2) + 15) // 16 * 16 <= paired.SMEM_BYTES]
     assert limit == max(fits)
     assert plan(limit + 1, 1) is not None  # asked for, it still launches
-    with pytest.raises(ValueError, match="1..32"):
-        pernode.onchip_plan(3, 40, 9, paired.PAIRED_CATEGORIES + 1)
+    assert pernode.onchip_plan(3, 40, 9,
+                               paired.ONCHIP_CATEGORIES + 1) is None
+    with pytest.raises(ValueError, match="1 or more"):
+        pernode.onchip_plan(3, 40, 9, 0)
 
 
 def test_plan_follows_the_card_times():

@@ -360,6 +360,219 @@ def emulate_lanes_pernode(post_ops, pre_ops, root, P, dP, tips, pi, props,
     return ll_rows, grad_rows
 
 
+# ---------------------------------------------------------------------------
+# The float64 emulation of the wide kernels (csrc/paired_lanes.cuh and
+# csrc/pernode_lanes.cuh past 32 categories): K categories a lane of 32
+# ---------------------------------------------------------------------------
+
+WIDE_LANES = 32  # paired_lanes.cuh kWideLanes
+
+
+class WideSlots:
+    """The wide kernels' slots as one flat buffer of float4 entries [B,
+    NS, Sp, K, 32] (Sp = S rounded up to a block's 4 patterns), read and
+    written at the kernels' offsets (((b NS + j) Sp + s) K + k) 32 + g,
+    every pattern column s, place k and lane g of slot j at once: values
+    [Sp, K, 32, 4].  Lane g's k-th place holds category g + 32 k."""
+
+    def __init__(self, B, NS, S, C, dtype):
+        self.NS, self.K = NS, paired.lane_categories(C)
+        self.Sp = -(-S // (paired.GLOBAL_THREADS // WIDE_LANES)) * (
+            paired.GLOBAL_THREADS // WIDE_LANES)
+        self.flat = torch.full((B * NS * self.Sp * self.K * WIDE_LANES, 4),
+                               float("nan"), dtype=dtype)
+        s = torch.arange(self.Sp)[:, None, None]
+        k = torch.arange(self.K)[None, :, None]
+        g = torch.arange(WIDE_LANES)[None, None, :]
+        self._col = (s * self.K + k) * WIDE_LANES + g
+
+    def _at(self, b, j):
+        return ((b * self.NS + j) * self.Sp) * self.K * WIDE_LANES + self._col
+
+    def __getitem__(self, bj):
+        return self.flat[self._at(*bj)]
+
+    def __setitem__(self, bj, value):
+        self.flat[self._at(*bj)] = value
+
+
+def _wide_model(P, dP, tips, props, K):
+    """(matrices of tree b's edge e as [K, 32, 4, 4], zero past C; the
+    proportions [K, 32], zero past C; the tips at each pattern column
+    [T, Sp, 1, 1, 4], a column past S reading pattern S - 1)."""
+    C, S = P.shape[2], tips.shape[-1]
+
+    def lanes(x):
+        out = torch.zeros((K * WIDE_LANES,) + x.shape[1:], dtype=x.dtype)
+        out[:C] = x
+        return out.unflatten(0, (K, WIDE_LANES))
+
+    def mats(M, b, e):
+        return lanes(M[b, int(e)])
+
+    return mats, lanes(props), tips
+
+
+def _wide_evolve(Pe, x):
+    return torch.einsum("kgab,skgb->skga", Pe, x)
+
+
+def _wide_evolve_t(Pe, o):
+    return torch.einsum("kgba,skgb->skga", Pe, o)
+
+
+def _wide_exponent(x):
+    """The exponent of the group's largest entry per pattern column (0
+    where it is not positive), as onchip::scale_exponent."""
+    mx = x.flatten(1).amax(dim=1)
+    return torch.where(mx > 0, torch.frexp(mx).exponent, 0)
+
+
+def _pow2(e, dtype):
+    return torch.pow(2.0, -e.to(dtype))[:, None, None, None]
+
+
+def emulate_wide_paired(dst, tip, src, e, P, dP, tips, pi, props, weights,
+                        chunked):
+    """(ll_rows [B, S], grad_rows [B, NR, S]) as the wide kernels
+    (csrc/paired_lanes.cuh wide_ll_kernel / wide_grad_kernel) compute
+    them past 32 categories, in the operands' dtype: on the paired tape
+    (chunked False: `tip` the tips' slots, gradient rows post_src `src`,
+    NR = N1) or on the chunked tape (True: `tip` the child codes [B, MW,
+    2], rows 2g + j, NR = 2MW + 1); the slots in the wide layout
+    (WideSlots); each op in two passes over a lane's places, the first
+    storing the products unscaled (postorder) or taking the largest o
+    (outside pass), the second scaling in place or forming everything
+    from the scaled o."""
+    B, M = dst.shape
+    N1, C = P.shape[1], P.shape[2]
+    T, S = tips.shape[0], tips.shape[-1]
+    root, trash = 2 * M, 2 * M + 1
+    slots = WideSlots(B, 2 * M + 3, S, C, P.dtype)
+    K, Sp = slots.K, slots.Sp
+    mats, prop_k, _ = _wide_model(P, dP, tips, props, K)
+    shape = (Sp, K, WIDE_LANES, 4)
+    cols = torch.arange(Sp).clamp(max=S - 1)
+    tip_cols = tips[:, :, cols].transpose(1, 2)[:, :, None, None, :]
+    w = weights[cols]
+    ones = torch.ones(shape, dtype=P.dtype)
+    pi4 = pi.expand(shape)
+
+    def child(b, m, j):
+        if chunked:
+            code = int(tip[b, m, j])
+            if code < 0:
+                return (tip_cols[-1 - code].expand(shape) if -1 - code < T
+                        else ones)
+        return slots[b, 2 * m + j]
+
+    NR = 2 * M + 1 if chunked else N1
+    ll_rows = torch.empty((B, S), dtype=P.dtype)
+    grad_rows = torch.zeros((B, NR, S), dtype=P.dtype)
+    for b in range(B):
+        if not chunked:
+            for t in range(T):
+                slots[b, int(tip[b, t])] = tip_cols[t].expand(shape)
+        lsc = torch.zeros(Sp, dtype=torch.int64)
+        for m in range(M):
+            d = int(dst[b, m])
+            if d == trash:
+                continue
+            prod = (_wide_evolve(mats(P, b, e[b, m, 0]), child(b, m, 0))
+                    * _wide_evolve(mats(P, b, e[b, m, 1]), child(b, m, 1)))
+            slots[b, d] = prod
+            ex = _wide_exponent(prod)
+            p = slots[b, d] * _pow2(ex, P.dtype)
+            lsc = lsc + ex
+            if d == root:
+                site = torch.einsum("kg,a,skga->s", prop_k, pi, p)
+            else:
+                slots[b, d] = p
+        ll_rows[b] = (torch.log(site) + lsc.to(P.dtype) * math.log(2.0))[:S]
+        for m in range(M - 1, -1, -1):
+            d = int(dst[b, m])
+            if d == trash:
+                continue
+            P0, P1 = mats(P, b, e[b, m, 0]), mats(P, b, e[b, m, 1])
+            p0, p1 = child(b, m, 0), child(b, m, 1)
+            ev0, ev1 = _wide_evolve(P0, p0), _wide_evolve(P1, p1)
+            up = pi4 if d == root else slots[b, d]
+            inv = _pow2(_wide_exponent(torch.stack([up * ev1, up * ev0],
+                                                   1)), P.dtype)
+            o0, o1 = up * ev1 * inv, up * ev0 * inv
+            for j, (o, ev, pj, Pj) in enumerate(((o0, ev0, p0, P0),
+                                                  (o1, ev1, p1, P1))):
+                dv = _wide_evolve(mats(dP, b, e[b, m, j]), pj)
+                num = torch.einsum("kg,skga->s", prop_k, o * dv)
+                den = torch.einsum("kg,skga->s", prop_k, o * ev)
+                den = torch.where(den > 0, den, torch.ones_like(den))
+                r = 2 * m + j if chunked else int(src[b, m, j])
+                grad_rows[b, r] = (w * num / den)[:S]
+                if not chunked or int(tip[b, m, j]) >= 0:
+                    slots[b, 2 * m + j] = _wide_evolve_t(Pj, o)
+    return ll_rows, grad_rows
+
+
+def emulate_wide_pernode(post_ops, pre_ops, root, P, dP, tips, pi, props,
+                         weights):
+    """(ll_rows [B, S], grad_rows [B, N1, S]) as the per-node wide kernels
+    (csrc/pernode_lanes.cuh wide_ll_kernel / wide_grad_kernel) compute
+    them past 32 categories, in the operands' dtype: post_ops into rows
+    by internal node in the wide layout (a tip in place, the dummy N as
+    ones), products stored unscaled then scaled in place; pre_ops with the
+    up values in rows of their own, the largest o first, then the scaled
+    o's sums and up[dest]."""
+    B, N1, C = P.shape[:3]
+    T, S = tips.shape[0], tips.shape[-1]
+    N = N1 - 1
+    rows = WideSlots(B, N1 - T, S, C, P.dtype)
+    ups = WideSlots(B, N1 - T, S, C, P.dtype)
+    K, Sp = rows.K, rows.Sp
+    mats, prop_k, _ = _wide_model(P, dP, tips, props, K)
+    shape = (Sp, K, WIDE_LANES, 4)
+    cols = torch.arange(Sp).clamp(max=S - 1)
+    tip_cols = tips[:, :, cols].transpose(1, 2)[:, :, None, None, :]
+    w = weights[cols]
+    ones = torch.ones(shape, dtype=P.dtype)
+    ll_rows = torch.empty((B, S), dtype=P.dtype)
+    grad_rows = torch.zeros((B, N1, S), dtype=P.dtype)
+    for b in range(B):
+        def value(n):
+            if n < T:
+                return tip_cols[n].expand(shape)
+            return ones if n == N else rows[b, n - T]
+
+        def ev(edge, n):
+            return _wide_evolve(mats(P, b, edge), value(n))
+
+        lsc = torch.zeros(Sp, dtype=torch.int64)
+        for u, s1, e1, s2, e2 in post_ops[b].tolist():
+            if u == N:
+                continue
+            rows[b, u - T] = ev(e1, s1) * ev(e2, s2)
+            ex = _wide_exponent(rows[b, u - T])
+            rows[b, u - T] = rows[b, u - T] * _pow2(ex, P.dtype)
+            lsc = lsc + ex
+        r = int(root[b])
+        site = torch.einsum("kg,a,skga->s", prop_k, pi, rows[b, r - T])
+        ll_rows[b] = (torch.log(site) + lsc.to(P.dtype) * math.log(2.0))[:S]
+        for c, v, s1, e1, s2, e2 in pre_ops[b].tolist():
+            if c == N:
+                continue
+            up = pi.expand(shape) if v == r else ups[b, v - T]
+            o = up * ev(e1, s1) * ev(e2, s2)
+            o = o * _pow2(_wide_exponent(o), P.dtype)
+            p = value(c)
+            num = torch.einsum("kg,skga->s", prop_k,
+                               o * _wide_evolve(mats(dP, b, c), p))
+            den = torch.einsum("kg,skga->s", prop_k, o * ev(c, c))
+            den = torch.where(den > 0, den, torch.ones_like(den))
+            grad_rows[b, c] = (w * num / den)[:S]
+            if c >= T:
+                ups[b, c - T] = _wide_evolve_t(mats(P, b, c), o)
+    return ll_rows, grad_rows
+
+
 def check_live_rows(dst, child, row, peak):
     """Rows by liveness (paired.live_rows) on a tape of the paired layout:
     every stored output keeps its row until the op that reads it, and is
