@@ -28,16 +28,21 @@ Each kernel has two bodies on the card, as the paired kernels do
     per (tree, pattern), the pair slots in device memory; past 8 rate
     categories the paired kernels' lane bodies (csrc/paired_lanes.cuh)
     walking the chunked tape one grid op at a time, children by child
-    code.  It takes any tree; the wrappers launch it where a block of the
-    on-chip body would hold too few warps of patterns to be the faster,
-    and past paired.ONCHIP_CATEGORIES (`ll_plan` or `onchip_plan` returns
-    None), decided from the tape before the launch; its launchers split
-    the batch over slices of trees where its scratch would not fit
-    (paired.launch_sliced).
+    code.  It takes any tree; the wrappers launch it where no on-chip
+    body gets a plan, decided from the tape before the launch; its
+    launchers split the batch over slices of trees where its scratch
+    would not fit (paired.launch_sliced).
+The grad kernel has a third body: the paired grad kernel's on-chip body
+(csrc/paired_grad_onchip.cu, `chunked_grad_paired`) walking the chunked
+tape one grid op at a time, with a row per grid op and gradient rows by
+node (`node_src`), where the chunked body gets no plan (`onchip_plan`
+returns None: at 17-32 categories, where the tree's P and dP staged at
+once leave it too few warps, and past 32) and `paired_plan` gives one.
 The kernels take any count of rate categories: 1-8 compiled one count at
 a time, 9-32 on 16 or 32 lanes a pattern with the count read at run
-time (both bodies), past 32 on 32 lanes of paired.lane_categories(C)
-categories each (the global bodies).
+time (every body), past 32 on 32 lanes of paired.lane_categories(C)
+categories each (the on-chip LL body and the paired grad body up to
+paired.ONCHIP_MAX_CATEGORIES, the global bodies at any count).
 
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which runs one
@@ -48,7 +53,8 @@ Beside them, in this module:
     CUDA tensor goes to a body, and the call raises if the body cannot
     take the inputs or fails to launch;
   - each body's launcher (`chunked_ll_onchip`, `chunked_ll_global`,
-    `chunked_grad_onchip`, `chunked_grad_global`) with its launch count,
+    `chunked_grad_onchip`, `chunked_grad_paired`, `chunked_grad_global`)
+    with its launch count,
     `.launches`, raised by one where it launches its kernel and nowhere
     else;
   - the pattern-sharded wrappers (`chunked_log_likelihoods_sharded`,
@@ -307,7 +313,8 @@ def onchip_plan(rows: int, MW: int, N1: int, C: int,
     paired.SMEM_BYTES, up to paired.MAX_THREADS threads, and at least
     `least` warps (1 asks for the body wherever it fits, to measure it).
     A pattern takes op_lanes(C) op lanes x G category lanes of one warp
-    (the plan's `op_lanes`).  None past paired.ONCHIP_CATEGORIES."""
+    (the plan's `op_lanes`).  None past paired.ONCHIP_CATEGORIES: the
+    body holds a category a lane (`paired_plan` takes the tape there)."""
     paired.check_categories(C)
     if C > paired.ONCHIP_CATEGORIES:
         return None
@@ -323,6 +330,16 @@ def onchip_plan(rows: int, MW: int, N1: int, C: int,
     cols = warps * per_warp
     return paired.OnchipPlan(G, cols, False,
                              smem_bytes(rows, MW, N1, C, cols), L)
+
+
+def paired_plan(rows: int, MW: int, N1: int,
+                C: int) -> paired.OnchipPlan | None:
+    """How the paired grad kernel's on-chip body launches on a chunked
+    tape of `rows` grad rows (a row per grid op), walked one grid op at a
+    time, or None where the global body takes it: the paired plan
+    (paired.onchip_plan("grad", ...), K categories a lane past 32).  The
+    wrapper asks for it where `onchip_plan` gives none."""
+    return paired.onchip_plan("grad", rows, MW, N1, C)
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +449,7 @@ def chunked_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     plan, else the global body.  `onchip` is the tape's `onchip_tape`;
     where it is not given the wrapper derives it (a copy of the tapes to
     the host).  The CPU runs the plain version, which needs none."""
-    if P.device.type == "cpu":
+    if paired.on_cpu(P):
         return chunked_log_likelihoods_ref(post_dst, tip_slot, post_e, P,
                                            tips, pi, props, weights)
     B, MW, T, N1, C, A, S = _check_chunked(post_dst, tip_slot, post_e, P,
@@ -525,10 +542,12 @@ def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
                              onchip: paired.OnchipTape | None = None):
     """Per-tree (log likelihood [B], branch gradients [B, N]).
 
-    On the card it launches the on-chip body where `onchip_plan` gives a
-    plan, else the global body; `onchip`, the tape's `onchip_tape`, is
-    required there.  The CPU runs the plain version, which needs none."""
-    if P.device.type == "cpu":
+    On the card it launches the chunked on-chip body where `onchip_plan`
+    gives a plan, else the paired grad kernel's on-chip body on this tape
+    where `paired_plan` gives one, else the global body; `onchip`, the
+    tape's `onchip_tape`, is required there.  The CPU runs the plain
+    version, which needs none."""
+    if paired.on_cpu(P):
         return chunked_ll_and_gradients_ref(
             post_dst, tip_slot, post_e, node_row, edge_mask, P, dP, tips, pi,
             props, weights)
@@ -551,12 +570,16 @@ def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
                          "OnchipTape on the card: pass "
                          "onchip=chunked.onchip_tape(...)")
     plan = onchip_plan(onchip.grad_rows, MW, N1, C)
-    if plan is None:
-        rows = chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips,
-                                   pi, props, weights, child=onchip.child)
-    else:
+    if plan is not None:
         rows = chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi,
                                    props, weights, plan)
+    elif (plan := paired_plan(onchip.grad_rows, MW, N1, C)) is not None:
+        return paired.finish_rows(*chunked_grad_paired(
+            post_dst, onchip, post_e, node_row, P, dP, tips, pi, props,
+            weights, plan), edge_mask, weights)  # gradient rows by node
+    else:
+        rows = chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips,
+                                   pi, props, weights, child=onchip.child)
     return finish_rows(*rows, node_row, edge_mask, weights)
 
 
@@ -624,6 +647,36 @@ def chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi, props,
 
 
 chunked_grad_onchip.launches = 0
+
+
+def node_src(node_row: torch.Tensor, MW: int) -> torch.Tensor:
+    """[B, MW, 2] int32: the node whose branch child j of grid op g is (its
+    gradient row in the paired grad body), node_row inverted; N (the dummy
+    node) where no node's real edge is consumed there."""
+    B, N = node_row.shape
+    src = torch.full((B, 2 * MW + 1), N, dtype=torch.int32,
+                     device=node_row.device)
+    # Nodes without a real edge point at row 2MW, which is cut off.
+    src.scatter_(1, node_row.long(), torch.arange(
+        N, dtype=torch.int32, device=node_row.device).expand(B, N))
+    return src[:, :2 * MW].contiguous().view(B, MW, 2)
+
+
+def chunked_grad_paired(post_dst, onchip, post_e, node_row, P, dP, tips, pi,
+                        props, weights, plan: paired.OnchipPlan):
+    """Launch csrc/paired_grad_onchip.cu, the paired grad kernel's on-chip
+    body, on the chunked tape walked one grid op at a time as `plan`
+    (paired_plan) says (operands checked by the wrapper): (LL rows [B, S],
+    weighted gradient rows [B, N1, S] by node, through node_src; rows that
+    no op writes are not written: paired.finish_rows masks them)."""
+    rows = paired.launch_grad_onchip(
+        post_dst, onchip, node_src(node_row, post_dst.shape[1]), post_e, P,
+        dP, tips, pi, props, weights, plan)
+    chunked_grad_paired.launches += 1
+    return rows
+
+
+chunked_grad_paired.launches = 0
 
 
 def chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips, pi, props,

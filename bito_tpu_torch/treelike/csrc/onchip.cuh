@@ -12,19 +12,29 @@
 // kernels of 1..8 categories pass a compile-time C, those of 9..32 the
 // run-time count (one instantiation a G).
 //
+// Past 32 categories a lane holds K = ceil(C / 32) of them (G = 32, K =
+// 2..kMaxK, fixed at compile time, C read at run time): lane g's place k
+// is category g + 32 k, its K float4s in registers, and places c >= C are
+// idle (zero matrices, as idle lanes).  The helpers then take the row
+// width G K as their G: a matrix row of the tree's C categories is G K
+// float4s, and place k of lane g is entry g + 32 k of it.
+//
 // Dynamic shared memory, in this order:
-//   rows   [rows][threads] float4   row r of thread tid at rows[r * threads
-//                                   + tid]: one 16-byte access per lane,
-//                                   neighbouring threads on neighbouring
-//                                   addresses, no bank conflicts.  A thread
-//                                   reads and writes only its own slices.
-//   mats   [nmat][4][G] float4      transition matrices by (matrix, row,
-//                                   lane): the G lanes of a pattern read
-//                                   one row of their categories from 16*G
-//                                   contiguous bytes.  Either the tree's P
-//                                   (and dP) for every edge, staged once,
-//                                   or a ring of two buffers of one op's
-//                                   matrices
+//   rows   [rows][K][threads] float4
+//                                   place k of row r of thread tid at
+//                                   rows[(r * K + k) * threads + tid]: one
+//                                   16-byte access per lane, neighbouring
+//                                   threads on neighbouring addresses, no
+//                                   bank conflicts.  A thread reads and
+//                                   writes only its own slices.
+//   mats   [nmat][4][G K] float4    transition matrices by (matrix, row,
+//                                   category): the G lanes of a pattern
+//                                   read one row of one place's
+//                                   categories from 16*G contiguous bytes.
+//                                   Either the tree's P (and dP) for every
+//                                   edge, staged once, or a ring of two
+//                                   buffers of one op's matrices (always
+//                                   the ring past 32 categories)
 //   tape   int32                    the tree's tape, staged once
 // treelike/paired.py's smem_bytes computes the same sizes to choose
 // `cols`; the launchers compute them again and refuse more than kSmemMax.
@@ -37,6 +47,12 @@ namespace onchip {
 constexpr int A = 4;               // nucleotide states
 constexpr int kMaxThreads = 512;   // launch bound: at most 128 registers
 constexpr int kSmemMax = 232448;   // shared memory one block can take
+constexpr int kMaxK = 4;           // categories a lane at most: C <= 128
+// The grad body's launch bound past 32 categories: its K places' o0 and
+// o1 stay in registers through the outside pass, which at 128 registers
+// spilled (up to 80 bytes at K = 4); at 256 threads it may take 255.  Its
+// blocks hold at most 7 warps at the flagship anyway.
+constexpr int kMaxThreadsK = 256;
 
 template <int C>
 struct Lanes {
@@ -50,11 +66,13 @@ struct Lanes {
 
 // Bytes of dynamic shared memory: `mats_per_op` is 2 for the LL kernel (P
 // of both children) and 4 for the grad kernel (P and dP); `tape_ints` the
-// staged tape's ints.
+// staged tape's ints; K the categories a lane.
 inline size_t smem_bytes(int rows, int threads, int G, int N1,
-                         int mats_per_op, bool ring, int tape_ints) {
+                         int mats_per_op, bool ring, int tape_ints,
+                         int K = 1) {
   const size_t mats = ring ? 2 * mats_per_op : N1 * mats_per_op / 2;
-  return static_cast<size_t>(rows) * threads * 16 + mats * G * A * 16 +
+  return static_cast<size_t>(rows) * K * threads * 16 +
+         mats * G * K * A * 16 +
          (static_cast<size_t>(tape_ints) * 4 + 15) / 16 * 16;
 }
 
@@ -259,5 +277,16 @@ __device__ __forceinline__ Op op_at(const int* t_dst, const int* t_child,
     case 33: LAUNCH(16, true); break;                           \
     case 64: LAUNCH(32, false); break;                          \
     case 65: LAUNCH(32, true); break;                           \
+    default: return cudaErrorInvalidValue;                      \
+  }
+
+// Past 32 categories: one launcher a K = ceil(C / 32) of 2..kMaxK, on 32
+// lanes and the ring, which takes the run-time count.
+#define ONCHIP_DISPATCH_K(C_VALUE, RING, LAUNCH)                \
+  if (!(RING)) return cudaErrorInvalidValue;                    \
+  switch (((C_VALUE) + 31) / 32) {                              \
+    case 2: LAUNCH(2); break;                                   \
+    case 3: LAUNCH(3); break;                                   \
+    case 4: LAUNCH(4); break;                                   \
     default: return cudaErrorInvalidValue;                      \
   }

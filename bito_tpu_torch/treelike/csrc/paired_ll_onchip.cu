@@ -59,11 +59,17 @@
 // 9..32 categories one a lane count (16 or 32) and staging, with the count
 // read at run time (idle lanes, g >= C, have zero matrices as at C = 3 or
 // 5..7).  At G = 32 a pattern is a whole warp: the shuffles span it, and a
-// block of 512 threads holds 16 patterns.
+// block of 512 threads holds 16 patterns.  Past 32 categories one a K =
+// ceil(C / 32) of 2..4 (C = 33..128) on 32 lanes and the ring: lane g
+// holds categories g + 32 k, a row by liveness is K float4s a thread, and
+// an op's K products stay in registers for the rescale's max and are
+// stored scaled, once.  It carries the paired, chunked and per-node tapes
+// past 32 as it does at 1..32.
 #include "paired_ll_onchip.cuh"
 
 // `rows` is the peak number of live outputs (paired.py live_rows); `cols`
-// patterns per block (a whole number of warps); `ring` the staging.
+// patterns per block (a whole number of warps); `ring` the staging (past
+// 32 categories the ring only).
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int bito_paired_ll_onchip(const int* post_dst, const int* child,
                                      const int* live_row, const int* post_e,
@@ -82,10 +88,18 @@ extern "C" int bito_paired_ll_onchip(const int* post_dst, const int* child,
   return static_cast<int>(paired_ll_onchip::launch_wide<GV, RV>(        \
       post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows, B, \
       M, T, N1, C, S, rows, cols, st))
+#define ONCHIP_LAUNCH_LL_K(KV)                                          \
+  return static_cast<int>(paired_ll_onchip::launch_k<KV>(               \
+      post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows, B, \
+      M, T, N1, C, S, rows, cols, st))
+  if (C > 32) {
+    ONCHIP_DISPATCH_K(C, ring != 0, ONCHIP_LAUNCH_LL_K)
+  }
   if (C > 8) {
     ONCHIP_DISPATCH_WIDE(C, ring != 0, ONCHIP_LAUNCH_LL_WIDE)
   }
   ONCHIP_DISPATCH(C, ring != 0, ONCHIP_LAUNCH_LL)
+#undef ONCHIP_LAUNCH_LL_K
 #undef ONCHIP_LAUNCH_LL_WIDE
 #undef ONCHIP_LAUNCH_LL
   return cudaErrorInvalidValue;

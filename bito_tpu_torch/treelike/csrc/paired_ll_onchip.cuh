@@ -2,7 +2,8 @@
 // paired-slot layout, with every partial on chip.  A template, instantiated
 // by paired_ll_onchip.cu (the shipping body: `launch` <C, kRing, 0, 0> for
 // C = 1..8, `launch_wide` <G, kRing> for 9..32 categories on G = 16 or 32
-// lanes) and by the perf lab's chunk_variant.cu (the knobs below).  What the body computes,
+// lanes, `launch_k` <K> for 33..128 on 32 lanes of K categories each and
+// the ring) and by the perf lab's chunk_variant.cu (the knobs below).  What the body computes,
 // for which TPU kernels, and why it is laid out so, is in the header of
 // paired_ll_onchip.cu.
 //
@@ -56,8 +57,11 @@ __device__ __forceinline__ int row_of(int op, const int* t_row, int rows) {
 }
 
 // G lanes a pattern; CF the category count where it is fixed at compile
-// time (1..8), else 0 and the run-time count C_run (G / 2 < C_run <= G).
-template <int G, int CF, bool kRing, int MU, int KNOBS>
+// time (1..8), else 0 and the run-time count C_run (G / 2 < C_run <= G, or
+// past 32 G (K - 1) < C_run <= G K); K the categories a lane (1, or 2..4
+// at G = 32 on the ring with no knob): place k of lane g is category
+// g + 32 k, and an op's K products stay in registers for the rescale.
+template <int G, int CF, bool kRing, int MU, int KNOBS, int K = 1>
 __global__ void __launch_bounds__(onchip::kMaxThreads)
 paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
                         const int* __restrict__ child,     // [B, M, 2]
@@ -71,6 +75,9 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
                         int M_run, int T, int N1, int S, int rows,
                         int C_run) {
   using namespace onchip;
+  static_assert(K == 1 || (G == 32 && kRing && CF == 0 && KNOBS == 0),
+                "K categories a lane take 32 lanes, the ring and no knob");
+  constexpr int GK = G * K;  // a matrix row's float4s: every category
   const int C = CF > 0 ? CF : C_run;
   constexpr bool kDot = !(KNOBS & kNoDot);
   const int M = MU > 0 ? MU : M_run;
@@ -84,10 +91,10 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
   // nothing: every lane of the warp takes part in the shuffles.
   const int s = min(s_raw, S - 1);
   const float* const tips_s = tips + s;
-  float4* const my = smem + tid;  // row r at my[r * threads]
-  float4* const mats = smem + static_cast<size_t>(rows) * threads;
+  float4* const my = smem + tid;  // place k of row r at my[(r K + k) threads]
+  float4* const mats = smem + static_cast<size_t>(rows) * K * threads;
   const int nslots = kRing ? 4 : N1;
-  int* const t_dst = reinterpret_cast<int*>(mats + nslots * G * A);
+  int* const t_dst = reinterpret_cast<int*>(mats + nslots * GK * A);
   int* const t_child = t_dst + M;
   int* const t_e = t_child + 2 * M;
   int* const t_row = t_e + 2 * M;
@@ -102,8 +109,8 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
     t_e[i] = post_e[static_cast<size_t>(b) * 2 * M + i];
   }
   if constexpr (kDot) {
-    zero_idle<G>(mats, nslots, C);
-    if (!kRing) stage_all<G>(mats, P_b, nullptr, N1, C);
+    zero_idle<GK>(mats, nslots, C);
+    if (!kRing) stage_all<GK>(mats, P_b, nullptr, N1, C);
   }
   cp_async_commit();
   cp_async_wait<0>();
@@ -112,10 +119,13 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
   const int root = 2 * M, trash = 2 * M + 1;
   const float4 pi4 = make_float4(__ldg(pi), __ldg(pi + 1), __ldg(pi + 2),
                                  __ldg(pi + 3));
-  const float prop = g < C ? __ldg(props + g) : 0.f;
+  float prop[K];  // place k's proportion, 0 where it is idle
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    prop[k] = g + 32 * k < C ? __ldg(props + g + 32 * k) : 0.f;
   int lsc = 0;  // the running log scale, in powers of two
   if (kRing && kDot) {
-    stage_op<G>(mats, 0, t_e[0], t_e[1], P_b, nullptr, C);
+    stage_op<GK>(mats, 0, t_e[0], t_e[1], P_b, nullptr, C);
     cp_async_commit();
   }
   // Op m's tape, its children's rows and its leaves are read one op
@@ -139,38 +149,52 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
     const float4* M1 = nullptr;
     if constexpr (kDot) {
       if (kRing) {
-        if (m + 1 < M) stage_op<G>(mats, 2 * (mn & 1), nx.e0, nx.e1, P_b,
-                                   nullptr, C);
+        if (m + 1 < M) stage_op<GK>(mats, 2 * (mn & 1), nx.e0, nx.e1, P_b,
+                                    nullptr, C);
         cp_async_commit();
         cp_async_wait<1>();  // op m's matrices have landed
         __syncthreads();
-        M0 = lane_rows<G>(mats, 2 * (m & 1), g);
-        M1 = lane_rows<G>(mats, 2 * (m & 1) + 1, g);
+        M0 = lane_rows<GK>(mats, 2 * (m & 1), g);
+        M1 = lane_rows<GK>(mats, 2 * (m & 1) + 1, g);
       } else {
-        M0 = lane_rows<G>(mats, op.e0, g);
-        M1 = lane_rows<G>(mats, op.e1, g);
+        M0 = lane_rows<GK>(mats, op.e0, g);
+        M1 = lane_rows<GK>(mats, op.e1, g);
       }
     }
     if (op.dst != trash) {
-      const float4 p0 = op.c0 >= 0 ? my[r0 * threads] : l0;
-      const float4 p1 = op.c1 >= 0 ? my[r1 * threads] : l1;
-      float4 prod;
-      if constexpr (kDot) {
-        prod = mul(evolve<G>(M0, p0), evolve<G>(M1, p1));
-      } else {
-        prod = mul(p0, p1);
+      // One pass over the lane's places: the K products in registers, the
+      // largest entry over them, then the warp's.
+      float4 prod[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float4 p0 = op.c0 >= 0 ? my[(r0 * K + k) * threads] : l0;
+        const float4 p1 = op.c1 >= 0 ? my[(r1 * K + k) * threads] : l1;
+        if constexpr (kDot) {
+          prod[k] = mul(evolve<GK>(M0 + 32 * k, p0),
+                        evolve<GK>(M1 + 32 * k, p1));
+        } else {
+          prod[k] = mul(p0, p1);
+        }
       }
       if constexpr (!(KNOBS & kNoRescale)) {
-        const int ex = scale_exponent(group_max<G>(max4(prod)));
-        prod = scale(prod, pow2_neg(ex));
+        float mx = max4(prod[0]);
+#pragma unroll
+        for (int k = 1; k < K; ++k) mx = fmaxf(mx, max4(prod[k]));
+        const int ex = scale_exponent(group_max<G>(mx));
+#pragma unroll
+        for (int k = 0; k < K; ++k) prod[k] = scale(prod[k], pow2_neg(ex));
         lsc += ex;
       }
       if (op.dst == root) {
-        const float site = group_sum<G>(prop * dot(pi4, prod));
+        float site = prop[0] * dot(pi4, prod[0]);
+#pragma unroll
+        for (int k = 1; k < K; ++k) site += prop[k] * dot(pi4, prod[k]);
+        site = group_sum<G>(site);
         if (g == 0 && s_raw < S)
           ll_rows[static_cast<size_t>(b) * S + s_raw] = logf(site) + lsc * kLn2;
       } else {
-        my[out * threads] = prod;
+#pragma unroll
+        for (int k = 0; k < K; ++k) my[(out * K + k) * threads] = prod[k];
       }
     }
     if (kRing && kDot) __syncthreads();  // op m's buffer is refilled for m + 2
@@ -188,7 +212,7 @@ paired_ll_onchip_kernel(const int* __restrict__ post_dst,  // [B, M]
   }
 }
 
-template <int G, int CF, bool kRing, int MU, int KNOBS>
+template <int G, int CF, bool kRing, int MU, int KNOBS, int K = 1>
 cudaError_t launch_body(const int* post_dst, const int* child,
                         const int* live_row, const int* post_e,
                         const float* P, const float* tips, const float* pi,
@@ -200,14 +224,14 @@ cudaError_t launch_body(const int* post_dst, const int* child,
     return cudaErrorInvalidValue;
   if (MU > 0 && M != MU) return cudaErrorInvalidValue;
   const size_t smem =
-      onchip::smem_bytes(rows, threads, G, N1, 2, kRing, 6 * M);
+      onchip::smem_bytes(rows, threads, G, N1, 2, kRing, 6 * M, K);
   if (smem > onchip::kSmemMax) return cudaErrorInvalidValue;
   const cudaError_t attr = cudaFuncSetAttribute(
-      paired_ll_onchip_kernel<G, CF, kRing, MU, KNOBS>,
+      paired_ll_onchip_kernel<G, CF, kRing, MU, KNOBS, K>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, onchip::kSmemMax);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + cols - 1) / cols, B);
-  paired_ll_onchip_kernel<G, CF, kRing, MU, KNOBS>
+  paired_ll_onchip_kernel<G, CF, kRing, MU, KNOBS, K>
       <<<grid, threads, smem, st>>>(post_dst, child, live_row, post_e, P,
                                     tips, pi, props, ll_rows, M, T, N1, S,
                                     rows, C);
@@ -240,6 +264,21 @@ cudaError_t launch_wide(const int* post_dst, const int* child,
   return launch_body<G, 0, kRing, 0, 0>(post_dst, child, live_row, post_e, P,
                                         tips, pi, props, ll_rows, B, M, T, N1,
                                         C, S, rows, cols, st);
+}
+
+// C = 32 (K - 1) + 1 .. 32 K categories on 32 lanes of K = 2..4 places
+// each, read at run time, on the ring.
+template <int K>
+cudaError_t launch_k(const int* post_dst, const int* child,
+                     const int* live_row, const int* post_e, const float* P,
+                     const float* tips, const float* pi, const float* props,
+                     float* ll_rows, int B, int M, int T, int N1, int C,
+                     int S, int rows, int cols, cudaStream_t st) {
+  static_assert(K >= 2 && K <= onchip::kMaxK, "K takes 2..kMaxK");
+  if (C <= 32 * (K - 1) || C > 32 * K) return cudaErrorInvalidValue;
+  return launch_body<32, 0, true, 0, 0, K>(post_dst, child, live_row, post_e,
+                                           P, tips, pi, props, ll_rows, B, M,
+                                           T, N1, C, S, rows, cols, st);
 }
 
 }  // namespace

@@ -20,10 +20,11 @@ Kernel selection, `engine.kernel`:
               proportions); the scan tape otherwise.  At 64 states this
               differs from bito_tpu, whose auto takes the scan tape
               there (faster on its TPU); on the card auto takes the
-              kernels.  The paired wrappers launch the on-chip bodies,
-              or the global ones for a tree on which those would be the
-              slower and past 32 categories (paired.onchip_plan); at 64
-              states the A=64 kernels.  The global bodies and the A=64
+              kernels.  The paired wrappers launch the on-chip bodies
+              (past 32 categories K = ceil(C / 32) of them a lane, to
+              128), or the global ones for a tree on which those would be
+              the slower and past 128 categories (paired.onchip_plan); at
+              64 states the A=64 kernels.  The global bodies and the A=64
               kernels run over slices of the batch where their scratch
               for all of it would not fit in the card's free memory
               (paired.tree_slices), and raise, with the bytes, where one
@@ -36,9 +37,12 @@ Kernel selection, `engine.kernel`:
               as in bito_tpu's chunked route; 4-state models only (it
               raises for codon models, as bito_tpu's does), at any count
               of rate categories.  The wrappers launch the on-chip
-              bodies, or the global ones for a tree on which those would
-              be the slower and past 32 categories (chunked.ll_plan for
-              LL, chunked.onchip_plan for grad).
+              bodies (the grad kernel, where its own gets no plan, the
+              paired grad body on its tape: at 17-32 categories and past
+              32), or the global ones for a tree on which those would be
+              the slower and past 128 categories (chunked.ll_plan for
+              LL, chunked.onchip_plan then chunked.paired_plan for
+              grad).
 "cuda" and "chunked" raise for per-tree parameter rows, which the kernels
 do not take.  (bito_tpu's forced kernels take them and silently use tree
 0's model for the whole batch.)  The per-node kernels (treelike/pernode.py,

@@ -19,15 +19,19 @@ Each kernel has two bodies on the card:
     memory (csrc/paired_lanes.cuh).  It takes any tree and any category
     count; the wrappers launch it where a block of the on-chip body would
     hold too few warps of patterns to be the faster, and past
-    ONCHIP_CATEGORIES (`onchip_plan` returns None), decided from the tape
-    before the launch.
+    ONCHIP_MAX_CATEGORIES (`onchip_plan` returns None), decided from the
+    tape before the launch.
 The kernels take any count C >= 1 of rate categories, as bito_tpu's
 Pallas kernels do: at 4 states 1-8 compiled one count at a time, 9-32 on
 16 or 32 lanes a pattern (`lanes`) with the count read at run time, and
-past 32 on the global bodies only, 32 lanes a pattern of
-`lane_categories(C)` categories each.  So do the chunked and per-node
-kernels (chunked.py, pernode.py); the A=64 kernels take any count on
-their one body.  What bounds C is the card's memory: the global bodies'
+past 32 on 32 lanes a pattern of K = `lane_categories(C)` categories
+each: the on-chip bodies up to K = MAX_LANE_CATEGORIES (128 categories;
+K fixed at compile time, the matrices through the ring), the global
+bodies at any K.  So do the chunked and per-node kernels (chunked.py,
+pernode.py), whose grad kernels also run the on-chip grad body here on
+their own tapes where their own on-chip bodies get no plan; the A=64
+kernels take any count on their one body.  What bounds C is the card's
+memory: the global bodies'
 and the A=64 kernels' launchers allocate their scratch for the batch,
 split it over slices of trees where it cannot be allocated
 (`tree_slices`), and raise where one tree's does not fit, with the
@@ -126,12 +130,16 @@ RESK = 4  # the tape is padded to a multiple of this many ops, as in bito_tpu
 # one count at a time; past it their bodies take the count at run time,
 # on `lanes(C)` lanes a pattern, and their global bodies the lane layouts
 # (csrc/paired_lanes.cuh, csrc/pernode_lanes.cuh).  Their on-chip bodies
-# hold a category a lane, a pattern at most a warp: 1..ONCHIP_CATEGORIES;
-# past it the wrappers launch the global bodies, a lane of 32 holding
-# `lane_categories(C)` categories.  The A=64 kernels take a step an (op,
-# category) on one body.
+# hold a category a lane, a pattern at most a warp, up to
+# ONCHIP_CATEGORIES; past it a lane of 32 holds K = `lane_categories(C)`
+# categories, the on-chip bodies of rows 1-2 compiled for K =
+# 2..MAX_LANE_CATEGORIES (csrc/onchip.cuh kMaxK), so up to
+# ONCHIP_MAX_CATEGORIES, and the global bodies at any K.  The A=64
+# kernels take a step an (op, category) on one body.
 COMPILED_CATEGORIES = 8
 ONCHIP_CATEGORIES = 32
+MAX_LANE_CATEGORIES = 4
+ONCHIP_MAX_CATEGORIES = ONCHIP_CATEGORIES * MAX_LANE_CATEGORIES
 KERNEL_STATES = (4, 64)  # the state counts the paired kernels take
 # A shard's pattern count is a multiple of this (TreeLikelihoodEngine.
 # shard_patterns): the A=64 kernels copy [64, S] rows in 16-byte pieces.
@@ -293,6 +301,7 @@ def onchip_tape(post_dst: np.ndarray, tip_slot: np.ndarray,
 
 SMEM_BYTES = 232_448  # shared memory one block can take on an H100 (227 KB)
 MAX_THREADS = 512     # threads per block, csrc/onchip.cuh kMaxThreads
+MAX_THREADS_K = 256   # the grad body's past 32 categories (kMaxThreadsK)
 WARP = 32
 
 
@@ -304,8 +313,9 @@ def lanes(C: int) -> int:
 
 def lane_categories(C: int) -> int:
     """Categories a lane holds: 1 up to ONCHIP_CATEGORIES, past it K =
-    ceil(C / 32), categories g, g + 32, ... on lane g of the global
-    bodies (csrc/paired_lanes.cuh wide_categories)."""
+    ceil(C / 32), categories g, g + 32, ... on lane g (the on-chip bodies'
+    places, csrc/onchip.cuh; the global bodies' wide_categories,
+    csrc/paired_lanes.cuh)."""
     return -(-C // WARP)
 
 
@@ -313,8 +323,9 @@ def smem_bytes(kernel: str, rows: int, M: int, N1: int, C: int, cols: int,
                ring: bool) -> int:
     """Dynamic shared memory of one block, laid out as the kernels lay it
     out (csrc/onchip.cuh, `onchip::smem_bytes`): rows of 16-byte lane
-    slices, then the matrices, then the tape."""
-    G = lanes(C)
+    slices (K = lane_categories(C) a lane and row), then the matrices
+    (rows of every category), then the tape."""
+    G = lanes(C) * lane_categories(C)  # a row's float4s across the lanes
     mats_per_op = 2 if kernel == "ll" else 4  # P (and dP) of both children
     if ring:  # two buffers of one op's matrices
         mats = 2 * mats_per_op
@@ -327,11 +338,12 @@ def smem_bytes(kernel: str, rows: int, M: int, N1: int, C: int, cols: int,
 
 @dataclass(frozen=True)
 class OnchipPlan:
-    lanes: int     # G lanes per pattern, one per rate category
+    lanes: int     # G lanes per pattern, one per rate category (or K)
     cols: int      # patterns per block
     ring: bool     # matrices double-buffered per op, else staged all at once
     smem: int      # bytes of dynamic shared memory per block
     op_lanes: int = 1  # ops a pattern runs side by side (chunked.py's grad)
+    categories_per_lane: int = 1  # K: past 32, categories g + 32 k a lane
 
 
 # The choice between the stagings and the global body, set from times on
@@ -342,6 +354,20 @@ class OnchipPlan:
 # SM's.
 FULL_WARPS = 8
 MIN_WARPS = 3
+# Past 32 categories the on-chip bodies (K categories a lane, the ring)
+# take a tape where a block holds K_MIN_WARPS[kernel] warps, below that
+# the wide kernels of the global bodies: the least warps at which each
+# body beat every wide kernel at K = 2 and 4, on H100 times at the
+# flagship (chip_smoke.py phase 4, k_warps_times: each body at forced
+# blocks of 1 warp up, PERF.md).  The time falls about as 1 / warps: at
+# K = 2 the grad body took 29.40 ms at 3 warps against the paired and
+# chunked wide kernels' 31.50 and 27.97, 25.19 at 4; at K = 4 63.77 at 3
+# against 61.40 and 54.81.  The LL body took 5.87 ms at 5 warps at K = 2
+# against 7.52 and 6.79, but 14.86 at K = 4 against 15.26 and 13.22,
+# 11.98 at 6.  The per-node grad kernel's wide kernel is the slowest
+# (43.49 and 85.65 ms), so the per-node ops' tape takes the grad body at
+# MIN_WARPS (pernode.paired_plan).
+K_MIN_WARPS = {"ll": 6, "grad": 4}
 
 
 def _warps(kernel, rows, M, N1, C, ring) -> int:
@@ -351,31 +377,50 @@ def _warps(kernel, rows, M, N1, C, ring) -> int:
         return 0
     per_warp = smem_bytes(kernel, rows, M, N1, C, WARP // lanes(C),
                           ring) - fixed
-    return min((SMEM_BYTES - fixed) // per_warp, MAX_THREADS // WARP)
+    threads = (MAX_THREADS_K if kernel == "grad" and lane_categories(C) > 1
+               else MAX_THREADS)
+    return min((SMEM_BYTES - fixed) // per_warp, threads // WARP)
 
 
 def onchip_plan(kernel: str, rows: int, M: int, N1: int, C: int,
-                ring: bool | None = None,
-                full_warps: int = FULL_WARPS) -> OnchipPlan | None:
+                ring: bool | None = None, full_warps: int = FULL_WARPS,
+                min_warps: int = MIN_WARPS,
+                k_min_warps: int | None = None) -> OnchipPlan | None:
     """How an on-chip body launches, or None where the global body takes
-    the tape (past ONCHIP_CATEGORIES categories always).  A block takes
-    as many whole warps of patterns as fit in SMEM_BYTES, up to
+    the tape (past ONCHIP_MAX_CATEGORIES categories always).  A block
+    takes as many whole warps of patterns as fit in SMEM_BYTES, up to
     MAX_THREADS threads.  `ring` None chooses as the
     card's times say: all matrices staged where that leaves `full_warps`
     warps (FULL_WARPS on the paired tape; a tape whose times say
     otherwise passes its own), else the staging with more warps (staged
-    on a tie), and None below MIN_WARPS.  True or False asks for one
-    staging at any number of warps, to measure it."""
+    on a tie), and None below `min_warps` (MIN_WARPS; a tape whose global
+    body is the faster sooner passes its own).  True or False asks for
+    one staging at any number of warps, to measure it.  Past
+    ONCHIP_CATEGORIES the bodies hold K = lane_categories(C) categories a
+    lane on the ring alone: None for ring=False, and for ring None the
+    ring where `k_min_warps` warps fit (K_MIN_WARPS[kernel] where None; a
+    tape whose wide kernel is slower passes its own)."""
     if kernel not in ("ll", "grad"):
         raise ValueError(f"kernel must be 'll' or 'grad', got {kernel!r}")
     check_categories(C)
-    if C > ONCHIP_CATEGORIES:
+    if C > ONCHIP_MAX_CATEGORIES:
         return None
+    K = lane_categories(C)
+    if K > 1:
+        if ring is False:
+            return None
+        warps = _warps(kernel, rows, M, N1, C, True)
+        least = K_MIN_WARPS[kernel] if k_min_warps is None else k_min_warps
+        if warps < (least if ring is None else 1):
+            return None
+        return OnchipPlan(WARP, warps, True,
+                          smem_bytes(kernel, rows, M, N1, C, warps, True),
+                          categories_per_lane=K)
     if ring is None:
         staged = _warps(kernel, rows, M, N1, C, False)
         ringed = _warps(kernel, rows, M, N1, C, True)
         ring = staged < full_warps and ringed > staged
-        warps, least = (ringed if ring else staged), MIN_WARPS
+        warps, least = (ringed if ring else staged), min_warps
     else:
         warps, least = _warps(kernel, rows, M, N1, C, ring), 1
     if warps < least:
@@ -582,6 +627,13 @@ def paired_ll_and_gradients_tf32(post_dst, tip_slot, post_src, post_e,
 # Public wrappers and the bodies' launchers
 # ---------------------------------------------------------------------------
 
+def on_cpu(t: torch.Tensor) -> bool:
+    """Whether a wrapper given `t` runs its kernel's plain version: only
+    because the tensor lies on the CPU.  On the card it launches a body or
+    raises."""
+    return t.device.type == "cpu"
+
+
 def check_categories(C: int) -> None:
     """Raise unless C is a category count: the kernels take any C >= 1;
     what bounds it is the card's memory, which their launchers check."""
@@ -677,7 +729,7 @@ def paired_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     onchip_plan gives a plan, else the global body, and `onchip`, the
     tape's OnchipTape, is required there; at 64 states the A=64 body,
     which needs none.  The CPU runs the plain version."""
-    if P.device.type == "cpu":
+    if on_cpu(P):
         return paired_log_likelihoods_ref(post_dst, tip_slot, post_e, P,
                                           tips, pi, props, weights)
     B, M, T, N1, C, A, S = _check_shapes(post_dst, tip_slot, post_e, P, tips,
@@ -704,7 +756,7 @@ def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
                             onchip: OnchipTape | None = None):
     """Per-tree (log likelihood [B], branch gradients [B, N]), by the body
     and with the `onchip` tape as in paired_log_likelihoods."""
-    if P.device.type == "cpu":
+    if on_cpu(P):
         return paired_ll_and_gradients_ref(post_dst, tip_slot, post_src,
                                            post_e, edge_mask, P, dP, tips,
                                            pi, props, weights)
@@ -802,12 +854,16 @@ def paired_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
 paired_ll_onchip.launches = 0
 
 
-def paired_grad_onchip(post_dst, onchip, post_src, post_e, P, dP, tips, pi,
+def launch_grad_onchip(post_dst, onchip, post_src, post_e, P, dP, tips, pi,
                        props, weights, plan: OnchipPlan):
-    """Launch csrc/paired_grad_onchip.cu as `plan` says (operands checked
-    by the wrapper): (LL rows [B, S], weighted gradient rows [B, N1, S];
-    rows that no op writes are not written)."""
+    """Launch csrc/paired_grad_onchip.cu as `plan` says on any tape of the
+    paired layout (operands checked by the caller): (LL rows [B, S],
+    weighted gradient rows [B, N1, S], row post_src[m, j] for child j of
+    op m; rows that no op writes are not written).  `onchip` gives the
+    child codes and the rows a pattern (`child`, `grad_rows`).  It counts
+    no launch: each launcher that calls it counts its own."""
     _check_onchip(onchip, post_dst, tips, dict(P=P, dP=dP))
+    _check_cuda_tensors(dict(post_src=post_src), {})
     B, M = post_dst.shape
     T, S = tips.shape[0], tips.shape[-1]
     N1, C = P.shape[1], P.shape[2]
@@ -823,8 +879,18 @@ def paired_grad_onchip(post_dst, onchip, post_src, post_e, P, dP, tips, pi,
             B, M, T, N1, C, S, onchip.grad_rows, plan.cols, int(plan.ring),
             _stream())
     _kernels.check(rc, "bito_paired_grad_onchip")
-    paired_grad_onchip.launches += 1
     return ll_rows, grad_rows
+
+
+def paired_grad_onchip(post_dst, onchip, post_src, post_e, P, dP, tips, pi,
+                       props, weights, plan: OnchipPlan):
+    """Launch csrc/paired_grad_onchip.cu as `plan` says (operands checked
+    by the wrapper): (LL rows [B, S], weighted gradient rows [B, N1, S];
+    rows that no op writes are not written)."""
+    rows = launch_grad_onchip(post_dst, onchip, post_src, post_e, P, dP,
+                              tips, pi, props, weights, plan)
+    paired_grad_onchip.launches += 1
+    return rows
 
 
 paired_grad_onchip.launches = 0

@@ -33,17 +33,25 @@ csrc/pernode_onchip.cuh (a node's partial and then its up value in one
 shared-memory row, a parent's children evolved together,
 `pernode_grad_onchip`), its global body csrc/pernode_grad.cu (partials in
 device memory, `pernode_grad_global`); `onchip_plan` chooses, from the
-tape that `onchip_tape` derives on the host.
+tape that `onchip_tape` derives on the host.  Where that body gets no
+plan (at 17-32 categories, where the tree's P and dP staged at once leave
+it too few warps, and past 32) the grad kernel runs the paired grad
+kernel's on-chip body (csrc/paired_grad_onchip.cu, `pernode_grad_paired`)
+on the per-node ops turned into a paired tape (`PairedGradTape`, which
+onchip_tape derives beside its own: the LL body's post_dst and child
+codes, gradient rows by node id), where the paired plan gives one, and
+the global body below it.
 
 At 4 states both kernels take any count of rate categories, as the
 paired ones do: 1-8 compiled one count at a time, 9-32 on 16 or 32 lanes
 a pattern with the count read at run time (the on-chip bodies'
 templates; the global bodies are then csrc/pernode_lanes.cuh, which
 walks post_ops and pre_ops as pernode_ll.cu and pernode_grad.cu do, a
-category a lane), and past 32 (paired.ONCHIP_CATEGORIES) the global
-bodies alone, on 32 lanes of paired.lane_categories(C) categories each;
-their launchers split the batch over slices of trees where the scratch
-would not fit (paired.launch_sliced).
+category a lane), and past 32 (paired.ONCHIP_CATEGORIES) on 32 lanes of
+paired.lane_categories(C) categories each: the paired on-chip LL and
+grad bodies up to paired.ONCHIP_MAX_CATEGORIES, the global bodies at any
+count; their launchers split the batch over slices of trees where the
+scratch would not fit (paired.launch_sliced).
 
 At 64 states (MG94 codon models, as bito_tpu's per-node kernels take
 them) both functions run on the paired kernels' A=64 bodies
@@ -143,7 +151,7 @@ def pernode_log_likelihoods(post_ops, root, P, tips, pi, props, weights, *,
     kernel, and `onchip` is the tape's `a64_tape`.  Where `onchip` is not
     given the wrapper derives it (a copy of the tapes to the host).  The
     CPU runs the plain version, which needs none."""
-    if P.device.type == "cpu":
+    if paired.on_cpu(P):
         return pernode_log_likelihoods_ref(post_ops, root, P, tips, pi, props,
                                            weights)
     B, M, T, N1, C, A, S = _check_shapes(post_ops, root, P, tips, pi, props,
@@ -175,12 +183,14 @@ def pernode_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
     """Per-tree (log likelihood [B], branch gradients [B, N]).
 
     On the card it launches, at 4 states, the on-chip body where
-    `onchip_plan` gives a plan, else the global body, and `onchip` is the
-    tape's OnchipTape; at 64 states the paired A=64 grad kernel, and
-    `onchip` is the tape's `a64_tape` with pre_ops.  Where `onchip` is not
+    `onchip_plan` gives a plan, else the paired grad kernel's on-chip body
+    on the tape's PairedGradTape where `paired_plan` gives one, else the
+    global body, and `onchip` is the tape's OnchipTape; at 64 states the
+    paired A=64 grad kernel, and `onchip` is the tape's `a64_tape` with
+    pre_ops.  Where `onchip` is not
     given the wrapper derives it (a copy of the tapes to the host).  The
     CPU runs the plain version, which needs none."""
-    if P.device.type == "cpu":
+    if paired.on_cpu(P):
         return pernode_ll_and_gradients_ref(post_ops, pre_ops, root,
                                             edge_mask, P, dP, tips, pi, props,
                                             weights)
@@ -209,13 +219,18 @@ def pernode_ll_and_gradients(post_ops, pre_ops, root, edge_mask, P, dP, tips,
     if tuple(onchip.post.shape[:2]) != (B, M):
         raise ValueError("the on-chip tape does not match post_ops")
     plan = onchip_plan(onchip.rows, onchip.ints, N1, C)
-    if plan is None:
-        rows = pernode_grad_global(post_ops, pre_ops, root, P, dP, tips, pi,
-                                   props, weights)
-    else:
-        rows = pernode_grad_onchip(onchip, root, P, dP, tips, pi, props,
-                                   weights, plan)
-    return finish_rows(*rows, edge_mask, weights)
+    if plan is not None:
+        return finish_rows(*pernode_grad_onchip(
+            onchip, root, P, dP, tips, pi, props, weights, plan), edge_mask,
+            weights)
+    plan = paired_plan(onchip.paired, N1, C)
+    if plan is not None:  # gradient rows by node, some not written
+        return paired.finish_rows(*pernode_grad_paired(
+            onchip.paired, P, dP, tips, pi, props, weights, plan), edge_mask,
+            weights)
+    return finish_rows(*pernode_grad_global(
+        post_ops, pre_ops, root, P, dP, tips, pi, props, weights), edge_mask,
+        weights)
 
 
 def finish_rows(ll_rows, grad_rows, edge_mask, weights):
@@ -469,14 +484,30 @@ ROOT_UP = -1        # the root group's parent: its up value is pi
 
 
 @dataclass(frozen=True)
+class PairedGradTape:
+    """The per-node ops as a paired tape, as the paired grad kernel's
+    on-chip body reads it (paired.py's layout, M ops walked one at a time;
+    the preorder read from the postorder, as the A=64 route does), on the
+    device of the tapes."""
+
+    post_dst: torch.Tensor  # [B, M] int32, as LLTape's
+    post_src: torch.Tensor  # [B, M, 2] int32: each child's node id, its
+    #                         gradient row (N for the dummy)
+    post_e: torch.Tensor    # [B, M, 2] int32: the two edges (N: identity)
+    onchip: paired.OnchipTape  # child codes, and the rows a pattern
+
+
+@dataclass(frozen=True)
 class OnchipTape:
     """What the on-chip body reads instead of post_ops and pre_ops, on the
-    device of the tapes (csrc/pernode_onchip.cuh has the layout)."""
+    device of the tapes (csrc/pernode_onchip.cuh has the layout), and the
+    paired form of the same ops for where that body gets no plan."""
 
     post: torch.Tensor    # [B, M, 5] int32: (dest row, c0, c1, e0, e1)
     groups: torch.Tensor  # [B, NG, 4] int32: (parent row, 3 child codes)
     zero: torch.Tensor    # [B, Z] int32: nodes whose rows no group writes
     rows: int             # shared-memory rows a pattern: internal nodes
+    paired: PairedGradTape  # the same ops as the paired grad body's tape
 
     @property
     def ints(self) -> int:
@@ -579,18 +610,43 @@ def _group_tape(post_ops: np.ndarray, pre_ops: np.ndarray, root: np.ndarray,
     return groups, zero
 
 
+def paired_grad_tape(post_ops: np.ndarray, pre_ops: np.ndarray,
+                     root: np.ndarray, num_taxa: int, num_slots: int,
+                     device) -> PairedGradTape:
+    """The paired grad body's tape, derived on the host from the scan
+    tape's post_ops, pre_ops and root (numpy), as ll_tape derives its own
+    (the same post_dst, child codes and edges), with gradient rows by node
+    id, and put on `device`.  pre_ops must give each node the parent that
+    post_ops gives it (the paired walk reads the preorder from the
+    postorder); raises otherwise."""
+    post_ops, pre_ops = np.asarray(post_ops), np.asarray(pre_ops)
+    post_dst, child = _paired_post(post_ops, np.asarray(root), num_taxa,
+                                   num_slots)
+    _same_parents(post_ops, pre_ops, num_slots)
+    row, ll_rows = paired.live_rows(post_dst, child)
+    ints = [torch.as_tensor(np.ascontiguousarray(x), device=device)
+            for x in (post_dst, post_ops[..., [1, 3]].astype(np.int32),
+                      post_ops[..., [2, 4]].astype(np.int32), child, row)]
+    return PairedGradTape(*ints[:3], onchip=paired.OnchipTape(
+        child=ints[3], live_row=ints[4], ll_rows=ll_rows,
+        grad_rows=paired.grad_rows_needed(post_dst)))
+
+
 def onchip_tape(post_ops: np.ndarray, pre_ops: np.ndarray, root: np.ndarray,
                 num_taxa: int, num_slots: int, device) -> OnchipTape:
     """The on-chip body's tape, derived on the host from the scan tape's
     post_ops, pre_ops and root (numpy) for `num_taxa` tips and the dummy
-    node `num_slots`, and put on `device`."""
+    node `num_slots`, and put on `device`, with the same ops' paired form
+    (paired_grad_tape)."""
     T, N = num_taxa, num_slots
     post = _post_tape(post_ops, T, N)
     groups, zero = _group_tape(post_ops, pre_ops, root, T, N)
     stored = post[..., 0][post[..., 0] != PAD]
     rows = int(stored.max()) + 1 if stored.size else 1
     return OnchipTape(*(torch.as_tensor(x, device=device)
-                        for x in (post, groups, zero)), rows=rows)
+                        for x in (post, groups, zero)), rows=rows,
+                      paired=paired_grad_tape(post_ops, pre_ops, root, T, N,
+                                              device))
 
 
 # The on-chip body is the faster where a block holds at least MIN_WARPS
@@ -617,7 +673,8 @@ def onchip_plan(rows: int, tape_ints: int, N1: int, C: int,
     the tape: a block of as many whole warps of patterns as fit in
     paired.SMEM_BYTES, up to paired.MAX_THREADS threads, and at least
     `least` warps (1 asks for the body wherever it fits, to measure it).
-    None past paired.ONCHIP_CATEGORIES."""
+    None past paired.ONCHIP_CATEGORIES: the body holds a category a lane
+    (`paired_plan` takes the tape there)."""
     paired.check_categories(C)
     if C > paired.ONCHIP_CATEGORIES:
         return None
@@ -635,8 +692,27 @@ def onchip_plan(rows: int, tape_ints: int, N1: int, C: int,
                              smem_bytes(rows, tape_ints, N1, C, cols))
 
 
+def paired_plan(tape: PairedGradTape, N1: int,
+                C: int) -> paired.OnchipPlan | None:
+    """How the paired grad kernel's on-chip body launches on the per-node
+    ops' paired tape `tape` (OnchipTape.paired), or None where the global
+    body takes them: the paired plan (paired.onchip_plan("grad", ...), K
+    categories a lane past 32) where a block holds MIN_WARPS warps (as
+    this module's own body: at Gamma4 on the H100 the paired body took
+    4.1877 / 5.0255 ms at 5 / 4 warps (84 / 96 taxa) against the global
+    body's 5.0155 / 5.9500, and 8.5582 / 9.6180 at 3 (128 / 144 taxa)
+    against 8.3137 / 9.2305; chip_smoke.py phase 4, PERF.md), or past 32
+    paired.MIN_WARPS (the per-node wide kernel is slower than the paired
+    and chunked ones).  The wrapper asks for it
+    where `onchip_plan` gives none."""
+    return paired.onchip_plan("grad", tape.onchip.grad_rows,
+                              tape.post_dst.shape[1], N1, C,
+                              min_warps=MIN_WARPS,
+                              k_min_warps=paired.MIN_WARPS)
+
+
 # ---------------------------------------------------------------------------
-# The grad kernel's two launchers
+# The grad kernel's three launchers
 # ---------------------------------------------------------------------------
 
 def check_onchip(onchip: OnchipTape, B: int, tips, P, dP) -> None:
@@ -680,6 +756,29 @@ def pernode_grad_onchip(onchip: OnchipTape, root, P, dP, tips, pi, props,
 
 
 pernode_grad_onchip.launches = 0
+
+
+def pernode_grad_paired(tape: PairedGradTape, P, dP, tips, pi, props,
+                        weights, plan: paired.OnchipPlan):
+    """Launch csrc/paired_grad_onchip.cu, the paired grad kernel's on-chip
+    body, on the per-node ops' paired tape as `plan` (paired_plan) says
+    (operands checked by the wrapper): (LL rows [B, S], weighted gradient
+    rows [B, N1, S] by node id; rows that no op writes, the root's among
+    them, are not written: paired.finish_rows masks them)."""
+    B, M = tape.post_dst.shape
+    if B != P.shape[0] or tuple(tape.post_e.shape) != (B, M, 2) or tuple(
+            tape.post_src.shape) != (B, M, 2):
+        raise ValueError("the paired tape does not match P")
+    _check_cuda_tensors(dict(post_dst=tape.post_dst, post_src=tape.post_src,
+                             post_e=tape.post_e), {})
+    rows = paired.launch_grad_onchip(tape.post_dst, tape.onchip,
+                                     tape.post_src, tape.post_e, P, dP, tips,
+                                     pi, props, weights, plan)
+    pernode_grad_paired.launches += 1
+    return rows
+
+
+pernode_grad_paired.launches = 0
 
 
 def pernode_grad_global(post_ops, pre_ops, root, P, dP, tips, pi, props,

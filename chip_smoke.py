@@ -141,12 +141,17 @@ and the VI command line with a checkpoint:
   - wide: past 32 rate categories, where auto once took the scan tape
     and the forced routes raised: the flagship at GTR+Gamma64
     (WIDE_C) on auto, kernel="chunked" and the per-node functions, each
-    launching its global body's wide kernel (csrc/paired_lanes.cuh,
-    csrc/pernode_lanes.cuh: a lane of 32 holding two categories),
-    counted for the JSON line's @C64 entries; then config6's shape at
-    MG94+Gamma48 (WIDE_CODON_C) on auto, the A=64 kernels over the
-    launchers' slices of trees, counted for the @C48 entries (the
-    wide-codon count); no scan tape call;
+    launching its on-chip body with K = 2 categories a lane of 32 (rows
+    1, 3 and 5 csrc/paired_ll_onchip.cu, rows 2, 4 and 6
+    csrc/paired_grad_onchip.cu on their own tapes), counted for the JSON
+    line's `<row>_onchip@C64` and `<row>_paired@C64` entries; then the
+    large path's 921-taxon trees at GTR+Gamma64 on the same entry points
+    (wide-large), where no warp of those bodies fits and each launches
+    its global body's wide kernel (csrc/paired_lanes.cuh,
+    csrc/pernode_lanes.cuh), counted for the `<row>@C64` entries; then
+    config6's shape at MG94+Gamma48 (WIDE_CODON_C) on auto, the A=64
+    kernels over the launchers' slices of trees, counted for the @C48
+    entries (the wide-codon count); no scan tape call;
   - dist: the port's launcher (python -m bito_tpu_torch.dist.launch)
     starts DIST_RANKS ranks of this script (`--dist-worker gloo OUTDIR`)
     on the one card over Gloo, each holding half the patterns
@@ -223,11 +228,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      names (category_parity); the chunked and per-node kernels (rows 3-6)
      the same way, and on the flagship also each body their plans do not
      name, through its launcher (category_rows_parity).
-     Rows 1-6 at WIDE_COUNTS (33, 64) categories through their wrappers
-     on the flagship's trees, each launching its global body, the first
-     WIDE_REF_TREES trees within 5e-5 of their float64 plain versions,
-     and rows 1b-2b at 33, 48 and 64 on CODON_REF_TREES trees of the codon
-     shape within A64_BOUND (wide_parity).
+     Rows 1-6 at WIDE_COUNTS (33, 64) categories on the flagship's trees
+     and at WIDE_SMALL (96, 128) on its first WIDE_REF_TREES: each
+     wrapper (the on-chip bodies with K categories a lane where the plan
+     fits, else the wide kernels) and every other body through its
+     launcher (the K bodies forced, the global bodies' wide kernels), the
+     first WIDE_REF_TREES trees within 5e-5 of their float64 plain
+     versions, and rows 1b-2b at 33, 48 and 64 on CODON_REF_TREES trees
+     of the codon shape within A64_BOUND (wide_parity).
      chunk_variant's variants (v0, w4, w8, norescale, notips, fixstore,
      nodot, unroll) against their float64 plain versions on the
      flagship's chunked operands: the LL within 5e-5 relative (notips,
@@ -374,12 +382,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      CODON_CATEGORY_COUNTS beside their float32 plain versions and both
      bounds, auto's LL+gradient call and its device memory high-water
      mark at each count, and at CODON_CATEGORY_C the float32 scan tape's
-     call (codon_category_times); rows 1-6 at WIDE_TIMED (33, 48, 64)
-     categories on the flagship and rows 1b-2b on WIDE_CODON_TREES trees
-     of the codon shape beside their float32 plain versions and bounds,
-     with auto's, the chunked route's and the scan tape's LL+gradient
-     call at each count (wide_times; the JSON line's @C64 and @C48
-     entries timed in the main loop at fewer calls, KERNELS' `reps`).
+     call (codon_category_times); rows 4 and 6 at PAIRED_ROWS_COUNTS (17,
+     32), every body of each (paired_rows_times); rows 1-6 at WIDE_TIMED
+     (33, 48, 64) categories on the flagship, each wrapper's K body
+     beside the wide kernel forced on the same operands, and rows 1b-2b
+     on WIDE_CODON_TREES trees of the codon shape beside their float32
+     plain versions and bounds, with auto's, the chunked route's and the
+     scan tape's LL+gradient call at each count (wide_times; the JSON
+     line's @C64 and @C48 entries timed in the main loop at fewer calls,
+     KERNELS' `reps`); the K bodies at every block of warps at
+     K_WARPS_COUNTS beside the wide kernels (k_warps_times).
   5. one JSON line of the kernels, then the device line, last.
 
 It has no CPU path: without a card it exits non-zero and prints no result.
@@ -387,6 +399,7 @@ It has no CPU path: without a card it exits non-zero and prints no result.
 import collections
 import contextlib
 import csv
+import dataclasses
 import io
 import json
 import math
@@ -527,6 +540,7 @@ CODON_WIDE_BATCH = 200
 # WIDE_CODON_TREES trees (their float32 plain version at 128 trees and 48
 # categories would take 59 GB beside the kernels' scratch).
 WIDE_COUNTS = (33, 64)
+WIDE_SMALL = (96, 128)
 WIDE_C = 64
 WIDE_CODON_C = 48
 WIDE_TIMED = (33, 48, 64)
@@ -549,31 +563,32 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
         wrapper=paired.paired_ll_onchip, path="paired",
-        also=("vbpi", "rooted", "nni", "cli", "categories", "graft")),
+        also=("vbpi", "rooted", "nni", "cli", "categories", "graft",
+              "wide")),
     "paired_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
         wrapper=paired.paired_grad_onchip, path="paired",
-        also=("vbpi", "rooted", "cli", "categories")),
+        also=("vbpi", "rooted", "cli", "categories", "wide")),
     # Rows 1-2 at CATEGORY_PATH_C categories (16 lanes a pattern, the count
     # read at run time): the same launchers, counted on the categories path
     "paired_ll_onchip@C16": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
         wrapper=paired.paired_ll_onchip, path="categories",
-        also=("paired", "vbpi", "rooted", "nni", "cli", "graft")),
+        also=("paired", "vbpi", "rooted", "nni", "cli", "graft", "wide")),
     "paired_grad_onchip@C16": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
         wrapper=paired.paired_grad_onchip, path="categories",
-        also=("paired", "vbpi", "rooted", "cli")),
+        also=("paired", "vbpi", "rooted", "cli", "wide")),
     # Rows 3-6 at CATEGORY_PATH_C categories: the chunked route's and the
     # per-node functions' on-chip bodies, counted on the categories path
     "chunked_ll_onchip@C16": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
         wrapper=chunked.chunked_ll_onchip, path="categories",
-        also=("chunked",)),
+        also=("chunked", "wide")),
     "chunked_grad_onchip@C16": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
@@ -583,7 +598,7 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
         wrapper=pernode.pernode_ll_onchip, path="categories",
-        also=("pernode",)),
+        also=("pernode", "wide")),
     "pernode_grad_onchip@C16": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
@@ -592,21 +607,22 @@ KERNELS = {
     "paired_ll": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:423",
-        wrapper=paired.paired_ll_global, path="large", also=("wide",)),
+        wrapper=paired.paired_ll_global, path="large", also=("wide-large",)),
     "paired_grad": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
-        wrapper=paired.paired_grad_global, path="large", also=("wide",)),
+        wrapper=paired.paired_grad_global, path="large",
+        also=("wide-large",)),
     "chunked_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
         wrapper=chunked.chunked_ll_onchip, path="chunked",
-        also=("categories",)),
+        also=("categories", "wide")),
     "chunked_ll": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_ll.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
         wrapper=chunked.chunked_ll_global, path="large-chunked",
-        also=("wide",)),
+        also=("wide-large",)),
     "chunked_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/chunked_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
@@ -616,17 +632,17 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/chunked_grad.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:404",
         wrapper=chunked.chunked_grad_global, path="large-chunked",
-        also=("wide",)),
+        also=("wide-large",)),
     "pernode_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
         wrapper=pernode.pernode_ll_onchip, path="pernode",
-        also=("categories",)),
+        also=("categories", "wide")),
     "pernode_ll": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_ll.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:90",
         wrapper=pernode.pernode_ll_global, path="large-pernode",
-        also=("wide",)),
+        also=("wide-large",)),
     "pernode_grad_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/pernode_grad_onchip.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
@@ -636,7 +652,7 @@ KERNELS = {
         source="bito_tpu_torch/treelike/csrc/pernode_grad.cu",
         replaces="bito_tpu/treelike/pallas_pruning.py:179",
         wrapper=pernode.pernode_grad_global, path="large-pernode",
-        also=("wide",)),
+        also=("wide-large",)),
     "variant_grad": dict(
         source=PROBES + "variant_grad.cu", replaces="scripts/perf_lab.py:36",
         wrapper=perf_lab.variant_ll_and_gradients, path="perflab"),
@@ -682,14 +698,39 @@ KERNELS = {
         replaces="bito_tpu/treelike/pallas_paired.py:446",
         wrapper=paired.paired_grad_a64, path="codon-categories",
         peak=PEAK_3XTF32, also=("codon", "wide-codon")),
-    # Rows 1-6 at WIDE_C categories (the global bodies' wide kernels, a lane
-    # of 32 holding two categories) and rows 1b-2b at WIDE_CODON_C: the same
-    # launchers, counted on the wide path; phase 4 times them at fewer
-    # calls (`reps`: plain calls, kernel calls, plain warm-up calls)
+    # Rows 1-6 at WIDE_C categories, a lane of 32 holding two of them: the
+    # on-chip bodies with K = 2 places a lane (`<row>_onchip@C64`; rows 4
+    # and 6 on the paired grad body, `<row>_paired@C64`), counted on the
+    # wide path (the flagship), and the global bodies' wide kernels
+    # (`<row>@C64`), counted on the wide-large path (the 921-taxon trees)
+    # and timed forced on the flagship; and rows 1b-2b at WIDE_CODON_C,
+    # counted on the wide-codon path.  Phase 4 times them at fewer calls
+    # (`reps`: plain calls, kernel calls, plain warm-up calls)
+    **{f"{row}@C{WIDE_C}": dict(
+        source=f"bito_tpu_torch/treelike/csrc/{body}",
+        replaces=f"bito_tpu/treelike/{tpu}", wrapper=wrapper, path="wide",
+        also=also, reps=(2, 10, 1))
+       for row, body, tpu, wrapper, also in (
+           ("paired_ll_onchip", "paired_ll_onchip.cu", "pallas_paired.py:423",
+            paired.paired_ll_onchip, ("paired", "vbpi", "rooted", "nni",
+                                      "cli", "categories", "graft")),
+           ("paired_grad_onchip", "paired_grad_onchip.cu",
+            "pallas_paired.py:446", paired.paired_grad_onchip,
+            ("paired", "vbpi", "rooted", "cli", "categories")),
+           ("chunked_ll_onchip", "paired_ll_onchip.cu",
+            "pallas_chunked.py:384", chunked.chunked_ll_onchip,
+            ("chunked", "categories")),
+           ("chunked_grad_paired", "paired_grad_onchip.cu",
+            "pallas_chunked.py:404", chunked.chunked_grad_paired, ()),
+           ("pernode_ll_onchip", "paired_ll_onchip.cu",
+            "pallas_pruning.py:90", pernode.pernode_ll_onchip,
+            ("pernode", "categories")),
+           ("pernode_grad_paired", "paired_grad_onchip.cu",
+            "pallas_pruning.py:179", pernode.pernode_grad_paired, ()))},
     **{f"{row}@C{WIDE_C}": dict(
         source=f"bito_tpu_torch/treelike/csrc/{lanes}",
-        replaces=f"bito_tpu/treelike/{tpu}", wrapper=wrapper, path="wide",
-        also=(large,), reps=(2, 10, 1))
+        replaces=f"bito_tpu/treelike/{tpu}", wrapper=wrapper,
+        path="wide-large", also=(large,), reps=(2, 10, 1))
        for row, lanes, tpu, wrapper, large in (
            ("paired_ll", "paired_lanes.cuh", "pallas_paired.py:423",
             paired.paired_ll_global, "large"),
@@ -902,7 +943,8 @@ def chunked_bodies(label, eng, trees, params, card):
     body in each staging and the on-chip grad body wherever one warp of
     patterns fits, the global bodies always, each held once against the
     float64 plain version on the same operands within BOUND, then timed
-    twice in turns.  Prints one line; returns {body: ms}."""
+    twice in turns; the paired grad body on the chunked tape beside them
+    where one warp of it fits.  Prints one line; returns {body: ms}."""
     enc = eng.encode(trees)
     eig, rates, props, clock = eng._model_ingredients(params, len(trees))
     pi, prop = prep.kernel_model(eig, props)
@@ -922,6 +964,13 @@ def chunked_bodies(label, eng, trees, params, card):
         calls["grad onchip"] = lambda: chunked.finish_rows(
             *chunked.chunked_grad_onchip(dst, on, e, P, dP, tips, pi, prop,
                                          w, plan), row, mask, w)
+    pplan = paired.onchip_plan("grad", on.grad_rows, MW, N1, 4, ring=True)
+    if pplan is not None:
+        calls["grad paired"] = lambda: paired.finish_rows(
+            *chunked.chunked_grad_paired(dst, on, e, row, P, dP, tips, pi,
+                                         prop, w, pplan), mask, w)
+        labels["grad paired"] = (f"grad paired ({pplan.cols * 4 // 32} "
+                                 f"warps, {pplan.smem} B)")
     calls["grad global"] = lambda: chunked.finish_rows(
         *chunked.chunked_grad_global(dst, tip, e, P, dP, tips, pi, prop, w),
         row, mask, w)
@@ -935,8 +984,9 @@ def chunked_bodies(label, eng, trees, params, card):
         *f64) for i in range(0, len(trees), step)]
     reps = body_reps(MW)
     ms = held_then_timed(f"chunked bodies, {label}", calls, refs, reps)
-    chosen = ("global" if chunked.onchip_plan(on.grad_rows, MW, N1, 4) is None
-              else "onchip")
+    chosen = ("onchip" if chunked.onchip_plan(on.grad_rows, MW, N1, 4)
+              else "paired" if chunked.paired_plan(on.grad_rows, MW, N1, 4)
+              else "global")
     if plan is not None:
         labels["grad onchip"] = (
             f"grad onchip ({plan.cols} patterns, "
@@ -957,7 +1007,9 @@ def pernode_bodies(label, eng, trees, params, card):
     LL body in each staging and the on-chip grad body wherever one warp of
     patterns fits, the global bodies always, each held once against the
     float64 plain version on the same operands within BOUND, then timed
-    twice in turns.  Prints one line; returns {body: ms}."""
+    twice in turns; the paired grad body on the per-node ops' paired tape
+    beside them where one warp of it fits.  Prints one line; returns
+    {body: ms}."""
     dev = eng.device
     enc = eng.encode(trees)
     eig, rates, props, clock = eng._model_ingredients(params, len(trees))
@@ -983,6 +1035,15 @@ def pernode_bodies(label, eng, trees, params, card):
         calls["grad onchip"] = lambda: pernode.finish_rows(
             *pernode.pernode_grad_onchip(on, root, P, dP, tips, pi, prop, w,
                                          plan), mask, w)
+    pt = on.paired
+    pplan = paired.onchip_plan("grad", pt.onchip.grad_rows,
+                               pt.post_dst.shape[1], N1, 4, ring=True)
+    if pplan is not None:
+        calls["grad paired"] = lambda: paired.finish_rows(
+            *pernode.pernode_grad_paired(pt, P, dP, tips, pi, prop, w,
+                                         pplan), mask, w)
+        labels["grad paired"] = (f"grad paired ({pplan.cols * 4 // 32} "
+                                 f"warps, {pplan.smem} B)")
     calls["grad global"] = lambda: pernode.finish_rows(
         *pernode.pernode_grad_global(post, pre, root, P, dP, tips, pi, prop,
                                      w), mask, w)
@@ -996,8 +1057,8 @@ def pernode_bodies(label, eng, trees, params, card):
         *f64) for i in range(0, len(trees), step)]
     reps = body_reps(M)
     ms = held_then_timed(f"per-node bodies, {label}", calls, refs, reps)
-    chosen = ("global" if pernode.onchip_plan(on.rows, on.ints, N1, 4) is None
-              else "onchip")
+    chosen = ("onchip" if pernode.onchip_plan(on.rows, on.ints, N1, 4)
+              else "paired" if pernode.paired_plan(pt, N1, 4) else "global")
     if plan is not None:
         labels["grad onchip"] = (f"grad onchip ({plan.cols * 4 // 32} warps, "
                                  f"{plan.smem} B)")
@@ -1126,12 +1187,15 @@ def category_parity(dev, errs):
         torch.cuda.empty_cache()
 
 
-# The chunked and per-node kernels' launchers (rows 3-6): on-chip and
-# global, LL and grad, of each family
+# The chunked and per-node kernels' launchers (rows 3-6): the on-chip and
+# global LL bodies, and the own on-chip, paired on-chip and global grad
+# bodies, of each family
 ROWS_BODIES = (chunked.chunked_ll_onchip, chunked.chunked_ll_global,
-               chunked.chunked_grad_onchip, chunked.chunked_grad_global,
+               chunked.chunked_grad_onchip, chunked.chunked_grad_paired,
+               chunked.chunked_grad_global,
                pernode.pernode_ll_onchip, pernode.pernode_ll_global,
-               pernode.pernode_grad_onchip, pernode.pernode_grad_global)
+               pernode.pernode_grad_onchip, pernode.pernode_grad_paired,
+               pernode.pernode_grad_global)
 
 
 def rows_tapes(eng, trees):
@@ -1191,83 +1255,131 @@ def rows_plain64(c_ops, p_ops, step=100):
     return out
 
 
-def rows_runs(c_ops, con, p_ops, pll, pon, forced):
-    """[(label, call -> (ll, grads or None), family, launches in
-    ROWS_BODIES' order)]: the four wrappers, each expected to launch the
-    body its plan names; with `forced` also the body each plan does not
-    name, through its launcher (an on-chip one at least=1, which must
-    fit)."""
+def rows_bodies(c_ops, con, p_ops, pll, pon):
+    """Rows 3-6's bodies: [(row name, family, wrapper call, [(launcher,
+    the plan its wrapper reads or True, the plan at one warp or True,
+    call(plan))])], each call -> (ll, grads or None).  A wrapper takes the
+    first body whose plan is not None (True: the global body)."""
     dst, tip, e, row, mask, P, dP, tips, pi, prop, w = c_ops
     post, pre, root = p_ops[:3]
     N1, C = P.shape[1], P.shape[2]
     MW, M = dst.shape[1], post.shape[1]
-    plans = (chunked.ll_plan(con.ll_rows, MW, N1, C),
-             chunked.onchip_plan(con.grad_rows, MW, N1, C),
-             paired.onchip_plan("ll", pll.ll_rows, M, N1, C),
-             pernode.onchip_plan(pon.rows, pon.ints, N1, C))
-
-    def hot(k, onchip):  # launches with body k of kernel k // 2 (+1 global)
-        return [int(i == 2 * k + (0 if onchip else 1)) for i in range(8)]
-
+    pt = pon.paired
     cfin = lambda rows: chunked.finish_rows(*rows, row, mask, w)
     pfin = lambda rows: pernode.finish_rows(*rows, mask, w)
-    runs = [
-        ("chunked LL wrapper", lambda: (chunked.chunked_log_likelihoods(
-            dst, tip, e, P, tips, pi, prop, w, onchip=con), None),
-         "chunked", hot(0, plans[0] is not None)),
-        ("chunked grad wrapper", lambda: chunked.chunked_ll_and_gradients(
-            *c_ops, onchip=con), "chunked", hot(1, plans[1] is not None)),
-        ("pernode LL wrapper", lambda: (pernode.pernode_log_likelihoods(
-            post, root, P, tips, pi, prop, w, onchip=pll), None),
-         "pernode", hot(2, plans[2] is not None)),
-        ("pernode grad wrapper", lambda: pernode.pernode_ll_and_gradients(
-            *p_ops, onchip=pon), "pernode", hot(3, plans[3] is not None))]
-    if not forced:
-        return runs, plans
-    least = (paired.onchip_plan("ll", con.ll_rows, MW, N1, C, ring=True),
+    by_node = lambda rows: paired.finish_rows(*rows, mask, w)
+    return [
+        ("chunked LL", "chunked", lambda: (chunked.chunked_log_likelihoods(
+            dst, tip, e, P, tips, pi, prop, w, onchip=con), None), [
+            (chunked.chunked_ll_onchip, chunked.ll_plan(con.ll_rows, MW, N1, C),
+             paired.onchip_plan("ll", con.ll_rows, MW, N1, C, ring=True),
+             lambda p: (chunked.chunked_ll_onchip(
+                 dst, con, e, P, tips, pi, prop, p) @ w, None)),
+            (chunked.chunked_ll_global, True, True,
+             lambda p: (chunked.chunked_ll_global(
+                 dst, tip, e, P, tips, pi, prop, child=con.child) @ w,
+                 None))]),
+        ("chunked grad", "chunked", lambda: chunked.chunked_ll_and_gradients(
+            *c_ops, onchip=con), [
+            (chunked.chunked_grad_onchip,
+             chunked.onchip_plan(con.grad_rows, MW, N1, C),
              chunked.onchip_plan(con.grad_rows, MW, N1, C, least=1),
+             lambda p: cfin(chunked.chunked_grad_onchip(
+                 dst, con, e, P, dP, tips, pi, prop, w, p))),
+            (chunked.chunked_grad_paired,
+             chunked.paired_plan(con.grad_rows, MW, N1, C),
+             paired.onchip_plan("grad", con.grad_rows, MW, N1, C, ring=True),
+             lambda p: by_node(chunked.chunked_grad_paired(
+                 dst, con, e, row, P, dP, tips, pi, prop, w, p))),
+            (chunked.chunked_grad_global, True, True,
+             lambda p: cfin(chunked.chunked_grad_global(
+                 dst, tip, e, P, dP, tips, pi, prop, w, child=con.child)))]),
+        ("pernode LL", "pernode", lambda: (pernode.pernode_log_likelihoods(
+            post, root, P, tips, pi, prop, w, onchip=pll), None), [
+            (pernode.pernode_ll_onchip,
+             paired.onchip_plan("ll", pll.ll_rows, M, N1, C),
              paired.onchip_plan("ll", pll.ll_rows, M, N1, C, ring=True),
-             pernode.onchip_plan(pon.rows, pon.ints, N1, C, least=1))
-    check(all(p is not None for p in least),
-          f"C={C}: every on-chip body of rows 3-6 fits a warp")
-    other = {
-        0: (lambda: (chunked.chunked_ll_global(
-                dst, tip, e, P, tips, pi, prop, child=con.child) @ w, None),
-            lambda: (chunked.chunked_ll_onchip(
-                dst, con, e, P, tips, pi, prop, least[0]) @ w, None)),
-        1: (lambda: cfin(chunked.chunked_grad_global(
-                dst, tip, e, P, dP, tips, pi, prop, w, child=con.child)),
-            lambda: cfin(chunked.chunked_grad_onchip(
-                dst, con, e, P, dP, tips, pi, prop, w, least[1]))),
-        2: (lambda: (pernode.pernode_ll_global(
-                post, root, P, tips, pi, prop) @ w, None),
-            lambda: (pernode.pernode_ll_onchip(
-                pll, P, tips, pi, prop, least[2]) @ w, None)),
-        3: (lambda: pfin(pernode.pernode_grad_global(
-                post, pre, root, P, dP, tips, pi, prop, w)),
-            lambda: pfin(pernode.pernode_grad_onchip(
-                pon, root, P, dP, tips, pi, prop, w, least[3])))}
-    for k, name in enumerate(("chunked LL", "chunked grad", "pernode LL",
-                              "pernode grad")):
-        onchip = plans[k] is None  # the body the wrapper does not take
-        runs.append((f"{name} {'on-chip' if onchip else 'global'} body",
-                     other[k][int(onchip)], name.split()[0],
-                     hot(k, onchip)))
-    return runs, plans
+             lambda p: (pernode.pernode_ll_onchip(
+                 pll, P, tips, pi, prop, p) @ w, None)),
+            (pernode.pernode_ll_global, True, True,
+             lambda p: (pernode.pernode_ll_global(
+                 post, root, P, tips, pi, prop) @ w, None))]),
+        ("pernode grad", "pernode", lambda: pernode.pernode_ll_and_gradients(
+            *p_ops, onchip=pon), [
+            (pernode.pernode_grad_onchip,
+             pernode.onchip_plan(pon.rows, pon.ints, N1, C),
+             pernode.onchip_plan(pon.rows, pon.ints, N1, C, least=1),
+             lambda p: pfin(pernode.pernode_grad_onchip(
+                 pon, root, P, dP, tips, pi, prop, w, p))),
+            (pernode.pernode_grad_paired, pernode.paired_plan(pt, N1, C),
+             paired.onchip_plan("grad", pt.onchip.grad_rows,
+                                pt.post_dst.shape[1], N1, C, ring=True),
+             lambda p: by_node(pernode.pernode_grad_paired(
+                 pt, P, dP, tips, pi, prop, w, p))),
+            (pernode.pernode_grad_global, True, True,
+             lambda p: pfin(pernode.pernode_grad_global(
+                 post, pre, root, P, dP, tips, pi, prop, w)))])]
+
+
+BODY_NAMES = {chunked.chunked_ll_onchip: "on-chip",
+              chunked.chunked_ll_global: "global",
+              chunked.chunked_grad_onchip: "on-chip",
+              chunked.chunked_grad_paired: "paired on-chip",
+              chunked.chunked_grad_global: "global",
+              pernode.pernode_ll_onchip: "on-chip",
+              pernode.pernode_ll_global: "global",
+              pernode.pernode_grad_onchip: "on-chip",
+              pernode.pernode_grad_paired: "paired on-chip",
+              pernode.pernode_grad_global: "global"}
+
+
+def rows_runs(c_ops, con, p_ops, pll, pon, forced):
+    """([(label, call -> (ll, grads or None), family, launches in
+    ROWS_BODIES' order)], [(row name, launcher, plan) of each wrapper's
+    route]): the four wrappers, each expected to launch the body its route
+    names (the first of rows_bodies' with a plan); with `forced` also every
+    other body of each row through its launcher (an on-chip one at one
+    warp, where one fits)."""
+    hot = lambda f: [int(g is f) for g in ROWS_BODIES]
+    runs, routes = [], []
+    for name, family, wrapper, bodies in rows_bodies(c_ops, con, p_ops, pll,
+                                                     pon):
+        taken = next(b for b in bodies if b[1] is not None)
+        routes.append((name, taken[0], taken[1]))
+        runs.append((f"{name} wrapper", wrapper, family, hot(taken[0])))
+        if forced:
+            runs += [(f"{name} {BODY_NAMES[f]} body", partial(call, least),
+                      family, hot(f))
+                     for f, _, least, call in bodies
+                     if f is not taken[0] and least is not None]
+    return runs, routes
+
+
+def route_line(routes):
+    """The wrappers' routes as phase 2-4's lines name them."""
+    return ", ".join(
+        f"{name} {BODY_NAMES[f]}" + ("" if plan is True else
+                                      f" ({plan.cols * plan.lanes
+                                          * plan.op_lanes // 32} "
+                                      f"warps{', ring' if plan.ring else ''}"
+                                      + (f", K={plan.categories_per_lane}"
+                                         if plan.categories_per_lane > 1
+                                         else "") + ")")
+        for name, f, plan in routes)
 
 
 def category_rows_parity(C, label, eng, trees, params, bl, tapes, forced,
                          errs):
     """Rows 3-6 (the chunked and per-node kernels) at C categories on one
-    of category_parity's cases: each wrapper launches the body its plan
+    of category_parity's cases: each wrapper launches the body its route
     names, and with `forced` (the flagship at its own branch lengths) also
-    the other body through its launcher; every one within BOUND of the
+    every other body through its launcher; every one within BOUND of the
     float64 plain version on the same operands.  Fills `errs`, where
     given, for the JSON line's rows 3-6 entries at CATEGORY_PATH_C."""
     c_ops, con, p_ops, pll, pon = rows_operands(eng, trees, params, bl,
                                                 tapes)
     refs = dict(zip(("chunked", "pernode"), rows_plain64(c_ops, p_ops)))
-    runs, plans = rows_runs(c_ops, con, p_ops, pll, pon, forced)
+    runs, routes = rows_runs(c_ops, con, p_ops, pll, pon, forced)
     parts = []
     for name, call, family, want in runs:
         before = [f.launches for f in ROWS_BODIES]
@@ -1293,12 +1405,7 @@ def category_rows_parity(C, label, eng, trees, params, bl, tapes, forced,
             x, ref = (ll_k, ll_p) if g_k is None else (g_k, g_p)
             errs[key] = (e[-1], (x.double() - ref).abs().max().item())
     print(f"# phase 2: chunked and per-node kernels at C={C}, {label}; "
-          "plans " + ", ".join(
-              "global" if p is None else
-              f"{p.cols} patterns a block{' ring' if p.ring else ''}"
-              + (f" {p.op_lanes} op lanes" if p.op_lanes > 1 else "")
-              for p in plans)
-          + " (chunked LL, grad; per-node LL, grad): LL rel err / grad "
+          f"the wrappers take {route_line(routes)}: LL rel err / grad "
           "max-abs/max|g| against the float64 plain version: "
           + "; ".join(parts) + f" (bound {BOUND:g})")
 
@@ -1498,20 +1605,72 @@ def category_rows_times(C, eng, trees, params, flops, grad_out, card):
         k, pl = (k1 + k2) / 2, (p1 + p2) / 2
         parts.append(f"{name} {k:.4f} ms (plain {pl:.4f}; bound "
                      f"{b_ms:.4f} by {b_by}, {100 * b_ms / k:.1f}% of it)")
-    N1, MW, M = P.shape[1], dst.shape[1], post.shape[1]
-    plans = (chunked.ll_plan(con.ll_rows, MW, N1, C),
-             chunked.onchip_plan(con.grad_rows, MW, N1, C),
-             paired.onchip_plan("ll", pll.ll_rows, M, N1, C),
-             pernode.onchip_plan(pon.rows, pon.ints, N1, C))
+    routes = rows_runs(c_ops, con, p_ops, pll, pon, False)[1]
     print(f"# phase 4: chunked and per-node kernels at C={C} "
-          f"({paired.lanes(C)} lanes; the wrappers take " + ", ".join(
-              "global" if p is None else f"on-chip {p.cols} patterns a block"
-              + (" ring" if p.ring else "")
-              + (f" {p.op_lanes} op lanes" if p.op_lanes > 1 else "")
-              for p in plans)
-          + " for chunked LL, grad, per-node LL, grad), flagship (float32, "
-          f"{BATCH} trees x {eng.pattern_pad} patterns, CUDA events): "
-          + "; ".join(parts) + f"; on {card}")
+          f"({paired.lanes(C)} lanes; the wrappers take {route_line(routes)})"
+          f", flagship (float32, {BATCH} trees x {eng.pattern_pad} patterns, "
+          "CUDA events): " + "; ".join(parts) + f"; on {card}")
+
+
+# Rows 4 and 6's grad kernels where their own on-chip bodies get no plan
+# at the flagship: phase 4 times every body of them at these counts
+PAIRED_ROWS_COUNTS = (17, 32)
+
+
+def paired_rows_times(trees, sp, params, dev, card):
+    """Phase 4 for rows 4 and 6 at PAIRED_ROWS_COUNTS on the flagship,
+    where their wrappers take the paired grad body on their tapes: every
+    body of each (its own on-chip body at one warp, the paired one as
+    the wrapper takes it, the lane global body) beside the float32 plain
+    version and the bound (the paired kernels' FLOPs, the family's own
+    bytes), in turns (plain, bodies, bodies backward, plain)."""
+    for C in PAIRED_ROWS_COUNTS:
+        eng = TreeLikelihoodEngine(sp, category_model(C), device=dev,
+                                   dtype=PRODUCT_DTYPE)
+        enc = eng.encode(trees)
+        fl_grad = tree_flops(enc, sp, eng.model, BATCH)[1]
+        c_ops, con, p_ops, pll, pon = rows_operands(eng, trees, params)
+        dst, tip, e, row, mask, P, dP, tips, pi, prop, w = c_ops
+        post, pre, root = p_ops[:3]
+        f_grad = (nbytes(P, dP, tips, pi, prop, w, mask)
+                  + BATCH * (1 + enc.num_slots) * 4)
+        moved = {chunked.chunked_grad_onchip: nbytes(dst, con.child, e, row),
+                 chunked.chunked_grad_paired: nbytes(dst, con.child, e, row)
+                 + dst.numel() * 8,
+                 chunked.chunked_grad_global: nbytes(dst, tip, e, row),
+                 pernode.pernode_grad_onchip: nbytes(pon.post, pon.groups,
+                                                     pon.zero, root),
+                 pernode.pernode_grad_paired: nbytes(
+                     pon.paired.post_dst, pon.paired.onchip.child,
+                     pon.paired.post_src, pon.paired.post_e),
+                 pernode.pernode_grad_global: nbytes(post, pre, root)}
+        parts, routes = [], []
+        for name, family, wrapper, bodies in rows_bodies(
+                c_ops, con, p_ops, pll, pon)[1::2]:
+            taken = next(b for b in bodies if b[1] is not None)
+            routes.append((name, taken[0], taken[1]))
+            plain = (partial(chunked.chunked_ll_and_gradients_ref, *c_ops)
+                     if family == "chunked" else
+                     partial(pernode.pernode_ll_and_gradients_ref, *p_ops))
+            calls = {f"{name} {BODY_NAMES[f]}": (partial(call, least), f)
+                     for f, _, least, call in bodies if least is not None}
+            p1 = cuda_ms(plain, 2, warmup=1)
+            ms = {k: [cuda_ms(c, 10)] for k, (c, _) in calls.items()}
+            for k in reversed(list(calls)):
+                ms[k].append(cuda_ms(calls[k][0], 10))
+            pl = (p1 + cuda_ms(plain, 2, warmup=1)) / 2
+            for k, (_, f) in calls.items():
+                t = sum(ms[k]) / 2
+                b_ms, b_by = bound(fl_grad, moved[f] + f_grad)
+                parts.append(f"{k} {t:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+                             f"{100 * b_ms / t:.1f}%)")
+            parts.append(f"{name} plain {pl:.4f} ms")
+        print(f"# phase 4: rows 4 and 6 at C={C}, every body (the wrappers "
+              f"take {route_line(routes)}), flagship (float32, {BATCH} trees "
+              f"x {eng.pattern_pad} patterns, CUDA events): "
+              + "; ".join(parts) + f"; on {card}")
+        del eng, c_ops, con, p_ops, pll, pon
+        torch.cuda.empty_cache()
 
 
 def topology_set_ms(sp, model, trees, reps):
@@ -3703,128 +3862,207 @@ def codon_category_times(run, times, card):
 # The wide path: every tree kernel past 32 rate categories
 # ---------------------------------------------------------------------------
 
+# Each launcher of rows 1-6 by its name in the JSON line past 32
+# categories (`<name>@C<C>`): the on-chip bodies with K categories a lane,
+# the paired grad body on rows 4 and 6's tapes, the global bodies' wide
+# kernels
+WIDE_NAMES = {paired.paired_ll_onchip: "paired_ll_onchip",
+              paired.paired_grad_onchip: "paired_grad_onchip",
+              chunked.chunked_ll_onchip: "chunked_ll_onchip",
+              chunked.chunked_grad_paired: "chunked_grad_paired",
+              pernode.pernode_ll_onchip: "pernode_ll_onchip",
+              pernode.pernode_grad_paired: "pernode_grad_paired",
+              paired.paired_ll_global: "paired_ll",
+              paired.paired_grad_global: "paired_grad",
+              chunked.chunked_ll_global: "chunked_ll",
+              chunked.chunked_grad_global: "chunked_grad",
+              pernode.pernode_ll_global: "pernode_ll",
+              pernode.pernode_grad_global: "pernode_grad"}
+PAIRED_BODIES = (paired.paired_ll_onchip, paired.paired_ll_global,
+                 paired.paired_grad_onchip, paired.paired_grad_global)
+
+
 def wide_rows_timed(eng, trees, params):
-    """Rows 1-6 through their wrappers on `eng`'s flagship operands (past
-    32 categories the global bodies' wide kernels), named `<row>@C<C>`:
-    ({name: (FLOPs, bytes, None)}, {name: (plain call, kernel call)}),
-    the bytes each input read once and each output written once (the
-    tapes each body reads, the matrices, tips and model, the LL and
-    gradient rows)."""
+    """Rows 1-6 on `eng`'s flagship operands past 32 categories: each
+    wrapper, which takes the on-chip body with K categories a lane where
+    its plan fits (`<row>_onchip@C<C>`, rows 4 and 6 the paired grad body,
+    `<row>_paired@C<C>`), and each global body's wide kernel through its
+    launcher (`<row>@C<C>`): ({name: (FLOPs, bytes, None)}, {name: (plain
+    call, kernel call)}), the bytes each input read once and each output
+    written once (the tapes each body reads, the matrices, tips and
+    model, the LL and gradient rows)."""
     C, B = eng.model.category_count, len(trees)
     enc = eng.encode(trees)
     fl_ll, fl_grad = tree_flops(enc, eng.site_pattern, eng.model, B)
     ll_ops, grad_ops, on = paired_operands(eng, trees, params)
     c_ops, con, p_ops, pll, pon = rows_operands(eng, trees, params)
     dst, tip, src, e, mask, P, dP, tips, pi, prop, w = grad_ops
-    cdst, ctip, cedge, crow, _, cP = c_ops[:6]
+    cdst, ctip, cedge, crow, _, cP, cdP = c_ops[:7]
     post, pre, root = p_ops[:3]
+    pt = pon.paired
     cll = (cdst, ctip, cedge, cP, tips, pi, prop, w)
     f_ll = nbytes(P, tips, pi, prop, w) + B * 4
     f_grad = (nbytes(P, dP, tips, pi, prop, w, mask)
               + B * (1 + enc.num_slots) * 4)
     s = f"@C{C}"
-    work = {"paired_ll" + s: nbytes(dst, tip, e) + f_ll,
-            "paired_grad" + s: nbytes(dst, tip, src, e) + f_grad,
-            "chunked_ll" + s: nbytes(cdst, con.child, cedge) + f_ll,
-            "chunked_grad" + s: nbytes(cdst, con.child, cedge, crow) + f_grad,
-            "pernode_ll" + s: nbytes(post, root) + f_ll,
-            "pernode_grad" + s: nbytes(post, pre, root) + f_grad}
-    work = {k: ((fl_grad if "grad" in k else fl_ll), v, None)
-            for k, v in work.items()}
-    calls = {
-        "paired_ll" + s: (
-            lambda: paired.paired_log_likelihoods_ref(*ll_ops),
-            lambda: paired.paired_log_likelihoods(*ll_ops, onchip=on)),
-        "paired_grad" + s: (
-            lambda: paired.paired_ll_and_gradients_ref(*grad_ops),
-            lambda: paired.paired_ll_and_gradients(*grad_ops, onchip=on)),
-        "chunked_ll" + s: (
-            lambda: chunked.chunked_log_likelihoods_ref(*cll),
-            lambda: chunked.chunked_log_likelihoods(*cll, onchip=con)),
-        "chunked_grad" + s: (
-            lambda: chunked.chunked_ll_and_gradients_ref(*c_ops),
-            lambda: chunked.chunked_ll_and_gradients(*c_ops, onchip=con)),
-        "pernode_ll" + s: (
-            lambda: pernode.pernode_log_likelihoods_ref(
-                post, root, cP, tips, pi, prop, w),
-            lambda: pernode.pernode_log_likelihoods(
-                post, root, cP, tips, pi, prop, w, onchip=pll)),
-        "pernode_grad" + s: (
-            lambda: pernode.pernode_ll_and_gradients_ref(*p_ops),
-            lambda: pernode.pernode_ll_and_gradients(*p_ops, onchip=pon))}
+    ll = {"paired_ll_onchip": nbytes(dst, on.child, on.live_row, e),
+          "chunked_ll_onchip": nbytes(cdst, con.child, con.live_row, cedge),
+          "pernode_ll_onchip": nbytes(pll.post_dst, pll.child, pll.live_row,
+                                      pll.post_e),
+          "paired_ll": nbytes(dst, tip, e),
+          "chunked_ll": nbytes(cdst, con.child, cedge),
+          "pernode_ll": nbytes(post, root)}
+    grad = {"paired_grad_onchip": nbytes(dst, on.child, src, e),
+            "chunked_grad_paired": nbytes(cdst, con.child, cedge, crow)
+            + cdst.numel() * 8,
+            "pernode_grad_paired": nbytes(pt.post_dst, pt.onchip.child,
+                                          pt.post_src, pt.post_e),
+            "paired_grad": nbytes(dst, tip, src, e),
+            "chunked_grad": nbytes(cdst, con.child, cedge, crow),
+            "pernode_grad": nbytes(post, pre, root)}
+    work = {k + s: (fl_ll, v + f_ll, None) for k, v in ll.items()}
+    work.update({k + s: (fl_grad, v + f_grad, None)
+                 for k, v in grad.items()})
+    plain = {"paired_ll": lambda: paired.paired_log_likelihoods_ref(*ll_ops),
+             "paired_grad": lambda: paired.paired_ll_and_gradients_ref(
+                 *grad_ops),
+             "chunked_ll": lambda: chunked.chunked_log_likelihoods_ref(*cll),
+             "chunked_grad": lambda: chunked.chunked_ll_and_gradients_ref(
+                 *c_ops),
+             "pernode_ll": lambda: pernode.pernode_log_likelihoods_ref(
+                 post, root, cP, tips, pi, prop, w),
+             "pernode_grad": lambda: pernode.pernode_ll_and_gradients_ref(
+                 *p_ops)}
+    kernel = {
+        "paired_ll_onchip": lambda: paired.paired_log_likelihoods(
+            *ll_ops, onchip=on),
+        "paired_grad_onchip": lambda: paired.paired_ll_and_gradients(
+            *grad_ops, onchip=on),
+        "chunked_ll_onchip": lambda: chunked.chunked_log_likelihoods(
+            *cll, onchip=con),
+        "chunked_grad_paired": lambda: chunked.chunked_ll_and_gradients(
+            *c_ops, onchip=con),
+        "pernode_ll_onchip": lambda: pernode.pernode_log_likelihoods(
+            post, root, cP, tips, pi, prop, w, onchip=pll),
+        "pernode_grad_paired": lambda: pernode.pernode_ll_and_gradients(
+            *p_ops, onchip=pon),
+        "paired_ll": lambda: paired.paired_ll_global(
+            dst, tip, e, P, tips, pi, prop) @ w,
+        "paired_grad": lambda: paired.finish_rows(*paired.paired_grad_global(
+            dst, tip, src, e, P, dP, tips, pi, prop, w), mask, w),
+        "chunked_ll": lambda: chunked.chunked_ll_global(
+            cdst, ctip, cedge, cP, tips, pi, prop, child=con.child) @ w,
+        "chunked_grad": lambda: chunked.finish_rows(
+            *chunked.chunked_grad_global(cdst, ctip, cedge, cP, cdP, tips, pi,
+                                         prop, w, child=con.child),
+            crow, mask, w),
+        "pernode_ll": lambda: pernode.pernode_ll_global(
+            post, root, cP, tips, pi, prop) @ w,
+        "pernode_grad": lambda: pernode.finish_rows(
+            *pernode.pernode_grad_global(post, pre, root, cP, cdP, tips, pi,
+                                         prop, w), mask, w)}
+    calls = {k + s: (plain[next(r for r in WIDE_ROWS if k.startswith(r))],
+                     call) for k, call in kernel.items()}
     return work, calls
 
 
 def wide_parity(dev, errs):
-    """Phase 2 past 32 categories: rows 1-6 at WIDE_COUNTS through their
-    wrappers on the flagship's BATCH trees, where no on-chip plan exists
-    and each wrapper launches its global body (the wide kernels), the
-    first WIDE_REF_TREES trees' rows against the float64 plain versions on
-    those trees' float32 operands within BOUND; rows 1b-2b at
+    """Phase 2 past 32 categories: rows 1-6 at WIDE_COUNTS on the
+    flagship's BATCH trees and at WIDE_SMALL on its first WIDE_REF_TREES,
+    the first WIDE_REF_TREES trees' rows against the float64 plain
+    versions on those trees' float32 operands within BOUND: each wrapper
+    (the on-chip bodies with K categories a lane where the plan fits,
+    rows 4 and 6 on the paired grad body, else the wide kernels), and
+    every other body forced through its launcher (the K bodies at one
+    warp at least, the global bodies' wide kernels); rows 1b-2b at
     WIDE_COUNTS and WIDE_CODON_C at config6's shape on CODON_REF_TREES
-    trees against the float64 plain version within A64_BOUND.  Fills
-    errs for the JSON line's @C64 and @C48 entries."""
+    trees against the float64 plain version within A64_BOUND.  Fills errs
+    for the JSON line's @C64 and @C48 entries."""
     params = params_from_numpy(PARAMS, dev, PRODUCT_DTYPE)
     trees, sp, _ = flagship()
     R = WIDE_REF_TREES
-    bodies = (paired.paired_ll_onchip, paired.paired_ll_global,
-              paired.paired_grad_onchip, paired.paired_grad_global)
-    for C in WIDE_COUNTS:
+    for C in WIDE_COUNTS + WIDE_SMALL:
+        tr = trees if C in WIDE_COUNTS else trees[:R]
         eng = TreeLikelihoodEngine(sp, category_model(C), device=dev,
                                    dtype=PRODUCT_DTYPE)
-        ll_ops, grad_ops, on = paired_operands(eng, trees, params)
-        M, N1 = ll_ops[0].shape[1], ll_ops[3].shape[1]
-        check(paired.onchip_plan("ll", on.ll_rows, M, N1, C) is None
-              and paired.onchip_plan("grad", on.grad_rows, M, N1, C) is None,
-              f"C={C}: no on-chip plan past 32 categories")
-        before = [f.launches for f in bodies]
-        ll_k = paired.paired_log_likelihoods(*ll_ops, onchip=on)
-        ll_g, g_k = paired.paired_ll_and_gradients(*grad_ops, onchip=on)
-        torch.cuda.synchronize()
-        ran = [f.launches - n for f, n in zip(bodies, before)]
-        check(ran == [0, 1, 0, 1], f"C={C}: the paired wrappers launched "
-              f"the global bodies, not {ran}")
+        ll_ops, grad_ops, on = paired_operands(eng, tr, params)
+        dst, tip, src, e, mask, P, dP, tips, pi, prop, w = grad_ops
+        M, N1 = dst.shape[1], P.shape[1]
+        plans = {k: paired.onchip_plan(k, rows, M, N1, C)
+                 for k, rows in (("ll", on.ll_rows), ("grad", on.grad_rows))}
+        forced = {k: paired.onchip_plan(k, rows, M, N1, C, ring=True)
+                  for k, rows in (("ll", on.ll_rows), ("grad", on.grad_rows))}
+        check(all(p is not None and p.categories_per_lane
+                  == paired.lane_categories(C) for p in forced.values()),
+              f"C={C}: the K bodies fit the flagship")
+        hot = lambda f: [int(g is f) for g in PAIRED_BODIES]
+        runs = [
+            ("paired LL wrapper", lambda: (paired.paired_log_likelihoods(
+                *ll_ops, onchip=on), None), hot(
+                    paired.paired_ll_onchip if plans["ll"]
+                    else paired.paired_ll_global)),
+            ("paired grad wrapper", lambda: paired.paired_ll_and_gradients(
+                *grad_ops, onchip=on), hot(
+                    paired.paired_grad_onchip if plans["grad"]
+                    else paired.paired_grad_global))]
+        if plans["ll"] is None:
+            runs.append(("paired LL on-chip body", lambda: (
+                paired.paired_ll_onchip(dst, on, e, P, tips, pi, prop,
+                                        forced["ll"]) @ w, None),
+                hot(paired.paired_ll_onchip)))
+        if plans["grad"] is None:
+            runs.append(("paired grad on-chip body", lambda: (
+                paired.finish_rows(*paired.paired_grad_onchip(
+                    dst, on, src, e, P, dP, tips, pi, prop, w,
+                    forced["grad"]), mask, w)),
+                hot(paired.paired_grad_onchip)))
+        runs += [("paired LL global body", lambda: (paired.paired_ll_global(
+                     dst, tip, e, P, tips, pi, prop) @ w, None),
+                  hot(paired.paired_ll_global)),
+                 ("paired grad global body", lambda: paired.finish_rows(
+                     *paired.paired_grad_global(dst, tip, src, e, P, dP,
+                                                tips, pi, prop, w), mask, w),
+                  hot(paired.paired_grad_global))]
         ll_p, g_p = plain64(first_trees(grad_ops, R, 7), step=10)
-        out = {"paired_ll": (ll_k[:R], ll_p), "paired_grad": (g_k[:R], g_p)}
-        e = [rel_err(ll_k[:R], ll_p), rel_err(ll_g[:R], ll_p),
-             norm_err(g_k[:R], g_p)]
-        c_ops, con, p_ops, pll, pon = rows_operands(eng, trees, params)
+        c_ops, con, p_ops, pll, pon = rows_operands(eng, tr, params)
         refs = dict(zip(("chunked", "pernode"), rows_plain64(
             first_trees(c_ops, R, 7), first_trees(p_ops, R, 6), step=10)))
-        runs, plans = rows_runs(c_ops, con, p_ops, pll, pon, False)
-        check(all(p is None for p in plans), f"C={C}: no on-chip plan of "
-              "rows 3-6")
-        for name, call, family, want in runs:
-            before = [f.launches for f in ROWS_BODIES]
-            ll_r, g_r = call()
+        refs["paired"] = (ll_p, g_p)
+        rows, routes = rows_runs(c_ops, con, p_ops, pll, pon, True)
+        parts, worst = [], 0.0
+        for name, call, want in (
+                [(n, c, ("paired", PAIRED_BODIES, want)) for n, c, want in runs]
+                + [(n, c, (fam, ROWS_BODIES, want))
+                   for n, c, fam, want in rows]):
+            family, bodies, want = want
+            before = [f.launches for f in bodies]
+            ll_k, g_k = call()
             torch.cuda.synchronize()
-            ran = [f.launches - n for f, n in zip(ROWS_BODIES, before)]
+            ran = [f.launches - n for f, n in zip(bodies, before)]
             check(ran == want, f"C={C}: {name} launched {want}, not {ran}")
             ll_ref, g_ref = refs[family]
-            kind = "ll" if g_r is None else "grad"
-            out[f"{family}_{kind}"] = ((ll_r[:R], ll_ref) if g_r is None
-                                       else (g_r[:R], g_ref))
-            e.append(rel_err(ll_r[:R], ll_ref))
-            if g_r is not None:
-                e.append(norm_err(g_r[:R], g_ref))
-        finite = all(bool(torch.isfinite(x).all()) for x, _ in out.values())
-        errors = {row: (rel_err(x, ref) if row.endswith("_ll")
-                        else norm_err(x, ref),
-                        (x.double() - ref).abs().max().item())
-                  for row, (x, ref) in out.items()}
+            found = [rel_err(ll_k[:R], ll_ref)] + (
+                [] if g_k is None else [norm_err(g_k[:R], g_ref)])
+            x, ref = (ll_k[:R], ll_ref) if g_k is None else (g_k[:R], g_ref)
+            check(bool(torch.isfinite(ll_k).all()) and (
+                g_k is None or bool(torch.isfinite(g_k).all()))
+                and max(found) <= BOUND, f"C={C}: {name} within {BOUND:g}")
+            worst = max([worst] + found)
+            launcher = bodies[want.index(1)]
+            parts.append(f"{name} " + "/".join(f"{v:.3e}" for v in found))
+            if C == WIDE_C:
+                errs[f"{WIDE_NAMES[launcher]}@C{C}"] = (
+                    rel_err(x, ref) if g_k is None else norm_err(x, ref),
+                    (x.double() - ref).abs().max().item())
         print(f"# phase 2: rows 1-6 at C={C} ({paired.lane_categories(C)} "
-              f"categories a lane of 32; {len(trees)} trees x "
-              f"{eng.pattern_pad} patterns, the first {R} held): the global "
-              "bodies, LL rel err / grad max-abs/max|g| against the float64 "
-              "plain version: " + ", ".join(
-                  f"{row} {err:.3e}" for row, (err, _) in errors.items())
-              + f" (bound {BOUND:g}; every LL call {max(e):.3e} at most)")
-        check(finite and max(e) <= BOUND,
-              f"C={C}: rows 1-6 within {BOUND:g} of float64")
-        if C == WIDE_C:
-            errs.update({f"{row}@C{C}": v for row, v in errors.items()})
-        del eng, ll_ops, grad_ops, on, c_ops, con, p_ops, pll, pon, out
-        del refs, ll_k, ll_g, g_k, ll_p, g_p
+              f"categories a lane of 32; {len(tr)} trees x {eng.pattern_pad} "
+              f"patterns, the first {R} held; plans: paired LL "
+              f"{body_of(plans['ll'])}, grad {body_of(plans['grad'])}, "
+              f"{route_line(routes)}), LL rel err (/ grad max-abs/max|g|) "
+              "against the float64 plain version: "
+              + ", ".join(parts) + f" (bound {BOUND:g}; {worst:.3e} at most)")
+        del eng, ll_ops, grad_ops, on, c_ops, con, p_ops, pll, pon, refs
+        del runs, rows, ll_p, g_p
         torch.cuda.empty_cache()
     a64 = (paired.paired_ll_a64, paired.paired_grad_a64)
     for C in sorted(WIDE_COUNTS + (WIDE_CODON_C,)):
@@ -3934,6 +4172,7 @@ def wide_path(dev, against_reference):
                           [(x[:R], g[:R]) for x, g in pairs], refs)
     del results, refs, pairs, P, pon, pll
     torch.cuda.empty_cache()
+    launches.update(wide_large_path(dev, against_reference))
 
     Rc = CODON_REF_TREES
     ctrees, csp, cmodel, cparams_np = codon_workload(f"gamma+{WIDE_CODON_C}")
@@ -3969,6 +4208,68 @@ def wide_path(dev, against_reference):
     return eng, trees, params, ceng, ctrees, cparams, launches
 
 
+def wide_large_path(dev, against_reference):
+    """The wide-large path (phase 3): the large path's 921-taxon trees at
+    GTR+Gamma WIDE_C, whose rows leave no warp of an on-chip body room, on
+    auto, kernel="chunked" and the per-node functions (log likelihoods,
+    LL and gradients, and one call at scaled branch lengths each): the
+    global bodies' wide kernels, counted for the JSON line's @C64 wide
+    entries, held against the float64 engine.  Returns the launches."""
+    ltrees, lsp, _ = large_trees()
+    model = category_model(WIDE_C)
+    eng = TreeLikelihoodEngine(lsp, model, device=dev, dtype=PRODUCT_DTYPE)
+    ref = TreeLikelihoodEngine(lsp, model, device=dev, dtype=torch.float64)
+    ref.kernel = "scan"
+    params = params_from_numpy(PARAMS, dev, PRODUCT_DTYPE)
+    params64 = params_from_numpy(PARAMS, dev, torch.float64)
+    enc = eng.encode(ltrees)
+    bl = eng.branch_length_matrix(ltrees, enc)
+    refs = [ref.ll_and_branch_gradients(ltrees, params64),
+            ref.branch_eval_fn(ltrees, params64)(bl.double() * 1.001)]
+    del ref
+    eig, rates, props, clock = eng._model_ingredients(params, len(ltrees))
+    pi, prop = prep.kernel_model(eig, props)
+    post, pre, root = (torch.as_tensor(x, dtype=torch.int32, device=dev)
+                       for x in (enc.post_ops, enc.pre_ops, enc.root))
+    mask = torch.as_tensor(enc.edge_mask, dtype=torch.float32, device=dev)
+    pll = pernode.ll_tape(enc.post_ops, enc.root, enc.num_taxa,
+                          enc.num_slots, dev)
+    pon = pernode.onchip_tape(enc.post_ops, enc.pre_ops, enc.root,
+                              enc.num_taxa, enc.num_slots, dev)
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    on = eng._onchip_tape(enc)
+    M, N1 = eng._paired_tapes(enc)[0].shape[1], enc.num_slots + 1
+    check(paired.onchip_plan("ll", on.ll_rows, M, N1, WIDE_C, ring=True)
+          is None and paired.onchip_plan("grad", on.grad_rows, M, N1, WIDE_C,
+                                         ring=True) is None,
+          "no warp of the K bodies fits the 921-taxon trees")
+    results = {}
+    reset_launches()
+    t0 = time.perf_counter()
+    for kernel in ("auto", "chunked"):
+        eng.kernel = kernel
+        results[kernel] = ([eng.log_likelihoods(ltrees, params)],
+                           [eng.ll_and_branch_gradients(ltrees, params),
+                            eng.branch_eval_fn(ltrees, params)(bl * 1.001)])
+    eng.kernel = "auto"
+    P, _ = prep.prepare_inputs_grad(eig, rates, clock, bl)
+    pairs = []
+    for f in (1.0, 1.001):
+        Pk, dPk = prep.prepare_inputs_grad(eig, rates, clock, bl * f)
+        pairs.append(pernode.pernode_ll_and_gradients(
+            post, pre, root, mask, Pk, dPk, tips, pi, prop, w, onchip=pon))
+    results["per-node functions"] = ([pernode.pernode_log_likelihoods(
+        post, root, P, tips, pi, prop, w, onchip=pll)], pairs)
+    torch.cuda.synchronize()
+    launches = read_launches("wide-large")
+    print(f"# phase 3: wide-large path (GTR+Gamma{WIDE_C}, {len(ltrees)} "
+          f"trees of {enc.num_taxa} taxa x {eng.pattern_pad} patterns) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for label, (lls, pairs) in results.items():
+        against_reference(f"wide-large, {label}", lls, pairs, refs)
+    return launches
+
+
 def in_turns(plain, kernel, reps=10):
     """(kernel ms, plain ms): plain, kernel, kernel, plain, CUDA events,
     `reps` kernel calls a turn after 3, one plain call after one."""
@@ -3983,6 +4284,49 @@ def wide_codon_timed(eng, trees, params):
     sub = trees[:WIDE_CODON_TREES]
     return codon_timed(eng, sub, *codon_operands(eng, sub, params),
                        suffix=f"@C{eng.model.category_count}")
+
+
+# Phase 4's counts of the K bodies by warps a block (K = 2 and 4)
+K_WARPS_COUNTS = (64, 128)
+
+
+def k_warps_times(sp, trees, params, dev, card):
+    """Phase 4, the evidence for paired.K_MIN_WARPS: at K_WARPS_COUNTS on
+    the flagship, the on-chip grad and LL bodies with K categories a lane
+    at every block of 1 warp up to their plans' (forced plans), beside
+    the paired, chunked and per-node grad kernels' and LL kernels' wide
+    kernels on the same operands; CUDA events, 5 calls after one."""
+    for C in K_WARPS_COUNTS:
+        eng = TreeLikelihoodEngine(sp, category_model(C), device=dev,
+                                   dtype=PRODUCT_DTYPE)
+        work, calls = wide_rows_timed(eng, trees, params)
+        _, grad_ops, on = paired_operands(eng, trees, params)
+        dst, tip, src, e, mask, P, dP, tips, pi, prop, w = grad_ops
+        M, N1 = dst.shape[1], P.shape[1]
+        parts = []
+        for kernel, rows in (("grad", on.grad_rows), ("ll", on.ll_rows)):
+            top = paired.onchip_plan(kernel, rows, M, N1, C, ring=True)
+            for cols in range(1, top.cols + 1):
+                plan = dataclasses.replace(top, cols=cols, smem=(
+                    paired.smem_bytes(kernel, rows, M, N1, C, cols, True)))
+                call = (partial(paired.paired_grad_onchip, dst, on, src, e, P,
+                                dP, tips, pi, prop, w, plan)
+                        if kernel == "grad" else
+                        partial(paired.paired_ll_onchip, dst, on, e, P, tips,
+                                pi, prop, plan))
+                parts.append(f"{kernel} {cols} warps "
+                             f"{cuda_ms(call, 5, warmup=1):.4f}")
+        for row in WIDE_ROWS:
+            parts.append(f"{row} wide kernel "
+                         f"{cuda_ms(calls[f'{row}@C{C}'][1], 5, warmup=1):.4f}")
+        print(f"# phase 4: the K bodies by warps a block at GTR+Gamma{C} (K = "
+              f"{paired.lane_categories(C)}; the plans take "
+              f"{body_of(paired.onchip_plan('grad', on.grad_rows, M, N1, C))}"
+              f" grad, K_MIN_WARPS {paired.K_MIN_WARPS}; float32, {BATCH} "
+              f"trees x {eng.pattern_pad} patterns, ms, CUDA events): "
+              + ", ".join(parts) + f"; on {card}")
+        del eng, work, calls, grad_ops, on
+        torch.cuda.empty_cache()
 
 
 def wide_times(run, times, card):
@@ -4005,12 +4349,25 @@ def wide_times(run, times, card):
             dtype=PRODUCT_DTYPE)
         work, calls = wide_rows_timed(e, trees, params)
         parts = []
-        for row in WIDE_ROWS:
-            name = f"{row}@C{C}"
-            k, pl = times[name][:2] if C == WIDE_C else in_turns(*calls[name])
-            b_ms, b_by = bound(*work[name][:2])
-            parts.append(f"{row} {k:.4f} ms (plain {pl:.4f}; bound "
-                         f"{b_ms:.4f} by {b_by}, {100 * b_ms / k:.1f}%)")
+        for row in WIDE_ROWS:  # the wrapper's K body, then the wide kernel
+            body = next(k for k in calls if k.startswith(row)
+                        and k != f"{row}@C{C}")
+            wide = f"{row}@C{C}"
+            if C == WIDE_C:
+                (k, pl), kw = times[body][:2], times[wide][0]
+            else:
+                plain, kernel = calls[body]
+                p1, k1 = cuda_ms(plain, 1, warmup=1), cuda_ms(kernel, 10)
+                w1, w2 = cuda_ms(calls[wide][1], 10), cuda_ms(calls[wide][1],
+                                                              10)
+                k2, p2 = cuda_ms(kernel, 10), cuda_ms(plain, 1, warmup=1)
+                k, pl, kw = (k1 + k2) / 2, (p1 + p2) / 2, (w1 + w2) / 2
+            b_ms, b_by = bound(*work[body][:2])
+            bw_ms = bound(*work[wide][:2])[0]
+            parts.append(f"{body.split('@')[0]} {k:.4f} ms (bound "
+                         f"{b_ms:.4f} by {b_by}, {100 * b_ms / k:.1f}%), "
+                         f"wide kernel {kw:.4f} ms ({100 * bw_ms / kw:.1f}%; "
+                         f"{kw / k:.2f}x), plain {pl:.4f}")
         del calls
         torch.cuda.empty_cache()
         bl = e.branch_length_matrix(trees, e.encode(trees))
@@ -4025,11 +4382,13 @@ def wide_times(run, times, card):
                          f" evals/s, high-water {peak:.3f} GiB)")
         e.kernel = "auto"
         print(f"# phase 4: rows 1-6 at GTR+Gamma{C} ({paired.lane_categories(C)}"
-              f" categories a lane of 32, the global bodies; float32, {BATCH} "
-              f"trees x {e.pattern_pad} patterns, CUDA events): "
+              f" categories a lane of 32: each wrapper's on-chip K body beside"
+              f" the global body's wide kernel; float32, {BATCH} trees x "
+              f"{e.pattern_pad} patterns, CUDA events): "
               + "; ".join(parts) + f"; on {card}")
         del e, bl, f
         torch.cuda.empty_cache()
+    k_warps_times(eng64.site_pattern, trees, params, dev, card)
     for C in WIDE_TIMED:
         if C == WIDE_CODON_C:
             e, tr, prm = ceng, ctrees[:WIDE_CODON_TREES], cparams
@@ -5191,6 +5550,7 @@ def main():
             check(times[name][0] >= b_ms, f"{name} within its bound")
 
     category_times(cat_eng, trees, card)
+    paired_rows_times(trees, sp, params, dev, card)
     del cat_eng, cll, cgrad, con16, r_c, r_con, r_p, r_pll, r_pon
     E = int(np.asarray(enc.edge_mask).sum(axis=1).mean())
     chunk_lab_times(chunk_flag, chunk_out,

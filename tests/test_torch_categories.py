@@ -196,8 +196,10 @@ def test_plan_at_16_and_32_lanes(C):
     assert grad.cols * G // 32 == (9 if G == 16 else 16)
     assert paired.smem_bytes("grad", 0, 28, 53, C, 0, False) == (
         106 * G * 64 + 784)
-    # Past 32 the global bodies take every tree; no count below 1.
-    assert paired.onchip_plan("ll", 6, 28, 53, 33) is None
+    # Past the largest K (128 categories) the global bodies take every
+    # tree; no count below 1.
+    assert paired.onchip_plan("ll", 6, 28, 53,
+                              paired.ONCHIP_MAX_CATEGORIES + 1) is None
     with pytest.raises(ValueError, match="1 or more"):
         paired.onchip_plan("ll", 6, 28, 53, 0)
 

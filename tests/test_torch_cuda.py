@@ -18,8 +18,11 @@ kernels at 9-32 rate categories (both bodies of both kernels on 16 or 32
 lanes a pattern, at short branches too, past the on-chip limit, and the
 engine's auto taking them), and the chunked and per-node kernels there
 (every body against float64, at short branches too, past the on-chip
-limit, and the engine's chunked route at 16); and the driver's entry()
-forward (graft_entry.py), which takes the paired on-chip LL body alone.
+limit, and the engine's chunked route at 16); past 32 categories rows
+1-6 on the on-chip bodies with K categories a lane and on the wide
+kernels, and rows 4 and 6 on the paired grad body at 17 and 32; and the
+driver's entry() forward (graft_entry.py), which takes the paired
+on-chip LL body alone.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -374,7 +377,8 @@ def test_engine_auto_takes_the_kernels_at_16_categories(cuda):
     """auto on the card at GTR+Gamma16 takes the on-chip bodies of both
     kernels (before, 9 or more categories took the scan tape), within
     5e-5 of the float64 engine on the CPU; at 33 categories auto takes
-    the global bodies (before, the scan tape), within 5e-5 as well."""
+    the on-chip bodies with two categories a lane (once, the scan tape),
+    within 5e-5 as well."""
     eng, trees, params = _wide_engine(16, False, cuda, torch.float32)
     ref, _, ref_params = _wide_engine(16, False, "cpu", torch.float64)
     before = [f.launches for f in PAIRED]
@@ -391,40 +395,57 @@ def test_engine_auto_takes_the_kernels_at_16_categories(cuda):
     ll = wide.log_likelihoods(trees, params)
     ll2, g = wide.ll_and_branch_gradients(trees, params)
     torch.cuda.synchronize()
-    assert _launched(before) == [0, 1, 0, 1]
+    assert _launched(before) == [1, 0, 1, 0]
     ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
     assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
     assert _norm(g.cpu(), g_ref) < 5e-5
 
 
-# Past 32 categories: the global bodies, K = ceil(C / 32) categories a lane
-# of 32 (csrc/paired_lanes.cuh, csrc/pernode_lanes.cuh wide kernels)
-WIDER = (33, 64)
+# Past 32 categories K = ceil(C / 32) categories a lane of 32: the
+# on-chip bodies to K = 4 (csrc/paired_ll_onchip.cuh,
+# csrc/paired_grad_onchip.cu), the global bodies' wide kernels at any K
+# (csrc/paired_lanes.cuh, csrc/pernode_lanes.cuh)
+WIDER = (33, 64, 96, 128)
 
 
 @pytest.mark.parametrize("C", WIDER)
 @pytest.mark.parametrize("scale", [1.0, 1e-6], ids=["bl", "bl1e-6"])
 def test_kernels_past_32_categories_match_plain(cuda, C, scale):
-    """Both paired kernels at 33 and 64 categories: no on-chip plan, and
-    the wrappers launch the global bodies' wide kernels, within 5e-5 of
-    their plain versions in float64 on the same float32 operands, on the
-    11-taxon batch at its branch lengths and at those times 1e-6."""
+    """Both paired kernels at 33-128 categories: the on-chip plans hold K
+    = ceil(C / 32) categories a lane on the ring (none staged), and the
+    wrappers launch the K bodies; the global bodies' wide kernels through
+    their launchers; each within 5e-5 of its plain version in float64 on
+    the same float32 operands, on the 11-taxon batch at its branch
+    lengths and at those times 1e-6."""
     eng, trees, params = _wide_engine(C, False, cuda, torch.float32)
     ops, onchip, (ll_ref, g_ref) = _wide_operands(eng, trees, params, scale)
     dst, tip, src, e, mask, P, dP, tips, pi, prop, w = ops
     M, N1 = dst.shape[1], P.shape[1]
     for kernel, rows in (("ll", onchip.ll_rows), ("grad", onchip.grad_rows)):
-        for ring in (None, False, True):
-            assert paired.onchip_plan(kernel, rows, M, N1, C, ring) is None
-    before = [f.launches for f in PAIRED]
-    ll = paired.paired_log_likelihoods(dst, tip, e, P, tips, pi, prop, w,
-                                       onchip=onchip)
-    ll2, g = paired.paired_ll_and_gradients(*ops, onchip=onchip)
-    torch.cuda.synchronize()
-    assert _launched(before) == [0, 1, 0, 1]
-    assert all(bool(torch.isfinite(x).all()) for x in (ll, ll2, g))
-    assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
-    assert _norm(g, g_ref) < 5e-5
+        plan = paired.onchip_plan(kernel, rows, M, N1, C)
+        assert plan.categories_per_lane == -(-C // 32) and plan.ring
+        assert paired.onchip_plan(kernel, rows, M, N1, C, False) is None
+    bodies = {
+        "wrappers (K bodies)": (
+            lambda: paired.paired_log_likelihoods(
+                dst, tip, e, P, tips, pi, prop, w, onchip=onchip),
+            lambda: paired.paired_ll_and_gradients(*ops, onchip=onchip),
+            [1, 0, 1, 0]),
+        "global (wide kernels)": (
+            lambda: paired.paired_ll_global(dst, tip, e, P, tips, pi,
+                                            prop) @ w,
+            lambda: paired.finish_rows(*paired.paired_grad_global(
+                dst, tip, src, e, P, dP, tips, pi, prop, w), mask, w),
+            [0, 1, 0, 1])}
+    for body, (ll_call, grad_call, launched) in bodies.items():
+        before = [f.launches for f in PAIRED]
+        ll = ll_call()
+        ll2, g = grad_call()
+        torch.cuda.synchronize()
+        assert _launched(before) == launched, body
+        assert all(bool(torch.isfinite(x).all()) for x in (ll, ll2, g)), body
+        assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5, body
+        assert _norm(g, g_ref) < 5e-5, body
 
 
 def test_global_tree_slices_give_the_rows_of_one_launch(cuda, monkeypatch):
@@ -660,14 +681,79 @@ def _check_global_rows_3_to_6(ops, refs, C):
 @pytest.mark.parametrize("scale", [1.0, 1e-6], ids=["bl", "bl1e-6"])
 def test_chunked_and_pernode_kernels_past_32_categories_match_plain(
         cuda, C, scale):
-    """Rows 3-6 at 33 and 64 categories on the 11-taxon batch, at its
-    branch lengths and at those times 1e-6: every global body through its
-    launcher, and the four wrappers, which take the global bodies (no
-    on-chip plan past 32), within 5e-5 of float64."""
+    """Rows 3-6 at 33-128 categories on the 11-taxon batch, at its
+    branch lengths and at those times 1e-6: every global body (the wide
+    kernels) through its launcher, and the four wrappers, which take the
+    K bodies (rows 3 and 5 the on-chip LL body, rows 4 and 6 the paired
+    grad body on their tapes; their own on-chip bodies have no plan past
+    32), within 5e-5 of float64."""
     eng, trees, params = _wide_engine(C, False, cuda, torch.float32)
     ops, refs = _rows_3_to_6(eng, trees, params, scale)
     _check_rows_3_to_6(ops, refs, _rows_3_to_6_bodies(ops, None))
-    _check_global_rows_3_to_6(ops, refs, C)
+    _check_paired_rows_3_to_6(ops, refs, C, ll_onchip=True)
+
+
+# Rows 4 and 6 on the paired grad kernel's on-chip body
+ROWS_PAIRED = (chunked.chunked_grad_paired, pernode.pernode_grad_paired)
+
+
+def _check_paired_rows_3_to_6(ops, refs, C, ll_onchip):
+    """The own on-chip bodies of rows 4 and 6 get no plan, the paired
+    grad body does on their tapes, and the four wrappers launch it for
+    rows 4 and 6 (and the on-chip LL body, or with `ll_onchip` False the
+    global LL bodies, for rows 3 and 5) within 5e-5 of float64."""
+    (dst, tip, e, row, con), (post, pre, root, lt, gt), mask, P, dP, tips, \
+        pi, prop, w = ops
+    N1, MW = P.shape[1], dst.shape[1]
+    assert chunked.onchip_plan(con.grad_rows, MW, N1, C) is None
+    assert pernode.onchip_plan(gt.rows, gt.ints, N1, C) is None
+    for plan in (chunked.paired_plan(con.grad_rows, MW, N1, C),
+                 pernode.paired_plan(gt.paired, N1, C)):
+        assert plan.categories_per_lane == -(-C // 32) and plan.lanes == 32
+    ll = int(ll_onchip)
+    for name, call, launched in [
+            ("chunked wrappers", lambda: (
+                chunked.chunked_log_likelihoods(dst, tip, e, P, tips, pi,
+                                                prop, w, onchip=con),
+                chunked.chunked_ll_and_gradients(dst, tip, e, row, mask, P,
+                                                 dP, tips, pi, prop, w,
+                                                 onchip=con)[1]),
+             [ll, 1 - ll, 0, 0, 0, 0, 0, 0, 1, 0]),
+            ("pernode wrappers", lambda: (
+                pernode.pernode_log_likelihoods(post, root, P, tips, pi,
+                                                prop, w, onchip=lt),
+                pernode.pernode_ll_and_gradients(post, pre, root, mask, P,
+                                                 dP, tips, pi, prop, w,
+                                                 onchip=gt)[1]),
+             [0, 0, 0, 0, ll, 1 - ll, 0, 0, 0, 1])]:
+        bodies = CHUNKED + PERNODE + ROWS_PAIRED
+        before = [f.launches for f in bodies]
+        ll_k, g = call()
+        torch.cuda.synchronize()
+        assert [f.launches - n for f, n in zip(bodies, before)] == (
+            launched), name
+        ll_ref, g_ref = refs[0 if name.startswith("chunked") else 1]
+        assert bool(torch.isfinite(ll_k).all() and torch.isfinite(g).all())
+        assert _rel(ll_k, ll_ref) < 5e-5 and _norm(g, g_ref) < 5e-5, name
+
+
+@pytest.mark.parametrize("C", [17, 32])
+def test_rows_4_and_6_take_the_paired_grad_body_at_17_and_32(cuda, C):
+    """Six trees of the flagship's shape (27 taxa) at 17 and 32
+    categories, where the chunked and per-node grad bodies' tree P and dP
+    staged at once leave one warp (under their MIN_WARPS): the wrappers
+    of rows 4 and 6 launch the paired grad body on their tapes (32 lanes,
+    a category each), rows 3 and 5 the on-chip LL body, within 5e-5 of
+    float64."""
+    text, aln = _synthetic.ds1_shaped(0, 6)
+    coll = parse_newick_text(text)
+    eng = TreeLikelihoodEngine(
+        SitePattern(aln, coll.taxon_names),
+        PhyloModel(PhyloModelSpecification("GTR", f"gamma+{C}")),
+        device=cuda, dtype=torch.float32)
+    ops, refs = _rows_3_to_6(eng, coll.trees,
+                             params_from_numpy(GTR, cuda, torch.float32))
+    _check_paired_rows_3_to_6(ops, refs, C, ll_onchip=True)
 
 
 def test_engine_chunked_takes_the_chunked_kernels_at_16_categories(cuda):
@@ -676,7 +762,8 @@ def test_engine_chunked_takes_the_chunked_kernels_at_16_categories(cuda):
     wrappers raised past 8 categories) for log_likelihoods,
     ll_and_branch_gradients and branch_eval_fn, within 5e-5 of the
     float64 scan tape on the card; at 33 categories it launches the
-    global bodies (before, it raised), within 5e-5 as well."""
+    on-chip LL body and the paired grad body on the chunked tape, two
+    categories a lane (once, it raised), within 5e-5 as well."""
     text, aln = _synthetic.ds1_shaped(0, 6)
     coll = parse_newick_text(text)
     sp = SitePattern(aln, coll.taxon_names)
@@ -704,12 +791,13 @@ def test_engine_chunked_takes_the_chunked_kernels_at_16_categories(cuda):
     wide, trees, params = _wide_engine(33, False, cuda, torch.float32)
     ref, _, ref_params = _wide_engine(33, False, "cpu", torch.float64)
     wide.kernel = "chunked"
-    before = [f.launches for f in CHUNKED + PAIRED]
+    before = [f.launches for f in CHUNKED + PAIRED + ROWS_PAIRED]
     ll = wide.log_likelihoods(trees, params)
     ll2, g = wide.ll_and_branch_gradients(trees, params)
     torch.cuda.synchronize()
-    assert [f.launches - n for f, n in zip(CHUNKED + PAIRED, before)] == [
-        0, 1, 0, 1, 0, 0, 0, 0]
+    assert [f.launches - n for f, n in zip(CHUNKED + PAIRED + ROWS_PAIRED,
+                                           before)] == [
+        1, 0, 0, 0, 0, 0, 0, 0, 1, 0]
     ll_ref, g_ref = ref.ll_and_branch_gradients(trees, ref_params)
     assert _rel(ll.cpu(), ll_ref) < 5e-5 and _rel(ll2.cpu(), ll_ref) < 5e-5
     assert _norm(g.cpu(), g_ref) < 5e-5

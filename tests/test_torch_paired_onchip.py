@@ -355,7 +355,7 @@ def test_hand_over_to_the_global_bodies(C):
     staged = max(M for M in range(4, limit, 4) if not plan(M).ring)
     assert 0 < staged < limit
     assert paired.onchip_plan("grad", 10, 12, 14,
-                              paired.ONCHIP_CATEGORIES + 1) is None
+                              paired.ONCHIP_MAX_CATEGORIES + 1) is None
     with pytest.raises(ValueError):
         paired.onchip_plan("grad", 10, 12, 14, 0)
 

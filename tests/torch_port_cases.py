@@ -573,6 +573,152 @@ def emulate_wide_pernode(post_ops, pre_ops, root, P, dP, tips, pi, props,
     return ll_rows, grad_rows
 
 
+# ---------------------------------------------------------------------------
+# The float64 emulation of the on-chip bodies with K categories a lane
+# (csrc/paired_ll_onchip.cuh, csrc/paired_grad_onchip.cu past 32 and, at
+# K = 1, on 32 lanes): rows in shared memory, K x 512 bytes a pattern
+# ---------------------------------------------------------------------------
+
+class OnchipRows:
+    """A block's rows of the on-chip bodies, [R][K][threads] float4 with
+    threads = 32 Sp (one block of all Sp patterns, a warp each), as one
+    flat buffer read and written at the kernels' offsets
+    (r K + k) threads + 32 x + g: place k of lane g of pattern x of row r.
+    Every pattern, place and lane of a row at once: values [Sp, K, 32, 4];
+    lane g's place k holds category g + 32 k (c mod 32, c div 32)."""
+
+    def __init__(self, R, S, C, dtype):
+        self.K, self.Sp = paired.lane_categories(C), S
+        self.threads = WIDE_LANES * S
+        self.flat = torch.full((R * self.K * self.threads, 4), float("nan"),
+                               dtype=dtype)
+        x = torch.arange(S)[:, None, None]
+        k = torch.arange(self.K)[None, :, None]
+        g = torch.arange(WIDE_LANES)[None, None, :]
+        self._col = k * self.threads + x * WIDE_LANES + g
+
+    def _at(self, r):
+        return r * self.K * self.threads + self._col
+
+    def __getitem__(self, r):
+        return self.flat[self._at(r)]
+
+    def __setitem__(self, r, value):
+        self.flat[self._at(r)] = value
+
+
+def _onchip_child(rows, row_of, code, tip_cols, shape, T):
+    """A child's value [Sp, K, 32, 4]: an op's output from its row, tip t
+    in place, or all ones."""
+    if code >= 0:
+        return rows[row_of(code)]
+    if -1 - code < T:
+        return tip_cols[-1 - code].expand(shape)
+    return torch.ones(shape, dtype=tip_cols.dtype)
+
+
+def _onchip_postorder(b, dst, child, e, rows, row_of, mats, prop_k, pi,
+                      tip_cols, shape, P):
+    """Tree b's postorder as the K bodies run it: per op the K products of
+    each lane, the largest entry over the places and the warp, one scaling
+    by its power of two, one store; the LL rows [S] at the root op."""
+    M = dst.shape[1]
+    T = tip_cols.shape[0]
+    lsc = torch.zeros(shape[0], dtype=torch.int64)
+    for m in range(M):
+        d = int(dst[b, m])
+        if d == 2 * M + 1:
+            continue
+        p = [_onchip_child(rows, row_of, int(child[b, m, j]), tip_cols,
+                           shape, T) for j in (0, 1)]
+        prod = (_wide_evolve(mats(P, b, e[b, m, 0]), p[0])
+                * _wide_evolve(mats(P, b, e[b, m, 1]), p[1]))
+        ex = _wide_exponent(prod)
+        prod = prod * _pow2(ex, P.dtype)
+        lsc = lsc + ex
+        if d == 2 * M:
+            site = torch.einsum("kg,a,skga->s", prop_k, pi, prod)
+            ll = torch.log(site) + lsc.to(P.dtype) * math.log(2.0)
+        else:
+            rows[row_of(m)] = prod
+    return ll
+
+
+def _onchip_model(P, dP, tips, props):
+    """(mats, prop_k, tip_cols [T, S, 1, 1, 4], value shape) of the K
+    layout: matrices and proportions zero past C (idle places)."""
+    K = paired.lane_categories(P.shape[2])
+    S = tips.shape[-1]
+    mats, prop_k, _ = _wide_model(P, dP, tips, props, K)
+    return (mats, prop_k, tips.transpose(1, 2)[:, :, None, None, :],
+            (S, K, WIDE_LANES, 4))
+
+
+def emulate_onchip_k_ll(dst, child, live_row, e, P, tips, pi, props,
+                        weights):
+    """Per-tree log likelihoods [B] as the on-chip LL body computes them
+    with K = ceil(C / 32) categories a lane of 32 (at C <= 32, K = 1 on 32
+    lanes), over a tape of the paired layout (post_dst `dst`, child codes,
+    rows by liveness, edges), the rows at the kernel's offsets
+    (OnchipRows), in the operands' dtype."""
+    B = dst.shape[0]
+    mats, prop_k, tip_cols, shape = _onchip_model(P, P, tips, props)
+    peak = int(live_row.max()) + 1
+    ll = []
+    for b in range(B):
+        rows = OnchipRows(peak, tips.shape[-1], P.shape[2], P.dtype)
+        ll.append(_onchip_postorder(
+            b, dst, child, e, rows, lambda m, b=b: int(live_row[b, m]),
+            mats, prop_k, pi, tip_cols, shape, P))
+    return torch.stack(ll) @ weights
+
+
+def emulate_onchip_k_grad(dst, child, src, e, P, dP, tips, pi, props,
+                          weights):
+    """(ll_rows [B, S], grad_rows [B, N1, S]) as the on-chip grad body
+    computes them with K = ceil(C / 32) categories a lane of 32, over a
+    tape of the paired layout: op m's output in row m (rows by producer
+    op, at the kernel's offsets), then the outside pass in reverse, one
+    pass over the places: o0 = up ev1 and o1 = up ev0 formed once, the
+    gradient's sums over the unscaled o's, then scaled by the power of
+    two of the largest o (exact), child j's row src[b, m, j] (rows no op
+    writes stay zero), and each child op's up value P^T o over its row.
+    In the operands' dtype."""
+    B, M = dst.shape
+    N1, S = P.shape[1], tips.shape[-1]
+    mats, prop_k, tip_cols, shape = _onchip_model(P, dP, tips, props)
+    T = tip_cols.shape[0]
+    ll_rows = torch.empty((B, S), dtype=P.dtype)
+    grad_rows = torch.zeros((B, N1, S), dtype=P.dtype)
+    for b in range(B):
+        rows = OnchipRows(M, S, P.shape[2], P.dtype)
+        ll_rows[b] = _onchip_postorder(b, dst, child, e, rows, lambda m: m,
+                                       mats, prop_k, pi, tip_cols, shape, P)
+        for m in range(M - 1, -1, -1):
+            d = int(dst[b, m])
+            if d == 2 * M + 1:
+                continue
+            up = pi.expand(shape) if d == 2 * M else rows[m]
+            cs = [int(c) for c in child[b, m]]
+            p = [_onchip_child(rows, lambda c: c, c, tip_cols, shape, T)
+                 for c in cs]
+            Pj = [mats(P, b, e[b, m, j]) for j in (0, 1)]
+            ev = [_wide_evolve(Pj[j], p[j]) for j in (0, 1)]
+            o = [up * ev[1], up * ev[0]]
+            num = [torch.einsum("kg,skga->s", prop_k, o[j] * _wide_evolve(
+                mats(dP, b, e[b, m, j]), p[j])) for j in (0, 1)]
+            den = [torch.einsum("kg,skga->s", prop_k, o[j] * ev[j])
+                   for j in (0, 1)]
+            inv = _pow2(_wide_exponent(torch.stack(o, 1)), P.dtype)
+            for j in (0, 1):
+                n, dn = num[j] * inv.flatten(), den[j] * inv.flatten()
+                dn = torch.where(dn > 0, dn, torch.ones_like(dn))
+                grad_rows[b, int(src[b, m, j])] = weights * n / dn
+                if cs[j] >= 0:  # the child op's outside value, in place
+                    rows[cs[j]] = _wide_evolve_t(Pj[j], o[j] * inv)
+    return ll_rows, grad_rows
+
+
 def check_live_rows(dst, child, row, peak):
     """Rows by liveness (paired.live_rows) on a tape of the paired layout:
     every stored output keeps its row until the op that reads it, and is
