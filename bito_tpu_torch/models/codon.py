@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import PRODUCT_DEVICE, PRODUCT_DTYPE, resolve
+from ..utils import timing
 
 # Universal genetic code: codon -> amino acid (stop codons excluded below).
 _BASES = "TCAG"
@@ -183,14 +184,16 @@ def _mg94_q61(kappa: torch.Tensor, omega: torch.Tensor,
     build: every off-diagonal entry is a product of positive factors
     (pi_j, kappa^ti, omega^nonsyn), so no entry comes from cancellation."""
     dev = nuc_freqs.device
-    pi61 = nuc_freqs[..., torch.as_tensor(CODON_NT_IDX, device=dev)].prod(-1)
+    with timing.span("host_sync"):
+        timing.count("host_syncs", 4)  # four copies from the host
+        nt_idx, ti, nonsyn, single = (
+            torch.as_tensor(x, device=dev)
+            for x in (CODON_NT_IDX, TI_MASK, NONSYN_MASK, SINGLE_MASK))
+    pi61 = nuc_freqs[..., nt_idx].prod(-1)
     pi61 = pi61 / pi61.sum(-1, keepdim=True)
-    rate = (torch.where(torch.as_tensor(TI_MASK, device=dev),
-                        kappa[..., None, None], 1.0)
-            * torch.where(torch.as_tensor(NONSYN_MASK, device=dev),
-                          omega[..., None, None], 1.0))
-    Q = torch.where(torch.as_tensor(SINGLE_MASK, device=dev),
-                    rate * pi61[..., None, :], 0.0)
+    rate = (torch.where(ti, kappa[..., None, None], 1.0)
+            * torch.where(nonsyn, omega[..., None, None], 1.0))
+    Q = torch.where(single, rate * pi61[..., None, :], 0.0)
     Q = Q - torch.diag_embed(Q.sum(-1))
     scale = -(pi61 * torch.diagonal(Q, dim1=-2, dim2=-1)).sum(-1)
     return Q / scale[..., None, None], pi61
@@ -201,7 +204,10 @@ def _pad(x: torch.Tensor, diagonal: float) -> torch.Tensor:
     A, n = PADDED_STATES, NUM_CODONS
     out = torch.zeros(x.shape[:-2] + (A, A), device=x.device, dtype=x.dtype)
     out[..., :n, :n] = x
-    out[..., range(n, A), range(n, A)] = diagonal
+    with timing.span("host_sync"):
+        # the two index vectors and the value, copied from the host
+        timing.count("host_syncs", 3)
+        out[..., range(n, A), range(n, A)] = diagonal
     return out
 
 
@@ -235,16 +241,23 @@ def mg94_eigen(kappa, omega, nuc_freqs):
 
     kw = dict(device=nuc_freqs.device, dtype=nuc_freqs.dtype)
     if kappa.dim() == 0 and _plain(kappa, omega, nuc_freqs):
-        pi61 = codon_frequencies_f1x4(
-            nuc_freqs.detach().cpu().numpy().astype(np.float64))
-        Q61 = mg94_rate_matrix(float(kappa), float(omega), pi61)
-        return EigenDecomp(*(torch.as_tensor(x, **kw)
-                             for x in padded_eigen(Q61, pi61)))
+        with timing.span("host_sync"):
+            timing.count("host_syncs", 3)  # the frequencies, kappa, omega
+            freqs = nuc_freqs.detach().cpu().numpy().astype(np.float64)
+            kappa, omega = float(kappa), float(omega)
+        pi61 = codon_frequencies_f1x4(freqs)
+        Q61 = mg94_rate_matrix(kappa, omega, pi61)
+        eig = padded_eigen(Q61, pi61)
+        with timing.span("host_sync"):
+            timing.count("host_syncs", 4)  # four copies from the host
+            return EigenDecomp(*(torch.as_tensor(x, **kw) for x in eig))
     Q, pi61 = _mg94_q61(kappa, omega, nuc_freqs)
     s = torch.sqrt(pi61)
     Sym = (s[..., :, None] * Q) / s[..., None, :]
     Sym = 0.5 * (Sym + Sym.transpose(-1, -2))
-    lam, V = torch.linalg.eigh(Sym)
+    with timing.span("host_sync"):
+        timing.count("host_syncs")  # the solver's error code, read back
+        lam, V = torch.linalg.eigh(Sym)
     U = V / s[..., :, None]
     U_inv = V.transpose(-1, -2) * s[..., None, :]
     n = NUM_CODONS

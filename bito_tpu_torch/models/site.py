@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
+
 
 def _median_quantiles(category_count: int, like: torch.Tensor) -> torch.Tensor:
     k = torch.arange(category_count, device=like.device, dtype=like.dtype)
@@ -50,7 +52,11 @@ def _newton_gamma_quantile(p: torch.Tensor, a: torch.Tensor,
 def _series_terms(x: torch.Tensor) -> int:
     """Terms of the series in _dgammainc_da that leave a tail under the
     float64 epsilon: its terms fall off past n = x like a Poisson(x) tail."""
-    top = float(x.max()) if x.numel() else 0.0
+    top = 0.0
+    if x.numel():
+        with timing.span("host_sync"):
+            timing.count("host_syncs")
+            top = float(x.max())
     return int(top + 12.0 * top ** 0.5 + 60.0)
 
 

@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import timing
+
 
 class EigenDecomp(NamedTuple):
     """Eigendecomposition of Q: Q = U @ diag(values) @ U_inv, plus the
@@ -75,8 +77,10 @@ def build_gtr_q(rates: torch.Tensor, frequencies: torch.Tensor) -> torch.Tensor:
     Q[i,j] = rate[ij] * pi[j] off-diagonal, rows sum to zero, scaled so the
     expected substitution rate -sum_i pi_i Q_ii equals 1."""
     pi = frequencies
-    iu = torch.tensor(_IU, device=pi.device)
-    ju = torch.tensor(_JU, device=pi.device)
+    with timing.span("host_sync"):
+        timing.count("host_syncs", 2)  # two copies from the host
+        iu = torch.tensor(_IU, device=pi.device)
+        ju = torch.tensor(_JU, device=pi.device)
     Q = torch.zeros(pi.shape[:-1] + (4, 4), device=pi.device, dtype=pi.dtype)
     Q[..., iu, ju] = rates * pi[..., ju]
     Q[..., ju, iu] = rates * pi[..., iu]
@@ -95,7 +99,9 @@ def gtr_eigen(rates: torch.Tensor, frequencies: torch.Tensor) -> EigenDecomp:
     sqrt_pi = torch.sqrt(pi)
     S = (sqrt_pi[..., :, None] * Q) / sqrt_pi[..., None, :]
     S = 0.5 * (S + S.transpose(-1, -2))  # exact symmetry for eigh
-    values, V = torch.linalg.eigh(S)
+    with timing.span("host_sync"):
+        timing.count("host_syncs")  # the solver's error code, read back
+        values, V = torch.linalg.eigh(S)
     U = V / sqrt_pi[..., :, None]
     U_inv = V.transpose(-1, -2) * sqrt_pi[..., None, :]
     return EigenDecomp(U, values, U_inv, pi)
@@ -180,7 +186,9 @@ def uniformized_stack(Q: torch.Tensor, t_max: float):
 
     Returns (stack [K+1, A, A], q as a 0-dim tensor).  The stack is built
     by doubling, stack[n:2n] = stack[:n] @ M^n, in log2(K) products."""
-    q = float((-torch.diagonal(Q, dim1=-2, dim2=-1)).max())
+    with timing.span("host_sync"):
+        timing.count("host_syncs")
+        q = float((-torch.diagonal(Q, dim1=-2, dim2=-1)).max())
     K = uniformized_terms(q * float(t_max))
     A = Q.shape[-1]
     eye = torch.eye(A, device=Q.device, dtype=Q.dtype)
@@ -189,7 +197,10 @@ def uniformized_stack(Q: torch.Tensor, t_max: float):
     while stack.shape[0] < K + 1:
         stack = torch.cat([stack, stack @ Mn])
         Mn = Mn @ Mn
-    return stack[:K + 1], torch.tensor(q, device=Q.device, dtype=Q.dtype)
+    with timing.span("host_sync"):
+        timing.count("host_syncs")  # a copy from pageable host memory
+        q_t = torch.tensor(q, device=Q.device, dtype=Q.dtype)
+    return stack[:K + 1], q_t
 
 
 def uniformized_transition_matrices(stack: torch.Tensor, q: torch.Tensor,

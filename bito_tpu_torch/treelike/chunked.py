@@ -87,6 +87,7 @@ import numpy as np
 import torch
 
 from ..dist import mesh
+from ..utils import timing
 from . import _kernels, paired
 from .paired import (_check_cuda_operands, _check_cuda_tensors, _check_shapes,
                      _rescale, _root_rows)
@@ -450,26 +451,31 @@ def chunked_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     where it is not given the wrapper derives it (a copy of the tapes to
     the host).  The CPU runs the plain version, which needs none."""
     if paired.on_cpu(P):
-        return chunked_log_likelihoods_ref(post_dst, tip_slot, post_e, P,
-                                           tips, pi, props, weights)
-    B, MW, T, N1, C, A, S = _check_chunked(post_dst, tip_slot, post_e, P,
-                                           tips, pi, props, weights)
-    _check_cuda_operands(
-        dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
-        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A)
-    if onchip is None:
-        onchip = onchip_tape(post_dst.cpu().numpy(), tip_slot.cpu().numpy(),
-                             P.device)
-    if tuple(onchip.live_row.shape) != (B, MW):
-        raise ValueError("the on-chip tape does not match post_dst")
-    plan = ll_plan(onchip.ll_rows, MW, N1, C)
-    if plan is None:
-        ll_rows = chunked_ll_global(post_dst, tip_slot, post_e, P, tips, pi,
-                                    props, child=onchip.child)
-    else:
-        ll_rows = chunked_ll_onchip(post_dst, onchip, post_e, P, tips, pi,
-                                    props, plan)
-    return ll_rows @ weights
+        with timing.span("launch"):
+            return chunked_log_likelihoods_ref(post_dst, tip_slot, post_e, P,
+                                               tips, pi, props, weights)
+    with timing.span("launch"):
+        B, MW, T, N1, C, A, S = _check_chunked(post_dst, tip_slot, post_e, P,
+                                               tips, pi, props, weights)
+        _check_cuda_operands(
+            dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
+            dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A)
+        if onchip is None:
+            with timing.span("host_sync"):
+                timing.count("host_syncs", 2)
+                dst, tip = post_dst.cpu().numpy(), tip_slot.cpu().numpy()
+            onchip = onchip_tape(dst, tip, P.device)
+        if tuple(onchip.live_row.shape) != (B, MW):
+            raise ValueError("the on-chip tape does not match post_dst")
+        plan = ll_plan(onchip.ll_rows, MW, N1, C)
+        if plan is None:
+            ll_rows = chunked_ll_global(post_dst, tip_slot, post_e, P, tips,
+                                        pi, props, child=onchip.child)
+        else:
+            ll_rows = chunked_ll_onchip(post_dst, onchip, post_e, P, tips, pi,
+                                        props, plan)
+    with timing.span("finish"):
+        return ll_rows @ weights
 
 
 def chunked_ll_onchip(post_dst, onchip, post_e, P, tips, pi, props,
@@ -548,39 +554,45 @@ def chunked_ll_and_gradients(post_dst, tip_slot, post_e, node_row,
     tape's `onchip_tape`, is required there.  The CPU runs the plain
     version, which needs none."""
     if paired.on_cpu(P):
-        return chunked_ll_and_gradients_ref(
-            post_dst, tip_slot, post_e, node_row, edge_mask, P, dP, tips, pi,
-            props, weights)
-    B, MW, T, N1, C, A, S = _check_chunked(post_dst, tip_slot, post_e, P,
-                                           tips, pi, props, weights)
-    if tuple(dP.shape) != tuple(P.shape):
-        raise ValueError("dP does not match P")
-    for name, t in (("node_row", node_row), ("edge_mask", edge_mask)):
-        if tuple(t.shape) != (B, N1 - 1):
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {(B, N1 - 1)}")
-    _check_cuda_operands(
-        dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e,
-             node_row=node_row),
-        dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
-             edge_mask=edge_mask),
-        C, A)
-    if onchip is None:
-        raise ValueError("the chunked grad kernel needs the tape's "
-                         "OnchipTape on the card: pass "
-                         "onchip=chunked.onchip_tape(...)")
-    plan = onchip_plan(onchip.grad_rows, MW, N1, C)
-    if plan is not None:
-        rows = chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips, pi,
-                                   props, weights, plan)
-    elif (plan := paired_plan(onchip.grad_rows, MW, N1, C)) is not None:
-        return paired.finish_rows(*chunked_grad_paired(
-            post_dst, onchip, post_e, node_row, P, dP, tips, pi, props,
-            weights, plan), edge_mask, weights)  # gradient rows by node
-    else:
-        rows = chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips,
-                                   pi, props, weights, child=onchip.child)
-    return finish_rows(*rows, node_row, edge_mask, weights)
+        with timing.span("launch"):
+            return chunked_ll_and_gradients_ref(
+                post_dst, tip_slot, post_e, node_row, edge_mask, P, dP, tips,
+                pi, props, weights)
+    with timing.span("launch"):
+        B, MW, T, N1, C, A, S = _check_chunked(post_dst, tip_slot, post_e, P,
+                                               tips, pi, props, weights)
+        if tuple(dP.shape) != tuple(P.shape):
+            raise ValueError("dP does not match P")
+        for name, t in (("node_row", node_row), ("edge_mask", edge_mask)):
+            if tuple(t.shape) != (B, N1 - 1):
+                raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                                 f"expected {(B, N1 - 1)}")
+        _check_cuda_operands(
+            dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e,
+                 node_row=node_row),
+            dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
+                 edge_mask=edge_mask),
+            C, A)
+        if onchip is None:
+            raise ValueError("the chunked grad kernel needs the tape's "
+                             "OnchipTape on the card: pass "
+                             "onchip=chunked.onchip_tape(...)")
+        by_node = False  # gradient rows by node, not by grid position
+        if (plan := onchip_plan(onchip.grad_rows, MW, N1, C)) is not None:
+            rows = chunked_grad_onchip(post_dst, onchip, post_e, P, dP, tips,
+                                       pi, props, weights, plan)
+        elif (plan := paired_plan(onchip.grad_rows, MW, N1, C)) is not None:
+            rows = chunked_grad_paired(post_dst, onchip, post_e, node_row, P,
+                                       dP, tips, pi, props, weights, plan)
+            by_node = True
+        else:
+            rows = chunked_grad_global(post_dst, tip_slot, post_e, P, dP,
+                                       tips, pi, props, weights,
+                                       child=onchip.child)
+    with timing.span("finish"):
+        if by_node:
+            return paired.finish_rows(*rows, edge_mask, weights)
+        return finish_rows(*rows, node_row, edge_mask, weights)
 
 
 def chunked_log_likelihoods_sharded(group, post_dst, tip_slot, post_e, P,

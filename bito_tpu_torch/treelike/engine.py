@@ -88,6 +88,7 @@ from ..device import PRODUCT_DEVICE, PRODUCT_DTYPE, resolve
 from ..dist.mesh import PatternSharded, check_same
 from ..models.phylo_model import PhyloModel
 from ..models.substitution import EigenDecomp
+from ..utils import timing
 from . import chunked, paired, prep, pruning
 from .encode import (LeveledEncoding, TreeBatchEncoding, encode_trees,
                      encode_trees_leveled)
@@ -176,9 +177,10 @@ class TreeLikelihoodEngine(PatternSharded):
         if not self._shared_model(params):
             return None
         kw = dict(device=self.device, dtype=torch.float64)
-        return self.model.rate_matrix(
-            {k: torch.as_tensor(params[k], **kw) for k in self.model.blocks},
-            **kw)
+        with timing.span("ingredients"):
+            return self.model.rate_matrix(
+                {k: torch.as_tensor(params[k], **kw)
+                 for k in self.model.blocks}, **kw)
 
     # -- pattern sharding ------------------------------------------------
     def shard_patterns(self, group=None):
@@ -220,15 +222,17 @@ class TreeLikelihoodEngine(PatternSharded):
         """The batch's encoding, cached by topology.  A pattern-sharded
         engine first checks that every rank of its group holds the same
         topologies (_check_topologies)."""
-        key = tuple(t.topology.key() for t in trees)
-        if key != self._encoding_key:
-            self._encoding = encode_trees([t.topology for t in trees])
-            self._encoding_key = key
-            self._encoding_digest = None
-            self._tapes = {}
-        if self.group is not None:
-            self._check_topologies()
-        return self._encoding
+        with timing.span("encode"):
+            key = tuple(t.topology.key() for t in trees)
+            if key != self._encoding_key:
+                timing.count("tape_builds")
+                self._encoding = encode_trees([t.topology for t in trees])
+                self._encoding_key = key
+                self._encoding_digest = None
+                self._tapes = {}
+            if self.group is not None:
+                self._check_topologies()
+            return self._encoding
 
     def _check_topologies(self):
         """Raise on every rank of the group unless every rank's batch has
@@ -249,37 +253,48 @@ class TreeLikelihoodEngine(PatternSharded):
 
     def encode_leveled(self, trees: Sequence[Tree]) -> LeveledEncoding:
         """The levelized encoding of the batch, cached by topology."""
-        key = tuple(t.topology.key() for t in trees)
-        if key != self._leveled_key:
-            self._leveled = encode_trees_leveled([t.topology for t in trees])
-            self._leveled_key = key
-            self._leveled_tapes_cache = None
-        return self._leveled
+        with timing.span("encode"):
+            key = tuple(t.topology.key() for t in trees)
+            if key != self._leveled_key:
+                timing.count("tape_builds")
+                self._leveled = encode_trees_leveled(
+                    [t.topology for t in trees])
+                self._leveled_key = key
+                self._leveled_tapes_cache = None
+            return self._leveled
 
     def _leveled_tapes(self, trees: Sequence[Tree]):
         """(post_levels, pre_levels, root, edge_mask, num_slots) on the
         device for the leveled impls, cached with the levelized encoding."""
         lev = self.encode_leveled(trees)
         if self._leveled_tapes_cache is None:
-            dev = self.device
-            self._leveled_tapes_cache = tuple(
-                torch.as_tensor(x, dtype=torch.long, device=dev)
-                for x in (lev.post_levels, lev.pre_levels, lev.root)) + (
-                torch.as_tensor(lev.edge_mask, dtype=self.dtype, device=dev),
-                lev.num_slots)
+            with timing.span("tapes"):
+                timing.count("tape_builds")
+                dev = self.device
+                self._leveled_tapes_cache = tuple(
+                    torch.as_tensor(x, dtype=torch.long, device=dev)
+                    for x in (lev.post_levels, lev.pre_levels, lev.root)) + (
+                    torch.as_tensor(lev.edge_mask, dtype=self.dtype,
+                                    device=dev),
+                    lev.num_slots)
         return self._leveled_tapes_cache
 
     def _scan_tapes(self, enc: TreeBatchEncoding):
         """(post_ops, pre_ops, root, edge_mask) on the device, cached with
         the encoding."""
         if "scan" not in self._tapes:
-            dev = self.device
-            self._tapes["scan"] = (
-                torch.as_tensor(enc.post_ops, dtype=torch.long, device=dev),
-                torch.as_tensor(enc.pre_ops, dtype=torch.long, device=dev),
-                torch.as_tensor(enc.root, dtype=torch.long, device=dev),
-                torch.as_tensor(enc.edge_mask, dtype=self.dtype, device=dev),
-            )
+            with timing.span("tapes"):
+                timing.count("tape_builds")
+                dev = self.device
+                self._tapes["scan"] = (
+                    torch.as_tensor(enc.post_ops, dtype=torch.long,
+                                    device=dev),
+                    torch.as_tensor(enc.pre_ops, dtype=torch.long,
+                                    device=dev),
+                    torch.as_tensor(enc.root, dtype=torch.long, device=dev),
+                    torch.as_tensor(enc.edge_mask, dtype=self.dtype,
+                                    device=dev),
+                )
         return self._tapes["scan"]
 
     def _kernel_tapes(self, enc: TreeBatchEncoding, ints) -> tuple:
@@ -295,16 +310,18 @@ class TreeLikelihoodEngine(PatternSharded):
         """(post_dst, tip_slot, post_src, post_e, edge_mask) on the device,
         cached with the encoding."""
         if "paired" not in self._tapes:
-            pe = paired.build_paired_encoding(enc)
-            self._tapes["paired"] = self._kernel_tapes(
-                enc, (pe.post_dst, pe.tip_slot, pe.post_src, pe.post_e))
-            # The on-chip bodies' tape, from the same host arrays; the CPU
-            # runs the plain versions and the A=64 kernels read the paired
-            # tapes, which need none.
-            self._tapes["onchip"] = paired.onchip_tape(
-                pe.post_dst, pe.tip_slot, self.device) if (
-                    self.device.type == "cuda"
-                    and self.num_states == 4) else None
+            with timing.span("tapes"):
+                timing.count("tape_builds")
+                pe = paired.build_paired_encoding(enc)
+                self._tapes["paired"] = self._kernel_tapes(
+                    enc, (pe.post_dst, pe.tip_slot, pe.post_src, pe.post_e))
+                # The on-chip bodies' tape, from the same host arrays; the
+                # CPU runs the plain versions and the A=64 kernels read the
+                # paired tapes, which need none.
+                self._tapes["onchip"] = paired.onchip_tape(
+                    pe.post_dst, pe.tip_slot, self.device) if (
+                        self.device.type == "cuda"
+                        and self.num_states == 4) else None
         return self._tapes["paired"]
 
     def _onchip_tape(self, enc: TreeBatchEncoding):
@@ -318,14 +335,16 @@ class TreeLikelihoodEngine(PatternSharded):
         schedule at width chunked.W on the device, cached with the
         encoding."""
         if "chunked" not in self._tapes:
-            ce = chunked.build_chunked_encoding(enc, chunked.W)
-            self._tapes["chunked"] = self._kernel_tapes(
-                enc, (ce.post_dst, ce.tip_slot, ce.post_e, ce.node_row))
-            # The on-chip bodies' tape, from the same host arrays; the CPU
-            # runs the plain versions, which need none.
-            self._tapes["chunked_onchip"] = chunked.onchip_tape(
-                ce.post_dst, ce.tip_slot, self.device) if (
-                    self.device.type == "cuda") else None
+            with timing.span("tapes"):
+                timing.count("tape_builds")
+                ce = chunked.build_chunked_encoding(enc, chunked.W)
+                self._tapes["chunked"] = self._kernel_tapes(
+                    enc, (ce.post_dst, ce.tip_slot, ce.post_e, ce.node_row))
+                # The on-chip bodies' tape, from the same host arrays; the
+                # CPU runs the plain versions, which need none.
+                self._tapes["chunked_onchip"] = chunked.onchip_tape(
+                    ce.post_dst, ce.tip_slot, self.device) if (
+                        self.device.type == "cuda") else None
         return self._tapes["chunked"]
 
     def _chunked_onchip_tape(self, enc: TreeBatchEncoding):
@@ -352,26 +371,29 @@ class TreeLikelihoodEngine(PatternSharded):
         of size t come from O(1) terms of U exp(Lambda t) U^-1 that cancel,
         which in float32 would leave them a relative error of about
         2^-24 / t (a strict clock's 0.0005-substitution branch: 1e-4)."""
-        kw = dict(device=self.device, dtype=torch.float64)
-        vals = {k: torch.as_tensor(params[k], **kw) for k in self.model.blocks}
-        if not all(v.dim() == 1 for v in vals.values()):
-            # Per-tree rows: broadcast shared blocks, then one batched
-            # evaluation of every ingredient.
-            vals = {k: v.expand(batch, self.model.blocks[k][1])
-                    if v.dim() == 1 else v for k, v in vals.items()}
-        eig = self.model.eigen(vals, **kw)
-        C, A = self.model.category_count, self.num_states
+        with timing.span("ingredients"):
+            kw = dict(device=self.device, dtype=torch.float64)
+            vals = {k: torch.as_tensor(params[k], **kw)
+                    for k in self.model.blocks}
+            if not all(v.dim() == 1 for v in vals.values()):
+                # Per-tree rows: broadcast shared blocks, then one batched
+                # evaluation of every ingredient.
+                vals = {k: v.expand(batch, self.model.blocks[k][1])
+                        if v.dim() == 1 else v for k, v in vals.items()}
+            eig = self.model.eigen(vals, **kw)
+            C, A = self.model.category_count, self.num_states
 
-        def rows(x, tail):
-            # One shared row, or already one per tree.
-            return x.expand((batch,) + tail) if x.dim() == len(tail) else x
+            def rows(x, tail):
+                # One shared row, or already one per tree.
+                return (x.expand((batch,) + tail) if x.dim() == len(tail)
+                        else x)
 
-        eig = EigenDecomp(rows(eig.U, (A, A)), rows(eig.values, (A,)),
-                          rows(eig.U_inv, (A, A)), rows(eig.pi, (A,)))
-        rates = rows(self.model.category_rates(vals, **kw), (C,))
-        props = rows(self.model.category_proportions(vals, **kw), (C,))
-        clock = rows(self.model.clock_rate(vals, **kw), ())
-        return eig, rates, props, clock
+            eig = EigenDecomp(rows(eig.U, (A, A)), rows(eig.values, (A,)),
+                              rows(eig.U_inv, (A, A)), rows(eig.pi, (A,)))
+            rates = rows(self.model.category_rates(vals, **kw), (C,))
+            props = rows(self.model.category_proportions(vals, **kw), (C,))
+            clock = rows(self.model.clock_rate(vals, **kw), ())
+            return eig, rates, props, clock
 
     def _branch_lengths(self, trees, enc, branch_lengths):
         if branch_lengths is None:
@@ -388,6 +410,10 @@ class TreeLikelihoodEngine(PatternSharded):
         compile cache; torch compiles no program a batch size, so the port
         takes the keyword and pads nothing (the rows are the same either
         way)."""
+        with timing.span("eval", outermost=True):
+            return self._log_likelihoods(trees, params, branch_lengths)
+
+    def _log_likelihoods(self, trees, params, branch_lengths):
         enc = self.encode(trees)
         bl = self._branch_lengths(trees, enc, branch_lengths)
         eig, rates, props, clock = self._model_ingredients(params, len(trees))
@@ -395,18 +421,24 @@ class TreeLikelihoodEngine(PatternSharded):
         Q = self._rate_Q(params)
         if route == "scan" and self.use_leveled:
             post_levels, _pre, root, _mask, N = self._leveled_tapes(trees)
-            return self._all_reduce(pruning.log_likelihoods_leveled_impl(
-                post_levels, root, self.tip_partials, self.weights, bl,
-                eig, rates, props, clock, Q, num_slots=N,
-                pattern_pad=self.pattern_pad,
-                category_count=self.model.category_count))
+            with timing.span("launch"):
+                ll = pruning.log_likelihoods_leveled_impl(
+                    post_levels, root, self.tip_partials, self.weights, bl,
+                    eig, rates, props, clock, Q, num_slots=N,
+                    pattern_pad=self.pattern_pad,
+                    category_count=self.model.category_count)
+            with timing.span("finish"):
+                return self._all_reduce(ll)
         if route == "scan":
             post_ops, _pre, root, _mask = self._scan_tapes(enc)
-            return self._all_reduce(pruning.log_likelihoods_impl(
-                post_ops, root, self.tip_partials, self.weights, bl,
-                eig, rates, props, clock, Q,
-                num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
-                category_count=self.model.category_count))
+            with timing.span("launch"):
+                ll = pruning.log_likelihoods_impl(
+                    post_ops, root, self.tip_partials, self.weights, bl,
+                    eig, rates, props, clock, Q,
+                    num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
+                    category_count=self.model.category_count)
+            with timing.span("finish"):
+                return self._all_reduce(ll)
         dt = self._operand_dtype
         pi, prop = prep.kernel_model(eig, props, dt)
         P = prep.prepare_inputs(eig, rates, clock, bl, dt, Q=Q)
@@ -420,48 +452,56 @@ class TreeLikelihoodEngine(PatternSharded):
             tapes = (post_dst, tip_slot, post_e)
             onchip = self._chunked_onchip_tape(enc)
             wrapper = chunked.chunked_log_likelihoods
-        return self._all_reduce(wrapper(*tapes, *ops, onchip=onchip)).to(
-            self.dtype)
+        ll = wrapper(*tapes, *ops, onchip=onchip)
+        with timing.span("finish"):
+            return self._all_reduce(ll).to(self.dtype)
 
     def ll_and_branch_gradients(self, trees: Sequence[Tree], params,
                                 branch_lengths=None):
         """(log likelihoods [B], d logL / d branch length [B, N])."""
-        enc = self.encode(trees)
-        bl = self._branch_lengths(trees, enc, branch_lengths)
-        return self.branch_eval_fn(trees, params)(bl)
+        with timing.span("eval", outermost=True):
+            enc = self.encode(trees)
+            bl = self._branch_lengths(trees, enc, branch_lengths)
+            return self.branch_eval_fn(trees, params)(bl)
 
     def branch_eval_fn(self, trees: Sequence[Tree], params):
         """A closure bl[B, N] -> (ll[B], grads[B, N]) bound to this tree
         batch, these model parameters and the engine's current kernel
         choice, with the tapes and model ingredients built once: the hot
         path of a VBPI inner loop or a branch-length sweep."""
+        with timing.span("bind"):
+            kernel = self._bind_branch_eval(trees, params)
+
+        def fn(bl):
+            with timing.span("eval", outermost=True):
+                return kernel(bl)
+
+        return fn
+
+    def _bind_branch_eval(self, trees, params):
+        """branch_eval_fn's closure without its `eval` span."""
         enc = self.encode(trees)
         eig, rates, props, clock = self._model_ingredients(params, len(trees))
         route = self._route(self._shared_model(params))
         Q = self._rate_Q(params)
-        if route == "scan" and self.use_leveled:
-            post_levels, pre_levels, root, edge_mask, N = (
-                self._leveled_tapes(trees))
-
-            def fn(bl):
-                ll, grads = pruning.ll_and_branch_gradients_leveled_impl(
-                    post_levels, pre_levels, root, edge_mask,
-                    self.tip_partials, self.weights, bl, eig, rates, props,
-                    clock, Q, num_slots=N, pattern_pad=self.pattern_pad,
-                    category_count=self.model.category_count)
-                return self._all_reduce(ll), self._all_reduce(grads)
-
-            return fn
         if route == "scan":
-            post_ops, pre_ops, root, edge_mask = self._scan_tapes(enc)
+            if self.use_leveled:
+                post, pre, root, edge_mask, N = self._leveled_tapes(trees)
+                impl = pruning.ll_and_branch_gradients_leveled_impl
+            else:
+                post, pre, root, edge_mask = self._scan_tapes(enc)
+                N = enc.num_slots
+                impl = pruning.ll_and_branch_gradients_impl
 
             def fn(bl):
-                ll, grads = pruning.ll_and_branch_gradients_impl(
-                    post_ops, pre_ops, root, edge_mask, self.tip_partials,
-                    self.weights, bl, eig, rates, props, clock, Q,
-                    num_slots=enc.num_slots, pattern_pad=self.pattern_pad,
-                    category_count=self.model.category_count)
-                return self._all_reduce(ll), self._all_reduce(grads)
+                with timing.span("launch"):
+                    ll, grads = impl(
+                        post, pre, root, edge_mask, self.tip_partials,
+                        self.weights, bl, eig, rates, props, clock, Q,
+                        num_slots=N, pattern_pad=self.pattern_pad,
+                        category_count=self.model.category_count)
+                with timing.span("finish"):
+                    return self._all_reduce(ll), self._all_reduce(grads)
 
             return fn
 
@@ -489,15 +529,17 @@ class TreeLikelihoodEngine(PatternSharded):
 
         def fn(bl):
             ll, grads = kernel(bl)
-            return (self._all_reduce(ll).to(self.dtype),
-                    self._all_reduce(grads).to(self.dtype))
+            with timing.span("finish"):
+                return (self._all_reduce(ll).to(self.dtype),
+                        self._all_reduce(grads).to(self.dtype))
 
         return fn
 
     def ll_eval_fn(self, trees: Sequence[Tree], params):
         """LL-only counterpart of branch_eval_fn: a closure bl[B, N] ->
         ll[B] through the same dispatch as log_likelihoods."""
-        self.encode(trees)
+        with timing.span("bind"):
+            self.encode(trees)
 
         def fn(bl):
             return self.log_likelihoods(trees, params, branch_lengths=bl)
@@ -539,4 +581,6 @@ class TreeLikelihoodEngine(PatternSharded):
             category_count=self.model.category_count,
             iterations=iterations,
             reduce=self._all_reduce)
-        return out.cpu().numpy()
+        with timing.span("host_sync"):
+            timing.count("host_syncs")
+            return out.cpu().numpy()

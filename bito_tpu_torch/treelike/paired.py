@@ -122,6 +122,7 @@ import numpy as np
 import torch
 
 from ..dist import mesh
+from ..utils import timing
 from . import _kernels
 
 RESK = 4  # the tape is padded to a multiple of this many ops, as in bito_tpu
@@ -730,25 +731,27 @@ def paired_log_likelihoods(post_dst, tip_slot, post_e, P, tips, pi, props,
     tape's OnchipTape, is required there; at 64 states the A=64 body,
     which needs none.  The CPU runs the plain version."""
     if on_cpu(P):
-        return paired_log_likelihoods_ref(post_dst, tip_slot, post_e, P,
-                                          tips, pi, props, weights)
-    B, M, T, N1, C, A, S = _check_shapes(post_dst, tip_slot, post_e, P, tips,
-                                         pi, props, weights)
-    _check_cuda_operands(
-        dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
-        dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
-        KERNEL_STATES)
-    if A == 64:
-        return paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi,
-                             props) @ weights
-    plan = _onchip_plan("ll", onchip, M, N1, C)
-    if plan is None:
-        ll_rows = paired_ll_global(post_dst, tip_slot, post_e, P, tips, pi,
-                                   props)
-    else:
-        ll_rows = paired_ll_onchip(post_dst, onchip, post_e, P, tips, pi,
-                                   props, plan)
-    return ll_rows @ weights
+        with timing.span("launch"):
+            return paired_log_likelihoods_ref(post_dst, tip_slot, post_e, P,
+                                              tips, pi, props, weights)
+    with timing.span("launch"):
+        B, M, T, N1, C, A, S = _check_shapes(post_dst, tip_slot, post_e, P,
+                                             tips, pi, props, weights)
+        _check_cuda_operands(
+            dict(post_dst=post_dst, tip_slot=tip_slot, post_e=post_e),
+            dict(P=P, tips=tips, pi=pi, props=props, weights=weights), C, A,
+            KERNEL_STATES)
+        if A == 64:
+            ll_rows = paired_ll_a64(post_dst, tip_slot, post_e, P, tips, pi,
+                                    props)
+        elif (plan := _onchip_plan("ll", onchip, M, N1, C)) is None:
+            ll_rows = paired_ll_global(post_dst, tip_slot, post_e, P, tips,
+                                       pi, props)
+        else:
+            ll_rows = paired_ll_onchip(post_dst, onchip, post_e, P, tips, pi,
+                                       props, plan)
+    with timing.span("finish"):
+        return ll_rows @ weights
 
 
 def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
@@ -757,34 +760,36 @@ def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
     """Per-tree (log likelihood [B], branch gradients [B, N]), by the body
     and with the `onchip` tape as in paired_log_likelihoods."""
     if on_cpu(P):
-        return paired_ll_and_gradients_ref(post_dst, tip_slot, post_src,
-                                           post_e, edge_mask, P, dP, tips,
-                                           pi, props, weights)
-    B, M, T, N1, C, A, S = _check_shapes(post_dst, tip_slot, post_e, P, tips,
-                                         pi, props, weights)
-    if tuple(post_src.shape) != (B, M, 2) or tuple(dP.shape) != tuple(P.shape):
-        raise ValueError("post_src or dP does not match the tape and P")
-    if tuple(edge_mask.shape) != (B, N1 - 1):
-        raise ValueError(f"edge_mask has shape {tuple(edge_mask.shape)}, "
-                         f"expected {(B, N1 - 1)}")
-    _check_cuda_operands(
-        dict(post_dst=post_dst, tip_slot=tip_slot, post_src=post_src,
-             post_e=post_e),
-        dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
-             edge_mask=edge_mask),
-        C, A, KERNEL_STATES)
-    if A == 64:
-        return finish_rows(*paired_grad_a64(post_dst, tip_slot, post_src,
-                                            post_e, P, dP, tips, pi, props,
-                                            weights), edge_mask, weights)
-    plan = _onchip_plan("grad", onchip, M, N1, C)
-    if plan is None:
-        rows = paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP,
-                                  tips, pi, props, weights)
-    else:
-        rows = paired_grad_onchip(post_dst, onchip, post_src, post_e, P, dP,
-                                  tips, pi, props, weights, plan)
-    return finish_rows(*rows, edge_mask, weights)
+        with timing.span("launch"):
+            return paired_ll_and_gradients_ref(post_dst, tip_slot, post_src,
+                                               post_e, edge_mask, P, dP, tips,
+                                               pi, props, weights)
+    with timing.span("launch"):
+        B, M, T, N1, C, A, S = _check_shapes(post_dst, tip_slot, post_e, P,
+                                             tips, pi, props, weights)
+        if (tuple(post_src.shape) != (B, M, 2)
+                or tuple(dP.shape) != tuple(P.shape)):
+            raise ValueError("post_src or dP does not match the tape and P")
+        if tuple(edge_mask.shape) != (B, N1 - 1):
+            raise ValueError(f"edge_mask has shape {tuple(edge_mask.shape)}, "
+                             f"expected {(B, N1 - 1)}")
+        _check_cuda_operands(
+            dict(post_dst=post_dst, tip_slot=tip_slot, post_src=post_src,
+                 post_e=post_e),
+            dict(P=P, dP=dP, tips=tips, pi=pi, props=props, weights=weights,
+                 edge_mask=edge_mask),
+            C, A, KERNEL_STATES)
+        if A == 64:
+            rows = paired_grad_a64(post_dst, tip_slot, post_src, post_e, P,
+                                   dP, tips, pi, props, weights)
+        elif (plan := _onchip_plan("grad", onchip, M, N1, C)) is None:
+            rows = paired_grad_global(post_dst, tip_slot, post_src, post_e, P,
+                                      dP, tips, pi, props, weights)
+        else:
+            rows = paired_grad_onchip(post_dst, onchip, post_src, post_e, P,
+                                      dP, tips, pi, props, weights, plan)
+    with timing.span("finish"):
+        return finish_rows(*rows, edge_mask, weights)
 
 
 def paired_log_likelihoods_sharded(group, post_dst, tip_slot, post_e, P,

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from ..models.substitution import EigenDecomp, rate_matrix_of
+from ..utils import timing
 from . import pruning
 
 KERNEL_DTYPE = torch.float32
@@ -38,17 +39,19 @@ def kernel_model(eig: EigenDecomp, category_proportions: torch.Tensor,
                  dtype=KERNEL_DTYPE):
     """(pi [A], proportions [C]) float32 of a shared model (row 0 of the
     batch-broadcast ingredients)."""
-    return (eig.pi[0].to(dtype).contiguous(),
-            category_proportions[0].to(dtype).contiguous())
+    with timing.span("ingredients"):
+        return (eig.pi[0].to(dtype).contiguous(),
+                category_proportions[0].to(dtype).contiguous())
 
 
 def prepare_inputs(eig: EigenDecomp, category_rates, clock_rate,
                    branch_lengths, dtype=KERNEL_DTYPE, Q=None) -> torch.Tensor:
     """Transition matrices P [B, N+1, C, A, A] float32, identity at N;
     uniformized from the shared [A, A] `Q` where one is given."""
-    P = pruning.transition_matrices_ext(eig, branch_lengths,
-                                        category_rates, clock_rate, Q=Q)
-    return P.to(dtype).contiguous()
+    with timing.span("prep"):
+        P = pruning.transition_matrices_ext(eig, branch_lengths,
+                                            category_rates, clock_rate, Q=Q)
+        return P.to(dtype).contiguous()
 
 
 def prepare_inputs_grad_q(eig: EigenDecomp, category_rates, clock_rate,
@@ -57,15 +60,16 @@ def prepare_inputs_grad_q(eig: EigenDecomp, category_rates, clock_rate,
     dP = rate*clock * Q P identity and zero at the identity edge N.  Q:
     the shared [A, A] rate matrix of the uniformized route, else None
     (Q from the eigensystem, P by the eigen route)."""
-    P = pruning.transition_matrices_ext(eig, branch_lengths, category_rates,
-                                        clock_rate, Q=Q)
-    Qb = (rate_matrix_of(eig) if Q is None
-          else Q.to(P.dtype).expand(P.shape[0], *Q.shape))  # [B, A, A]
-    QC = ((category_rates * clock_rate[:, None])[:, :, None, None]
-          * Qb[:, None])                                     # [B, C, A, A]
-    dP = QC[:, None] @ P                                     # [B, N+1, C, A, A]
-    dP[:, -1] = 0.0
-    return P.to(dtype).contiguous(), dP.to(dtype).contiguous()
+    with timing.span("prep"):
+        P = pruning.transition_matrices_ext(eig, branch_lengths,
+                                            category_rates, clock_rate, Q=Q)
+        Qb = (rate_matrix_of(eig) if Q is None
+              else Q.to(P.dtype).expand(P.shape[0], *Q.shape))  # [B, A, A]
+        QC = ((category_rates * clock_rate[:, None])[:, :, None, None]
+              * Qb[:, None])                                 # [B, C, A, A]
+        dP = QC[:, None] @ P                                 # [B, N+1, C, A, A]
+        dP[:, -1] = 0.0
+        return P.to(dtype).contiguous(), dP.to(dtype).contiguous()
 
 
 def prepare_inputs_grad(eig: EigenDecomp, category_rates, clock_rate,
@@ -73,7 +77,10 @@ def prepare_inputs_grad(eig: EigenDecomp, category_rates, clock_rate,
     """(P, dP), both [B, N+1, C, A, A] float32, with dP from the eigen
     derivative of P (transition_matrices_ext(..., derivative=True)), zero
     at the identity edge N."""
-    P = prepare_inputs(eig, category_rates, clock_rate, branch_lengths, dtype)
-    dP = pruning.transition_matrices_ext(eig, branch_lengths, category_rates,
-                                         clock_rate, derivative=True)
-    return P, dP.to(dtype).contiguous()
+    with timing.span("prep"):
+        P = prepare_inputs(eig, category_rates, clock_rate, branch_lengths,
+                           dtype)
+        dP = pruning.transition_matrices_ext(eig, branch_lengths,
+                                             category_rates, clock_rate,
+                                             derivative=True)
+        return P, dP.to(dtype).contiguous()

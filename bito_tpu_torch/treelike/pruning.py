@@ -33,6 +33,7 @@ from ..models.substitution import (
     uniformized_stack,
     uniformized_transition_matrices,
 )
+from ..utils import timing
 
 
 def _evolve(P_row: torch.Tensor, p_row: torch.Tensor) -> torch.Tensor:
@@ -66,7 +67,12 @@ def transition_matrices_ext(
     if Q is not None:
         t = t.to(torch.promote_types(t.dtype, Q.dtype))
         Q = Q.to(t.dtype)
-        stack, q = uniformized_stack(Q, float(t.max()) if t.numel() else 0.0)
+        t_max = 0.0
+        if t.numel():
+            with timing.span("host_sync"):
+                timing.count("host_syncs")
+                t_max = float(t.max())
+        stack, q = uniformized_stack(Q, t_max)
         P = uniformized_transition_matrices(stack, q, t)
         if derivative:
             P = (Q @ P) * (category_rates * clock_rate[:, None]).to(

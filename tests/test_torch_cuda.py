@@ -22,7 +22,9 @@ limit, and the engine's chunked route at 16); past 32 categories rows
 1-6 on the on-chip bodies with K categories a lane and on the wide
 kernels, and rows 4 and 6 on the paired grad body at 17 and 32; and the
 driver's entry() forward (graft_entry.py), which takes the paired
-on-chip LL body alone.
+on-chip LL body alone; and the program's spans and counters
+(utils/timing.py): torch's sync debug mode against each entry point's
+`host_syncs`, and the tree kernels' launches inside `launch` spans.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -2435,3 +2437,103 @@ def test_graft_entry_forward_takes_the_onchip_ll_kernel(cuda):
     ref = fn64(*[a.cpu().double() for a in args])
     assert ll.shape == (4,) and torch.isfinite(ll).all()
     assert _rel(ll.cpu(), ref) <= 5e-5
+
+
+# -- the program's spans and counters on the card (utils/timing.py) --------
+
+def _traced_engine(model, cuda):
+    """The flagship (GTR+Gamma4) or the codon path (MG94), at DS1's 27
+    taxa, on auto in float32: (engine, trees, params, branch lengths)."""
+    if model == "gtr_gamma4":
+        eng, trees, params = _flagship_engine(20, cuda, torch.float32)
+    else:
+        eng, trees, params = _codon_engine("constant", 5, 27, 16, False,
+                                           cuda, torch.float32)
+    bl = eng.branch_length_matrix(trees, eng.encode(trees))
+    return eng, trees, params, bl
+
+
+def _bound(eng, trees, params, entry):
+    if entry == "branch_eval":
+        return eng.branch_eval_fn(trees, params)
+    return eng.ll_eval_fn(trees, params)
+
+
+@pytest.mark.parametrize("entry", ["branch_eval", "ll_eval"])
+@pytest.mark.parametrize("model", ["gtr_gamma4", "mg94"])
+def test_sync_debug_warnings_of_a_call_are_its_host_syncs(cuda, model,
+                                                           entry):
+    """torch's sync debug mode over one call warns once for each host
+    sync the call counts, each inside a `host_sync` span.  The flagship's
+    closure makes none; the codon closure reads q t and q and copies q
+    back.  The LL closure rebuilds the model every call: at the flagship
+    GTR's two index copies, eigh's error code and the Gamma rates' series
+    length (4); on the codon path the host eigensystem's three reads and
+    four copies back, Q's four mask copies and its padding's three, and
+    the three of P (17)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bito_tpu_torch.utils import timing
+
+    eng, trees, params, bl = _traced_engine(model, cuda)
+    fn = _bound(eng, trees, params, entry)
+    fn(bl)
+    torch.cuda.synchronize()
+    seen = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            open_spans = timing._session.open
+            seen.append((f"{filename}:{lineno}",
+                         open_spans[-1].name if open_spans else None))
+
+    with profile(activities=[ProfilerActivity.CUDA]):
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(bl)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    records = timing.recorded()
+    assert [r.name for r in records if r.parent is None] == ["eval"]
+    syncs = sum(r.counts.get("host_syncs", 0) for r in records)
+    expected = {("gtr_gamma4", "branch_eval"): 0, ("gtr_gamma4", "ll_eval"): 4,
+                ("mg94", "branch_eval"): 3, ("mg94", "ll_eval"): 17}
+    assert syncs == len(seen) == expected[model, entry], seen
+    assert all(name == "host_sync" for _, name in seen), seen
+
+
+@pytest.mark.parametrize("model", ["gtr_gamma4", "mg94"])
+def test_tree_kernel_launches_lie_inside_launch_spans(cuda, tmp_path,
+                                                      model):
+    """In device_trace's Chrome trace of a few calls, the CUDA runtime's
+    launch of every tree kernel lies inside an exported `launch` span
+    (within 20 us: the spans' map onto the trace's clock)."""
+    import json
+
+    from bito_tpu_torch.utils import timing
+
+    eng, trees, params, bl = _traced_engine(model, cuda)
+    fn = eng.branch_eval_fn(trees, params)
+    fn(bl)
+    torch.cuda.synchronize()
+    with timing.device_trace(str(tmp_path)):
+        for _ in range(3):
+            fn(bl)
+        torch.cuda.synchronize()
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "bito_tpu_torch" and e["name"] == "launch"]
+    tree = {e["args"]["correlation"] for e in events
+            if e.get("cat") == "kernel" and "paired_" in e.get("name", "")}
+    launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                and e.get("args", {}).get("correlation") in tree]
+    assert len(spans) == 3 and len(launches) == len(tree) == 3
+    for e in launches:
+        assert any(a - 20 <= e["ts"] and e["ts"] + e["dur"] <= b + 20
+                   for a, b in spans), (e, spans)
