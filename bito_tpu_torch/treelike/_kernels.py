@@ -1,5 +1,5 @@
-"""Build and bind the hand-written CUDA kernels of treelike/csrc and
-perflab/csrc.
+"""Build and bind the hand-written CUDA kernels of treelike/csrc,
+models/csrc and perflab/csrc.
 
 The sources are compiled with nvcc into one shared library with a plain C
 interface, at first use, under bito_tpu_torch/_build/ (listed in
@@ -32,7 +32,8 @@ _SOURCES = tuple(f"treelike/csrc/{name}" for name in (
     "paired_grad_onchip.cu", "paired_ll_a64.cu", "paired_grad_a64.cu",
     "chunked_ll.cu", "chunked_grad.cu",
     "chunked_grad_onchip.cu", "pernode_ll.cu", "pernode_grad.cu",
-    "pernode_grad_onchip.cu")) + tuple(
+    "pernode_grad_onchip.cu")) + (
+    "models/csrc/transition_prep.cu",) + tuple(
     f"perflab/csrc/{name}" for name in (
         "variant_grad.cu", "pipe_cell.cu", "stream_sum.cu", "static_chain.cu",
         "chunk_variant.cu"))
@@ -93,6 +94,10 @@ _SIGNATURES = {
     # post_dst, child, live_row, post_e, P, tips, pi, props, ll_rows,
     # B, M, T, N1, C, S, rows, cols, ring, variant, stream
     "bito_chunk_variant": [_P] * 9 + [_I] * 10 + [_P],
+    # bl, U, U_inv, lambda, rates, clock, P, dP, B, N, C, bl_f64, bl's
+    # strides (2), U's (3), U_inv's (3), lambda's (2), rates' (2), clock's,
+    # stream
+    "bito_transition_prep": [_P] * 8 + [_I] * 17 + [_P],
     # idx, big, out, cells, block_rows, scratch_rows, S, init, loops,
     # stores, T, stage_rows, stream
     "bito_pipe_cell": [_P] * 3 + [_I] * 9 + [_P],

@@ -236,6 +236,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      first WIDE_REF_TREES trees within 5e-5 of their float64 plain
      versions, and rows 1b-2b at 33, 48 and 64 on CODON_REF_TREES trees
      of the codon shape within A64_BOUND (wide_parity).
+     The paired route's prep kernel (models/csrc/transition_prep.cu,
+     prep.transition_prep: P and dP at 4 states from the float64
+     ingredients) against the torch ops it replaced on the flagship's
+     trees at two draws of branch lengths each, at Gamma4, Gamma64 and
+     the rooted oracle's shape 0.1 with branches 0 and 0.0005: every
+     entry within one float32 ulp or 4e-16 absolute (prep_parity); phase
+     3 counts its launches on every path whose engine takes the paired
+     route's gradients at 4 states.
      chunk_variant's variants (v0, w4, w8, norescale, notips, fixstore,
      nodot, unroll) against their float64 plain versions on the
      flagship's chunked operands: the LL within 5e-5 relative (notips,
@@ -752,6 +760,16 @@ KERNELS = {
        for name, line, wrapper in (
            ("paired_ll_a64", 423, paired.paired_ll_a64),
            ("paired_grad_a64", 446, paired.paired_grad_a64))},
+    # The paired route's prep at 4 states (P and dP from the float64
+    # ingredients), which bito_tpu left to XLA: every path whose engine
+    # takes the paired route's gradients at 4 states launches it
+    "transition_prep": dict(
+        source="bito_tpu_torch/models/csrc/transition_prep.cu",
+        replaces="none: bito_tpu/treelike/pallas_pruning.py:383 "
+                 "prepare_inputs_grad_q, left to XLA",
+        wrapper=prep.transition_prep, path="paired",
+        also=("categories", "large", "vbpi", "rooted", "cli", "wide",
+              "wide-large")),
 }
 # The A=64 kernels' __global__ functions, whose SASS phase 1 reads
 TENSOR_KERNELS = ("paired_ll_a64_kernel", "paired_grad_a64_kernel")
@@ -1110,6 +1128,84 @@ def plain64(grad_ops, step=40):
         mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
         *f64) for i in range(0, dst.shape[0], step)]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+PREP_WIDE_C = 64
+PREP_TINY = 4e-16  # float64 rounding of O(1) terms at an entry near 0
+PREP_OLD_SHAPE = 0.1  # the rooted oracle's Gamma shape
+PREP_OLD_BRANCHES = (0.0, 0.0005)  # a zero and a strict clock's branch
+
+
+def ulp_misses(a, b, tiny=PREP_TINY):
+    """(entries of float32 `a` farther from `b` than one float32 ulp of the
+    larger and than `tiny` absolute, the largest difference)."""
+    big = torch.maximum(a.abs(), b.abs())
+    ulp = (torch.nextafter(big, torch.full_like(big, math.inf)) - big
+           ).double()
+    diff = (a.double() - b.double()).abs()
+    return int(((diff > ulp) & (diff > tiny)).sum()), diff.max().item()
+
+
+def prep_parity(sp, bl, dev, errs):
+    """Phase 2's prep kernel (prep.transition_prep) against its plain
+    version (prep.transition_prep_plain, the torch ops it replaced) on the
+    same card operands: the flagship's trees at two draws of branch
+    lengths each (2 BATCH rows, as the benchmark's stream mix), at
+    GTR+Gamma4, at GTR+Gamma PREP_WIDE_C, and at Gamma shape
+    PREP_OLD_SHAPE with every tree's first branches PREP_OLD_BRANCHES
+    long; every entry of P and dP within one float32 ulp of the torch
+    ops' or within PREP_TINY absolute, row N the identity and zero.  Fills
+    errs; returns phase 4's work and calls at GTR+Gamma4 (bound by the
+    bytes written, 128 a matrix, and the branch lengths read: its float64
+    arithmetic, about 300 operations a matrix, takes under 1 us at the
+    FP64 units' rate)."""
+    draw = torch.exp(0.1 * torch.randn(
+        bl.shape, device=dev, generator=torch.Generator(device=dev).manual_seed(
+            SEED)))
+    two = torch.cat([bl, bl * draw])
+    old = two.clone()
+    old[:, :len(PREP_OLD_BRANCHES)] = torch.tensor(PREP_OLD_BRANCHES,
+                                                   device=dev)
+    old_params = dict(PARAMS, site_model_parameters=np.array(
+        [PREP_OLD_SHAPE]))
+    worst = [0.0, 0.0]
+    for label, C, p, b in (("GTR+Gamma4", 4, PARAMS, two),
+                           (f"GTR+Gamma{PREP_WIDE_C}", PREP_WIDE_C, PARAMS,
+                            two),
+                           (f"GTR+Gamma4 at shape {PREP_OLD_SHAPE:g}, "
+                            f"branches {PREP_OLD_BRANCHES}", 4, old_params,
+                            old)):
+        eng = TreeLikelihoodEngine(sp, category_model(C), device=dev,
+                                   dtype=PRODUCT_DTYPE)
+        eig, rates, _, clock = eng._model_ingredients(
+            params_from_numpy(p, dev, PRODUCT_DTYPE), b.shape[0])
+        before = prep.transition_prep.launches
+        P, dP = prep.transition_prep(eig, rates, clock, b)
+        P0, dP0 = prep.transition_prep_plain(eig, rates, clock, b)
+        torch.cuda.synchronize()
+        check(prep.transition_prep.launches == before + 1,
+              f"transition_prep launched once at {label}")
+        N = b.shape[1]
+        misses = [ulp_misses(P, P0), ulp_misses(dP, dP0)]
+        eye = torch.eye(4, device=dev).expand(b.shape[0], C, 4, 4)
+        print(f"# phase 2: transition_prep at {label}, {b.shape[0]} trees: "
+              f"P {misses[0][0]} and dP {misses[1][0]} entries past one "
+              f"float32 ulp and {PREP_TINY:g} of the torch ops', max abs "
+              f"diff {misses[0][1]:.3e} / {misses[1][1]:.3e}")
+        check(misses[0][0] == 0 and misses[1][0] == 0,
+              f"transition_prep within one ulp of the torch ops at {label}")
+        check(bool(torch.equal(P[:, N], eye)) and not bool(dP[:, N].any()),
+              f"transition_prep's row N at {label}")
+        worst = [max(worst[0], norm_err(P, P0), norm_err(dP, dP0)),
+                 max(worst[1], misses[0][1], misses[1][1])]
+        if C == 4 and p is PARAMS:
+            ops = (eig, rates, clock, b)
+            work = {"transition_prep": (0, nbytes(P, dP, b), None)}
+        del eng, P, dP, P0, dP0
+    errs["transition_prep"] = tuple(worst)
+    calls = {"transition_prep": (lambda: prep.transition_prep_plain(*ops),
+                                 lambda: prep.transition_prep(*ops))}
+    return work, calls
 
 
 def category_parity(dev, errs):
@@ -1787,8 +1883,10 @@ PIPE_TIMED = "paired-like"
 CHAIN_R = 20
 # phase 4 times them, and their library call, by graph_ms
 GRAPH_TIMED = ("pipe_cell", "stream_sum_4d", "stream_sum_3d", "static_chain",
-               "chunk_variant")
+               "chunk_variant", "transition_prep")
 LAB_SHAPES = {
+    "transition_prep": f"GTR+Gamma4, float64 ingredients to float32 P and "
+                       f"dP, {2 * BATCH} trees x 53 edges",
     "variant_grad": f"unroll, float32, {BATCH} trees x 1024 patterns",
     "pipe_cell": f"{PIPE_TIMED}, {CELLS} cells",
     "stream_sum_4d": f"{CELLS} cells of 32 x 256 x 128 bf16",
@@ -4449,7 +4547,7 @@ DIST_VBPI_STEPS = 2  # the sharded trainer's timed steps, after a warm-up
 GP_DIST_BOUND = 1e-9  # tests/test_dist.py:179-180
 LEVELED_BOUND = 1e-10
 DIST_EXPECT = {  # the route's kernels on the dist path
-    "auto": ("paired_ll_onchip", "paired_grad_onchip"),
+    "auto": ("paired_ll_onchip", "paired_grad_onchip", "transition_prep"),
     "chunked": ("chunked_ll_onchip", "chunked_grad_onchip"),
     "codon": ("paired_ll_a64", "paired_grad_a64")}
 
@@ -5210,6 +5308,7 @@ def main():
     wide_parity(dev, errs)
     print(f"# phase 2: past 32 categories took {time.perf_counter() - t0:.1f}"
           " s")
+    prep_work, prep_calls = prep_parity(sp, bl, dev, errs)
 
     ends.append(time.perf_counter())
     # -- 3. the paths ------------------------------------------------------------
@@ -5443,6 +5542,8 @@ def main():
     calls.update(lab_calls)
     calls.update(codon_calls)
     work.update(codon_work)
+    work.update(prep_work)
+    calls.update(prep_calls)
     # Rows 1b-2b at CODON_CATEGORY_C categories, through their wrappers, on
     # the codon-categories path's operands
     cc_work, cc_calls = codon_timed(

@@ -24,7 +24,9 @@ kernels, and rows 4 and 6 on the paired grad body at 17 and 32; and the
 driver's entry() forward (graft_entry.py), which takes the paired
 on-chip LL body alone; and the program's spans and counters
 (utils/timing.py): torch's sync debug mode against each entry point's
-`host_syncs`, and the tree kernels' launches inside `launch` spans.
+`host_syncs`, and the tree kernels' launches inside `launch` spans; and
+the paired route's prep kernel (models/csrc/transition_prep.cu) against
+the torch ops it replaced, and which calls launch it.
 
 Every test here needs an NVIDIA card and is marked `cuda`; where no card
 is visible each skips.  The file imports neither jax nor bito_tpu, so it
@@ -48,6 +50,7 @@ from bito_tpu_torch.convert import params_from_numpy
 from bito_tpu_torch.core.newick import parse_newick_text
 from bito_tpu_torch.core.site_pattern import CodonSitePattern, SitePattern
 from bito_tpu_torch.models.phylo_model import PhyloModel, PhyloModelSpecification
+from bito_tpu_torch.models.substitution import EigenDecomp
 from bito_tpu_torch.perflab import perf_lab, perf_pipe_lab, perf_static_probe
 from bito_tpu_torch.treelike import chunked, paired, pernode, prep, pruning
 from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
@@ -2075,16 +2078,19 @@ def test_rooted_instance_on_the_card_matches_float64(cuda, tmp_path, spec):
     """The rooted instance's LL (with and without the Jacobian) and every
     gradient key on the card against the instance on the CPU in float64,
     within 5e-5; its likelihoods and branch gradients take the paired
-    on-chip bodies on the bifurcating root."""
+    on-chip bodies on the bifurcating root, and its gradients' P and dP
+    the prep kernel."""
     card, cpu = _rooted_instances(tmp_path, spec, cuda)
-    before = [w.launches for w in PAIRED]
+    before = [w.launches for w in PAIRED + (prep.transition_prep,)]
     ll = card.log_likelihoods()
     ll0 = card.log_likelihoods(include_log_det_jacobian=False)
     pgs = card.phylo_gradients()
     torch.cuda.synchronize()
-    launched = {w.__name__: w.launches - b for w, b in zip(PAIRED, before)}
+    launched = {w.__name__: w.launches - b
+                for w, b in zip(PAIRED + (prep.transition_prep,), before)}
     assert launched == {"paired_ll_onchip": 2, "paired_ll_global": 0,
-                        "paired_grad_onchip": 1, "paired_grad_global": 0}
+                        "paired_grad_onchip": 1, "paired_grad_global": 0,
+                        "transition_prep": 1}
     assert _rel(torch.as_tensor(ll), torch.as_tensor(cpu.log_likelihoods())
                 ) <= 5e-5
     assert _rel(torch.as_tensor(ll0), torch.as_tensor(cpu.log_likelihoods(
@@ -2537,3 +2543,178 @@ def test_tree_kernel_launches_lie_inside_launch_spans(cuda, tmp_path,
     for e in launches:
         assert any(a - 20 <= e["ts"] and e["ts"] + e["dur"] <= b + 20
                    for a, b in spans), (e, spans)
+
+
+# -- the paired route's prep (models/csrc/transition_prep.cu) --------------
+
+def _prep_operands(C, per_tree, device, B=400, num_taxa=27):
+    """The paired route's prep operands at the flagship's shape (B trees,
+    N = 2 * 27 - 2 slots), in the rooted oracle's regime: GTR+Gamma(C) at
+    shape 0.1 (the slowest category's rate 1e-8 at C = 4), every tree's
+    first branch 0 and its second 0.0005 substitutions, the rest log-normal
+    about 0.1.  Shared: one row expanded over the trees (tree stride 0),
+    clock 1; per-tree: GTR rates, frequencies and shape a row a tree, and
+    clock rates 0.5-2."""
+    gen = np.random.default_rng(11 + C + 100 * per_tree)
+    N = 2 * num_taxa - 2
+    model = PhyloModel(PhyloModelSpecification("GTR", f"gamma+{C}"))
+    kw = dict(device=device, dtype=torch.float64)
+    rows = B if per_tree else 1
+    rates6 = gen.uniform(0.5, 2.0, (rows, 6))
+    freqs = gen.uniform(0.15, 0.35, (rows, 4))
+    shape = np.full((rows, 1), 0.1) if not per_tree else gen.uniform(
+        0.1, 1.0, (rows, 1))
+    vals = {"substitution_model_rates": torch.as_tensor(
+                rates6 / rates6.sum(-1, keepdims=True), **kw),
+            "substitution_model_frequencies": torch.as_tensor(
+                freqs / freqs.sum(-1, keepdims=True), **kw),
+            "site_model_parameters": torch.as_tensor(shape, **kw)}
+    eig = model.eigen(vals, **kw)
+    rates = model.category_rates(vals, **kw)
+    if not per_tree:
+        eig = EigenDecomp(*(x.expand((B,) + x.shape[1:]) for x in eig))
+        rates = rates.expand(B, C)
+    clock = (torch.as_tensor(gen.uniform(0.5, 2.0, B), **kw) if per_tree
+             else torch.ones((), **kw).expand(B))
+    bl = np.exp(gen.normal(np.log(0.1), 1.0, (B, N)))
+    bl[:, 0], bl[:, 1] = 0.0, 0.0005
+    return eig, rates, clock, torch.as_tensor(bl, dtype=torch.float32,
+                                              device=device)
+
+
+def _within_one_ulp(a, b, tiny=4e-16):
+    """Each entry of float32 a within one float32 ulp of b's, or within
+    `tiny` absolute (where float64 rounding of O(1) terms decides an entry
+    near 0, clamped or not)."""
+    a64, b64 = a.double(), b.double()
+    big = torch.maximum(a.abs(), b.abs())
+    ulp = (torch.nextafter(big, torch.full_like(big, float("inf"))) - big
+           ).double()
+    diff = (a64 - b64).abs()
+    bad = (diff > ulp) & (diff > tiny)
+    return bad.sum().item(), diff.max().item()
+
+
+@pytest.mark.parametrize("per_tree", [False, True], ids=["shared", "rows"])
+@pytest.mark.parametrize("C", [1, 4, 16, 33, 64])
+def test_transition_prep_matches_the_torch_ops(cuda, C, per_tree):
+    """The prep kernel's P and dP against the torch ops on the same
+    operands on the card (prep.transition_prep_plain, the route before
+    it): at 400 trees x 27 taxa, every entry within one float32 ulp, or
+    within 4e-16 absolute; row N exactly the identity and zero."""
+    eig, rates, clock, bl = _prep_operands(C, per_tree, cuda)
+    before = prep.transition_prep.launches
+    P, dP = prep.transition_prep(eig, rates, clock, bl)
+    P0, dP0 = prep.transition_prep_plain(eig, rates, clock, bl)
+    torch.cuda.synchronize()
+    assert prep.transition_prep.launches == before + 1
+    B, N = bl.shape
+    assert P.shape == dP.shape == (B, N + 1, C, 4, 4)
+    assert P.is_contiguous() and dP.is_contiguous()
+    assert P.dtype == dP.dtype == torch.float32
+    assert _within_one_ulp(P, P0)[0] == 0, _within_one_ulp(P, P0)
+    assert _within_one_ulp(dP, dP0)[0] == 0, _within_one_ulp(dP, dP0)
+    eye = torch.eye(4, device=cuda).expand(B, C, 4, 4)
+    assert torch.equal(P[:, N], eye) and not dP[:, N].any()
+    assert torch.isfinite(P).all() and (P >= 0).all()
+
+
+def test_transition_prep_reads_float64_branch_lengths(cuda):
+    """graft_entry's training step hands the prep float64 branch lengths:
+    the kernel reads them as they are, as the torch ops do."""
+    eig, rates, clock, bl = _prep_operands(4, False, cuda, B=16)
+    bl = bl.double() * (1 + 1e-3)
+    P, dP = prep.transition_prep(eig, rates, clock, bl)
+    P0, dP0 = prep.transition_prep_plain(eig, rates, clock, bl)
+    assert _within_one_ulp(P, P0)[0] == 0
+    assert _within_one_ulp(dP, dP0)[0] == 0
+
+
+def test_engine_calls_launch_the_prep_kernel_once(cuda):
+    """One branch_eval_fn call of a float32 GTR+Gamma4 engine on the card
+    (auto, the paired route) launches the prep kernel once; the codon
+    engine's (a shared Q, the uniformized route) and a float64 prep on the
+    card launch it zero times, and the latter gives the torch ops'
+    operands."""
+    eng, trees, params = _engine("gtr_gamma4", 3, 27, 8, False, cuda,
+                                 torch.float32)
+    enc = eng.encode(trees)
+    bl = eng.branch_length_matrix(trees, enc)
+    fn = eng.branch_eval_fn(trees, params)
+    fn(bl)
+    torch.cuda.synchronize()
+    before = prep.transition_prep.launches
+    fn(bl)
+    torch.cuda.synchronize()
+    assert prep.transition_prep.launches == before + 1
+
+    codon, ctrees, cparams = _codon_engine("constant", 7, 8, 4, False, cuda,
+                                           torch.float32)
+    cfn = codon.branch_eval_fn(ctrees, cparams)
+    cbl = codon.branch_length_matrix(ctrees, codon.encode(ctrees))
+    before = prep.transition_prep.launches
+    cfn(cbl)
+    eig, rates, _, clock = eng._model_ingredients(params, len(trees))
+    P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl, torch.float64)
+    P0, dP0 = prep.transition_prep_plain(eig, rates, clock, bl,
+                                         torch.float64)
+    torch.cuda.synchronize()
+    assert prep.transition_prep.launches == before
+    assert P.dtype == torch.float64
+    assert torch.equal(P, P0) and torch.equal(dP, dP0)
+
+
+@pytest.mark.parametrize("case", ["int32", "float16", "A64"])
+def test_transition_prep_refuses_on_the_card(cuda, case):
+    """On the card the launcher raises, and launches nothing, for branch
+    lengths that are not float32 / float64 and for a 64-state eigensystem
+    forced into it with Q None."""
+    eig, rates, clock, bl = _prep_operands(4, False, cuda, B=8)
+    if case == "int32":
+        bl = bl.int()
+    elif case == "float16":
+        bl = bl.half()
+    else:
+        eig = EigenDecomp(
+            torch.eye(64, dtype=torch.float64, device=cuda).expand(8, 64, 64),
+            torch.zeros((8, 64), dtype=torch.float64, device=cuda),
+            torch.eye(64, dtype=torch.float64, device=cuda).expand(8, 64, 64),
+            torch.full((8, 64), 1 / 64, dtype=torch.float64, device=cuda))
+    before = prep.transition_prep.launches
+    with pytest.raises((ValueError, TypeError)):
+        prep.transition_prep(eig, rates, clock, bl)
+    assert prep.transition_prep.launches == before
+
+
+def test_sliced_branch_lengths_take_the_prep_kernel(cuda):
+    """Branch lengths that are a slice of a wider buffer (not contiguous)
+    go through the prep kernel as they lie, read through their strides:
+    its P and dP equal those of a contiguous copy, and a flagship
+    engine's branch_eval_fn and ll_and_branch_gradients give the copy's
+    LL and gradients bit for bit, one prep launch a call.  float16
+    branch lengths in the closure take the torch ops, as before the
+    kernel."""
+    eig, rates, clock, bl = _prep_operands(4, True, cuda, B=16)
+    sliced = torch.cat([bl, 2 * bl], 1)[:, :bl.shape[1]]
+    assert not sliced.is_contiguous()
+    for a, b in zip(prep.transition_prep(eig, rates, clock, sliced),
+                    prep.transition_prep(eig, rates, clock, bl)):
+        assert torch.equal(a, b)
+
+    eng, trees, params = _engine("gtr_gamma4", 3, 27, 8, False, cuda,
+                                 torch.float32)
+    bl = eng.branch_length_matrix(trees, eng.encode(trees))
+    sliced = torch.cat([bl, bl + 1], 1)[:, :bl.shape[1]]
+    fn = eng.branch_eval_fn(trees, params)
+    before = prep.transition_prep.launches
+    outs = [fn(sliced), fn(bl),
+            eng.ll_and_branch_gradients(trees, params,
+                                        branch_lengths=sliced)]
+    torch.cuda.synchronize()
+    assert prep.transition_prep.launches == before + 3
+    for out in outs[::2]:
+        assert all(torch.equal(x, y) for x, y in zip(out, outs[1]))
+    ll16, g16 = fn(bl.half())
+    torch.cuda.synchronize()
+    assert prep.transition_prep.launches == before + 3
+    assert _rel(ll16, outs[1][0]) <= 1e-3

@@ -1,9 +1,9 @@
 """The kernel build (treelike/_kernels.py) without a CUDA toolkit: a
 stand-in nvcc script shows that a build compiles every source of the
-tree-likelihood kernels and the four perf-lab probes, one nvcc each, and
-links them into one library named by the sources' hash; that it runs once
-per source hash, keeps nvcc's messages beside the library, and raises with
-nvcc's stderr when a compile fails."""
+tree-likelihood kernels, the model prep's kernel and the perf-lab probes,
+one nvcc each, and links them into one library named by the sources'
+hash; that it runs once per source hash, keeps nvcc's messages beside the
+library, and raises with nvcc's stderr when a compile fails."""
 import os
 import pathlib
 import re
@@ -53,7 +53,7 @@ touch "$2"
     assert sorted(r.split()[-1] for r in runs[:-1]) == sorted(
         str(workdir / "pkg" / s) for s in _kernels._SOURCES)
     assert {pathlib.PurePath(s).parts[0] for s in _kernels._SOURCES} == {
-        "treelike", "perflab"}
+        "treelike", "models", "perflab"}
     assert all(" -c " in r and "sm_90a" in r for r in runs[:-1])
     assert " -shared " in runs[-1] and runs[-1].count(".o") == len(
         _kernels._SOURCES)
@@ -65,13 +65,14 @@ touch "$2"
     # An edit to any source names a new library and builds again.
     for name in ("treelike/csrc/chunked_grad.cu", "treelike/csrc/common.cuh",
                  "perflab/csrc/static_chain.cu",
-                 "treelike/csrc/pernode_onchip.cuh"):
+                 "treelike/csrc/pernode_onchip.cuh",
+                 "models/csrc/transition_prep.cu"):
         src = workdir / "pkg" / name
         src.write_text(src.read_text() + "\n// edited\n")
         so2 = _kernels.build()
         assert so2 != so and so2.exists()
         so = so2
-    assert len(calls.read_text().splitlines()) == 5 * len(runs)
+    assert len(calls.read_text().splitlines()) == 6 * len(runs)
 
 
 def test_every_included_header_is_hashed():

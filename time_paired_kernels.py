@@ -18,12 +18,14 @@ each C it prints one line with the card's name and power limit: where
 the checkout's auto route takes the paired kernels, each kernel's ms
 (CUDA events, the mean of 50 calls after a warm-up, in two turns), and
 the auto route's LL+gradient call (branch_eval_fn) in ms and evals/s,
-whichever route it takes.  With --codon the workload is chip_smoke.py's
-codon path instead (bito_tpu's config6: 128 trees cycled from 10 random
-topologies of 27 taxa over 649 codons of 573 distinct patterns, MG94
-with config6's parameters, constant rates at C = 1 and Gamma C, shape
-0.8, past it), and the kernels are rows 1b-2b, the A=64 kernels (default
-C: 1).  Needs a card and nvcc.
+whichever route it takes; where the checkout has the paired route's prep
+kernel (prep.transition_prep), its device us at the batch and at twice
+the batch beside the torch ops it replaced.  With --codon the workload
+is chip_smoke.py's codon path instead (bito_tpu's config6: 128 trees
+cycled from 10 random topologies of 27 taxa over 649 codons of 573
+distinct patterns, MG94 with config6's parameters, constant rates at
+C = 1 and Gamma C, shape 0.8, past it), and the kernels are rows 1b-2b,
+the A=64 kernels (default C: 1).  Needs a card and nvcc.
 """
 from __future__ import annotations
 
@@ -51,7 +53,7 @@ def main(argv):
     from bito_tpu_torch.core.site_pattern import CodonSitePattern, SitePattern
     from bito_tpu_torch.models.phylo_model import (PhyloModel,
                                                    PhyloModelSpecification)
-    from bito_tpu_torch.perflab import card_line, cuda_ms
+    from bito_tpu_torch.perflab import card_line, cuda_ms, graph_ms
     from bito_tpu_torch.treelike import paired, prep
     from bito_tpu_torch.treelike.engine import TreeLikelihoodEngine
 
@@ -113,6 +115,8 @@ def main(argv):
             parts += [f"{k} kernel {sum(v) / len(v):.4f} ms ("
                       + "/".join(f"{x:.4f}" for x in v) + ")"
                       for k, v in ms.items()]
+            if not codon and hasattr(prep, "transition_prep"):
+                parts += prep_parts(eng, params, bl, batch, graph_ms, prep)
         fn = eng.branch_eval_fn(trees, params)
         call = cuda_ms(lambda: fn(bl), 20 if route == "paired" else 3)
         parts.append(f"auto ({route}) call {call:.4f} ms, "
@@ -122,6 +126,31 @@ def main(argv):
               f"patterns: " + "; ".join(parts) + f"; on {card}", flush=True)
         del eng
         torch.cuda.empty_cache()
+
+
+def prep_parts(eng, params, bl, batch, graph_ms, prep):
+    """The paired route's prep at `batch` trees and at twice as many (each
+    tree twice, as the benchmark's stream mix evaluates them): the prep
+    kernel's device us beside its plain version's, the torch ops it
+    replaced, each a CUDA graph of its launches timed in turns."""
+    import torch
+
+    parts = []
+    for n in (batch, 2 * batch):
+        eig, rates, _, clock = eng._model_ingredients(params, n)
+        b = torch.cat([bl] * (n // batch))
+        ops = {"kernel": (20, lambda: prep.transition_prep(eig, rates,
+                                                           clock, b)),
+               "torch ops": (5, lambda: prep.transition_prep_plain(
+                   eig, rates, clock, b))}
+        us = {k: [] for k in ops}
+        for key in list(ops) + list(reversed(ops)):
+            reps, fn = ops[key]
+            us[key].append(graph_ms(fn, reps) * 1e3)
+        parts.append(f"prep at {n} trees: " + ", ".join(
+            f"{k} {sum(v) / len(v):.2f} us (" + "/".join(
+                f"{x:.2f}" for x in v) + ")" for k, v in us.items()))
+    return parts
 
 
 if __name__ == "__main__":
