@@ -527,7 +527,7 @@ def chunked_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props,
     alloc = _global_scratch(post_dst, child, C, S)
     ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
     lib = _kernels.library()
-    chunked_ll_global.launches += paired.launch_sliced(
+    n = paired.launch_sliced(
         "bito_chunked_ll", B, alloc,
         lambda b0, b1, buf, ls: lib.bito_chunked_ll(
             post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
@@ -537,6 +537,8 @@ def chunked_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props,
             ll_rows[b0:b1].data_ptr(), b1 - b0, MW, W, T, N1, C, S,
             paired._stream()),
         P.device)
+    chunked_ll_global.launches += n
+    timing.count("global_launches", n)
     return ll_rows
 
 
@@ -705,7 +707,7 @@ def chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips, pi, props,
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, 2 * MW + 1, S), **kw)
     lib = _kernels.library()
-    chunked_grad_global.launches += paired.launch_sliced(
+    n = paired.launch_sliced(
         "bito_chunked_grad", B, alloc,
         lambda b0, b1, buf, ls: lib.bito_chunked_grad(
             post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
@@ -716,6 +718,8 @@ def chunked_grad_global(post_dst, tip_slot, post_e, P, dP, tips, pi, props,
             grad_rows[b0:b1].data_ptr(), b1 - b0, MW, W, T, N1, C, S,
             paired._stream()),
         P.device)
+    chunked_grad_global.launches += n
+    timing.count("global_launches", n)
     return ll_rows, grad_rows
 
 

@@ -95,7 +95,9 @@ Beside them, in this module:
     `paired_grad_onchip`, `paired_grad_global`), which returns the
     per-pattern rows (`finish_rows` sums them) and counts its launches in
     `.launches`, raised by one where it launches its kernel and nowhere
-    else;
+    else; the global bodies' launchers (here, in chunked.py and in
+    pernode.py) also count them, one a slice, as the program's counter
+    `global_launches` (utils/timing), which says which body took a call;
   - the pattern-sharded wrappers (`paired_log_likelihoods_sharded`,
     `paired_ll_and_gradients_sharded`): each rank of a process group runs
     the public wrapper on its slice of the pattern axis, and one
@@ -993,7 +995,7 @@ def paired_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props):
     N1, C = P.shape[1], P.shape[2]
     ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
     lib = _kernels.library()
-    paired_ll_global.launches += launch_sliced(
+    n = launch_sliced(
         "bito_paired_ll", B, global_scratch(2 * M + 3, C, S),
         lambda b0, b1, buf, ls: lib.bito_paired_ll(
             post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
@@ -1001,6 +1003,8 @@ def paired_ll_global(post_dst, tip_slot, post_e, P, tips, pi, props):
             pi.data_ptr(), props.data_ptr(), buf.data_ptr(), ls.data_ptr(),
             ll_rows[b0:b1].data_ptr(), b1 - b0, M, T, N1, C, S, _stream()),
         P.device)
+    paired_ll_global.launches += n
+    timing.count("global_launches", n)
     return ll_rows
 
 
@@ -1019,7 +1023,7 @@ def paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, N1, S), **kw)
     lib = _kernels.library()
-    paired_grad_global.launches += launch_sliced(
+    n = launch_sliced(
         "bito_paired_grad", B, global_scratch(2 * M + 3, C, S),
         lambda b0, b1, buf, ls: lib.bito_paired_grad(
             post_dst[b0:b1].data_ptr(), tip_slot[b0:b1].data_ptr(),
@@ -1030,6 +1034,8 @@ def paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
             grad_rows[b0:b1].data_ptr(), b1 - b0, M, T, N1, C, S,
             _stream()),
         P.device)
+    paired_grad_global.launches += n
+    timing.count("global_launches", n)
     return ll_rows, grad_rows
 
 

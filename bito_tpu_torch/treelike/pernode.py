@@ -75,6 +75,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..utils import timing
 from . import _kernels, paired, pruning
 from .paired import _check_cuda_operands, _check_cuda_tensors
 
@@ -373,7 +374,7 @@ def pernode_ll_global(post_ops, root, P, tips, pi, props) -> torch.Tensor:
     N1, C = P.shape[1], P.shape[2]
     ll_rows = torch.empty((B, S), device=P.device, dtype=torch.float32)
     lib = _kernels.library()
-    pernode_ll_global.launches += paired.launch_sliced(
+    n = paired.launch_sliced(
         "bito_pernode_ll", B, _global_rows(T, N1, C, S, False),
         lambda b0, b1, buf, ls: lib.bito_pernode_ll(
             post_ops[b0:b1].data_ptr(), root[b0:b1].data_ptr(),
@@ -382,6 +383,8 @@ def pernode_ll_global(post_ops, root, P, tips, pi, props) -> torch.Tensor:
             ll_rows[b0:b1].data_ptr(), b1 - b0, M, T, N1, C, S,
             paired._stream()),
         P.device)
+    pernode_ll_global.launches += n
+    timing.count("global_launches", n)
     return ll_rows
 
 
@@ -795,7 +798,7 @@ def pernode_grad_global(post_ops, pre_ops, root, P, dP, tips, pi, props,
     ll_rows = torch.empty((B, S), **kw)
     grad_rows = torch.zeros((B, N1, S), **kw)
     lib = _kernels.library()
-    pernode_grad_global.launches += paired.launch_sliced(
+    n = paired.launch_sliced(
         "bito_pernode_grad", B, _global_rows(T, N1, C, S, True),
         lambda b0, b1, buf, up, ls: lib.bito_pernode_grad(
             post_ops[b0:b1].data_ptr(), pre_ops[b0:b1].data_ptr(),
@@ -806,6 +809,8 @@ def pernode_grad_global(post_ops, pre_ops, root, P, dP, tips, pi, props,
             grad_rows[b0:b1].data_ptr(), b1 - b0, M, Mp, T, N1, C, S,
             paired._stream()),
         P.device)
+    pernode_grad_global.launches += n
+    timing.count("global_launches", n)
     return ll_rows, grad_rows
 
 

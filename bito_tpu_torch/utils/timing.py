@@ -16,11 +16,12 @@ work, synchronise at its edges (chip_smoke.py's SyncedPhases does).
 The program's spans and counters (`span`, `count`, `recorded`) mark the
 layers of an evaluation inside the package: `eval` around each public
 evaluation, and inside it `bind`, `encode`, `tapes`, `ingredients`,
-`prep`, `host_sync`, `launch` and `finish`; the counters `tape_builds`
-and `host_syncs`.  They record exactly while a torch.profiler session is
-active (torch.autograd.profiler._is_profiler_enabled, the flag torch
-keeps for fast Python checks), in memory, on time.perf_counter_ns(), the
-clock of time.perf_counter.  Outside a session a span site costs one
+`prep`, `host_sync`, `launch` and `finish`; the counters `tape_builds`,
+`host_syncs`, `prep_launches` and `global_launches`.  They record
+exactly while a torch.profiler session is active
+(torch.autograd.profiler._is_profiler_enabled, the flag torch keeps for
+fast Python checks), in memory, on time.perf_counter_ns(), the clock of
+time.perf_counter.  Outside a session a span site costs one
 read of that flag and returns a shared null context.  A session's start
 drops the previous session's records, so they hold one session at most;
 device_trace writes them into its trace.  Nothing here launches work on

@@ -24,7 +24,9 @@ kernels, and rows 4 and 6 on the paired grad body at 17 and 32; and the
 driver's entry() forward (graft_entry.py), which takes the paired
 on-chip LL body alone; and the program's spans and counters
 (utils/timing.py): torch's sync debug mode against each entry point's
-`host_syncs`, and the tree kernels' launches inside `launch` spans; and
+`host_syncs`, the tree kernels' launches inside `launch` spans, and the
+global grad body on 200-taxon trees within the rbcL 500 configuration's
+limits, counted as `global_launches`; and
 the paired route's prep kernel (models/csrc/transition_prep.cu) against
 the torch ops it replaced, and which calls launch it.
 
@@ -2543,6 +2545,74 @@ def test_tree_kernel_launches_lie_inside_launch_spans(cuda, tmp_path,
     for e in launches:
         assert any(a - 20 <= e["ts"] and e["ts"] + e["dur"] <= b + 20
                    for a, b in spans), (e, spans)
+
+
+def test_large_trees_take_the_global_grad_body_within_rbcl500s_limits(
+        cuda):
+    """branch_eval_fn on random 200-taxon trees (the rbcL 500
+    configuration's alignment shape and model, past the grad body's
+    on-chip limit) takes the global grad body, one launch a call and no
+    on-chip grad launch, within the configuration's limits of the
+    benchmark's float64 reference (portbench/reference).  Under a
+    profiler session the call records one `global_launches` inside its
+    `launch` span; a DS1-sized call, on the on-chip body, records none."""
+    import json
+    import pathlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bito_tpu_torch.core.tree import Topology, Tree
+    from bito_tpu_torch.utils import timing
+    from portbench import inputs, reference
+    from portbench.reference import patterns
+
+    config = json.loads((pathlib.Path(__file__).resolve().parents[1]
+                         / "portbench/configs/rbcl500_gtr_gamma4.json")
+                        .read_text())
+    config.update(taxa=200, trees=8, topologies=8)
+    inp = inputs.make_inputs(config, 2147483659, 16)
+    eng = TreeLikelihoodEngine(
+        SitePattern(inp.alignment, inp.names),
+        PhyloModel(PhyloModelSpecification("GTR", "gamma+4")),
+        device=cuda, dtype=torch.float32)
+    trees = [Tree(Topology(p, 200), t)
+             for p, t in zip(inp.trees.parents, inp.trees.lengths)]
+    params = {k: torch.tensor(v, dtype=torch.float64, device=cuda)
+              for k, v in config["params"].items()}
+    fn = eng.branch_eval_fn(trees, params)
+    base = torch.as_tensor(inp.trees.lengths, device=cuda,
+                           dtype=torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    bl = base * torch.exp(0.1 * torch.randn(base.shape, generator=gen,
+                                            device=cuda))
+    before = [f.launches for f in PAIRED]
+    ll, g = fn(bl)
+    fn(bl)
+    torch.cuda.synchronize()
+    assert _launched(before) == [0, 0, 0, 2]
+    tips, w = patterns.site_patterns(inp.alignment, inp.names, "nucleotide")
+    ref_ll, ref_g = reference.evaluate(reference.model_of(config), tips, w,
+                                       inp.trees.parents, bl.double())
+    ll_err = float(((ll.double() - ref_ll).abs() / ref_ll.abs()).max())
+    grad_err = float(((g.double() - ref_g).abs().amax(1)
+                      / ref_g.abs().amax(1)).max())
+    assert ll_err <= config["limits"]["ll_err"], ll_err
+    assert grad_err <= config["limits"]["grad_err"], grad_err
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fn(bl)
+        torch.cuda.synchronize()
+    counts = {r.name: r.counts.get("global_launches", 0)
+              for r in timing.recorded()}
+    assert counts["launch"] == 1 and sum(counts.values()) == 1, counts
+    eng, trees, params, bl = _traced_engine("gtr_gamma4", cuda)
+    fn = eng.branch_eval_fn(trees, params)
+    before = [f.launches for f in PAIRED]
+    with profile(activities=[ProfilerActivity.CUDA]):
+        fn(bl)
+        torch.cuda.synchronize()
+    assert _launched(before) == [0, 0, 1, 0]
+    assert not any("global_launches" in r.counts
+                   for r in timing.recorded())
 
 
 # -- the paired route's prep (models/csrc/transition_prep.cu) --------------
