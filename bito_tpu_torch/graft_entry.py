@@ -157,7 +157,9 @@ def _paired_tapes(enc, device):
     pe = paired.build_paired_encoding(enc)
     ints = tuple(torch.as_tensor(x, dtype=torch.int32, device=device)
                  for x in (pe.post_dst, pe.tip_slot, pe.post_src, pe.post_e))
-    onchip = (paired.onchip_tape(pe.post_dst, pe.tip_slot, device)
+    onchip = (paired.onchip_tape(pe.post_dst, pe.tip_slot, device,
+                                 post_src=pe.post_src, post_e=pe.post_e,
+                                 edges=enc.num_slots + 1)
               if device.type == "cuda" else None)
     mask = torch.as_tensor(enc.edge_mask, dtype=torch.float64, device=device)
     return ints + (mask, onchip)

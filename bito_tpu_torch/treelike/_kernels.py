@@ -29,7 +29,8 @@ _BUILD = _ROOT / "_build"
 # ../../treelike/csrc/common.cuh.
 _SOURCES = tuple(f"treelike/csrc/{name}" for name in (
     "paired_ll.cu", "paired_grad.cu", "paired_ll_onchip.cu",
-    "paired_grad_onchip.cu", "paired_ll_a64.cu", "paired_grad_a64.cu",
+    "paired_grad_onchip.cu", "paired_grad_ckpt.cu", "paired_ll_a64.cu",
+    "paired_grad_a64.cu",
     "chunked_ll.cu", "chunked_grad.cu",
     "chunked_grad_onchip.cu", "pernode_ll.cu", "pernode_grad.cu",
     "pernode_grad_onchip.cu")) + (
@@ -69,6 +70,9 @@ _SIGNATURES = {
     # post_dst, child, post_src, post_e, P, dP, tips, pi, props, weights,
     # ll_rows, grad_rows, B, M, T, N1, C, S, rows, cols, ring, stream
     "bito_paired_grad_onchip": [_P] * 12 + [_I] * 9 + [_P],
+    # sched, P, dP, tips, pi, props, weights, tier, ll_rows, grad_rows,
+    # B, L, T, N1, C, S, slots, rows, cols, stream
+    "bito_paired_grad_ckpt": [_P] * 10 + [_I] * 9 + [_P],
     # post_dst, tip_slot, child, post_e, P, tips, pi, props, buf, ls,
     # ll_rows, B, MW, W, T, N1, C, S, stream
     "bito_chunked_ll": [_P] * 11 + [_I] * 7 + [_P],

@@ -257,8 +257,14 @@ def onchip_tape(post_dst: np.ndarray, tip_slot: np.ndarray,
     would be wrong for a body that ran a chunk's W ops side by side (one
     op could store over a row that another of its chunk still reads).  The
     grad body keeps one row per grid op (`grad_rows`).  The engine builds
-    the tape with the chunked tapes, once per topology set."""
-    return paired.onchip_tape(post_dst, tip_slot, device)
+    the tape with the chunked tapes, once per topology set.  It carries
+    no checkpointed schedule: the chunked grad kernel has no such body."""
+    child = paired.child_tape(post_dst, tip_slot)
+    row, ll_rows = paired.live_rows(post_dst, child)
+    return paired.OnchipTape(
+        child=torch.as_tensor(child, device=device),
+        live_row=torch.as_tensor(row, device=device), ll_rows=ll_rows,
+        grad_rows=paired.grad_rows_needed(post_dst))
 
 
 # The LL body's staging on the chunked tape, set from times on an H100

@@ -315,11 +315,15 @@ class TreeLikelihoodEngine(PatternSharded):
                 pe = paired.build_paired_encoding(enc)
                 self._tapes["paired"] = self._kernel_tapes(
                     enc, (pe.post_dst, pe.tip_slot, pe.post_src, pe.post_e))
-                # The on-chip bodies' tape, from the same host arrays; the
-                # CPU runs the plain versions and the A=64 kernels read the
-                # paired tapes, which need none.
+                # The on-chip bodies' tape, from the same host arrays (with
+                # the checkpointed grad body's schedule where the tree is
+                # past the on-chip grad body's limit); the CPU runs the
+                # plain versions and the A=64 kernels read the paired
+                # tapes, which need none.
                 self._tapes["onchip"] = paired.onchip_tape(
-                    pe.post_dst, pe.tip_slot, self.device) if (
+                    pe.post_dst, pe.tip_slot, self.device,
+                    post_src=pe.post_src, post_e=pe.post_e,
+                    edges=enc.num_slots + 1) if (
                         self.device.type == "cuda"
                         and self.num_states == 4) else None
         return self._tapes["paired"]

@@ -20,7 +20,16 @@ Each kernel has two bodies on the card:
     count; the wrappers launch it where a block of the on-chip body would
     hold too few warps of patterns to be the faster, and past
     ONCHIP_MAX_CATEGORIES (`onchip_plan` returns None), decided from the
-    tape before the launch.
+    tape before the launch;
+  - the grad kernel's third body, for trees past the on-chip grad body's
+    limit at 1..COMPILED_CATEGORIES categories (about 144 taxa at C = 4),
+    in place of the global one there: the checkpointed body
+    (csrc/paired_grad_ckpt.cu), the on-chip body's layout on a bounded
+    number of rows a pattern, which recomputes each cut clade's partials
+    in the outside pass and keeps the partials above the cuts in a tier
+    in device memory, over a schedule built on the host with the on-chip
+    tape (`ckpt_schedule`, `OnchipTape.ckpt`); the global body keeps the
+    trees whose edges pass the schedule's 16-bit fields (CKPT_MAX_EDGES).
 The kernels take any count C >= 1 of rate categories, as bito_tpu's
 Pallas kernels do: at 4 states 1-8 compiled one count at a time, 9-32 on
 16 or 32 lanes a pattern (`lanes`) with the count read at run time, and
@@ -86,18 +95,20 @@ tree does not fit they raise and name the bytes.
 Beside them, in this module:
   - the plain torch version of each kernel (`*_ref`), which computes the
     same numbers and is what the CPU runs and what the kernels are checked
-    against;
+    against (the checkpointed body's, `paired_grad_ckpt_ref`, interprets
+    its schedule as the kernel does);
   - the public wrappers (`paired_log_likelihoods`,
     `paired_ll_and_gradients`): a CPU tensor goes to the plain version; a
     CUDA tensor goes to a body, and the call raises if the body cannot take
     the inputs or fails to launch;
   - each body's launcher (`paired_ll_onchip`, `paired_ll_global`,
-    `paired_grad_onchip`, `paired_grad_global`), which returns the
-    per-pattern rows (`finish_rows` sums them) and counts its launches in
-    `.launches`, raised by one where it launches its kernel and nowhere
-    else; the global bodies' launchers (here, in chunked.py and in
-    pernode.py) also count them, one a slice, as the program's counter
-    `global_launches` (utils/timing), which says which body took a call;
+    `paired_grad_onchip`, `paired_grad_ckpt`, `paired_grad_global`), which
+    returns the per-pattern rows (`finish_rows` sums them) and counts its
+    launches in `.launches`, raised by one where it launches its kernel
+    and nowhere else; the global bodies' launchers (here, in chunked.py
+    and in pernode.py) also count them, one a slice, as the program's
+    counter `global_launches` (utils/timing), and the checkpointed body's
+    as `checkpoint_launches`, which say which body took a call;
   - the pattern-sharded wrappers (`paired_log_likelihoods_sharded`,
     `paired_ll_and_gradients_sharded`): each rank of a process group runs
     the public wrapper on its slice of the pattern axis, and one
@@ -279,6 +290,16 @@ def grad_rows_needed(post_dst: np.ndarray) -> int:
 
 
 @dataclass(frozen=True)
+class CkptTape:
+    """The checkpointed grad body's schedule (ckpt_schedule) on the device
+    of the tapes, and its sizes."""
+
+    sched: torch.Tensor  # [B, L, CKPT_INTS] int32, one entry a step
+    rows: int            # on-chip rows a pattern
+    slots: int           # device-tier slots a tree (at least 1)
+
+
+@dataclass(frozen=True)
 class OnchipTape:
     """What the on-chip bodies read beside the paired tapes, on the
     device of the tapes."""
@@ -287,19 +308,227 @@ class OnchipTape:
     live_row: torch.Tensor  # [B, M] int32, the LL kernel's row of each op
     ll_rows: int            # rows per pattern of the LL kernel
     grad_rows: int          # rows per pattern of the grad kernel
+    # the checkpointed grad body's schedule, where the on-chip grad body
+    # gets no plan at COMPILED_CATEGORIES categories (onchip_tape)
+    ckpt: CkptTape | None = None
 
 
-def onchip_tape(post_dst: np.ndarray, tip_slot: np.ndarray,
-                device) -> OnchipTape:
+def onchip_tape(post_dst: np.ndarray, tip_slot: np.ndarray, device, *,
+                post_src: np.ndarray, post_e: np.ndarray,
+                edges: int) -> OnchipTape:
     """The on-chip bodies' tape, derived on the host from a
-    PairedEncoding's `post_dst` and `tip_slot` and put on `device`.  The
-    engine builds it with the paired tapes, once per topology set."""
+    PairedEncoding's `post_dst`, `tip_slot`, `post_src` and `post_e`, whose
+    P has `edges` rows N1, and put on `device`.  The engine builds it with
+    the paired tapes, once per topology set.  Where the on-chip grad body
+    gets no plan at COMPILED_CATEGORIES categories (so none at fewer: a
+    block's warps fall as a pattern's lanes grow) and the schedule's
+    16-bit fields hold the edges (CKPT_MAX_EDGES), the tape carries the
+    checkpointed grad body's schedule (ckpt_tape), which the grad wrapper
+    takes in place of the on-chip body at 1..COMPILED_CATEGORIES
+    categories."""
     child = child_tape(post_dst, tip_slot)
     row, ll_rows = live_rows(post_dst, child)
+    grad_rows = grad_rows_needed(post_dst)
+    ckpt = None
+    if edges <= CKPT_MAX_EDGES and onchip_plan(
+            "grad", grad_rows, post_dst.shape[1], edges,
+            COMPILED_CATEGORIES) is None:
+        ckpt = ckpt_tape(post_dst, child, post_e, post_src, device)
     return OnchipTape(
         child=torch.as_tensor(child, device=device),
         live_row=torch.as_tensor(row, device=device),
-        ll_rows=ll_rows, grad_rows=grad_rows_needed(post_dst))
+        ll_rows=ll_rows, grad_rows=grad_rows, ckpt=ckpt)
+
+
+# ---------------------------------------------------------------------------
+# The checkpointed grad body's schedule
+# ---------------------------------------------------------------------------
+#
+# The on-chip grad body keeps a shared-memory row an op, since the outside
+# pass reads every postorder partial: past about 144 taxa at C = 4 too few
+# warps of patterns fit.  The checkpointed body (csrc/paired_grad_ckpt.cu)
+# keeps a bounded number of rows instead.  Each tree is cut at its largest
+# clades of at most CKPT_OPS ops; the ops above the cuts ("top" ops) and
+# the cut clades' roots are checkpoints, whose partials go to a tier in
+# device memory.  One linear schedule a tree:
+#   1. the postorder over every op, a cut clade's ops together, each clade
+#      op's partial in on-chip row = its rank in the clade, each
+#      checkpoint's in its tier slot;
+#   2. the outside pass over the top ops in reverse tape order; right after
+#      a top op, each child that roots a cut clade: the clade's partials
+#      recomputed from its tips into the same rows (the clade's root
+#      excepted: its partial was the top op's to read), then the clade's
+#      own outside pass in reverse.
+# Every entry names its operands and destinations (on-chip row, tier slot,
+# tip, all ones, pi), so the kernel interprets the schedule and decides
+# nothing.  A recomputed partial is the first pass's bit for bit: the same
+# entry kind on the same operands.
+
+# Ops a cut clade at most, set from H100 times at rbcL 500's shape (200
+# trees x 500 taxa x 1,024 patterns, PERF.md): 8, 12 and 16 ops a clade
+# took 19.33-19.37 ms (18 rows a pattern at 16, a block's 16 warps), 20
+# took 20.59 and 32 took 26.67 (34 rows, 11 warps): the body is
+# latency-bound a warp, so its time goes as 1 / warps, and 16 is the
+# largest clade that keeps all 16 with the smallest tier.
+CKPT_OPS = 16
+CKPT_INTS = 8  # int32s an entry: kind, e0 | e1 << 16, a0, a1, a2, d0, d1,
+#               src0 | src1 << 16
+CKPT_NOP, CKPT_POST, CKPT_ROOT, CKPT_OUT = 0, 1, 2, 3  # entry kinds
+CKPT_TIER = 1 << 24     # codes from here: tier slot code - CKPT_TIER
+CKPT_PI = ONES + 1      # operand: pi, the root op's outside value
+CKPT_NONE = -1          # destination: not stored
+# Edges N1 a tape's P has at most for a schedule: an entry packs two edge
+# numbers, and two gradient rows (at most N1 - 1), in 16 bits each
+CKPT_MAX_EDGES = 1 << 16
+
+
+@dataclass(frozen=True)
+class CkptSchedule:
+    """ckpt_schedule's result on the host."""
+
+    sched: np.ndarray  # [B, L, CKPT_INTS] int32
+    op: np.ndarray     # [B, L] int32: the op of each entry, -1 for padding
+    rows: int          # on-chip rows a pattern the entries name
+    slots: int         # tier slots a tree the entries name (at least 1)
+
+
+def ckpt_schedule(post_dst: np.ndarray, child: np.ndarray,
+                  post_e: np.ndarray, post_src: np.ndarray,
+                  ops: int = CKPT_OPS) -> CkptSchedule:
+    """The checkpointed grad body's schedule of a paired tape, every tree
+    at once (one numpy step an op, as live_rows).
+
+    An entry of kind CKPT_POST or CKPT_ROOT runs op m's postorder product
+    of its children a0, a1 over edges e0, e1 and stores it to d0 and d1
+    (CKPT_ROOT: the LL row instead); CKPT_OUT runs op m's outside step from
+    its outside value a2 and its children's partials a0, a1, writes the
+    gradient rows src0 and src1, and child j's outside value to dj.  An
+    operand code is an on-chip row (0 .. rows-1), a tier slot (CKPT_TIER +
+    slot), a tip (-1 - t), ONES or CKPT_PI; a destination a row, a tier slot
+    or CKPT_NONE.  The kernel fetches an entry's tier and tip operands
+    while the entry before it runs, so no entry reads a slot that the entry
+    just before it writes: such a value also goes to the forwarding row,
+    which the next entry reads.  Rows: a clade's ranks 0 .. R-1, two for
+    the outside values of a top op's cut children (U0, U1), the forwarding
+    row; so at most ops + 2 a pattern."""
+    B, M = post_dst.shape
+    if B == 0 or M == 0:
+        raise ValueError("the schedule takes a tape of one tree and op or "
+                         "more")
+    if max(int(post_e.max()), int(post_src.max())) >= CKPT_MAX_EDGES:
+        raise ValueError("the schedule packs edges and gradient rows in 16 "
+                         "bits")
+    trash, root = 2 * M + 1, 2 * M
+    trees = np.arange(B)
+    valid = post_dst != trash
+    is_root = post_dst == root
+    cons = np.where(valid & ~is_root, post_dst // 2, 0)  # the consumer op
+    has_cons = valid & ~is_root
+    is_op = child >= 0
+    kid = np.maximum(child, 0)
+
+    size = np.zeros((B, M), dtype=np.int64)  # ops in each op's clade
+    for m in range(M):
+        size[:, m] = valid[:, m] + sum(
+            np.where(is_op[:, m, j], size[trees, kid[:, m, j]], 0)
+            for j in (0, 1))
+    top = valid & (size > ops)
+    cut = valid & ~top & (is_root | (has_cons & np.take_along_axis(
+        top, cons, axis=1)))
+    inner = valid & ~top & ~cut
+    ckpt = (top | cut) & ~is_root
+    group = np.full((B, M), M, dtype=np.int64)  # a clade's root, else m
+    for m in range(M - 1, -1, -1):
+        group[:, m] = np.where(top[:, m] | cut[:, m], m, np.where(
+            inner[:, m], group[trees, cons[:, m]], M))
+
+    # 1. the postorder: by clade, then by op
+    order1 = np.argsort(group * M + np.arange(M), axis=1, kind="stable")
+    n1 = valid.sum(axis=1)
+    pos1 = np.empty((B, M), dtype=np.int64)
+    np.put_along_axis(pos1, order1, np.arange(M)[None, :], axis=1)
+    g_sorted = np.take_along_axis(group, order1, axis=1)
+    start = np.ones((B, M), dtype=bool)
+    start[:, 1:] = g_sorted[:, 1:] != g_sorted[:, :-1]
+    first = np.maximum.accumulate(np.where(start, np.arange(M), 0), axis=1)
+    rank = np.empty((B, M), dtype=np.int64)  # an op's rank in its clade
+    np.put_along_axis(rank, order1, np.arange(M) - first, axis=1)
+    R = int(rank[inner].max()) + 1 if inner.any() else 0
+    U0, FWD = R, R + 2
+    slot = np.cumsum(ckpt, axis=1) - 1
+    slots = max(int(ckpt.sum(axis=1).max()), 1)
+
+    # 2. the outside pass: each entry's key is (its top op's place in
+    # reverse order, section 0 for the top op's own step or 1 + j for the
+    # clade of its child j, place in the clade's block); a cut root's
+    # clade hangs on its consumer, a root that roots a clade comes first
+    W = 2 * ops + 2
+    anchor = np.where(top, M - np.arange(M), 0)  # a group's anchor
+    g = np.minimum(group, M - 1)
+    r_cons = np.take_along_axis(cons, g, axis=1)
+    r_root = np.take_along_axis(is_root, g, axis=1)
+    r_j = np.take_along_axis(post_dst % 2, g, axis=1)
+    k = np.take_along_axis(size, g, axis=1)  # the clade's ops
+    clade_key = np.where(r_root, 0, (M - r_cons) * 3 * W + (1 + r_j) * W)
+    big = np.iinfo(np.int64).max
+    key_out = np.where(top, anchor * 3 * W, np.where(
+        valid, clade_key + (k - 1) + (k - 1 - rank), big))
+    key_re = np.where(inner, clade_key + rank, big)
+    keys = np.concatenate([key_out, key_re], axis=1)
+    order2 = np.argsort(keys, axis=1, kind="stable")
+    pos2 = np.empty((B, 2 * M), dtype=np.int64)
+    np.put_along_axis(pos2, order2, np.arange(2 * M)[None, :], axis=1)
+    pos2 += n1[:, None]
+    n2 = (keys < big).sum(axis=1)
+    L = int((n1 + n2).max())
+    out_pos, re_pos = pos2[:, :M], pos2[:, M:]
+
+    # where each value lives: a forwarded checkpoint is also in FWD
+    fwd1 = ckpt & (np.take_along_axis(pos1, cons, axis=1) == pos1 + 1)
+    fwd2 = top & has_cons & (np.take_along_axis(out_pos, cons, axis=1) + 1
+                             == out_pos)
+    tier = CKPT_TIER + slot
+    p1 = np.where(inner, rank, np.where(fwd1, FWD, tier))  # phase 1 reads
+    p2 = np.where(inner, rank, tier)  # the outside pass reads
+    up = np.where(is_root, CKPT_PI, np.where(inner, rank, np.where(
+        cut, U0 + post_dst % 2, np.where(fwd2, FWD, tier))))
+
+    def of(codes, none):  # child j's code: codes[child] for an op child
+        return np.where(is_op, codes[trees[:, None, None], kid], none)
+
+    e01 = post_e[..., 0] | post_e[..., 1] << 16
+    kinds = np.where(is_root, CKPT_ROOT, CKPT_POST)
+    none = np.full((B, M), CKPT_NONE)
+    zero = np.zeros((B, M), dtype=np.int64)
+    a = of(p1, child)
+    post = np.stack([kinds, e01, a[..., 0], a[..., 1], zero,
+                     np.where(inner, rank, np.where(fwd1, FWD, CKPT_NONE)),
+                     np.where(ckpt, tier, CKPT_NONE), zero], axis=-1)
+    a, d = of(p2, child), of(up, CKPT_NONE)
+    out = np.stack([np.full((B, M), CKPT_OUT), e01, a[..., 0], a[..., 1],
+                    up, d[..., 0], d[..., 1],
+                    post_src[..., 0] | post_src[..., 1] << 16], axis=-1)
+    a = of(rank, child)
+    recompute = np.stack([np.full((B, M), CKPT_POST), e01, a[..., 0],
+                          a[..., 1], zero, rank, none, zero], axis=-1)
+
+    sched = np.zeros((B, L, CKPT_INTS), dtype=np.int32)
+    op = np.full((B, L), -1, dtype=np.int32)
+    ms = np.broadcast_to(np.arange(M), (B, M))
+    for fields, pos, keep in ((post, pos1, valid), (out, out_pos, valid),
+                              (recompute, re_pos, inner)):
+        bs, m = np.nonzero(keep)
+        sched[bs, pos[bs, m]] = fields[bs, m]
+        op[bs, pos[bs, m]] = ms[bs, m]
+    return CkptSchedule(sched, op, R + 3, slots)
+
+
+def ckpt_tape(post_dst: np.ndarray, child: np.ndarray, post_e: np.ndarray,
+              post_src: np.ndarray, device, ops: int = CKPT_OPS) -> CkptTape:
+    """ckpt_schedule of the paired tapes, its entries put on `device`."""
+    s = ckpt_schedule(post_dst, child, post_e, post_src, ops)
+    return CkptTape(torch.as_tensor(s.sched, device=device), s.rows,
+                    s.slots)
 
 
 SMEM_BYTES = 232_448  # shared memory one block can take on an H100 (227 KB)
@@ -434,6 +663,25 @@ def onchip_plan(kernel: str, rows: int, M: int, N1: int, C: int,
                       smem_bytes(kernel, rows, M, N1, C, cols, ring))
 
 
+def ckpt_plan(rows: int, C: int) -> OnchipPlan:
+    """How the checkpointed grad body launches at C <= COMPILED_CATEGORIES
+    categories on `rows` rows a pattern (CkptTape.rows): as many whole
+    warps of patterns as SMEM_BYTES holds, up to MAX_THREADS threads, a
+    warp's rows and its own ring of one entry's P and dP double-buffered
+    (the kernel's byte count, csrc/paired_grad_ckpt.cu: no tape in shared
+    memory).  Raises where no warp fits."""
+    if not 1 <= C <= COMPILED_CATEGORIES:
+        raise ValueError(f"the checkpointed body takes 1..."
+                         f"{COMPILED_CATEGORIES} categories, got {C}")
+    G = lanes(C)
+    per_warp = rows * WARP * 16 + 8 * G * 4 * 16  # rows, then the ring
+    warps = min(SMEM_BYTES // per_warp, MAX_THREADS // WARP)
+    if warps < 1:
+        raise ValueError(f"{rows} rows a pattern leave no warp of the "
+                         "checkpointed body a block")
+    return OnchipPlan(G, warps * (WARP // G), True, warps * per_warp)
+
+
 # ---------------------------------------------------------------------------
 # Plain torch versions
 # ---------------------------------------------------------------------------
@@ -513,6 +761,100 @@ def paired_ll_and_gradients_ref(post_dst, tip_slot, post_src, post_e,
         buf[:, 2 * m:2 * m + 2] = P2.transpose(-1, -2) @ o
     N = edge_mask.shape[1]
     return ll, grad_rows.sum(dim=-1)[:, :N] * edge_mask.to(dtype)
+
+
+def _pow2_exponent(mx: torch.Tensor) -> torch.Tensor:
+    """The kernels' rescale exponent (csrc/onchip.cuh scale_exponent): e
+    that puts mx in [0.5, 1), at most 126; 0 where mx is not positive."""
+    e = torch.frexp(mx).exponent.clamp(max=126)
+    return torch.where(mx > 0, e, torch.zeros_like(e))
+
+
+def paired_grad_ckpt_ref(sched: torch.Tensor, rows: int, slots: int, P, dP,
+                         tips, pi, props, weights):
+    """Plain torch version of the checkpointed grad body: the schedule
+    `sched` [B, L, CKPT_INTS] (ckpt_schedule) interpreted entry by entry in
+    the operands' dtype, every tree at once, as the kernel runs it: rows
+    and tier slots a pattern, each entry's tier and tip operands fetched
+    before the entry before it stores, the rescales by powers of two.
+    (LL rows [B, S], weighted gradient rows [B, N1, S], zero where no
+    entry writes): finish_rows sums them."""
+    B, L, _ = sched.shape
+    N1, C, A = P.shape[1], P.shape[2], P.shape[3]
+    T, S = tips.shape[0], tips.shape[-1]
+    kw = dict(device=P.device, dtype=P.dtype)
+    w, pi, props = weights.to(P.dtype), pi.to(P.dtype), props.to(P.dtype)
+    tips = tips.to(P.dtype)
+    on_chip = torch.zeros((B, rows, C, A, S), **kw)
+    tier = torch.zeros((B, slots, C, A, S), **kw)
+    ll_rows = torch.zeros((B, S), **kw)
+    grad_rows = torch.zeros((B, N1, S), **kw)
+    lsc = torch.zeros((B, S), dtype=torch.int64, device=P.device)
+    b = torch.arange(B, device=P.device)
+    sched = sched.long()
+
+    def is_row(code):
+        return (code >= 0) & (code < CKPT_TIER)
+
+    def fetch(code):  # the operands that are not rows, at the fetch
+        t = (-1 - code).clamp(0, T - 1)
+        v = torch.where(((code < 0) & (code >= -T))[:, None, None, None],
+                        tips[t][:, None].expand(B, C, A, S),
+                        torch.ones((), **kw))
+        v = torch.where((code == CKPT_PI)[:, None, None, None],
+                        pi[None, None, :, None], v)
+        at = (code - CKPT_TIER).clamp(0, slots - 1)
+        return torch.where((code >= CKPT_TIER)[:, None, None, None],
+                           tier[b, at], v)
+
+    def operand(code, fetched):
+        return torch.where(is_row(code)[:, None, None, None],
+                           on_chip[b, code.clamp(0, rows - 1)], fetched)
+
+    def put(code, value, mask):
+        row, at = mask & is_row(code), mask & (code >= CKPT_TIER)
+        on_chip[b[row], code[row]] = value[row]
+        tier[b[at], code[at] - CKPT_TIER] = value[at]
+
+    def evolve(edges, x, mats=P):  # M[edge] x over [B, C, A, S]
+        return mats[b, edges] @ x
+
+    fetched = [fetch(sched[:, 0, f]) for f in (2, 3, 4)]
+    for i in range(L):
+        nxt = sched[:, min(i + 1, L - 1)]
+        ahead = [fetch(nxt[:, f]) for f in (2, 3, 4)]
+        e = sched[:, i]
+        kind, e0, e1 = e[:, 0], e[:, 1] & 0xFFFF, (e[:, 1] >> 16) & 0xFFFF
+        p0, p1 = operand(e[:, 2], fetched[0]), operand(e[:, 3], fetched[1])
+        ev0, ev1 = evolve(e0, p0), evolve(e1, p1)
+        # a postorder entry: the product, rescaled
+        post = (kind == CKPT_POST) | (kind == CKPT_ROOT)
+        prod = ev0 * ev1
+        ex = _pow2_exponent(prod.amax(dim=(1, 2)))
+        prod = torch.ldexp(prod, -ex[:, None, None])
+        lsc = torch.where(post[:, None], lsc + ex, lsc)
+        site = torch.einsum("c,a,bcas->bs", props, pi, prod)
+        at_root = kind == CKPT_ROOT
+        ll_rows[at_root] = (torch.log(site) + lsc.to(P.dtype)
+                            * math.log(2.0))[at_root]
+        put(e[:, 5], prod, kind == CKPT_POST)
+        put(e[:, 6], prod, kind == CKPT_POST)
+        # an outside entry: both children's gradient rows and outside values
+        out = kind == CKPT_OUT
+        upv = operand(e[:, 4], fetched[2])
+        o0, o1 = upv * ev1, upv * ev0
+        inv = _pow2_exponent(torch.maximum(o0, o1).amax(dim=(1, 2)))
+        o = [torch.ldexp(x, -inv[:, None, None]) for x in (o0, o1)]
+        for j, (edges, p, ev) in enumerate(((e0, p0, ev0), (e1, p1, ev1))):
+            num = torch.einsum("c,bcas->bs", props,
+                               o[j] * evolve(edges, p, dP))
+            den = torch.einsum("c,bcas->bs", props, o[j] * ev)
+            den = torch.where(den > 0, den, torch.ones_like(den))
+            src = (e[:, 7] >> (16 * j)) & 0xFFFF
+            grad_rows[b[out], src[out]] = (w * num / den)[out]
+            put(e[:, 5 + j], P[b, edges].transpose(-1, -2) @ o[j], out)
+        fetched = ahead
+    return ll_rows, grad_rows
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -784,12 +1126,20 @@ def paired_ll_and_gradients(post_dst, tip_slot, post_src, post_e, edge_mask,
         if A == 64:
             rows = paired_grad_a64(post_dst, tip_slot, post_src, post_e, P,
                                    dP, tips, pi, props, weights)
-        elif (plan := _onchip_plan("grad", onchip, M, N1, C)) is None:
-            rows = paired_grad_global(post_dst, tip_slot, post_src, post_e, P,
-                                      dP, tips, pi, props, weights)
-        else:
+        elif (plan := _onchip_plan("grad", onchip, M, N1, C)) is not None:
             rows = paired_grad_onchip(post_dst, onchip, post_src, post_e, P,
                                       dP, tips, pi, props, weights, plan)
+        elif C <= COMPILED_CATEGORIES and N1 <= CKPT_MAX_EDGES:
+            if onchip.ckpt is None or onchip.ckpt.sched.shape[0] != B:
+                raise ValueError("the on-chip tape carries no checkpointed "
+                                 "schedule of these tapes: build it with "
+                                 "paired.onchip_tape from them and P's "
+                                 "edges")
+            rows = paired_grad_ckpt(onchip.ckpt, P, dP, tips, pi, props,
+                                    weights)
+        else:  # past 8 categories, or past the schedule's 16-bit fields
+            rows = paired_grad_global(post_dst, tip_slot, post_src, post_e, P,
+                                      dP, tips, pi, props, weights)
     with timing.span("finish"):
         return finish_rows(*rows, edge_mask, weights)
 
@@ -1040,6 +1390,62 @@ def paired_grad_global(post_dst, tip_slot, post_src, post_e, P, dP, tips, pi,
 
 
 paired_grad_global.launches = 0
+
+
+def ckpt_scratch(slots: int, S: int, C: int, plan: OnchipPlan):
+    """alloc(n, device) of the checkpointed body's device tier: float4
+    [n, slots, Sp, G] (Sp = S rounded up to the plan's patterns a block,
+    so each thread of the grid owns its slices; G = lanes(C)), a lane's 16
+    bytes beside its neighbours' for coalesced loads."""
+    Sp = _rup(S, plan.cols)
+
+    def alloc(n, device):
+        return (torch.empty((n, slots, Sp, lanes(C), 4), device=device,
+                            dtype=torch.float32),)
+    return alloc
+
+
+def paired_grad_ckpt(ckpt: CkptTape, P, dP, tips, pi, props, weights):
+    """Launch csrc/paired_grad_ckpt.cu over the schedule `ckpt` as
+    ckpt_plan says (operands checked by the wrapper): (LL rows [B, S],
+    weighted gradient rows [B, N1, S]; rows that no entry writes are not
+    written).  Its device tier (ckpt_scratch) is allocated here,
+    for the batch where it can be, else over slices of trees
+    (launch_sliced), each a launch, counted in `.launches` and as the
+    program's counter `checkpoint_launches`."""
+    B, L, _ = ckpt.sched.shape
+    T, S = tips.shape[0], tips.shape[-1]
+    N1, C = P.shape[1], P.shape[2]
+    plan = ckpt_plan(ckpt.rows, C)
+    if ckpt.slots * _rup(S, plan.cols) * plan.lanes >= 2**31:
+        raise ValueError("the checkpointed body indexes a tree's tier with "
+                         "32-bit offsets: too many slots and patterns")
+    if tips.numel() >= 2**31:  # the kernel indexes tips with 32-bit offsets
+        raise ValueError(f"tips has {tips.numel()} entries, the "
+                         "checkpointed body takes fewer than 2**31")
+    _check_cuda_tensors(dict(sched=ckpt.sched), {})
+    for name, t in dict(sched=ckpt.sched, P=P, dP=dP).items():
+        if t.data_ptr() % 16:  # int4 loads and cp.async of 16-byte rows
+            raise ValueError(f"{name} is not 16-byte aligned")
+    kw = dict(device=P.device, dtype=torch.float32)
+    ll_rows = torch.empty((B, S), **kw)
+    grad_rows = torch.empty((B, N1, S), **kw)
+    lib = _kernels.library()
+    n = launch_sliced(
+        "bito_paired_grad_ckpt", B, ckpt_scratch(ckpt.slots, S, C, plan),
+        lambda b0, b1, tier: lib.bito_paired_grad_ckpt(
+            ckpt.sched[b0:b1].data_ptr(), P[b0:b1].data_ptr(),
+            dP[b0:b1].data_ptr(), tips.data_ptr(), pi.data_ptr(),
+            props.data_ptr(), weights.data_ptr(), tier.data_ptr(),
+            ll_rows[b0:b1].data_ptr(), grad_rows[b0:b1].data_ptr(), b1 - b0,
+            L, T, N1, C, S, ckpt.slots, ckpt.rows, plan.cols, _stream()),
+        P.device)
+    paired_grad_ckpt.launches += n
+    timing.count("checkpoint_launches", n)
+    return ll_rows, grad_rows
+
+
+paired_grad_ckpt.launches = 0
 
 
 def _a64_operands(tips, weights=None, **mats):

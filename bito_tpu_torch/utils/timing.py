@@ -17,7 +17,8 @@ The program's spans and counters (`span`, `count`, `recorded`) mark the
 layers of an evaluation inside the package: `eval` around each public
 evaluation, and inside it `bind`, `encode`, `tapes`, `ingredients`,
 `prep`, `host_sync`, `launch` and `finish`; the counters `tape_builds`,
-`host_syncs`, `prep_launches` and `global_launches`.  They record
+`host_syncs`, `prep_launches`, `global_launches` and
+`checkpoint_launches`.  They record
 exactly while a torch.profiler session is active
 (torch.autograd.profiler._is_profiler_enabled, the flag torch keeps for
 fast Python checks), in memory, on time.perf_counter_ns(), the clock of

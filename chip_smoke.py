@@ -33,8 +33,11 @@ and the VI command line with a checkpoint:
     pernode_ll_onchip@C16 and pernode_grad_onchip@C16;
   - large: the same entry points on two trees of 921 taxa (128 patterns:
     a cherry comb and a balanced tree) past the on-chip bodies' limits,
-    where the wrappers hand over to the global bodies (csrc/paired_ll.cu,
-    csrc/paired_grad.cu);
+    where the wrappers hand the LL over to the global body
+    (csrc/paired_ll.cu) and the gradients to the checkpointed grad body
+    (csrc/paired_grad_ckpt.cu; paired_grad.cu, the global grad body, is
+    held in phase 2 and timed in phase 4 through its launcher, and runs
+    on the wide-large path past 32 categories);
   - chunked: the engine with kernel="chunked", the on-chip bodies of
     chunked_ll (csrc/paired_ll_onchip.cu on the chunked tape) and of
     chunked_grad (csrc/chunked_grad_onchip.cu);
@@ -362,9 +365,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
      pipe experiment at every tile that fits (the rule of
      perf_pipe_lab.pipe_plan); every body of the tree
      kernels that takes the shape (the on-chip LL bodies in both stagings
-     on all three tapes, the paired grad body in both, the global bodies),
-     on the flagship and on trees of BODY_TAXA taxa (the per-node ones
-     also of PERNODE_TAXA taxa), each held once against its float64 plain
+     on all three tapes, the paired grad body in both, the checkpointed
+     grad body, the global bodies), on the flagship and on trees of
+     BODY_TAXA taxa (the per-node ones also of PERNODE_TAXA taxa; the
+     paired ones also of CKPT_TAXA taxa), each held once against its
+     float64 plain
      version within the phase-2 bound before it is timed, beside the body
      the wrappers choose; each engine route's
      LL+gradient evals/s; the host time of a new topology set at B=200 and
@@ -471,6 +476,10 @@ LARGE_CHERRIES = 460  # the large path's trees: 921 taxa
 LARGE_PATTERNS = 128
 # phase 4's further shapes
 BODY_TAXA = (64, 96, 128, 144, 160, 192, 256, 320, 400)
+CKPT_TAXA = 500  # and the paired bodies at rbcL 500's tree size
+# phase 2 holds the checkpointed grad body on the flagship's trees at
+# this many ops a clade, so that they have ops above the cuts
+CKPT_FLAGSHIP_OPS = 8
 PERNODE_TAXA = (76, 84)  # and the per-node bodies' hand-over between them
 TOPOLOGY_BATCH = 1000  # phase 4's larger new topology set
 # the vbpi path: bito_tpu's bench_configs.py config4 (vip/benchmark.py)
@@ -619,8 +628,14 @@ KERNELS = {
     "paired_grad": dict(
         source="bito_tpu_torch/treelike/csrc/paired_grad.cu",
         replaces="bito_tpu/treelike/pallas_paired.py:446",
-        wrapper=paired.paired_grad_global, path="large",
-        also=("wide-large",)),
+        wrapper=paired.paired_grad_global, path="wide-large"),
+    # The grad kernel's body past the on-chip limit at 1-8 categories:
+    # the large path's gradients; held and timed at CKPT_TAXA taxa, the
+    # shape the route gives it (ckpt_entry)
+    "paired_grad_ckpt": dict(
+        source="bito_tpu_torch/treelike/csrc/paired_grad_ckpt.cu",
+        replaces="bito_tpu/treelike/pallas_paired.py:446",
+        wrapper=paired.paired_grad_ckpt, path="large", reps=(2, 10, 1)),
     "chunked_ll_onchip": dict(
         source="bito_tpu_torch/treelike/csrc/paired_ll_onchip.cu",
         replaces="bito_tpu/treelike/pallas_chunked.py:384",
@@ -738,12 +753,12 @@ KERNELS = {
     **{f"{row}@C{WIDE_C}": dict(
         source=f"bito_tpu_torch/treelike/csrc/{lanes}",
         replaces=f"bito_tpu/treelike/{tpu}", wrapper=wrapper,
-        path="wide-large", also=(large,), reps=(2, 10, 1))
+        path="wide-large", also=(large,) if large else (), reps=(2, 10, 1))
        for row, lanes, tpu, wrapper, large in (
            ("paired_ll", "paired_lanes.cuh", "pallas_paired.py:423",
             paired.paired_ll_global, "large"),
            ("paired_grad", "paired_lanes.cuh", "pallas_paired.py:446",
-            paired.paired_grad_global, "large"),
+            paired.paired_grad_global, None),
            ("chunked_ll", "paired_lanes.cuh", "pallas_chunked.py:384",
             chunked.chunked_ll_global, "large-chunked"),
            ("chunked_grad", "paired_lanes.cuh", "pallas_chunked.py:404",
@@ -846,7 +861,8 @@ def body_shape(taxa):
 def paired_bodies(label, eng, trees, params, card):
     """Phase 4's paired bodies side by side on one shape: every body that
     takes the shape (an on-chip staging where one warp of patterns fits,
-    the global body always) is held once against the float64 plain version on
+    the checkpointed grad body on its schedule at CKPT_OPS ops a clade, the
+    global body always) is held once against the float64 plain version on
     the same operands, within BOUND, then timed twice in turns.  Prints
     one line; returns {body: ms}."""
     enc = eng.encode(trees)
@@ -873,6 +889,13 @@ def paired_bodies(label, eng, trees, params, card):
             calls[key] = lambda plan=plan: paired.finish_rows(
                 *paired.paired_grad_onchip(dst, on, src, e, P, dP, tips, pi,
                                            prop, w, plan), mask, w)
+    ckpt = on.ckpt or paired.ckpt_tape(
+        *(x.cpu().numpy() for x in (dst, on.child, e, src)), P.device)
+    plan = paired.ckpt_plan(ckpt.rows, 4)
+    labels["grad ckpt"] = (f"grad ckpt ({plan.cols * plan.lanes // 32} "
+                           f"warps, {ckpt.rows} rows, {ckpt.slots} slots)")
+    calls["grad ckpt"] = lambda: paired.finish_rows(
+        *paired.paired_grad_ckpt(ckpt, P, dP, tips, pi, prop, w), mask, w)
     calls["grad global"] = lambda: paired.finish_rows(
         *paired.paired_grad_global(dst, tip, src, e, P, dP, tips, pi, prop,
                                    w), mask, w)
@@ -894,8 +917,8 @@ def paired_bodies(label, eng, trees, params, card):
               f"{labels.get(key, key)} {t:.4f}" for key, t in ms.items())
           + "; the wrappers take ll "
           f"{body_of(paired.onchip_plan('ll', on.ll_rows, M, N1, 4))}, grad "
-          f"{body_of(paired.onchip_plan('grad', on.grad_rows, M, N1, 4))}; "
-          f"on {card}")
+          f"{body_of(paired.onchip_plan('grad', on.grad_rows, M, N1, 4), on)}"
+          f"; on {card}")
     return ms
 
 
@@ -950,10 +973,13 @@ def ll_bodies(rows, M, N1, onchip, global_body):
     return calls, labels
 
 
-def body_of(plan):
-    """The body a wrapper takes by `plan`, as the phase 4 lines name it."""
-    return "global" if plan is None else (
-        "onchip " + ("ring" if plan.ring else "staged"))
+def body_of(plan, onchip=None):
+    """The body a wrapper takes by `plan`, as the phase 4 lines name it:
+    the paired grad wrapper (given its `onchip` tape) takes the
+    checkpointed body where the tape has its schedule."""
+    if plan is None:
+        return "ckpt" if onchip is not None and onchip.ckpt else "global"
+    return "onchip " + ("ring" if plan.ring else "staged")
 
 
 def chunked_bodies(label, eng, trees, params, card):
@@ -1128,6 +1154,83 @@ def plain64(grad_ops, step=40):
         mask[i:i + step], P[i:i + step].double(), dP[i:i + step].double(),
         *f64) for i in range(0, dst.shape[0], step)]
     return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def ckpt_parity(call, grad_ops, ckpt):
+    """Phase 2's extra check of the checkpointed grad body: `call` (its
+    launch through finish_rows on the flagship's float32 operands
+    `grad_ops`, forced on the schedule `ckpt`, a shape the route never
+    gives it) held within BOUND of the paired tape's float64 plain version
+    and of its own, paired_grad_ckpt_ref, which interprets the same
+    schedule in float64.  The kernels line holds it at the route's shape
+    (ckpt_entry)."""
+    dst, tip, src, e, mask, P, dP, tips, pi, prop, w = grad_ops
+    ll_k, g_k = call()
+    torch.cuda.synchronize()
+    ll_p, g_p = plain64(grad_ops)
+    f64 = [x.double() for x in (P, dP, tips, pi, prop, w)]
+    ll_c, g_c = paired.finish_rows(*paired.paired_grad_ckpt_ref(
+        ckpt.sched, ckpt.rows, ckpt.slots, *f64), mask.double(), f64[-1])
+    err = norm_err(g_k, g_p)
+    own = max(rel_err(ll_k, ll_c), norm_err(g_k, g_c))
+    print(f"# phase 2: paired_grad_ckpt forced on the flagship's trees "
+          f"({ckpt.rows} rows, {ckpt.slots} slots, {ckpt.sched.shape[1]} "
+          f"entries a tree) LL rel err {rel_err(ll_k, ll_p):.3e}, grad "
+          f"max-abs/max|g| {err:.3e} against the paired plain version in "
+          f"float64; {own:.3e} against its own (paired_grad_ckpt_ref, "
+          f"float64) (bound {BOUND:g})")
+    check(rel_err(ll_k, ll_p) <= BOUND, "paired_grad_ckpt LL parity")
+    check(err <= BOUND, "paired_grad_ckpt gradient parity")
+    check(own <= BOUND, "paired_grad_ckpt against its plain version")
+
+
+def ckpt_entry(eng, trees, sp, params):
+    """The kernels line's paired_grad_ckpt entry, at the shape the route
+    gives the body: `eng`'s BATCH trees of CKPT_TAXA taxa at GTR+Gamma4,
+    whose tape carries the schedule.  The wrapper's call (the route takes
+    the body: one launch, no other grad body) is held once against the
+    float64 plain version within BOUND.  Returns the entry's (max-norm
+    error, max abs error), (plain, kernel) calls, the plain version in
+    float32 over slices of trees, and (FLOPs, bytes, None) of that
+    call's operands."""
+    ll_ops, grad_ops, on = paired_operands(eng, trees, params)
+    dst, tip, src, e, mask, P, dP, tips, pi, prop, w = grad_ops
+    M, N1 = dst.shape[1], P.shape[1]
+    check(on.ckpt is not None and paired.onchip_plan(
+        "grad", on.grad_rows, M, N1, 4) is None,
+          f"the route gives {CKPT_TAXA} taxa the checkpointed grad body")
+    bodies = (paired.paired_grad_onchip, paired.paired_grad_global,
+              paired.paired_grad_ckpt)
+    before = [f.launches for f in bodies]
+
+    def kernel():
+        return paired.paired_ll_and_gradients(*grad_ops, onchip=on)
+
+    ll_k, g_k = kernel()
+    torch.cuda.synchronize()
+    check([f.launches - n for f, n in zip(bodies, before)] == [0, 0, 1],
+          f"one checkpointed launch at {CKPT_TAXA} taxa")
+    ll_p, g_p = plain64(grad_ops, step=20)
+    err = (norm_err(g_k, g_p), (g_k.double() - g_p).abs().max().item())
+    print(f"# phase 2: paired_grad_ckpt at {CKPT_TAXA} taxa, {len(trees)} "
+          f"trees x {eng.pattern_pad} patterns ({on.ckpt.rows} rows, "
+          f"{on.ckpt.slots} slots, {on.ckpt.sched.shape[1]} entries a "
+          f"tree) LL rel err {rel_err(ll_k, ll_p):.3e}, grad max-abs/max|g| "
+          f"{err[0]:.3e} (bound {BOUND:g}, plain version in float64 on the "
+          f"same operands)")
+    check(rel_err(ll_k, ll_p) <= BOUND and err[0] <= BOUND,
+          f"paired_grad_ckpt parity at {CKPT_TAXA} taxa")
+
+    def plain(step=20):
+        return [paired.paired_ll_and_gradients_ref(
+            *(x[i:i + step] for x in grad_ops[:7]), *grad_ops[7:])
+            for i in range(0, len(trees), step)]
+
+    enc = eng.encode(trees)
+    fl = tree_flops(enc, sp, eng.model, len(trees))[1]
+    moved = (nbytes(on.ckpt.sched, P, dP, tips, pi, prop, w, mask)
+             + len(trees) * (1 + enc.num_slots) * 4)
+    return err, (plain, kernel), (fl, moved, None)
 
 
 PREP_WIDE_C = 64
@@ -1786,7 +1889,9 @@ def topology_set_ms(sp, model, trees, reps):
         t2 = time.perf_counter()
         pe = paired.build_paired_encoding(enc)
         t3 = time.perf_counter()
-        paired.onchip_tape(pe.post_dst, pe.tip_slot, e.device)
+        paired.onchip_tape(pe.post_dst, pe.tip_slot, e.device,
+                           post_src=pe.post_src, post_e=pe.post_e,
+                           edges=enc.num_slots + 1)
         torch.cuda.synchronize()
         t4 = time.perf_counter()
         runs.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t4 - t3) * 1e3))
@@ -1888,6 +1993,8 @@ LAB_SHAPES = {
     "transition_prep": f"GTR+Gamma4, float64 ingredients to float32 P and "
                        f"dP, {2 * BATCH} trees x 53 edges",
     "variant_grad": f"unroll, float32, {BATCH} trees x 1024 patterns",
+    "paired_grad_ckpt": f"float32, {BATCH} trees of {CKPT_TAXA} taxa x "
+                        "1024 patterns",
     "pipe_cell": f"{PIPE_TIMED}, {CELLS} cells",
     "stream_sum_4d": f"{CELLS} cells of 32 x 256 x 128 bf16",
     "stream_sum_3d": f"{CELLS} cells of 8192 x 128 bf16",
@@ -4977,8 +5084,8 @@ def graft_path(card):
     err = rel_err(ll.cpu(), ref)
     forward_ms = cuda_ms(lambda: fn(*args), GRAFT_REPS)
     ops = fn.operands(*args)
-    onchip = paired.onchip_tape(ops[0].cpu().numpy(), ops[1].cpu().numpy(),
-                                ops[0].device)
+    onchip = graft_entry._paired_tapes(graft_entry._toy_inputs()[0],
+                                       ops[0].device)[-1]
     kernel_ms = cuda_ms(lambda: paired.paired_log_likelihoods(
         *ops, onchip=onchip), GRAFT_REPS)
     print(f"# phase 3: graft path: entry() forward ({ops[0].shape[0]} trees "
@@ -5256,6 +5363,11 @@ def main():
     args["pernode_ll"] = (  # the global body, through the same final sum
         pernode.pernode_log_likelihoods_ref, pll_ops,
         lambda: pernode.pernode_ll_global(post, root, P, tips, pi, prop) @ w)
+    # The checkpointed grad body, forced on the flagship's trees: its
+    # schedule at CKPT_FLAGSHIP_OPS ops a clade (the flagship's tapes keep
+    # the on-chip plan, so the engine builds none)
+    ckpt_flag = paired.ckpt_tape(*(x.cpu().numpy() for x in (
+        dst, onchip.child, e, src)), dev, ops=CKPT_FLAGSHIP_OPS)
     pgrad_ops = (post, pre, root, mask, P, dP, tips, pi, prop, w)
     args["pernode_grad_onchip"] = (  # the wrapper's body here
         pernode.pernode_ll_and_gradients_ref, pgrad_ops,
@@ -5289,6 +5401,9 @@ def main():
         check(errs[ll_name][0] <= BOUND, f"{ll_name} LL parity")
         check(ll_g_err <= BOUND, f"{grad_name} LL parity")
         check(errs[grad_name][0] <= BOUND, f"{grad_name} gradient parity")
+    ckpt_parity(lambda: paired.finish_rows(*paired.paired_grad_ckpt(
+        ckpt_flag, P, dPq, tips, pi, prop, w), mask, w), grad_ops, ckpt_flag)
+    del ckpt_flag
 
     lab_ops = dict(post_ops=post, pre_ops=pre, root=root, edge_mask=mask, P=P,
                    dP=dP, tips=tips, pi=pi, props=prop, weights=w)
@@ -5368,7 +5483,10 @@ def main():
           f"{large.pattern_pad} patterns; {lon.ll_rows} live rows (LL) and "
           f"{lon.grad_rows} rows (grad) a pattern; on-chip plans "
           f"{paired.onchip_plan('ll', lon.ll_rows, lM, lN1, 4)} (LL), "
-          f"{paired.onchip_plan('grad', lon.grad_rows, lM, lN1, 4)} (grad)")
+          f"{paired.onchip_plan('grad', lon.grad_rows, lM, lN1, 4)} (grad); "
+          f"the checkpointed grad body's schedule {lon.ckpt.rows} rows a "
+          f"pattern, {lon.ckpt.slots} tier slots a tree, "
+          f"{lon.ckpt.sched.shape[1]} entries")
     lbl = large.branch_length_matrix(ltrees, lenc)
     lscales = scales[:3]
     lfn64 = large64.branch_eval_fn(ltrees, params64)
@@ -5523,7 +5641,7 @@ def main():
     ll_out, grad_out = BATCH * 4, BATCH * (1 + enc.num_slots) * 4
     work = dict(probe_work)  # kernel -> (FLOPs, bytes, library call)
     for name, moved in tape_bytes.items():
-        grad = name.endswith("_grad") or name.endswith("_grad_onchip")
+        grad = name.endswith(("_grad", "_grad_onchip", "_grad_ckpt"))
         floats = (nbytes(P, tips, pi, prop, w) + (nbytes(dP, mask) if grad
                                                   else 0))
         work[name] = ((fl_grad if grad else fl_ll),
@@ -5610,6 +5728,13 @@ def main():
         lambda: perf_chunk_lab.launch_chunk_variant(
             cdst, con, cedge, P, tips, pi, prop, chunk_plan, chunk_rows,
             variant="v0", rows=con.ll_rows))
+    # The checkpointed grad body at the shape the route gives it
+    ckpt_trees, ckpt_sp, ckpt_model = body_shape(CKPT_TAXA)
+    ckpt_eng = TreeLikelihoodEngine(ckpt_sp, ckpt_model, device=dev,
+                                    dtype=PRODUCT_DTYPE)
+    (errs["paired_grad_ckpt"], calls["paired_grad_ckpt"],
+     work["paired_grad_ckpt"]) = ckpt_entry(ckpt_eng, ckpt_trees, ckpt_sp,
+                                            params)
     for name in KERNELS:
         plain, kernel = calls[name]
         library = work[name][2]
@@ -5682,6 +5807,9 @@ def main():
         t2, sp2, model2 = body_shape(taxa)
         pernode_bodies(f"{taxa} taxa", TreeLikelihoodEngine(
             sp2, model2, device=dev, dtype=PRODUCT_DTYPE), t2, params, card)
+    paired_bodies(f"{CKPT_TAXA} taxa", ckpt_eng, ckpt_trees, params, card)
+    del ckpt_eng
+    torch.cuda.empty_cache()
 
     def sweep_evals_per_s(kernel, calls):
         eng.kernel = kernel

@@ -83,7 +83,9 @@ def _operands(te, trees, params, dtype=F64):
                tips=te._kernel_tips.to(dtype), pi=pi, props=prop,
                weights=te._kernel_weights.to(dtype))
     extra = dict(post_src=src, edge_mask=mask.to(dtype), dP=dP)
-    return ops, extra, paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu")
+    return ops, extra, paired.onchip_tape(
+        dst.numpy(), tip.numpy(), "cpu", post_src=src.numpy(),
+        post_e=e.numpy(), edges=P.shape[1])
 
 
 @pytest.mark.parametrize("C", [9, 16, 32])

@@ -25,8 +25,10 @@ driver's entry() forward (graft_entry.py), which takes the paired
 on-chip LL body alone; and the program's spans and counters
 (utils/timing.py): torch's sync debug mode against each entry point's
 `host_syncs`, the tree kernels' launches inside `launch` spans, and the
-global grad body on 200-taxon trees within the rbcL 500 configuration's
-limits, counted as `global_launches`; and
+checkpointed grad body (csrc/paired_grad_ckpt.cu) on 200-taxon trees
+within the rbcL 500 configuration's limits, counted as
+`checkpoint_launches`, with the same body against its plain version on
+921-taxon trees and on edge numbers past 15 bits; and
 the paired route's prep kernel (models/csrc/transition_prep.cu) against
 the torch ops it replaced, and which calls launch it.
 
@@ -113,8 +115,10 @@ PAIRED = (paired.paired_ll_onchip, paired.paired_ll_global,
 
 
 def _launched(before):
-    """What each paired body launched since `before`, in PAIRED's order."""
-    return [f.launches - n for f, n in zip(PAIRED, before)]
+    """What each paired body launched since `before`, in PAIRED's order
+    (then the checkpointed grad body's, where `before` counts it too)."""
+    return [f.launches - n for f, n in zip(
+        PAIRED + (paired.paired_grad_ckpt,), before)]
 
 
 @pytest.mark.parametrize("model,rooted,num_trees,patterns", [
@@ -123,6 +127,8 @@ def _launched(before):
     ("gtr_gamma8", False, 3, None), ("gtr_gamma8", True, 2, 77)])
 def test_kernels_match_plain(cuda, model, rooted, num_trees, patterns):
     """Both bodies of both kernels (the on-chip ones with either staging)
+    and the checkpointed grad body (forced, its schedule at 4 ops a clade,
+    so that these 11-taxon trees have ops above the cuts and tier slots)
     against their plain versions in float64 on the same float32 operands;
     `patterns` cuts the pattern axis to a width that is not a multiple of
     a block's patterns."""
@@ -156,13 +162,21 @@ def test_kernels_match_plain(cuda, model, rooted, num_trees, patterns):
                                                       pi, prop, p),
             lambda p=grad_plan: paired.paired_grad_onchip(
                 dst, onchip, src, e, P, dP, tips, pi, prop, w, p))
+    ckpt = paired.ckpt_tape(*(x.cpu().numpy() for x in (
+        dst, onchip.child, e, src)), cuda, ops=4)
+    bodies["ckpt"] = (
+        lambda: paired.paired_ll_onchip(dst, onchip, e, P, tips, pi, prop,
+                                        paired.onchip_plan(
+                                            "ll", onchip.ll_rows, M, N1, C)),
+        lambda: paired.paired_grad_ckpt(ckpt, P, dP, tips, pi, prop, w))
     for body, (ll_body, grad_body) in bodies.items():
-        before = [f.launches for f in PAIRED]
+        before = [f.launches for f in PAIRED + (paired.paired_grad_ckpt,)]
         ll = ll_body() @ w
         ll2, g = paired.finish_rows(*grad_body(), mask, w)
         torch.cuda.synchronize()
-        assert _launched(before) == ([0, 1, 0, 1] if body == "global"
-                                     else [1, 0, 1, 0])
+        assert _launched(before) == {"global": [0, 1, 0, 1, 0],
+                                     "ckpt": [1, 0, 0, 0, 1]}.get(
+                                         body, [1, 0, 1, 0, 0]), body
         assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5, body
         assert _norm(g, g_ref) < 5e-5, body
     # The wrappers take the on-chip bodies here.
@@ -208,14 +222,20 @@ def _large_tree_engine(device, dtype):
     return eng, coll.trees, params_from_numpy(GTR, device, dtype)
 
 
-def test_tree_past_the_limit_takes_the_global_bodies(cuda):
+def test_tree_past_the_limit_takes_the_global_ll_and_checkpointed_grad_bodies(
+        cuda):
+    """On the 921-taxon trees the engine's LL takes the global LL body and
+    its gradients the checkpointed grad body (the on-chip grad body gets
+    no plan); the global grad body (csrc/paired_grad.cu), which the
+    wrapper keeps past 8 categories, through its launcher; each within
+    5e-5 of the float64 plain version."""
     eng, trees, params = _large_tree_engine(cuda, torch.float32)
     assert eng.pattern_pad == 128
-    before = [f.launches for f in PAIRED]
+    before = [f.launches for f in PAIRED + (paired.paired_grad_ckpt,)]
     ll = eng.log_likelihoods(trees, params)
     ll2, g = eng.ll_and_branch_gradients(trees, params)
     torch.cuda.synchronize()
-    assert _launched(before) == [0, 1, 0, 1]
+    assert _launched(before) == [0, 1, 0, 0, 1]
     enc = eng.encode(trees)
     eig, rates, props, clock = eng._model_ingredients(params, 2)
     dst, tip, src, e, mask = eng._paired_tapes(enc)
@@ -227,10 +247,92 @@ def test_tree_past_the_limit_takes_the_global_bodies(cuda):
                                       eng._kernel_weights))
     assert _rel(ll, ll_ref) < 5e-5 and _rel(ll2, ll_ref) < 5e-5
     assert _norm(g, g_ref) < 5e-5
+    before = [f.launches for f in PAIRED + (paired.paired_grad_ckpt,)]
+    ll3, g3 = paired.finish_rows(*paired.paired_grad_global(
+        dst, tip, src, e, P, dP, eng._kernel_tips, pi, prop,
+        eng._kernel_weights), mask, eng._kernel_weights)
+    torch.cuda.synchronize()
+    assert _launched(before) == [0, 0, 0, 1, 0]
+    assert _rel(ll3, ll_ref) < 5e-5 and _norm(g3, g_ref) < 5e-5
     onchip = eng._onchip_tape(enc)
     M, N1 = dst.shape[1], P.shape[1]
     assert paired.onchip_plan("ll", onchip.ll_rows, M, N1, 4) is None
     assert paired.onchip_plan("grad", onchip.grad_rows, M, N1, 4) is None
+    assert onchip.ckpt is not None
+
+
+@pytest.mark.parametrize("model", ["jc69", "hky_weibull3", "gtr_gamma4",
+                                   "gtr_gamma8"])
+@pytest.mark.parametrize("which", ["comb", "balanced", "both"])
+def test_checkpointed_body_matches_its_plain_version_on_921_taxa(
+        cuda, model, which):
+    """The checkpointed grad body (csrc/paired_grad_ckpt.cu) on
+    chip_smoke.py's 921-taxon trees, the cherry comb (nearly every op a
+    checkpoint in the device tier) and the balanced tree, alone and
+    together, at 1, 3, 4 and 8 categories: within 5e-5 of its plain
+    version (paired.paired_grad_ckpt_ref) in float64 on the same float32
+    operands and schedule, and of the paired tape's plain version."""
+    eng, trees, _ = _large_tree_engine(cuda, torch.float32)
+    eng = TreeLikelihoodEngine(
+        eng.site_pattern, PhyloModel(PhyloModelSpecification(
+            *MODELS[model][0])), device=cuda, dtype=torch.float32)
+    params = params_from_numpy(MODELS[model][1], cuda, torch.float32)
+    trees = {"comb": trees[:1], "balanced": trees[1:], "both": trees}[which]
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(eig, rates, clock,
+                                       eng.branch_length_matrix(trees, enc))
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    ckpt = eng._onchip_tape(enc).ckpt
+    before = paired.paired_grad_ckpt.launches
+    ll, g = paired.finish_rows(*paired.paired_grad_ckpt(
+        ckpt, P, dP, tips, pi, prop, w), mask, w)
+    torch.cuda.synchronize()
+    assert paired.paired_grad_ckpt.launches == before + 1
+    f64 = _f64(P, dP, tips, pi, prop, w)
+    ll_p, g_p = paired.finish_rows(*paired.paired_grad_ckpt_ref(
+        ckpt.sched, ckpt.rows, ckpt.slots, *f64), mask.double(), f64[-1])
+    ll_ref, g_ref = paired.paired_ll_and_gradients_ref(dst, tip, src, e,
+                                                       mask, *f64)
+    assert bool(torch.isfinite(g).all())
+    for want_ll, want_g in ((ll_p, g_p), (ll_ref, g_ref)):
+        assert _rel(ll, want_ll) < 5e-5 and _norm(g, want_g) < 5e-5
+
+
+def test_checkpointed_body_takes_edges_and_rows_past_15_bits(cuda):
+    """The 921-taxon trees' schedule with every edge and gradient row
+    moved up by 40,000, which sets the sign bit of the schedule's packed
+    fields, over P and dP moved up as far: the checkpointed body gives
+    the LLs and gradients of the tapes' own numbers bit for bit."""
+    eng, trees, params = _large_tree_engine(cuda, torch.float32)
+    enc = eng.encode(trees)
+    eig, rates, props, clock = eng._model_ingredients(params, len(trees))
+    dst, tip, src, e, mask = eng._paired_tapes(enc)
+    pi, prop = prep.kernel_model(eig, props)
+    P, dP = prep.prepare_inputs_grad_q(eig, rates, clock,
+                                       eng.branch_length_matrix(trees, enc))
+    tips, w = eng._kernel_tips, eng._kernel_weights
+    off = 40_000
+
+    def up(x):  # off rows of zeros below x's edges
+        return torch.cat([x.new_zeros((x.shape[0], off) + x.shape[2:]), x],
+                         dim=1)
+
+    dst_h, tip_h, src_h, e_h = (x.cpu().numpy() for x in (dst, tip, src, e))
+    child = paired.child_tape(dst_h, tip_h)
+    ckpt = paired.ckpt_tape(dst_h, child, e_h, src_h, cuda)
+    ckpt_hi = paired.ckpt_tape(dst_h, child, e_h + off, src_h + off, cuda)
+    assert bool((ckpt_hi.sched[..., 1] < 0).any())
+    assert bool((ckpt_hi.sched[..., 7] < 0).any())
+    ll, g = paired.finish_rows(*paired.paired_grad_ckpt(
+        ckpt, P, dP, tips, pi, prop, w), mask, w)
+    ll_hi, g_hi = paired.finish_rows(*paired.paired_grad_ckpt(
+        ckpt_hi, up(P), up(dP), tips, pi, prop, w), up(mask), w)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(g).all())
+    assert torch.equal(ll_hi, ll) and torch.equal(g_hi[:, off:], g)
 
 
 def test_wrappers_reject_operands_the_kernels_do_not_take(cuda):
@@ -238,7 +340,7 @@ def test_wrappers_reject_operands_the_kernels_do_not_take(cuda):
                                  torch.float32)
     enc = eng.encode(trees)
     eig, rates, props, clock = eng._model_ingredients(params, 2)
-    dst, tip, _src, e, _mask = eng._paired_tapes(enc)
+    dst, tip, src, e, _mask = eng._paired_tapes(enc)
     pi, prop = prep.kernel_model(eig, props)
     P = prep.prepare_inputs(eig, rates, clock,
                             eng.branch_length_matrix(trees, enc))
@@ -261,8 +363,10 @@ def test_wrappers_reject_operands_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="OnchipTape"):
         paired.paired_log_likelihoods(**args)
     onchip = eng._onchip_tape(enc)
-    other = paired.onchip_tape(dst[:1].cpu().numpy(), tip[:1].cpu().numpy(),
-                               cuda)
+    other = paired.onchip_tape(
+        dst[:1].cpu().numpy(), tip[:1].cpu().numpy(), cuda,
+        post_src=src[:1].cpu().numpy(), post_e=e[:1].cpu().numpy(),
+        edges=P.shape[1])
     with pytest.raises(ValueError, match="on-chip tape"):
         paired.paired_log_likelihoods(**args, onchip=other)
     with pytest.raises(TypeError):
@@ -2547,15 +2651,17 @@ def test_tree_kernel_launches_lie_inside_launch_spans(cuda, tmp_path,
                    for a, b in spans), (e, spans)
 
 
-def test_large_trees_take_the_global_grad_body_within_rbcl500s_limits(
+def test_large_trees_take_the_checkpointed_grad_body_within_rbcl500s_limits(
         cuda):
     """branch_eval_fn on random 200-taxon trees (the rbcL 500
     configuration's alignment shape and model, past the grad body's
-    on-chip limit) takes the global grad body, one launch a call and no
-    on-chip grad launch, within the configuration's limits of the
-    benchmark's float64 reference (portbench/reference).  Under a
-    profiler session the call records one `global_launches` inside its
-    `launch` span; a DS1-sized call, on the on-chip body, records none."""
+    on-chip limit) takes the checkpointed grad body, which took the place
+    of the global one there: one launch a call and no on-chip or global
+    grad launch, within the configuration's limits of the benchmark's
+    float64 reference (portbench/reference).  Under a profiler session
+    the call records one `checkpoint_launches` inside its `launch` span
+    and no `global_launches`; a DS1-sized call, on the on-chip body,
+    records neither."""
     import json
     import pathlib
 
@@ -2585,11 +2691,11 @@ def test_large_trees_take_the_global_grad_body_within_rbcl500s_limits(
     gen = torch.Generator(device=cuda).manual_seed(5)
     bl = base * torch.exp(0.1 * torch.randn(base.shape, generator=gen,
                                             device=cuda))
-    before = [f.launches for f in PAIRED]
+    before = [f.launches for f in PAIRED + (paired.paired_grad_ckpt,)]
     ll, g = fn(bl)
     fn(bl)
     torch.cuda.synchronize()
-    assert _launched(before) == [0, 0, 0, 2]
+    assert _launched(before) == [0, 0, 0, 0, 2]
     tips, w = patterns.site_patterns(inp.alignment, inp.names, "nucleotide")
     ref_ll, ref_g = reference.evaluate(reference.model_of(config), tips, w,
                                        inp.trees.parents, bl.double())
@@ -2601,18 +2707,20 @@ def test_large_trees_take_the_global_grad_body_within_rbcl500s_limits(
     with profile(activities=[ProfilerActivity.CUDA]):
         fn(bl)
         torch.cuda.synchronize()
-    counts = {r.name: r.counts.get("global_launches", 0)
+    counted = ("checkpoint_launches", "global_launches")
+    counts = {r.name: [r.counts.get(c, 0) for c in counted]
               for r in timing.recorded()}
-    assert counts["launch"] == 1 and sum(counts.values()) == 1, counts
+    assert counts["launch"] == [1, 0], counts
+    assert [sum(n) for n in zip(*counts.values())] == [1, 0], counts
     eng, trees, params, bl = _traced_engine("gtr_gamma4", cuda)
     fn = eng.branch_eval_fn(trees, params)
-    before = [f.launches for f in PAIRED]
+    before = [f.launches for f in PAIRED + (paired.paired_grad_ckpt,)]
     with profile(activities=[ProfilerActivity.CUDA]):
         fn(bl)
         torch.cuda.synchronize()
-    assert _launched(before) == [0, 0, 1, 0]
-    assert not any("global_launches" in r.counts
-                   for r in timing.recorded())
+    assert _launched(before) == [0, 0, 1, 0, 0]
+    assert not any(c in r.counts for r in timing.recorded()
+                   for c in counted)
 
 
 # -- the paired route's prep (models/csrc/transition_prep.cu) --------------

@@ -122,7 +122,11 @@ def test_onchip_ll_body_takes_entrys_rooted_trees(cpu_entry):
     gives the plain version's LLs."""
     fn, args = cpu_entry
     dst, tip, e, P, tips, pi, props, w = fn.operands(*args)
-    tape = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu")
+    src = graft_entry._paired_tapes(graft_entry._toy_inputs()[0],
+                                    torch.device("cpu"))[2]
+    tape = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu",
+                              post_src=src.numpy(), post_e=e.numpy(),
+                              edges=P.shape[1])
     M = dst.shape[1]
     assert ((dst == 2 * M).sum(dim=1) == 1).all()  # one root op a tree
     plan = paired.onchip_plan("ll", tape.ll_rows, M, P.shape[1], P.shape[2])

@@ -120,7 +120,9 @@ def test_k_emulation_matches_the_plain_versions(C):
                          num_trees=2, rooted=rooted)
         te, enc, P, dP, pi, prop, tips, w, mask = _operands(case, C)
         dst, tip, src, e, _ = te._paired_tapes(enc)
-        on = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu")
+        on = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu",
+                                post_src=src.numpy(), post_e=e.numpy(),
+                                edges=P.shape[1])
         ll_k = emulate_onchip_k_ll(dst, on.child, on.live_row, e, P, tips,
                                    pi, prop, w)
         rows = emulate_onchip_k_grad(dst, on.child, src, e, P, dP, tips, pi,
@@ -329,7 +331,9 @@ def test_wrappers_take_the_k_bodies_to_128_categories(fake_card, C):
     assert te._route(True) == "chunked"
     te.device = torch.device("cpu")
     dst, tip, src, e, _ = te._paired_tapes(enc)
-    on = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu")
+    on = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu",
+                            post_src=src.numpy(), post_e=e.numpy(),
+                            edges=P.shape[1])
     cdst, ctip, cedge, crow, _ = te._chunked_tapes(enc)
     con = chunked.onchip_tape(cdst.numpy(), ctip.numpy(), "cpu")
     post, pre, root = (torch.as_tensor(x, dtype=torch.int32)

@@ -170,7 +170,9 @@ def _operands(te, trees, params, dtype=F64):
     dst, tip, src, e, mask = te._paired_tapes(enc)
     pi, prop = prep.kernel_model(eig, props, dtype)
     P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl, dtype)
-    onchip = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu")
+    onchip = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu",
+                                post_src=src.numpy(), post_e=e.numpy(),
+                                edges=P.shape[1])
     ops = dict(post_dst=dst, tip_slot=tip, post_e=e, P=P,
                tips=te._kernel_tips.to(dtype), pi=pi, props=prop,
                weights=te._kernel_weights.to(dtype))
@@ -224,7 +226,9 @@ def test_emulation_of_a_dummy_child():
     ints = [torch.as_tensor(x) for x in (pe.post_dst, pe.tip_slot,
                                          pe.post_src, pe.post_e)]
     dst, tip, src, e = ints
-    onchip = paired.onchip_tape(pe.post_dst, pe.tip_slot, "cpu")
+    onchip = paired.onchip_tape(pe.post_dst, pe.tip_slot, "cpu",
+                                post_src=pe.post_src, post_e=pe.post_e,
+                                edges=N1)
     ops = dict(post_dst=dst, tip_slot=tip, post_e=e, P=P, tips=tips,
                pi=torch.tensor([0.1, 0.2, 0.3, 0.4], dtype=F64),
                props=torch.tensor([0.6, 0.4], dtype=F64),
@@ -387,7 +391,9 @@ def test_plan_of_the_wrappers_hands_over_past_the_limit():
     te = torch_engine(case, "gtr_gamma4")
     pe = paired.build_paired_encoding(te.encode(case.torch_trees))
     M, N1, C = pe.M, 15, 4
-    onchip = paired.onchip_tape(pe.post_dst, pe.tip_slot, "cpu")
+    onchip = paired.onchip_tape(pe.post_dst, pe.tip_slot, "cpu",
+                                post_src=pe.post_src, post_e=pe.post_e,
+                                edges=N1)
     plan = paired._onchip_plan("grad", onchip, M, N1, C)
     assert plan.cols == 128 and not plan.ring
     assert onchip.child.dtype == torch.int32

@@ -305,7 +305,9 @@ def test_onchip_emulation_on_the_bifurcating_root(spec, num_taxa, tmp_path):
     dst, tip, src, e, mask = eng._paired_tapes(enc)
     pi, prop = prep.kernel_model(eig, props, F64)
     P, dP = prep.prepare_inputs_grad_q(eig, rates, clock, bl, F64)
-    onchip = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu")
+    onchip = paired.onchip_tape(dst.numpy(), tip.numpy(), "cpu",
+                                post_src=src.numpy(), post_e=e.numpy(),
+                                edges=P.shape[1])
     tips, w = eng._kernel_tips, eng._kernel_weights
     ll = emulate_ll(dst, onchip.child, onchip.live_row, e, P, tips, pi, prop,
                     w)
